@@ -1,0 +1,114 @@
+"""Build and load the port's hand-written CUDA kernels.
+
+Each source under ``csrc/`` is compiled by ``nvcc`` for Hopper
+(``sm_90a``) into a shared library with a plain C interface, loaded with
+``ctypes``. The build happens at first use, never at import, into
+``m3asr_tpu_torch/_build/`` (listed in ``.gitignore``) under a name keyed
+by a hash of the source and flags, so an edited source rebuilds. A file
+lock serialises concurrent builds; a failed build raises with nvcc's
+output.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import fcntl
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from typing import Optional
+
+_PKG = os.path.dirname(os.path.abspath(__file__))
+CSRC = os.path.join(_PKG, "csrc")
+BUILD_DIR = os.path.join(_PKG, "_build")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+
+def find_nvcc() -> str:
+    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    cand = os.path.join(cuda_home, "bin", "nvcc")
+    if os.path.exists(cand):
+        return cand
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on "
+                           "PATH); the CUDA kernels build on the card's host")
+    return found
+
+
+class KernelLibrary:
+    """One ``csrc/`` source built into one shared library, lazily.
+
+    ``build_seconds`` and ``log`` (nvcc's output, with ptxas register and
+    spill counts) describe the build this process did, if it did one.
+    """
+
+    def __init__(self, source: str):
+        self.source = source
+        self.build_seconds: Optional[float] = None
+        self.log = ""
+        self.command: list = []
+        self._lib: Optional[ctypes.CDLL] = None
+
+    def _lib_path(self) -> str:
+        with open(os.path.join(CSRC, self.source), "rb") as f:
+            digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+        stem = os.path.splitext(self.source)[0]
+        return os.path.join(BUILD_DIR,
+                            f"lib{stem}_{digest.hexdigest()[:16]}.so")
+
+    def build(self) -> str:
+        """Compile the source unless a library for this exact source and
+        these flags exists. Returns the library path."""
+        path = self._lib_path()
+        os.makedirs(BUILD_DIR, exist_ok=True)
+        with open(os.path.join(BUILD_DIR, "lock"), "w") as lock:
+            fcntl.flock(lock, fcntl.LOCK_EX)
+            try:
+                if os.path.exists(path):
+                    return path
+                tmp = f"{path}.{os.getpid()}.tmp"
+                self.command = [find_nvcc(), *NVCC_FLAGS, "-o", tmp,
+                                os.path.join(CSRC, self.source)]
+                t0 = time.perf_counter()
+                r = subprocess.run(self.command, capture_output=True,
+                                   text=True)
+                self.build_seconds = time.perf_counter() - t0
+                self.log = r.stdout + r.stderr
+                if r.returncode != 0:
+                    raise RuntimeError(
+                        f"nvcc failed ({r.returncode}) building "
+                        f"{self.source}:\n{self.log}")
+                os.replace(tmp, path)
+            finally:
+                fcntl.flock(lock, fcntl.LOCK_UN)
+        return path
+
+    def load(self) -> ctypes.CDLL:
+        if self._lib is None:
+            lib = ctypes.CDLL(self.build())
+            self._declare(lib)
+            self._lib = lib
+        return self._lib
+
+    def _declare(self, lib: ctypes.CDLL) -> None:
+        """Set argtypes/restype of every exported function."""
+        vp, i = ctypes.c_void_p, ctypes.c_int
+        if self.source == "moe_runs.cu":
+            for name in ("moe_runs_tile_rows", "moe_runs_col_block",
+                         "moe_runs_k_step"):
+                getattr(lib, name).argtypes = []
+                getattr(lib, name).restype = i
+            lib.moe_runs_f.argtypes = [i, vp, vp, vp, vp, vp, vp, vp, i, i,
+                                       i, i, i, vp, vp, vp]
+            lib.moe_runs_f.restype = i
+        else:
+            raise ValueError(f"no C interface declared for {self.source}")
+
+
+MOE_RUNS = KernelLibrary("moe_runs.cu")
+
+ALL = (MOE_RUNS,)
