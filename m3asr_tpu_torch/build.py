@@ -1,11 +1,14 @@
 """Engine-building CLI of the PyTorch port.
 
     python -m m3asr_tpu_torch.build -c config.yaml -m ckpt.pt -o engine_dir
-        [-prior prior.txt] [-f] [--buckets 1x256,4x1024] [--strict]
-        [--device cuda|cpu]
+        [-prior prior.txt] [-f | --int8 | --int4 [--act_quant]]
+        [--buckets 1x256,4x1024] [--strict] [--device cuda|cpu]
 
 Reads a reference YAML config and PyTorch checkpoint, converts the
 weights, and writes an engine directory in the JAX package's format.
+``--int8`` / ``--int4`` write a bf16 engine with quantized expert
+weights (int4 in 128-row scale groups); ``--act_quant`` adds per-token
+int8 activations in the experts (w8a8 / w4a8).
 Without ``-m`` the weights are random (seed 0). Flags of the JAX
 ``build.py`` that this slice does not run are accepted by name and raise
 NotImplementedError naming the ROADMAP item that brings them.
@@ -40,8 +43,14 @@ def parse_args(argv=None):
     p.add_argument("--attn_impl", default="xla")
     p.add_argument("--ep", type=int, default=1)
     p.add_argument("--tp", type=int, default=1)
-    for name in ("int8", "int4", "act_quant", "fuse_qkv", "dense_quant",
-                 "export"):
+    p.add_argument("--int8", action="store_true",
+                   help="int8 expert weights (bf16 activations)")
+    p.add_argument("--int4", action="store_true",
+                   help="packed int4 expert weights, 128-row scale groups")
+    p.add_argument("--act_quant", action="store_true",
+                   help="with --int8/--int4: per-token int8 activations "
+                   "in the experts (w8a8 / w4a8)")
+    for name in ("fuse_qkv", "dense_quant", "export"):
         p.add_argument(f"--{name}", action="store_true",
                        help="not ported yet")
     p.add_argument("-cmvn", "--cmvn_file", help="not ported yet")

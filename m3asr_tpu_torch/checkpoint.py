@@ -247,24 +247,28 @@ def load_torch_checkpoint(path: str) -> "TrackedDict":
     return TrackedDict({k: _np(v) for k, v in obj.items()})
 
 
-def to_torch(tree, device="cpu", dtype: torch.dtype = torch.float32):
+def to_torch(tree, device="cpu", dtype: torch.dtype = torch.float32,
+             _name: str = ""):
     """Numpy (or tensor) tree -> tensors on ``device``; floating leaves
-    take ``dtype``, integer leaves keep theirs; None leaves stay None."""
+    take ``dtype``, except quantization scales (``*_scale``), which stay
+    float32 as the JAX engine keeps them; integer leaves (quantized
+    weights) keep their type; None leaves stay None."""
     if isinstance(tree, dict):
-        return {k: to_torch(v, device, dtype) for k, v in tree.items()}
+        return {k: to_torch(v, device, dtype, k) for k, v in tree.items()}
     if tree is None:
         return None
     t = tree if torch.is_tensor(tree) else torch.tensor(np.asarray(tree))
     if t.is_floating_point():
-        t = t.to(dtype)
+        t = t.to(torch.float32 if _name.endswith("_scale") else dtype)
     return t.to(device).contiguous()
 
 
 def params_from_jax(tree, device="cpu", dtype: torch.dtype = torch.float32):
     """The JAX package's parameter tree (nested dict of numpy arrays, as
     ``jax.tree.map(np.asarray, params)`` gives it) -> the port's tree on
-    ``device`` with floating leaves in ``dtype``. Paths and layouts are
-    shared, so this is a plain walk."""
+    ``device`` with floating leaves in ``dtype`` (``*_scale`` leaves in
+    float32, integer leaves as they are). Paths and layouts are shared,
+    so this is a plain walk."""
     def walk(node):
         if isinstance(node, dict):
             return {k: walk(v) for k, v in node.items()}

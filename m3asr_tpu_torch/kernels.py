@@ -1,12 +1,13 @@
 """Build and load the port's hand-written CUDA kernels.
 
-Each source under ``csrc/`` is compiled by ``nvcc`` for Hopper
-(``sm_90a``) into a shared library with a plain C interface, loaded with
-``ctypes``. The build happens at first use, never at import, into
-``m3asr_tpu_torch/_build/`` (listed in ``.gitignore``) under a name keyed
-by a hash of the source and flags, so an edited source rebuilds. A file
-lock serialises concurrent builds; a failed build raises with nvcc's
-output.
+Each ``.cu`` source under ``csrc/`` (with the ``.cuh`` headers it
+includes) is compiled by ``nvcc`` for Hopper (``sm_90a``) into a shared
+library with a plain C interface, loaded with ``ctypes``. The build
+happens at first use, never at import, into ``m3asr_tpu_torch/_build/``
+(listed in ``.gitignore``) under a name keyed by a hash of the source,
+the headers and the flags, so an edited source or header rebuilds. A
+file lock per source serialises concurrent builds of it; a failed build
+raises with nvcc's output.
 """
 
 from __future__ import annotations
@@ -54,8 +55,12 @@ class KernelLibrary:
         self._lib: Optional[ctypes.CDLL] = None
 
     def _lib_path(self) -> str:
-        with open(os.path.join(CSRC, self.source), "rb") as f:
-            digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+        digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+        # the source and every shared header it may include
+        for name in [self.source] + sorted(
+                f for f in os.listdir(CSRC) if f.endswith(".cuh")):
+            with open(os.path.join(CSRC, name), "rb") as f:
+                digest.update(f.read())
         stem = os.path.splitext(self.source)[0]
         return os.path.join(BUILD_DIR,
                             f"lib{stem}_{digest.hexdigest()[:16]}.so")
@@ -65,7 +70,9 @@ class KernelLibrary:
         these flags exists. Returns the library path."""
         path = self._lib_path()
         os.makedirs(BUILD_DIR, exist_ok=True)
-        with open(os.path.join(BUILD_DIR, "lock"), "w") as lock:
+        # one lock per source, so that different sources build at once
+        stem = os.path.splitext(self.source)[0]
+        with open(os.path.join(BUILD_DIR, f"{stem}.lock"), "w") as lock:
             fcntl.flock(lock, fcntl.LOCK_EX)
             try:
                 if os.path.exists(path):
@@ -105,10 +112,23 @@ class KernelLibrary:
             lib.moe_runs_f.argtypes = [i, vp, vp, vp, vp, vp, vp, vp, i, i,
                                        i, i, i, vp, vp, vp]
             lib.moe_runs_f.restype = i
+            lib.moe_runs_q.argtypes = [i, i, vp, vp, vp, i, vp, vp, vp, i,
+                                       vp, vp, vp, i, i, i, i, i, vp, vp,
+                                       vp, vp, vp, vp, vp]
+            lib.moe_runs_q.restype = i
+        elif self.source == "moe_q4.cu":
+            for name in ("moe_q4_col_block", "moe_q4_k_step"):
+                getattr(lib, name).argtypes = []
+                getattr(lib, name).restype = i
+            lib.moe_q4_dense.argtypes = [i, vp, vp, i, vp, vp, i, vp, vp,
+                                         vp, i, vp, i, i, i, i, vp, vp, vp,
+                                         vp, vp, vp, vp]
+            lib.moe_q4_dense.restype = i
         else:
             raise ValueError(f"no C interface declared for {self.source}")
 
 
-MOE_RUNS = KernelLibrary("moe_runs.cu")
+MOE_RUNS = KernelLibrary("moe_runs.cu")   # K1, K4, K5
+MOE_Q4 = KernelLibrary("moe_q4.cu")       # K6
 
-ALL = (MOE_RUNS,)
+ALL = (MOE_RUNS, MOE_Q4)

@@ -1,10 +1,21 @@
 """Top-1 catEmbed MoE FFN (port of the main-path subset of
 ``m3asr_tpu/ops/moe.py``).
 
-Expert weights: w1 ``(E, d, h)``, w2 ``(E, h, d)``; expert math
-``y_e(x) = silu(x w1_e + b1_e) w2_e + b2_e``. Two expert stages:
-``"dense"`` (every expert on every token, the oracle) and ``"runs_f"``
-(K1: the CUDA kernel on the card, its plain version on the CPU).
+Expert weights: w1 ``(E, d, h)``, w2 ``(E, h, d)`` (or their int8 /
+packed int4 forms, ``ops/quant.py``); expert math
+``y_e(x) = silu(x w1_e + b1_e) w2_e + b2_e``. Expert stages (``impl``),
+with the JAX package's names:
+
+* float weights: ``"dense"`` (every expert on every token, the oracle)
+  and ``"runs_f"`` (K1);
+* quantized weights: ``"quant"`` / ``"quant_a8"`` (every expert on
+  every token in plain PyTorch, the JAX package's XLA paths),
+  ``"quant_runs"`` / ``"quant4_runs"`` (K4 / K5, by weight format),
+  ``"quant_a8_runs"`` / ``"quant4_a8_runs"`` (the same with per-token
+  int8 activations), ``"quant4_pallas"`` / ``"quant4_a8"`` (K6).
+
+Each kernel stage launches its CUDA kernel on the card and takes its
+plain version on the CPU.
 """
 
 from __future__ import annotations
@@ -15,7 +26,9 @@ import torch
 
 from m3asr_tpu_torch.ops.common import swish
 from m3asr_tpu_torch.ops.masking import make_valid_mask
-from m3asr_tpu_torch.ops.moe_runs import runs_kernel, runs_layout
+from m3asr_tpu_torch.ops import quant
+from m3asr_tpu_torch.ops.moe_q4 import q4_kernel
+from m3asr_tpu_torch.ops.moe_runs import runs_for, runs_layout
 
 
 def softmax_top1_gate(p, router_inputs: torch.Tensor,
@@ -81,11 +94,19 @@ def _dispatch(p, x: torch.Tensor, gate_idx: torch.Tensor,
               impl: str) -> torch.Tensor:
     if impl == "dense":
         return moe_experts_dense(p, x, gate_idx)
-    if impl == "runs_f":
-        return runs_kernel(p, x, gate_idx)
+    if impl == "quant":
+        return quant.moe_experts_dense_q(p, x, gate_idx)
+    if impl == "quant_a8":
+        return quant.moe_experts_dense_w8a8(p, x, gate_idx)
+    if impl in ("runs_f", "quant_runs", "quant4_runs"):
+        return runs_for(p)(p, x, gate_idx)
+    if impl in ("quant_a8_runs", "quant4_a8_runs"):
+        return runs_for(p)(p, x, gate_idx, act_quant=True)
+    if impl in ("quant4_pallas", "quant4_a8"):
+        return q4_kernel(p, x, gate_idx, act_quant=impl == "quant4_a8")
     raise NotImplementedError(
-        f"moe impl {impl!r} is not ported yet (ROADMAP Queue 1 item 6 "
-        "brings the quantized impls; the port runs 'dense' and 'runs_f')")
+        f"moe impl {impl!r} is not ported yet (ROADMAP Queue 1 item 6b "
+        "brings the tiled, ragged, capacity and streamer impls)")
 
 
 def moe_ffn(p, x: torch.Tensor, embed: Optional[torch.Tensor],

@@ -9,6 +9,7 @@ import os
 import subprocess
 import sys
 
+import jax
 import numpy as np
 import pytest
 import torch
@@ -17,6 +18,7 @@ import yaml
 from m3asr_tpu import checkpoint as j_ckpt
 from m3asr_tpu.config import model_config_from_dict as j_config
 from m3asr_tpu.decode import ctc as j_ctc
+from m3asr_tpu.runtime import engine as j_engine
 from m3asr_tpu.runtime.engine import Engine as JEngine
 from m3asr_tpu.runtime.engine import EngineConfig as JEngineConfig
 
@@ -24,8 +26,11 @@ from m3asr_tpu_torch import build as t_build
 from m3asr_tpu_torch.checkpoint import load_torch_checkpoint, convert_encoder
 from m3asr_tpu_torch.config import model_config_from_dict as t_config
 from m3asr_tpu_torch.decode import ctc as t_ctc
+from m3asr_tpu_torch.models import moe_conformer as t_model
+from m3asr_tpu_torch.runtime import engine as t_engine
 from m3asr_tpu_torch.runtime.engine import (Engine, EngineConfig,
-                                            config_from_engine_json)
+                                            config_from_engine_json,
+                                            moe_auto_impl)
 
 from test_op_parity import allclose
 from test_runtime import golden_model, small_yaml
@@ -46,14 +51,14 @@ def _write_inputs(tmp_path):
     return feat
 
 
-def _jax_engine(prior=None):
+def _jax_engine(prior=None, **settings):
     cfg = j_config(small_yaml())
     sd = {f"encoder.{k}": v.numpy()
           for k, v in golden_model().state_dict().items()}
     params = j_ckpt.convert_encoder(sd, cfg)
     return JEngine(cfg, params,
                    JEngineConfig(use_prior=prior is not None,
-                                 donate_input=False, **BUCKET),
+                                 donate_input=False, **BUCKET, **settings),
                    prior=prior)
 
 
@@ -170,7 +175,9 @@ def test_engine_without_device_needs_a_card():
 
 
 @pytest.mark.parametrize("setting", [
-    {"dtype": "int8"}, {"dtype": "int4"}, {"act_quant": True},
+    {"dtype": "int8", "dense_quant": True},
+    {"dtype": "int4", "fuse_qkv": True},
+    {"dtype": "int4", "moe_impl": "quant4_tiled"},
     {"dense_quant": True}, {"fuse_qkv": True}, {"attn_impl": "flash"},
     {"ep": 2}, {"tp": 2}, {"return_taps": True}, {"return_hidden": True},
     {"decode_output": "argmax"}, {"decode_output": "beam"},
@@ -185,8 +192,175 @@ def test_unsupported_engine_json_raises(setting):
 
 def test_build_cli_rejects_unported_flags(tmp_path):
     _write_inputs(tmp_path)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        t_build.main(["-c", str(tmp_path / "cfg.yaml"), "-o",
-                      str(tmp_path / "e"), "--int8", "--device", "cpu"])
+    for flag in ("--dense_quant", "--fuse_qkv"):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            t_build.main(["-c", str(tmp_path / "cfg.yaml"), "-o",
+                          str(tmp_path / "e"), "--int8", flag,
+                          "--device", "cpu"])
     with pytest.raises(NotImplementedError):
         t_config({"nnet_proto": "dfsmn_san_res"})
+
+
+# ---------------------------------------------------------------------------
+# quantized engines (int8, int4, w8a8, w4a8)
+# ---------------------------------------------------------------------------
+
+def _experts(params):
+    """The quantized expert leaves of a tree, as numpy."""
+    ff = params["blocks"]["feed_forward"]
+    return {k: np.asarray(v.numpy() if torch.is_tensor(v) else v)
+            for k, v in ff.items() if k.startswith(("w1", "w2"))}
+
+
+def _rel(a, b):
+    return np.abs(a - b).max() / np.abs(b).max()
+
+
+@pytest.mark.parametrize("dtype", ["int8", "int4"])
+def test_jax_quant_engine_dir_loads_in_port(tmp_path, dtype):
+    """A JAX-built int8 / int4 engine dir loads in the port with the same
+    quantized bytes and float32 scales, and serves within 0.05 of
+    max|ref| of the JAX engine: off the TPU the JAX engine runs its XLA
+    dequant path (bf16-rounded weights) while the port runs the card's
+    policy (int8: the same `quant` stage; int4: K6's plain version, exact
+    integer weights with float32 scales), both in bf16."""
+    jeng = _jax_engine(dtype=dtype)
+    jeng.save(str(tmp_path / "eng"), raw_yaml=small_yaml())
+    eng = Engine.load(str(tmp_path / "eng"), device="cpu")
+    ref_w, got_w = _experts(jax.tree.map(np.asarray, jeng.params)), \
+        _experts(eng.params)
+    assert sorted(got_w) == sorted(ref_w)
+    for k in ref_w:
+        assert got_w[k].dtype == ref_w[k].dtype, k
+        assert got_w[k].tobytes() == ref_w[k].tobytes(), k
+    assert got_w["w1_scale"].dtype == np.float32
+    feat = np.random.default_rng(12).standard_normal((2, 57, 20)) \
+        .astype(np.float32)
+    lens = np.array([57, 40], np.int32)
+    ref, ref_len = jeng.infer(feat, lens)
+    got, got_len = eng.infer(feat, lens)
+    np.testing.assert_array_equal(got_len, ref_len)
+    assert _rel(got[0], ref[0]) < 0.05
+    assert _rel(got[1, :got_len[1]], ref[1, :ref_len[1]]) < 0.05
+
+
+def test_port_int4_engine_dir_loads_in_jax(tmp_path):
+    """A port-built w4a8 engine dir loads in the JAX package with the same
+    bytes and settings, and the JAX engine's logits sit within 0.05 of
+    max|ref| of the port's (the JAX engine runs its XLA weight-only int4
+    path off the TPU)."""
+    _write_inputs(tmp_path)
+    cfg = t_config(small_yaml())
+    params = convert_encoder(load_torch_checkpoint(str(tmp_path / "ckpt.pt")),
+                             cfg)
+    eng = Engine(cfg, params, EngineConfig(dtype="int4", act_quant=True,
+                                           **BUCKET), device="cpu")
+    eng.save(str(tmp_path / "eng"), raw_yaml=small_yaml())
+    jeng = JEngine.load(str(tmp_path / "eng"))
+    assert jeng.cfg.dtype == "int4" and jeng.cfg.act_quant
+    got_w = _experts(eng.params)
+    ref_w = _experts(jax.tree.map(np.asarray, jeng.params))
+    for k in got_w:
+        assert got_w[k].tobytes() == ref_w[k].tobytes(), k
+    feat = np.random.default_rng(13).standard_normal((1, 50, 20)) \
+        .astype(np.float32)
+    got, got_len = eng.infer(feat, np.array([50]))
+    ref, ref_len = jeng.infer(feat, np.array([50]))
+    np.testing.assert_array_equal(got_len, ref_len)
+    assert _rel(got, ref) < 0.05
+
+
+@pytest.mark.parametrize("flags", [["--int8"], ["--int4"],
+                                   ["--int8", "--act_quant"],
+                                   ["--int4", "--act_quant"]])
+def test_build_cli_quantized_engines_serve(tmp_path, flags):
+    """The build entry point writes int8 / int4 / w8a8 / w4a8 engine dirs
+    that Engine.load serves on the CPU; the quantized engine's logits sit
+    within 0.05 of max|ref| of the fp32 engine built from the same
+    checkpoint (bf16 activations plus quantized experts)."""
+    _write_inputs(tmp_path)
+    args = ["-c", tmp_path / "cfg.yaml", "-m", tmp_path / "ckpt.pt",
+            "--buckets", "2x64"]
+    t_build.main([str(a) for a in args] + ["-o", str(tmp_path / "q"),
+                                           "--device", "cpu", *flags])
+    t_build.main([str(a) for a in args] + ["-o", str(tmp_path / "f"),
+                                           "--device", "cpu"])
+    eng = Engine.load(str(tmp_path / "q"), device="cpu")
+    assert eng.cfg.dtype == flags[0][2:]
+    assert eng.cfg.act_quant == ("--act_quant" in flags)
+    ff = eng.params["blocks"]["feed_forward"]
+    assert "w1" not in ff and ff["w1_scale"].dtype == torch.float32
+    feat = np.load(tmp_path / "feat.npy")
+    out, out_len = eng.infer(feat, np.array([57, 57]))
+    ref, ref_len = Engine.load(str(tmp_path / "f"), device="cpu").infer(
+        feat, np.array([57, 57]))
+    np.testing.assert_array_equal(out_len, ref_len)
+    assert _rel(out, ref) < 0.05
+
+
+def test_cli_int4_act_quant_build_and_infer(tmp_path):
+    """`python -m m3asr_tpu_torch.build --int4 --act_quant`, then the
+    infer CLI on the engine dir, end to end on the CPU."""
+    _write_inputs(tmp_path)
+    out = _run("build", "-c", tmp_path / "cfg.yaml", "-m",
+               tmp_path / "ckpt.pt", "-o", tmp_path / "eng", "--buckets",
+               "2x64", "--int4", "--act_quant")
+    assert "engine written" in out
+    out = _run("infer", "-p", tmp_path / "eng", "-i", tmp_path / "feat.npy",
+               "-d", "greedy")
+    assert "outputs.shape:(2, 13, 11)" in out and "utt1 hyp:" in out
+
+
+# post-subsampling tokens of the buckets 1x256, 1x512, 1x1024, 1x2048 and
+# 4x1024; the JAX TPU branch's choice for each mode, from
+# m3asr_tpu/runtime/engine.py:163-253
+AUTO_TABLE = {
+    (8, False): ["quant", "quant", "quant_runs", "quant_runs",
+                 "quant_runs"],
+    (8, True): ["quant_a8", "quant_a8", "quant_a8_runs", "quant_a8_runs",
+                "quant_a8_runs"],
+    (4, False): ["quant4_pallas", "quant4_pallas", "quant4_runs",
+                 "quant4_runs", "quant4_runs"],
+    (4, True): ["quant4_a8", "quant4_a8", "quant4_a8_runs",
+                "quant4_a8_runs", "quant4_a8_runs"],
+}
+
+
+@pytest.mark.parametrize("bits,act_quant", sorted(AUTO_TABLE))
+def test_moe_auto_impl_is_the_jax_tpu_branch(monkeypatch, bits, act_quant):
+    """The port's per-bucket expert stage equals the JAX engine's TPU
+    branch at 63, 127, 255, 511 and 1020 tokens (a table, and the JAX
+    function itself with its backend query answering "tpu"), and the
+    engine picks it from the bucket's subsampled length."""
+    monkeypatch.setattr(jax, "default_backend", lambda: "tpu")
+    tcfg = t_config(small_yaml())
+    eng = Engine(tcfg, t_model.init(tcfg.encoder_conf, 20, 11,
+                                    torch.Generator().manual_seed(0)),
+                 EngineConfig(dtype={8: "int8", 4: "int4"}[bits],
+                              act_quant=act_quant), device="cpu")
+    buckets = [(1, 256), (1, 512), (1, 1024), (1, 2048), (4, 1024)]
+    for (b, t), n, want in zip(buckets, (63, 127, 255, 511, 1020),
+                               AUTO_TABLE[(bits, act_quant)]):
+        assert moe_auto_impl(n, "auto", bits, act_quant) == want
+        assert j_engine.moe_auto_impl("bfloat16", n, int8=True,
+                                      act_quant=act_quant,
+                                      int4=bits == 4) == want
+        assert eng.moe_impl_for(b, t) == want
+    assert moe_auto_impl(1020, "auto") == "runs_f"
+    assert moe_auto_impl(63, "dense") == "dense"
+
+
+def test_unflatten_repacks_legacy_int4_leaf():
+    """Legacy JAX engine dirs stored int4 expert weights unpacked, one
+    value per byte, under a ``__i4`` key; both packages read them back as
+    the same nibble-packed ``w*_q4`` leaf."""
+    q = np.random.default_rng(14).integers(-8, 8, (2, 3, 8, 6)) \
+        .astype(np.int8)
+    flat = {"blocks/feed_forward/w1_q__i4": q,
+            "blocks/feed_forward/w1_scale": np.ones((2, 3, 1, 6),
+                                                    np.float32)}
+    ours = t_engine._unflatten(dict(flat))["blocks"]["feed_forward"]
+    theirs = j_engine._unflatten(dict(flat))["blocks"]["feed_forward"]
+    assert sorted(ours) == sorted(theirs) == ["w1_q4", "w1_scale"]
+    assert ours["w1_q4"].tobytes() == np.asarray(theirs["w1_q4"]).tobytes()
+    assert ours["w1_q4"].shape == (2, 3, 8, 3)
