@@ -26,6 +26,13 @@ result line:
    hidden, float32 sums in another order). a8: within 2e-2 (the integer
    sums are exact on both sides, but SiLU rounds differently in the two,
    which can move a hidden value to the next of its 127 levels).
+   K2 (flash forward: out and LSE) and K3 (flash backward: dq2, dk2, dv)
+   at B=4, T=S=255 and B=1, T=S=511, heads (H=8, Dk=64) and (H=4,
+   Dk=128), fp32 and bf16, under mixed lengths (with a 7-frame and a
+   zero-length row), a 16-frame static chunk window, and that window
+   with mem_cols=4. Each output within FLASH_TOL of max|ref| (fp32 2e-6,
+   float32 sums in another order; bf16 2e-2); the LSE on rows with a key
+   to attend.
 4. serve, float: the flagship hier MoE conformer (6 embed blocks, 18 MoE
    blocks, 32 experts, vocabulary 5000; random weights from a seeded
    CUDA generator, routers randomised) in an fp32 and a bf16 Engine
@@ -54,12 +61,28 @@ result line:
    fp32 logits (the quantization error) are printed, not held. Each
    engine's median request latency, peak device memory and device time
    under torch.profiler are printed before it is freed.
-6. times: each kernel per call (CUDA events over many calls after
+6. serve, flash: fp32 and bf16 Engines with attn_impl="flash" answer
+   the same requests. Each forward must launch K2 once per attention
+   layer (24) and K1 once per MoE block (18); the logits are held to
+   phase 4's attn_impl="xla" engine with its tokens sent to the flash
+   run's experts: fp32 allclose(1e-5, 1e-3), bf16 max|diff| / max|ref|
+   <= 0.05 (and printed against the free-running fp32 logits).
+7. train: the flagship's CTC training step (make_train_step, Adam with
+   warmup_noam, embed CTC weight 0.3 so that every attention layer
+   trains) on 4 x 1000 frames with seeded targets. One fp32 gradient
+   with attn_impl="flash" and one with "xla", routing pinned: losses
+   within 1e-5 relative, gradients within TRAIN_GRAD_TOL of each
+   parameter group's max|g|. Four flash steps (24 K2 and 24 launches of
+   each K3 kernel per step, asserted; losses finite), two xla steps, one
+   bf16-compute flash step (its loss within 2e-2 of the fp32 loss); step
+   times, the busy share of one step under torch.profiler, peak memory.
+8. times: each kernel per call (CUDA events over many calls after
    warm-up, layers rotated so weights come from device memory) and its
-   launches alone, at the main path's token counts, beside its bound and
-   the plain version's time; the float engines' request latency, peak
-   device memory and device time of one request under torch.profiler
-   with the kernels that took most of it.
+   launches alone, at the main path's token counts, beside its bound,
+   the plain version's time and, for K2/K3,
+   scaled_dot_product_attention's; the float engines' request latency,
+   peak device memory and device time of one request under
+   torch.profiler with the kernels that took most of it.
 
 The line before the last is one JSON object describing each kernel
 (route, source, launches on the main path, error, times, bound); the
@@ -95,6 +118,9 @@ MODES = {("int8", False): "int8", ("int8", True): "w8a8",
 # engine dtype -> the kernel each request's forward launches once per
 # MoE block (None: the plain-PyTorch quant stage, no kernel)
 QUANT_EXPECT = {"int8": (None, "K4", "K4"), "int4": ("K6", "K5", "K5")}
+# K2/K3 against their plain versions: max|diff| / max|ref| per output
+# (the first card run saw at most 5.6e-7 in float32 and 5.0e-3 in bf16)
+FLASH_TOL = {"float32": 2e-6, "bfloat16": 2e-2}
 
 
 def log(*a):
@@ -119,13 +145,14 @@ def phase_build(kernels):
     with ThreadPoolExecutor(len(kernels.ALL)) as ex:
         for lib, _ in zip(kernels.ALL, ex.map(lambda k: k.load(),
                                               kernels.ALL)):
-            # ptxas -v: per entry function, its (mangled, shortened) name,
-            # then its spills, then its registers and shared memory
+            # ptxas -v: per entry function, its (mangled, shortened) name
+            # with the template arguments, then its spills, then its
+            # registers and shared memory
             ptxas = []
             for ln in lib.log.splitlines():
                 if "Compiling entry function" in ln:
                     name = ln.split("'")[1].replace("_ZN12_GLOBAL__N_1", "")
-                    ptxas.append(name.replace("_ZN3moe", "")[:32])
+                    ptxas.append(name.replace("_ZN3moe", "")[:60])
                 elif not ptxas:
                     continue
                 elif "spill stores" in ln and not ln.strip().startswith(
@@ -302,6 +329,88 @@ def phase_kernel_quant(torch):
     return worst
 
 
+def flash_inputs(torch, B, T, H, Dk, dtype, masks, gen):
+    """q2 (B,H,T,2Dk), k2, v, g and the masks of one K2/K3 check case:
+    ``lengths`` mixed (full, one short row, one zero-length row when
+    B > 1), ``window`` a static chunk mask of 16 frames (with lengths),
+    ``mem_cols`` that window plus 4 always-attended leading keys."""
+    from m3asr_tpu_torch.ops import masking
+    from m3asr_tpu_torch.ops.flash_attention import window_from_mask
+    D2 = 2 * Dk
+    q2, k2 = (torch.randn(B, H, T, D2, generator=gen, device="cuda")
+              .to(dtype) for _ in range(2))
+    v = torch.randn(B, H, T, Dk, generator=gen, device="cuda").to(dtype)
+    g = torch.randn(B, H, T, Dk, generator=gen, device="cuda").to(dtype)
+    lens = [T, 7, 0, T - 40][:B] if masks == "lengths" else \
+        [T, T - 40, 100, T][:B]
+    lens = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    window, mem = None, 0
+    if masks != "lengths":
+        m = masking.add_optional_chunk_mask(lens, T, False, False, 0, 16, -1)
+        window = window_from_mask(m, T, T)
+        mem = 4 if masks == "mem_cols" else 0
+    return q2, k2, v, g, lens, window, mem
+
+
+FLASH_SHAPES = ((4, 255), (1, 511))      # (B, T = S): the main path's
+FLASH_HEADS = ((8, 64), (4, 128))        # (H, Dk): MoE, embed blocks
+
+
+def phase_kernel_flash(torch):
+    """K2 (out, LSE) and K3 (dq2, dk2, dv) against their plain versions at
+    the flagship's shapes, head widths, types and masks. Returns the worst
+    max_abs_err of each (kernel, dtype)."""
+    from m3asr_tpu_torch.ops import flash_attention as fa
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    worst = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype)[6:]
+        tol = FLASH_TOL[dname]
+        for B, T in FLASH_SHAPES:
+            for H, Dk in FLASH_HEADS:
+                for masks in ("lengths", "window", "mem_cols"):
+                    q2, k2, v, g, lens, window, mem = flash_inputs(
+                        torch, B, T, H, Dk, dtype, masks, gen)
+                    scale = Dk ** -0.5
+                    out, lse = fa.flash_kernels.forward(
+                        q2, k2, v, lens, scale, window, mem, True)
+                    grads = fa.flash_kernels.backward(
+                        q2, k2, v, g, lse,
+                        (g.float() * out.float()).sum(-1, keepdim=True),
+                        lens, scale, window, mem)
+                    torch.cuda.synchronize()
+                    r_out, r_lse = fa.flash_attention_reference(
+                        q2, k2, v, lens, scale, window, mem)
+                    r_grads = fa.flash_attention_bwd_reference(
+                        q2, k2, v, g, r_lse,
+                        (g.float() * r_out.float()).sum(-1, keepdim=True),
+                        lens, scale, window, mem)
+                    rels = []
+                    keep = r_lse > -1e29       # rows with a key to attend
+                    for kern, name, a, r in (
+                            ("K2", "out", out, r_out),
+                            ("K2", "lse", lse[keep], r_lse[keep]),
+                            ("K3", "dq2", grads[0], r_grads[0]),
+                            ("K3", "dk2", grads[1], r_grads[1]),
+                            ("K3", "dv", grads[2], r_grads[2])):
+                        err = (a.float() - r.float()).abs().max().item()
+                        rel = err / r.float().abs().max().item()
+                        rels.append(f"{name} {rel:.2e}")
+                        worst[(kern, dname)] = max(
+                            worst.get((kern, dname), 0.0), err)
+                        if not (rel <= tol and np.isfinite(err)):
+                            log(f"kernel flash {dname} B={B} T={T} H={H} "
+                                f"Dk={Dk} {masks}: {name} max|diff|/max|ref|"
+                                f"={rel:.3e} > {tol} FAIL")
+                            raise SystemExit(
+                                f"FAIL kernel: flash {name} disagrees with "
+                                "its plain version")
+                    log(f"kernel flash {dname} B={B} T={T} H={H} Dk={Dk} "
+                        f"{masks} lens={lens.tolist()}: max|diff|/max|ref| "
+                        + ", ".join(rels) + " OK")
+    return worst
+
+
 def flagship_cfg():
     from m3asr_tpu_torch.config import (EncoderConfig, ModelConfig,
                                         MoEConfig, MoEEncoderConfig)
@@ -312,6 +421,21 @@ def flagship_cfg():
                                  linear_units=1024, num_blocks=6),
         moe_conf=MoEConfig(num_experts=32, hidden_units=1024))
     return cfg
+
+
+def flagship_params(torch):
+    """The flagship's config and its random parameters from a seeded
+    generator on the card (routers normal x 0.5, so that routing spreads
+    over the experts)."""
+    from m3asr_tpu_torch.models import moe_conformer
+    cfg = flagship_cfg()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = moe_conformer.init(cfg.encoder_conf, cfg.input_dim,
+                                cfg.output_dim, gen, device="cuda")
+    r = params["blocks"]["feed_forward"]["router"]
+    r["kernel"] = torch.randn(r["kernel"].shape, generator=gen,
+                              device="cuda") * 0.5
+    return cfg, params
 
 
 class GateRecorder:
@@ -344,18 +468,11 @@ class GateRecorder:
 
 def phase_serve(torch, state):
     from m3asr_tpu_torch.decode.ctc import ctc_greedy_search
-    from m3asr_tpu_torch.models import moe_conformer
     from m3asr_tpu_torch.ops import moe as moe_mod
     from m3asr_tpu_torch.ops.moe_runs import runs_kernel
     from m3asr_tpu_torch.runtime.engine import Engine, EngineConfig
 
-    cfg = flagship_cfg()
-    gen = torch.Generator(device="cuda").manual_seed(0)
-    params = moe_conformer.init(cfg.encoder_conf, cfg.input_dim,
-                                cfg.output_dim, gen, device="cuda")
-    r = params["blocks"]["feed_forward"]["router"]
-    r["kernel"] = torch.randn(r["kernel"].shape, generator=gen,
-                              device="cuda") * 0.5
+    cfg, params = flagship_params(torch)
     rng = np.random.default_rng(2)
     reqs = [(rng.standard_normal((b, t, cfg.input_dim)).astype(np.float32),
              np.full((b,), t, np.int32)) for b, t in REQUESTS]
@@ -563,6 +680,275 @@ def phase_serve_quant(torch, state, smi):
     return launches
 
 
+def valid_rows(a, out_len):
+    return np.concatenate([a[b, :out_len[b]] for b in range(len(out_len))])
+
+
+def reset_flash(flash_kernels):
+    flash_kernels.fwd_launches = flash_kernels.dq_launches = \
+        flash_kernels.dkv_launches = 0
+
+
+def phase_serve_flash(torch, state, smi):
+    """The fp32 and bf16 engines with attn_impl="flash" answer the
+    requests: each forward launches K2 once per attention layer (24) and
+    K1 once per MoE block (18); the logits are held to the same engine
+    with attn_impl="xla" (phase 4's), its tokens sent to the flash run's
+    experts: fp32 allclose(1e-5, 1e-3), bf16 max|diff| <= 0.05 max|ref|.
+    Returns K2's launches per dtype."""
+    from m3asr_tpu_torch.ops import moe as moe_mod
+    from m3asr_tpu_torch.ops.flash_attention import flash_kernels
+    from m3asr_tpu_torch.ops.moe_runs import runs_kernel
+    from m3asr_tpu_torch.runtime.engine import Engine, EngineConfig
+
+    cfg, reqs, truth = state["cfg"], state["requests"], state["truth"]
+    enc = cfg.encoder_conf
+    n_attn, n_moe = enc.embed_conf.num_blocks + enc.num_blocks, enc.num_blocks
+    launches = {}
+    for dtype in ("float32", "bfloat16"):
+        eng = Engine(cfg, state["params"], EngineConfig(
+            dtype=dtype, attn_impl="flash"), device="cuda")
+        xla = state["engines"][dtype][0]
+        reset_flash(flash_kernels)        # this run starts here
+        runs_kernel.launches = 0
+        for i, (feat, lens) in enumerate(reqs):
+            f0, k0 = flash_kernels.fwd_launches, runs_kernel.launches
+            with GateRecorder(moe_mod) as rec:
+                out, out_len = eng.infer(feat, lens)
+            got = (flash_kernels.fwd_launches - f0, runs_kernel.launches - k0)
+            with GateRecorder(moe_mod, replay=rec.calls):
+                ref, ref_len = xla.infer(feat, lens)
+            if not (np.array_equal(out_len, ref_len)
+                    and np.isfinite(out).all()):
+                raise SystemExit("FAIL serve flash: lengths differ or logits "
+                                 "are not finite")
+            valid, rvalid = valid_rows(out, out_len), valid_rows(ref, out_len)
+            rel = float(np.abs(valid - rvalid).max() / np.abs(rvalid).max())
+            agree = float((valid.argmax(-1) == rvalid.argmax(-1)).mean())
+            t = truth[i]
+            if dtype == "float32":
+                ok = np.allclose(valid, rvalid, rtol=1e-5, atol=1e-3)
+                held = "allclose(1e-5, 1e-3)"
+            else:
+                ok = rel <= 0.05
+                held = "max|diff|/max|ref| <= 0.05"
+            ok = ok and got == (n_attn, n_moe)
+            B, T = feat.shape[:2]
+            log(f"serve {dtype}+flash {B}x{T}: K2 calls {got[0]} (want "
+                f"{n_attn}), K1 calls {got[1]} (want {n_moe}); vs "
+                f"attn_impl='xla' on the flash run's experts: max|diff|/"
+                f"max|ref|={rel:.3e}, argmax agree={agree:.4f}, held to "
+                f"{held}; vs the free-running fp32 xla logits: "
+                f"max|diff|/max|ref| "
+                f"{float(np.abs(valid - t).max() / np.abs(t).max()):.3e}, "
+                f"argmax agree "
+                f"{float((valid.argmax(-1) == t.argmax(-1)).mean()):.4f} "
+                f"{'OK' if ok else 'FAIL'}")
+            if not ok:
+                raise SystemExit("FAIL serve flash: wrong launches or logits "
+                                 "off the xla path's")
+        launches[dtype] = flash_kernels.fwd_launches
+        log(f"serve {dtype}+flash: main path launches K2 "
+            f"{flash_kernels.fwd_launches}, K1 {runs_kernel.launches}")
+        request_times(torch, eng, f"{dtype}+flash", reqs, smi)
+        eng = None
+    torch.cuda.empty_cache()
+    return launches
+
+
+TRAIN_BATCH = (4, 1000)
+TRAIN_LENS = (1000, 960, 880, 800)
+TRAIN_LABELS = (40, 36, 30, 25)        # CTC targets per utterance
+TRAIN_GRAD_TOL = 1e-3   # flash vs xla: max|diff| / max|g| per group
+# the bf16-compute flash step's gradients against the fp32 flash step's:
+# max|diff| / max|g| per group within this multiple of the bf16 xla
+# step's (the first card run saw at most 1.33x, and groups from 1.5e-2 to
+# 0.23 of max|g| for bf16 xla), and the global norm's relative distance
+# (the first card run saw 7.1e-3 for both)
+TRAIN_BF16_ENVELOPE = 2.0
+TRAIN_BF16_NORM_TOL = 2e-2
+
+
+def train_batch(torch, cfg):
+    """Features, lengths and CTC targets of the training batch (numpy from
+    a seed), on the card."""
+    rng = np.random.default_rng(7)
+    B, T = TRAIN_BATCH
+    feat = rng.standard_normal((B, T, cfg.input_dim)).astype(np.float32)
+    targets = rng.integers(1, cfg.output_dim, (B, max(TRAIN_LABELS))) \
+        .astype(np.int32)
+    tlens = np.array(TRAIN_LABELS, np.int32)
+    return tuple(torch.from_numpy(a).cuda() for a in (
+        feat, np.array(TRAIN_LENS, np.int32), targets, tlens))
+
+
+def param_group(path):
+    """The group of a parameter path in the gradient comparison: its
+    module, down to a block's sublayer ("blocks/self_attn",
+    "embed/blocks/conv_module", "after_norm", ...)."""
+    parts = path.split("/")[:-1]
+    return "/".join(parts[:3 if parts[0] == "embed" else 2])
+
+
+def train_config(attn_impl, dtype="float32"):
+    from m3asr_tpu_torch.train import step as ts
+    return ts.TrainConfig(attn_impl=attn_impl, compute_dtype=dtype,
+                          embed_ctc_weight=0.3, warmup_steps=1000)
+
+
+def group_rel(got, ref):
+    """max|got - ref| / max|ref| per parameter group."""
+    groups = {}
+    for k in ref:
+        grp = groups.setdefault(param_group(k), [0.0, 0.0])
+        grp[0] = max(grp[0], (got[k] - ref[k]).abs().max().item())
+        grp[1] = max(grp[1], ref[k].abs().max().item())
+    return {k: d / m if m > 0 else d for k, (d, m) in groups.items()}
+
+
+def train_grads(torch, cfg, params, batch):
+    """Gradients of one training batch from the same parameters, every
+    run's tokens sent to the fp32 flash run's experts: fp32 flash against
+    fp32 xla, and the bf16-compute flash step (K2/K3 in bf16, the casts
+    back to the float32 masters) against fp32 flash, beside the bf16 xla
+    step's distance from fp32 flash (what bf16 rounding alone gives)."""
+    from m3asr_tpu_torch.ops import moe as moe_mod
+    from m3asr_tpu_torch.train import step as ts
+    from m3asr_tpu_torch.train.lr_scheduler import global_norm
+
+    with GateRecorder(moe_mod) as rec:
+        (loss_f, _), g_f = ts.value_and_grad(
+            params, cfg, train_config("flash"), *batch)
+
+    def pinned(attn_impl, dtype):
+        with GateRecorder(moe_mod, replay=rec.calls):
+            (loss, _), g = ts.value_and_grad(
+                params, cfg, train_config(attn_impl, dtype), *batch)
+        return loss.item(), g
+
+    loss_x, g_x = pinned("xla", "float32")
+    loss_f = loss_f.item()
+    rel_loss = abs(loss_f - loss_x) / abs(loss_x)
+    rels = group_rel(g_f, g_x)
+    worst = max(rels, key=rels.get)
+    ok = rel_loss <= 1e-5 and rels[worst] <= TRAIN_GRAD_TOL
+    log(f"train fp32 flash vs xla (routing pinned): loss {loss_f:.6f}"
+        f" vs {loss_x:.6f} (rel {rel_loss:.3e}, held to 1e-5); "
+        f"gradients max|diff|/max|g| per group, held to {TRAIN_GRAD_TOL}: "
+        + ", ".join(f"{k} {v:.2e}" for k, v in sorted(rels.items()))
+        + f" {'OK' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("FAIL train: the flash step's loss or gradients "
+                         "are off the xla step's")
+    del g_x
+
+    norm_f = global_norm(g_f.values()).item()
+    found = {}
+    for attn_impl in ("xla", "flash"):
+        _, g_b = pinned(attn_impl, "bfloat16")
+        norm_b = global_norm(g_b.values()).item()
+        found[attn_impl] = (group_rel(g_b, g_f),
+                            abs(norm_b - norm_f) / norm_f)
+        del g_b
+    (rels, rel_norm), (envelope, _) = found["flash"], found["xla"]
+    ok = rel_norm <= TRAIN_BF16_NORM_TOL and all(
+        v <= TRAIN_BF16_ENVELOPE * envelope[k] for k, v in rels.items())
+    log(f"train bf16 flash vs fp32 flash gradients (routing pinned): "
+        f"grad_norm {norm_f:.6f} fp32, rel {rel_norm:.3e} (bf16 xla "
+        f"{found['xla'][1]:.3e}), held to {TRAIN_BF16_NORM_TOL}; "
+        f"max|diff|/max|g| per group as flash (bf16 xla), held to "
+        f"{TRAIN_BF16_ENVELOPE}x bf16 xla's: " + ", ".join(
+            f"{k} {v:.2e} ({envelope[k]:.2e})"
+            for k, v in sorted(rels.items()))
+        + f" {'OK' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("FAIL train: the bf16 step's gradients are off "
+                         "the fp32 step's")
+    del g_f
+    torch.cuda.empty_cache()
+
+
+def phase_train(torch, state, smi):
+    """The flagship's CTC training step (make_train_step, embed CTC weight
+    0.3 so that all 24 attention layers train). Returns K2's and K3's
+    launches per dtype on the step's run."""
+    from m3asr_tpu_torch.ops.flash_attention import flash_kernels
+    from m3asr_tpu_torch.train import step as ts
+
+    cfg, params = state["cfg"], state["params"]
+    enc = cfg.encoder_conf
+    n_attn = enc.embed_conf.num_blocks + enc.num_blocks
+    batch = train_batch(torch, cfg)
+    train_grads(torch, cfg, params, batch)
+
+    opt = ts.make_optimizer(train_config("flash"))
+    opt_state = ts.init_opt_state(opt, params)
+    launches = {}
+    for label, cfg_t, n_steps in (
+            ("flash", train_config("flash"), 4),
+            ("xla", train_config("xla"), 2),
+            ("bf16 flash", train_config("flash", "bfloat16"), 1)):
+        step = ts.make_train_step(cfg, cfg_t, opt, device="cuda")
+        p, s = params, opt_state
+        reset_flash(flash_kernels)        # this run starts here
+        torch.cuda.reset_peak_memory_stats()
+        losses, ms = [], []
+        for i in range(n_steps):
+            t0 = time.perf_counter()
+            p, s, m = step(p, s, *batch)
+            loss = m["loss"].item()       # syncs
+            ms.append((time.perf_counter() - t0) * 1e3)
+            losses.append(loss)
+            per_step = (flash_kernels.fwd_launches, flash_kernels.dq_launches,
+                        flash_kernels.dkv_launches)
+            want = (0, 0, 0) if label == "xla" else \
+                ((i + 1) * n_attn,) * 3
+            if per_step != want or not np.isfinite(loss):
+                raise SystemExit(f"FAIL train {label}: step {i} launches "
+                                 f"(K2, K3 dq, K3 dkv) {per_step}, want "
+                                 f"{want}; loss {loss}")
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        log(f"train {label}: {n_steps} steps, losses "
+            f"{[round(v, 6) for v in losses]}, grad_norm "
+            f"{m['grad_norm'].item():.4f}; launches (K2, K3 dq, K3 dkv) "
+            f"{per_step}, {n_attn} each per step; step times ms "
+            f"{[round(v, 3) for v in ms]} (median "
+            f"{float(np.median(ms)):.3f}); peak memory {peak:.3f} GiB; "
+            f"{smi}")
+        if label == "flash":
+            launches["float32"] = per_step
+            loss32 = losses[0]
+            dev_ms = step_device_ms(torch, step, params, opt_state, batch)
+            log(f"device time train flash: {dev_ms:.3f} ms in one step "
+                f"under torch.profiler, {dev_ms / np.median(ms):.3f} of the "
+                f"median step; {smi}")
+        elif label == "bf16 flash":
+            launches["bfloat16"] = per_step
+            rel = abs(losses[0] - loss32) / abs(loss32)
+            log(f"train bf16 flash: loss {losses[0]:.6f} vs fp32 "
+                f"{loss32:.6f}: rel {rel:.3e}, held to 2e-2 "
+                f"{'OK' if rel <= 2e-2 else 'FAIL'}")
+            if rel > 2e-2:
+                raise SystemExit("FAIL train: the bf16 step's loss is off "
+                                 "the fp32 step's")
+        p = s = None
+        torch.cuda.empty_cache()
+    return launches
+
+
+def step_device_ms(torch, step, params, opt_state, batch):
+    """Device time of one training step under torch.profiler: the summed
+    duration of the kernels and copies the card ran, in ms."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        _, _, m = step(params, opt_state, *batch)
+        m["loss"].item()
+    return sum(e.time_range.elapsed_us() for e in prof.events()
+               if e.device_type == DeviceType.CUDA) / 1e3
+
+
 def cuda_time_ms(torch, fn, iters):
     """Mean device time of fn(i) over iters calls, after 3 warm-up
     calls. Callers rotate the layer with i, so every call reads weights
@@ -738,6 +1124,106 @@ def time_quant_kernels(torch, smi):
     return rows
 
 
+def time_flash_kernels(torch, smi):
+    """K2 and K3 at the 4x1000 request's attention shapes (B=4, T=S=255,
+    valid lengths 249), MoE blocks (H=8, Dk=64) and embed blocks (H=4,
+    Dk=128), f32 and bf16: the wrapper call, the CUDA launches alone, the
+    plain version, one PyTorch call that computes the same function
+    (scaled_dot_product_attention with a boolean key mask; its backward
+    through autograd), and the bound. Returns rows keyed by (kernel,
+    dtype, H)."""
+    import torch.nn.functional as F
+    from m3asr_tpu_torch import kernels
+    from m3asr_tpu_torch.ops import flash_attention as fa
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    lib = kernels.FLASH.load()
+    stream = torch.cuda.current_stream().cuda_stream
+    B, T = 4, 255
+    n_valid = 249
+    rows = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype)[6:]
+        code = 0 if dtype == torch.float32 else 1
+        for Hh, Dk in FLASH_HEADS:
+            D2, scale = 2 * Dk, Dk ** -0.5
+            q2, k2, v, g, _, _, _ = flash_inputs(torch, B, T, Hh, Dk, dtype,
+                                                  "lengths", gen)
+            lens = torch.full((B,), n_valid, dtype=torch.int32,
+                              device="cuda")
+            out, lse = fa.flash_kernels.forward(q2, k2, v, lens, scale,
+                                                return_lse=True)
+            delta = (g.float() * out.float()).sum(-1, keepdim=True)
+            out_k, dq2, dk2, dv = (torch.empty_like(t)
+                                   for t in (out, q2, k2, v))
+            args = (code, D2, Dk, q2.data_ptr(), k2.data_ptr(), v.data_ptr())
+            masks = (lens.data_ptr(), None, None, 0, B, Hh, T, T, scale)
+
+            def fwd_raw(i):
+                if lib.flash_fwd(*args, *masks, out_k.data_ptr(), None,
+                                 stream):
+                    raise SystemExit("FAIL times: flash_fwd launch error")
+
+            def bwd_raw(i):
+                grads = (g.data_ptr(), lse.data_ptr(), delta.data_ptr())
+                if lib.flash_bwd_dq(*args, *grads, *masks, dq2.data_ptr(),
+                                    stream) or lib.flash_bwd_dkv(
+                        *args, *grads, *masks, dk2.data_ptr(),
+                        dv.data_ptr(), stream):
+                    raise SystemExit("FAIL times: flash_bwd launch error")
+
+            key_mask = (torch.arange(T, device="cuda")[None, :]
+                        < lens[:, None])[:, None, None, :]
+            ql, kl, vl = (t.detach().requires_grad_(True)
+                          for t in (q2, k2, v))
+            lib_out = F.scaled_dot_product_attention(
+                ql, kl, vl, attn_mask=key_mask, scale=scale)
+            elt = q2.element_size()
+            # the work this run's data needs: valid query rows x valid keys
+            pairs = B * Hh * n_valid * n_valid
+            times = {
+                "K2": dict(
+                    ms=cuda_time_ms(torch, lambda i: fa.flash_kernels.forward(
+                        q2, k2, v, lens, scale), 50),
+                    alone=cuda_time_ms(torch, fwd_raw, 50),
+                    plain_ms=cuda_time_ms(torch, lambda i:
+                                          fa.flash_attention_reference(
+                                              q2, k2, v, lens, scale), 10),
+                    library_ms=cuda_time_ms(
+                        torch, lambda i: F.scaled_dot_product_attention(
+                            q2, k2, v, attn_mask=key_mask, scale=scale), 50),
+                    nbytes=elt * B * Hh * T * (2 * D2 + 2 * Dk) + 4 * B,
+                    ops=2 * pairs * (D2 + Dk)),
+                "K3": dict(
+                    ms=cuda_time_ms(torch, lambda i: fa.flash_kernels.backward(
+                        q2, k2, v, g, lse, delta, lens, scale), 50),
+                    alone=cuda_time_ms(torch, bwd_raw, 50),
+                    plain_ms=cuda_time_ms(torch, lambda i:
+                                          fa.flash_attention_bwd_reference(
+                                              q2, k2, v, g, lse, delta, lens,
+                                              scale), 10),
+                    library_ms=cuda_time_ms(
+                        torch, lambda i: torch.autograd.grad(
+                            lib_out, (ql, kl, vl), g, retain_graph=True), 50),
+                    # read q2, k2, v, g, lse, delta; write dq2, dk2, dv
+                    nbytes=(elt * B * Hh * T * (4 * D2 + 3 * Dk)
+                            + 8 * B * Hh * T + 4 * B),
+                    # scores again, dp, dv, dq, dk
+                    ops=2 * pairs * (3 * D2 + 2 * Dk))}
+            for kname, r in times.items():
+                t_bytes = r.pop("nbytes") / HBM_BYTES_PER_S * 1e3
+                t_ops = r.pop("ops") / PEAK_OPS_PER_S[dname] * 1e3
+                r["bound_ms"] = max(t_bytes, t_ops)
+                r["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+                rows[(kname, dname, Hh)] = r
+                log(f"time flash {kname} {dname} B={B} T={T} H={Hh} Dk={Dk}: "
+                    f"call {r['ms']:.4f} ms (kernels alone {r['alone']:.4f} "
+                    f"ms), plain {r['plain_ms']:.4f} ms, "
+                    f"scaled_dot_product_attention {r['library_ms']:.4f} ms, "
+                    f"bound {r['bound_ms']:.4f} ms (bytes {t_bytes:.4f} / ops "
+                    f"{t_ops:.4f}); {smi}")
+    return rows
+
+
 def phase_times(torch, state, smi):
     from m3asr_tpu_torch import kernels
     from m3asr_tpu_torch.ops import moe_runs
@@ -827,6 +1313,20 @@ def phase_times(torch, state, smi):
             "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": None})
+    frows = time_flash_kernels(torch, smi)
+    for kname, fname, line in (("K2", "flash_fwd", 145),
+                               ("K3", "flash_bwd", 377)):
+        for dname in ("float32", "bfloat16"):
+            r = frows[(kname, dname, 8)]          # the MoE blocks' shape
+            report.append({
+                "name": f"{fname}[{dname}]", "route": "cuda",
+                "source": "m3asr_tpu_torch/csrc/flash_attention.cu",
+                "replaces": f"m3asr_tpu/ops/pallas_attention.py:{line}",
+                "launches": state["launches_flash"][(kname, dname)],
+                "max_abs_err": state["max_err_flash"][(kname, dname)],
+                "ms": r["ms"], "plain_ms": r["plain_ms"],
+                "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+                "library_ms": r["library_ms"]})
     return report
 
 
@@ -843,9 +1343,20 @@ def main():
     from m3asr_tpu_torch.ops import moe_runs
     phase_build(kernels)
     state = {"max_err": phase_kernel(torch, moe_runs),
-             "max_err_q": phase_kernel_quant(torch)}
+             "max_err_q": phase_kernel_quant(torch),
+             "max_err_flash": phase_kernel_flash(torch)}
     state["launches"] = phase_serve(torch, state)
     state["launches_q"] = phase_serve_quant(torch, state, smi)
+    served = phase_serve_flash(torch, state, smi)
+    trained = phase_train(torch, state, smi)
+    # K2: serving's forwards and the training steps'; K3: the steps'
+    state["launches_flash"] = {}
+    for dname in ("float32", "bfloat16"):
+        fwd, dq, dkv = trained[dname]
+        if dq != dkv:
+            raise SystemExit("FAIL: K3's two kernels launched unequally")
+        state["launches_flash"][("K2", dname)] = served[dname] + fwd
+        state["launches_flash"][("K3", dname)] = dq
     report = phase_times(torch, state, smi)
     log(smi)
     log(json.dumps({"kernels": report}))

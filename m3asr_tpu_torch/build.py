@@ -2,13 +2,15 @@
 
     python -m m3asr_tpu_torch.build -c config.yaml -m ckpt.pt -o engine_dir
         [-prior prior.txt] [-f | --int8 | --int4 [--act_quant]]
-        [--buckets 1x256,4x1024] [--strict] [--device cuda|cpu]
+        [--attn_impl xla|flash] [--buckets 1x256,4x1024] [--strict]
+        [--device cuda|cpu]
 
 Reads a reference YAML config and PyTorch checkpoint, converts the
 weights, and writes an engine directory in the JAX package's format.
 ``--int8`` / ``--int4`` write a bf16 engine with quantized expert
 weights (int4 in 128-row scale groups); ``--act_quant`` adds per-token
-int8 activations in the experts (w8a8 / w4a8).
+int8 activations in the experts (w8a8 / w4a8). ``--attn_impl flash``
+bakes the flash attention kernel (K2) into ``engine.json``.
 Without ``-m`` the weights are random (seed 0). Flags of the JAX
 ``build.py`` that this slice does not run are accepted by name and raise
 NotImplementedError naming the ROADMAP item that brings them.
@@ -38,9 +40,11 @@ def parse_args(argv=None):
                    help="fail if any checkpoint key is not consumed")
     p.add_argument("--device", default="cuda",
                    help="device the engine is built on (cuda or cpu)")
+    p.add_argument("--attn_impl", default="xla", choices=("xla", "flash"),
+                   help="attention: plain PyTorch (xla) or the flash "
+                   "kernel (flash)")
     # JAX build.py settings; anything but the default raises
     p.add_argument("--decode_output", default="logits")
-    p.add_argument("--attn_impl", default="xla")
     p.add_argument("--ep", type=int, default=1)
     p.add_argument("--tp", type=int, default=1)
     p.add_argument("--int8", action="store_true",

@@ -263,6 +263,42 @@ def to_torch(tree, device="cpu", dtype: torch.dtype = torch.float32,
     return t.to(device).contiguous()
 
 
+def flatten_tree(tree, prefix: str = "") -> Dict[str, Any]:
+    """Nested dict -> {"a/b/c": leaf} (the JAX package's flat paths, as in
+    engine ``params.npz``); None leaves are left out."""
+    out: Dict[str, Any] = {}
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            out.update(flatten_tree(v, f"{prefix}{k}/"))
+    elif tree is not None:
+        out[prefix[:-1]] = tree
+    return out
+
+
+def unflatten_tree(flat: Dict[str, Any]) -> Dict:
+    """Inverse of :func:`flatten_tree`."""
+    tree: Dict = {}
+    for path, v in flat.items():
+        parts = path.split("/")
+        node = tree
+        for p in parts[:-1]:
+            node = node.setdefault(p, {})
+        node[parts[-1]] = v
+    return tree
+
+
+def params_to_numpy(tree):
+    """The port's tree -> the JAX tree's paths and layouts as numpy, float
+    leaves in float32: gradients, optimizer moments and parameters
+    compare leaf by leaf with ``jax.tree.map(np.asarray, ...)``."""
+    if isinstance(tree, dict):
+        return {k: params_to_numpy(v) for k, v in tree.items()}
+    if tree is None:
+        return None
+    t = tree.detach().cpu()
+    return (t.float() if t.is_floating_point() else t).numpy()
+
+
 def params_from_jax(tree, device="cpu", dtype: torch.dtype = torch.float32):
     """The JAX package's parameter tree (nested dict of numpy arrays, as
     ``jax.tree.map(np.asarray, params)`` gives it) -> the port's tree on

@@ -124,11 +124,24 @@ class KernelLibrary:
                                          vp, i, vp, i, i, i, i, vp, vp, vp,
                                          vp, vp, vp, vp]
             lib.moe_q4_dense.restype = i
+        elif self.source == "flash_attention.cu":
+            f = ctypes.c_float
+            # dtype, d2, dk, q2, k2, v, [g, lse, delta,] lens, lo, hi,
+            # mem_cols, B, H, T, S, scale, outputs..., stream
+            head = [i, i, i, vp, vp, vp]
+            tail = [vp, vp, vp, i, i, i, i, i, f]
+            lib.flash_fwd.argtypes = head + tail + [vp, vp, vp]
+            lib.flash_bwd_dq.argtypes = head + [vp, vp, vp] + tail + [vp, vp]
+            lib.flash_bwd_dkv.argtypes = (head + [vp, vp, vp] + tail
+                                          + [vp, vp, vp])
+            for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+                getattr(lib, name).restype = i
         else:
             raise ValueError(f"no C interface declared for {self.source}")
 
 
 MOE_RUNS = KernelLibrary("moe_runs.cu")   # K1, K4, K5
 MOE_Q4 = KernelLibrary("moe_q4.cu")       # K6
+FLASH = KernelLibrary("flash_attention.cu")  # K2, K3
 
-ALL = (MOE_RUNS, MOE_Q4)
+ALL = (MOE_RUNS, MOE_Q4, FLASH)

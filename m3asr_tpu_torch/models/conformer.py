@@ -68,21 +68,26 @@ def block_kwargs(cfg: EncoderConfig) -> dict:
 
 
 def run_blocks(stacked_blocks, cfg: EncoderConfig, x: torch.Tensor,
-               lengths: Optional[torch.Tensor], pos_emb: torch.Tensor):
-    """The dense block stack: a Python loop over per-layer views."""
+               lengths: Optional[torch.Tensor], pos_emb: torch.Tensor,
+               mask: Optional[torch.Tensor] = None, attn_impl: str = "xla"):
+    """The dense block stack: a Python loop over per-layer views. ``mask``
+    is an optional (B|1, 1, T, T) chunk attend-mask."""
     kw = block_kwargs(cfg)
     for i in range(num_layers(stacked_blocks)):
         x = conformer_block(layer_view(stacked_blocks, i), x, lengths,
-                            pos_emb, **kw)
+                            pos_emb, mask=mask, attn_impl=attn_impl, **kw)
     return x
 
 
 def forward(params, cfg: EncoderConfig, feat: torch.Tensor,
-            feat_len: Optional[torch.Tensor], output_embed: bool = False):
+            feat_len: Optional[torch.Tensor], output_embed: bool = False,
+            chunk_mask: Optional[torch.Tensor] = None,
+            attn_impl: str = "xla"):
     """feat: (B, T, input_dim) -> (logits, out_len[, embed]); embed is
     the after_norm'd hidden (the catEmbed router feature)."""
     x, pos_emb, out_len = frontend(params, cfg, feat, feat_len)
-    x = run_blocks(params["blocks"], cfg, x, out_len, pos_emb)
+    x = run_blocks(params["blocks"], cfg, x, out_len, pos_emb,
+                   mask=chunk_mask, attn_impl=attn_impl)
     if cfg.normalize_before:
         x = layer_norm(params["after_norm"], x)
     out = linear(params["out_linear"], x)

@@ -18,6 +18,7 @@ import torch
 from m3asr_tpu_torch.ops.attention import rel_mha
 from m3asr_tpu_torch.ops.common import layer_norm, linear, swish
 from m3asr_tpu_torch.ops.conv import conv_module
+from m3asr_tpu_torch.ops.flash_attention import flash_rel_mha
 from m3asr_tpu_torch.ops.moe import moe_ffn
 
 
@@ -32,9 +33,13 @@ def conformer_block(p, x: torch.Tensor, lengths: Optional[torch.Tensor],
                     conv_layer_norm: bool = False, conv_lorder: int = 0,
                     normalize_before: bool = True, moe: bool = False,
                     embed: Optional[torch.Tensor] = None,
-                    moe_impl: str = "dense") -> torch.Tensor:
+                    moe_impl: str = "dense",
+                    mask: Optional[torch.Tensor] = None,
+                    attn_impl: str = "xla") -> torch.Tensor:
     """One conformer block; ``moe=True`` makes the final FFN the catEmbed
-    MoE FFN with ``embed`` as the router's extra feature."""
+    MoE FFN with ``embed`` as the router's extra feature. ``mask``: an
+    optional (B|1, 1, T, T) chunk attend-mask; ``attn_impl="flash"`` runs
+    the attention on the flash kernels (K2, K3 when training)."""
     ff_scale = 0.5 if macaron else 1.0
 
     def pre(name, v):
@@ -48,8 +53,14 @@ def conformer_block(p, x: torch.Tensor, lengths: Optional[torch.Tensor],
                              pre("norm_ff_macaron", x))
         x = post("norm_ff_macaron", x + ff_scale * h)
 
-    h = rel_mha(p["self_attn"], pre("norm_mha", x), pos_emb, lengths,
-                num_heads)
+    if attn_impl == "flash":
+        h = flash_rel_mha(p["self_attn"], pre("norm_mha", x), pos_emb,
+                          lengths, num_heads, mask=mask)
+    elif attn_impl == "xla":
+        h = rel_mha(p["self_attn"], pre("norm_mha", x), pos_emb, lengths,
+                    num_heads, mask=mask)
+    else:
+        raise ValueError(f"unknown attn_impl {attn_impl!r}")
     x = post("norm_mha", x + h)
 
     if use_cnn:

@@ -1,5 +1,6 @@
 """The flagship hier MoE conformer with the catEmbed router (port of
-``m3asr_tpu/models/moe_conformer.py``, inference forward):
+``m3asr_tpu/models/moe_conformer.py``, the forward of inference and of
+the CTC training step):
 
     embed_out, _, embed = embed_encoder(feat, feat_len)   # dense blocks
     x, x_len = Conv2dSubsampling4(feat, feat_len)         # own stack
@@ -27,21 +28,34 @@ from m3asr_tpu_torch.ops.common import layer_norm, linear
 
 def forward(params, cfg: MoEEncoderConfig, feat: torch.Tensor,
             feat_len: Optional[torch.Tensor], output_embed: bool = False,
-            moe_impl: str = "dense"):
+            moe_impl: str = "dense", chunk_mask=None,
+            embed_chunk_mask="same", attn_impl: str = "xla"):
     """feat: (B, T, input_dim) -> (logits (B, T', V), out_len[,
-    embed_out])."""
+    embed_out]).
+
+    chunk_mask: optional (B|1, 1, T', T') attend-mask of the MoE blocks;
+    embed_chunk_mask: the embed encoder's own ("same": chunk_mask's).
+    attn_impl: "xla" or "flash" for every attention layer."""
     if cfg.exmarc:
         raise NotImplementedError("the ExMarc (MoE macaron) variant is not "
                                   "ported (ROADMAP Queue 1 item 10)")
+    if isinstance(embed_chunk_mask, str) and embed_chunk_mask == "same":
+        embed_chunk_mask = chunk_mask
     embed_out, _, embed = conformer.forward(
-        params["embed"], cfg.embed_conf, feat, feat_len, output_embed=True)
+        params["embed"], cfg.embed_conf, feat, feat_len, output_embed=True,
+        chunk_mask=embed_chunk_mask, attn_impl=attn_impl)
+    # the router input never backprops into the embed encoder: it trains
+    # only through its own CTC head (jax.lax.stop_gradient in the JAX
+    # package)
+    embed = embed.detach()
     x, pos_emb, out_len = conformer.frontend(params, cfg, feat, feat_len)
     kw = conformer.block_kwargs(cfg)
     blocks = params["blocks"]
     for i in range(conformer.num_layers(blocks)):
         x = conformer_block(conformer.layer_view(blocks, i), x, out_len,
                             pos_emb, moe=True, embed=embed,
-                            moe_impl=moe_impl, **kw)
+                            moe_impl=moe_impl, mask=chunk_mask,
+                            attn_impl=attn_impl, **kw)
     if cfg.normalize_before:
         x = layer_norm(params["after_norm"], x)
     out = linear(params["out_linear"], x)

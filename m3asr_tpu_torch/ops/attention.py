@@ -52,13 +52,16 @@ def _split_heads(x: torch.Tensor, h: int) -> torch.Tensor:
 
 
 def rel_mha(p, x: torch.Tensor, pos_emb: torch.Tensor,
-            lengths: Optional[torch.Tensor], num_heads: int) -> torch.Tensor:
+            lengths: Optional[torch.Tensor], num_heads: int,
+            mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Transformer-XL relative-position self-attention:
 
         ac = (q + pos_bias_u) k^T,  bd = (q + pos_bias_v) linear_pos(pos)^T
         out = linear_out(masked_softmax((ac + bd) / sqrt(d_k)) v)
 
-    x: (B, T, D); pos_emb: (T, D). Returns (B, T, D)."""
+    x: (B, T, D); pos_emb: (T, D); mask: optional bool attend-mask
+    broadcastable to (B, H, T, T) (chunk masks, ``(B, 1, T, T)``).
+    Returns (B, T, D)."""
     h = num_heads
     q = _split_heads(linear(p["linear_q"], x), h)            # (B,H,T,Dk)
     k = _split_heads(linear(p["linear_k"], x), h)
@@ -69,7 +72,7 @@ def rel_mha(p, x: torch.Tensor, pos_emb: torch.Tensor,
     d_k = q.shape[-1]
     ac = torch.matmul((q + u).float(), k.float().transpose(-1, -2))
     bd = torch.matmul((q + w).float(), pp.float().transpose(-1, -2))
-    attn = masked_softmax(ac + bd, lengths, float(d_k) ** -0.5)
+    attn = masked_softmax(ac + bd, lengths, float(d_k) ** -0.5, mask)
     ctx = torch.matmul(attn.to(v.dtype), v)                  # (B,H,T,Dk)
     B, T = x.shape[:2]
     return linear(p["linear_out"], ctx.transpose(1, 2).reshape(B, T, -1))

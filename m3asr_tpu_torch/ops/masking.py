@@ -1,6 +1,8 @@
-"""Length and padding masks (port of ``m3asr_tpu/ops/masking.py``)."""
+"""Length, padding and chunk masks (port of ``m3asr_tpu/ops/masking.py``)."""
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
@@ -34,3 +36,72 @@ def subsampling4_length(lengths):
 
 
 SUBSAMPLED_LENGTH = {"conv2d": subsampling4_length}
+
+
+def subsequent_chunk_mask(size: int, chunk_size: int,
+                          num_left_chunks: int = -1,
+                          device=None) -> torch.Tensor:
+    """Chunked streaming mask (size, size), True = attend: each frame
+    sees the frames up to the end of its chunk and, with
+    ``num_left_chunks >= 0``, that many chunks before its own."""
+    pos = torch.arange(size, device=device)
+    chunk = pos // chunk_size
+    ending = torch.clamp((chunk[:, None] + 1) * chunk_size, max=size)
+    allowed = pos[None, :] < ending
+    if num_left_chunks >= 0:
+        start = torch.clamp((chunk[:, None] - num_left_chunks) * chunk_size,
+                            min=0)
+        allowed = allowed & (pos[None, :] >= start)
+    return allowed
+
+
+def dynamic_chunk_mask(generator: torch.Generator, size: int,
+                       use_dynamic_left_chunk: bool = False,
+                       device=None) -> torch.Tensor:
+    """Random dynamic-chunk training mask (size, size): chunk size drawn
+    uniform in [1, size); above size // 2 it means full context, else it
+    folds to [1, 25]; optionally the number of left chunks is drawn too.
+    The draws come from ``generator`` (a CPU generator: the mask's shape
+    is decided on the host), so they differ from ``jax.random``'s."""
+    cs = int(torch.randint(1, max(size, 2), (), generator=generator))
+    full = cs > size // 2
+    cs = size if full else cs % 25 + 1
+    nleft = -1
+    if use_dynamic_left_chunk and not full:
+        max_left = max((size - 1) // cs, 1)
+        nleft = int(torch.randint(0, max_left, (), generator=generator))
+    return subsequent_chunk_mask(size, cs, nleft, device)
+
+
+def add_optional_chunk_mask(lengths: torch.Tensor, max_len: int,
+                            use_dynamic_chunk: bool,
+                            use_dynamic_left_chunk: bool,
+                            decoding_chunk_size: int,
+                            static_chunk_size: int,
+                            num_decoding_left_chunks: int,
+                            generator: Optional[torch.Generator] = None
+                            ) -> Optional[torch.Tensor]:
+    """(B, 1, T, T) attend-mask of the chunk pattern and key validity, or
+    None when no chunking applies (the attention ops mask by length).
+    decoding_chunk_size: 0 = training (random dynamic chunk, needs
+    ``generator``), < 0 = full context, > 0 = fixed decode chunk."""
+    dev = lengths.device
+    if use_dynamic_chunk:
+        if decoding_chunk_size < 0:
+            chunk = torch.ones((max_len, max_len), dtype=torch.bool,
+                               device=dev)
+        elif decoding_chunk_size > 0:
+            chunk = subsequent_chunk_mask(max_len, decoding_chunk_size,
+                                          num_decoding_left_chunks, dev)
+        else:
+            if generator is None:
+                raise ValueError("dynamic-chunk training needs a generator")
+            chunk = dynamic_chunk_mask(generator, max_len,
+                                       use_dynamic_left_chunk, dev)
+    elif static_chunk_size > 0:
+        chunk = subsequent_chunk_mask(max_len, static_chunk_size,
+                                      num_decoding_left_chunks, dev)
+    else:
+        return None
+    valid = make_valid_mask(lengths, max_len)                # (B, T)
+    return (chunk[None] & valid[:, None, :])[:, None]        # (B,1,T,T)

@@ -29,6 +29,10 @@ runs K6 up to 128 tokens and K5 beyond; int8 runs the plain-PyTorch
 ``quant`` stage up to 128 tokens and K4 beyond; ``act_quant`` swaps each
 for its a8 twin. On ``cuda`` the kernels run; on ``cpu`` their plain
 PyTorch versions do, under the same names.
+
+Attention: ``attn_impl="xla"`` (plain PyTorch, the default) or
+``"flash"``, which runs every attention layer on the flash kernel (K2,
+``ops/flash_attention.py``).
 """
 
 from __future__ import annotations
@@ -42,7 +46,8 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
-from m3asr_tpu_torch.checkpoint import to_torch
+from m3asr_tpu_torch.checkpoint import (flatten_tree, params_to_numpy,
+                                        to_torch, unflatten_tree)
 from m3asr_tpu_torch.config import (ModelConfig, model_config_from_dict,
                                     model_config_to_dict)
 from m3asr_tpu_torch.device import resolve_device
@@ -130,7 +135,6 @@ def moe_auto_impl(tokens: int, requested: str = "auto",
 _NOT_PORTED = {
     "fuse_qkv": (False, "Queue 1 item 6b (dense_quant, fuse_qkv)"),
     "dense_quant": (False, "Queue 1 item 6b (dense_quant, fuse_qkv)"),
-    "attn_impl": ("xla", "Queue 1 item 7 (flash attention, K2)"),
     "ep": (1, "Queue 1 item 12 (parallelism)"),
     "tp": (1, "Queue 1 item 12 (parallelism)"),
     "return_hidden": (False, "Queue 1 item 8 (decode outputs and taps)"),
@@ -150,6 +154,8 @@ class EngineConfig:
     moe_impl: str = "auto"            # auto, or a stage moe_auto_impl maps
     act_quant: bool = False           # int8/int4: per-token int8
                                       # activations (w8a8 / w4a8)
+    attn_impl: str = "xla"            # xla | flash: every attention layer
+                                      # on the flash kernel (K2)
 
     def validate(self) -> None:
         if self.dtype not in _DTYPES:
@@ -157,6 +163,8 @@ class EngineConfig:
         if self.act_quant and self.dtype not in _QUANT_BITS:
             raise ValueError("act_quant requires quantized expert weights: "
                              "dtype='int8' (w8a8) or dtype='int4' (w4a8)")
+        if self.attn_impl not in ("xla", "flash"):
+            raise ValueError(f"unknown attn_impl {self.attn_impl!r}")
         if self.decode_output in ("argmax", "topk", "beam"):
             raise NotImplementedError(
                 f"decode_output {self.decode_output!r} is not ported yet: "
@@ -192,30 +200,19 @@ def config_from_engine_json(meta: Dict) -> Tuple[EngineConfig, Optional[list]]:
     return cfg, neg_log_prior
 
 
-def _flatten(tree, prefix="") -> Dict[str, np.ndarray]:
-    out = {}
-    if isinstance(tree, dict):
-        for k, v in tree.items():
-            out.update(_flatten(v, f"{prefix}{k}/"))
-    elif tree is not None:
-        out[prefix[:-1]] = tree.detach().float().cpu().numpy() \
-            if tree.is_floating_point() else tree.detach().cpu().numpy()
-    return out
+def _flatten(tree) -> Dict[str, np.ndarray]:
+    return flatten_tree(params_to_numpy(tree))
 
 
 def _unflatten(flat: Dict[str, np.ndarray]) -> Dict:
-    tree: Dict = {}
+    out = {}
     for path, v in flat.items():
         if path.endswith("__i4"):
             # legacy JAX engine dirs stored unpacked int4 leaves, one
             # value per byte: repack to the nibble-packed layout
             path, v = path[:-4] + "4", pack_int4(v)
-        parts = path.split("/")
-        node = tree
-        for p in parts[:-1]:
-            node = node.setdefault(p, {})
-        node[parts[-1]] = v
-    return tree
+        out[path] = v
+    return unflatten_tree(out)
 
 
 class Engine:
@@ -267,7 +264,8 @@ class Engine:
         """The padded forward on device tensors: (out, out_len)."""
         out, out_len = moe_conformer.forward(
             self.params, self.model_cfg.encoder_conf, feat, feat_len,
-            moe_impl=self.moe_impl_for(feat.shape[0], feat.shape[1]))
+            moe_impl=self.moe_impl_for(feat.shape[0], feat.shape[1]),
+            attn_impl=self.cfg.attn_impl)
         if self.neg_log_prior is not None:
             out = out + self.neg_log_prior
         if self.cfg.decode_output == "log_softmax":

@@ -178,7 +178,7 @@ def test_engine_without_device_needs_a_card():
     {"dtype": "int8", "dense_quant": True},
     {"dtype": "int4", "fuse_qkv": True},
     {"dtype": "int4", "moe_impl": "quant4_tiled"},
-    {"dense_quant": True}, {"fuse_qkv": True}, {"attn_impl": "flash"},
+    {"dense_quant": True}, {"fuse_qkv": True}, {"moe_impl": "ragged"},
     {"ep": 2}, {"tp": 2}, {"return_taps": True}, {"return_hidden": True},
     {"decode_output": "argmax"}, {"decode_output": "beam"},
     {"moe_impl": "tiled"}])
@@ -188,6 +188,58 @@ def test_unsupported_engine_json_raises(setting):
     meta.update(setting)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         config_from_engine_json(meta)
+
+
+def test_flash_engine_matches_jax_engine_and_roundtrips(tmp_path):
+    """An attn_impl="flash" engine (K2's plain version on the CPU) against
+    the JAX engine's XLA attention on the same checkpoint, allclose(rtol
+    1e-5, atol 1e-3) on the valid region; its engine.json carries
+    attn_impl both ways, and fuse_qkv with flash is refused (the JAX
+    engine refuses the pair; the port refuses fuse_qkv altogether)."""
+    feat = _write_inputs(tmp_path)
+    lens = np.array([57, 40], np.int32)
+    jeng = _jax_engine()
+    ref, ref_len = jeng.infer(feat, lens)
+    cfg = t_config(small_yaml())
+    params = convert_encoder(load_torch_checkpoint(str(tmp_path / "ckpt.pt")),
+                             cfg)
+    eng = Engine(cfg, params, EngineConfig(attn_impl="flash", **BUCKET),
+                 device="cpu")
+    got, got_len = eng.infer(feat, lens)
+    np.testing.assert_array_equal(got_len, ref_len)
+    allclose(got[0], ref[0])
+    allclose(got[1, :got_len[1]], ref[1, :ref_len[1]])
+
+    eng.save(str(tmp_path / "port_eng"), raw_yaml=small_yaml())
+    with open(tmp_path / "port_eng" / "engine.json") as f:
+        assert json.load(f)["attn_impl"] == "flash"
+    assert JEngine.load(str(tmp_path / "port_eng")).cfg.attn_impl == "flash"
+    _jax_engine(attn_impl="flash").save(str(tmp_path / "jax_eng"),
+                                        raw_yaml=small_yaml())
+    back = Engine.load(str(tmp_path / "jax_eng"), device="cpu")
+    assert back.cfg.attn_impl == "flash"
+    out, _ = back.infer(feat, lens)
+    allclose(out[0], ref[0])
+    with pytest.raises(NotImplementedError, match="fuse_qkv"):
+        config_from_engine_json(dict(attn_impl="flash", fuse_qkv=True))
+
+
+def test_build_cli_attn_impl_flash(tmp_path):
+    """`build --attn_impl flash` writes it into engine.json; the loaded
+    engine serves the XLA-built engine's logits (allclose(1e-5, 1e-3))."""
+    _write_inputs(tmp_path)
+    args = ["-c", str(tmp_path / "cfg.yaml"), "-m", str(tmp_path / "ckpt.pt"),
+            "--buckets", "2x64", "--device", "cpu"]
+    t_build.main(args + ["-o", str(tmp_path / "f"), "--attn_impl", "flash"])
+    t_build.main(args + ["-o", str(tmp_path / "x")])
+    eng = Engine.load(str(tmp_path / "f"), device="cpu")
+    assert eng.cfg.attn_impl == "flash"
+    feat = np.load(tmp_path / "feat.npy")
+    out, _ = eng.infer(feat, np.array([57, 31]))
+    ref, ref_len = Engine.load(str(tmp_path / "x"), device="cpu").infer(
+        feat, np.array([57, 31]))
+    allclose(out[0], ref[0])
+    allclose(out[1, :ref_len[1]], ref[1, :ref_len[1]])
 
 
 def test_build_cli_rejects_unported_flags(tmp_path):
