@@ -33,6 +33,15 @@ result line:
    with mem_cols=4. Each output within FLASH_TOL of max|ref| (fp32 2e-6,
    float32 sums in another order; bf16 2e-2); the LSE on rows with a key
    to attend.
+   K8 (dense float/int8 streamer) on fp32, bf16 and int8 weights (int8
+   on bf16 activations) and K7 (tiled int4 grouped GEMM) weight-only and
+   a8, at 63, 511 and 1020 tokens (K7's tile 64, 64, 128), under the
+   router's routing, all tokens on one expert, half the experts empty,
+   and (K8) rows padded with gate -1, which must come out 0; K7 stacked
+   L=3 at layers 0 and 2, with upper_bound at layer 1, and at d=320,
+   h=640. fp32 within 1e-5 of
+   max|ref| (float32 sums in another order), bf16, int8 and weight-only
+   int4 within 1e-2, a8 within 2e-2.
 4. serve, float: the flagship hier MoE conformer (6 embed blocks, 18 MoE
    blocks, 32 experts, vocabulary 5000; random weights from a seeded
    CUDA generator, routers randomised) in an fp32 and a bf16 Engine
@@ -61,13 +70,28 @@ result line:
    fp32 logits (the quantization error) are printed, not held. Each
    engine's median request latency, peak device memory and device time
    under torch.profiler are printed before it is freed.
-6. serve, flash: fp32 and bf16 Engines with attn_impl="flash" answer
+6. serve, explicit expert stages: fp32, bf16 and int8 Engines with
+   moe_impl="pallas" (K8) and int4 and w4a8 Engines with
+   moe_impl="tiled" (K7) answer the three requests; each forward must
+   launch its kernel once per MoE block (18) and no other expert kernel,
+   and the logits must match the same engine with its experts on the
+   kernels' plain versions, routing pinned: fp32 allclose(1e-5, 1e-3),
+   the others max|diff| / max|ref| <= 0.05. The plain-PyTorch stages
+   (fp32 tiled, ragged, ragged_padded, capacity; int8 quant_tiled,
+   quant_capacity; w8a8 quant_a8_tiled) answer the 4x1000 request with
+   no expert kernel, held the same way to the dense / quant / quant_a8
+   engine. An int4 Engine with dense_quant and fuse_qkv answers 1x206,
+   held within 0.05 of the int4 engine on the same weights dequantized
+   (its distance from the unquantized dense weights' engine is
+   printed). Each engine's latency, device time and peak memory are
+   printed.
+7. serve, flash: fp32 and bf16 Engines with attn_impl="flash" answer
    the same requests. Each forward must launch K2 once per attention
    layer (24) and K1 once per MoE block (18); the logits are held to
    phase 4's attn_impl="xla" engine with its tokens sent to the flash
    run's experts: fp32 allclose(1e-5, 1e-3), bf16 max|diff| / max|ref|
    <= 0.05 (and printed against the free-running fp32 logits).
-7. train: the flagship's CTC training step (make_train_step, Adam with
+8. train: the flagship's CTC training step (make_train_step, Adam with
    warmup_noam, embed CTC weight 0.3 so that every attention layer
    trains) on 4 x 1000 frames with seeded targets. One fp32 gradient
    with attn_impl="flash" and one with "xla", routing pinned: losses
@@ -76,7 +100,7 @@ result line:
    each K3 kernel per step, asserted; losses finite), two xla steps, one
    bf16-compute flash step (its loss within 2e-2 of the fp32 loss); step
    times, the busy share of one step under torch.profiler, peak memory.
-8. times: each kernel per call (CUDA events over many calls after
+9. times: each kernel per call (CUDA events over many calls after
    warm-up, layers rotated so weights come from device memory) and its
    launches alone, at the main path's token counts, beside its bound,
    the plain version's time and, for K2/K3,
@@ -91,6 +115,7 @@ last line is {"ok": true, "device": {...}}.
 
 import json
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -145,14 +170,19 @@ def phase_build(kernels):
     with ThreadPoolExecutor(len(kernels.ALL)) as ex:
         for lib, _ in zip(kernels.ALL, ex.map(lambda k: k.load(),
                                               kernels.ALL)):
-            # ptxas -v: per entry function, its (mangled, shortened) name
-            # with the template arguments, then its spills, then its
-            # registers and shared memory
+            # ptxas -v: per entry function, its name with the template
+            # arguments (demangled by c++filt where the host has it), then
+            # its spills, then its registers and shared memory
+            mangled = [ln.split("'")[1] for ln in lib.log.splitlines()
+                       if "Compiling entry function" in ln]
+            names = iter(subprocess.run(
+                ["c++filt"], input="\n".join(mangled), capture_output=True,
+                text=True, check=True).stdout.splitlines()
+                if shutil.which("c++filt") else mangled)
             ptxas = []
             for ln in lib.log.splitlines():
                 if "Compiling entry function" in ln:
-                    name = ln.split("'")[1].replace("_ZN12_GLOBAL__N_1", "")
-                    ptxas.append(name.replace("_ZN3moe", "")[:60])
+                    ptxas.append(short_name(next(names)))
                 elif not ptxas:
                     continue
                 elif "spill stores" in ln and not ln.strip().startswith(
@@ -326,6 +356,121 @@ def phase_kernel_quant(torch):
               moe_runs.moe_experts_runs_reference, p, 63, "router", 0, 320)
         check(("K6", a8), moe_q4.q4_kernel, moe_q4.moe_experts_q4_reference,
               p, 63, "router", 0, 320)
+    return worst
+
+
+STAGE_TOKENS = (63, 511, 1020)       # the requests' token counts
+# K8 variant -> (activation dtype, weight format); K7 a8 -> its name
+STREAM_NAMES = {"float32": "moe_stream[float32]",
+                "bfloat16": "moe_stream[bfloat16]",
+                "int8": "moe_stream[int8]"}
+TILED_NAMES = {False: "moe_q4_tiled[int4]", True: "moe_q4_tiled[w4a8]"}
+
+
+def stream_layers(torch, wtype, gen, n_layers):
+    """n_layers one-layer expert dicts for K8 (the model hands K8 one
+    layer's views): float weights (E, d, h) / (E, h, d) of wtype with
+    biases of that type, or (wtype "int8") int8 weights with float32
+    (E, 1, out) scales and bf16 biases."""
+    if wtype == "int8":
+        p = quant_experts(torch, 8, gen, n_layers)
+        return [{k: v[i] if k != "b1" and k != "b2" else v
+                 for k, v in p.items()} for i in range(n_layers)]
+    p = expert_weights(torch, getattr(torch, wtype), gen)
+    return [{"w1": p["w1"][i], "w2": p["w2"][i], "b1": p["b1"],
+             "b2": p["b2"]} for i in range(n_layers)]
+
+
+def stage_routing(torch, kind, n, gen):
+    """The routings of the K7/K8 checks: KINDS, and (K8) the router's
+    routing with every fifth row and the last row padded with gate -1,
+    as the JAX wrapper pads rows of no expert."""
+    if kind != "padded":
+        return routing(torch, kind, n, gen)
+    gate = routing(torch, "router", n, gen)
+    gate[0, ::5] = -1
+    gate[0, -1] = -1
+    return gate
+
+
+def rel_check(got, ref, tol, label, name):
+    """max|diff| within tol of max|ref| (both finite); logs one line and
+    exits on a failure. Returns max|diff|."""
+    err = (got.float() - ref.float()).abs().max().item()
+    scale = ref.float().abs().max().item()
+    ok = np.isfinite(err) and err <= tol * scale
+    log(f"kernel {label}: max_abs_err={err:.3e} max|ref|={scale:.3e} "
+        f"(held to {tol:g} of it) {'OK' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit(f"FAIL kernel: {name} disagrees with its plain "
+                         "version")
+    return err
+
+
+def phase_kernel_stage(torch):
+    """K8 (fp32, bf16, int8 weights on bf16 activations) and K7
+    (weight-only, a8) against their plain versions at the flagship widths
+    and the requests' token counts. Returns the worst max_abs_err per
+    variant name."""
+    from m3asr_tpu_torch.ops import moe_q4, moe_stream
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    worst = {}
+    # K8: fp32 within 1e-5 of max|ref| (float32 sums in another order),
+    # bf16 and int8 (bf16 weights, hidden and output) within 1e-2
+    for wtype, name in STREAM_NAMES.items():
+        p = stream_layers(torch, wtype, gen, 1)[0]
+        xdt = torch.float32 if wtype == "float32" else torch.bfloat16
+        tol = 1e-5 if wtype == "float32" else 1e-2
+        for n in STAGE_TOKENS:
+            for kind in KINDS + ("padded",):
+                x = torch.randn(1, n, D, generator=gen, device="cuda").to(xdt)
+                gate = stage_routing(torch, kind, n, gen)
+                got = moe_stream.stream_kernel.launch(p, x, gate)
+                torch.cuda.synchronize()
+                ref = moe_stream.moe_experts_dense_stream_reference(
+                    p, x, gate)
+                if kind == "padded" and bool((got[gate < 0] != 0).any()):
+                    raise SystemExit(f"FAIL kernel: {name} wrote a row of "
+                                     "no expert")
+                err = rel_check(got, ref, tol, f"{name} (K8) n={n} {kind} "
+                                f"active={n_active(torch, gate[gate >= 0])}",
+                                name)
+                worst[name] = max(worst.get(name, 0.0), err)
+    # K7: stacked L=3 at layers 0 and 2, bf16 activations; weight-only
+    # within 1e-2 of max|ref|, a8 within 2e-2 (as K4-K6)
+    n_layers = 3
+    p = quant_experts(torch, 4, gen, n_layers)
+
+    def check_tiled(p, a8, n, kind, layer, d=D, upper=None):
+        x = torch.randn(1, n, d, generator=gen, device="cuda") \
+            .to(torch.bfloat16)
+        gate = routing(torch, kind, n, gen)
+        pl = at_layer(p, layer)
+        got = moe_q4.q4_tiled_kernel.launch(pl, x, gate, layer=layer,
+                                            act_quant=a8, upper_bound=upper)
+        torch.cuda.synchronize()
+        ref = moe_q4.moe_experts_q4_tiled_reference(
+            pl, x, gate, layer=layer, act_quant=a8, upper_bound=upper)
+        name = TILED_NAMES[a8]
+        err = rel_check(got, ref, 2e-2 if a8 else 1e-2,
+                        f"{name} (K7) d={d} n={n} tile="
+                        f"{moe_q4.tiled_tile(n)} {kind} layer={layer} "
+                        f"upper_bound={upper} active={n_active(torch, gate)}",
+                        name)
+        worst[name] = max(worst.get(name, 0.0), err)
+
+    for a8 in (False, True):
+        for n in STAGE_TOKENS:
+            for kind in KINDS:
+                for layer in (0, n_layers - 1):
+                    check_tiled(p, a8, n, kind, layer)
+        check_tiled(p, a8, 511, "router", 1, upper=0.5)   # DFSMN's clamp
+    # d=320, h=640: w2's packed columns hold columns j and j + 160 (both
+    # nibble halves inside one column block); w1 one scale group, w2 five
+    p = quant_experts(torch, 4, gen, 1, d=320, h=640)
+    for a8 in (False, True):
+        for n in (63, 1020):
+            check_tiled(p, a8, n, "router", 0, 320)
     return worst
 
 
@@ -582,16 +727,23 @@ class PlainExperts:
         self.moe_mod, self.inner = moe_mod, None
 
     def __enter__(self):
-        from m3asr_tpu_torch.ops import moe_q4, moe_runs
+        from m3asr_tpu_torch.ops import moe_q4, moe_runs, moe_stream
         inner = self.inner = self.moe_mod._dispatch
 
         def plain(p, x, gate_idx, impl):
             if impl == "runs_f" or impl.endswith("_runs"):
                 return moe_runs.moe_experts_runs_reference(
                     p, x, gate_idx, act_quant="_a8" in impl)
-            if impl in ("quant4_pallas", "quant4_a8"):
+            if impl in ("quant4_pallas", "quant4_a8") or (
+                    impl == "quant_pallas" and "w1_q4" in p):
                 return moe_q4.moe_experts_q4_reference(
                     p, x, gate_idx, act_quant=impl == "quant4_a8")
+            if impl in ("pallas", "quant_pallas"):
+                return moe_stream.moe_experts_dense_stream_reference(
+                    p, x, gate_idx)
+            if impl in ("quant4_tiled", "quant4_a8_tiled"):
+                return moe_q4.moe_experts_q4_tiled_reference(
+                    p, x, gate_idx, act_quant=impl == "quant4_a8_tiled")
             return inner(p, x, gate_idx, impl)
         self.moe_mod._dispatch = plain
         return self
@@ -604,11 +756,9 @@ def phase_serve_quant(torch, state, smi):
     """Serves the requests with the int8, w8a8, int4 and w4a8 engines;
     returns each mode's kernel launches on its run."""
     from m3asr_tpu_torch.ops import moe as moe_mod
-    from m3asr_tpu_torch.ops import moe_q4, moe_runs
     from m3asr_tpu_torch.runtime.engine import Engine, EngineConfig
 
-    wrappers = {"K1": moe_runs.runs_kernel, "K4": moe_runs.runs_q8_kernel,
-                "K5": moe_runs.runs_q4_kernel, "K6": moe_q4.q4_kernel}
+    wrappers = stage_wrappers()
     cfg, reqs, truth = state["cfg"], state["requests"], state["truth"]
     n_blocks = cfg.encoder_conf.num_blocks
     launches = {}
@@ -675,8 +825,198 @@ def phase_serve_quant(torch, state, smi):
             log(f"serve {mode}: main path launches {launches[mode]}")
             request_times(torch, eng, mode, reqs, smi)
             eng = None
-        base = None                     # free this dtype's engines
+        # the quantized tree, for phase 6's engines with explicit stages
+        state.setdefault("qparams", {})[dtype] = base.params
+        base = None
         torch.cuda.empty_cache()
+    return launches
+
+
+def stage_wrappers():
+    """Every expert kernel's wrapper, by kernel."""
+    from m3asr_tpu_torch.ops import moe_q4, moe_runs, moe_stream
+    return {"K1": moe_runs.runs_kernel, "K4": moe_runs.runs_q8_kernel,
+            "K5": moe_runs.runs_q4_kernel, "K6": moe_q4.q4_kernel,
+            "K7": moe_q4.q4_tiled_kernel, "K8": moe_stream.stream_kernel}
+
+
+# engines with an explicit kernel stage: (label, EngineConfig settings,
+# the params they start from, the kernel each forward launches once per
+# MoE block, the kernel variant's name in the output)
+KERNEL_STAGE_ENGINES = (
+    ("float32 pallas", dict(dtype="float32", moe_impl="pallas"), "float",
+     "K8", STREAM_NAMES["float32"]),
+    ("bfloat16 pallas", dict(dtype="bfloat16", moe_impl="pallas"), "float",
+     "K8", STREAM_NAMES["bfloat16"]),
+    ("int8 pallas", dict(dtype="int8", moe_impl="pallas"), "int8", "K8",
+     STREAM_NAMES["int8"]),
+    ("int4 tiled", dict(dtype="int4", moe_impl="tiled"), "int4", "K7",
+     TILED_NAMES[False]),
+    ("w4a8 tiled", dict(dtype="int4", act_quant=True, moe_impl="tiled"),
+     "int4", "K7", TILED_NAMES[True]),
+)
+# engines with a plain-PyTorch stage, each answering the 4x1000 request:
+# (label, settings, params, the reference engine's settings)
+PLAIN_STAGE_ENGINES = tuple(
+    (f"float32 {impl}", dict(dtype="float32", moe_impl=impl), "float",
+     dict(dtype="float32", moe_impl="dense"))
+    for impl in ("tiled", "ragged", "ragged_padded", "capacity")) + (
+    ("int8 quant_tiled", dict(dtype="int8", moe_impl="quant_tiled"), "int8",
+     dict(dtype="int8", moe_impl="quant")),
+    ("int8 quant_capacity", dict(dtype="int8", moe_impl="quant_capacity"),
+     "int8", dict(dtype="int8", moe_impl="quant")),
+    ("w8a8 quant_a8_tiled", dict(dtype="int8", act_quant=True,
+                                 moe_impl="quant_a8_tiled"), "int8",
+     dict(dtype="int8", act_quant=True, moe_impl="quant_a8")),
+)
+
+
+def served_valid(eng, ref_eng, moe_mod, feat, lens, plain=False):
+    """One request through eng, then through ref_eng with its tokens sent
+    to eng's experts (on the kernels' plain versions if ``plain``).
+    Returns (valid rows of eng's logits, of ref_eng's, launches per
+    kernel in eng's forward, the largest expert's share of the bucket's
+    tokens in each MoE block)."""
+    wrappers = stage_wrappers()
+    before = {k: w.launches for k, w in wrappers.items()}
+    with GateRecorder(moe_mod) as rec:
+        out, out_len = eng.infer(feat, lens)
+    got = {k: w.launches - before[k] for k, w in wrappers.items()
+           if w.launches != before[k]}
+    with GateRecorder(moe_mod, replay=rec.calls):
+        if plain:
+            with PlainExperts(moe_mod):
+                ref, ref_len = ref_eng.infer(feat, lens)
+        else:
+            ref, ref_len = ref_eng.infer(feat, lens)
+    if not (np.array_equal(out_len, ref_len) and np.isfinite(out).all()):
+        raise SystemExit("FAIL serve stages: lengths differ or logits are "
+                         "not finite")
+    share = [float(c.flatten().bincount().max()) / c.numel()
+             for c in rec.calls]
+    return valid_rows(out, out_len), valid_rows(ref, out_len), got, share
+
+
+def phase_serve_stages(torch, state, smi):
+    """Engines with explicit expert stages (ROADMAP item 6b). Kernel
+    stages: each request's forward launches its kernel once per MoE block
+    and no other expert kernel; logits held to the same engine with its
+    experts on the plain versions, routing pinned (fp32 allclose(1e-5,
+    1e-3), else max|diff|/max|ref| <= 0.05). Plain-PyTorch stages: one
+    4x1000 request each, no expert kernel, held the same way to the
+    dense / quant / quant_a8 engine. Then one int4 engine with
+    dense_quant and fuse_qkv at 1x206. Returns the launches of each
+    kernel variant on its engine's run."""
+    from m3asr_tpu_torch.ops import moe as moe_mod
+    from m3asr_tpu_torch.ops.quant import dequantize_dense_params
+    from m3asr_tpu_torch.runtime.engine import Engine, EngineConfig
+
+    cfg, reqs, truth = state["cfg"], state["requests"], state["truth"]
+    trees = {"float": state["params"], **state["qparams"]}
+    n_blocks = cfg.encoder_conf.num_blocks
+    wrappers = stage_wrappers()
+    launches = {}
+
+    def judge(valid, rvalid, fp32):
+        rel = float(np.abs(valid - rvalid).max() / np.abs(rvalid).max())
+        if fp32:
+            return np.allclose(valid, rvalid, rtol=1e-5, atol=1e-3), rel, \
+                "allclose(1e-5, 1e-3)"
+        return rel <= 0.05, rel, "max|diff|/max|ref| <= 0.05"
+
+    for label, settings, tree, kname, vname in KERNEL_STAGE_ENGINES:
+        eng = Engine(cfg, trees[tree], EngineConfig(**settings),
+                     device="cuda")
+        for w in wrappers.values():
+            w.launches = 0              # this engine's run starts here
+        for i, (feat, lens) in enumerate(reqs):
+            valid, rvalid, got, share = served_valid(eng, eng, moe_mod, feat,
+                                                     lens, plain=True)
+            ok, rel, held = judge(valid, rvalid,
+                                  settings["dtype"] == "float32")
+            ok = ok and got == {kname: n_blocks}
+            t = truth[i]
+            B, T = feat.shape[:2]
+            log(f"serve {label} {B}x{T}: stage "
+                f"{eng.moe_impl_for(*eng.buckets.pick(B, T))}, launches per "
+                f"forward {got} (want {{{kname!r}: {n_blocks}}}); vs the "
+                f"kernels' plain versions, routing pinned: max|diff|/max|ref|"
+                f"={rel:.3e}, held to {held}; vs fp32 logits (information): "
+                f"max|diff|/max|ref| "
+                f"{float(np.abs(valid - t).max() / np.abs(t).max()):.3e}, "
+                f"argmax agree "
+                f"{float((valid.argmax(-1) == t.argmax(-1)).mean()):.4f}; "
+                f"the largest expert's share of the tokens per MoE block: "
+                f"median {np.median(share):.3f}, max {max(share):.3f} "
+                f"{'OK' if ok else 'FAIL'}")
+            if not ok:
+                raise SystemExit(f"FAIL serve {label}: wrong kernel launches "
+                                 "or logits off the plain versions'")
+        launches[vname] = wrappers[kname].launches
+        log(f"serve {label}: main path launches {kname} "
+            f"{wrappers[kname].launches}")
+        request_times(torch, eng, label, reqs, smi)
+        eng = None
+        torch.cuda.empty_cache()
+
+    feat, lens = reqs[1]                               # 4x1000
+    refs = {}
+    for label, settings, tree, ref_settings in PLAIN_STAGE_ENGINES:
+        eng = Engine(cfg, trees[tree], EngineConfig(**settings),
+                     device="cuda")
+        key = tuple(sorted(ref_settings.items()))
+        if key not in refs:
+            refs[key] = Engine(cfg, trees[tree], EngineConfig(**ref_settings),
+                               device="cuda")
+        valid, rvalid, got, _ = served_valid(eng, refs[key], moe_mod, feat,
+                                             lens)
+        ok, rel, held = judge(valid, rvalid,
+                              settings["dtype"] == "float32")
+        ok = ok and not got
+        log(f"serve {label} 4x1000: stage {eng.moe_impl_for(4, 1000)} "
+            f"(plain PyTorch), expert kernel launches {got or 'none'}; vs "
+            f"moe_impl={ref_settings['moe_impl']!r}, routing pinned: "
+            f"max|diff|/max|ref|={rel:.3e}, held to {held} "
+            f"{'OK' if ok else 'FAIL'}")
+        if not ok:
+            raise SystemExit(f"FAIL serve {label}: a kernel launched or the "
+                             "logits are off the reference stage's")
+        request_times(torch, eng, label, [reqs[1]], smi)
+        eng = None
+    refs = None
+    torch.cuda.empty_cache()
+
+    # dense_quant + fuse_qkv: int8 dense kernels, one fused q/k/v product
+    feat, lens = reqs[0]                               # 1x206
+    eng = Engine(cfg, trees["int4"], EngineConfig(
+        dtype="int4", dense_quant=True, fuse_qkv=True), device="cuda")
+    sa = eng.params["blocks"]["self_attn"]
+    if "linear_q" in sa or sa["linear_qkv"]["kernel_q"].dtype != torch.int8:
+        raise SystemExit("FAIL serve dense_quant+fuse_qkv: params not "
+                         "fused and quantized")
+    deq = Engine(cfg, dequantize_dense_params(eng.params, torch.bfloat16),
+                 EngineConfig(dtype="int4"), device="cuda")
+    valid, rvalid, got, _ = served_valid(eng, deq, moe_mod, feat, lens)
+    ok, rel, held = judge(valid, rvalid, False)
+    ok = ok and got == {"K6": n_blocks}
+    plain_eng = Engine(cfg, trees["int4"], EngineConfig(dtype="int4"),
+                       device="cuda")
+    _, pvalid, _, _ = served_valid(eng, plain_eng, moe_mod, feat, lens)
+    prel = float(np.abs(valid - pvalid).max() / np.abs(pvalid).max())
+    log(f"serve int4+dense_quant+fuse_qkv 1x206: launches per forward {got}"
+        f"; vs the int4 engine on the same fused weights dequantized "
+        f"(routing pinned): max|diff|/max|ref|={rel:.3e}, held to {held}; "
+        f"vs the int4 engine on the unquantized, unfused dense weights "
+        f"(routing pinned, information): max|diff|/max|ref|={prel:.3e}, "
+        f"argmax agree {float((valid.argmax(-1) == pvalid.argmax(-1)).mean()):.4f}"
+        f" {'OK' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("FAIL serve int4+dense_quant+fuse_qkv: wrong "
+                         "launches or logits off the dequantized engine's")
+    request_times(torch, eng, "int4+dense_quant+fuse_qkv", [reqs[0]], smi)
+    eng = deq = plain_eng = None
+    state.pop("qparams")
+    torch.cuda.empty_cache()
     return launches
 
 
@@ -1124,6 +1464,132 @@ def time_quant_kernels(torch, smi):
     return rows
 
 
+def time_stage_kernels(torch, smi):
+    """K8 (fp32, bf16, int8) and K7 (weight-only, a8) at the requests'
+    token counts (63, 511, 1020): the wrapper call, its CUDA launches
+    alone, the plain version, and the bound. Six layers of weights, the
+    layer rotating with each call, so that a call finds its weights in
+    device memory, as the main path's layer loop does. Returns rows keyed
+    by (variant name, n)."""
+    from m3asr_tpu_torch import kernels
+    from m3asr_tpu_torch.ops import moe_q4, moe_runs, moe_stream
+    gen = torch.Generator(device="cuda").manual_seed(10)
+    n_layers = 6
+    stream = torch.cuda.current_stream().cuda_stream
+    rows = {}
+
+    def record(name, n, active, per_expert, elt_x, ops_type, ms, alone,
+               plain_ms):
+        t_bytes = (active * per_expert + 2 * n * D * elt_x + n * 4) \
+            / HBM_BYTES_PER_S * 1e3
+        t_ops = 4 * n * D * H / PEAK_OPS_PER_S[ops_type] * 1e3
+        bound = max(t_bytes, t_ops)
+        rows[(name, n)] = dict(
+            ms=ms, alone=alone, plain_ms=plain_ms, bound_ms=bound,
+            bound_by="bytes" if t_bytes >= t_ops else "operations")
+        log(f"time {name} n={n} active={active}: call {ms:.4f} ms (kernels "
+            f"alone {alone:.4f} ms), plain {plain_ms:.4f} ms, bound "
+            f"{bound:.4f} ms (bytes {t_bytes:.4f} / ops {t_ops:.4f}), "
+            f"library_ms none; {smi}")
+
+    lib = kernels.MOE_STREAM.load()
+    for wtype, name in STREAM_NAMES.items():
+        layers = stream_layers(torch, wtype, gen, n_layers)
+        quant = wtype == "int8"
+        xdt = torch.float32 if wtype == "float32" else torch.bfloat16
+        code = 0 if xdt == torch.float32 else 1
+        # the kernel's arguments per layer: float32 biases, (E, out) scales
+        raw_args = []
+        for p in layers:
+            w1, w2 = (p["w1_q"], p["w2_q"]) if quant else (p["w1"], p["w2"])
+            s1 = p["w1_scale"].reshape(E, H) if quant else None
+            s2 = p["w2_scale"].reshape(E, D) if quant else None
+            raw_args.append((w1, s1, p["b1"].float(), w2, s2,
+                             p["b2"].float()))
+        w_elt = layers[0]["w1_q" if quant else "w1"].element_size()
+        # bytes per active expert: weights, scales, biases at their types
+        per_expert = 2 * D * H * w_elt + (4 * (H + D) if quant else 0) \
+            + layers[0]["b1"].element_size() * (H + D)
+        for n in STAGE_TOKENS:
+            x = torch.randn(1, n, D, generator=gen, device="cuda").to(xdt)
+            gate = routing(torch, "router", n, gen)
+            x2, g2 = x.reshape(n, D), gate.reshape(n)
+            hid = torch.empty(n, H, dtype=xdt, device="cuda")
+            y = torch.empty_like(x2)
+
+            def raw(i):
+                w1, s1, b1, w2, s2, b2 = raw_args[i % n_layers]
+                if lib.moe_stream(
+                        code, int(quant), x2.data_ptr(), g2.data_ptr(), n,
+                        w1.data_ptr(), None if s1 is None else s1.data_ptr(),
+                        b1.data_ptr(), w2.data_ptr(),
+                        None if s2 is None else s2.data_ptr(), b2.data_ptr(),
+                        E, D, H, hid.data_ptr(), y.data_ptr(), stream):
+                    raise SystemExit("FAIL times: moe_stream launch error")
+            ms = cuda_time_ms(torch, lambda i: moe_stream.stream_kernel.launch(
+                layers[i % n_layers], x, gate), 60)
+            alone = cuda_time_ms(torch, raw, 60)
+            plain_ms = cuda_time_ms(
+                torch, lambda i: moe_stream.moe_experts_dense_stream_reference(
+                    layers[i % n_layers], x, gate), 6)
+            record(name, n, n_active(torch, gate), per_expert, x.element_size(),
+                   "float32" if wtype == "float32" else "bfloat16", ms, alone,
+                   plain_ms)
+        layers = raw_args = None
+
+    lib = kernels.MOE_Q4_TILED.load()
+    p = quant_experts(torch, 4, gen, n_layers)
+    layers = [at_layer(p, i) for i in range(n_layers)]
+    w1 = p["w1_q4"].reshape(n_layers * E, D, H // 2)
+    w2 = p["w2_q4"].reshape(n_layers * E, H, D // 2)
+    s1 = [q["w1_scale"].reshape(E, -1, H) for q in layers]
+    s2 = [q["w2_scale"].reshape(E, -1, D) for q in layers]
+    b1, b2 = p["b1"].float(), p["b2"].float()
+    per_expert = (w1[0].numel() + w2[0].numel()
+                  + 4 * (s1[0][0].numel() + s2[0][0].numel())
+                  + 2 * (H + D))              # packed weights, scales, biases
+    for n in STAGE_TOKENS:
+        tile = moe_q4.tiled_tile(n)
+        for a8 in (False, True):
+            x = torch.randn(1, n, D, generator=gen, device="cuda") \
+                .to(torch.bfloat16)
+            gate = routing(torch, "router", n, gen)
+            lay = moe_runs.runs_layout(gate.reshape(n), E, tile)
+            x_pad = moe_runs._pad_tokens(x.reshape(n, D), lay, tile)
+            rows_n = lay.n_tiles * tile
+            hid = torch.empty(rows_n, H, device="cuda", dtype=torch.float32
+                              if a8 else torch.bfloat16)
+            xq = torch.empty(rows_n, D, dtype=torch.int8, device="cuda")
+            hq = torch.empty(rows_n, H, dtype=torch.int8, device="cuda")
+            xs = torch.empty(rows_n, device="cuda")
+            hs = torch.empty(rows_n, device="cuda")
+            y_pad = torch.empty_like(x_pad)
+
+            def raw(i):
+                j = i % n_layers
+                if lib.moe_q4_tiled(
+                        1, int(a8), x_pad.data_ptr(), w1.data_ptr(),
+                        s1[j].data_ptr(), s1[j].shape[1], b1.data_ptr(),
+                        w2.data_ptr(), s2[j].data_ptr(), s2[j].shape[1],
+                        b2.data_ptr(), lay.tile_e.data_ptr(),
+                        lay.starts.data_ptr(), lay.counts.data_ptr(), tile,
+                        lay.n_tiles, E, j, D, H, 0, 0.0, hid.data_ptr(),
+                        xq.data_ptr(), xs.data_ptr(), hq.data_ptr(),
+                        hs.data_ptr(), y_pad.data_ptr(), stream):
+                    raise SystemExit("FAIL times: moe_q4_tiled launch error")
+            ms = cuda_time_ms(torch, lambda i: moe_q4.q4_tiled_kernel.launch(
+                layers[i % n_layers], x, gate, layer=i % n_layers,
+                act_quant=a8), 60)
+            alone = cuda_time_ms(torch, raw, 60)
+            plain_ms = cuda_time_ms(
+                torch, lambda i: moe_q4.moe_experts_q4_tiled_reference(
+                    layers[i % n_layers], x, gate, layer=i % n_layers,
+                    act_quant=a8), 6)
+            record(TILED_NAMES[a8], n, n_active(torch, gate), per_expert, 2,
+                   "int8" if a8 else "bfloat16", ms, alone, plain_ms)
+    return rows
+
+
 def time_flash_kernels(torch, smi):
     """K2 and K3 at the 4x1000 request's attention shapes (B=4, T=S=255,
     valid lengths 249), MoE blocks (H=8, Dk=64) and embed blocks (H=4,
@@ -1327,6 +1793,22 @@ def phase_times(torch, state, smi):
                 "ms": r["ms"], "plain_ms": r["plain_ms"],
                 "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
                 "library_ms": r["library_ms"]})
+    srows = time_stage_kernels(torch, smi)
+    for name, n, source, line in (
+            [(v, STAGE_TOKENS[0], "moe_stream.cu", "pallas_moe.py:147")
+             for v in STREAM_NAMES.values()]
+            + [(v, STAGE_TOKENS[1], "moe_q4_tiled.cu", "pallas_moe_q4.py:596")
+               for v in TILED_NAMES.values()]):
+        r = srows[(name, n)]
+        report.append({
+            "name": name, "route": "cuda",
+            "source": f"m3asr_tpu_torch/csrc/{source}",
+            "replaces": f"m3asr_tpu/ops/{line}",
+            "launches": state["launches_stage"][name],
+            "max_abs_err": state["max_err_stage"][name],
+            "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "library_ms": None})
     return report
 
 
@@ -1344,9 +1826,11 @@ def main():
     phase_build(kernels)
     state = {"max_err": phase_kernel(torch, moe_runs),
              "max_err_q": phase_kernel_quant(torch),
-             "max_err_flash": phase_kernel_flash(torch)}
+             "max_err_flash": phase_kernel_flash(torch),
+             "max_err_stage": phase_kernel_stage(torch)}
     state["launches"] = phase_serve(torch, state)
     state["launches_q"] = phase_serve_quant(torch, state, smi)
+    state["launches_stage"] = phase_serve_stages(torch, state, smi)
     served = phase_serve_flash(torch, state, smi)
     trained = phase_train(torch, state, smi)
     # K2: serving's forwards and the training steps'; K3: the steps'

@@ -2,6 +2,7 @@
 
     python -m m3asr_tpu_torch.build -c config.yaml -m ckpt.pt -o engine_dir
         [-prior prior.txt] [-f | --int8 | --int4 [--act_quant]]
+        [--dense_quant] [--fuse_qkv] [--moe_impl NAME]
         [--attn_impl xla|flash] [--buckets 1x256,4x1024] [--strict]
         [--device cuda|cpu]
 
@@ -9,7 +10,11 @@ Reads a reference YAML config and PyTorch checkpoint, converts the
 weights, and writes an engine directory in the JAX package's format.
 ``--int8`` / ``--int4`` write a bf16 engine with quantized expert
 weights (int4 in 128-row scale groups); ``--act_quant`` adds per-token
-int8 activations in the experts (w8a8 / w4a8). ``--attn_impl flash``
+int8 activations in the experts (w8a8 / w4a8). ``--dense_quant`` stores
+the dense (non-expert) kernels as int8 with per-column scales;
+``--fuse_qkv`` folds each self-attention's q/k/v projections into one.
+``--moe_impl`` bakes an explicit expert stage into ``engine.json`` (the
+JAX engine's names, e.g. ``pallas`` or ``tiled``). ``--attn_impl flash``
 bakes the flash attention kernel (K2) into ``engine.json``.
 Without ``-m`` the weights are random (seed 0). Flags of the JAX
 ``build.py`` that this slice does not run are accepted by name and raise
@@ -54,9 +59,15 @@ def parse_args(argv=None):
     p.add_argument("--act_quant", action="store_true",
                    help="with --int8/--int4: per-token int8 activations "
                    "in the experts (w8a8 / w4a8)")
-    for name in ("fuse_qkv", "dense_quant", "export"):
-        p.add_argument(f"--{name}", action="store_true",
-                       help="not ported yet")
+    p.add_argument("--dense_quant", action="store_true",
+                   help="int8 weight-only dense (non-expert) kernels too")
+    p.add_argument("--fuse_qkv", action="store_true",
+                   help="one fused (D, 3D) q/k/v projection and one "
+                   "rel-pos score product per attention layer")
+    p.add_argument("--moe_impl", default="auto",
+                   help="expert stage: auto, or an explicit name of the "
+                   "JAX engine (pallas, tiled, ragged, capacity, ...)")
+    p.add_argument("--export", action="store_true", help="not ported")
     p.add_argument("-cmvn", "--cmvn_file", help="not ported yet")
     return p.parse_args(argv)
 
@@ -95,7 +106,7 @@ def main(argv=None):
         dtype=dtype, decode_output=args.decode_output,
         attn_impl=args.attn_impl, ep=args.ep, tp=args.tp,
         act_quant=args.act_quant, fuse_qkv=args.fuse_qkv,
-        dense_quant=args.dense_quant))
+        dense_quant=args.dense_quant, moe_impl=args.moe_impl))
     if args.buckets:
         pairs = [tuple(map(int, b.split("x"))) for b in
                  args.buckets.split(",")]

@@ -1,9 +1,10 @@
-// Device code shared by the quantized expert-FFN kernels (moe_runs.cu:
-// K4, K5; moe_q4.cu: K6): the tile GEMMs with their scale-group and
-// bias/SiLU epilogues, the weight loaders of the two quantized formats,
-// and the per-row int8 quantization of the a8 modes. (K1, the float
-// format, keeps its own loop in moe_runs.cu: expressed through these
-// routines, its launches took 20-40% longer on an H100.)
+// Device code shared by the expert-FFN kernels (moe_runs.cu: K4, K5;
+// moe_q4.cu: K6; moe_q4_tiled.cu: K7; moe_stream.cu: K8): the tile GEMMs
+// with their scale-group and bias/SiLU epilogues, the weight loaders of
+// the two quantized formats, the gather of one expert's rows by warp
+// ballots, and the per-row int8 quantization of the a8 modes. (K1, the
+// float format, keeps its own loop in moe_runs.cu: expressed through
+// these routines, its launches took 20-40% longer on an H100.)
 //
 // A block of THREADS threads computes one TM x BN output tile: 32 rows
 // of one expert's tokens x 64 output columns. Each thread owns 2 rows x
@@ -77,6 +78,35 @@ __device__ __forceinline__ int wq(const int8_t* w, int k, int n, int N) {
 
 __device__ __forceinline__ float silu(float v) {
   return v / (1.0f + expf(-v));
+}
+
+// Collects, in row order, the rows r in [base, base + THREADS) of
+// expert e into list (for e == n_experts: the rows of no expert, whose
+// gate lies outside [0, n_experts)). Returns their count; every thread
+// of the block must call it.
+__device__ inline int collect_rows(const int32_t* __restrict__ gate,
+                                   int n_rows, int base, int e, int n_experts,
+                                   int* list, int* warp_count) {
+  __syncthreads();  // list and warp_count are free again
+  const int r = base + threadIdx.x;
+  bool hit = false;
+  if (r < n_rows) {
+    const int g = gate[r];
+    hit = e < n_experts ? g == e : (g < 0 || g >= n_experts);
+  }
+  const unsigned mask = __ballot_sync(0xffffffffu, hit);
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  if (lane == 0) warp_count[warp] = __popc(mask);
+  __syncthreads();
+  int off = 0, total = 0;
+#pragma unroll
+  for (int w = 0; w < THREADS / 32; ++w) {
+    if (w < warp) off += warp_count[w];
+    total += warp_count[w];
+  }
+  if (hit) list[off + __popc(mask & ((1u << lane) - 1u))] = r;
+  __syncthreads();
+  return total;
 }
 
 template <bool GATHER>
@@ -164,13 +194,15 @@ __device__ __forceinline__ void tile_gemm_f(
 //   int8: (float(sum) * as[row]) * scale[0, n]      (pallas_moe_runs.py:287)
 //   int4: (sum_g float(sum_g) * scale[g, n]) * as[row]
 //                                                  (pallas_moe_q4.py:183-187)
-// then + bias, optional SiLU, store.
+// then + bias, optional SiLU, optional clamp at `upper`, store. T is the
+// bias type.
 template <int F, bool SILU, typename T, typename OutT, bool GATHER>
 __device__ __forceinline__ void tile_gemm_s8(
     const int8_t* __restrict__ aq, const float* __restrict__ as,
     const int* rows, int row0, const int8_t* __restrict__ w,
     const float* __restrict__ scale, int G, const T* __restrict__ bias, int K,
-    int N, int n0, OutT* __restrict__ out) {
+    int N, int n0, OutT* __restrict__ out, bool clamp = false,
+    float upper = 0.f) {
   __shared__ __align__(16) int8_t xq[TM][BK];
   // transposed weight slice; rows padded to 36 bytes so the 16 column
   // threads of a row read 16 different banks
@@ -235,6 +267,7 @@ __device__ __forceinline__ void tile_gemm_s8(
                     : __fmul_rn(tot[i][j], ar);
       if (bias != nullptr) v = __fadd_rn(v, to_f(bias[n]));
       if (SILU) v = silu(v);
+      if (clamp) v = fminf(v, upper);
       out[(size_t)row * N + n] = from_f<OutT>(v);
     }
   }
@@ -244,16 +277,16 @@ __device__ __forceinline__ void tile_gemm_s8(
 //   s = amax > 0 ? amax / 127 : 1,  q = clamp(rint(v / s), -127, 127)
 // in float32 with IEEE division; rint rounds half to even as np.round
 // and jnp.round do. One block per row of `in` (K values). Rows past the
-// last real tile (starts != nullptr) or with no expert (gate != nullptr)
-// are skipped: nothing reads them.
+// last real tile (starts != nullptr; tiles of tile_rows rows) or with no
+// expert (gate != nullptr) are skipped: nothing reads them.
 template <typename T>
 __global__ void __launch_bounds__(QTHREADS)
     quant_rows(const T* __restrict__ in, int K,
                const int32_t* __restrict__ starts,
                const int32_t* __restrict__ gate, int n_experts,
-               int8_t* __restrict__ q, float* __restrict__ s) {
+               int tile_rows, int8_t* __restrict__ q, float* __restrict__ s) {
   const int row = blockIdx.x;
-  if (starts != nullptr && row >= starts[n_experts] * TM) return;
+  if (starts != nullptr && row >= starts[n_experts] * tile_rows) return;
   if (gate != nullptr && (gate[row] < 0 || gate[row] >= n_experts)) return;
   const T* r = in + (size_t)row * K;
   float m = 0.f;

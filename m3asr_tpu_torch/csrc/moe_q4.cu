@@ -43,34 +43,6 @@ namespace {
 
 static_assert(TM * BK / 4 == THREADS, "tile_gemm_s8 loads one word each");
 
-// Collects, in row order, the rows r in [base, base + THREADS) of
-// expert e into list (for e == n_experts: the rows of no expert).
-// Returns their count; every thread of the block must call it.
-__device__ int collect_rows(const int32_t* __restrict__ gate, int n_rows,
-                            int base, int e, int n_experts, int* list,
-                            int* warp_count) {
-  __syncthreads();  // list and warp_count are free again
-  const int r = base + threadIdx.x;
-  bool hit = false;
-  if (r < n_rows) {
-    const int g = gate[r];
-    hit = e < n_experts ? g == e : (g < 0 || g >= n_experts);
-  }
-  const unsigned mask = __ballot_sync(0xffffffffu, hit);
-  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
-  if (lane == 0) warp_count[warp] = __popc(mask);
-  __syncthreads();
-  int off = 0, total = 0;
-#pragma unroll
-  for (int w = 0; w < THREADS / 32; ++w) {
-    if (w < warp) off += warp_count[w];
-    total += warp_count[w];
-  }
-  if (hit) list[off + __popc(mask & ((1u << lane) - 1u))] = r;
-  __syncthreads();
-  return total;
-}
-
 // GEMM over the rows of each expert: grid (E [+1], N / BN). A8 selects
 // the s8 tile on quantized rows (aq, as) instead of the float tile on a.
 template <bool A8, bool SILU, typename T, typename OutT>
@@ -157,14 +129,15 @@ int moe_q4_dense(int a8, const void* x, const int32_t* gate, int n_rows,
     return (int)cudaGetLastError();
   }
   quant_rows<T><<<n_rows, QTHREADS, 0, s>>>(xt, d, nullptr, gate, n_experts,
-                                            xq, xs);
+                                            TM, xq, xs);
   RETURN_IF_ERROR();
   dense_gemm<true, true, T, float><<<grid1, THREADS, 0, s>>>(
       nullptr, xq, xs, gate, n_rows, q1, s1, g1, bias1, n_experts, layer, d,
       h, static_cast<float*>(hidden));
   RETURN_IF_ERROR();
   quant_rows<float><<<n_rows, QTHREADS, 0, s>>>(
-      static_cast<const float*>(hidden), h, nullptr, gate, n_experts, hq, hs);
+      static_cast<const float*>(hidden), h, nullptr, gate, n_experts, TM, hq,
+      hs);
   RETURN_IF_ERROR();
   dense_gemm<true, false, T, T><<<grid2, THREADS, 0, s>>>(
       nullptr, hq, hs, gate, n_rows, q2, s2, g2, bias2, n_experts, layer, h,

@@ -200,15 +200,15 @@ int launch_q(int a8, const void* x_pad, const void* w1, const float* s1,
   }
   const int rows = n_tiles * TM;
   quant_rows<T><<<rows, QTHREADS, 0, stream>>>(x, d, starts, nullptr,
-                                                n_experts, xq, xs);
+                                                n_experts, TM, xq, xs);
   RETURN_IF_ERROR();
   runs_gemm_s8<T, F, true, float><<<grid1, THREADS, 0, stream>>>(
       xq, xs, q1, s1, g1, bias1, tile_e, starts, n_experts, layer, d, h,
       static_cast<float*>(hidden));
   RETURN_IF_ERROR();
   quant_rows<float><<<rows, QTHREADS, 0, stream>>>(
-      static_cast<const float*>(hidden), h, starts, nullptr, n_experts, hq,
-      hs);
+      static_cast<const float*>(hidden), h, starts, nullptr, n_experts, TM,
+      hq, hs);
   RETURN_IF_ERROR();
   runs_gemm_s8<T, F, false, T><<<grid2, THREADS, 0, stream>>>(
       hq, hs, q2, s2, g2, bias2, tile_e, starts, n_experts, layer, h, d,

@@ -124,6 +124,28 @@ class KernelLibrary:
                                          vp, i, vp, i, i, i, i, vp, vp, vp,
                                          vp, vp, vp, vp]
             lib.moe_q4_dense.restype = i
+        elif self.source == "moe_q4_tiled.cu":
+            for name in ("moe_q4_tiled_slice_rows", "moe_q4_tiled_col_block",
+                         "moe_q4_tiled_k_step"):
+                getattr(lib, name).argtypes = []
+                getattr(lib, name).restype = i
+            # dtype, a8, x_pad, w1, s1, g1, b1, w2, s2, g2, b2, tile_e,
+            # starts, counts, tile, n_tiles, E, layer, d, h, clamp, upper,
+            # hidden, xq, xs, hq, hs, y_pad, stream
+            lib.moe_q4_tiled.argtypes = [i, i, vp, vp, vp, i, vp, vp, vp, i,
+                                         vp, vp, vp, vp, i, i, i, i, i, i, i,
+                                         ctypes.c_float, vp, vp, vp, vp, vp,
+                                         vp, vp]
+            lib.moe_q4_tiled.restype = i
+        elif self.source == "moe_stream.cu":
+            for name in ("moe_stream_col_block", "moe_stream_k_step"):
+                getattr(lib, name).argtypes = []
+                getattr(lib, name).restype = i
+            # dtype, quant, x, gate, n_rows, w1, s1, b1, w2, s2, b2, E, d,
+            # h, hidden, out, stream
+            lib.moe_stream.argtypes = [i, i, vp, vp, i, vp, vp, vp, vp, vp,
+                                       vp, i, i, i, vp, vp, vp]
+            lib.moe_stream.restype = i
         elif self.source == "flash_attention.cu":
             f = ctypes.c_float
             # dtype, d2, dk, q2, k2, v, [g, lse, delta,] lens, lo, hi,
@@ -142,6 +164,8 @@ class KernelLibrary:
 
 MOE_RUNS = KernelLibrary("moe_runs.cu")   # K1, K4, K5
 MOE_Q4 = KernelLibrary("moe_q4.cu")       # K6
+MOE_Q4_TILED = KernelLibrary("moe_q4_tiled.cu")  # K7
+MOE_STREAM = KernelLibrary("moe_stream.cu")      # K8
 FLASH = KernelLibrary("flash_attention.cu")  # K2, K3
 
-ALL = (MOE_RUNS, MOE_Q4, FLASH)
+ALL = (MOE_RUNS, MOE_Q4, MOE_Q4_TILED, MOE_STREAM, FLASH)

@@ -13,8 +13,18 @@ LN_EPS = 1e-12
 
 
 def linear(p, x: torch.Tensor) -> torch.Tensor:
-    """``y = x @ kernel + bias`` in x's dtype; kernel stored (in, out)."""
-    y = torch.matmul(x, p["kernel"].to(x.dtype))
+    """``y = x @ kernel + bias`` in x's dtype; kernel stored (in, out).
+
+    A dense-quant node (``ops/quant.py::quantize_dense_params``) holds
+    ``kernel_q`` int8 and ``kernel_scale`` float32 (per output column)
+    instead: the weight is ``kernel_q * kernel_scale`` with both factors
+    and the product in x's dtype, as the JAX package rounds it."""
+    kq = p.get("kernel_q")
+    if kq is not None:
+        w = kq.to(x.dtype) * p["kernel_scale"].to(x.dtype)
+    else:
+        w = p["kernel"].to(x.dtype)
+    y = torch.matmul(x, w)
     if p.get("bias") is not None:
         y = y + p["bias"].to(x.dtype)
     return y

@@ -52,6 +52,7 @@ class RunsLayout(NamedTuple):
     starts: torch.Tensor   # (E+1,) int32 first tile of each expert
     tile_e: torch.Tensor   # (n_tiles,) int32 expert owning each tile
     n_tiles: int           # static worst-case tile count
+    counts: torch.Tensor   # (E,) int32 tokens of each expert
 
 
 def runs_layout(flat_e: torch.Tensor, n_experts: int,
@@ -76,7 +77,8 @@ def runs_layout(flat_e: torch.Tensor, n_experts: int,
     tile_e = torch.searchsorted(ends, torch.arange(n_tiles, device=dev),
                                 right=True)
     tile_e = tile_e.clamp_(max=n_experts - 1).to(torch.int32)
-    return RunsLayout(order, slot, starts, tile_e, n_tiles)
+    return RunsLayout(order, slot, starts, tile_e, n_tiles,
+                      counts.to(torch.int32))
 
 
 def weight_format(p) -> str:
@@ -139,7 +141,9 @@ def quant_rows(a: torch.Tensor):
 
 
 def expert_ffn_reference(x: torch.Tensor, w1, s1, b1, w2, s2, b2,
-                         fmt: str, act_quant: bool = False) -> torch.Tensor:
+                         fmt: str, act_quant: bool = False,
+                         upper_bound: Optional[float] = None
+                         ) -> torch.Tensor:
     """One expert's FFN ``silu(x w1 + b1) w2 + b2`` on its rows x (R, d),
     with the kernels' arithmetic; returns float32 (R, d).
 
@@ -150,7 +154,8 @@ def expert_ffn_reference(x: torch.Tensor, w1, s1, b1, w2, s2, b2,
     the hidden rounded to x's dtype. ``act_quant``: x and the float32
     hidden quantized per row, the integer sums taken exactly (float64),
     rescaled in the JAX package's order: int8 ``(t * s_x) * s_w``, int4
-    ``(sum_g t_g * s_w,g) * s_x``."""
+    ``(sum_g t_g * s_w,g) * s_x``. ``upper_bound`` clamps the float32
+    hidden after SiLU (the DFSMN expert's clamp)."""
     cdt = x.dtype
 
     def values(w):
@@ -190,6 +195,8 @@ def expert_ffn_reference(x: torch.Tensor, w1, s1, b1, w2, s2, b2,
     if b1 is not None:
         h = h + b1.float()
     h = swish(h)
+    if upper_bound is not None:
+        h = torch.clamp(h, max=upper_bound)
     if not act_quant:
         h = h.to(cdt).float()
     y = mm(h, w2, s2)
@@ -198,8 +205,9 @@ def expert_ffn_reference(x: torch.Tensor, w1, s1, b1, w2, s2, b2,
     return y
 
 
-def _pad_tokens(x2: torch.Tensor, lay: RunsLayout, tile: int) -> torch.Tensor:
-    x_pad = x2.new_zeros((lay.n_tiles * tile, x2.shape[1]))
+def _pad_tokens(x2: torch.Tensor, lay: RunsLayout, tile: int,
+                fill: float = 0.0) -> torch.Tensor:
+    x_pad = x2.new_full((lay.n_tiles * tile, x2.shape[1]), fill)
     x_pad[lay.slot] = x2[lay.order]
     return x_pad
 
@@ -244,18 +252,19 @@ def moe_experts_runs_reference(p, x: torch.Tensor, gate_idx: torch.Tensor,
 
 
 def check_quant_args(p, x, w1, w2, E: int, fmt: str, col_block: int,
-                     k_step: int):
-    """Raise unless the quantized kernels take these arguments: bf16
-    activations, int8 weights of ``fmt``'s shapes, float32 scale groups
-    of a multiple of ``k_step`` rows (one group for int8), bf16 biases,
-    all contiguous on x's device. Returns (d, h, s1, s2) with the scales
-    as (E, G, out)."""
+                     k_step: int, act_dtypes=(torch.bfloat16,),
+                     bias_dtype=torch.bfloat16):
+    """Raise unless the quantized kernels take these arguments:
+    activations of ``act_dtypes`` (bf16, the quantized engines' type,
+    for K4-K6), int8 weights of ``fmt``'s shapes, float32 scale groups
+    of a multiple of ``k_step`` rows (one group for int8), biases of
+    ``bias_dtype``, all contiguous on x's device. Returns (d, h, s1, s2)
+    with the scales as (E, G, out)."""
     d = x.shape[-1]
     h = w1.shape[-1] * (2 if fmt == "q4" else 1)
-    if x.dtype != torch.bfloat16:
-        raise TypeError(f"the quantized expert kernels take bfloat16 "
-                        f"activations (the quantized engines' type), got "
-                        f"{x.dtype}")
+    if x.dtype not in act_dtypes:
+        raise TypeError(f"this quantized expert kernel takes {act_dtypes} "
+                        f"activations, got {x.dtype}")
     if d % col_block or h % col_block:
         raise ValueError(f"d={d} and h={h} must be multiples of "
                          f"{col_block}")
@@ -265,8 +274,8 @@ def check_quant_args(p, x, w1, w2, E: int, fmt: str, col_block: int,
               ("w2", w2, (w1.shape[0], h, d // div), torch.int8),
               ("w1_scale", s1, (E, s1.shape[1], h), torch.float32),
               ("w2_scale", s2, (E, s2.shape[1], d), torch.float32),
-              ("b1", p.get("b1"), (E, h), torch.bfloat16),
-              ("b2", p.get("b2"), (E, d), torch.bfloat16)]
+              ("b1", p.get("b1"), (E, h), bias_dtype),
+              ("b2", p.get("b2"), (E, d), bias_dtype)]
     for name, t, shape, dtype in checks:
         if t is None:
             continue

@@ -1,6 +1,6 @@
-"""Int8 / int4 expert quantization and the two dequantizing expert
-stages of the quantized engines (port of the serving subset of
-``m3asr_tpu/ops/quant.py``).
+"""Int8 / int4 expert quantization, int8 dense-weight quantization, and
+the dequantizing expert stages of the quantized engines (port of the
+serving subset of ``m3asr_tpu/ops/quant.py``).
 
 Quantization runs in numpy on the host, exactly as the JAX package does
 it (``np.round`` is half-to-even), so both packages write the same bytes
@@ -10,8 +10,9 @@ along the contraction dim, ``(..., in/128, 1, out)``, and packs two
 values per byte (:func:`pack_int4`). Scales are float32 everywhere.
 
 The expert stages here are plain PyTorch on purpose: they are the JAX
-package's XLA einsum paths (impls ``quant`` and ``quant_a8``), not
-Pallas kernels, and round where those round.
+package's XLA einsum paths (impls ``quant``, ``quant_a8``,
+``quant_tiled``, ``quant_a8_tiled``, ``quant_capacity``), not Pallas
+kernels, and round where those round.
 """
 
 from __future__ import annotations
@@ -106,6 +107,61 @@ def quantize_moe_params(p, bits: int = 8,
     return q
 
 
+# Param-tree nodes whose "kernel" is not a matmul weight read by
+# ops.common.linear, or is small and accuracy-critical: the MoE router
+# (its logits feed an argmax), the depthwise conv kernel, the
+# subsampling conv stacks, the positional table.
+DENSE_QUANT_EXCLUDE = ("router", "depthwise_conv", "conv0", "conv1",
+                       "conv2", "pos_enc")
+
+
+def quantize_dense_params(tree, min_size: int = 256,
+                          exclude=DENSE_QUANT_EXCLUDE):
+    """Weight-only int8 for the dense (non-expert) weights: every dict
+    holding a ``kernel`` of at least 2 dims and ``min_size`` values, and
+    not under a node named in ``exclude``, gets ``kernel_q`` int8 and
+    ``kernel_scale`` float32 per output column instead (``(1, out)``, or
+    ``(L, 1, out)`` for stacked ``(L, in, out)`` kernels). Biases and
+    norms stay as they are. Returns a new tree whose new leaves are
+    numpy; the bytes are the JAX package's."""
+    def walk(node, name):
+        if isinstance(node, dict):
+            if name in exclude:
+                return node
+            node = {k: walk(v, k) for k, v in node.items()}
+            k = node.get("kernel")
+            if k is not None and k.ndim >= 2 and int(np.prod(k.shape)) \
+                    >= min_size:
+                q, s = quantize_tensor(k)
+                node.pop("kernel")
+                node["kernel_q"], node["kernel_scale"] = q, s
+            return node
+        if isinstance(node, list):
+            return [walk(v, name) for v in node]
+        return node
+
+    return walk(tree, "")
+
+
+def dequantize_dense_params(tree, dtype: torch.dtype = torch.bfloat16):
+    """Inverse of :func:`quantize_dense_params`: ``kernel = (kernel_q *
+    kernel_scale)`` in float32, rounded to ``dtype`` (bfloat16, the
+    quantized engines' activation type, by default)."""
+    def walk(node):
+        if isinstance(node, dict):
+            node = {k: walk(v) for k, v in node.items()}
+            if "kernel_q" in node:
+                q = torch.as_tensor(node.pop("kernel_q"))
+                s = torch.as_tensor(node.pop("kernel_scale"))
+                node["kernel"] = (q.float() * s.float()).to(dtype)
+            return node
+        if isinstance(node, list):
+            return [walk(v) for v in node]
+        return node
+
+    return walk(tree)
+
+
 def _apply_scale(qf: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
     """qf (..., in, out) * scale in qf's dtype; scale is (..., 1, out)
     (per column) or (..., G, 1, out) (group-wise)."""
@@ -121,6 +177,20 @@ def _deq(p, name: str, dtype: torch.dtype) -> torch.Tensor:
     if q4 is not None:
         return _apply_scale(unpack_int4(q4, dtype), p[name + "_scale"])
     return _apply_scale(p[name + "_q"].to(dtype), p[name + "_scale"])
+
+
+def _gather_deq(p, name: str, tile_e: torch.Tensor,
+                dtype: torch.dtype) -> torch.Tensor:
+    """The tiled stages' per-tile weights: each tile's expert's quantized
+    bytes gathered (packed for int4), then unpacked and scaled in
+    ``dtype``. Returns (n_tiles, in, out)."""
+    idx = tile_e.long()
+    q4 = p.get(name + "_q4")
+    if q4 is not None:
+        qg = unpack_int4(q4[idx], dtype)
+    else:
+        qg = p[name + "_q"][idx].to(dtype)
+    return _apply_scale(qg, p[name + "_scale"][idx])
 
 
 def _select(y: torch.Tensor, gate_idx: torch.Tensor) -> torch.Tensor:
@@ -145,6 +215,36 @@ def moe_experts_dense_q(p, x: torch.Tensor,
     if p.get("b2") is not None:
         y = y + p["b2"].to(x.dtype)[None, :, None, :]
     return _select(y, gate_idx)
+
+
+def moe_experts_capacity_q(p, x: torch.Tensor,
+                           gate_idx: torch.Tensor) -> torch.Tensor:
+    """Impl ``quant_capacity``: the capacity stage
+    (``ops/moe.py::moe_experts_capacity``) on int8 or packed int4
+    weights dequantized in x's dtype."""
+    from m3asr_tpu_torch.ops.moe import moe_experts_capacity
+    deq = dict(p, w1=_deq(p, "w1", x.dtype), w2=_deq(p, "w2", x.dtype))
+    return moe_experts_capacity(deq, x, gate_idx)
+
+
+def moe_experts_tiled_q(p, x: torch.Tensor, gate_idx: torch.Tensor,
+                        tile: int = 128) -> torch.Tensor:
+    """Impl ``quant_tiled``: the tiled grouped GEMM
+    (``ops/moe.py::moe_experts_tiled``) on int8 or packed int4 weights,
+    each tile's expert gathered quantized and dequantized in x's dtype
+    (:func:`_gather_deq`); products and bias adds in x's dtype."""
+    from m3asr_tpu_torch.ops.moe import tiled_tokens, untile
+    E = next(p[k] for k in ("w1_q4", "w1_q") if k in p).shape[0]
+    lay, xt = tiled_tokens(x, gate_idx, E, tile)
+    te = lay.tile_e.long()
+    h = torch.bmm(xt, _gather_deq(p, "w1", lay.tile_e, x.dtype))
+    if p.get("b1") is not None:
+        h = h + p["b1"].to(x.dtype)[te][:, None, :]
+    h = swish(h)
+    y = torch.bmm(h, _gather_deq(p, "w2", lay.tile_e, x.dtype))
+    if p.get("b2") is not None:
+        y = y + p["b2"].to(x.dtype)[te][:, None, :]
+    return untile(y, lay, x.shape)
 
 
 def quantize_act(x: torch.Tensor, qmax: float = 127.0):
@@ -194,3 +294,32 @@ def moe_experts_dense_w8a8(p, x: torch.Tensor,
     if p.get("b2") is not None:
         y = y + p["b2"].to(out_dtype)[None, :, None, :]
     return _select(y, gate_idx)
+
+
+def moe_experts_tiled_w8a8(p, x: torch.Tensor, gate_idx: torch.Tensor,
+                           tile: int = 128) -> torch.Tensor:
+    """Impl ``quant_a8_tiled``: the tiled grouped GEMM with int8 weights
+    and per-token int8 activations (quantized in x's dtype, as
+    ``quant_a8``); each tile's s8 x s8 sums rescaled by the token and
+    column scales in float32, then rounded to x's dtype. Pad rows carry
+    activation scale 1."""
+    from m3asr_tpu_torch.ops.moe import tiled_tokens, untile
+    if "w1_q" not in p or p["w1_q"].dtype != torch.int8:
+        raise ValueError("w8a8 needs int8 expert weights")
+    out_dtype = x.dtype
+    E = p["w1_q"].shape[0]
+    xq, xs = quantize_act(x)
+    lay, xt = tiled_tokens(xq, gate_idx, E, tile)
+    _, st = tiled_tokens(xs, gate_idx, E, tile, fill=1.0)
+    te = lay.tile_e.long()
+    h32 = _int_product("gtd,gdh->gth", xt, p["w1_q"][te])
+    h = (h32 * st * p["w1_scale"][te]).to(out_dtype)
+    if p.get("b1") is not None:
+        h = h + p["b1"].to(out_dtype)[te][:, None, :]
+    h = swish(h)
+    hq, hs = quantize_act(h)
+    y32 = _int_product("gth,ghd->gtd", hq, p["w2_q"][te])
+    y = (y32 * hs * p["w2_scale"][te]).to(out_dtype)
+    if p.get("b2") is not None:
+        y = y + p["b2"].to(out_dtype)[te][:, None, :]
+    return untile(y, lay, x.shape)

@@ -8,7 +8,8 @@ reads what the other wrote:
       config.yaml   the model config (reference YAML schema)
       engine.json   engine settings (dtype, buckets, prior, ...)
       params.npz    weights, flat "a/b/c" paths: floats as float32,
-                    quantized expert weights as int8, scales float32
+                    quantized expert and dense (kernel_q) weights as
+                    int8, scales float32
 
 Precision: ``float32`` engines run full float32 on the card. They turn
 TF32 off for cuBLAS and cuDNN (PyTorch's cuDNN default is TF32 for
@@ -28,11 +29,15 @@ post-subsampling token count. Float engines run K1 (``runs_f``); int4
 runs K6 up to 128 tokens and K5 beyond; int8 runs the plain-PyTorch
 ``quant`` stage up to 128 tokens and K4 beyond; ``act_quant`` swaps each
 for its a8 twin. On ``cuda`` the kernels run; on ``cpu`` their plain
-PyTorch versions do, under the same names.
+PyTorch versions do, under the same names. An explicit ``moe_impl``
+maps as the JAX engine's TPU branch maps it (``pallas`` to K8 on float
+and int8 experts, ``tiled`` to K7 on int4, or a plain-PyTorch stage).
 
 Attention: ``attn_impl="xla"`` (plain PyTorch, the default) or
 ``"flash"``, which runs every attention layer on the flash kernel (K2,
-``ops/flash_attention.py``).
+``ops/flash_attention.py``). ``fuse_qkv`` folds q/k/v into one
+projection and ``dense_quant`` stores the dense kernels as int8, both
+once at construction, in the JAX engine's order.
 """
 
 from __future__ import annotations
@@ -52,8 +57,10 @@ from m3asr_tpu_torch.config import (ModelConfig, model_config_from_dict,
                                     model_config_to_dict)
 from m3asr_tpu_torch.device import resolve_device
 from m3asr_tpu_torch.models import moe_conformer
+from m3asr_tpu_torch.ops.attention import fuse_qkv_params
 from m3asr_tpu_torch.ops.masking import SUBSAMPLED_LENGTH
-from m3asr_tpu_torch.ops.quant import pack_int4, quantize_moe_params
+from m3asr_tpu_torch.ops.quant import (pack_int4, quantize_dense_params,
+                                       quantize_moe_params)
 from m3asr_tpu_torch.runtime.buckets import (BucketSpec, DEFAULT_BATCHES,
                                              DEFAULT_LENGTHS)
 
@@ -71,29 +78,60 @@ MOE_Q4_DENSE_TOKEN_THRESHOLD = 128       # int4: K6, else K5
 MOE_W4A8_DENSE_TOKEN_THRESHOLD = 128     # w4a8: K6 a8, else K5 a8
 MOE_Q8_RUNS_TOKEN_THRESHOLD = 128        # int8/w8a8: quant[_a8], else K4
 
-# Explicit moe_impl requests per engine mode -> the stage the port runs,
-# as the JAX engine's TPU branch maps the names this port has.
-_FLOAT_IMPL = {"auto": "runs_f", "runs": "runs_f", "runs_f": "runs_f",
-               "dense": "dense"}
-_INT8_IMPL = {"dense": "quant", "quant": "quant", "runs": "quant_runs",
-              "runs_f": "quant_runs", "quant_runs": "quant_runs",
-              "quant_a8": "quant_a8", "quant_a8_runs": "quant_a8_runs"}
+# Explicit moe_impl requests per engine mode -> the stage, as the JAX
+# engine's TPU branch maps them (m3asr_tpu/runtime/engine.py:111-132,
+# :146-263). A name outside a mode's table raises ValueError, as there.
+_FLOAT_IMPL = {"runs": "runs_f", "runs_f": "runs_f", "dense": "dense",
+               "ragged": "ragged", "tiled": "tiled",
+               "ragged_padded": "ragged_padded", "capacity": "capacity",
+               "pallas": "pallas"}
+_INT8_IMPL = {"dense": "quant", "capacity": "quant_capacity",
+              "pallas": "quant_pallas", "tiled": "quant_tiled",
+              "runs": "quant_runs", "runs_f": "quant_runs",
+              **{n: n for n in (
+                  "quant", "quant_capacity", "quant_pallas", "quant_tiled",
+                  "quant_a8", "quant_a8_tiled", "quant4_pallas",
+                  "quant4_tiled", "quant4_a8", "quant4_a8_tiled",
+                  "quant_runs", "quant_a8_runs", "quant4_runs",
+                  "quant4_a8_runs")}}
 _W8A8_IMPL = {"dense": "quant_a8", "quant": "quant_a8",
-              "quant_a8": "quant_a8", "runs": "quant_a8_runs",
-              "runs_f": "quant_a8_runs", "quant_runs": "quant_a8_runs",
+              "quant_a8": "quant_a8", "tiled": "quant_a8_tiled",
+              "quant_tiled": "quant_a8_tiled",
+              "quant_a8_tiled": "quant_a8_tiled",
+              "runs": "quant_a8_runs", "runs_f": "quant_a8_runs",
+              "quant_runs": "quant_a8_runs",
               "quant_a8_runs": "quant_a8_runs"}
-_INT4_IMPL = {"dense": "quant4_pallas", "quant": "quant4_pallas",
-              "pallas": "quant4_pallas", "quant_pallas": "quant4_pallas",
-              "quant4_pallas": "quant4_pallas", "quant4_a8": "quant4_a8",
+# int4 engines: the JAX engine's int4 branches, then its int8 table for
+# the names they do not take
+_INT4_IMPL = {**_INT8_IMPL,
               "runs": "quant4_runs", "runs_f": "quant4_runs",
-              "quant4_runs": "quant4_runs",
-              "quant4_a8_runs": "quant4_a8_runs"}
-_W4A8_IMPL = {"dense": "quant4_a8", "quant": "quant4_a8",
-              "pallas": "quant4_a8", "quant_pallas": "quant4_a8",
-              "quant4_pallas": "quant4_a8", "quant4_a8": "quant4_a8",
+              **{n: "quant4_pallas" for n in (
+                  "dense", "quant", "pallas", "quant_pallas",
+                  "quant4_pallas")},
+              **{n: "quant4_tiled" for n in (
+                  "tiled", "quant_tiled", "quant4_tiled")}}
+_W4A8_IMPL = {**_W8A8_IMPL,
               "runs": "quant4_a8_runs", "runs_f": "quant4_a8_runs",
+              "quant4_runs": "quant4_runs",
               "quant4_a8_runs": "quant4_a8_runs",
-              "quant4_runs": "quant4_runs"}
+              **{n: "quant4_a8" for n in (
+                  "dense", "quant", "pallas", "quant_pallas",
+                  "quant4_pallas", "quant4_tiled", "quant4_a8")},
+              **{n: "quant4_a8_tiled" for n in (
+                  "tiled", "quant_tiled", "quant4_a8_tiled")}}
+# the stages each expert weight format runs; a name the JAX engine maps
+# to a stage that cannot run on its weights fails there when traced
+# (KeyError, or ValueError "w8a8 needs int8 expert weights")
+_RUNS_ON = {
+    None: {"dense", "ragged", "tiled", "ragged_padded", "capacity",
+           "pallas", "runs_f"},
+    8: {"quant", "quant_capacity", "quant_pallas", "quant_tiled",
+        "quant_a8", "quant_a8_tiled", "quant_runs", "quant_a8_runs",
+        "quant4_runs", "quant4_a8_runs"},
+    4: {"quant", "quant_capacity", "quant_pallas", "quant_tiled",
+        "quant4_pallas", "quant4_tiled", "quant4_a8", "quant4_a8_tiled",
+        "quant_runs", "quant_a8_runs", "quant4_runs", "quant4_a8_runs"},
+}
 
 
 def moe_auto_impl(tokens: int, requested: str = "auto",
@@ -103,38 +141,38 @@ def moe_auto_impl(tokens: int, requested: str = "auto",
     tokens: the JAX engine's ``moe_auto_impl`` with its TPU branch as the
     card's policy. quant_bits: None (float), 8 or 4; act_quant: w8a8 /
     w4a8. An explicit ``requested`` name maps as the JAX engine maps it;
-    one this port does not run raises NotImplementedError."""
+    one the JAX engine refuses, or maps to a stage that cannot run on the
+    engine's expert weights, raises ValueError."""
     small = tokens <= (MOE_Q8_RUNS_TOKEN_THRESHOLD if quant_bits == 8
                        else MOE_W4A8_DENSE_TOKEN_THRESHOLD if act_quant
                        else MOE_Q4_DENSE_TOKEN_THRESHOLD)
-    if quant_bits == 4:
-        if requested == "auto":
-            if act_quant:
-                return "quant4_a8" if small else "quant4_a8_runs"
+    if requested == "auto":
+        if quant_bits == 4 and act_quant:
+            return "quant4_a8" if small else "quant4_a8_runs"
+        if quant_bits == 4:
             return "quant4_pallas" if small else "quant4_runs"
-        table = _W4A8_IMPL if act_quant else _INT4_IMPL
-    elif quant_bits == 8:
-        if requested == "auto":
-            if act_quant:
-                return "quant_a8" if small else "quant_a8_runs"
+        if quant_bits == 8 and act_quant:
+            return "quant_a8" if small else "quant_a8_runs"
+        if quant_bits == 8:
             return "quant" if small else "quant_runs"
-        table = _W8A8_IMPL if act_quant else _INT8_IMPL
-    else:
-        table = _FLOAT_IMPL
+        return "runs_f"
+    table = {(None, False): _FLOAT_IMPL, (8, False): _INT8_IMPL,
+             (8, True): _W8A8_IMPL, (4, False): _INT4_IMPL,
+             (4, True): _W4A8_IMPL}[(quant_bits, act_quant)]
     impl = table.get(requested)
-    if impl is None:
-        raise NotImplementedError(
-            f"moe_impl {requested!r} is not ported for this engine mode; "
-            f"the port runs {sorted(table)} here (ROADMAP Queue 1 item 6b "
-            "brings the tiled, ragged, capacity and streamer impls)")
+    if impl is None or impl not in _RUNS_ON[quant_bits]:
+        mode = {None: "float", 8: "int8", 4: "int4"}[quant_bits] \
+            + (" act_quant" if act_quant else "")
+        runnable = sorted(k for k, v in table.items()
+                          if v in _RUNS_ON[quant_bits])
+        raise ValueError(f"moe_impl={requested!r} cannot run on {mode} "
+                         f"expert weights; choose one of {runnable}")
     return impl
 
 
 # JAX engine.json settings this slice does not run: name -> (the value
 # the port runs, the ROADMAP item that brings the others)
 _NOT_PORTED = {
-    "fuse_qkv": (False, "Queue 1 item 6b (dense_quant, fuse_qkv)"),
-    "dense_quant": (False, "Queue 1 item 6b (dense_quant, fuse_qkv)"),
     "ep": (1, "Queue 1 item 12 (parallelism)"),
     "tp": (1, "Queue 1 item 12 (parallelism)"),
     "return_hidden": (False, "Queue 1 item 8 (decode outputs and taps)"),
@@ -156,6 +194,12 @@ class EngineConfig:
                                       # activations (w8a8 / w4a8)
     attn_impl: str = "xla"            # xla | flash: every attention layer
                                       # on the flash kernel (K2)
+    fuse_qkv: bool = False            # one (D, 3D) q/k/v projection and one
+                                      # rel-pos score product per layer
+                                      # (ops/attention.fuse_qkv_params)
+    dense_quant: bool = False         # int8 weight-only dense (non-expert)
+                                      # kernels (ops/quant.py
+                                      # quantize_dense_params)
 
     def validate(self) -> None:
         if self.dtype not in _DTYPES:
@@ -165,6 +209,11 @@ class EngineConfig:
                              "dtype='int8' (w8a8) or dtype='int4' (w4a8)")
         if self.attn_impl not in ("xla", "flash"):
             raise ValueError(f"unknown attn_impl {self.attn_impl!r}")
+        if self.fuse_qkv and self.attn_impl == "flash":
+            raise NotImplementedError(
+                "fuse_qkv with attn_impl='flash': the flash kernels read "
+                "the separate q/k/v weights, as the JAX engine's do "
+                "(ROADMAP Queue 1 item 7)")
         if self.decode_output in ("argmax", "topk", "beam"):
             raise NotImplementedError(
                 f"decode_output {self.decode_output!r} is not ported yet: "
@@ -172,7 +221,7 @@ class EngineConfig:
         if self.decode_output not in ("logits", "log_softmax"):
             raise ValueError(f"unknown decode_output {self.decode_output!r}")
         moe_auto_impl(1, self.moe_impl, _QUANT_BITS.get(self.dtype),
-                      self.act_quant)          # raises on an unported name
+                      self.act_quant)          # raises on a refused name
 
 
 def config_from_engine_json(meta: Dict) -> Tuple[EngineConfig, Optional[list]]:
@@ -241,13 +290,20 @@ class Engine:
             log.info("TF32 disabled for cuBLAS and cuDNN")
         self.params = to_torch(params, self.device, self.dtype)
         blocks = self.params["blocks"]
+        # the JAX engine's order: cast, quantize the experts, fuse q/k/v,
+        # quantize the dense kernels. Each step leaves params that already
+        # carry it (an engine dir, another engine's tree) as they are.
         if self.quant_bits is not None and "w1" in blocks["feed_forward"]:
-            # quantize once, from the bf16 values, unless the params
-            # (an engine dir, another engine's tree) already are
+            # quantize once, from the bf16 values
             blocks["feed_forward"] = to_torch(
                 quantize_moe_params(blocks["feed_forward"],
                                     bits=self.quant_bits),
                 self.device, self.dtype)
+        if self.cfg.fuse_qkv:
+            self.params = fuse_qkv_params(self.params)
+        if self.cfg.dense_quant:
+            self.params = to_torch(quantize_dense_params(self.params),
+                                   self.device, self.dtype)
         self.neg_log_prior = None
         if prior is not None and self.cfg.use_prior:
             self.neg_log_prior = torch.as_tensor(

@@ -175,13 +175,15 @@ def test_engine_without_device_needs_a_card():
 
 
 @pytest.mark.parametrize("setting", [
-    {"dtype": "int8", "dense_quant": True},
-    {"dtype": "int4", "fuse_qkv": True},
-    {"dtype": "int4", "moe_impl": "quant4_tiled"},
-    {"dense_quant": True}, {"fuse_qkv": True}, {"moe_impl": "ragged"},
+    {"fuse_qkv": True, "attn_impl": "flash"},
+    {"dtype": "int8", "dense_quant": True, "tp": 2},
+    {"dtype": "int4", "fuse_qkv": True, "ep": 2},
+    {"dtype": "int4", "moe_impl": "quant4_tiled", "ep": 2},
+    {"dense_quant": True, "ep": 2}, {"fuse_qkv": True, "tp": 2},
+    {"moe_impl": "ragged", "return_hidden": True},
     {"ep": 2}, {"tp": 2}, {"return_taps": True}, {"return_hidden": True},
     {"decode_output": "argmax"}, {"decode_output": "beam"},
-    {"moe_impl": "tiled"}])
+    {"decode_output": "topk"}])
 def test_unsupported_engine_json_raises(setting):
     meta = dict(dtype="float32", fp32_precision="high", donate_input=True,
                 nnet_proto="conformer_fmoe_localComm_catEmbed")
@@ -194,8 +196,8 @@ def test_flash_engine_matches_jax_engine_and_roundtrips(tmp_path):
     """An attn_impl="flash" engine (K2's plain version on the CPU) against
     the JAX engine's XLA attention on the same checkpoint, allclose(rtol
     1e-5, atol 1e-3) on the valid region; its engine.json carries
-    attn_impl both ways, and fuse_qkv with flash is refused (the JAX
-    engine refuses the pair; the port refuses fuse_qkv altogether)."""
+    attn_impl both ways, and fuse_qkv with flash is refused (as the JAX
+    engine refuses the pair)."""
     feat = _write_inputs(tmp_path)
     lens = np.array([57, 40], np.int32)
     jeng = _jax_engine()
@@ -243,14 +245,24 @@ def test_build_cli_attn_impl_flash(tmp_path):
 
 
 def test_build_cli_rejects_unported_flags(tmp_path):
+    """--export and -cmvn stay refused, as do the DFSMN protos;
+    --dense_quant and --fuse_qkv build an int8 engine that serves, with
+    the settings in engine.json."""
     _write_inputs(tmp_path)
-    for flag in ("--dense_quant", "--fuse_qkv"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            t_build.main(["-c", str(tmp_path / "cfg.yaml"), "-o",
-                          str(tmp_path / "e"), "--int8", flag,
-                          "--device", "cpu"])
+    args = ["-c", str(tmp_path / "cfg.yaml"), "-o", str(tmp_path / "e"),
+            "--int8", "--device", "cpu", "--buckets", "2x64"]
+    with pytest.raises(NotImplementedError, match="export"):
+        t_build.main(args + ["--export"])
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        t_build.main(args + ["-cmvn", str(tmp_path / "cmvn")])
     with pytest.raises(NotImplementedError):
         t_config({"nnet_proto": "dfsmn_san_res"})
+    t_build.main(args + ["--dense_quant", "--fuse_qkv"])
+    eng = Engine.load(str(tmp_path / "e"), device="cpu")
+    assert eng.cfg.dense_quant and eng.cfg.fuse_qkv
+    out, out_len = eng.infer(np.load(tmp_path / "feat.npy"),
+                             np.array([57, 57]))
+    assert out.shape == (2, 13, 11) and np.isfinite(out).all()
 
 
 # ---------------------------------------------------------------------------

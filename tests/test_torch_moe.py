@@ -164,12 +164,12 @@ def test_moe_ffn_and_gate_match_jax(impl):
 
 def test_kernel_launch_without_cuda_raises():
     """A launch never falls back: CPU tensors handed to the kernel path
-    raise, and an unported impl raises."""
+    raise, and an unknown impl raises."""
     p = params_from_jax(expert_params(13))
     x = torch.zeros(1, 4, D)
     gate = torch.zeros(1, 4, dtype=torch.int32)
     with pytest.raises(ValueError, match="CUDA"):
         runs_kernel.launch(p, x, gate)
     assert runs_kernel.launches == 0
-    with pytest.raises(NotImplementedError):
-        t_moe._dispatch(p, x, gate, "tiled")
+    with pytest.raises(ValueError, match="unknown moe impl"):
+        t_moe._dispatch(p, x, gate, "tiles")

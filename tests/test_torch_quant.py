@@ -279,7 +279,7 @@ def test_q4_dense_plain_zero_rows_and_bf16():
 
 def test_quant_kernel_launch_without_cuda_raises():
     """No fallback: CPU tensors handed to a kernel path raise, wrong
-    weights raise, and an unported impl name raises."""
+    weights raise, and an unknown impl name raises."""
     p = float_experts(17, E=2, D=64, H=64)
     _, t8 = quantized(p, 8)
     _, t4 = quantized(p, 4)
@@ -296,8 +296,8 @@ def test_quant_kernel_launch_without_cuda_raises():
     with pytest.raises(ValueError, match="act_quant"):
         moe_experts_runs_reference(params_from_jax(p), x, gate,
                                    act_quant=True)
-    for impl in ("quant_tiled", "quant4_tiled", "quant_pallas"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+    for impl in ("quant5_tiled", "quant4_pallas_tiled"):
+        with pytest.raises(ValueError, match="unknown moe impl"):
             t_moe._dispatch(t8, x, gate, impl)
 
 
