@@ -9,7 +9,9 @@ result line:
 1. device: the card's name, and its name and power limit as nvidia-smi
    reports them.
 2. build: every hand-written kernel, compiled by nvcc from csrc/ (one
-   nvcc per source, all started together).
+   nvcc per source, all started together), with ptxas registers and
+   spills per instantiation; the flash kernels' SASS (cuobjdump) must run
+   bf16 on HMMA.16816.F32.BF16 and float32 on FFMA, with no atomic.
 3. kernels against their plain PyTorch versions at the flagship widths
    (E=32, d=512, h=1024):
    K1 (float run-length, moe_runs_f): stacked L=18 at layers 0 and 17,
@@ -30,7 +32,10 @@ result line:
    at B=4, T=S=255 and B=1, T=S=511, heads (H=8, Dk=64) and (H=4,
    Dk=128), fp32 and bf16, under mixed lengths (with a 7-frame and a
    zero-length row), a 16-frame static chunk window, and that window
-   with mem_cols=4. Each output within FLASH_TOL of max|ref| (fp32 2e-6,
+   with mem_cols=4, at the wrapper's tile heights; then at B=4, T=255
+   with the window, every tile height each kernel is built for (K2 16,
+   32, 64 rows; K3 16, 32), where two K3 calls must give bit-identical
+   gradients. Each output within FLASH_TOL of max|ref| (fp32 2e-6,
    float32 sums in another order; bf16 2e-2); the LSE on rows with a key
    to attend.
    K8 (dense float/int8 streamer) on fp32, bf16 and int8 weights (int8
@@ -102,8 +107,9 @@ result line:
    times, the busy share of one step under torch.profiler, peak memory.
 9. times: each kernel per call (CUDA events over many calls after
    warm-up, layers rotated so weights come from device memory) and its
-   launches alone, at the main path's token counts, beside its bound,
-   the plain version's time and, for K2/K3,
+   launches alone, at the main path's token counts (K2/K3 at both long
+   requests' attention shapes, with each launch's tile rows and blocks),
+   beside its bound, the plain version's time and, for K2/K3,
    scaled_dot_product_attention's; the float engines' request latency,
    peak device memory and device time of one request under
    torch.profiler with the kernels that took most of it.
@@ -144,7 +150,7 @@ MODES = {("int8", False): "int8", ("int8", True): "w8a8",
 # MoE block (None: the plain-PyTorch quant stage, no kernel)
 QUANT_EXPECT = {"int8": (None, "K4", "K4"), "int4": ("K6", "K5", "K5")}
 # K2/K3 against their plain versions: max|diff| / max|ref| per output
-# (the first card run saw at most 5.6e-7 in float32 and 5.0e-3 in bf16)
+# (FMA kernels: at most 6.5e-7 in float32; MMA kernels 6.8e-3 in bf16)
 FLASH_TOL = {"float32": 2e-6, "bfloat16": 2e-2}
 
 
@@ -175,10 +181,7 @@ def phase_build(kernels):
             # its spills, then its registers and shared memory
             mangled = [ln.split("'")[1] for ln in lib.log.splitlines()
                        if "Compiling entry function" in ln]
-            names = iter(subprocess.run(
-                ["c++filt"], input="\n".join(mangled), capture_output=True,
-                text=True, check=True).stdout.splitlines()
-                if shutil.which("c++filt") else mangled)
+            names = iter(demangle(mangled))
             ptxas = []
             for ln in lib.log.splitlines():
                 if "Compiling entry function" in ln:
@@ -197,6 +200,50 @@ def phase_build(kernels):
                 f"{' '.join(lib.command[:4])} ...; ptxas: "
                 + " | ".join(ptxas))
     log(f"build: all kernels in {time.perf_counter() - t0:.2f} s")
+    flash_sass(kernels)
+
+
+def demangle(names):
+    """C++ names demangled by c++filt where the host has it."""
+    if not names or not shutil.which("c++filt"):
+        return list(names)
+    return subprocess.run(["c++filt"], input="\n".join(names),
+                          capture_output=True, text=True,
+                          check=True).stdout.splitlines()
+
+
+def flash_sass(kernels):
+    """The arithmetic instructions of every flash kernel instantiation,
+    from cuobjdump -sass of the built library: each bf16 one must run on
+    HMMA.16816.F32.BF16, each float32 one on FFMA (no TF32 MMA), and none
+    may hold an atomic (ATOM, RED)."""
+    cuobjdump = os.path.join(os.path.dirname(kernels.find_nvcc()),
+                             "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", kernels.FLASH.build()],
+                          capture_output=True, text=True, check=True).stdout
+    funcs, counts = [], []
+    for ln in sass.splitlines():
+        if "Function :" in ln:
+            funcs.append(ln.split("Function :")[1].strip())
+            counts.append({})
+        elif funcs and "/*" in ln and ";" in ln:
+            words = ln.split("*/", 1)[1].split()
+            op = words[1] if words[0].startswith("@") else words[0]
+            if op.startswith(("HMMA", "FFMA", "ATOM", "RED")):
+                op = op.split(".")[0] if op.startswith("FFMA") else op
+                counts[-1][op] = counts[-1].get(op, 0) + 1
+    lines = []
+    for name, c in zip(demangle(funcs), counts):
+        short = short_name(name.replace("<", "[").replace(">", "]"))
+        want = "HMMA.16816.F32.BF16" if "bfloat16" in short else "FFMA"
+        lines.append(f"{short}: " + ", ".join(
+            f"{k} x{v}" for k, v in sorted(c.items())))
+        wrong = [k for k in c if k.startswith(("HMMA", "ATOM", "RED"))
+                 and k != want]
+        if not c.get(want) or wrong:
+            raise SystemExit(f"FAIL build: {short} runs {sorted(c)}, "
+                             f"not {want} alone")
+    log("sass flash_attention.cu (cuobjdump -sass): " + " | ".join(lines))
 
 
 def expert_weights(torch, dtype, gen):
@@ -503,56 +550,72 @@ FLASH_HEADS = ((8, 64), (4, 128))        # (H, Dk): MoE, embed blocks
 
 def phase_kernel_flash(torch):
     """K2 (out, LSE) and K3 (dq2, dk2, dv) against their plain versions at
-    the flagship's shapes, head widths, types and masks. Returns the worst
-    max_abs_err of each (kernel, dtype)."""
+    the flagship's shapes, head widths, types and masks, with the wrapper's
+    tile heights; then every tile height each kernel is built for at B=4,
+    T=255, where two K3 calls must also give bit-identical gradients.
+    Returns the worst max_abs_err of each (kernel, dtype)."""
     from m3asr_tpu_torch.ops import flash_attention as fa
     gen = torch.Generator(device="cuda").manual_seed(6)
     worst = {}
-    for dtype in (torch.float32, torch.bfloat16):
+
+    def check(dtype, B, T, H, Dk, masks, rows=None):
         dname = str(dtype)[6:]
         tol = FLASH_TOL[dname]
+        q2, k2, v, g, lens, window, mem = flash_inputs(
+            torch, B, T, H, Dk, dtype, masks, gen)
+        scale = Dk ** -0.5
+        fwd_rows, bwd_rows = (None, None) if rows is None else (
+            rows, (min(rows, 32),) * 2)
+        out, lse = fa.flash_kernels.forward(
+            q2, k2, v, lens, scale, window, mem, True, rows=fwd_rows)
+        delta = (g.float() * out.float()).sum(-1, keepdim=True)
+        grads = fa.flash_kernels.backward(q2, k2, v, g, lse, delta, lens,
+                                          scale, window, mem, rows=bwd_rows)
+        torch.cuda.synchronize()
+        r_out, r_lse = fa.flash_attention_reference(
+            q2, k2, v, lens, scale, window, mem)
+        r_grads = fa.flash_attention_bwd_reference(
+            q2, k2, v, g, r_lse,
+            (g.float() * r_out.float()).sum(-1, keepdim=True),
+            lens, scale, window, mem)
+        label = (f"kernel flash {dname} B={B} T={T} H={H} Dk={Dk} {masks} "
+                 f"rows={'auto' if rows is None else rows}")
+        rels = []
+        keep = r_lse > -1e29       # rows with a key to attend
+        for kern, name, a, r in (
+                ("K2", "out", out, r_out),
+                ("K2", "lse", lse[keep], r_lse[keep]),
+                ("K3", "dq2", grads[0], r_grads[0]),
+                ("K3", "dk2", grads[1], r_grads[1]),
+                ("K3", "dv", grads[2], r_grads[2])):
+            err = (a.float() - r.float()).abs().max().item()
+            rel = err / r.float().abs().max().item()
+            rels.append(f"{name} {rel:.2e}")
+            worst[(kern, dname)] = max(worst.get((kern, dname), 0.0), err)
+            if not (rel <= tol and np.isfinite(err)):
+                log(f"{label}: {name} max|diff|/max|ref|={rel:.3e} > {tol} "
+                    "FAIL")
+                raise SystemExit(f"FAIL kernel: flash {name} disagrees with "
+                                 "its plain version")
+        if rows is not None:     # K3 repeats bit for bit (no atomics)
+            again = fa.flash_kernels.backward(
+                q2, k2, v, g, lse, delta, lens, scale, window, mem,
+                rows=bwd_rows)
+            if not all(torch.equal(a, b) for a, b in zip(grads, again)):
+                raise SystemExit(f"FAIL kernel: {label}: two K3 calls gave "
+                                 "different gradients")
+            rels.append("K3 bit-identical twice")
+        log(f"{label} lens={lens.tolist()}: max|diff|/max|ref| "
+            + ", ".join(rels) + " OK")
+
+    for dtype in (torch.float32, torch.bfloat16):
         for B, T in FLASH_SHAPES:
             for H, Dk in FLASH_HEADS:
                 for masks in ("lengths", "window", "mem_cols"):
-                    q2, k2, v, g, lens, window, mem = flash_inputs(
-                        torch, B, T, H, Dk, dtype, masks, gen)
-                    scale = Dk ** -0.5
-                    out, lse = fa.flash_kernels.forward(
-                        q2, k2, v, lens, scale, window, mem, True)
-                    grads = fa.flash_kernels.backward(
-                        q2, k2, v, g, lse,
-                        (g.float() * out.float()).sum(-1, keepdim=True),
-                        lens, scale, window, mem)
-                    torch.cuda.synchronize()
-                    r_out, r_lse = fa.flash_attention_reference(
-                        q2, k2, v, lens, scale, window, mem)
-                    r_grads = fa.flash_attention_bwd_reference(
-                        q2, k2, v, g, r_lse,
-                        (g.float() * r_out.float()).sum(-1, keepdim=True),
-                        lens, scale, window, mem)
-                    rels = []
-                    keep = r_lse > -1e29       # rows with a key to attend
-                    for kern, name, a, r in (
-                            ("K2", "out", out, r_out),
-                            ("K2", "lse", lse[keep], r_lse[keep]),
-                            ("K3", "dq2", grads[0], r_grads[0]),
-                            ("K3", "dk2", grads[1], r_grads[1]),
-                            ("K3", "dv", grads[2], r_grads[2])):
-                        err = (a.float() - r.float()).abs().max().item()
-                        rel = err / r.float().abs().max().item()
-                        rels.append(f"{name} {rel:.2e}")
-                        worst[(kern, dname)] = max(
-                            worst.get((kern, dname), 0.0), err)
-                        if not (rel <= tol and np.isfinite(err)):
-                            log(f"kernel flash {dname} B={B} T={T} H={H} "
-                                f"Dk={Dk} {masks}: {name} max|diff|/max|ref|"
-                                f"={rel:.3e} > {tol} FAIL")
-                            raise SystemExit(
-                                f"FAIL kernel: flash {name} disagrees with "
-                                "its plain version")
-                    log(f"kernel flash {dname} B={B} T={T} H={H} Dk={Dk} "
-                        f"{masks} lens={lens.tolist()}: max|diff|/max|ref| "
-                        + ", ".join(rels) + " OK")
+                    check(dtype, B, T, H, Dk, masks)
+        for H, Dk in FLASH_HEADS:
+            for rows in fa.FWD_ROWS:
+                check(dtype, 4, 255, H, Dk, "window", rows)
     return worst
 
 
@@ -1258,7 +1321,8 @@ def phase_train(torch, state, smi):
         if label == "flash":
             launches["float32"] = per_step
             loss32 = losses[0]
-            dev_ms = step_device_ms(torch, step, params, opt_state, batch)
+            dev_ms = profiled_ms(  # one step, after the four above
+                torch, lambda: step(params, opt_state, *batch), 1, warmup=0)
             log(f"device time train flash: {dev_ms:.3f} ms in one step "
                 f"under torch.profiler, {dev_ms / np.median(ms):.3f} of the "
                 f"median step; {smi}")
@@ -1274,19 +1338,6 @@ def phase_train(torch, state, smi):
         p = s = None
         torch.cuda.empty_cache()
     return launches
-
-
-def step_device_ms(torch, step, params, opt_state, batch):
-    """Device time of one training step under torch.profiler: the summed
-    duration of the kernels and copies the card ran, in ms."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        _, _, m = step(params, opt_state, *batch)
-        m["loss"].item()
-    return sum(e.time_range.elapsed_us() for e in prof.events()
-               if e.device_type == DeviceType.CUDA) / 1e3
 
 
 def cuda_time_ms(torch, fn, iters):
@@ -1305,6 +1356,50 @@ def cuda_time_ms(torch, fn, iters):
     t1.record()
     torch.cuda.synchronize()
     return t0.elapsed_time(t1) / iters
+
+
+def profiled_ms(torch, fn, iters, warmup=3):
+    """Device time of one fn() call: the summed duration of the kernels
+    and copies the card ran under torch.profiler over iters calls (after
+    warmup calls), over iters. Unlike cuda_time_ms it leaves out the
+    host's gaps between launches."""
+    return profiled_events(torch, fn, iters, warmup)[0]
+
+
+def profiled_events(torch, fn, iters, warmup=3):
+    """profiled_ms and the number of device events it summed."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    us = [e.time_range.elapsed_us() for e in prof.events()
+          if e.device_type == DeviceType.CUDA]
+    return sum(us) / 1e3 / iters, len(us)
+
+
+def paired_device_ms(torch, fa, fb, rounds=4, iters=20):
+    """profiled_ms of fa and fb taken in turns (a b b a a b b a ...), so
+    that the card's state drifts over both alike: the median and the
+    range of each, as ((med, lo, hi), (med, lo, hi)). A round whose trace
+    holds fewer device events than that function's fullest round lost
+    some to the profiler (it happens on the card's machine) and is left
+    out."""
+    runs = ([], [])
+    for i in range(rounds):
+        for j in ((0, 1) if i % 2 == 0 else (1, 0)):
+            runs[j].append(profiled_events(torch, (fa, fb)[j], iters))
+    out = []
+    for r in runs:
+        full = max(n for _, n in r)
+        t = [ms for ms, n in r if n == full]
+        out.append((float(np.median(t)), min(t), max(t)))
+    return tuple(out)
 
 
 def short_name(kernel):
@@ -1590,103 +1685,137 @@ def time_stage_kernels(torch, smi):
     return rows
 
 
+FLASH_TIME_SHAPES = ((4, 255, 249), (1, 511, 511))   # (B, T = S, valid)
+
+
 def time_flash_kernels(torch, smi):
-    """K2 and K3 at the 4x1000 request's attention shapes (B=4, T=S=255,
-    valid lengths 249), MoE blocks (H=8, Dk=64) and embed blocks (H=4,
-    Dk=128), f32 and bf16: the wrapper call, the CUDA launches alone, the
-    plain version, one PyTorch call that computes the same function
+    """K2 and K3 at the two attention shapes of the main path: the 4x1000
+    request's (B=4, T=S=255, valid lengths 249) and the 1x2048 request's
+    (B=1, T=S=511, all valid), MoE blocks (H=8, Dk=64) and embed blocks
+    (H=4, Dk=128), f32 and bf16: the wrapper call, the CUDA launches alone
+    (with each launch's tile rows and blocks), the plain version, one
+    PyTorch call that computes the same function
     (scaled_dot_product_attention with a boolean key mask; its backward
-    through autograd), and the bound. Returns rows keyed by (kernel,
-    dtype, H)."""
+    through autograd), and the bound; and the device time alone, under
+    torch.profiler, of the wrapper call and of the PyTorch call, which
+    the host's speed does not move, taken in turns (paired_device_ms).
+    Returns rows keyed by (kernel, dtype, B, H)."""
     import torch.nn.functional as F
     from m3asr_tpu_torch import kernels
     from m3asr_tpu_torch.ops import flash_attention as fa
     gen = torch.Generator(device="cuda").manual_seed(8)
     lib = kernels.FLASH.load()
     stream = torch.cuda.current_stream().cuda_stream
-    B, T = 4, 255
-    n_valid = 249
     rows = {}
-    for dtype in (torch.float32, torch.bfloat16):
-        dname = str(dtype)[6:]
-        code = 0 if dtype == torch.float32 else 1
-        for Hh, Dk in FLASH_HEADS:
-            D2, scale = 2 * Dk, Dk ** -0.5
-            q2, k2, v, g, _, _, _ = flash_inputs(torch, B, T, Hh, Dk, dtype,
-                                                  "lengths", gen)
-            lens = torch.full((B,), n_valid, dtype=torch.int32,
-                              device="cuda")
-            out, lse = fa.flash_kernels.forward(q2, k2, v, lens, scale,
-                                                return_lse=True)
-            delta = (g.float() * out.float()).sum(-1, keepdim=True)
-            out_k, dq2, dk2, dv = (torch.empty_like(t)
-                                   for t in (out, q2, k2, v))
-            args = (code, D2, Dk, q2.data_ptr(), k2.data_ptr(), v.data_ptr())
-            masks = (lens.data_ptr(), None, None, 0, B, Hh, T, T, scale)
+    for B, T, n_valid in FLASH_TIME_SHAPES:
+        for dtype in (torch.float32, torch.bfloat16):
+            dname = str(dtype)[6:]
+            code = 0 if dtype == torch.float32 else 1
+            for Hh, Dk in FLASH_HEADS:
+                D2, scale = 2 * Dk, Dk ** -0.5
+                q2, k2, v, g, _, _, _ = flash_inputs(
+                    torch, B, T, Hh, Dk, dtype, "lengths", gen)
+                lens = torch.full((B,), n_valid, dtype=torch.int32,
+                                  device="cuda")
+                out, lse = fa.flash_kernels.forward(q2, k2, v, lens, scale,
+                                                    return_lse=True)
+                delta = (g.float() * out.float()).sum(-1, keepdim=True)
+                out_k, dq2, dk2, dv = (torch.empty_like(t)
+                                       for t in (out, q2, k2, v))
+                args = (code, D2, Dk, q2.data_ptr(), k2.data_ptr(),
+                        v.data_ptr())
+                masks = (lens.data_ptr(), None, None, 0, B, Hh, T, T, scale)
+                # the wrapper's tile heights: K2 and dQ per query, dK/dV
+                # per key
+                f_rows, (b_rows, _) = fa.launch_rows(q2, k2)
+                grid = {"K2": f"{f_rows} rows, "
+                              f"{B * Hh * -(-T // f_rows)} blocks",
+                        "K3": f"{b_rows} rows, "
+                              f"{B * Hh * -(-T // b_rows)} blocks each"}
 
-            def fwd_raw(i):
-                if lib.flash_fwd(*args, *masks, out_k.data_ptr(), None,
-                                 stream):
-                    raise SystemExit("FAIL times: flash_fwd launch error")
+                def fwd_raw(i):
+                    if lib.flash_fwd(*args, *masks, f_rows, out_k.data_ptr(),
+                                     None, stream):
+                        raise SystemExit("FAIL times: flash_fwd launch error")
 
-            def bwd_raw(i):
-                grads = (g.data_ptr(), lse.data_ptr(), delta.data_ptr())
-                if lib.flash_bwd_dq(*args, *grads, *masks, dq2.data_ptr(),
-                                    stream) or lib.flash_bwd_dkv(
-                        *args, *grads, *masks, dk2.data_ptr(),
-                        dv.data_ptr(), stream):
-                    raise SystemExit("FAIL times: flash_bwd launch error")
+                def bwd_raw(i):
+                    grads = (g.data_ptr(), lse.data_ptr(), delta.data_ptr())
+                    if lib.flash_bwd_dq(*args, *grads, *masks, b_rows,
+                                        dq2.data_ptr(), stream) or \
+                            lib.flash_bwd_dkv(*args, *grads, *masks, b_rows,
+                                              dk2.data_ptr(), dv.data_ptr(),
+                                              stream):
+                        raise SystemExit("FAIL times: flash_bwd launch error")
 
-            key_mask = (torch.arange(T, device="cuda")[None, :]
-                        < lens[:, None])[:, None, None, :]
-            ql, kl, vl = (t.detach().requires_grad_(True)
-                          for t in (q2, k2, v))
-            lib_out = F.scaled_dot_product_attention(
-                ql, kl, vl, attn_mask=key_mask, scale=scale)
-            elt = q2.element_size()
-            # the work this run's data needs: valid query rows x valid keys
-            pairs = B * Hh * n_valid * n_valid
-            times = {
-                "K2": dict(
-                    ms=cuda_time_ms(torch, lambda i: fa.flash_kernels.forward(
-                        q2, k2, v, lens, scale), 50),
-                    alone=cuda_time_ms(torch, fwd_raw, 50),
-                    plain_ms=cuda_time_ms(torch, lambda i:
-                                          fa.flash_attention_reference(
-                                              q2, k2, v, lens, scale), 10),
-                    library_ms=cuda_time_ms(
-                        torch, lambda i: F.scaled_dot_product_attention(
-                            q2, k2, v, attn_mask=key_mask, scale=scale), 50),
-                    nbytes=elt * B * Hh * T * (2 * D2 + 2 * Dk) + 4 * B,
-                    ops=2 * pairs * (D2 + Dk)),
-                "K3": dict(
-                    ms=cuda_time_ms(torch, lambda i: fa.flash_kernels.backward(
-                        q2, k2, v, g, lse, delta, lens, scale), 50),
-                    alone=cuda_time_ms(torch, bwd_raw, 50),
-                    plain_ms=cuda_time_ms(torch, lambda i:
-                                          fa.flash_attention_bwd_reference(
-                                              q2, k2, v, g, lse, delta, lens,
-                                              scale), 10),
-                    library_ms=cuda_time_ms(
-                        torch, lambda i: torch.autograd.grad(
-                            lib_out, (ql, kl, vl), g, retain_graph=True), 50),
-                    # read q2, k2, v, g, lse, delta; write dq2, dk2, dv
-                    nbytes=(elt * B * Hh * T * (4 * D2 + 3 * Dk)
-                            + 8 * B * Hh * T + 4 * B),
-                    # scores again, dp, dv, dq, dk
-                    ops=2 * pairs * (3 * D2 + 2 * Dk))}
-            for kname, r in times.items():
-                t_bytes = r.pop("nbytes") / HBM_BYTES_PER_S * 1e3
-                t_ops = r.pop("ops") / PEAK_OPS_PER_S[dname] * 1e3
-                r["bound_ms"] = max(t_bytes, t_ops)
-                r["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
-                rows[(kname, dname, Hh)] = r
-                log(f"time flash {kname} {dname} B={B} T={T} H={Hh} Dk={Dk}: "
-                    f"call {r['ms']:.4f} ms (kernels alone {r['alone']:.4f} "
-                    f"ms), plain {r['plain_ms']:.4f} ms, "
-                    f"scaled_dot_product_attention {r['library_ms']:.4f} ms, "
-                    f"bound {r['bound_ms']:.4f} ms (bytes {t_bytes:.4f} / ops "
-                    f"{t_ops:.4f}); {smi}")
+                key_mask = (torch.arange(T, device="cuda")[None, :]
+                            < lens[:, None])[:, None, None, :]
+                ql, kl, vl = (t.detach().requires_grad_(True)
+                              for t in (q2, k2, v))
+                lib_out = F.scaled_dot_product_attention(
+                    ql, kl, vl, attn_mask=key_mask, scale=scale)
+                elt = q2.element_size()
+                # the work this run's data needs: valid query rows x valid
+                # keys
+                pairs = B * Hh * n_valid * n_valid
+                times = {
+                    "K2": dict(
+                        ms=cuda_time_ms(
+                            torch, lambda i: fa.flash_kernels.forward(
+                                q2, k2, v, lens, scale), 50),
+                        alone=cuda_time_ms(torch, fwd_raw, 50),
+                        plain_ms=cuda_time_ms(
+                            torch, lambda i: fa.flash_attention_reference(
+                                q2, k2, v, lens, scale), 10),
+                        library_ms=cuda_time_ms(
+                            torch, lambda i: F.scaled_dot_product_attention(
+                                q2, k2, v, attn_mask=key_mask, scale=scale),
+                            50),
+                        nbytes=elt * B * Hh * T * (2 * D2 + 2 * Dk) + 4 * B,
+                        ops=2 * pairs * (D2 + Dk)),
+                    "K3": dict(
+                        ms=cuda_time_ms(
+                            torch, lambda i: fa.flash_kernels.backward(
+                                q2, k2, v, g, lse, delta, lens, scale), 50),
+                        alone=cuda_time_ms(torch, bwd_raw, 50),
+                        plain_ms=cuda_time_ms(
+                            torch, lambda i: fa.flash_attention_bwd_reference(
+                                q2, k2, v, g, lse, delta, lens, scale), 10),
+                        library_ms=cuda_time_ms(
+                            torch, lambda i: torch.autograd.grad(
+                                lib_out, (ql, kl, vl), g, retain_graph=True),
+                            50),
+                        # read q2, k2, v, g, lse, delta; write dq2, dk2, dv
+                        nbytes=(elt * B * Hh * T * (4 * D2 + 3 * Dk)
+                                + 8 * B * Hh * T + 4 * B),
+                        # scores again, dp, dv, dq, dk
+                        ops=2 * pairs * (3 * D2 + 2 * Dk))}
+                device = {
+                    "K2": (lambda: fa.flash_kernels.forward(
+                        q2, k2, v, lens, scale),
+                           lambda: F.scaled_dot_product_attention(
+                               q2, k2, v, attn_mask=key_mask, scale=scale)),
+                    "K3": (lambda: fa.flash_kernels.backward(
+                        q2, k2, v, g, lse, delta, lens, scale),
+                           lambda: torch.autograd.grad(
+                               lib_out, (ql, kl, vl), g, retain_graph=True))}
+                for kname, r in times.items():
+                    dev, lib_dev = (
+                        "{:.4f} ms ({:.4f}-{:.4f})".format(*t)
+                        for t in paired_device_ms(torch, *device[kname]))
+                    t_bytes = r.pop("nbytes") / HBM_BYTES_PER_S * 1e3
+                    t_ops = r.pop("ops") / PEAK_OPS_PER_S[dname] * 1e3
+                    r["bound_ms"] = max(t_bytes, t_ops)
+                    r["bound_by"] = ("bytes" if t_bytes >= t_ops
+                                     else "operations")
+                    rows[(kname, dname, B, Hh)] = r
+                    log(f"time flash {kname} {dname} B={B} T={T} H={Hh} "
+                        f"Dk={Dk} ({grid[kname]}): call {r['ms']:.4f} ms "
+                        f"(kernels alone {r['alone']:.4f} ms, device "
+                        f"{dev}), plain {r['plain_ms']:.4f} ms, "
+                        f"scaled_dot_product_attention {r['library_ms']:.4f}"
+                        f" ms (device {lib_dev}), bound "
+                        f"{r['bound_ms']:.4f} ms (bytes {t_bytes:.4f} / ops "
+                        f"{t_ops:.4f}); {smi}")
     return rows
 
 
@@ -1783,7 +1912,7 @@ def phase_times(torch, state, smi):
     for kname, fname, line in (("K2", "flash_fwd", 145),
                                ("K3", "flash_bwd", 377)):
         for dname in ("float32", "bfloat16"):
-            r = frows[(kname, dname, 8)]          # the MoE blocks' shape
+            r = frows[(kname, dname, 4, 8)]   # B=4, T=255, MoE blocks
             report.append({
                 "name": f"{fname}[{dname}]", "route": "cuda",
                 "source": "m3asr_tpu_torch/csrc/flash_attention.cu",

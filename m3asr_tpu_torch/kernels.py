@@ -149,9 +149,9 @@ class KernelLibrary:
         elif self.source == "flash_attention.cu":
             f = ctypes.c_float
             # dtype, d2, dk, q2, k2, v, [g, lse, delta,] lens, lo, hi,
-            # mem_cols, B, H, T, S, scale, outputs..., stream
+            # mem_cols, B, H, T, S, scale, rows, outputs..., stream
             head = [i, i, i, vp, vp, vp]
-            tail = [vp, vp, vp, i, i, i, i, i, f]
+            tail = [vp, vp, vp, i, i, i, i, i, f, i]
             lib.flash_fwd.argtypes = head + tail + [vp, vp, vp]
             lib.flash_bwd_dq.argtypes = head + [vp, vp, vp] + tail + [vp, vp]
             lib.flash_bwd_dkv.argtypes = (head + [vp, vp, vp] + tail

@@ -26,7 +26,8 @@ downstream, where the XLA path returns zeros).
 Each function launches its CUDA kernel (``csrc/flash_attention.cu``) on
 CUDA tensors, or raises, and takes its plain version on CPU tensors. The
 kernels take float32 or bfloat16 with ``(D2, Dk)`` of ``(128, 64)`` (the
-flagship's MoE blocks) or ``(256, 128)`` (its embed blocks).
+flagship's MoE blocks) or ``(256, 128)`` (its embed blocks). Each launch
+gets its block's tile height from :func:`flash_block_rows`.
 """
 
 from __future__ import annotations
@@ -40,6 +41,9 @@ from m3asr_tpu_torch.ops.common import linear
 _NEG_INF = -1e30
 WIDTHS = ((128, 64), (256, 128))       # (D2, Dk) the kernels are built for
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+FWD_ROWS = (16, 32, 64)                # tile heights K2 is built for
+BWD_ROWS = (16, 32)                    # and K3's two kernels
+MIN_BLOCKS = 128                       # a block for (nearly) each of 132 SMs
 
 Window = Optional[Tuple[torch.Tensor, torch.Tensor]]
 
@@ -62,6 +66,33 @@ def window_from_mask(mask: torch.Tensor, T: int, S: int):
     zero = torch.zeros((), dtype=lo.dtype, device=lo.device)
     return (torch.where(any_row, lo, zero).to(torch.int32),
             torch.where(any_row, hi, zero).to(torch.int32))
+
+
+def flash_block_rows(B: int, H: int, T: int, max_rows: int = 64,
+                     min_blocks: int = MIN_BLOCKS) -> int:
+    """Rows (queries, or keys for K3's dK/dV kernel) of one block's tile:
+    the tallest of 64, 32 and 16, at most ``max_rows``, whose grid of
+    ``B * H * ceil(T / rows)`` blocks still reaches ``min_blocks``, else
+    16. A block is 4 warps of 16-row MMA tiles; below 64 rows its warps
+    share out each tile's keys."""
+    if max_rows not in FWD_ROWS:
+        raise ValueError(f"max_rows must be one of {FWD_ROWS}, got "
+                         f"{max_rows}")
+    for rows in (64, 32):
+        if rows <= max_rows and B * H * -(-T // rows) >= min_blocks:
+            return rows
+    return 16
+
+
+def launch_rows(q2: torch.Tensor, k2: torch.Tensor):
+    """The tile heights the wrappers launch with by default: K2's (two
+    blocks an SM for float32, whose tiles fit twice; one for bf16), and
+    K3's dQ and dK/dV kernels' (one block an SM, at most 32 rows)."""
+    B, H, T, _ = q2.shape
+    S = k2.shape[2]
+    fwd = flash_block_rows(B, H, T, min_blocks=MIN_BLOCKS * (
+        2 if q2.dtype == torch.float32 else 1))
+    return fwd, (flash_block_rows(B, H, T, 32), flash_block_rows(B, H, S, 32))
 
 
 def _attend(B: int, T: int, S: int, lengths, window: Window, mem_cols: int,
@@ -126,9 +157,10 @@ class FlashKernels:
         self.fwd_launches = self.dq_launches = self.dkv_launches = 0
 
     @staticmethod
-    def _check(q2, k2, v, lengths, window):
-        """Raise unless the kernels take these tensors; returns (dtype
-        code, D2, Dk, lens, lo, hi) with the int32 masks contiguous."""
+    def _check(q2, k2, v, lengths, window, rows, allowed):
+        """Raise unless the kernels take these tensors and each tile height
+        in ``rows`` (one of ``allowed``); returns (dtype code, D2, Dk,
+        lens, lo, hi) with the int32 masks contiguous."""
         if q2.dtype not in _DTYPES or not q2.dtype == k2.dtype == v.dtype:
             raise TypeError(f"flash attention takes float32 or bfloat16 "
                             f"q2/k2/v of one dtype, got {q2.dtype}, "
@@ -144,6 +176,8 @@ class FlashKernels:
                              f"not match q2 {tuple(q2.shape)}")
         if T == 0 or S == 0:
             raise ValueError("flash attention needs T > 0 and S > 0")
+        if not set(rows) <= set(allowed):
+            raise ValueError(f"tile rows must be in {allowed}, got {rows}")
         if q2.device.type != "cuda":
             raise ValueError(f"the flash attention kernels need CUDA "
                              f"tensors, got q2 on {q2.device}")
@@ -168,13 +202,19 @@ class FlashKernels:
             raise RuntimeError(f"{name} launch failed: CUDA error {err}")
 
     def forward(self, q2, k2, v, lengths, scale: float, window: Window = None,
-                mem_cols: int = 0, return_lse: bool = False):
-        """K2 on CUDA tensors: out (B,H,T,Dk) and lse (B,H,T,1) or None."""
+                mem_cols: int = 0, return_lse: bool = False,
+                rows: Optional[int] = None):
+        """K2 on CUDA tensors: out (B,H,T,Dk) and lse (B,H,T,1) or None.
+        ``rows``: the block's query rows, by default
+        :func:`launch_rows`."""
         from m3asr_tpu_torch import kernels
         q2, k2, v = q2.contiguous(), k2.contiguous(), v.contiguous()
-        code, D2, Dk, lens, lo, hi = self._check(q2, k2, v, lengths, window)
         B, H, T, _ = q2.shape
         S = k2.shape[2]
+        if rows is None:
+            rows = launch_rows(q2, k2)[0]
+        code, D2, Dk, lens, lo, hi = self._check(q2, k2, v, lengths, window,
+                                                 (rows,), FWD_ROWS)
         out = torch.empty((B, H, T, Dk), dtype=v.dtype, device=v.device)
         lse = (torch.empty((B, H, T, 1), dtype=torch.float32,
                            device=v.device) if return_lse else None)
@@ -182,20 +222,26 @@ class FlashKernels:
         err = lib.flash_fwd(
             code, D2, Dk, q2.data_ptr(), k2.data_ptr(), v.data_ptr(),
             _ptr(lens), _ptr(lo), _ptr(hi), int(mem_cols), B, H, T, S,
-            float(scale), out.data_ptr(), _ptr(lse),
+            float(scale), rows, out.data_ptr(), _ptr(lse),
             torch.cuda.current_stream(q2.device).cuda_stream)
         self._raise_on(err, "flash_fwd")
         self.fwd_launches += 1
         return out, lse
 
     def backward(self, q2, k2, v, g, lse, delta, lengths, scale: float,
-                 window: Window = None, mem_cols: int = 0):
-        """K3 on CUDA tensors: (dq2, dk2, dv)."""
+                 window: Window = None, mem_cols: int = 0,
+                 rows: Optional[Tuple[int, int]] = None):
+        """K3 on CUDA tensors: (dq2, dk2, dv). ``rows``: the dQ kernel's
+        query rows and the dK/dV kernel's keys per block, by default
+        :func:`launch_rows`."""
         from m3asr_tpu_torch import kernels
         q2, k2, v = q2.contiguous(), k2.contiguous(), v.contiguous()
-        code, D2, Dk, lens, lo, hi = self._check(q2, k2, v, lengths, window)
         B, H, T, _ = q2.shape
         S = k2.shape[2]
+        if rows is None:
+            rows = launch_rows(q2, k2)[1]
+        code, D2, Dk, lens, lo, hi = self._check(q2, k2, v, lengths, window,
+                                                 rows, BWD_ROWS)
         g = g.to(v.dtype).contiguous()
         lse = lse.to(torch.float32).contiguous()
         delta = delta.to(torch.float32).contiguous()
@@ -210,11 +256,12 @@ class FlashKernels:
         args = (code, D2, Dk, q2.data_ptr(), k2.data_ptr(), v.data_ptr(),
                 g.data_ptr(), lse.data_ptr(), delta.data_ptr(), _ptr(lens),
                 _ptr(lo), _ptr(hi), int(mem_cols), B, H, T, S, float(scale))
-        self._raise_on(lib.flash_bwd_dq(*args, dq2.data_ptr(), stream),
-                       "flash_bwd_dq")
+        self._raise_on(lib.flash_bwd_dq(*args, rows[0], dq2.data_ptr(),
+                                        stream), "flash_bwd_dq")
         self.dq_launches += 1
-        self._raise_on(lib.flash_bwd_dkv(*args, dk2.data_ptr(), dv.data_ptr(),
-                                         stream), "flash_bwd_dkv")
+        self._raise_on(lib.flash_bwd_dkv(*args, rows[1], dk2.data_ptr(),
+                                         dv.data_ptr(), stream),
+                       "flash_bwd_dkv")
         self.dkv_launches += 1
         return dq2, dk2, dv
 

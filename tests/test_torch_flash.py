@@ -268,3 +268,53 @@ def test_flash_wrappers_refuse_what_the_kernels_do_not_take():
     with pytest.raises(TypeError, match="float32 or bfloat16"):
         tfa.flash_kernels.forward(q2, k2.double(), v, None, SCALE)
     assert tfa.flash_kernels.fwd_launches == 0
+
+
+# (B, H, T): the main path's attention shapes, 4x1000 and 1x2048 frames,
+# MoE blocks (8 heads) and embed blocks (4 heads)
+MAIN_PATH_SHAPES = [(4, 8, 255), (4, 4, 255), (1, 8, 511), (1, 4, 511)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", MAIN_PATH_SHAPES)
+def test_flash_launch_rows_fill_the_card(shape, dtype):
+    """Every kernel's default tile height at the main path's shapes: a
+    multiple of the 16-row warp tile that the kernel is built for, and a
+    grid of at least 128 blocks (the H100 has 132 SMs)."""
+    B, H, T = shape
+    q2 = torch.zeros(B, H, T, 256, dtype=dtype)
+    fwd, (dq, dkv) = tfa.launch_rows(q2, q2)
+    assert fwd in tfa.FWD_ROWS and {dq, dkv} <= set(tfa.BWD_ROWS)
+    for rows in (fwd, dq, dkv):
+        assert rows % 16 == 0
+        assert B * H * -(-T // rows) >= 128
+
+
+def test_flash_block_rows_choice():
+    """The tallest tile that keeps the grid at min_blocks: 64 rows at a
+    large B * H, 32 and 16 as the grid thins, never above max_rows, and
+    16 where even that leaves the card part empty."""
+    assert tfa.flash_block_rows(16, 8, 255) == 64
+    assert tfa.flash_block_rows(16, 8, 255, max_rows=32) == 32
+    assert tfa.flash_block_rows(4, 8, 255) == 64          # 128 blocks
+    assert tfa.flash_block_rows(4, 8, 255, min_blocks=256) == 32
+    assert tfa.flash_block_rows(4, 4, 255) == 32
+    assert tfa.flash_block_rows(1, 4, 511) == 16
+    assert tfa.flash_block_rows(2, 2, 20) == 16           # T too short
+    with pytest.raises(ValueError, match="max_rows"):
+        tfa.flash_block_rows(4, 8, 255, max_rows=48)
+
+
+def test_flash_wrappers_refuse_tile_rows_the_kernels_lack():
+    """A tile height outside what each kernel is built for raises before
+    any launch: K2 takes 16, 32 or 64 rows, K3's kernels 16 or 32."""
+    q2, k2 = (torch.zeros(1, 1, 4, 128) for _ in range(2))
+    v = torch.zeros(1, 1, 4, 64)
+    with pytest.raises(ValueError, match="tile rows"):
+        tfa.flash_kernels.forward(q2, k2, v, None, SCALE, rows=48)
+    lse = delta = torch.zeros(1, 1, 4, 1)
+    with pytest.raises(ValueError, match="tile rows"):
+        tfa.flash_kernels.backward(q2, k2, v, v, lse, delta, None, SCALE,
+                                   rows=(64, 32))
+    assert tfa.flash_kernels.fwd_launches == 0
+    assert tfa.flash_kernels.dq_launches == tfa.flash_kernels.dkv_launches == 0
