@@ -10,14 +10,20 @@ result line:
    reports them.
 2. build: every hand-written kernel, compiled by nvcc from csrc/ (one
    nvcc per source, all started together), with ptxas registers and
-   spills per instantiation; the flash kernels' SASS (cuobjdump) must run
-   bf16 on HMMA.16816.F32.BF16 and float32 on FFMA, with no atomic.
+   spills per instantiation (K1 must not spill, also when an earlier run
+   built it: nvcc's output is kept beside each library); the SASS
+   (cuobjdump) of
+   the flash kernels and of K1 (expert_tile_gemm) must run bf16 on
+   HMMA.16816.F32.BF16 and float32 on FFMA, with no atomic.
 3. kernels against their plain PyTorch versions at the flagship widths
    (E=32, d=512, h=1024):
    K1 (float run-length, moe_runs_f): stacked L=18 at layers 0 and 17,
-   fp32 and bf16, at 63/127/511/1535 tokens (the 256/512/2048/6144-frame
-   buckets) under four routings. fp32: allclose(rtol 1e-5, atol 1e-5);
-   bf16: max|diff| within 1e-2 of max|ref|.
+   fp32 and bf16, at 63/127/511/1020/1535 tokens (the 256/512/2048/
+   6144-frame buckets and the 4x1000 request) under four routings, and
+   stacked L=2 at d=320, h=640 (multiples of K1's 64-column block, d not
+   of 128). fp32: allclose(rtol 1e-5, atol 1e-5); bf16: max|diff| within
+   1e-2 of max|ref|. Under the router's routing fp32 K1 must equal K8
+   (moe_stream) bit for bit: both sum in ascending k.
    K4 (int8 run-length), K5 (int4 run-length) at 63 and 511 tokens, K6
    (int4 dense streamer) at 63 and 127, each weight-only and a8, random
    int weights stacked L=3 at layers 0 and 2, bf16 activations, under a
@@ -105,14 +111,19 @@ result line:
    each K3 kernel per step, asserted; losses finite), two xla steps, one
    bf16-compute flash step (its loss within 2e-2 of the fp32 loss); step
    times, the busy share of one step under torch.profiler, peak memory.
+   TF32 is switched on before each fp32 step is built, and
+   make_train_step must switch it off again (cuBLAS and cuDNN); cuDNN's
+   is switched on again before the steps, which must switch it off.
 9. times: each kernel per call (CUDA events over many calls after
    warm-up, layers rotated so weights come from device memory) and its
-   launches alone, at the main path's token counts (K2/K3 at both long
-   requests' attention shapes, with each launch's tile rows and blocks),
+   launches alone, at the main path's token counts (K1 at 63, 511 and
+   1020 with its column block and each launch's live blocks; K2/K3 at
+   both long requests' attention
+   shapes, with each launch's tile rows and blocks),
    beside its bound, the plain version's time and, for K2/K3,
    scaled_dot_product_attention's; the float engines' request latency,
    peak device memory and device time of one request under
-   torch.profiler with the kernels that took most of it.
+   torch.profiler with the kernels that took most of it and K1's part.
 
 The line before the last is one JSON object describing each kernel
 (route, source, launches on the main path, error, times, bound); the
@@ -134,7 +145,7 @@ HBM_BYTES_PER_S = 3.35e12            # H100 SXM device memory
 PEAK_OPS_PER_S = {"float32": 67e12,  # fp32 outside the tensor cores
                   "bfloat16": 989e12, "int8": 1979e12}
 E, D, H, L = 32, 512, 1024, 18
-TOKENS = (63, 127, 511, 1535)
+TOKENS = (63, 127, 511, 1020, 1535)
 REQUESTS = ((1, 206), (4, 1000), (1, 2048))
 KINDS = ("router", "one_expert", "half_empty")
 # (kernel, a8) -> the name of that kernel variant in the output
@@ -194,13 +205,21 @@ def phase_build(kernels):
                 elif "registers" in ln:
                     ptxas[-1] += ": " + ln.split(":", 1)[1].strip()
             if lib.build_seconds is None:     # built by an earlier run
-                log(f"build {lib.source}: already in {kernels.BUILD_DIR}")
-                continue
-            log(f"build {lib.source}: {lib.build_seconds:.2f} s, "
-                f"{' '.join(lib.command[:4])} ...; ptxas: "
-                + " | ".join(ptxas))
+                log(f"build {lib.source}: already in {kernels.BUILD_DIR}; "
+                    "ptxas: " + " | ".join(ptxas))
+            else:
+                log(f"build {lib.source}: {lib.build_seconds:.2f} s, "
+                    f"{' '.join(lib.command[:4])} ...; ptxas: "
+                    + " | ".join(ptxas))
+            k1 = [ln for ln in ptxas if "expert_tile_gemm" in ln]
+            if lib is kernels.MOE_RUNS and not k1:
+                raise SystemExit("FAIL build: no ptxas record of K1")
+            spilled = [ln for ln in k1 if "SPILLS" in ln]
+            if spilled:
+                raise SystemExit("FAIL build: K1 spills: "
+                                 + " | ".join(spilled))
     log(f"build: all kernels in {time.perf_counter() - t0:.2f} s")
-    flash_sass(kernels)
+    kernel_sass(kernels)
 
 
 def demangle(names):
@@ -212,48 +231,57 @@ def demangle(names):
                           check=True).stdout.splitlines()
 
 
-def flash_sass(kernels):
-    """The arithmetic instructions of every flash kernel instantiation,
-    from cuobjdump -sass of the built library: each bf16 one must run on
-    HMMA.16816.F32.BF16, each float32 one on FFMA (no TF32 MMA), and none
-    may hold an atomic (ATOM, RED)."""
+def kernel_sass(kernels):
+    """The arithmetic instructions of every tensor-core kernel's
+    instantiations, from cuobjdump -sass of the built libraries: each
+    flash kernel, and K1 (moe_runs.cu's expert_tile_gemm; K4/K5 are left
+    out). Each bf16 one must run on HMMA.16816.F32.BF16, each float32 one
+    on FFMA (no TF32 MMA), and none may hold an atomic (ATOM, RED)."""
     cuobjdump = os.path.join(os.path.dirname(kernels.find_nvcc()),
                              "cuobjdump")
-    sass = subprocess.run([cuobjdump, "-sass", kernels.FLASH.build()],
-                          capture_output=True, text=True, check=True).stdout
-    funcs, counts = [], []
-    for ln in sass.splitlines():
-        if "Function :" in ln:
-            funcs.append(ln.split("Function :")[1].strip())
-            counts.append({})
-        elif funcs and "/*" in ln and ";" in ln:
-            words = ln.split("*/", 1)[1].split()
-            op = words[1] if words[0].startswith("@") else words[0]
-            if op.startswith(("HMMA", "FFMA", "ATOM", "RED")):
-                op = op.split(".")[0] if op.startswith("FFMA") else op
-                counts[-1][op] = counts[-1].get(op, 0) + 1
-    lines = []
-    for name, c in zip(demangle(funcs), counts):
-        short = short_name(name.replace("<", "[").replace(">", "]"))
-        want = "HMMA.16816.F32.BF16" if "bfloat16" in short else "FFMA"
-        lines.append(f"{short}: " + ", ".join(
-            f"{k} x{v}" for k, v in sorted(c.items())))
-        wrong = [k for k in c if k.startswith(("HMMA", "ATOM", "RED"))
-                 and k != want]
-        if not c.get(want) or wrong:
-            raise SystemExit(f"FAIL build: {short} runs {sorted(c)}, "
-                             f"not {want} alone")
-    log("sass flash_attention.cu (cuobjdump -sass): " + " | ".join(lines))
+    for lib, keep in ((kernels.FLASH, None),
+                      (kernels.MOE_RUNS, "expert_tile_gemm")):
+        sass = subprocess.run([cuobjdump, "-sass", lib.build()],
+                              capture_output=True, text=True,
+                              check=True).stdout
+        funcs, counts = [], []
+        for ln in sass.splitlines():
+            if "Function :" in ln:
+                funcs.append(ln.split("Function :")[1].strip())
+                counts.append({})
+            elif funcs and "/*" in ln and ";" in ln:
+                words = ln.split("*/", 1)[1].split()
+                op = words[1] if words[0].startswith("@") else words[0]
+                if op.startswith(("HMMA", "FFMA", "ATOM", "RED")):
+                    op = op.split(".")[0] if op.startswith("FFMA") else op
+                    counts[-1][op] = counts[-1].get(op, 0) + 1
+        lines = []
+        for name, c in zip(demangle(funcs), counts):
+            short = short_name(name.replace("<", "[").replace(">", "]"))
+            if keep is not None and keep not in short:
+                continue
+            want = "HMMA.16816.F32.BF16" if "bfloat16" in short else "FFMA"
+            lines.append(f"{short}: " + ", ".join(
+                f"{k} x{v}" for k, v in sorted(c.items())))
+            wrong = [k for k in c if k.startswith(("HMMA", "ATOM", "RED"))
+                     and k != want]
+            if not c.get(want) or wrong:
+                raise SystemExit(f"FAIL build: {short} runs {sorted(c)}, "
+                                 f"not {want} alone")
+        if not lines:
+            raise SystemExit(f"FAIL build: no {keep} in {lib.source}")
+        log(f"sass {lib.source} (cuobjdump -sass): " + " | ".join(lines))
 
 
-def expert_weights(torch, dtype, gen):
-    """Stacked (L, E, d, h) / (L, E, h, d) weights, per-layer biases."""
+def expert_weights(torch, dtype, gen, n_layers=L, d=D, h=H):
+    """Stacked (n_layers, E, d, h) / (n_layers, E, h, d) weights,
+    per-layer biases."""
     def u(*shape, scale):
         return ((torch.rand(shape, generator=gen, device="cuda") * 2 - 1)
                 * scale).to(dtype)
-    return {"w1": u(L, E, D, H, scale=0.5 * (6 / (D + H)) ** 0.5),
-            "w2": u(L, E, H, D, scale=0.5 * (6 / (D + H)) ** 0.5),
-            "b1": u(E, H, scale=0.1), "b2": u(E, D, scale=0.1)}
+    return {"w1": u(n_layers, E, d, h, scale=0.5 * (6 / (d + h)) ** 0.5),
+            "w2": u(n_layers, E, h, d, scale=0.5 * (6 / (d + h)) ** 0.5),
+            "b1": u(E, h, scale=0.1), "b2": u(E, d, scale=0.1)}
 
 
 def routing(torch, kind, n, gen):
@@ -272,38 +300,58 @@ def routing(torch, kind, n, gen):
 
 
 def phase_kernel(torch, moe_runs):
+    """K1 against its plain version: fp32 allclose(1e-5, 1e-5), bf16
+    max|diff| within 1e-2 of max|ref|; fp32 K1 and K8 equal bit for bit.
+    Returns the worst max_abs_err per dtype."""
+    from m3asr_tpu_torch import kernels
+    from m3asr_tpu_torch.ops.moe_stream import stream_kernel
     gen = torch.Generator(device="cuda").manual_seed(1)
     max_err = {}
+    bn = kernels.MOE_RUNS.load().moe_runs_f_col_block()
+
+    def check(dtype, p, n, kind, layer, d=D):
+        x = torch.randn(1, n, d, generator=gen, device="cuda").to(dtype)
+        gate = routing(torch, kind, n, gen)
+        got = moe_runs.runs_kernel.launch(p, x, gate, layer)
+        torch.cuda.synchronize()
+        ref = moe_runs.moe_experts_runs_reference(p, x, gate, layer)
+        err = (got.float() - ref.float()).abs().max().item()
+        scale = ref.float().abs().max().item()
+        if dtype == torch.float32:
+            ok = torch.allclose(got, ref, rtol=1e-5, atol=1e-5)
+        else:
+            ok = err <= 1e-2 * scale
+        log(f"kernel moe_runs_f {str(dtype)[6:]} d={d} "
+            f"h={p['w1'].shape[-1]} n={n} {kind} layer={layer} "
+            f"active={n_active(torch, gate)} column block {bn}: "
+            f"max_abs_err={err:.3e} max|ref|={scale:.3e} "
+            f"{'OK' if ok else 'FAIL'}")
+        if not ok:
+            raise SystemExit("FAIL kernel: moe_runs_f disagrees "
+                             "with its plain version")
+        key = str(dtype)[6:]
+        max_err[key] = max(max_err.get(key, 0.0), err)
+        if dtype == torch.float32 and kind == "router":
+            # K8 sums fp32 in K1's order: one accumulator, ascending k
+            one = {k: v[layer] if k in ("w1", "w2") else v
+                   for k, v in p.items()}
+            if not torch.equal(got, stream_kernel.launch(one, x, gate)):
+                raise SystemExit("FAIL kernel: fp32 moe_runs_f and "
+                                 "moe_stream differ")
+
     for dtype in (torch.float32, torch.bfloat16):
         p = expert_weights(torch, dtype, gen)
-        worst = 0.0
-        cases = [(n, kind) for n in TOKENS
-                 for kind in ("router", "one_expert", "half_empty")]
+        cases = [(n, kind) for n in TOKENS for kind in KINDS]
         cases.append((5, "router"))                   # N < tile
         for n, kind in cases:
             for layer in (0, L - 1):
-                x = torch.randn(1, n, D, generator=gen, device="cuda") \
-                    .to(dtype)
-                gate = routing(torch, kind, n, gen)
-                got = moe_runs.runs_kernel.launch(p, x, gate, layer)
-                torch.cuda.synchronize()
-                ref = moe_runs.moe_experts_runs_reference(p, x, gate, layer)
-                err = (got.float() - ref.float()).abs().max().item()
-                scale = ref.float().abs().max().item()
-                if dtype == torch.float32:
-                    ok = torch.allclose(got, ref, rtol=1e-5, atol=1e-5)
-                else:
-                    ok = err <= 1e-2 * scale
-                active = int((torch.bincount(gate.flatten().long(),
-                                             minlength=E) > 0).sum())
-                log(f"kernel moe_runs_f {str(dtype)[6:]} n={n} {kind} "
-                    f"layer={layer} active={active}: max_abs_err={err:.3e}"
-                    f" max|ref|={scale:.3e} {'OK' if ok else 'FAIL'}")
-                if not ok:
-                    raise SystemExit("FAIL kernel: moe_runs_f disagrees "
-                                     "with its plain version")
-                worst = max(worst, err)
-        max_err[str(dtype)[6:]] = worst
+                check(dtype, p, n, kind, layer)
+        # d=320, h=640: multiples of 64, not both of 128
+        p = expert_weights(torch, dtype, gen, n_layers=2, d=320, h=640)
+        for n in (63, 511):
+            check(dtype, p, n, "router", 1, d=320)
+    log("kernel moe_runs_f float32 == moe_stream float32 (K8) bit for bit "
+        "at every router case above")
     return max_err
 
 
@@ -1291,7 +1339,18 @@ def phase_train(torch, state, smi):
             ("flash", train_config("flash"), 4),
             ("xla", train_config("xla"), 2),
             ("bf16 flash", train_config("flash", "bfloat16"), 1)):
+        if cfg_t.compute_dtype == "float32":
+            # the step itself must turn TF32 off (cuDNN's default is on)
+            torch.backends.cuda.matmul.allow_tf32 = True
+            torch.backends.cudnn.allow_tf32 = True
         step = ts.make_train_step(cfg, cfg_t, opt, device="cuda")
+        flags = (torch.backends.cuda.matmul.allow_tf32,
+                 torch.backends.cudnn.allow_tf32)
+        if any(flags):
+            raise SystemExit(f"FAIL train {label}: make_train_step left "
+                             f"TF32 on (cuBLAS, cuDNN) {flags}")
+        if cfg_t.compute_dtype == "float32":   # and each step call again
+            torch.backends.cudnn.allow_tf32 = True
         p, s = params, opt_state
         reset_flash(flash_kernels)        # this run starts here
         torch.cuda.reset_peak_memory_stats()
@@ -1311,6 +1370,10 @@ def phase_train(torch, state, smi):
                                  f"(K2, K3 dq, K3 dkv) {per_step}, want "
                                  f"{want}; loss {loss}")
         peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        if (cfg_t.compute_dtype == "float32"
+                and torch.backends.cudnn.allow_tf32):
+            raise SystemExit(f"FAIL train {label}: the step ran with TF32 "
+                             "turned on after make_train_step")
         log(f"train {label}: {n_steps} steps, losses "
             f"{[round(v, 6) for v in losses]}, grad_norm "
             f"{m['grad_norm'].item():.4f}; launches (K2, K3 dq, K3 dkv) "
@@ -1413,7 +1476,7 @@ def short_name(kernel):
 def device_time(torch, eng, feat, lens):
     """One request under torch.profiler: the summed duration of the
     kernels and copies the card ran (one stream, so they do not overlap),
-    in ms, and the five kernel names that took most of it."""
+    in ms, the five kernel names that took most of it, and K1's ms."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
@@ -1425,7 +1488,8 @@ def device_time(torch, eng, feat, lens):
             us = e.time_range.elapsed_us()
             by_name[e.name] = by_name.get(e.name, 0.0) + us
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
-    return sum(by_name.values()) / 1e3, top
+    k1 = sum(us for name, us in by_name.items() if "expert_tile_gemm" in name)
+    return sum(by_name.values()) / 1e3, top, k1 / 1e3
 
 
 def request_times(torch, eng, label, reqs, smi):
@@ -1443,7 +1507,7 @@ def request_times(torch, eng, label, reqs, smi):
             f"{np.median(times):.3f} ms (min {min(times):.3f}, max "
             f"{max(times):.3f}, 5 runs), peak memory "
             f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB; {smi}")
-        dev_ms, top = device_time(torch, eng, feat, lens)
+        dev_ms, top, k1_ms = device_time(torch, eng, feat, lens)
         if dev_ms == 0:
             log("device time: not measured (the profiler recorded no "
                 "device activity)")
@@ -1453,6 +1517,7 @@ def request_times(torch, eng, label, reqs, smi):
             f"{dev_ms / np.median(times):.3f} of the median latency; "
             "top kernels: " + "; ".join(
                 f"{short_name(name)} {us / 1e3:.3f} ms" for name, us in top)
+            + (f"; K1 (expert_tile_gemm) {k1_ms:.3f} ms" if k1_ms else "")
             + f"; {smi}")
 
 
@@ -1819,21 +1884,31 @@ def time_flash_kernels(torch, smi):
     return rows
 
 
-def phase_times(torch, state, smi):
+K1_TIME_TOKENS = (63, 511, 1020)      # the requests' token counts
+
+
+def time_k1(torch, smi):
+    """K1 at the requests' token counts (router routing, layers rotated so
+    weights come from device memory): the wrapper call, its two CUDA
+    launches alone (printed with the column block, the live tiles and the
+    live blocks of each launch), the plain version, and the bound.
+    Returns rows keyed by (dtype, tokens)."""
     from m3asr_tpu_torch import kernels
     from m3asr_tpu_torch.ops import moe_runs
-
-    launches = state["launches"]
     gen = torch.Generator(device="cuda").manual_seed(3)
+    lib = kernels.MOE_RUNS.load()
+    bn = lib.moe_runs_f_col_block()
+    stream = torch.cuda.current_stream().cuda_stream
     rows = {}
     for dtype in (torch.float32, torch.bfloat16):
         dname = str(dtype)[6:]
         p = expert_weights(torch, dtype, gen)
-        for n in (63, 511):
+        w1 = p["w1"].reshape(L * E, D, H)
+        w2 = p["w2"].reshape(L * E, H, D)
+        for n in K1_TIME_TOKENS:
             x = torch.randn(1, n, D, generator=gen, device="cuda").to(dtype)
             gate = routing(torch, "router", n, gen)
-            active = int((torch.bincount(gate.flatten().long(),
-                                         minlength=E) > 0).sum())
+            active = n_active(torch, gate)
             elt = x.element_size()
             nbytes = (active * (2 * D * H + H + D) * elt   # weights+biases
                       + 2 * n * D * elt + n * 4)           # x, y, gate
@@ -1846,16 +1921,13 @@ def phase_times(torch, state, smi):
                 torch, lambda i: moe_runs.moe_experts_runs_reference(
                     p, x, gate, i % L), 18)
             # the two CUDA launches alone, without the layout prep
-            lib = kernels.MOE_RUNS.load()
             lay = moe_runs.runs_layout(gate.reshape(n), E)
             x_pad = moe_runs._pad_tokens(x.reshape(n, D), lay,
                                          moe_runs.TILE)
             hid = torch.empty(lay.n_tiles * moe_runs.TILE, H, dtype=dtype,
                               device="cuda")
             y_pad = torch.empty_like(x_pad)
-            stream = torch.cuda.current_stream().cuda_stream
-            w1 = p["w1"].reshape(L * E, D, H)
-            w2 = p["w2"].reshape(L * E, H, D)
+            live = int(lay.starts[-1])
 
             def raw(i):
                 if lib.moe_runs_f(
@@ -1863,19 +1935,26 @@ def phase_times(torch, state, smi):
                         x_pad.data_ptr(), w1.data_ptr(), p["b1"].data_ptr(),
                         w2.data_ptr(), p["b2"].data_ptr(),
                         lay.tile_e.data_ptr(), lay.starts.data_ptr(),
-                        lay.n_tiles, E, i % L, D, H, hid.data_ptr(),
-                        y_pad.data_ptr(), stream):
+                        lay.counts.data_ptr(), lay.n_tiles, E, i % L, D, H,
+                        hid.data_ptr(), y_pad.data_ptr(), stream):
                     raise SystemExit("FAIL times: launch error")
-            kernel_only = cuda_time_ms(torch, raw, 54)
+            alone = cuda_time_ms(torch, raw, 54)
             bound = max(t_bytes, t_ops)
             rows[(dname, n)] = dict(
-                ms=ms, plain_ms=plain, bound_ms=bound,
+                ms=ms, alone=alone, plain_ms=plain, bound_ms=bound,
                 bound_by="bytes" if t_bytes >= t_ops else "operations")
-            log(f"time moe_runs_f {dname} n={n} active={active}: "
-                f"call {ms:.4f} ms (kernels alone {kernel_only:.4f} ms), "
-                f"plain {plain:.4f} ms, bound {bound:.4f} ms "
-                f"(bytes {t_bytes:.4f} / ops {t_ops:.4f}), "
-                f"library_ms none; {smi}")
+            log(f"time moe_runs_f {dname} n={n} active={active}: call "
+                f"{ms:.4f} ms (kernels alone {alone:.4f} ms at column "
+                f"block {bn}: {live} live tiles of {lay.n_tiles}, live "
+                f"blocks GEMM1 {live * H // bn}, GEMM2 {live * D // bn}), "
+                f"plain {plain:.4f} ms, bound {bound:.4f} ms (bytes "
+                f"{t_bytes:.4f} / ops {t_ops:.4f}), library_ms none; {smi}")
+    return rows
+
+
+def phase_times(torch, state, smi):
+    launches = state["launches"]
+    rows = time_k1(torch, smi)
 
     for dtype, (eng, _) in state["engines"].items():
         request_times(torch, eng, dtype, state["requests"], smi)

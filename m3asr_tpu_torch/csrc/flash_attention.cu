@@ -73,8 +73,11 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "mma_common.cuh"
+
 namespace {
 
+using namespace mma;
 using bf16 = __nv_bfloat16;
 
 constexpr int THREADS = 128;  // 4 warps
@@ -127,27 +130,8 @@ __device__ __forceinline__ RowMask row_mask(const Masks& m, int b, int T,
 }
 
 // --------------------------------------------------------------------------
-// cp.async, ldmatrix, mma.sync
+// cp.async tiles, ldmatrix and mma.sync fragments (helpers: mma_common.cuh)
 // --------------------------------------------------------------------------
-
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
-  return (unsigned)__cvta_generic_to_shared(p);
-}
-
-// 16 bytes global -> shared; zeros when !in
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool in) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_addr(dst)),
-               "l"(src), "r"(in ? 16 : 0));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
 
 // rows [row0, row0 + rows) of a row-major (n_rows, D) array into a shared
 // tile with row stride ld; rows at or past n_rows load as zeros
@@ -163,28 +147,6 @@ __device__ __forceinline__ void load_rows(T* dst, int ld, const T* src,
   }
 }
 
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
-}
-__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
-}
-
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
 // (a, b) -> hi = bf16x2(a, b), lo = bf16x2 of the remainders
 __device__ __forceinline__ void split_bf16(float a, float b, uint32_t& hi,
                                            uint32_t& lo) {

@@ -3,8 +3,8 @@
 // with their scale-group and bias/SiLU epilogues, the weight loaders of
 // the two quantized formats, the gather of one expert's rows by warp
 // ballots, and the per-row int8 quantization of the a8 modes. (K1, the
-// float format, keeps its own loop in moe_runs.cu: expressed through
-// these routines, its launches took 20-40% longer on an H100.)
+// float format, has its own tiles in moe_runs.cu: bf16 on the tensor
+// cores, float32 on taller FMA patches, both on a cp.async pipeline.)
 //
 // A block of THREADS threads computes one TM x BN output tile: 32 rows
 // of one expert's tokens x 64 output columns. Each thread owns 2 rows x

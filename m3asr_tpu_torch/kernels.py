@@ -43,8 +43,10 @@ def find_nvcc() -> str:
 class KernelLibrary:
     """One ``csrc/`` source built into one shared library, lazily.
 
-    ``build_seconds`` and ``log`` (nvcc's output, with ptxas register and
-    spill counts) describe the build this process did, if it did one.
+    ``build_seconds`` is the time of the build this process did, if it
+    did one. ``log`` is nvcc's output (with ptxas register and spill
+    counts) of the library's build, kept beside the library, so an earlier
+    process's build has it too.
     """
 
     def __init__(self, source: str):
@@ -76,6 +78,9 @@ class KernelLibrary:
             fcntl.flock(lock, fcntl.LOCK_EX)
             try:
                 if os.path.exists(path):
+                    if os.path.exists(path + ".log"):
+                        with open(path + ".log") as f:
+                            self.log = f.read()
                     return path
                 tmp = f"{path}.{os.getpid()}.tmp"
                 self.command = [find_nvcc(), *NVCC_FLAGS, "-o", tmp,
@@ -89,6 +94,8 @@ class KernelLibrary:
                     raise RuntimeError(
                         f"nvcc failed ({r.returncode}) building "
                         f"{self.source}:\n{self.log}")
+                with open(path + ".log", "w") as f:
+                    f.write(self.log)
                 os.replace(tmp, path)
             finally:
                 fcntl.flock(lock, fcntl.LOCK_UN)
@@ -106,11 +113,13 @@ class KernelLibrary:
         vp, i = ctypes.c_void_p, ctypes.c_int
         if self.source == "moe_runs.cu":
             for name in ("moe_runs_tile_rows", "moe_runs_col_block",
-                         "moe_runs_k_step"):
+                         "moe_runs_k_step", "moe_runs_f_col_block"):
                 getattr(lib, name).argtypes = []
                 getattr(lib, name).restype = i
-            lib.moe_runs_f.argtypes = [i, vp, vp, vp, vp, vp, vp, vp, i, i,
-                                       i, i, i, vp, vp, vp]
+            # dtype, x_pad, w1, b1, w2, b2, tile_e, starts, counts, n_tiles,
+            # E, layer, d, h, hidden, y_pad, stream
+            lib.moe_runs_f.argtypes = [i, vp, vp, vp, vp, vp, vp, vp, vp, i,
+                                       i, i, i, i, vp, vp, vp]
             lib.moe_runs_f.restype = i
             lib.moe_runs_q.argtypes = [i, i, vp, vp, vp, i, vp, vp, vp, i,
                                        vp, vp, vp, i, i, i, i, i, vp, vp,

@@ -296,6 +296,15 @@ def check_quant_args(p, x, w1, w2, E: int, fmt: str, col_block: int,
     return d, h, s1, s2
 
 
+def check_f_widths(d: int, h: int, col_block: int) -> None:
+    """Raise ``ValueError`` unless K1 takes model width ``d`` and expert
+    hidden width ``h``: both multiples of its column block ``col_block``
+    (``moe_runs_f_col_block()``, which its contraction steps divide)."""
+    if d <= 0 or h <= 0 or d % col_block or h % col_block:
+        raise ValueError(f"runs kernel needs d={d} and h={h} to be "
+                         f"multiples of {col_block}")
+
+
 class RunsKernel:
     """Wrapper of one weight format's kernel in ``csrc/moe_runs.cu``:
     ``moe_runs_f`` (K1, fmt "f") or ``moe_runs_q`` (K4 "q8", K5 "q4").
@@ -341,8 +350,7 @@ class RunsKernel:
         if tile != TILE:
             raise RuntimeError(f"kernel tile {tile} != layout tile {TILE}")
         if fmt == "f":
-            h = self._check_float(p, x, w1, E, lib.moe_runs_col_block(),
-                                  lib.moe_runs_k_step())
+            h = self._check_float(p, x, w1, E, lib.moe_runs_f_col_block())
         else:
             d, h, s1, s2 = check_quant_args(
                 p, x, w1, w2, E, fmt, lib.moe_runs_col_block(),
@@ -362,8 +370,9 @@ class RunsKernel:
             err = lib.moe_runs_f(
                 self._DTYPES[w1.dtype], x_pad.data_ptr(), w1.data_ptr(),
                 ptr(b1), w2.data_ptr(), ptr(b2), lay.tile_e.data_ptr(),
-                lay.starts.data_ptr(), lay.n_tiles, E, layer, d, h,
-                hidden.data_ptr(), y_pad.data_ptr(), stream)
+                lay.starts.data_ptr(), lay.counts.data_ptr(), lay.n_tiles,
+                E, layer, d, h, hidden.data_ptr(), y_pad.data_ptr(),
+                stream)
         else:
             # a8: the hidden stays float32 between the two GEMMs, as the
             # TPU kernel quantizes it from its float32 value
@@ -392,12 +401,10 @@ class RunsKernel:
         return _unpad(y_pad, lay).reshape(B, T, d).to(out_dtype)
 
     @staticmethod
-    def _check_float(p, x, w1, E, col_block, k_step) -> int:
+    def _check_float(p, x, w1, E, col_block) -> int:
         """Raise unless K1 takes these float arguments; returns h."""
         d, h = x.shape[-1], w1.shape[-1]
-        if d % col_block or h % col_block or d % k_step or h % k_step:
-            raise ValueError(f"runs kernel needs d={d} and h={h} to be "
-                             f"multiples of {col_block}")
+        check_f_widths(d, h, col_block)
         if w1.dtype not in RunsKernel._DTYPES:
             raise TypeError(f"runs kernel takes float32/bfloat16 weights, "
                             f"got {w1.dtype}")
@@ -414,6 +421,9 @@ class RunsKernel:
                 raise ValueError(f"{name}: shape {tuple(t.shape)} != {shape}")
             if not t.is_contiguous():
                 raise ValueError(f"{name} must be contiguous")
+        for name in ("w1", "w2"):          # K1 copies them in 16-byte chunks
+            if p[name].data_ptr() % 16:
+                raise ValueError(f"{name} must start on a 16-byte boundary")
         return h
 
 

@@ -180,16 +180,30 @@ def make_train_step(model_cfg: ModelConfig, tcfg: TrainConfig,
     parameters must lie there, the batch (tensors or numpy arrays) is
     moved there. The optimizer state comes from :func:`init_opt_state`.
     ``generator`` (a CPU ``torch.Generator``) draws the dynamic chunk
-    sizes, when the config asks for them."""
+    sizes, when the config asks for them. A float32 step on CUDA turns
+    TF32 off for cuBLAS and cuDNN (process-wide flags) when it is built,
+    as the engine does, and again at each call; bf16 compute leaves them
+    as they are."""
     check_supported(model_cfg, tcfg)
     if with_domain_acc:
         raise NotImplementedError(
             "the domain/accent heads (DFSMN in-model heads) are not ported "
             "yet: ROADMAP Queue 1 item 10")
     dev = resolve_device(device)
+    full_fp32 = dev.type == "cuda" and tcfg.compute_dtype == "float32"
+
+    def no_tf32():
+        # full float32 (cuDNN convolutions default to TF32)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+
+    if full_fp32:
+        no_tf32()
 
     def step(params, opt_state, feat, feat_len, targets, target_lens,
              generator=None):
+        if full_fp32:        # in case TF32 was turned on since
+            no_tf32()
         if any(t.device.type != dev.type
                for t in flatten_tree(params).values()):
             raise ValueError(f"the step runs on {dev}: the parameters "

@@ -8,6 +8,8 @@ only. Tolerances: float32 rtol 1e-5 / atol 1e-6; bf16 atol 4e-3 (the
 kernel accumulates in float32, the dense einsum in bf16), as in
 ``tests/test_pallas_moe_runs.py``."""
 
+import os
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -19,7 +21,8 @@ from m3asr_tpu.ops.pallas_moe_runs import moe_experts_pallas_runs
 
 from m3asr_tpu_torch.checkpoint import params_from_jax
 from m3asr_tpu_torch.ops import moe as t_moe
-from m3asr_tpu_torch.ops.moe_runs import (TILE, moe_experts_runs_reference,
+from m3asr_tpu_torch.ops.moe_runs import (TILE, check_f_widths,
+                                          moe_experts_runs_reference,
                                           runs_kernel, runs_layout)
 
 E, D, H = 4, 32, 48
@@ -173,3 +176,28 @@ def test_kernel_launch_without_cuda_raises():
     assert runs_kernel.launches == 0
     with pytest.raises(ValueError, match="unknown moe impl"):
         t_moe._dispatch(p, x, gate, "tiles")
+
+
+FLAGSHIP_YAML = os.path.join(os.path.dirname(__file__), os.pardir, "configs",
+                             "3m_asr_18l32e.yaml")
+
+
+@pytest.mark.parametrize("widths", ["flagship", "config", "320/640",
+                                    "48/96"])
+def test_k1_width_rule(widths):
+    """K1 takes d and h in multiples of its column block (64,
+    moe_runs_f_col_block()): the flagship's widths, the shipped config's,
+    and 320/640 (multiples of 64, not of 128); it refuses 48/96."""
+    if widths == "config":
+        import yaml
+        with open(FLAGSHIP_YAML) as f:
+            enc = yaml.safe_load(f)["model_conf"]["encoder_conf"]
+        d, h = enc["attention_dim"], enc["moe_conf"]["hidden_units"]
+    else:
+        d, h = {"flagship": (512, 1024), "320/640": (320, 640),
+                "48/96": (48, 96)}[widths]
+    if widths == "48/96":
+        with pytest.raises(ValueError, match="multiples of 64"):
+            check_f_widths(d, h, 64)
+    else:
+        check_f_widths(d, h, 64)

@@ -314,3 +314,31 @@ def test_hier_recipe_and_domain_heads_raise():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         t_step.make_train_step(t_config(small_yaml()), t_step.TrainConfig(),
                                None, with_domain_acc=True, device="cpu")
+
+
+@pytest.fixture
+def tf32_on():
+    """Both TF32 flags set for the test, restored after it."""
+    saved = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = True
+    torch.backends.cudnn.allow_tf32 = True
+    yield
+    (torch.backends.cuda.matmul.allow_tf32,
+     torch.backends.cudnn.allow_tf32) = saved
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_train_step_turns_tf32_off_for_fp32(monkeypatch, tf32_on,
+                                                 dtype):
+    """A float32 step built for CUDA runs full float32: make_train_step
+    turns TF32 off for cuBLAS and cuDNN (whose convolutions default to
+    it), as the engine does; bf16 compute leaves both flags alone."""
+    monkeypatch.setattr(t_step, "resolve_device",
+                        lambda device: torch.device("cuda"))
+    tt = t_step.TrainConfig(compute_dtype=dtype)
+    t_step.make_train_step(t_config(small_yaml()), tt,
+                           t_step.make_optimizer(tt))
+    want = dtype == "bfloat16"
+    assert torch.backends.cuda.matmul.allow_tf32 is want
+    assert torch.backends.cudnn.allow_tf32 is want
