@@ -10,11 +10,12 @@ result line:
    reports them.
 2. build: every hand-written kernel, compiled by nvcc from csrc/ (one
    nvcc per source, all started together), with ptxas registers and
-   spills per instantiation (K1 must not spill, also when an earlier run
-   built it: nvcc's output is kept beside each library); the SASS
-   (cuobjdump) of
-   the flash kernels and of K1 (expert_tile_gemm) must run bf16 on
-   HMMA.16816.F32.BF16 and float32 on FFMA, with no atomic.
+   spills per instantiation (K1, K4 and K5 must not spill, also when an
+   earlier run built them: nvcc's output is kept beside each library);
+   the SASS (cuobjdump) of the flash kernels, K1 (expert_tile_gemm) and
+   K4/K5 (runs_gemm, runs_gemm_s8) must run bf16 and K4/K5 weight-only on
+   HMMA.16816.F32.BF16, K4/K5 a8 on IMMA.16832.S8.S8 and float32 on FFMA,
+   with no other MMA and no atomic.
 3. kernels against their plain PyTorch versions at the flagship widths
    (E=32, d=512, h=1024):
    K1 (float run-length, moe_runs_f): stacked L=18 at layers 0 and 17,
@@ -24,12 +25,16 @@ result line:
    of 128). fp32: allclose(rtol 1e-5, atol 1e-5); bf16: max|diff| within
    1e-2 of max|ref|. Under the router's routing fp32 K1 must equal K8
    (moe_stream) bit for bit: both sum in ascending k.
-   K4 (int8 run-length), K5 (int4 run-length) at 63 and 511 tokens, K6
-   (int4 dense streamer) at 63 and 127, each weight-only and a8, random
-   int weights stacked L=3 at layers 0 and 2, bf16 activations, under a
-   router's skewed routing, all tokens on one expert, and half the
-   experts empty; K5 and K6 also at d=320, h=640, where the two nibble
-   halves of w2's packed columns meet inside one column block.
+   K4 (int8 run-length), K5 (int4 run-length) at 63, 511 and 1020
+   tokens, K6 (int4 dense streamer) at 63 and 127, each weight-only and
+   a8, random int weights stacked L=3 at layers 0 and 2, bf16
+   activations, under a router's skewed routing, all tokens on one
+   expert, and half the experts empty; K5 also with 32-row int4 groups
+   (a group ends inside its 64-deep slices) at 63 and 511 tokens; K4, K5
+   and K6 also at d=320, h=640, where the two nibble halves of w2's
+   packed columns meet inside one column block. Under the router's
+   routing at 63 tokens K5 a8 must equal K6 a8 bit for bit (the same
+   quant_rows, exact s32 sums and epilogue).
    Weight-only: max|diff| within 1e-2 of max|ref| (bf16 output and
    hidden, float32 sums in another order). a8: within 2e-2 (the integer
    sums are exact on both sides, but SiLU rounds differently in the two,
@@ -124,6 +129,8 @@ result line:
    scaled_dot_product_attention's; the float engines' request latency,
    peak device memory and device time of one request under
    torch.profiler with the kernels that took most of it and K1's part.
+   Every device-time line names the moe_runs.cu kernels' (K1, K4/K5)
+   summed time in the request.
 
 The line before the last is one JSON object describing each kernel
 (route, source, launches on the main path, error, times, bound); the
@@ -211,13 +218,16 @@ def phase_build(kernels):
                 log(f"build {lib.source}: {lib.build_seconds:.2f} s, "
                     f"{' '.join(lib.command[:4])} ...; ptxas: "
                     + " | ".join(ptxas))
-            k1 = [ln for ln in ptxas if "expert_tile_gemm" in ln]
-            if lib is kernels.MOE_RUNS and not k1:
-                raise SystemExit("FAIL build: no ptxas record of K1")
-            spilled = [ln for ln in k1 if "SPILLS" in ln]
-            if spilled:
-                raise SystemExit("FAIL build: K1 spills: "
-                                 + " | ".join(spilled))
+            if lib is kernels.MOE_RUNS:
+                for kern in ("K1", "K4/K5", "K4/K5 a8"):
+                    found = [ln for ln in ptxas if moe_runs_kernel(ln) == kern]
+                    if not found:
+                        raise SystemExit(f"FAIL build: no ptxas record of "
+                                         f"{kern}")
+                    spilled = [ln for ln in found if "SPILLS" in ln]
+                    if spilled:
+                        raise SystemExit(f"FAIL build: {kern} spills: "
+                                         + " | ".join(spilled))
     log(f"build: all kernels in {time.perf_counter() - t0:.2f} s")
     kernel_sass(kernels)
 
@@ -231,16 +241,43 @@ def demangle(names):
                           check=True).stdout.splitlines()
 
 
+def moe_runs_kernel(name):
+    """Which kernel of moe_runs.cu an instantiation's name belongs to:
+    "K1" (expert_tile_gemm), "K4/K5" (runs_gemm), "K4/K5 a8"
+    (runs_gemm_s8), or None."""
+    if "runs_gemm_s8" in name:
+        return "K4/K5 a8"
+    if "runs_gemm" in name:
+        return "K4/K5"
+    return "K1" if "expert_tile_gemm" in name else None
+
+
+RUNS_NAMES = {"K1": "expert_tile_gemm", "K4/K5": "runs_gemm",
+              "K4/K5 a8": "runs_gemm_s8"}
+
+
+def sass_want(short):
+    """The MMA instruction a tensor-core kernel instantiation must run:
+    K4/K5 a8 IMMA.16832.S8.S8, K4/K5 weight-only and every bf16 one
+    HMMA.16816.F32.BF16, float32 FFMA."""
+    kern = moe_runs_kernel(short)
+    if kern == "K4/K5 a8":
+        return "IMMA.16832.S8.S8"
+    if kern == "K4/K5" or "bfloat16" in short:
+        return "HMMA.16816.F32.BF16"
+    return "FFMA"
+
+
 def kernel_sass(kernels):
     """The arithmetic instructions of every tensor-core kernel's
     instantiations, from cuobjdump -sass of the built libraries: each
-    flash kernel, and K1 (moe_runs.cu's expert_tile_gemm; K4/K5 are left
-    out). Each bf16 one must run on HMMA.16816.F32.BF16, each float32 one
-    on FFMA (no TF32 MMA), and none may hold an atomic (ATOM, RED)."""
+    flash kernel, K1 (moe_runs.cu's expert_tile_gemm) and K4/K5
+    (runs_gemm, runs_gemm_s8). Each must run on its sass_want MMA (or
+    FFMA alone for float32, no TF32 MMA), no other MMA, and no atomic
+    (ATOM, RED)."""
     cuobjdump = os.path.join(os.path.dirname(kernels.find_nvcc()),
                              "cuobjdump")
-    for lib, keep in ((kernels.FLASH, None),
-                      (kernels.MOE_RUNS, "expert_tile_gemm")):
+    for lib, moe in ((kernels.FLASH, False), (kernels.MOE_RUNS, True)):
         sass = subprocess.run([cuobjdump, "-sass", lib.build()],
                               capture_output=True, text=True,
                               check=True).stdout
@@ -252,24 +289,24 @@ def kernel_sass(kernels):
             elif funcs and "/*" in ln and ";" in ln:
                 words = ln.split("*/", 1)[1].split()
                 op = words[1] if words[0].startswith("@") else words[0]
-                if op.startswith(("HMMA", "FFMA", "ATOM", "RED")):
+                if op.startswith(("HMMA", "IMMA", "FFMA", "ATOM", "RED")):
                     op = op.split(".")[0] if op.startswith("FFMA") else op
                     counts[-1][op] = counts[-1].get(op, 0) + 1
         lines = []
         for name, c in zip(demangle(funcs), counts):
             short = short_name(name.replace("<", "[").replace(">", "]"))
-            if keep is not None and keep not in short:
+            if moe and moe_runs_kernel(short) is None:
                 continue
-            want = "HMMA.16816.F32.BF16" if "bfloat16" in short else "FFMA"
+            want = sass_want(short)
             lines.append(f"{short}: " + ", ".join(
                 f"{k} x{v}" for k, v in sorted(c.items())))
-            wrong = [k for k in c if k.startswith(("HMMA", "ATOM", "RED"))
-                     and k != want]
+            wrong = [k for k in c if k != want and k.startswith(
+                ("HMMA", "IMMA", "ATOM", "RED"))]
             if not c.get(want) or wrong:
                 raise SystemExit(f"FAIL build: {short} runs {sorted(c)}, "
                                  f"not {want} alone")
         if not lines:
-            raise SystemExit(f"FAIL build: no {keep} in {lib.source}")
+            raise SystemExit(f"FAIL build: no kernel in {lib.source}")
         log(f"sass {lib.source} (cuobjdump -sass): " + " | ".join(lines))
 
 
@@ -355,11 +392,11 @@ def phase_kernel(torch, moe_runs):
     return max_err
 
 
-def quant_experts(torch, bits, gen, n_layers, d=D, h=H):
+def quant_experts(torch, bits, gen, n_layers, d=D, h=H, group=128):
     """Random quantized expert weights stacked (n_layers, E, ...): int8
     values, or random bytes (each byte holds two int4 values); float32
     scales (n_layers, E, [G,] 1, out) sized for outputs of order one,
-    with 128-row groups for int4 where the contraction allows; bf16
+    with `group`-row groups for int4 where the contraction allows; bf16
     biases (E, out)."""
     rms = 73.3 if bits == 8 else 4.6       # rms of uniform int8 / int4
 
@@ -369,7 +406,8 @@ def quant_experts(torch, bits, gen, n_layers, d=D, h=H):
                              dtype=torch.int16).to(torch.int8)
 
     def scales(k, out):
-        groups = k // 128 if bits == 4 and k % 128 == 0 and k > 128 else 1
+        groups = k // group if bits == 4 and k % group == 0 and k > group \
+            else 1
         shape = (n_layers, E) + ((groups,) if bits == 4 else ()) + (1, out)
         return (torch.rand(shape, generator=gen, device="cuda") + 0.5) \
             / (rms * k ** 0.5)
@@ -397,14 +435,15 @@ def n_active(torch, gate):
 
 
 def phase_kernel_quant(torch):
-    """K4, K5 and K6 against their plain versions; returns the worst
-    max_abs_err of each (kernel, a8)."""
+    """K4, K5 and K6 against their plain versions, and K5 a8 against K6 a8
+    bit for bit; returns the worst max_abs_err of each (kernel, a8)."""
     from m3asr_tpu_torch.ops import moe_q4, moe_runs
     gen = torch.Generator(device="cuda").manual_seed(4)
     worst = {}
     n_layers = 3
+    runs = {"K4": moe_runs.runs_q8_kernel, "K5": moe_runs.runs_q4_kernel}
 
-    def check(key, kern, plain, p, n, kind, layer, d=D):
+    def check(key, kern, plain, p, n, kind, layer, d=D, note=""):
         kname, a8 = key
         x = torch.randn(1, n, d, generator=gen, device="cuda") \
             .to(torch.bfloat16)
@@ -417,23 +456,32 @@ def phase_kernel_quant(torch):
         scale = ref.float().abs().max().item()
         ok = err <= (2e-2 if a8 else 1e-2) * scale
         log(f"kernel {QUANT_NAMES[key]} ({kname}) d={d} n={n} {kind} "
-            f"layer={layer} active={n_active(torch, gate)}: max_abs_err="
-            f"{err:.3e} max|ref|={scale:.3e} {'OK' if ok else 'FAIL'}")
+            f"layer={layer}{note} active={n_active(torch, gate)}: "
+            f"max_abs_err={err:.3e} max|ref|={scale:.3e} "
+            f"{'OK' if ok else 'FAIL'}")
         if not ok:
             raise SystemExit(f"FAIL kernel: {QUANT_NAMES[key]} disagrees "
                              "with its plain version")
         worst[key] = max(worst.get(key, 0.0), err)
+        if kname == "K5" and a8 and kind == "router" and n == 63:
+            # the same quant_rows, exact s32 sums and epilogue as K6
+            k6 = moe_q4.q4_kernel.launch(pl, x, gate, layer, act_quant=True)
+            if not torch.equal(got, k6):
+                raise SystemExit(
+                    "FAIL kernel: moe_runs_q4[w4a8] and moe_q4_dense[w4a8] "
+                    "differ by up to "
+                    f"{(got.float() - k6.float()).abs().max().item():.3e}")
+            log(f"kernel moe_runs_q4[w4a8] (K5) == moe_q4_dense[w4a8] (K6) "
+                f"bit for bit: n={n} layer={layer}{note}")
 
     last = n_layers - 1
     for bits, kname in ((8, "K4"), (4, "K5")):
         p = quant_experts(torch, bits, gen, n_layers)
-        kern = moe_runs.runs_q8_kernel if bits == 8 else \
-            moe_runs.runs_q4_kernel
         for a8 in (False, True):
-            for n in (63, 511):
+            for n in (63, 511, 1020):
                 for kind in KINDS:
                     for layer in (0, last):
-                        check((kname, a8), kern,
+                        check((kname, a8), runs[kname],
                               moe_runs.moe_experts_runs_reference, p, n,
                               kind, layer)
     for a8 in (False, True):
@@ -443,14 +491,30 @@ def phase_kernel_quant(torch):
                     check(("K6", a8), moe_q4.q4_kernel,
                           moe_q4.moe_experts_q4_reference, p, n, kind,
                           layer)
+    # 32-row int4 groups, the smallest the width rule takes: a group ends
+    # in the middle of each 64-deep slice of K5
+    p = quant_experts(torch, 4, gen, n_layers, group=32)
+    for a8 in (False, True):
+        for n in (63, 511):
+            for layer in (0, last):
+                check(("K5", a8), runs["K5"],
+                      moe_runs.moe_experts_runs_reference, p, n, "router",
+                      layer, note=" groups=32 rows")
     # d=320: w2's packed columns hold columns j and j + 160, so the
     # column block [128, 192) takes low nibbles and high nibbles
-    p = quant_experts(torch, 4, gen, 1, d=320, h=640)
-    for a8 in (False, True):
-        check(("K5", a8), moe_runs.runs_q4_kernel,
-              moe_runs.moe_experts_runs_reference, p, 63, "router", 0, 320)
-        check(("K6", a8), moe_q4.q4_kernel, moe_q4.moe_experts_q4_reference,
-              p, 63, "router", 0, 320)
+    for bits, kname in ((8, "K4"), (4, "K5")):
+        p = quant_experts(torch, bits, gen, 1, d=320, h=640)
+        for a8 in (False, True):
+            check((kname, a8), runs[kname],
+                  moe_runs.moe_experts_runs_reference, p, 63, "router", 0,
+                  320)
+            check((kname, a8), runs[kname],
+                  moe_runs.moe_experts_runs_reference, p, 511, "router", 0,
+                  320)
+            if bits == 4:
+                check(("K6", a8), moe_q4.q4_kernel,
+                      moe_q4.moe_experts_q4_reference, p, 63, "router", 0,
+                      320)
     return worst
 
 
@@ -1476,7 +1540,8 @@ def short_name(kernel):
 def device_time(torch, eng, feat, lens):
     """One request under torch.profiler: the summed duration of the
     kernels and copies the card ran (one stream, so they do not overlap),
-    in ms, the five kernel names that took most of it, and K1's ms."""
+    in ms, the five kernel names that took most of it, and the ms of each
+    moe_runs.cu kernel it ran (moe_runs_kernel: K1, K4/K5, K4/K5 a8)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
@@ -1488,8 +1553,12 @@ def device_time(torch, eng, feat, lens):
             us = e.time_range.elapsed_us()
             by_name[e.name] = by_name.get(e.name, 0.0) + us
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
-    k1 = sum(us for name, us in by_name.items() if "expert_tile_gemm" in name)
-    return sum(by_name.values()) / 1e3, top, k1 / 1e3
+    runs = {}
+    for name, us in by_name.items():
+        kern = moe_runs_kernel(name)
+        if kern is not None:
+            runs[kern] = runs.get(kern, 0.0) + us / 1e3
+    return sum(by_name.values()) / 1e3, top, runs
 
 
 def request_times(torch, eng, label, reqs, smi):
@@ -1507,7 +1576,7 @@ def request_times(torch, eng, label, reqs, smi):
             f"{np.median(times):.3f} ms (min {min(times):.3f}, max "
             f"{max(times):.3f}, 5 runs), peak memory "
             f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB; {smi}")
-        dev_ms, top, k1_ms = device_time(torch, eng, feat, lens)
+        dev_ms, top, runs = device_time(torch, eng, feat, lens)
         if dev_ms == 0:
             log("device time: not measured (the profiler recorded no "
                 "device activity)")
@@ -1517,7 +1586,8 @@ def request_times(torch, eng, label, reqs, smi):
             f"{dev_ms / np.median(times):.3f} of the median latency; "
             "top kernels: " + "; ".join(
                 f"{short_name(name)} {us / 1e3:.3f} ms" for name, us in top)
-            + (f"; K1 (expert_tile_gemm) {k1_ms:.3f} ms" if k1_ms else "")
+            + "".join(f"; {kern} ({RUNS_NAMES[kern]}) {ms:.3f} ms"
+                      for kern, ms in sorted(runs.items()))
             + f"; {smi}")
 
 

@@ -1,10 +1,11 @@
-// Device code shared by the expert-FFN kernels (moe_runs.cu: K4, K5;
-// moe_q4.cu: K6; moe_q4_tiled.cu: K7; moe_stream.cu: K8): the tile GEMMs
-// with their scale-group and bias/SiLU epilogues, the weight loaders of
-// the two quantized formats, the gather of one expert's rows by warp
-// ballots, and the per-row int8 quantization of the a8 modes. (K1, the
-// float format, has its own tiles in moe_runs.cu: bf16 on the tensor
-// cores, float32 on taller FMA patches, both on a cp.async pipeline.)
+// Device code shared by the expert-FFN kernels: the tile GEMMs with their
+// scale-group and bias/SiLU epilogues and the weight loaders of the two
+// quantized formats (moe_q4.cu: K6; moe_q4_tiled.cu: K7), the gather of
+// one expert's rows by warp ballots (K6; moe_stream.cu: K8), and the
+// per-row int8 quantization of the a8 modes (K4-K7). (K1, K4 and K5 have
+// their own tiles in moe_runs.cu: on the tensor cores, and float32 K1 on
+// taller FMA patches, all on a cp.async pipeline. K4/K5 keep the rounding
+// contract below and tile_gemm_s8's a8 epilogue.)
 //
 // A block of THREADS threads computes one TM x BN output tile: 32 rows
 // of one expert's tokens x 64 output columns. Each thread owns 2 rows x

@@ -265,10 +265,9 @@ def check_quant_args(p, x, w1, w2, E: int, fmt: str, col_block: int,
     if x.dtype not in act_dtypes:
         raise TypeError(f"this quantized expert kernel takes {act_dtypes} "
                         f"activations, got {x.dtype}")
-    if d % col_block or h % col_block:
-        raise ValueError(f"d={d} and h={h} must be multiples of "
-                         f"{col_block}")
     s1, s2 = layer_scales(p, E)
+    check_quant_widths(fmt, d, h, s1.shape[1], s2.shape[1], col_block,
+                       k_step)
     div = 2 if fmt == "q4" else 1
     checks = [("w1", w1, (w1.shape[0], d, h // div), torch.int8),
               ("w2", w2, (w1.shape[0], h, d // div), torch.int8),
@@ -286,14 +285,25 @@ def check_quant_args(p, x, w1, w2, E: int, fmt: str, col_block: int,
             raise ValueError(f"{name}: shape {tuple(t.shape)} != {shape}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    for name, s, k in (("w1_scale", s1, d), ("w2_scale", s2, h)):
-        G = s.shape[1]
-        if k % G or (k // G) % k_step:
+    return d, h, s1, s2
+
+
+def check_quant_widths(fmt: str, d: int, h: int, g1: int, g2: int,
+                       col_block: int, k_step: int) -> None:
+    """Raise ``ValueError`` unless the quantized kernels take model width
+    ``d``, expert hidden width ``h`` and ``g1`` / ``g2`` scale groups over
+    w1's d / w2's h rows: both widths multiples of the column block
+    ``col_block``, each group a multiple of ``k_step`` rows that divides
+    its contraction, and one group for int8 (``fmt`` "q8")."""
+    if d <= 0 or h <= 0 or d % col_block or h % col_block:
+        raise ValueError(f"d={d} and h={h} must be multiples of "
+                         f"{col_block}")
+    for name, G, k in (("w1_scale", g1, d), ("w2_scale", g2, h)):
+        if G <= 0 or k % G or (k // G) % k_step:
             raise ValueError(f"{name}: {G} groups over {k} rows; a group "
                              f"must be a multiple of {k_step} rows")
         if fmt == "q8" and G != 1:
             raise ValueError(f"{name}: int8 weights take one scale group")
-    return d, h, s1, s2
 
 
 def check_f_widths(d: int, h: int, col_block: int) -> None:
@@ -355,6 +365,10 @@ class RunsKernel:
             d, h, s1, s2 = check_quant_args(
                 p, x, w1, w2, E, fmt, lib.moe_runs_col_block(),
                 lib.moe_runs_k_step())
+            for name, t in (("w1", w1), ("w2", w2)):   # 16-byte copies
+                if t.data_ptr() % 16:
+                    raise ValueError(f"{name} must start on a 16-byte "
+                                     "boundary")
         b1, b2 = p.get("b1"), p.get("b2")
 
         def ptr(t):

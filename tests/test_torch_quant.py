@@ -29,7 +29,8 @@ from m3asr_tpu_torch.models import moe_conformer as t_model
 from m3asr_tpu_torch.ops import moe as t_moe
 from m3asr_tpu_torch.ops import quant as t_quant
 from m3asr_tpu_torch.ops.moe_q4 import moe_experts_q4_reference, q4_kernel
-from m3asr_tpu_torch.ops.moe_runs import (moe_experts_runs_reference,
+from m3asr_tpu_torch.ops.moe_runs import (check_quant_widths,
+                                          moe_experts_runs_reference,
                                           runs_q4_kernel, runs_q8_kernel)
 
 from test_op_parity import valid_region
@@ -299,6 +300,41 @@ def test_quant_kernel_launch_without_cuda_raises():
     for impl in ("quant5_tiled", "quant4_pallas_tiled"):
         with pytest.raises(ValueError, match="unknown moe impl"):
             t_moe._dispatch(t8, x, gate, impl)
+
+
+# K4/K5's argument rule: widths in multiples of the 64-column block
+# (moe_runs_col_block()), scale groups in multiples of 32 rows
+# (moe_runs_k_step()) that divide the contraction, one group for int8
+QUANT_WIDTHS = {
+    "flagship int8": ("q8", 512, 1024, 1, 1, None),
+    "flagship int4, 128-row groups": ("q4", 512, 1024, 4, 8, None),
+    "320/640 int8": ("q8", 320, 640, 1, 1, None),
+    "320/640 int4, per-column": ("q4", 320, 640, 1, 1, None),
+    "int4, 32-row groups": ("q4", 512, 1024, 16, 32, None),
+    "320/640 int4, 32-row groups": ("q4", 320, 640, 10, 20, None),
+    "h not a multiple of 64": ("q8", 512, 1000, 1, 1, "multiples of 64"),
+    "d not a multiple of 64": ("q4", 96, 192, 1, 1, "multiples of 64"),
+    "16-row groups": ("q4", 512, 1024, 32, 8, "multiple of 32 rows"),
+    "groups that do not divide": ("q4", 512, 1024, 3, 8,
+                                  "multiple of 32 rows"),
+    "int8, four groups": ("q8", 512, 1024, 4, 1, "one scale group"),
+}
+
+
+@pytest.mark.parametrize("case", list(QUANT_WIDTHS))
+def test_k4_k5_argument_rule(case):
+    """check_quant_args' width and group rule for K4/K5 (the kernel's
+    column block 64 and group step 32): the flagship's widths with int8
+    and with 128-row int4 groups, 320/640, and 32-row groups, whose ends
+    fall inside the kernel's 64-deep slices, are taken; a width not a
+    multiple of 64, a group not a multiple of 32 rows or not dividing the
+    contraction, and int8 with more than one group are refused."""
+    fmt, d, h, g1, g2, refusal = QUANT_WIDTHS[case]
+    if refusal is None:
+        check_quant_widths(fmt, d, h, g1, g2, 64, 32)
+    else:
+        with pytest.raises(ValueError, match=refusal):
+            check_quant_widths(fmt, d, h, g1, g2, 64, 32)
 
 
 # ---------------------------------------------------------------------------
