@@ -4,8 +4,10 @@ make: two checkouts, or variants of one kernel, timed in turns in one
 call, so that the card and its host are the same for both.
 
     python3 chip_compare.py serve-quant ROOT LABEL
+    python3 chip_compare.py serve-stream ROOT LABEL
     python3 chip_compare.py flash ROOT LABEL
     python3 chip_compare.py stages N [N ...]
+    python3 chip_compare.py libs PARENT_ROOT
 
 serve-quant: for the checkout at ROOT (its own chip_smoke.py and
 m3asr_tpu_torch), the int8, w8a8, int4 and w4a8 engines on the flagship's
@@ -13,6 +15,15 @@ seeded weights answer chip_smoke.py's three requests; each request's
 device time under torch.profiler is the median of 3 after 2 warm-up
 requests (min-max beside it). Then that checkout's time_quant_kernels
 (K4, K5 and K6 per call and alone). Lines start with "pair LABEL".
+
+serve-stream: for the checkout at ROOT, the engines that reach K8 and
+K6: fp32, bf16 and int8 with moe_impl="pallas" (K8) at 4x1000 and
+1x2048, and the int4 and w4a8 auto engines (K6) at 1x206, on the
+flagship's seeded weights. Each request's device time under
+torch.profiler is the median of 3 after 2 warm-up requests (min-max
+beside it), its latency the median of 5 (host clock), and its busy share
+the one over the other. Then that checkout's time_stage_kernels (K8, K7)
+and time_quant_kernels (K4-K6). Lines start with "pair LABEL".
 
 flash: the checkout's time_flash_kernels (K2/K3 per call, alone and
 device time, beside scaled_dot_product_attention).
@@ -23,6 +34,15 @@ copy of csrc/ under _trees/ with ptxas's register and spill lines
 printed, checked against the plain version (weight-only within 1e-2 of
 max|ref|, a8 within 2e-2; d=512 at 511 tokens and d=320 at 63), then
 timed by time_quant_kernels, in the order given.
+
+libs: in one process, the parent's moe_runs.cu, moe_q4.cu and
+moe_stream.cu (built by nvcc from PARENT_ROOT's csrc/ under _trees/)
+beside this checkout's, on the same inputs: K1, K4 and K5 must give the
+same bits (the tiles moved to a header), K6 a8 and fp32 K8 too (exact
+s32 sums; ascending-k FMAs), K6 weight-only and bf16 / int8 K8 within
+1e-2 of max|parent|; and every kernel's launches alone, parent and
+change in turns (parent, change, change, parent), at the main path's
+token counts under the router's and (K6, K8) the heavy routing.
 
 To compare a parent commit with the working tree, unpack it into a
 git-ignored directory and run both in turns, for example:
@@ -40,6 +60,7 @@ import re
 import shutil
 import subprocess
 import sys
+import time
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
@@ -87,6 +108,303 @@ def serve_quant(torch, root, label):
         base = None
         torch.cuda.empty_cache()
     cs.time_quant_kernels(torch, smi)
+
+
+# (label, EngineConfig settings, the requests it answers: indices of
+# chip_smoke.REQUESTS)
+STREAM_ENGINES = (
+    ("float32 pallas", dict(dtype="float32", moe_impl="pallas"), (1, 2)),
+    ("bfloat16 pallas", dict(dtype="bfloat16", moe_impl="pallas"), (1, 2)),
+    ("int8 pallas", dict(dtype="int8", moe_impl="pallas"), (1, 2)),
+    ("int4", dict(dtype="int4"), (0,)),
+    ("w4a8", dict(dtype="int4", act_quant=True), (0,)),
+)
+
+
+def serve_stream(torch, root, label):
+    cs = import_checkout(root)
+    from m3asr_tpu_torch import kernels
+    from m3asr_tpu_torch.runtime.engine import Engine, EngineConfig
+    _, smi = cs.phase_device(torch)
+    for lib in kernels.ALL:
+        lib.load()
+    cfg, params = cs.flagship_params(torch)
+    rng = np.random.default_rng(2)
+    reqs = [(rng.standard_normal((b, t, cfg.input_dim)).astype(np.float32),
+             np.full((b,), t, np.int32)) for b, t in cs.REQUESTS]
+    int4 = None
+    for name, settings, which in STREAM_ENGINES:
+        base = int4 if settings.get("act_quant") else params
+        eng = Engine(cfg, params if base is None else base,
+                     EngineConfig(**settings), device="cuda")
+        if settings["dtype"] == "int4" and int4 is None:
+            int4 = eng.params
+        for i in which:
+            feat, lens = reqs[i]
+            for _ in range(2):
+                eng.infer(feat, lens)
+            lat = []
+            for _ in range(5):
+                t0 = time.perf_counter()
+                eng.infer(feat, lens)
+                lat.append((time.perf_counter() - t0) * 1e3)
+            dev = [cs.device_time(torch, eng, feat, lens) for _ in range(3)]
+            ms = [d[0] for d in dev]
+            _, top, kern = dev[int(np.argsort(ms)[1])]
+            print(f"pair {label} {name} {feat.shape[0]}x{feat.shape[1]}: "
+                  f"device {np.median(ms):.3f} ms ({min(ms):.3f}-"
+                  f"{max(ms):.3f}), latency median {np.median(lat):.3f} ms "
+                  f"({min(lat):.3f}-{max(lat):.3f}), busy "
+                  f"{np.median(ms) / np.median(lat):.3f}; top kernels "
+                  + ", ".join(f"{cs.short_name(k)} {us / 1e3:.3f} ms"
+                              for k, us in top[:3])
+                  + "; expert kernels " + ", ".join(
+                      f"{k} {v:.3f} ms" for k, v in sorted(kern.items()))
+                  + f"; {smi}", flush=True)
+        eng = None
+        torch.cuda.empty_cache()
+    int4 = params = None
+    torch.cuda.empty_cache()
+    cs.time_stage_kernels(torch, smi)
+    cs.time_quant_kernels(torch, smi)
+
+
+def build_parent(kernels, root):
+    """The parent's moe_runs.cu, moe_q4.cu and moe_stream.cu, built by
+    nvcc from root's csrc/ into _trees/libs_parent/ (all at once);
+    returns {source: ctypes library}, declared with the parent's C
+    interfaces."""
+    out_dir = os.path.abspath(os.path.join("_trees", "libs_parent"))
+    shutil.rmtree(out_dir, ignore_errors=True)
+    shutil.copytree(os.path.join(os.path.abspath(root), "m3asr_tpu_torch",
+                                 "csrc"), out_dir)
+    sources = ("moe_runs.cu", "moe_q4.cu", "moe_stream.cu")
+
+    def build(src):
+        lib = os.path.join(out_dir, f"lib{src[:-3]}.so")
+        r = subprocess.run([kernels.find_nvcc(), *kernels.NVCC_FLAGS, "-o",
+                            lib, os.path.join(out_dir, src)],
+                           capture_output=True, text=True)
+        if r.returncode:
+            raise SystemExit(r.stdout + r.stderr)
+        return lib
+    with ThreadPoolExecutor(len(sources)) as ex:
+        paths = dict(zip(sources, ex.map(build, sources)))
+    vp, i = ctypes.c_void_p, ctypes.c_int
+    libs = {src: ctypes.CDLL(path) for src, path in paths.items()}
+    kernels.MOE_RUNS._declare(libs["moe_runs.cu"])   # unchanged interface
+    q4 = libs["moe_q4.cu"].moe_q4_dense
+    q4.argtypes = [i, vp, vp, i, vp, vp, i, vp, vp, vp, i, vp, i, i, i, i,
+                   vp, vp, vp, vp, vp, vp, vp]
+    q4.restype = i
+    st = libs["moe_stream.cu"].moe_stream
+    st.argtypes = [i, i, vp, vp, i, vp, vp, vp, vp, vp, vp, i, i, i, vp, vp,
+                   vp]
+    st.restype = i
+    return libs
+
+
+def in_turns(cs, torch, fa, fb, iters=60):
+    """Launches alone of fa (parent) and fb (change), timed in turns
+    parent, change, change, parent: (parent's two, change's two) in ms."""
+    a, b = [], []
+    for f, dst in ((fa, a), (fb, b), (fb, b), (fa, a)):
+        dst.append(cs.cuda_time_ms(torch, f, iters))
+    return a, b
+
+
+def libs(torch, parent_root):
+    cs = import_checkout(".")
+    from m3asr_tpu_torch import kernels
+    from m3asr_tpu_torch.ops import moe_runs
+    _, smi = cs.phase_device(torch)
+    old = build_parent(kernels, parent_root)
+    new = {lib.source: lib.load() for lib in
+           (kernels.MOE_RUNS, kernels.MOE_Q4, kernels.MOE_STREAM)}
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    stream = torch.cuda.current_stream().cuda_stream
+    E, D, H = cs.E, cs.D, cs.H
+    n_layers = 6
+
+    def report(label, out_old, out_new, a, b, exact):
+        diff = (out_old.float() - out_new.float()).abs().max().item()
+        scale = out_old.float().abs().max().item()
+        same = torch.equal(out_old, out_new)
+        ok = same if exact else diff <= 1e-2 * scale
+        print(f"libs {label}: parent alone {a[0]:.4f}/{a[1]:.4f} ms, change "
+              f"{b[0]:.4f}/{b[1]:.4f} ms (parent/change "
+              f"{sum(a) / sum(b):.3f}x); outputs "
+              + ("bit-identical" if same else
+                 f"max|diff| {diff:.3e} of max|parent| {scale:.3e}")
+              + f" ({'held' if ok else 'FAIL'}: "
+              f"{'bits' if exact else '1e-2'}); {smi}", flush=True)
+        if not ok:
+            raise SystemExit(f"FAIL libs {label}")
+
+    # K1, K4, K5: the run-length layout, router routing
+    for what in ("float32", "bfloat16", "int8", "int4"):
+        if what in ("float32", "bfloat16"):
+            dt = getattr(torch, what)
+            p = cs.expert_weights(torch, dt, gen, n_layers=n_layers)
+            modes = (None,)
+        else:
+            dt = torch.bfloat16
+            bits = 8 if what == "int8" else 4
+            p = cs.quant_experts(torch, bits, gen, n_layers)
+            modes = (False, True)
+        for n in (63, 511, 1020):
+            x = torch.randn(1, n, D, generator=gen, device="cuda").to(dt)
+            gate = cs.routing(torch, "router", n, gen)
+            lay = moe_runs.runs_layout(gate.reshape(n), E)
+            x_pad = moe_runs._pad_tokens(x.reshape(n, D), lay,
+                                         moe_runs.TILE)
+            rows = lay.n_tiles * moe_runs.TILE
+            for a8 in modes:
+                hdt = torch.float32 if a8 else dt
+                scratch = [torch.empty(rows, H, device="cuda", dtype=hdt),
+                           torch.empty(rows, D, dtype=torch.int8,
+                                       device="cuda"),
+                           torch.empty(rows, device="cuda"),
+                           torch.empty(rows, H, dtype=torch.int8,
+                                       device="cuda"),
+                           torch.empty(rows, device="cuda")]
+                ys = {k: torch.empty_like(x_pad) for k in ("old", "new")}
+
+                def run(lib, y, i):
+                    j = i % n_layers
+                    if a8 is None:
+                        w1 = p["w1"].reshape(n_layers * E, D, H)
+                        w2 = p["w2"].reshape(n_layers * E, H, D)
+                        err = lib.moe_runs_f(
+                            0 if dt == torch.float32 else 1,
+                            x_pad.data_ptr(), w1.data_ptr(),
+                            p["b1"].data_ptr(), w2.data_ptr(),
+                            p["b2"].data_ptr(), lay.tile_e.data_ptr(),
+                            lay.starts.data_ptr(), lay.counts.data_ptr(),
+                            lay.n_tiles, E, j, D, H, scratch[0].data_ptr(),
+                            y.data_ptr(), stream)
+                    else:
+                        k1, k2 = ("w1_q4", "w2_q4") if bits == 4 else \
+                            ("w1_q", "w2_q")
+                        s1 = p["w1_scale"][j].reshape(E, -1, H)
+                        s2 = p["w2_scale"][j].reshape(E, -1, D)
+                        err = lib.moe_runs_q(
+                            1 if bits == 8 else 2, int(a8), x_pad.data_ptr(),
+                            p[k1].data_ptr(), s1.data_ptr(), s1.shape[1],
+                            p["b1"].data_ptr(), p[k2].data_ptr(),
+                            s2.data_ptr(), s2.shape[1], p["b2"].data_ptr(),
+                            lay.tile_e.data_ptr(), lay.starts.data_ptr(),
+                            lay.n_tiles, E, j, D, H,
+                            *(t.data_ptr() for t in scratch),
+                            y.data_ptr(), stream)
+                    if err:
+                        raise SystemExit(f"FAIL libs: launch error {err}")
+                a, b = in_turns(
+                    cs, torch,
+                    lambda i: run(old["moe_runs.cu"], ys["old"], i),
+                    lambda i: run(new["moe_runs.cu"], ys["new"], i))
+                run(old["moe_runs.cu"], ys["old"], 0)
+                run(new["moe_runs.cu"], ys["new"], 0)
+                torch.cuda.synchronize()
+                name = f"K1 {what}" if a8 is None else \
+                    f"{'K4' if what == 'int8' else 'K5'} {what}" + \
+                    (" a8" if a8 else "")
+                report(f"{name} n={n} router",
+                       moe_runs._unpad(ys["old"], lay),
+                       moe_runs._unpad(ys["new"], lay), a, b, True)
+        p = None
+        torch.cuda.empty_cache()
+
+    # K6: int4 weight-only and w4a8 at 63 and 127 tokens
+    p = cs.quant_experts(torch, 4, gen, n_layers)
+    for n in (63, 127):
+        for kind in cs.TIME_KINDS:
+            x = torch.randn(1, n, D, generator=gen, device="cuda") \
+                .to(torch.bfloat16)
+            gate = cs.routing(torch, kind, n, gen).reshape(n)
+            front = torch.empty(new["moe_q4.cu"].moe_q4_front_ints(n, E),
+                                dtype=torch.int32, device="cuda")
+            for a8 in (False, True):
+                scratch = [torch.empty(n, H, device="cuda", dtype=(
+                               torch.float32 if a8 else torch.bfloat16)),
+                           torch.empty(n, D, dtype=torch.int8, device="cuda"),
+                           torch.empty(n, device="cuda"),
+                           torch.empty(n, H, dtype=torch.int8, device="cuda"),
+                           torch.empty(n, device="cuda")]
+                ys = {k: torch.empty(n, D, dtype=torch.bfloat16,
+                                     device="cuda") for k in ("old", "new")}
+
+                def run(key, i):
+                    j = i % n_layers
+                    s1 = p["w1_scale"][j].reshape(E, -1, H)
+                    s2 = p["w2_scale"][j].reshape(E, -1, D)
+                    args = [int(a8), x.data_ptr(), gate.data_ptr(), n,
+                            p["w1_q4"].data_ptr(), s1.data_ptr(), s1.shape[1],
+                            p["b1"].data_ptr(), p["w2_q4"].data_ptr(),
+                            s2.data_ptr(), s2.shape[1], p["b2"].data_ptr(), E,
+                            j, D, H]
+                    if key == "new":
+                        args.append(front.data_ptr())
+                    lib = (old if key == "old" else new)["moe_q4.cu"]
+                    if lib.moe_q4_dense(*args, *(t.data_ptr()
+                                                 for t in scratch),
+                                        ys[key].data_ptr(), stream):
+                        raise SystemExit("FAIL libs: moe_q4_dense launch "
+                                         "error")
+                a, b = in_turns(cs, torch, lambda i: run("old", i),
+                                lambda i: run("new", i))
+                run("old", 0)
+                run("new", 0)
+                torch.cuda.synchronize()
+                report(f"K6 {'w4a8' if a8 else 'int4'} n={n} {kind}",
+                       ys["old"], ys["new"], a, b, a8)
+    p = None
+    torch.cuda.empty_cache()
+
+    # K8: fp32, bf16 and int8 weights at 63, 511 and 1020 tokens
+    for wtype in cs.STREAM_NAMES:
+        quant = wtype == "int8"
+        xdt = torch.float32 if wtype == "float32" else torch.bfloat16
+        layers = cs.stream_layers(torch, wtype, gen, n_layers)
+        args = []
+        for q in layers:
+            w1, w2 = (q["w1_q"], q["w2_q"]) if quant else (q["w1"], q["w2"])
+            args.append((w1.data_ptr(),
+                         q["w1_scale"].reshape(E, H).data_ptr() if quant
+                         else None, q["b1"].float(), w2.data_ptr(),
+                         q["w2_scale"].reshape(E, D).data_ptr() if quant
+                         else None, q["b2"].float()))
+        for n in cs.STAGE_TOKENS:
+            for kind in cs.TIME_KINDS:
+                x = torch.randn(n, D, generator=gen, device="cuda").to(xdt)
+                gate = cs.routing(torch, kind, n, gen).reshape(n)
+                front = torch.empty(
+                    new["moe_stream.cu"].moe_stream_front_ints(n, E),
+                    dtype=torch.int32, device="cuda")
+                hid = torch.empty(n, H, dtype=xdt, device="cuda")
+                ys = {k: torch.empty_like(x) for k in ("old", "new")}
+
+                def run(key, i):
+                    w1, s1, b1, w2, s2, b2 = args[i % n_layers]
+                    head = [0 if xdt == torch.float32 else 1, int(quant),
+                            x.data_ptr(), gate.data_ptr(), n, w1, s1,
+                            b1.data_ptr(), w2, s2, b2.data_ptr(), E, D, H]
+                    if key == "new":
+                        head.append(front.data_ptr())
+                    lib = (old if key == "old" else new)["moe_stream.cu"]
+                    if lib.moe_stream(*head, hid.data_ptr(),
+                                      ys[key].data_ptr(), stream):
+                        raise SystemExit("FAIL libs: moe_stream launch "
+                                         "error")
+                a, b = in_turns(cs, torch, lambda i: run("old", i),
+                                lambda i: run("new", i))
+                run("old", 0)
+                run("new", 0)
+                torch.cuda.synchronize()
+                report(f"K8 {wtype} n={n} {kind}", ys["old"], ys["new"], a,
+                       b, wtype == "float32")
+        layers = args = None
+        torch.cuda.empty_cache()
 
 
 def flash(torch, root, label):
@@ -174,9 +492,13 @@ def main():
         flash(torch, *args)
     elif mode == "stages":
         stages(torch, [int(a) for a in args])
+    elif mode == "serve-stream":
+        serve_stream(torch, *args)
+    elif mode == "libs":
+        libs(torch, *args)
     else:
-        raise SystemExit(f"unknown mode {mode!r}: serve-quant, flash, "
-                         "stages")
+        raise SystemExit(f"unknown mode {mode!r}: serve-quant, "
+                         "serve-stream, flash, stages, libs")
     return 0
 
 

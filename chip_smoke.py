@@ -10,31 +10,39 @@ result line:
    reports them.
 2. build: every hand-written kernel, compiled by nvcc from csrc/ (one
    nvcc per source, all started together), with ptxas registers and
-   spills per instantiation (K1, K4 and K5 must not spill, also when an
-   earlier run built them: nvcc's output is kept beside each library);
-   the SASS (cuobjdump) of the flash kernels, K1 (expert_tile_gemm) and
-   K4/K5 (runs_gemm, runs_gemm_s8) must run bf16 and K4/K5 weight-only on
-   HMMA.16816.F32.BF16, K4/K5 a8 on IMMA.16832.S8.S8 and float32 on FFMA,
-   with no other MMA and no atomic.
+   spills per instantiation (K1, K4-K6, K8 and K6's/K8's row-tile front
+   must not spill, also when an earlier run built them: nvcc's output is
+   kept beside each library); the SASS (cuobjdump) of the flash kernels,
+   K1 (expert_tile_gemm), K4/K5 (runs_gemm, runs_gemm_s8), K6
+   (dense_gemm), K8 (stream_gemm) and the front (row_tiles) must run
+   bf16, int8-on-bf16 K8 and K4/K5/K6 weight-only on HMMA.16816.F32.BF16,
+   K4/K5/K6 a8 on IMMA.16832.S8.S8 and float32 on FFMA, with no other MMA
+   and no atomic; the front runs no MMA.
 3. kernels against their plain PyTorch versions at the flagship widths
    (E=32, d=512, h=1024):
+   K6's and K8's row-tile front (row_tiles, in each library) against its
+   plain twin (ops/row_tiles.py) at 1, 63, 127, 511, 1020 and 2048 rows
+   under every routing below: the same tile table and row order.
    K1 (float run-length, moe_runs_f): stacked L=18 at layers 0 and 17,
    fp32 and bf16, at 63/127/511/1020/1535 tokens (the 256/512/2048/
-   6144-frame buckets and the 4x1000 request) under four routings, and
-   stacked L=2 at d=320, h=640 (multiples of K1's 64-column block, d not
-   of 128). fp32: allclose(rtol 1e-5, atol 1e-5); bf16: max|diff| within
-   1e-2 of max|ref|. Under the router's routing fp32 K1 must equal K8
-   (moe_stream) bit for bit: both sum in ascending k.
+   6144-frame buckets and the 4x1000 request) under the four routings of
+   K4-K6 below, and stacked L=2 at d=320, h=640
+   (multiples of K1's 64-column block, d not of 128). fp32:
+   allclose(rtol 1e-5, atol 1e-5); bf16: max|diff| within 1e-2 of
+   max|ref|. Under the router's and the heavy routing fp32 K1 must equal
+   K8 (moe_stream) bit for bit: both sum in ascending k.
    K4 (int8 run-length), K5 (int4 run-length) at 63, 511 and 1020
    tokens, K6 (int4 dense streamer) at 63 and 127, each weight-only and
    a8, random int weights stacked L=3 at layers 0 and 2, bf16
    activations, under a router's skewed routing, all tokens on one
-   expert, and half the experts empty; K5 also with 32-row int4 groups
+   expert, half the experts empty, and 55% of the tokens on one expert
+   (heavy); K6 also with gate -1 rows, which must come out 0; K5 also
+   with 32-row int4 groups
    (a group ends inside its 64-deep slices) at 63 and 511 tokens; K4, K5
    and K6 also at d=320, h=640, where the two nibble halves of w2's
-   packed columns meet inside one column block. Under the router's
-   routing at 63 tokens K5 a8 must equal K6 a8 bit for bit (the same
-   quant_rows, exact s32 sums and epilogue).
+   packed columns meet inside one column block. Under the router's and
+   the heavy routing at 63 tokens K5 a8 must equal K6 a8 bit for bit
+   (the same quant_rows, s8 tiles, exact s32 sums and epilogue).
    Weight-only: max|diff| within 1e-2 of max|ref| (bf16 output and
    hidden, float32 sums in another order). a8: within 2e-2 (the integer
    sums are exact on both sides, but SiLU rounds differently in the two,
@@ -53,7 +61,8 @@ result line:
    on bf16 activations) and K7 (tiled int4 grouped GEMM) weight-only and
    a8, at 63, 511 and 1020 tokens (K7's tile 64, 64, 128), under the
    router's routing, all tokens on one expert, half the experts empty,
-   and (K8) rows padded with gate -1, which must come out 0; K7 stacked
+   and (K8) the heavy routing and rows padded with gate -1, which must
+   come out 0; K7 stacked
    L=3 at layers 0 and 2, with upper_bound at layer 1, and at d=320,
    h=640. fp32 within 1e-5 of
    max|ref| (float32 sums in another order), bf16, int8 and weight-only
@@ -122,15 +131,17 @@ result line:
 9. times: each kernel per call (CUDA events over many calls after
    warm-up, layers rotated so weights come from device memory) and its
    launches alone, at the main path's token counts (K1 at 63, 511 and
-   1020 with its column block and each launch's live blocks; K2/K3 at
-   both long requests' attention
+   1020 with its column block and each launch's live blocks; K6 at 63
+   and 127 and K8 at 63, 511 and 1020 under the router's and the heavy
+   routing, each beside its yardstick's launches alone on the same
+   tokens: K5 for K6, K1 for K8; K2/K3 at both long requests' attention
    shapes, with each launch's tile rows and blocks),
    beside its bound, the plain version's time and, for K2/K3,
    scaled_dot_product_attention's; the float engines' request latency,
    peak device memory and device time of one request under
    torch.profiler with the kernels that took most of it and K1's part.
-   Every device-time line names the moe_runs.cu kernels' (K1, K4/K5)
-   summed time in the request.
+   Every device-time line names the expert kernels' (K1, K4/K5, K6, K8,
+   the front) summed time in the request.
 
 The line before the last is one JSON object describing each kernel
 (route, source, launches on the main path, error, times, bound); the
@@ -139,6 +150,7 @@ last line is {"ok": true, "device": {...}}.
 
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -218,16 +230,14 @@ def phase_build(kernels):
                 log(f"build {lib.source}: {lib.build_seconds:.2f} s, "
                     f"{' '.join(lib.command[:4])} ...; ptxas: "
                     + " | ".join(ptxas))
-            if lib is kernels.MOE_RUNS:
-                for kern in ("K1", "K4/K5", "K4/K5 a8"):
-                    found = [ln for ln in ptxas if moe_runs_kernel(ln) == kern]
-                    if not found:
-                        raise SystemExit(f"FAIL build: no ptxas record of "
-                                         f"{kern}")
-                    spilled = [ln for ln in found if "SPILLS" in ln]
-                    if spilled:
-                        raise SystemExit(f"FAIL build: {kern} spills: "
-                                         + " | ".join(spilled))
+            for kern in BUILD_GATES.get(lib.source, ()):
+                found = [ln for ln in ptxas if expert_kernel(ln) == kern]
+                if not found:
+                    raise SystemExit(f"FAIL build: no ptxas record of {kern}")
+                spilled = [ln for ln in found if "SPILLS" in ln]
+                if spilled:
+                    raise SystemExit(f"FAIL build: {kern} spills: "
+                                     + " | ".join(spilled))
     log(f"build: all kernels in {time.perf_counter() - t0:.2f} s")
     kernel_sass(kernels)
 
@@ -241,43 +251,62 @@ def demangle(names):
                           check=True).stdout.splitlines()
 
 
-def moe_runs_kernel(name):
-    """Which kernel of moe_runs.cu an instantiation's name belongs to:
-    "K1" (expert_tile_gemm), "K4/K5" (runs_gemm), "K4/K5 a8"
-    (runs_gemm_s8), or None."""
+def expert_kernel(name):
+    """Which expert kernel an instantiation's or a device event's name
+    belongs to: "K1" (moe_runs.cu's expert_tile_gemm), "K4/K5"
+    (runs_gemm), "K4/K5 a8" (runs_gemm_s8), "K6" / "K6 a8" (moe_q4.cu's
+    dense_gemm weight-only / a8), "K8" (moe_stream.cu's stream_gemm),
+    "front" (row_tiles, K6's and K8's row-tile front), or None."""
     if "runs_gemm_s8" in name:
         return "K4/K5 a8"
     if "runs_gemm" in name:
         return "K4/K5"
-    return "K1" if "expert_tile_gemm" in name else None
+    if "expert_tile_gemm" in name:
+        return "K1"
+    if "dense_gemm" in name:
+        # a8 is the first template argument (mangled: ILb1E)
+        a8 = re.search(r"dense_gemm(?:[<\[]true|ILb1E)", name)
+        return "K6 a8" if a8 else "K6"
+    if "stream_gemm" in name:
+        return "K8"
+    return "front" if "row_tiles" in name else None
 
 
-RUNS_NAMES = {"K1": "expert_tile_gemm", "K4/K5": "runs_gemm",
-              "K4/K5 a8": "runs_gemm_s8"}
+KERNEL_NAMES = {"K1": "expert_tile_gemm", "K4/K5": "runs_gemm",
+                "K4/K5 a8": "runs_gemm_s8", "K6": "dense_gemm",
+                "K6 a8": "dense_gemm a8", "K8": "stream_gemm",
+                "front": "row_tiles"}
+# per library, the kernels that must have a ptxas record and no spill
+BUILD_GATES = {"moe_runs.cu": ("K1", "K4/K5", "K4/K5 a8"),
+               "moe_q4.cu": ("K6", "K6 a8", "front"),
+               "moe_stream.cu": ("K8", "front")}
 
 
 def sass_want(short):
-    """The MMA instruction a tensor-core kernel instantiation must run:
-    K4/K5 a8 IMMA.16832.S8.S8, K4/K5 weight-only and every bf16 one
-    HMMA.16816.F32.BF16, float32 FFMA."""
-    kern = moe_runs_kernel(short)
-    if kern == "K4/K5 a8":
+    """The instruction a kernel instantiation must run: K4/K5 and K6 a8
+    IMMA.16832.S8.S8, K4/K5 and K6 weight-only and every bf16 one
+    (K1, K8, flash) HMMA.16816.F32.BF16, float32 FFMA (no TF32 MMA); the
+    row-tile front none (it must run no MMA either)."""
+    kern = expert_kernel(short)
+    if kern in ("K4/K5 a8", "K6 a8"):
         return "IMMA.16832.S8.S8"
-    if kern == "K4/K5" or "bfloat16" in short:
+    if kern in ("K4/K5", "K6") or "bfloat16" in short:
         return "HMMA.16816.F32.BF16"
-    return "FFMA"
+    return None if kern == "front" else "FFMA"
 
 
 def kernel_sass(kernels):
     """The arithmetic instructions of every tensor-core kernel's
     instantiations, from cuobjdump -sass of the built libraries: each
-    flash kernel, K1 (moe_runs.cu's expert_tile_gemm) and K4/K5
-    (runs_gemm, runs_gemm_s8). Each must run on its sass_want MMA (or
-    FFMA alone for float32, no TF32 MMA), no other MMA, and no atomic
-    (ATOM, RED)."""
+    flash kernel, K1 (moe_runs.cu's expert_tile_gemm), K4/K5 (runs_gemm,
+    runs_gemm_s8), K6 (moe_q4.cu's dense_gemm), K8 (moe_stream.cu's
+    stream_gemm) and their row-tile front. Each must run on its sass_want
+    instruction (or FFMA alone for float32, no TF32 MMA), no other MMA,
+    and no atomic (ATOM, ATOMS, RED)."""
     cuobjdump = os.path.join(os.path.dirname(kernels.find_nvcc()),
                              "cuobjdump")
-    for lib, moe in ((kernels.FLASH, False), (kernels.MOE_RUNS, True)):
+    for lib, moe in ((kernels.FLASH, False), (kernels.MOE_RUNS, True),
+                     (kernels.MOE_Q4, True), (kernels.MOE_STREAM, True)):
         sass = subprocess.run([cuobjdump, "-sass", lib.build()],
                               capture_output=True, text=True,
                               check=True).stdout
@@ -295,14 +324,14 @@ def kernel_sass(kernels):
         lines = []
         for name, c in zip(demangle(funcs), counts):
             short = short_name(name.replace("<", "[").replace(">", "]"))
-            if moe and moe_runs_kernel(short) is None:
+            if moe and expert_kernel(short) is None:
                 continue
             want = sass_want(short)
-            lines.append(f"{short}: " + ", ".join(
-                f"{k} x{v}" for k, v in sorted(c.items())))
+            lines.append(f"{short}: " + (", ".join(
+                f"{k} x{v}" for k, v in sorted(c.items())) or "no MMA"))
             wrong = [k for k in c if k != want and k.startswith(
                 ("HMMA", "IMMA", "ATOM", "RED"))]
-            if not c.get(want) or wrong:
+            if (want is not None and not c.get(want)) or wrong:
                 raise SystemExit(f"FAIL build: {short} runs {sorted(c)}, "
                                  f"not {want} alone")
         if not lines:
@@ -324,7 +353,10 @@ def expert_weights(torch, dtype, gen, n_layers=L, d=D, h=H):
 def routing(torch, kind, n, gen):
     """Gate indices (1, n): a random router over random catEmbed
     features (skewed but spread, as a real router), all tokens on one
-    expert, half the experts empty, or the router result as is."""
+    expert, half the experts empty, 55% of the tokens on the router's
+    busiest expert and the rest as the router sends them ("heavy": the
+    engine's real routing gives one expert a median 43-56% of a block's
+    tokens, PERF.md section 5), or the router result as is."""
     feats = torch.randn(n, 2 * D, generator=gen, device="cuda")
     router = torch.randn(2 * D, E, generator=gen, device="cuda") * 0.5
     logits = feats @ router
@@ -333,6 +365,9 @@ def routing(torch, kind, n, gen):
     idx = logits.argmax(-1)
     if kind == "one_expert":
         idx = torch.full_like(idx, E - 1)
+    if kind == "heavy":
+        pick = torch.randperm(n, generator=gen, device="cuda")
+        idx[pick[:round(0.55 * n)]] = torch.bincount(idx, minlength=E).argmax()
     return idx.to(torch.int32)[None]
 
 
@@ -368,7 +403,7 @@ def phase_kernel(torch, moe_runs):
                              "with its plain version")
         key = str(dtype)[6:]
         max_err[key] = max(max_err.get(key, 0.0), err)
-        if dtype == torch.float32 and kind == "router":
+        if dtype == torch.float32 and kind in ("router", "heavy"):
             # K8 sums fp32 in K1's order: one accumulator, ascending k
             one = {k: v[layer] if k in ("w1", "w2") else v
                    for k, v in p.items()}
@@ -378,7 +413,7 @@ def phase_kernel(torch, moe_runs):
 
     for dtype in (torch.float32, torch.bfloat16):
         p = expert_weights(torch, dtype, gen)
-        cases = [(n, kind) for n in TOKENS for kind in KINDS]
+        cases = [(n, kind) for n in TOKENS for kind in KINDS + ("heavy",)]
         cases.append((5, "router"))                   # N < tile
         for n, kind in cases:
             for layer in (0, L - 1):
@@ -388,7 +423,7 @@ def phase_kernel(torch, moe_runs):
         for n in (63, 511):
             check(dtype, p, n, "router", 1, d=320)
     log("kernel moe_runs_f float32 == moe_stream float32 (K8) bit for bit "
-        "at every router case above")
+        "at every router and heavy case above")
     return max_err
 
 
@@ -447,23 +482,26 @@ def phase_kernel_quant(torch):
         kname, a8 = key
         x = torch.randn(1, n, d, generator=gen, device="cuda") \
             .to(torch.bfloat16)
-        gate = routing(torch, kind, n, gen)
+        gate = stage_routing(torch, kind, n, gen)
         pl = at_layer(p, layer)
         got = kern.launch(pl, x, gate, layer, act_quant=a8)
         torch.cuda.synchronize()
+        if kind == "padded" and bool((got[gate < 0] != 0).any()):
+            raise SystemExit(f"FAIL kernel: {QUANT_NAMES[key]} wrote a row "
+                             "of no expert")
         ref = plain(pl, x, gate, layer, act_quant=a8)
         err = (got.float() - ref.float()).abs().max().item()
         scale = ref.float().abs().max().item()
         ok = err <= (2e-2 if a8 else 1e-2) * scale
         log(f"kernel {QUANT_NAMES[key]} ({kname}) d={d} n={n} {kind} "
-            f"layer={layer}{note} active={n_active(torch, gate)}: "
+            f"layer={layer}{note} active={n_active(torch, gate[gate >= 0])}: "
             f"max_abs_err={err:.3e} max|ref|={scale:.3e} "
             f"{'OK' if ok else 'FAIL'}")
         if not ok:
             raise SystemExit(f"FAIL kernel: {QUANT_NAMES[key]} disagrees "
                              "with its plain version")
         worst[key] = max(worst.get(key, 0.0), err)
-        if kname == "K5" and a8 and kind == "router" and n == 63:
+        if kname == "K5" and a8 and kind in ("router", "heavy") and n == 63:
             # the same quant_rows, exact s32 sums and epilogue as K6
             k6 = moe_q4.q4_kernel.launch(pl, x, gate, layer, act_quant=True)
             if not torch.equal(got, k6):
@@ -472,21 +510,21 @@ def phase_kernel_quant(torch):
                     "differ by up to "
                     f"{(got.float() - k6.float()).abs().max().item():.3e}")
             log(f"kernel moe_runs_q4[w4a8] (K5) == moe_q4_dense[w4a8] (K6) "
-                f"bit for bit: n={n} layer={layer}{note}")
+                f"bit for bit: n={n} {kind} layer={layer}{note}")
 
     last = n_layers - 1
     for bits, kname in ((8, "K4"), (4, "K5")):
         p = quant_experts(torch, bits, gen, n_layers)
         for a8 in (False, True):
             for n in (63, 511, 1020):
-                for kind in KINDS:
+                for kind in KINDS + ("heavy",):
                     for layer in (0, last):
                         check((kname, a8), runs[kname],
                               moe_runs.moe_experts_runs_reference, p, n,
                               kind, layer)
     for a8 in (False, True):
         for n in (63, 127):
-            for kind in KINDS:
+            for kind in KINDS + ("heavy", "padded"):
                 for layer in (0, last):
                     check(("K6", a8), moe_q4.q4_kernel,
                           moe_q4.moe_experts_q4_reference, p, n, kind,
@@ -541,15 +579,64 @@ def stream_layers(torch, wtype, gen, n_layers):
 
 
 def stage_routing(torch, kind, n, gen):
-    """The routings of the K7/K8 checks: KINDS, and (K8) the router's
-    routing with every fifth row and the last row padded with gate -1,
-    as the JAX wrapper pads rows of no expert."""
+    """The routings of the K4-K8 checks: routing()'s kinds, and (K6, K8)
+    "padded", the router's routing with every fifth row and the last row
+    padded with gate -1, as the JAX wrapper pads rows of no expert."""
     if kind != "padded":
         return routing(torch, kind, n, gen)
     gate = routing(torch, "router", n, gen)
     gate[0, ::5] = -1
     gate[0, -1] = -1
     return gate
+
+
+FRONT_TOKENS = (1, 63, 127, 511, 1020, 2048)
+
+
+def phase_kernel_front(torch):
+    """K6's and K8's row-tile front (row_tiles, built into each of their
+    libraries) against its plain twin (ops/row_tiles.py): the same tile
+    count, rows of no expert, row order and tile table, at 1 to 2048
+    rows under every routing, gate -1 padding included. Returns the
+    number of cases."""
+    from m3asr_tpu_torch import kernels
+    from m3asr_tpu_torch.ops import row_tiles
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    stream = torch.cuda.current_stream().cuda_stream
+    cases = 0
+    for lib, prefix in ((kernels.MOE_Q4.load(), "moe_q4"),
+                        (kernels.MOE_STREAM.load(), "moe_stream")):
+        size = getattr(lib, f"{prefix}_front_ints")
+        run = getattr(lib, f"{prefix}_row_tiles")
+        for n in FRONT_TOKENS:
+            if size(n, E) != row_tiles.front_ints(n, E):
+                raise SystemExit(f"FAIL kernel: {prefix} front size "
+                                 f"{size(n, E)} != plain "
+                                 f"{row_tiles.front_ints(n, E)}")
+            for kind in KINDS + ("heavy", "padded"):
+                gate = stage_routing(torch, kind, n, gen).reshape(n)
+                words = torch.full((size(n, E),), -7, dtype=torch.int32,
+                                   device="cuda")
+                if run(gate.data_ptr(), n, E, words.data_ptr(), stream):
+                    raise SystemExit(f"FAIL kernel: {prefix}_row_tiles "
+                                     "launch error")
+                torch.cuda.synchronize()
+                got = row_tiles.read_front(words, n, E)
+                want = row_tiles.read_front(
+                    row_tiles.row_tiles_reference(gate, E), n, E)
+                same = got[:2] == want[:2] and all(
+                    torch.equal(a, b) for a, b in zip(got[2:], want[2:]))
+                if not same:
+                    raise SystemExit(f"FAIL kernel: {prefix}_row_tiles n={n} "
+                                     f"{kind} differs from its plain twin: "
+                                     f"tiles {got.n_tiles} / {want.n_tiles},"
+                                     f" no expert {got.n_none} / "
+                                     f"{want.n_none}")
+                cases += 1
+    log(f"kernel row_tiles (K6/K8 front) == plain twin at {cases} cases: "
+        f"n in {FRONT_TOKENS}, {KINDS + ('heavy', 'padded')}, both "
+        "libraries")
+    return cases
 
 
 def rel_check(got, ref, tol, label, name):
@@ -581,7 +668,7 @@ def phase_kernel_stage(torch):
         xdt = torch.float32 if wtype == "float32" else torch.bfloat16
         tol = 1e-5 if wtype == "float32" else 1e-2
         for n in STAGE_TOKENS:
-            for kind in KINDS + ("padded",):
+            for kind in KINDS + ("heavy", "padded"):
                 x = torch.randn(1, n, D, generator=gen, device="cuda").to(xdt)
                 gate = stage_routing(torch, kind, n, gen)
                 got = moe_stream.stream_kernel.launch(p, x, gate)
@@ -1541,7 +1628,8 @@ def device_time(torch, eng, feat, lens):
     """One request under torch.profiler: the summed duration of the
     kernels and copies the card ran (one stream, so they do not overlap),
     in ms, the five kernel names that took most of it, and the ms of each
-    moe_runs.cu kernel it ran (moe_runs_kernel: K1, K4/K5, K4/K5 a8)."""
+    expert kernel it ran (expert_kernel: K1, K4/K5, K6, K8, their a8
+    forms and the row-tile front)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
@@ -1555,7 +1643,7 @@ def device_time(torch, eng, feat, lens):
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
     runs = {}
     for name, us in by_name.items():
-        kern = moe_runs_kernel(name)
+        kern = expert_kernel(name)
         if kern is not None:
             runs[kern] = runs.get(kern, 0.0) + us / 1e3
     return sum(by_name.values()) / 1e3, top, runs
@@ -1586,18 +1674,25 @@ def request_times(torch, eng, label, reqs, smi):
             f"{dev_ms / np.median(times):.3f} of the median latency; "
             "top kernels: " + "; ".join(
                 f"{short_name(name)} {us / 1e3:.3f} ms" for name, us in top)
-            + "".join(f"; {kern} ({RUNS_NAMES[kern]}) {ms:.3f} ms"
+            + "".join(f"; {kern} ({KERNEL_NAMES[kern]}) {ms:.3f} ms"
                       for kern, ms in sorted(runs.items()))
             + f"; {smi}")
 
 
+TIME_KINDS = ("router", "heavy")      # the routings of the kernel times
+
+
 def time_quant_kernels(torch, smi):
-    """K4 and K5 at the long requests' token counts (511, 1020) and K6 at
-    the short one's (63), each weight-only and a8: the wrapper call, its
-    CUDA launches alone, the plain version, and the bound. Weights are
-    stacked over 6 layers and the layer rotates with each call, so a call
-    finds its weights in device memory, not in the 50 MB L2, as the
-    main path's layer loop does. Returns rows keyed by (kernel, a8, n)."""
+    """K4 and K5 at the long requests' token counts (511, 1020) under the
+    router's routing, and K6 at the short requests' (63, 127) under the
+    router's and the heavy routing, each weight-only and a8: the wrapper
+    call, its CUDA launches alone, the plain version, and the bound;
+    beside each K6 row, K5's launches alone on the same tokens, gate and
+    weights (its yardstick: the same tiles on the run-length layout).
+    Weights are stacked over 6 layers and the layer rotates with each
+    call, so a call finds its weights in device memory, not in the 50 MB
+    L2, as the main path's layer loop does. Returns rows keyed by
+    (kernel, a8, n, routing)."""
     from m3asr_tpu_torch import kernels
     from m3asr_tpu_torch.ops import moe_q4, moe_runs
     gen = torch.Generator(device="cuda").manual_seed(5)
@@ -1617,64 +1712,76 @@ def time_quant_kernels(torch, smi):
         per_expert = (w1[0].numel() + w2[0].numel()
                       + 4 * (s1[0][0].numel() + s2[0][0].numel())
                       + 2 * (H + D))          # bytes: weights, scales, biases
-        cases = [("K4" if bits == 8 else "K5", n) for n in (511, 1020)]
+        fmt = 1 if bits == 8 else 2
+        cases = [("K4" if bits == 8 else "K5", n, "router")
+                 for n in (511, 1020)]
         if bits == 4:
-            cases.append(("K6", 63))
-        for kname, n in cases:
+            cases += [("K6", n, kind) for n in (63, 127) for kind in TIME_KINDS]
+        for kname, n, kind in cases:
             for a8 in (False, True):
                 x = torch.randn(1, n, D, generator=gen, device="cuda") \
                     .to(torch.bfloat16)
-                gate = routing(torch, "router", n, gen)
+                gate = routing(torch, kind, n, gen)
                 active = n_active(torch, gate)
                 t_bytes = (active * per_expert + 2 * n * D * 2 + n * 4) \
                     / HBM_BYTES_PER_S * 1e3
                 t_ops = 4 * n * D * H / PEAK_OPS_PER_S[
                     "int8" if a8 else "bfloat16"] * 1e3
-                if kname == "K6":
-                    kern, plain = moe_q4.q4_kernel, \
-                        moe_q4.moe_experts_q4_reference
-                    rows_n = n
-                    x2, g2 = x.reshape(n, D), gate.reshape(n)
-                else:
-                    kern = moe_runs.runs_q8_kernel if bits == 8 else \
-                        moe_runs.runs_q4_kernel
-                    plain = moe_runs.moe_experts_runs_reference
-                    lay = moe_runs.runs_layout(gate.reshape(n), E)
-                    x2 = moe_runs._pad_tokens(x.reshape(n, D), lay,
-                                              moe_runs.TILE)
-                    rows_n = lay.n_tiles * moe_runs.TILE
-                hid = torch.empty(rows_n, H, device="cuda",
-                                  dtype=torch.float32 if a8
-                                  else torch.bfloat16)
-                xq = torch.empty(rows_n, D, dtype=torch.int8, device="cuda")
-                hq = torch.empty(rows_n, H, dtype=torch.int8, device="cuda")
-                xs = torch.empty(rows_n, device="cuda")
-                hs = torch.empty(rows_n, device="cuda")
-                y = torch.empty_like(x2)
+                # the run-length layout and scratch (K4/K5, and K6's
+                # yardstick K5), and K6's
+                lay = moe_runs.runs_layout(gate.reshape(n), E)
+                x_pad = moe_runs._pad_tokens(x.reshape(n, D), lay,
+                                             moe_runs.TILE)
+                rows_n = lay.n_tiles * moe_runs.TILE
+                x2, g2 = x.reshape(n, D), gate.reshape(n)
+                front = torch.empty(lib_q.moe_q4_front_ints(n, E),
+                                    dtype=torch.int32, device="cuda")
+                hdt = torch.float32 if a8 else torch.bfloat16
+                hid = torch.empty(max(rows_n, n), H, device="cuda",
+                                  dtype=hdt)
+                xq = torch.empty(max(rows_n, n), D, dtype=torch.int8,
+                                 device="cuda")
+                hq = torch.empty(max(rows_n, n), H, dtype=torch.int8,
+                                 device="cuda")
+                xs = torch.empty(max(rows_n, n), device="cuda")
+                hs = torch.empty(max(rows_n, n), device="cuda")
+                y = torch.empty_like(x_pad)
 
-                def raw(i):
+                def runs_raw(i):
                     j = i % n_layers
-                    if kname == "K6":
-                        err = lib_q.moe_q4_dense(
-                            int(a8), x2.data_ptr(), g2.data_ptr(), n,
-                            w1.data_ptr(), s1[j].data_ptr(), s1[j].shape[1],
-                            b1.data_ptr(), w2.data_ptr(), s2[j].data_ptr(),
-                            s2[j].shape[1], b2.data_ptr(), E, j, D, H,
-                            hid.data_ptr(), xq.data_ptr(), xs.data_ptr(),
-                            hq.data_ptr(), hs.data_ptr(), y.data_ptr(),
-                            stream)
-                    else:
-                        err = lib_r.moe_runs_q(
-                            1 if bits == 8 else 2, int(a8), x2.data_ptr(),
+                    if lib_r.moe_runs_q(
+                            fmt, int(a8), x_pad.data_ptr(),
                             w1.data_ptr(), s1[j].data_ptr(), s1[j].shape[1],
                             b1.data_ptr(), w2.data_ptr(), s2[j].data_ptr(),
                             s2[j].shape[1], b2.data_ptr(),
                             lay.tile_e.data_ptr(), lay.starts.data_ptr(),
                             lay.n_tiles, E, j, D, H, hid.data_ptr(),
                             xq.data_ptr(), xs.data_ptr(), hq.data_ptr(),
-                            hs.data_ptr(), y.data_ptr(), stream)
-                    if err:
-                        raise SystemExit(f"FAIL times: launch error {err}")
+                            hs.data_ptr(), y.data_ptr(), stream):
+                        raise SystemExit("FAIL times: moe_runs_q launch "
+                                         "error")
+
+                def dense_raw(i):
+                    j = i % n_layers
+                    if lib_q.moe_q4_dense(
+                            int(a8), x2.data_ptr(), g2.data_ptr(), n,
+                            w1.data_ptr(), s1[j].data_ptr(), s1[j].shape[1],
+                            b1.data_ptr(), w2.data_ptr(), s2[j].data_ptr(),
+                            s2[j].shape[1], b2.data_ptr(), E, j, D, H,
+                            front.data_ptr(), hid.data_ptr(), xq.data_ptr(),
+                            xs.data_ptr(), hq.data_ptr(), hs.data_ptr(),
+                            y.data_ptr(), stream):
+                        raise SystemExit("FAIL times: moe_q4_dense launch "
+                                         "error")
+                if kname == "K6":
+                    kern = moe_q4.q4_kernel
+                    plain = moe_q4.moe_experts_q4_reference
+                    raw = dense_raw
+                else:
+                    kern = moe_runs.runs_q8_kernel if bits == 8 else \
+                        moe_runs.runs_q4_kernel
+                    plain = moe_runs.moe_experts_runs_reference
+                    raw = runs_raw
                 ms = cuda_time_ms(torch, lambda i: kern.launch(
                     layers[i % n_layers], x, gate, i % n_layers,
                     act_quant=a8), 60)
@@ -1683,24 +1790,32 @@ def time_quant_kernels(torch, smi):
                     layers[i % n_layers], x, gate, i % n_layers,
                     act_quant=a8), 6)
                 bound = max(t_bytes, t_ops)
-                rows[(kname, a8, n)] = dict(
+                rows[(kname, a8, n, kind)] = dict(
                     ms=ms, alone=alone, plain_ms=plain_ms, bound_ms=bound,
                     bound_by="bytes" if t_bytes >= t_ops else "operations")
-                log(f"time {QUANT_NAMES[(kname, a8)]} ({kname}) n={n} "
+                yard = ""
+                if kname == "K6":
+                    k5 = cuda_time_ms(torch, runs_raw, 60)
+                    rows[(kname, a8, n, kind)]["k5_alone"] = k5
+                    yard = f", yardstick K5 alone {k5:.4f} ms"
+                log(f"time {QUANT_NAMES[(kname, a8)]} ({kname}) n={n} {kind} "
                     f"active={active}: call {ms:.4f} ms (kernels alone "
-                    f"{alone:.4f} ms), plain {plain_ms:.4f} ms, bound "
+                    f"{alone:.4f} ms{yard}), plain {plain_ms:.4f} ms, bound "
                     f"{bound:.4f} ms (bytes {t_bytes:.4f} / ops "
                     f"{t_ops:.4f}), library_ms none; {smi}")
     return rows
 
 
 def time_stage_kernels(torch, smi):
-    """K8 (fp32, bf16, int8) and K7 (weight-only, a8) at the requests'
-    token counts (63, 511, 1020): the wrapper call, its CUDA launches
-    alone, the plain version, and the bound. Six layers of weights, the
-    layer rotating with each call, so that a call finds its weights in
-    device memory, as the main path's layer loop does. Returns rows keyed
-    by (variant name, n)."""
+    """K8 (fp32, bf16, int8) at the requests' token counts (63, 511, 1020)
+    under the router's and the heavy routing, and K7 (weight-only, a8)
+    under the router's: the wrapper call, its CUDA launches alone, the
+    plain version, and the bound; beside each K8 row, K1's launches alone
+    on the same tokens and gate (its yardstick: fp32 K1 for fp32 K8, bf16
+    K1 for bf16 and int8 K8; float K8 on K1's weights). Six layers of
+    weights, the layer rotating with each call, so that a call finds its
+    weights in device memory, as the main path's layer loop does. Returns
+    rows keyed by (variant name, n, routing)."""
     from m3asr_tpu_torch import kernels
     from m3asr_tpu_torch.ops import moe_q4, moe_runs, moe_stream
     gen = torch.Generator(device="cuda").manual_seed(10)
@@ -1708,26 +1823,36 @@ def time_stage_kernels(torch, smi):
     stream = torch.cuda.current_stream().cuda_stream
     rows = {}
 
-    def record(name, n, active, per_expert, elt_x, ops_type, ms, alone,
-               plain_ms):
+    def record(name, n, kind, active, per_expert, elt_x, ops_type, ms,
+               alone, plain_ms, yard=None):
         t_bytes = (active * per_expert + 2 * n * D * elt_x + n * 4) \
             / HBM_BYTES_PER_S * 1e3
         t_ops = 4 * n * D * H / PEAK_OPS_PER_S[ops_type] * 1e3
         bound = max(t_bytes, t_ops)
-        rows[(name, n)] = dict(
+        rows[(name, n, kind)] = dict(
             ms=ms, alone=alone, plain_ms=plain_ms, bound_ms=bound,
-            bound_by="bytes" if t_bytes >= t_ops else "operations")
-        log(f"time {name} n={n} active={active}: call {ms:.4f} ms (kernels "
-            f"alone {alone:.4f} ms), plain {plain_ms:.4f} ms, bound "
-            f"{bound:.4f} ms (bytes {t_bytes:.4f} / ops {t_ops:.4f}), "
-            f"library_ms none; {smi}")
+            bound_by="bytes" if t_bytes >= t_ops else "operations",
+            k1_alone=yard)
+        log(f"time {name} n={n} {kind} active={active}: call {ms:.4f} ms "
+            f"(kernels alone {alone:.4f} ms"
+            + ("" if yard is None else f", yardstick K1 alone {yard:.4f} ms")
+            + f"), plain {plain_ms:.4f} ms, bound {bound:.4f} ms (bytes "
+            f"{t_bytes:.4f} / ops {t_ops:.4f}), library_ms none; {smi}")
 
-    lib = kernels.MOE_STREAM.load()
+    lib, lib_r = kernels.MOE_STREAM.load(), kernels.MOE_RUNS.load()
     for wtype, name in STREAM_NAMES.items():
-        layers = stream_layers(torch, wtype, gen, n_layers)
         quant = wtype == "int8"
         xdt = torch.float32 if wtype == "float32" else torch.bfloat16
         code = 0 if xdt == torch.float32 else 1
+        # K1's stacked weights in x's type; float K8 takes their layers
+        pk = expert_weights(torch, xdt, gen, n_layers=n_layers)
+        k1w1 = pk["w1"].reshape(n_layers * E, D, H)
+        k1w2 = pk["w2"].reshape(n_layers * E, H, D)
+        if quant:
+            layers = stream_layers(torch, wtype, gen, n_layers)
+        else:
+            layers = [{"w1": pk["w1"][i], "w2": pk["w2"][i], "b1": pk["b1"],
+                       "b2": pk["b2"]} for i in range(n_layers)]
         # the kernel's arguments per layer: float32 biases, (E, out) scales
         raw_args = []
         for p in layers:
@@ -1741,31 +1866,58 @@ def time_stage_kernels(torch, smi):
         per_expert = 2 * D * H * w_elt + (4 * (H + D) if quant else 0) \
             + layers[0]["b1"].element_size() * (H + D)
         for n in STAGE_TOKENS:
-            x = torch.randn(1, n, D, generator=gen, device="cuda").to(xdt)
-            gate = routing(torch, "router", n, gen)
-            x2, g2 = x.reshape(n, D), gate.reshape(n)
-            hid = torch.empty(n, H, dtype=xdt, device="cuda")
-            y = torch.empty_like(x2)
+            for kind in TIME_KINDS:
+                x = torch.randn(1, n, D, generator=gen,
+                                device="cuda").to(xdt)
+                gate = routing(torch, kind, n, gen)
+                x2, g2 = x.reshape(n, D), gate.reshape(n)
+                front = torch.empty(lib.moe_stream_front_ints(n, E),
+                                    dtype=torch.int32, device="cuda")
+                hid = torch.empty(n, H, dtype=xdt, device="cuda")
+                y = torch.empty_like(x2)
+                lay = moe_runs.runs_layout(g2, E)
+                x_pad = moe_runs._pad_tokens(x2, lay, moe_runs.TILE)
+                k1_hid = torch.empty(lay.n_tiles * moe_runs.TILE, H,
+                                     dtype=xdt, device="cuda")
+                y_pad = torch.empty_like(x_pad)
 
-            def raw(i):
-                w1, s1, b1, w2, s2, b2 = raw_args[i % n_layers]
-                if lib.moe_stream(
-                        code, int(quant), x2.data_ptr(), g2.data_ptr(), n,
-                        w1.data_ptr(), None if s1 is None else s1.data_ptr(),
-                        b1.data_ptr(), w2.data_ptr(),
-                        None if s2 is None else s2.data_ptr(), b2.data_ptr(),
-                        E, D, H, hid.data_ptr(), y.data_ptr(), stream):
-                    raise SystemExit("FAIL times: moe_stream launch error")
-            ms = cuda_time_ms(torch, lambda i: moe_stream.stream_kernel.launch(
-                layers[i % n_layers], x, gate), 60)
-            alone = cuda_time_ms(torch, raw, 60)
-            plain_ms = cuda_time_ms(
-                torch, lambda i: moe_stream.moe_experts_dense_stream_reference(
-                    layers[i % n_layers], x, gate), 6)
-            record(name, n, n_active(torch, gate), per_expert, x.element_size(),
-                   "float32" if wtype == "float32" else "bfloat16", ms, alone,
-                   plain_ms)
-        layers = raw_args = None
+                def raw(i):
+                    w1, s1, b1, w2, s2, b2 = raw_args[i % n_layers]
+                    if lib.moe_stream(
+                            code, int(quant), x2.data_ptr(), g2.data_ptr(),
+                            n, w1.data_ptr(),
+                            None if s1 is None else s1.data_ptr(),
+                            b1.data_ptr(), w2.data_ptr(),
+                            None if s2 is None else s2.data_ptr(),
+                            b2.data_ptr(), E, D, H, front.data_ptr(),
+                            hid.data_ptr(), y.data_ptr(), stream):
+                        raise SystemExit("FAIL times: moe_stream launch "
+                                         "error")
+
+                def k1_raw(i):
+                    if lib_r.moe_runs_f(
+                            code, x_pad.data_ptr(), k1w1.data_ptr(),
+                            pk["b1"].data_ptr(), k1w2.data_ptr(),
+                            pk["b2"].data_ptr(), lay.tile_e.data_ptr(),
+                            lay.starts.data_ptr(), lay.counts.data_ptr(),
+                            lay.n_tiles, E, i % n_layers, D, H,
+                            k1_hid.data_ptr(), y_pad.data_ptr(), stream):
+                        raise SystemExit("FAIL times: moe_runs_f launch "
+                                         "error")
+                ms = cuda_time_ms(
+                    torch, lambda i: moe_stream.stream_kernel.launch(
+                        layers[i % n_layers], x, gate), 60)
+                alone = cuda_time_ms(torch, raw, 60)
+                yard = cuda_time_ms(torch, k1_raw, 60)
+                plain_ms = cuda_time_ms(
+                    torch,
+                    lambda i: moe_stream.moe_experts_dense_stream_reference(
+                        layers[i % n_layers], x, gate), 6)
+                record(name, n, kind, n_active(torch, gate), per_expert,
+                       x.element_size(),
+                       "float32" if wtype == "float32" else "bfloat16", ms,
+                       alone, plain_ms, yard)
+        layers = raw_args = pk = k1w1 = k1w2 = None
 
     lib = kernels.MOE_Q4_TILED.load()
     p = quant_experts(torch, 4, gen, n_layers)
@@ -1815,8 +1967,9 @@ def time_stage_kernels(torch, smi):
                 torch, lambda i: moe_q4.moe_experts_q4_tiled_reference(
                     layers[i % n_layers], x, gate, layer=i % n_layers,
                     act_quant=a8), 6)
-            record(TILED_NAMES[a8], n, n_active(torch, gate), per_expert, 2,
-                   "int8" if a8 else "bfloat16", ms, alone, plain_ms)
+            record(TILED_NAMES[a8], n, "router", n_active(torch, gate),
+                   per_expert, 2, "int8" if a8 else "bfloat16", ms, alone,
+                   plain_ms)
     return rows
 
 
@@ -2044,7 +2197,7 @@ def phase_times(torch, state, smi):
     qrows = time_quant_kernels(torch, smi)
     for (kname, a8), name in QUANT_NAMES.items():
         mode = MODES[("int4" if kname != "K4" else "int8", a8)]
-        r = qrows[(kname, a8, 63 if kname == "K6" else 511)]
+        r = qrows[(kname, a8, 63 if kname == "K6" else 511, "router")]
         report.append({
             "name": name, "route": "cuda",
             "source": "m3asr_tpu_torch/csrc/"
@@ -2077,7 +2230,7 @@ def phase_times(torch, state, smi):
              for v in STREAM_NAMES.values()]
             + [(v, STAGE_TOKENS[1], "moe_q4_tiled.cu", "pallas_moe_q4.py:596")
                for v in TILED_NAMES.values()]):
-        r = srows[(name, n)]
+        r = srows[(name, n, "router")]
         report.append({
             "name": name, "route": "cuda",
             "source": f"m3asr_tpu_torch/csrc/{source}",
@@ -2102,6 +2255,7 @@ def main():
     from m3asr_tpu_torch import kernels
     from m3asr_tpu_torch.ops import moe_runs
     phase_build(kernels)
+    phase_kernel_front(torch)
     state = {"max_err": phase_kernel(torch, moe_runs),
              "max_err_q": phase_kernel_quant(torch),
              "max_err_flash": phase_kernel_flash(torch),

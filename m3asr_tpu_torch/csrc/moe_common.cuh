@@ -1,19 +1,14 @@
-// Device code shared by the expert-FFN kernels: the tile GEMMs with their
-// scale-group and bias/SiLU epilogues and the weight loaders of the two
-// quantized formats (moe_q4.cu: K6; moe_q4_tiled.cu: K7), the gather of
-// one expert's rows by warp ballots (K6; moe_stream.cu: K8), and the
-// per-row int8 quantization of the a8 modes (K4-K7). (K1, K4 and K5 have
-// their own tiles in moe_runs.cu: on the tensor cores, and float32 K1 on
-// taller FMA patches, all on a cp.async pipeline. K4/K5 keep the rounding
-// contract below and tile_gemm_s8's a8 epilogue.)
+// Device code shared by the expert-FFN kernels: the weight loaders of
+// the two quantized formats, the a8 tile on __dp4a with its scale-group
+// epilogue (moe_q4_tiled.cu: K7; the tensor-core tiles of
+// expert_tiles.cuh keep its rounding order), and the per-row int8
+// quantization of the a8 modes (K4-K7).
 //
-// A block of THREADS threads computes one TM x BN output tile: 32 rows
-// of one expert's tokens x 64 output columns. Each thread owns 2 rows x
-// 4 columns. The contraction runs in BK-row slices staged in shared
-// memory. A tile's rows are row0 .. row0+TM-1 of a padded buffer (the
-// run-length layout), or, with GATHER, the indices in `rows` (shared
-// memory, -1 for an empty slot: the dense streamer's rows of one expert,
-// read in place).
+// tile_gemm_s8: a block of THREADS threads computes one TM x BN output
+// tile: 32 rows of one expert's tokens x 64 output columns. Each thread
+// owns 2 rows x 4 columns. The contraction runs in BK-row slices staged
+// in shared memory. A tile's rows are row0 .. row0+TM-1 of a padded
+// buffer (the run-length layout).
 //
 // Rounding contract (the JAX package's, pallas_moe_runs.py:114-136 and
 // pallas_moe_q4.py:80-187): quantized weights are never multiplied by
@@ -81,115 +76,8 @@ __device__ __forceinline__ float silu(float v) {
   return v / (1.0f + expf(-v));
 }
 
-// Collects, in row order, the rows r in [base, base + THREADS) of
-// expert e into list (for e == n_experts: the rows of no expert, whose
-// gate lies outside [0, n_experts)). Returns their count; every thread
-// of the block must call it.
-__device__ inline int collect_rows(const int32_t* __restrict__ gate,
-                                   int n_rows, int base, int e, int n_experts,
-                                   int* list, int* warp_count) {
-  __syncthreads();  // list and warp_count are free again
-  const int r = base + threadIdx.x;
-  bool hit = false;
-  if (r < n_rows) {
-    const int g = gate[r];
-    hit = e < n_experts ? g == e : (g < 0 || g >= n_experts);
-  }
-  const unsigned mask = __ballot_sync(0xffffffffu, hit);
-  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
-  if (lane == 0) warp_count[warp] = __popc(mask);
-  __syncthreads();
-  int off = 0, total = 0;
-#pragma unroll
-  for (int w = 0; w < THREADS / 32; ++w) {
-    if (w < warp) off += warp_count[w];
-    total += warp_count[w];
-  }
-  if (hit) list[off + __popc(mask & ((1u << lane) - 1u))] = r;
-  __syncthreads();
-  return total;
-}
-
-template <bool GATHER>
-__device__ __forceinline__ int tile_row(const int* rows, int row0, int r) {
-  return GATHER ? rows[r] : row0 + r;
-}
-
-// One TM x BN tile of
-//   out[row, n] = act(sum_g (A[row, group g] @ W[group g, n]) * scale[g, n]
-//                     + bias[n])
-// in float32. A: activations of type T, row stride K. W: this expert's
-// weights in format F. scale: this expert's (G, N) float32 scales.
-// bias: this expert's (N,) in T, or nullptr. Rows with index -1 read
-// zeros and are not stored.
-template <typename T, int F, bool SILU, typename OutT, bool GATHER>
-__device__ __forceinline__ void tile_gemm_f(
-    const T* __restrict__ a, const int* rows, int row0,
-    const int8_t* __restrict__ w, const float* __restrict__ scale, int G,
-    const T* __restrict__ bias, int K, int N, int n0, OutT* __restrict__ out) {
-  __shared__ float xs[TM][BK + 1];
-  __shared__ float ws[BK][BN];
-  const int tid = threadIdx.x;
-  const int tx = tid % 16;
-  const int ty = tid / 16;
-  const int gs = K / G;
-  float acc[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
-  float tot[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
-
-  for (int k0 = 0; k0 < K; k0 += BK) {
-    for (int i = tid; i < TM * BK; i += THREADS) {
-      const int r = i / BK, c = i % BK;
-      const int row = tile_row<GATHER>(rows, row0, r);
-      xs[r][c] = row < 0 ? 0.f : to_f(a[(size_t)row * K + k0 + c]);
-    }
-    for (int i = tid; i < BK * BN; i += THREADS) {
-      const int r = i / BN, c = i % BN;
-      ws[r][c] = (float)wq<F>(w, k0 + r, n0 + c, N);
-    }
-    __syncthreads();
-#pragma unroll
-    for (int k = 0; k < BK; ++k) {
-      const float a0 = xs[2 * ty][k];
-      const float a1 = xs[2 * ty + 1][k];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float b = ws[k][tx + 16 * j];
-        acc[0][j] = fmaf(a0, b, acc[0][j]);
-        acc[1][j] = fmaf(a1, b, acc[1][j]);
-      }
-    }
-    __syncthreads();
-    if ((k0 + BK) % gs == 0) {  // end of a scale group
-      const float* sg = scale + (size_t)((k0 + BK) / gs - 1) * N + n0;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float s = sg[tx + 16 * j];
-#pragma unroll
-        for (int i = 0; i < 2; ++i) {
-          tot[i][j] = __fadd_rn(tot[i][j], __fmul_rn(acc[i][j], s));
-          acc[i][j] = 0.f;
-        }
-      }
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int row = tile_row<GATHER>(rows, row0, 2 * ty + i);
-    if (row < 0) continue;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int n = n0 + tx + 16 * j;
-      float v = tot[i][j];
-      if (bias != nullptr) v = __fadd_rn(v, to_f(bias[n]));
-      if (SILU) v = silu(v);
-      out[(size_t)row * N + n] = from_f<OutT>(v);
-    }
-  }
-}
-
-// The a8 twin: A rows are int8 with float32 row scales `as`, weights are
-// int8 (F == W_Q8, one group) or int4 values; s8 x s8 products sum in
+// A rows are int8 with float32 row scales `as`, weights are int8 (F ==
+// W_Q8, one group) or int4 values; s8 x s8 products sum in
 // s32 with __dp4a, four contraction rows per instruction (exact: |sum| <
 // 127 * 127 * K). Epilogue in the JAX package's order:
 //   int8: (float(sum) * as[row]) * scale[0, n]      (pallas_moe_runs.py:287)
@@ -197,10 +85,10 @@ __device__ __forceinline__ void tile_gemm_f(
 //                                                  (pallas_moe_q4.py:183-187)
 // then + bias, optional SiLU, optional clamp at `upper`, store. T is the
 // bias type.
-template <int F, bool SILU, typename T, typename OutT, bool GATHER>
+template <int F, bool SILU, typename T, typename OutT>
 __device__ __forceinline__ void tile_gemm_s8(
-    const int8_t* __restrict__ aq, const float* __restrict__ as,
-    const int* rows, int row0, const int8_t* __restrict__ w,
+    const int8_t* __restrict__ aq, const float* __restrict__ as, int row0,
+    const int8_t* __restrict__ w,
     const float* __restrict__ scale, int G, const T* __restrict__ bias, int K,
     int N, int n0, OutT* __restrict__ out, bool clamp = false,
     float upper = 0.f) {
@@ -218,11 +106,9 @@ __device__ __forceinline__ void tile_gemm_s8(
   for (int k0 = 0; k0 < K; k0 += BK) {
     {  // TM x BK bytes: one 4-byte word per thread
       const int r = tid / (BK / 4), c4 = tid % (BK / 4);
-      const int row = tile_row<GATHER>(rows, row0, r);
+      const int row = row0 + r;
       reinterpret_cast<int*>(xq[r])[c4] =
-          row < 0 ? 0
-                  : *reinterpret_cast<const int*>(aq + (size_t)row * K + k0 +
-                                                  4 * c4);
+          *reinterpret_cast<const int*>(aq + (size_t)row * K + k0 + 4 * c4);
     }
     for (int i = tid; i < BK * BN; i += THREADS) {
       const int r = i / BN, c = i % BN;
@@ -257,8 +143,7 @@ __device__ __forceinline__ void tile_gemm_s8(
 
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
-    const int row = tile_row<GATHER>(rows, row0, 2 * ty + i);
-    if (row < 0) continue;
+    const int row = row0 + 2 * ty + i;
     const float ar = as[row];
 #pragma unroll
     for (int j = 0; j < 4; ++j) {

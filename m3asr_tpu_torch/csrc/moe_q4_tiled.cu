@@ -153,8 +153,8 @@ __global__ void __launch_bounds__(THREADS)
   int e;
   const int row0 = slice_row0(tile_e, starts, counts, tile, n_experts, &e);
   if (row0 < 0) return;
-  tile_gemm_s8<W_Q4, SILU, float, OutT, false>(
-      aq, as, nullptr, row0, expert_w<W_Q4>(w, layer * n_experts + e, K, N),
+  tile_gemm_s8<W_Q4, SILU, float, OutT>(
+      aq, as, row0, expert_w<W_Q4>(w, layer * n_experts + e, K, N),
       scale + (size_t)e * G * N, G,
       bias == nullptr ? nullptr : bias + (size_t)e * N, K, N,
       blockIdx.y * BN, out, clamp != 0, upper);

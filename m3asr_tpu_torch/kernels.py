@@ -129,9 +129,12 @@ class KernelLibrary:
             for name in ("moe_q4_col_block", "moe_q4_k_step"):
                 getattr(lib, name).argtypes = []
                 getattr(lib, name).restype = i
+            self._declare_front(lib, "moe_q4")
+            # a8, x, gate, n_rows, w1, s1, g1, b1, w2, s2, g2, b2, E,
+            # layer, d, h, front, hidden, xq, xs, hq, hs, out, stream
             lib.moe_q4_dense.argtypes = [i, vp, vp, i, vp, vp, i, vp, vp,
                                          vp, i, vp, i, i, i, i, vp, vp, vp,
-                                         vp, vp, vp, vp]
+                                         vp, vp, vp, vp, vp]
             lib.moe_q4_dense.restype = i
         elif self.source == "moe_q4_tiled.cu":
             for name in ("moe_q4_tiled_slice_rows", "moe_q4_tiled_col_block",
@@ -150,10 +153,11 @@ class KernelLibrary:
             for name in ("moe_stream_col_block", "moe_stream_k_step"):
                 getattr(lib, name).argtypes = []
                 getattr(lib, name).restype = i
+            self._declare_front(lib, "moe_stream")
             # dtype, quant, x, gate, n_rows, w1, s1, b1, w2, s2, b2, E, d,
-            # h, hidden, out, stream
+            # h, front, hidden, out, stream
             lib.moe_stream.argtypes = [i, i, vp, vp, i, vp, vp, vp, vp, vp,
-                                       vp, i, i, i, vp, vp, vp]
+                                       vp, i, i, i, vp, vp, vp, vp]
             lib.moe_stream.restype = i
         elif self.source == "flash_attention.cu":
             f = ctypes.c_float
@@ -169,6 +173,17 @@ class KernelLibrary:
                 getattr(lib, name).restype = i
         else:
             raise ValueError(f"no C interface declared for {self.source}")
+
+    @staticmethod
+    def _declare_front(lib: ctypes.CDLL, prefix: str) -> None:
+        """The row-tile front's size and launch (csrc/row_tiles.cuh),
+        which each dense streamer's library exports under its prefix."""
+        vp, i = ctypes.c_void_p, ctypes.c_int
+        size = getattr(lib, f"{prefix}_front_ints")
+        size.argtypes, size.restype = [i, i], i
+        # gate, n_rows, E, front, stream
+        run = getattr(lib, f"{prefix}_row_tiles")
+        run.argtypes, run.restype = [vp, i, i, vp, vp], i
 
 
 MOE_RUNS = KernelLibrary("moe_runs.cu")   # K1, K4, K5

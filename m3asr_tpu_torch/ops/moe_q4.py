@@ -7,8 +7,10 @@ dense streamer the JAX engine picks for int4 engines at <= 128
 post-subsampling tokens. Same contract: the top-1 expert output of every
 token, 0 for a token of no expert (gate index outside ``[0, E)``), with
 no sort/pad layout. The CUDA kernel (``csrc/moe_q4.cu``) computes only
-each expert's own rows; the plain version here does the same in a loop
-over the experts that have rows, with the arithmetic of
+each expert's own rows, in tiles of up to 32 rows of one expert that its
+row-tile front (``ops/row_tiles.py``) lists on the device, on K5's
+tensor-core tiles; the plain version here computes the same rows in a
+loop over the experts that have rows, with the arithmetic of
 :func:`m3asr_tpu_torch.ops.moe_runs.expert_ffn_reference`.
 
 K7 ports ``m3asr_tpu/ops/pallas_moe_q4.py::moe_experts_pallas_q4_tiled``,
@@ -43,6 +45,7 @@ from m3asr_tpu_torch.ops.moe_runs import (_pad_tokens, _prepare, _unpad,
                                           expert_ffn_reference,
                                           layer_scales, runs_layout)
 from m3asr_tpu_torch.ops.quant import unpack_int4
+from m3asr_tpu_torch.ops.row_tiles import MAX_EXPERTS
 
 
 def _q4_args(p, x: torch.Tensor, layer: Optional[int]):
@@ -77,8 +80,8 @@ def moe_experts_q4_reference(p, x: torch.Tensor, gate_idx: torch.Tensor,
 
 class Q4Kernel:
     """Wrapper of ``moe_q4_dense`` (csrc/moe_q4.cu). ``launches`` grows by
-    one per call that launched the kernel (two CUDA launches; four with
-    ``act_quant``)."""
+    one per call that launched the kernel (three CUDA launches: the
+    row-tile front and the two GEMMs; five with ``act_quant``)."""
 
     def __init__(self):
         self.launches = 0
@@ -103,6 +106,9 @@ class Q4Kernel:
         B, T, _ = x.shape
         if gate_idx.device != x.device or tuple(gate_idx.shape) != (B, T):
             raise ValueError("gate_idx must be (B, T) on x's device")
+        if E > MAX_EXPERTS:
+            raise ValueError(f"the int4 dense kernel takes at most "
+                             f"{MAX_EXPERTS} experts, got {E}")
         lib = kernels.MOE_Q4.load()
         d, h, s1, s2 = check_quant_args(p, x, w1, w2, E, "q4",
                                         lib.moe_q4_col_block(),
@@ -124,13 +130,16 @@ class Q4Kernel:
             hq = torch.empty((N, h), dtype=torch.int8, device=x.device)
             xs = torch.empty(N, dtype=torch.float32, device=x.device)
             hs = torch.empty(N, dtype=torch.float32, device=x.device)
+        front = torch.empty(lib.moe_q4_front_ints(N, E), dtype=torch.int32,
+                            device=x.device)
         out = torch.empty_like(x2)
         err = lib.moe_q4_dense(
             int(act_quant), x2.data_ptr(), gate.data_ptr(), N,
             w1.data_ptr(), s1.data_ptr(), s1.shape[1], ptr(b1),
             w2.data_ptr(), s2.data_ptr(), s2.shape[1], ptr(b2), E, layer,
-            d, h, hidden.data_ptr(), ptr(xq), ptr(xs), ptr(hq), ptr(hs),
-            out.data_ptr(), torch.cuda.current_stream(x.device).cuda_stream)
+            d, h, front.data_ptr(), hidden.data_ptr(), ptr(xq), ptr(xs),
+            ptr(hq), ptr(hs), out.data_ptr(),
+            torch.cuda.current_stream(x.device).cuda_stream)
         if err != 0:
             raise RuntimeError(f"moe_q4_dense launch failed: CUDA error "
                                f"{err}")

@@ -32,6 +32,7 @@ from __future__ import annotations
 import torch
 
 from m3asr_tpu_torch.ops.moe_runs import expert_ffn_reference
+from m3asr_tpu_torch.ops.row_tiles import MAX_EXPERTS
 
 
 def _weights(p, x: torch.Tensor):
@@ -89,8 +90,8 @@ def moe_experts_dense_stream_reference(p, x: torch.Tensor,
 
 class StreamKernel:
     """Wrapper of ``moe_stream`` (csrc/moe_stream.cu). ``launches`` grows
-    by one per call that launched the kernel (two CUDA launches,
-    GEMM1+bias+SiLU then GEMM2+bias)."""
+    by one per call that launched the kernel (three CUDA launches: the
+    row-tile front, GEMM1+bias+SiLU, GEMM2+bias)."""
 
     _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -119,6 +120,9 @@ class StreamKernel:
             raise ValueError("gate_idx must be (B, T) on x's device")
         w1, w2, s1, s2, quant = _weights(p, x)
         E, h = w1.shape[0], w1.shape[-1]
+        if E > MAX_EXPERTS:
+            raise ValueError(f"the streamer takes at most {MAX_EXPERTS} "
+                             f"experts, got {E}")
         lib = kernels.MOE_STREAM.load()
         col, k_step = lib.moe_stream_col_block(), lib.moe_stream_k_step()
         if d % col or h % col or d % k_step or h % k_step:
@@ -145,13 +149,16 @@ class StreamKernel:
 
         x2 = x.reshape(N, d).contiguous()
         gate = gate_idx.reshape(N).to(torch.int32).contiguous()
+        front = torch.empty(lib.moe_stream_front_ints(N, E),
+                            dtype=torch.int32, device=x.device)
         hidden = torch.empty((N, h), dtype=x.dtype, device=x.device)
         out = torch.empty_like(x2)
         err = lib.moe_stream(
             self._DTYPES[x.dtype], int(quant), x2.data_ptr(),
             gate.data_ptr(), N, w1.data_ptr(), ptr(s1), ptr(b1),
-            w2.data_ptr(), ptr(s2), ptr(b2), E, d, h, hidden.data_ptr(),
-            out.data_ptr(), torch.cuda.current_stream(x.device).cuda_stream)
+            w2.data_ptr(), ptr(s2), ptr(b2), E, d, h, front.data_ptr(),
+            hidden.data_ptr(), out.data_ptr(),
+            torch.cuda.current_stream(x.device).cuda_stream)
         if err != 0:
             raise RuntimeError(f"moe_stream launch failed: CUDA error {err}")
         self.launches += 1

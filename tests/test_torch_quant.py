@@ -64,6 +64,12 @@ def routing(kind, n, seed, E=E):
         return rng.choice(E, size=n, p=[0.55, 0.3, 0.1, 0.05])
     if kind == "gap":                     # experts 1 and 2 get nothing
         return np.where(np.arange(n) < 5, 0, E - 1)
+    if kind == "heavy":                   # 55% of the rows on expert 2
+        g = rng.integers(0, E, size=n)
+        g[rng.permutation(n)[:round(0.55 * n)]] = 2
+        return g
+    if kind == "one":                     # every row on expert 1
+        return np.full(n, 1)
     raise ValueError(kind)
 
 
@@ -222,18 +228,21 @@ def test_runs_q_plain_stacked_layer_index(bits, a8):
                                    torch.from_numpy(gate))
 
 
-@pytest.mark.parametrize("kind", ["skewed", "gap", "stacked"])
+@pytest.mark.parametrize("kind", ["skewed", "gap", "stacked", "heavy",
+                                  "one"])
 @pytest.mark.parametrize("a8", [False, True])
 def test_q4_dense_plain_matches_jax_kernel(a8, kind):
     """K6's plain version against moe_experts_pallas_q4 (the dense
     streamer with chunk-skip): skewed routing, two experts with no
-    tokens, and stacked (L, E, ...) packed weights with a layer index."""
+    tokens, stacked (L, E, ...) packed weights with a layer index, 55% of
+    the rows on one expert (the engine's real skew), and every row on
+    one expert."""
     L = 2 if kind == "stacked" else None
     p = float_experts(11, L=L)
     jq, tq = quantized(p, 4)
     rng = np.random.default_rng(12)
     x = rng.standard_normal((2, 14, D)).astype(np.float32)
-    gate = routing("gap" if kind == "gap" else "skewed", 28, 13) \
+    gate = routing("skewed" if kind == "stacked" else kind, 28, 13) \
         .reshape(2, 14).astype(np.int32)
     kw = {}
     if L is not None:

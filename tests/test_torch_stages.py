@@ -1,6 +1,7 @@
 """The explicit expert stages of the PyTorch port against the JAX package:
 the plain versions of K8 (the dense float/int8 streamer) and K7 (the
-tiled int4 grouped GEMM), and the plain-PyTorch XLA-path stages
+tiled int4 grouped GEMM), the row-tile front of K6 and K8 (its plain
+twin's invariants), and the plain-PyTorch XLA-path stages
 (``tiled``, ``ragged``, ``ragged_padded``, ``capacity``,
 ``quant_tiled``, ``quant_a8_tiled``, ``quant_capacity``).
 
@@ -30,6 +31,8 @@ from m3asr_tpu_torch.ops.moe_q4 import (moe_experts_q4_tiled_reference,
                                         q4_tiled_kernel, tiled_tile)
 from m3asr_tpu_torch.ops.moe_stream import (
     moe_experts_dense_stream_reference, stream_kernel)
+from m3asr_tpu_torch.ops.row_tiles import (TILE_ROWS, front_ints, max_tiles,
+                                           read_front, row_tiles_reference)
 
 E, D, H = 4, 32, 64
 GROUP = 16        # int4 scale groups: 2 over d, 4 over h
@@ -51,7 +54,8 @@ def experts(seed, L=None, b2=True):
 
 def routing(kind, shape, seed):
     """Skewed routing, routing that leaves experts 1 and 2 with no
-    tokens, or all tokens on one expert."""
+    tokens, all tokens on one expert, or 55% of them on one expert (the
+    engine's real skew) and the rest spread."""
     rng = np.random.default_rng(seed)
     n = int(np.prod(shape))
     if kind == "skewed":
@@ -60,6 +64,9 @@ def routing(kind, shape, seed):
         g = np.where(np.arange(n) % 3 == 0, 0, E - 1)
     elif kind == "one":
         g = np.full(n, 2)
+    elif kind == "heavy":
+        g = rng.integers(0, E, size=n)
+        g[rng.permutation(n)[:round(0.55 * n)]] = 1
     else:
         raise ValueError(kind)
     return g.reshape(shape).astype(np.int32)
@@ -98,19 +105,20 @@ def rel(a, b):
 # K8: the dense float / int8 streamer
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("kind", ["skewed", "gap", "padded"])
+@pytest.mark.parametrize("kind", ["skewed", "gap", "padded", "heavy", "one"])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_stream_plain_matches_jax_kernel(dtype, kind):
     """K8's plain version on float weights against
     moe_experts_dense_pallas (interpret mode): skewed routing, experts
-    with no tokens, and rows of no expert (gate -1, as the JAX wrapper
-    pads) with 2 x 13 = 26 rows, which the JAX wrapper pads to 32.
+    with no tokens, rows of no expert (gate -1, as the JAX wrapper pads)
+    with 2 x 13 = 26 rows, which the JAX wrapper pads to 32, 55% of the
+    rows on one expert, and every row on one expert.
     float32: rtol 1e-5 / atol 1e-6 (float32 sums in another order).
     bf16: both take bf16 weights, sum bf16 products in float32 and round
     the hidden and the output to bf16: atol 4e-3, as K1's bf16 test."""
     jp, tp = both(experts(1, b2=kind != "padded"), dtype)
     x = inputs(2)
-    gate = routing("gap" if kind == "gap" else "skewed", (2, 13), 3)
+    gate = routing("skewed" if kind == "padded" else kind, (2, 13), 3)
     if kind == "padded":
         gate[0, [1, 6]] = -1
         gate[1, 12] = E
@@ -131,7 +139,7 @@ def test_stream_plain_matches_jax_kernel(dtype, kind):
         assert (got[0, [1, 6]] == 0).all() and (got[1, 12] == 0).all()
 
 
-@pytest.mark.parametrize("kind", ["skewed", "gap"])
+@pytest.mark.parametrize("kind", ["skewed", "gap", "heavy", "one"])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_stream_q8_plain_matches_jax_kernel(dtype, kind):
     """K8's plain version on int8 weights against moe_experts_pallas_q:
@@ -170,6 +178,79 @@ def test_stream_q8_rounds_scale_and_product_to_bf16():
     h = (h * torch.sigmoid(h)).to(torch.bfloat16).float()
     y = (h @ w2.float() + tq["b2"][0].float()).to(torch.bfloat16)
     torch.testing.assert_close(got[0], y, rtol=0, atol=0)
+
+
+# ---------------------------------------------------------------------------
+# The row-tile front of K6 and K8 (csrc/row_tiles.cuh), in plain PyTorch
+# ---------------------------------------------------------------------------
+
+FRONT_E = 6
+
+
+def front_gate(kind, n, seed):
+    """Gate vectors for the front: a router-like spread, 55% on one
+    expert, every row on one expert, every other expert empty, and
+    rows of no expert (gate -1 and gate E) among spread ones."""
+    rng = np.random.default_rng(seed)
+    g = rng.choice(FRONT_E, size=n, p=[0.3, 0.25, 0.2, 0.1, 0.1, 0.05])
+    if kind == "heavy":
+        g[rng.permutation(n)[:round(0.55 * n)]] = 4
+    elif kind == "one":
+        g[:] = FRONT_E - 1
+    elif kind == "half_empty":
+        g = 2 * rng.integers(0, FRONT_E // 2, size=n)
+    elif kind == "padded":
+        g[::5] = -1
+        g[3::7] = FRONT_E
+    return torch.from_numpy(g.astype(np.int32))
+
+
+@pytest.mark.parametrize("n", [1, 31, 32, 63, 100, 257])
+@pytest.mark.parametrize("kind", ["spread", "heavy", "one", "half_empty",
+                                  "padded"])
+def test_row_tiles_reference_invariants(kind, n):
+    """The front lists every routed row once, experts in order and rows
+    ascending within each; its tiles hold 1..TILE_ROWS rows of one expert
+    (full but the last of each expert), cover each expert's rows in
+    order, and fit the static worst case; the rows of no expert come
+    last, ascending. N is a multiple of the tile rows or not."""
+    gate = front_gate(kind, n, seed=n)
+    words = row_tiles_reference(gate, FRONT_E)
+    assert words.dtype == torch.int32
+    assert words.numel() == front_ints(n, FRONT_E)
+    f = read_front(words, n, FRONT_E)
+    g = gate.long()
+    routed = (g >= 0) & (g < FRONT_E)
+    assert sorted(f.order.tolist()) == list(range(n))
+    n_routed = int(routed.sum())
+    assert f.n_none == n - n_routed
+    assert f.order[n_routed:].tolist() == (~routed).nonzero()[:, 0].tolist()
+    want = sorted(routed.nonzero()[:, 0].tolist(),
+                  key=lambda r: (int(g[r]), r))
+    assert f.order[:n_routed].tolist() == want
+    counts = torch.bincount(g[routed], minlength=FRONT_E)
+    assert f.n_tiles == int((-(-counts // TILE_ROWS)).sum())
+    assert f.n_tiles <= max_tiles(n, FRONT_E)
+    slot = 0
+    for t in range(f.n_tiles):
+        e, s0, m = (int(a[t]) for a in (f.tile_e, f.tile_slot, f.tile_rows))
+        assert s0 == slot and 1 <= m <= TILE_ROWS
+        rows = f.order[s0:s0 + m]
+        assert (g[rows.long()] == e).all()
+        last = t + 1 == f.n_tiles or int(f.tile_e[t + 1]) != e
+        assert m == TILE_ROWS or last
+        slot += m
+    assert slot == n_routed
+    assert f.tile_e.tolist() == sorted(f.tile_e.tolist())
+
+
+def test_row_tiles_reference_refuses_too_many_experts():
+    """The front's buckets hold at most 127 experts and the rows of no
+    expert; more is refused, as the kernels and their wrappers refuse."""
+    with pytest.raises(ValueError, match="experts"):
+        row_tiles_reference(torch.zeros(4, dtype=torch.int32), 128)
+    assert row_tiles_reference(torch.zeros(4, dtype=torch.int32),
+                               127)[0] == 1
 
 
 # ---------------------------------------------------------------------------
