@@ -4,10 +4,11 @@ make: two checkouts, or variants of one kernel, timed in turns in one
 call, so that the card and its host are the same for both.
 
     python3 chip_compare.py serve-quant ROOT LABEL
-    python3 chip_compare.py serve-stream ROOT LABEL
+    python3 chip_compare.py serve-stream ROOT LABEL [WORD]
     python3 chip_compare.py flash ROOT LABEL
     python3 chip_compare.py stages N [N ...]
     python3 chip_compare.py libs PARENT_ROOT
+    python3 chip_compare.py sass PARENT_ROOT
 
 serve-quant: for the checkout at ROOT (its own chip_smoke.py and
 m3asr_tpu_torch), the int8, w8a8, int4 and w4a8 engines on the flagship's
@@ -16,14 +17,17 @@ device time under torch.profiler is the median of 3 after 2 warm-up
 requests (min-max beside it). Then that checkout's time_quant_kernels
 (K4, K5 and K6 per call and alone). Lines start with "pair LABEL".
 
-serve-stream: for the checkout at ROOT, the engines that reach K8 and
-K6: fp32, bf16 and int8 with moe_impl="pallas" (K8) at 4x1000 and
-1x2048, and the int4 and w4a8 auto engines (K6) at 1x206, on the
+serve-stream: for the checkout at ROOT, the engines that reach K8, K6
+and K7: fp32, bf16 and int8 with moe_impl="pallas" (K8) at 4x1000 and
+1x2048, the int4 and w4a8 auto engines (K6) at 1x206, and the int4 and
+w4a8 engines with moe_impl="tiled" (K7) at 4x1000 and 1x2048, on the
 flagship's seeded weights. Each request's device time under
 torch.profiler is the median of 3 after 2 warm-up requests (min-max
 beside it), its latency the median of 5 (host clock), and its busy share
 the one over the other. Then that checkout's time_stage_kernels (K8, K7)
-and time_quant_kernels (K4-K6). Lines start with "pair LABEL".
+and time_quant_kernels (K4-K6). With WORD, only the engines whose label
+holds it (e.g. "tiled"), and no kernel times. Lines start with "pair
+LABEL".
 
 flash: the checkout's time_flash_kernels (K2/K3 per call, alone and
 device time, beside scaled_dot_product_attention).
@@ -35,14 +39,21 @@ printed, checked against the plain version (weight-only within 1e-2 of
 max|ref|, a8 within 2e-2; d=512 at 511 tokens and d=320 at 63), then
 timed by time_quant_kernels, in the order given.
 
-libs: in one process, the parent's moe_runs.cu, moe_q4.cu and
-moe_stream.cu (built by nvcc from PARENT_ROOT's csrc/ under _trees/)
-beside this checkout's, on the same inputs: K1, K4 and K5 must give the
-same bits (the tiles moved to a header), K6 a8 and fp32 K8 too (exact
-s32 sums; ascending-k FMAs), K6 weight-only and bf16 / int8 K8 within
-1e-2 of max|parent|; and every kernel's launches alone, parent and
-change in turns (parent, change, change, parent), at the main path's
-token counts under the router's and (K6, K8) the heavy routing.
+libs: in one process, the parent's moe_runs.cu, moe_q4.cu, moe_q4_tiled.cu
+and moe_stream.cu (built by nvcc from PARENT_ROOT's csrc/ under _trees/)
+beside this checkout's, on the same inputs: K1, K4, K5, K6 and K8 must
+give the same bits (the tiles they share with K7 took a clamp, a bias
+type and K7's forms, all off for them), K7 a8 and float32 K7 too (exact
+s32 sums; ascending-k FMAs on the same products), bf16 K7 within 1e-2 of
+max|parent| (float32 sums in another order); and every kernel's
+launches alone, parent and change in turns (parent, change, change,
+parent), at the main path's token counts under the router's and (K6-K8)
+the heavy routing, K7 with its clamp under the heavy routing.
+
+sass: the parent's libraries (as libs builds them) and this checkout's,
+each kernel instantiation's SASS (cuobjdump -sass, addresses and
+comments stripped) compared by name: same, differs (with the counts of
+instructions), or only on one side. Prints one line per library.
 
 To compare a parent commit with the working tree, unpack it into a
 git-ignored directory and run both in turns, for example:
@@ -118,10 +129,13 @@ STREAM_ENGINES = (
     ("int8 pallas", dict(dtype="int8", moe_impl="pallas"), (1, 2)),
     ("int4", dict(dtype="int4"), (0,)),
     ("w4a8", dict(dtype="int4", act_quant=True), (0,)),
+    ("int4 tiled", dict(dtype="int4", moe_impl="tiled"), (1, 2)),
+    ("w4a8 tiled", dict(dtype="int4", act_quant=True, moe_impl="tiled"),
+     (1, 2)),
 )
 
 
-def serve_stream(torch, root, label):
+def serve_stream(torch, root, label, word=None):
     cs = import_checkout(root)
     from m3asr_tpu_torch import kernels
     from m3asr_tpu_torch.runtime.engine import Engine, EngineConfig
@@ -132,9 +146,11 @@ def serve_stream(torch, root, label):
     rng = np.random.default_rng(2)
     reqs = [(rng.standard_normal((b, t, cfg.input_dim)).astype(np.float32),
              np.full((b,), t, np.int32)) for b, t in cs.REQUESTS]
-    int4 = None
+    int4 = None             # the int4 experts, quantized once
     for name, settings, which in STREAM_ENGINES:
-        base = int4 if settings.get("act_quant") else params
+        if word is not None and word not in name:
+            continue
+        base = int4 if settings["dtype"] == "int4" else params
         eng = Engine(cfg, params if base is None else base,
                      EngineConfig(**settings), device="cuda")
         if settings["dtype"] == "int4" and int4 is None:
@@ -157,7 +173,7 @@ def serve_stream(torch, root, label):
                   f"({min(lat):.3f}-{max(lat):.3f}), busy "
                   f"{np.median(ms) / np.median(lat):.3f}; top kernels "
                   + ", ".join(f"{cs.short_name(k)} {us / 1e3:.3f} ms"
-                              for k, us in top[:3])
+                              for k, us in top)
                   + "; expert kernels " + ", ".join(
                       f"{k} {v:.3f} ms" for k, v in sorted(kern.items()))
                   + f"; {smi}", flush=True)
@@ -165,20 +181,23 @@ def serve_stream(torch, root, label):
         torch.cuda.empty_cache()
     int4 = params = None
     torch.cuda.empty_cache()
-    cs.time_stage_kernels(torch, smi)
-    cs.time_quant_kernels(torch, smi)
+    if word is None:
+        cs.time_stage_kernels(torch, smi)
+        cs.time_quant_kernels(torch, smi)
 
 
 def build_parent(kernels, root):
-    """The parent's moe_runs.cu, moe_q4.cu and moe_stream.cu, built by
-    nvcc from root's csrc/ into _trees/libs_parent/ (all at once);
-    returns {source: ctypes library}, declared with the parent's C
-    interfaces."""
+    """The parent's moe_runs.cu, moe_q4.cu, moe_q4_tiled.cu and
+    moe_stream.cu, built by nvcc from root's csrc/ into
+    _trees/libs_parent/ (all at once);
+    returns {source: ctypes library}, declared with the C interfaces,
+    which the parent shares."""
     out_dir = os.path.abspath(os.path.join("_trees", "libs_parent"))
     shutil.rmtree(out_dir, ignore_errors=True)
     shutil.copytree(os.path.join(os.path.abspath(root), "m3asr_tpu_torch",
                                  "csrc"), out_dir)
-    sources = ("moe_runs.cu", "moe_q4.cu", "moe_stream.cu")
+    sources = ("moe_runs.cu", "moe_q4.cu", "moe_q4_tiled.cu",
+               "moe_stream.cu")
 
     def build(src):
         lib = os.path.join(out_dir, f"lib{src[:-3]}.so")
@@ -190,17 +209,10 @@ def build_parent(kernels, root):
         return lib
     with ThreadPoolExecutor(len(sources)) as ex:
         paths = dict(zip(sources, ex.map(build, sources)))
-    vp, i = ctypes.c_void_p, ctypes.c_int
     libs = {src: ctypes.CDLL(path) for src, path in paths.items()}
-    kernels.MOE_RUNS._declare(libs["moe_runs.cu"])   # unchanged interface
-    q4 = libs["moe_q4.cu"].moe_q4_dense
-    q4.argtypes = [i, vp, vp, i, vp, vp, i, vp, vp, vp, i, vp, i, i, i, i,
-                   vp, vp, vp, vp, vp, vp, vp]
-    q4.restype = i
-    st = libs["moe_stream.cu"].moe_stream
-    st.argtypes = [i, i, vp, vp, i, vp, vp, vp, vp, vp, vp, i, i, i, vp, vp,
-                   vp]
-    st.restype = i
+    for lib in (kernels.MOE_RUNS, kernels.MOE_Q4, kernels.MOE_Q4_TILED,
+                kernels.MOE_STREAM):
+        lib._declare(libs[lib.source])
     return libs
 
 
@@ -216,11 +228,12 @@ def in_turns(cs, torch, fa, fb, iters=60):
 def libs(torch, parent_root):
     cs = import_checkout(".")
     from m3asr_tpu_torch import kernels
-    from m3asr_tpu_torch.ops import moe_runs
+    from m3asr_tpu_torch.ops import moe_q4, moe_runs
     _, smi = cs.phase_device(torch)
     old = build_parent(kernels, parent_root)
     new = {lib.source: lib.load() for lib in
-           (kernels.MOE_RUNS, kernels.MOE_Q4, kernels.MOE_STREAM)}
+           (kernels.MOE_RUNS, kernels.MOE_Q4, kernels.MOE_Q4_TILED,
+            kernels.MOE_STREAM)}
     gen = torch.Generator(device="cuda").manual_seed(13)
     stream = torch.cuda.current_stream().cuda_stream
     E, D, H = cs.E, cs.D, cs.H
@@ -338,17 +351,16 @@ def libs(torch, parent_root):
                     j = i % n_layers
                     s1 = p["w1_scale"][j].reshape(E, -1, H)
                     s2 = p["w2_scale"][j].reshape(E, -1, D)
-                    args = [int(a8), x.data_ptr(), gate.data_ptr(), n,
-                            p["w1_q4"].data_ptr(), s1.data_ptr(), s1.shape[1],
-                            p["b1"].data_ptr(), p["w2_q4"].data_ptr(),
-                            s2.data_ptr(), s2.shape[1], p["b2"].data_ptr(), E,
-                            j, D, H]
-                    if key == "new":
-                        args.append(front.data_ptr())
                     lib = (old if key == "old" else new)["moe_q4.cu"]
-                    if lib.moe_q4_dense(*args, *(t.data_ptr()
-                                                 for t in scratch),
-                                        ys[key].data_ptr(), stream):
+                    if lib.moe_q4_dense(
+                            int(a8), x.data_ptr(), gate.data_ptr(), n,
+                            p["w1_q4"].data_ptr(), s1.data_ptr(),
+                            s1.shape[1], p["b1"].data_ptr(),
+                            p["w2_q4"].data_ptr(), s2.data_ptr(),
+                            s2.shape[1], p["b2"].data_ptr(), E, j, D, H,
+                            front.data_ptr(),
+                            *(t.data_ptr() for t in scratch),
+                            ys[key].data_ptr(), stream):
                         raise SystemExit("FAIL libs: moe_q4_dense launch "
                                          "error")
                 a, b = in_turns(cs, torch, lambda i: run("old", i),
@@ -357,7 +369,7 @@ def libs(torch, parent_root):
                 run("new", 0)
                 torch.cuda.synchronize()
                 report(f"K6 {'w4a8' if a8 else 'int4'} n={n} {kind}",
-                       ys["old"], ys["new"], a, b, a8)
+                       ys["old"], ys["new"], a, b, True)
     p = None
     torch.cuda.empty_cache()
 
@@ -386,14 +398,13 @@ def libs(torch, parent_root):
 
                 def run(key, i):
                     w1, s1, b1, w2, s2, b2 = args[i % n_layers]
-                    head = [0 if xdt == torch.float32 else 1, int(quant),
-                            x.data_ptr(), gate.data_ptr(), n, w1, s1,
-                            b1.data_ptr(), w2, s2, b2.data_ptr(), E, D, H]
-                    if key == "new":
-                        head.append(front.data_ptr())
                     lib = (old if key == "old" else new)["moe_stream.cu"]
-                    if lib.moe_stream(*head, hid.data_ptr(),
-                                      ys[key].data_ptr(), stream):
+                    if lib.moe_stream(
+                            0 if xdt == torch.float32 else 1, int(quant),
+                            x.data_ptr(), gate.data_ptr(), n, w1, s1,
+                            b1.data_ptr(), w2, s2, b2.data_ptr(), E, D, H,
+                            front.data_ptr(), hid.data_ptr(),
+                            ys[key].data_ptr(), stream):
                         raise SystemExit("FAIL libs: moe_stream launch "
                                          "error")
                 a, b = in_turns(cs, torch, lambda i: run("old", i),
@@ -402,9 +413,112 @@ def libs(torch, parent_root):
                 run("new", 0)
                 torch.cuda.synchronize()
                 report(f"K8 {wtype} n={n} {kind}", ys["old"], ys["new"], a,
-                       b, wtype == "float32")
+                       b, True)
         layers = args = None
         torch.cuda.empty_cache()
+
+    # K7: bf16 and float32 weight-only, w4a8, at 63, 511 and 1020 tokens
+    # (tiles of 64, 64, 128 rows); the clamp under the heavy routing
+    p = cs.quant_experts(torch, 4, gen, n_layers)
+    b1, b2 = p["b1"].float(), p["b2"].float()
+    for n in cs.STAGE_TOKENS:
+        tile = moe_q4.tiled_tile(n)
+        for kind in cs.TIME_KINDS:
+            gate = cs.routing(torch, kind, n, gen).reshape(n)
+            lay = moe_runs.runs_layout(gate, E, tile)
+            rows = lay.n_tiles * tile
+            clamp = int(kind == "heavy")
+            for a8, xdt in ((False, torch.bfloat16), (True, torch.bfloat16),
+                            (False, torch.float32)):
+                x = torch.randn(n, D, generator=gen, device="cuda").to(xdt)
+                x_pad = moe_runs._pad_tokens(x, lay, tile)
+                scratch = [torch.empty(rows, H, device="cuda", dtype=(
+                               torch.float32 if a8 else xdt)),
+                           torch.empty(rows, D, dtype=torch.int8,
+                                       device="cuda"),
+                           torch.empty(rows, device="cuda"),
+                           torch.empty(rows, H, dtype=torch.int8,
+                                       device="cuda"),
+                           torch.empty(rows, device="cuda")]
+                ys = {k: torch.empty_like(x_pad) for k in ("old", "new")}
+
+                def run(key, i):
+                    j = i % n_layers
+                    s1 = p["w1_scale"][j].reshape(E, -1, H)
+                    s2 = p["w2_scale"][j].reshape(E, -1, D)
+                    lib = (old if key == "old" else new)["moe_q4_tiled.cu"]
+                    if lib.moe_q4_tiled(
+                            0 if xdt == torch.float32 else 1, int(a8),
+                            x_pad.data_ptr(), p["w1_q4"].data_ptr(),
+                            s1.data_ptr(), s1.shape[1], b1.data_ptr(),
+                            p["w2_q4"].data_ptr(), s2.data_ptr(),
+                            s2.shape[1], b2.data_ptr(),
+                            lay.tile_e.data_ptr(), lay.starts.data_ptr(),
+                            lay.counts.data_ptr(), tile, lay.n_tiles, E, j,
+                            D, H, clamp, 0.5,
+                            *(t.data_ptr() for t in scratch),
+                            ys[key].data_ptr(), stream):
+                        raise SystemExit("FAIL libs: moe_q4_tiled launch "
+                                         "error")
+                a, b = in_turns(cs, torch, lambda i: run("old", i),
+                                lambda i: run("new", i))
+                run("old", 0)
+                run("new", 0)
+                torch.cuda.synchronize()
+                what = "w4a8" if a8 else f"int4 {str(xdt)[6:]}"
+                report(f"K7 {what} n={n} tile={tile} {kind}"
+                       + (" upper_bound=0.5" if clamp else ""),
+                       moe_runs._unpad(ys["old"], lay),
+                       moe_runs._unpad(ys["new"], lay), a, b,
+                       a8 or xdt == torch.float32)
+    p = None
+    torch.cuda.empty_cache()
+
+
+def sass_functions(kernels, path):
+    """{kernel name: its SASS instructions} of one built library."""
+    out = subprocess.run([os.path.join(os.path.dirname(kernels.find_nvcc()),
+                                       "cuobjdump"), "-sass", path],
+                         capture_output=True, text=True, check=True).stdout
+    funcs, name = {}, None
+    for ln in out.splitlines():
+        if "Function :" in ln:
+            name = ln.split("Function :")[1].strip()
+            funcs[name] = []
+        elif name and "/*" in ln and ";" in ln:
+            funcs[name].append(ln.split("*/", 1)[1].split(";")[0].strip())
+    return funcs
+
+
+def sass(torch, parent_root):
+    cs = import_checkout(".")
+    from m3asr_tpu_torch import kernels
+    build_parent(kernels, parent_root)
+
+    def by_name(funcs):
+        # anonymous-namespace kernels carry a per-build hash when mangled
+        names = cs.demangle(list(funcs))
+        return {n.replace("void ", "", 1).replace(
+            "(anonymous namespace)::", "").split("(")[0].strip(): v
+            for n, v in zip(names, funcs.values())}
+
+    def names(ks):
+        return ", ".join(sorted(ks))
+    for lib in (kernels.MOE_RUNS, kernels.MOE_Q4, kernels.MOE_Q4_TILED,
+                kernels.MOE_STREAM):
+        old = by_name(sass_functions(kernels, os.path.join(
+            "_trees", "libs_parent", f"lib{lib.source[:-3]}.so")))
+        new = by_name(sass_functions(kernels, lib.build()))
+        same = sorted(k for k in old if new.get(k) == old[k])
+        diff = sorted(k for k in old if k in new and new[k] != old[k])
+        print(f"sass {lib.source}: {len(same)} kernels the same as the "
+              f"parent's ({names(same)}); differ: " + (", ".join(
+                  f"{k} ({len(old[k])} -> {len(new[k])} instructions)"
+                  for k in diff) or "none")
+              + "; only the parent's: " + (names(set(old) - set(new))
+                                           or "none")
+              + "; only this checkout's: " + (names(set(new) - set(old))
+                                              or "none"), flush=True)
 
 
 def flash(torch, root, label):
@@ -496,9 +610,11 @@ def main():
         serve_stream(torch, *args)
     elif mode == "libs":
         libs(torch, *args)
+    elif mode == "sass":
+        sass(torch, *args)
     else:
         raise SystemExit(f"unknown mode {mode!r}: serve-quant, "
-                         "serve-stream, flash, stages, libs")
+                         "serve-stream, flash, stages, libs, sass")
     return 0
 
 

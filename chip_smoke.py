@@ -10,14 +10,15 @@ result line:
    reports them.
 2. build: every hand-written kernel, compiled by nvcc from csrc/ (one
    nvcc per source, all started together), with ptxas registers and
-   spills per instantiation (K1, K4-K6, K8 and K6's/K8's row-tile front
+   spills per instantiation (K1, K4-K8 and K6's/K8's row-tile front
    must not spill, also when an earlier run built them: nvcc's output is
    kept beside each library); the SASS (cuobjdump) of the flash kernels,
    K1 (expert_tile_gemm), K4/K5 (runs_gemm, runs_gemm_s8), K6
-   (dense_gemm), K8 (stream_gemm) and the front (row_tiles) must run
-   bf16, int8-on-bf16 K8 and K4/K5/K6 weight-only on HMMA.16816.F32.BF16,
-   K4/K5/K6 a8 on IMMA.16832.S8.S8 and float32 on FFMA, with no other MMA
-   and no atomic; the front runs no MMA.
+   (dense_gemm), K7 (tiled_gemm, tiled_gemm_s8), K8 (stream_gemm) and the
+   front (row_tiles) must run bf16, int8-on-bf16 K8 and K4-K7
+   weight-only on HMMA.16816.F32.BF16, K4-K7 a8 on IMMA.16832.S8.S8 and
+   float32 on FFMA, with no other MMA and no atomic; the front runs no
+   MMA.
 3. kernels against their plain PyTorch versions at the flagship widths
    (E=32, d=512, h=1024):
    K6's and K8's row-tile front (row_tiles, in each library) against its
@@ -61,12 +62,16 @@ result line:
    on bf16 activations) and K7 (tiled int4 grouped GEMM) weight-only and
    a8, at 63, 511 and 1020 tokens (K7's tile 64, 64, 128), under the
    router's routing, all tokens on one expert, half the experts empty,
-   and (K8) the heavy routing and rows padded with gate -1, which must
+   the heavy routing and (K8) rows padded with gate -1, which must
    come out 0; K7 stacked
    L=3 at layers 0 and 2, with upper_bound at layer 1, and at d=320,
-   h=640. fp32 within 1e-5 of
+   h=640, on bf16 activations, and weight-only on float32 activations
+   at the same token counts under the router's and the heavy routing
+   (with upper_bound at 511, d=320 at 63). fp32 within 1e-5 of
    max|ref| (float32 sums in another order), bf16, int8 and weight-only
-   int4 within 1e-2, a8 within 2e-2.
+   int4 within 1e-2, a8 within 2e-2. Under the router's and the heavy
+   routing at 511 and 1020 tokens K7 a8 must equal K5 a8 bit for bit
+   (the same quant_rows, s8 tiles, exact s32 sums and epilogue).
 4. serve, float: the flagship hier MoE conformer (6 embed blocks, 18 MoE
    blocks, 32 experts, vocabulary 5000; random weights from a seeded
    CUDA generator, routers randomised) in an fp32 and a bf16 Engine
@@ -133,15 +138,17 @@ result line:
    launches alone, at the main path's token counts (K1 at 63, 511 and
    1020 with its column block and each launch's live blocks; K6 at 63
    and 127 and K8 at 63, 511 and 1020 under the router's and the heavy
-   routing, each beside its yardstick's launches alone on the same
-   tokens: K5 for K6, K1 for K8; K2/K3 at both long requests' attention
+   routing, K7 at 63, 511 and 1020 under the router's (float32
+   weight-only too), each beside its yardstick's launches alone on the
+   same tokens: K5 for K6 and K7, K1 for K8; K2/K3 at both long
+   requests' attention
    shapes, with each launch's tile rows and blocks),
    beside its bound, the plain version's time and, for K2/K3,
    scaled_dot_product_attention's; the float engines' request latency,
    peak device memory and device time of one request under
    torch.profiler with the kernels that took most of it and K1's part.
-   Every device-time line names the expert kernels' (K1, K4/K5, K6, K8,
-   the front) summed time in the request.
+   Every device-time line names the expert kernels' (K1, K4-K8, the
+   front) summed time in the request.
 
 The line before the last is one JSON object describing each kernel
 (route, source, launches on the main path, error, times, bound); the
@@ -255,12 +262,17 @@ def expert_kernel(name):
     """Which expert kernel an instantiation's or a device event's name
     belongs to: "K1" (moe_runs.cu's expert_tile_gemm), "K4/K5"
     (runs_gemm), "K4/K5 a8" (runs_gemm_s8), "K6" / "K6 a8" (moe_q4.cu's
-    dense_gemm weight-only / a8), "K8" (moe_stream.cu's stream_gemm),
+    dense_gemm weight-only / a8), "K7" / "K7 a8" (moe_q4_tiled.cu's
+    tiled_gemm / tiled_gemm_s8), "K8" (moe_stream.cu's stream_gemm),
     "front" (row_tiles, K6's and K8's row-tile front), or None."""
     if "runs_gemm_s8" in name:
         return "K4/K5 a8"
     if "runs_gemm" in name:
         return "K4/K5"
+    if "tiled_gemm_s8" in name:
+        return "K7 a8"
+    if "tiled_gemm" in name:
+        return "K7"
     if "expert_tile_gemm" in name:
         return "K1"
     if "dense_gemm" in name:
@@ -274,21 +286,23 @@ def expert_kernel(name):
 
 KERNEL_NAMES = {"K1": "expert_tile_gemm", "K4/K5": "runs_gemm",
                 "K4/K5 a8": "runs_gemm_s8", "K6": "dense_gemm",
-                "K6 a8": "dense_gemm a8", "K8": "stream_gemm",
+                "K6 a8": "dense_gemm a8", "K7": "tiled_gemm",
+                "K7 a8": "tiled_gemm_s8", "K8": "stream_gemm",
                 "front": "row_tiles"}
 # per library, the kernels that must have a ptxas record and no spill
 BUILD_GATES = {"moe_runs.cu": ("K1", "K4/K5", "K4/K5 a8"),
                "moe_q4.cu": ("K6", "K6 a8", "front"),
+               "moe_q4_tiled.cu": ("K7", "K7 a8"),
                "moe_stream.cu": ("K8", "front")}
 
 
 def sass_want(short):
-    """The instruction a kernel instantiation must run: K4/K5 and K6 a8
+    """The instruction a kernel instantiation must run: K4-K7 a8
     IMMA.16832.S8.S8, K4/K5 and K6 weight-only and every bf16 one
-    (K1, K8, flash) HMMA.16816.F32.BF16, float32 FFMA (no TF32 MMA); the
-    row-tile front none (it must run no MMA either)."""
+    (K1, K7, K8, flash) HMMA.16816.F32.BF16, float32 FFMA (no TF32 MMA);
+    the row-tile front none (it must run no MMA either)."""
     kern = expert_kernel(short)
-    if kern in ("K4/K5 a8", "K6 a8"):
+    if kern in ("K4/K5 a8", "K6 a8", "K7 a8"):
         return "IMMA.16832.S8.S8"
     if kern in ("K4/K5", "K6") or "bfloat16" in short:
         return "HMMA.16816.F32.BF16"
@@ -299,14 +313,16 @@ def kernel_sass(kernels):
     """The arithmetic instructions of every tensor-core kernel's
     instantiations, from cuobjdump -sass of the built libraries: each
     flash kernel, K1 (moe_runs.cu's expert_tile_gemm), K4/K5 (runs_gemm,
-    runs_gemm_s8), K6 (moe_q4.cu's dense_gemm), K8 (moe_stream.cu's
-    stream_gemm) and their row-tile front. Each must run on its sass_want
+    runs_gemm_s8), K6 (moe_q4.cu's dense_gemm), K7 (moe_q4_tiled.cu's
+    tiled_gemm, tiled_gemm_s8), K8 (moe_stream.cu's stream_gemm) and
+    their row-tile front. Each must run on its sass_want
     instruction (or FFMA alone for float32, no TF32 MMA), no other MMA,
     and no atomic (ATOM, ATOMS, RED)."""
     cuobjdump = os.path.join(os.path.dirname(kernels.find_nvcc()),
                              "cuobjdump")
     for lib, moe in ((kernels.FLASH, False), (kernels.MOE_RUNS, True),
-                     (kernels.MOE_Q4, True), (kernels.MOE_STREAM, True)):
+                     (kernels.MOE_Q4, True), (kernels.MOE_Q4_TILED, True),
+                     (kernels.MOE_STREAM, True)):
         sass = subprocess.run([cuobjdump, "-sass", lib.build()],
                               capture_output=True, text=True,
                               check=True).stdout
@@ -562,6 +578,7 @@ STREAM_NAMES = {"float32": "moe_stream[float32]",
                 "bfloat16": "moe_stream[bfloat16]",
                 "int8": "moe_stream[int8]"}
 TILED_NAMES = {False: "moe_q4_tiled[int4]", True: "moe_q4_tiled[w4a8]"}
+TILED_F32 = "moe_q4_tiled[int4 float32]"   # no engine reaches it
 
 
 def stream_layers(torch, wtype, gen, n_layers):
@@ -655,10 +672,11 @@ def rel_check(got, ref, tol, label, name):
 
 def phase_kernel_stage(torch):
     """K8 (fp32, bf16, int8 weights on bf16 activations) and K7
-    (weight-only, a8) against their plain versions at the flagship widths
-    and the requests' token counts. Returns the worst max_abs_err per
+    (weight-only on bf16 and float32 activations, a8) against their plain
+    versions at the flagship widths and the requests' token counts, and
+    K7 a8 against K5 a8 bit for bit. Returns the worst max_abs_err per
     variant name."""
-    from m3asr_tpu_torch.ops import moe_q4, moe_stream
+    from m3asr_tpu_torch.ops import moe_q4, moe_runs, moe_stream
     gen = torch.Generator(device="cuda").manual_seed(9)
     worst = {}
     # K8: fp32 within 1e-5 of max|ref| (float32 sums in another order),
@@ -682,14 +700,15 @@ def phase_kernel_stage(torch):
                                 f"active={n_active(torch, gate[gate >= 0])}",
                                 name)
                 worst[name] = max(worst.get(name, 0.0), err)
-    # K7: stacked L=3 at layers 0 and 2, bf16 activations; weight-only
-    # within 1e-2 of max|ref|, a8 within 2e-2 (as K4-K6)
+    # K7: stacked L=3 at layers 0 and 2; bf16 weight-only within 1e-2 of
+    # max|ref|, a8 within 2e-2 (as K4-K6), float32 weight-only within 1e-5
+    # (as fp32 K8: float32 sums in another order)
     n_layers = 3
     p = quant_experts(torch, 4, gen, n_layers)
 
-    def check_tiled(p, a8, n, kind, layer, d=D, upper=None):
-        x = torch.randn(1, n, d, generator=gen, device="cuda") \
-            .to(torch.bfloat16)
+    def check_tiled(p, a8, n, kind, layer, d=D, upper=None,
+                    dtype=torch.bfloat16):
+        x = torch.randn(1, n, d, generator=gen, device="cuda").to(dtype)
         gate = routing(torch, kind, n, gen)
         pl = at_layer(p, layer)
         got = moe_q4.q4_tiled_kernel.launch(pl, x, gate, layer=layer,
@@ -697,26 +716,44 @@ def phase_kernel_stage(torch):
         torch.cuda.synchronize()
         ref = moe_q4.moe_experts_q4_tiled_reference(
             pl, x, gate, layer=layer, act_quant=a8, upper_bound=upper)
-        name = TILED_NAMES[a8]
-        err = rel_check(got, ref, 2e-2 if a8 else 1e-2,
+        f32 = dtype == torch.float32
+        name = TILED_F32 if f32 else TILED_NAMES[a8]
+        err = rel_check(got, ref, 1e-5 if f32 else 2e-2 if a8 else 1e-2,
                         f"{name} (K7) d={d} n={n} tile="
                         f"{moe_q4.tiled_tile(n)} {kind} layer={layer} "
                         f"upper_bound={upper} active={n_active(torch, gate)}",
                         name)
         worst[name] = max(worst.get(name, 0.0), err)
+        if a8 and kind in TIME_KINDS and n in (511, 1020) and upper is None:
+            # the same quant_rows, s8 tiles, exact s32 sums and epilogue
+            k5 = moe_runs.runs_q4_kernel.launch(pl, x, gate, layer,
+                                                act_quant=True)
+            if not torch.equal(got, k5):
+                raise SystemExit(
+                    "FAIL kernel: moe_q4_tiled[w4a8] and moe_runs_q4[w4a8] "
+                    "differ by up to "
+                    f"{(got.float() - k5.float()).abs().max().item():.3e}")
+            log(f"kernel moe_q4_tiled[w4a8] (K7) == moe_runs_q4[w4a8] (K5) "
+                f"bit for bit: n={n} {kind} layer={layer}")
 
     for a8 in (False, True):
         for n in STAGE_TOKENS:
-            for kind in KINDS:
+            for kind in KINDS + ("heavy",):
                 for layer in (0, n_layers - 1):
                     check_tiled(p, a8, n, kind, layer)
         check_tiled(p, a8, 511, "router", 1, upper=0.5)   # DFSMN's clamp
+    for n in STAGE_TOKENS:
+        for kind in TIME_KINDS:
+            check_tiled(p, False, n, kind, n_layers - 1,
+                        dtype=torch.float32)
+    check_tiled(p, False, 511, "router", 1, upper=0.5, dtype=torch.float32)
     # d=320, h=640: w2's packed columns hold columns j and j + 160 (both
     # nibble halves inside one column block); w1 one scale group, w2 five
     p = quant_experts(torch, 4, gen, 1, d=320, h=640)
     for a8 in (False, True):
         for n in (63, 1020):
             check_tiled(p, a8, n, "router", 0, 320)
+    check_tiled(p, False, 63, "router", 0, 320, dtype=torch.float32)
     return worst
 
 
@@ -1628,7 +1665,7 @@ def device_time(torch, eng, feat, lens):
     """One request under torch.profiler: the summed duration of the
     kernels and copies the card ran (one stream, so they do not overlap),
     in ms, the five kernel names that took most of it, and the ms of each
-    expert kernel it ran (expert_kernel: K1, K4/K5, K6, K8, their a8
+    expert kernel it ran (expert_kernel: K1, K4-K8, their a8
     forms and the row-tile front)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1808,11 +1845,15 @@ def time_quant_kernels(torch, smi):
 
 def time_stage_kernels(torch, smi):
     """K8 (fp32, bf16, int8) at the requests' token counts (63, 511, 1020)
-    under the router's and the heavy routing, and K7 (weight-only, a8)
-    under the router's: the wrapper call, its CUDA launches alone, the
-    plain version, and the bound; beside each K8 row, K1's launches alone
-    on the same tokens and gate (its yardstick: fp32 K1 for fp32 K8, bf16
-    K1 for bf16 and int8 K8; float K8 on K1's weights). Six layers of
+    under the router's and the heavy routing, and K7 (weight-only on bf16
+    and float32 activations, a8) under the router's: the wrapper call,
+    its CUDA launches alone, the plain version, and the bound; beside each
+    K8 row, K1's launches alone on the same tokens and gate (its
+    yardstick: fp32 K1 for fp32 K8, bf16 K1 for bf16 and int8 K8; float
+    K8 on K1's weights), beside each bf16 K7 row K5's (the same weights
+    and arithmetic on the run-length layout's 32-row tiles) and K7's own
+    launches on that layout (tile 32), which part the cost of the 64/128-row
+    tiles' layout from that of K7's tile arithmetic. Six layers of
     weights, the layer rotating with each call, so that a call finds its
     weights in device memory, as the main path's layer loop does. Returns
     rows keyed by (variant name, n, routing)."""
@@ -1824,7 +1865,7 @@ def time_stage_kernels(torch, smi):
     rows = {}
 
     def record(name, n, kind, active, per_expert, elt_x, ops_type, ms,
-               alone, plain_ms, yard=None):
+               alone, plain_ms, yard=None, yard_name="K1", extra=""):
         t_bytes = (active * per_expert + 2 * n * D * elt_x + n * 4) \
             / HBM_BYTES_PER_S * 1e3
         t_ops = 4 * n * D * H / PEAK_OPS_PER_S[ops_type] * 1e3
@@ -1832,11 +1873,12 @@ def time_stage_kernels(torch, smi):
         rows[(name, n, kind)] = dict(
             ms=ms, alone=alone, plain_ms=plain_ms, bound_ms=bound,
             bound_by="bytes" if t_bytes >= t_ops else "operations",
-            k1_alone=yard)
+            yard_alone=yard)
         log(f"time {name} n={n} {kind} active={active}: call {ms:.4f} ms "
             f"(kernels alone {alone:.4f} ms"
-            + ("" if yard is None else f", yardstick K1 alone {yard:.4f} ms")
-            + f"), plain {plain_ms:.4f} ms, bound {bound:.4f} ms (bytes "
+            + ("" if yard is None else
+               f", yardstick {yard_name} alone {yard:.4f} ms")
+            + extra + f"), plain {plain_ms:.4f} ms, bound {bound:.4f} ms (bytes "
             f"{t_bytes:.4f} / ops {t_ops:.4f}), library_ms none; {smi}")
 
     lib, lib_r = kernels.MOE_STREAM.load(), kernels.MOE_RUNS.load()
@@ -1932,25 +1974,31 @@ def time_stage_kernels(torch, smi):
                   + 2 * (H + D))              # packed weights, scales, biases
     for n in STAGE_TOKENS:
         tile = moe_q4.tiled_tile(n)
-        for a8 in (False, True):
-            x = torch.randn(1, n, D, generator=gen, device="cuda") \
-                .to(torch.bfloat16)
+        for a8, xdt in ((False, torch.bfloat16), (True, torch.bfloat16),
+                        (False, torch.float32)):
+            x = torch.randn(1, n, D, generator=gen, device="cuda").to(xdt)
             gate = routing(torch, "router", n, gen)
             lay = moe_runs.runs_layout(gate.reshape(n), E, tile)
             x_pad = moe_runs._pad_tokens(x.reshape(n, D), lay, tile)
             rows_n = lay.n_tiles * tile
+            # K5's run-length layout of the same tokens
+            lay5 = moe_runs.runs_layout(gate.reshape(n), E)
+            x_pad5 = moe_runs._pad_tokens(x.reshape(n, D), lay5,
+                                          moe_runs.TILE)
+            rows_n = max(rows_n, lay5.n_tiles * moe_runs.TILE)
             hid = torch.empty(rows_n, H, device="cuda", dtype=torch.float32
-                              if a8 else torch.bfloat16)
+                              if a8 else xdt)
             xq = torch.empty(rows_n, D, dtype=torch.int8, device="cuda")
             hq = torch.empty(rows_n, H, dtype=torch.int8, device="cuda")
             xs = torch.empty(rows_n, device="cuda")
             hs = torch.empty(rows_n, device="cuda")
-            y_pad = torch.empty_like(x_pad)
+            y_pad = torch.empty(rows_n, D, device="cuda", dtype=xdt)
+            code = 0 if xdt == torch.float32 else 1
 
             def raw(i):
                 j = i % n_layers
                 if lib.moe_q4_tiled(
-                        1, int(a8), x_pad.data_ptr(), w1.data_ptr(),
+                        code, int(a8), x_pad.data_ptr(), w1.data_ptr(),
                         s1[j].data_ptr(), s1[j].shape[1], b1.data_ptr(),
                         w2.data_ptr(), s2[j].data_ptr(), s2[j].shape[1],
                         b2.data_ptr(), lay.tile_e.data_ptr(),
@@ -1959,17 +2007,49 @@ def time_stage_kernels(torch, smi):
                         xq.data_ptr(), xs.data_ptr(), hq.data_ptr(),
                         hs.data_ptr(), y_pad.data_ptr(), stream):
                     raise SystemExit("FAIL times: moe_q4_tiled launch error")
+
+            def raw32(i):          # K7 on K5's layout: tile 32
+                j = i % n_layers
+                if lib.moe_q4_tiled(
+                        code, int(a8), x_pad5.data_ptr(), w1.data_ptr(),
+                        s1[j].data_ptr(), s1[j].shape[1], b1.data_ptr(),
+                        w2.data_ptr(), s2[j].data_ptr(), s2[j].shape[1],
+                        b2.data_ptr(), lay5.tile_e.data_ptr(),
+                        lay5.starts.data_ptr(), lay5.counts.data_ptr(),
+                        moe_runs.TILE, lay5.n_tiles, E, j, D, H, 0, 0.0,
+                        hid.data_ptr(), xq.data_ptr(), xs.data_ptr(),
+                        hq.data_ptr(), hs.data_ptr(), y_pad.data_ptr(),
+                        stream):
+                    raise SystemExit("FAIL times: moe_q4_tiled launch error")
+
+            def k5_raw(i):
+                j = i % n_layers
+                if lib_r.moe_runs_q(
+                        2, int(a8), x_pad5.data_ptr(), w1.data_ptr(),
+                        s1[j].data_ptr(), s1[j].shape[1], p["b1"].data_ptr(),
+                        w2.data_ptr(), s2[j].data_ptr(), s2[j].shape[1],
+                        p["b2"].data_ptr(), lay5.tile_e.data_ptr(),
+                        lay5.starts.data_ptr(), lay5.n_tiles, E, j, D, H,
+                        hid.data_ptr(), xq.data_ptr(), xs.data_ptr(),
+                        hq.data_ptr(), hs.data_ptr(), y_pad.data_ptr(),
+                        stream):
+                    raise SystemExit("FAIL times: moe_runs_q launch error")
             ms = cuda_time_ms(torch, lambda i: moe_q4.q4_tiled_kernel.launch(
                 layers[i % n_layers], x, gate, layer=i % n_layers,
                 act_quant=a8), 60)
             alone = cuda_time_ms(torch, raw, 60)
+            yard = None if xdt == torch.float32 else \
+                cuda_time_ms(torch, k5_raw, 60)
+            at32 = cuda_time_ms(torch, raw32, 60)
             plain_ms = cuda_time_ms(
                 torch, lambda i: moe_q4.moe_experts_q4_tiled_reference(
                     layers[i % n_layers], x, gate, layer=i % n_layers,
                     act_quant=a8), 6)
-            record(TILED_NAMES[a8], n, "router", n_active(torch, gate),
-                   per_expert, 2, "int8" if a8 else "bfloat16", ms, alone,
-                   plain_ms)
+            record(TILED_F32 if xdt == torch.float32 else TILED_NAMES[a8],
+                   n, "router", n_active(torch, gate), per_expert,
+                   x.element_size(), "int8" if a8 else str(xdt)[6:], ms,
+                   alone, plain_ms, yard, "K5",
+                   f", K7 alone at tile 32 {at32:.4f} ms")
     return rows
 
 

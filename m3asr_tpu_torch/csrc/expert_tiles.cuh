@@ -1,14 +1,15 @@
 // The expert-FFN tiles on the tensor cores and on FMA patches, shared by
-// the run-length kernels (moe_runs.cu: K1, K4, K5) and the dense
-// streamers (moe_q4.cu: K6; moe_stream.cu: K8).
+// the run-length kernels (moe_runs.cu: K1, K4, K5), the dense streamers
+// (moe_q4.cu: K6; moe_stream.cu: K8) and the tiled int4 grouped GEMM
+// (moe_q4_tiled.cu: K7).
 //
 // A tile is TM = 32 rows of one expert's tokens x 64 output columns. Its
 // rows are either rows 0 .. TM - 1 of a tile base (GATHER false: the
-// run-length layout's padded rows) or the rows listed in `rows` (GATHER
-// true: TM slots in shared memory, -1 for an empty slot), read in place
-// from the matrix base and stored in place (the dense streamers' rows of
-// one expert, from the row-tile front of row_tiles.cuh). An empty slot
-// is copied as zeros (a cp.async of 0 bytes) and never stored.
+// run-length and tiled layouts' padded rows) or the rows listed in `rows`
+// (GATHER true: TM slots in shared memory, -1 for an empty slot), read in
+// place from the matrix base and stored in place (the dense streamers'
+// rows of one expert, from the row-tile front of row_tiles.cuh). An empty
+// slot is copied as zeros (a cp.async of 0 bytes) and never stored.
 //
 // The run-length kernels have 20-60 real tiles at the serving token
 // counts, so a launch has a few hundred live blocks, each with little
@@ -31,9 +32,11 @@
 //   3-stage cp.async ring; 128 threads. A warp whose rows all lie past
 //   the tile's tokens (`live`) skips its FMAs: nothing reads those rows.
 //   4 x 8 patches (half the threads) were slower at 63 and 511 tokens,
-//   and a 4-stage ring no better overall (PERF.md, section 6). K8 on
-//   int8 weights and float32 activations stages the raw int8 slice and
-//   takes each weight as q * scale[n] in float32 before its FMA.
+//   and a 4-stage ring no better overall (PERF.md, section 6). Quantized
+//   weights on float32 activations stage the raw slice and take each
+//   weight as q * scale in float32 before its FMA: K8's int8 (one scale
+//   a column) and K7's packed int4 (Q4x2: a scale a column and group,
+//   the block's 32 packed bytes a row holding its 64 columns).
 // - Quantized weights (tile_q_mma, tile_q_s8): a half to a quarter of
 //   bf16's weight bytes, the same block shape (4 warps of 32 rows x 16
 //   columns), a cp.async ring of 64-deep slices and 16-byte row padding.
@@ -46,20 +49,24 @@
 //     values are exact in bf16 (q_widen builds them from magic-number
 //     float or bf16 bits, without int-to-float conversions). Each group's
 //     float32 sums are folded at its end, which may fall inside a slice
-//     (32-row groups), in ascending g. K8's int8 weights on bf16
-//     activations (DEQ) are instead taken as bf16(q * bf16(scale[n]))
-//     before the product, as the TPU kernel rounds them, with no fold.
+//     (32-row groups), in ascending g. DEQ instead takes each weight
+//     dequantized to bf16 before the product, as the TPU kernels of K8
+//     and K7 round it, with one float32 sum and no fold: K8's int8 as
+//     bf16(q * bf16(scale[0, n])), K7's int4 as bf16(q * scale[g, n])
+//     (the float32 scale, reloaded at each group end).
 //   - a8: s8 mma.sync m16n8k32 into s32 on quant_rows' int8 rows; each
 //     lane gathers its column's four k-neighbours with byte permutes
 //     (q_gather); an int4 nibble goes in as 16 q, and the exact sum is
-//     shifted back. The epilogue is tile_gemm_s8's order (moe_common.cuh),
-//     so K5 and K6 w4a8 agree bit for bit.
+//     shifted back. The epilogue runs in the JAX package's order (at
+//     tile_q_s8), so K5, K6 and K7 w4a8 agree bit for bit.
 //   - int4: a block's 32 packed bytes a row hold its 64 columns (32 low
 //     nibbles, 32 high ones, N/2 apart), so every byte is read by one
 //     block.
 //
 // Rounding contract of the float tiles: float32 sums, the bias added in
 // float32 before v / (1 + expf(-v)), the output rounded to its type.
+// Every tile takes an optional clamp, min(v, upper) after the activation
+// (K7's upper_bound), off by default.
 
 #pragma once
 
@@ -97,9 +104,18 @@ __device__ __forceinline__ int dst_row(const int* rows, int r) {
 
 constexpr int F_BN = 64;  // column block; d and h must be multiples
 
+// Packed int4 weights of tile_fma: byte c of a row holds column c in its
+// low nibble and column c + N/2 in its high nibble (ops/quant.py
+// pack_int4), so one element stands for two columns.
+struct Q4x2 {
+  int8_t v;
+};
+template <typename W>
+constexpr int W_COLS = std::is_same<W, Q4x2>::value ? 2 : 1;
+
 // Shared layout of one pipeline stage: a TM x BK activation slice (row
 // stride XLD) and a BK x F_BN weight slice (row stride WLD), elements of
-// T; int8 weights (W) take F_BN bytes a row.
+// T; quantized weights (W) take their raw F_BN / W_COLS bytes a row.
 template <typename T>
 struct FTile;
 template <>
@@ -116,7 +132,7 @@ template <typename T, typename W = T>
 struct FLayout : FTile<T> {
   using C = FTile<T>;
   static constexpr bool SAME = std::is_same<T, W>::value;
-  static constexpr int WLDW = SAME ? C::WLD : F_BN;  // in elements of W
+  static constexpr int WLDW = SAME ? C::WLD : F_BN / W_COLS<W>;  // of W
   static constexpr int X = TM * C::XLD;
   static constexpr int STAGE =
       X + C::BK * WLDW * (int)sizeof(W) / (int)sizeof(T);
@@ -128,9 +144,9 @@ struct FLayout : FTile<T> {
 
 // One stage: the activation slice [k0, k0 + BK) of the tile's TM rows
 // (at: the tile base, or with GATHER the matrix base) and the weight
-// slice of rows [k0, k0 + BK), columns [n0, n0 + F_BN) (we points at
-// column n0), by 16-byte cp.async; neighbouring threads copy
-// neighbouring chunks of a row.
+// slice of rows [k0, k0 + BK), the block's F_BN columns (we points at
+// column n0, or packed byte n0 / 2), by 16-byte cp.async; neighbouring
+// threads copy neighbouring chunks of a row.
 template <typename T, typename W, bool GATHER>
 __device__ __forceinline__ void f_stage(T* xs, const T* __restrict__ at,
                                         const int* rows,
@@ -139,9 +155,9 @@ __device__ __forceinline__ void f_stage(T* xs, const T* __restrict__ at,
   using C = FLayout<T, W>;
   constexpr int V = 16 / (int)sizeof(T);  // elements per chunk
   constexpr int VW = 16 / (int)sizeof(W);
-  constexpr int XC = C::BK / V, WC = F_BN / VW;
-  static_assert(TM * XC % C::THREADS == 0 && C::BK * WC % C::THREADS == 0,
-                "whole chunks per thread");
+  constexpr int XC = C::BK / V, WC = F_BN / W_COLS<W> / VW;
+  constexpr int WN = C::BK * WC;  // weight chunks a stage
+  static_assert(TM * XC % C::THREADS == 0, "whole chunks per thread");
 #pragma unroll
   for (int j = 0; j < TM * XC / C::THREADS; ++j) {
     const int i = threadIdx.x + j * C::THREADS, r = i / XC, c = i % XC;
@@ -151,10 +167,11 @@ __device__ __forceinline__ void f_stage(T* xs, const T* __restrict__ at,
   }
   W* ws = reinterpret_cast<W*>(xs + C::X);
 #pragma unroll
-  for (int j = 0; j < C::BK * WC / C::THREADS; ++j) {
+  for (int j = 0; j < (WN + C::THREADS - 1) / C::THREADS; ++j) {
     const int i = threadIdx.x + j * C::THREADS, r = i / WC, c = i % WC;
-    cp_async16(ws + r * C::WLDW + c * VW, we + (size_t)(k0 + r) * N + c * VW,
-               true);
+    if (WN % C::THREADS == 0 || i < WN)
+      cp_async16(ws + r * C::WLDW + c * VW,
+                 we + (size_t)(k0 + r) * (N / W_COLS<W>) + c * VW, true);
   }
 }
 
@@ -236,28 +253,43 @@ __device__ __forceinline__ void tile_mma(const bf16* __restrict__ at,
   }
 }
 
-// float32: thread (ty, tx) owns rows 4 ty .. 4 ty + 3 and columns
-// 4 tx .. 4 tx + 3 (8 neighbouring threads read 128 contiguous bytes of a
-// weight row); `live` rows hold tokens. W: float weights, or int8 weights
-// taken as __fmul_rn(q, scale[n]) (scale: float32 per column, from n0).
+// float32: thread (ty, tx) owns rows 4 ty .. 4 ty + 3 and four
+// neighbouring columns (8 neighbouring threads read 128 contiguous bytes
+// of a float weight row); `live` rows hold tokens. W: float weights, int8
+// weights taken as __fmul_rn(q, scale[n]), or packed int4 (Q4x2) taken as
+// __fmul_rn(q, scale[g, n]) (scale: float32 rows of N, G groups of K / G
+// rows, a multiple of BK, int8 G = 1; like `we` it points at column n0,
+// or packed byte n0 / 2). Columns: 4 tx .. 4 tx + 3 of the block, or for
+// Q4x2 the low (tx < 8) or high nibbles of the block's packed bytes
+// 4 (tx % 8) .. + 3, as q_col maps them. clamp takes min(v, upper) after
+// the activation.
 template <bool SILU, bool GATHER, typename W = float>
-__device__ __forceinline__ void tile_fma(const float* __restrict__ at,
-                                         const int* rows,
-                                         const W* __restrict__ we,
-                                         const float* __restrict__ scale,
-                                         const float* __restrict__ bias,
-                                         int K, int N, int n0, int live,
-                                         float* sm, float* __restrict__ out) {
+__device__ __forceinline__ void tile_fma(
+    const float* __restrict__ at, const int* rows, const W* __restrict__ we,
+    const float* __restrict__ scale, int G, const float* __restrict__ bias,
+    int K, int N, int n0, int live, float* sm, float* __restrict__ out,
+    bool clamp = false, float upper = 0.f) {
   using C = FLayout<float, W>;
+  constexpr bool Q4 = W_COLS<W> == 2;
   constexpr int CG = F_BN / 4;  // column groups
   const int tid = threadIdx.x, tx = tid % CG, ty = tid / CG;
+  const int hi = Q4 && tx >= CG / 2;  // Q4x2: this thread's nibble half
+  const int wc = Q4 ? 4 * (tx % (CG / 2)) : 4 * tx;  // its weight bytes
+  // its first column, counted from the block's (column n0, or packed byte
+  // n0 / 2, where `we` and `scale` point) and in the whole row
+  const int sofs = Q4 ? wc + hi * (N / 2) : 4 * tx;
+  const int col = (Q4 ? n0 / 2 : n0) + sofs;
   // the warp's first row; a warp past the tokens skips its FMAs
   const bool work = 4 * ((tid & ~31) / CG) < live;
+  const int gs = K / G;
   float acc[4][4] = {};
-  float sc[4] = {};
+  float sc[4] = {}, sn[4];  // the columns' scales; Q4x2: and -8 times them
   if constexpr (!C::SAME) {
 #pragma unroll
-    for (int j = 0; j < 4; ++j) sc[j] = scale[4 * tx + j];
+    for (int j = 0; j < 4; ++j) {
+      sc[j] = scale[sofs + j];
+      sn[j] = -8.f * sc[j];
+    }
   }
   const int steps = K / C::BK;
 #pragma unroll
@@ -276,10 +308,17 @@ __device__ __forceinline__ void tile_fma(const float* __restrict__ at,
                                 rows, we, K, N, next * C::BK);
     cp_async_commit();
     if (!work) continue;
+    if (Q4 && ks > 0 && ks * C::BK % gs == 0) {  // a new scale group
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        sc[j] = scale[(size_t)(ks * C::BK / gs) * N + sofs + j];
+        sn[j] = -8.f * sc[j];
+      }
+    }
     const float* xs = sm + (ks % C::STAGES) * C::STAGE + 4 * ty * C::XLD;
     const W* ws =
         reinterpret_cast<const W*>(sm + (ks % C::STAGES) * C::STAGE + C::X) +
-        4 * tx;
+        wc;
 #pragma unroll
     for (int k = 0; k < C::BK; k += 4) {
       float xr[4][4];
@@ -302,6 +341,21 @@ __device__ __forceinline__ void tile_fma(const float* __restrict__ at,
           wr[1] = v.y;
           wr[2] = v.z;
           wr[3] = v.w;
+        } else if constexpr (Q4) {
+          // byte j: q + 8 = nibble ^ 8 of this half's column j, taken as
+          // the float 2^23 + q + 8 minus 2^23; then (q + 8) s - 8 s, exact
+          // before its one rounding, is __fmul_rn(q, s)
+          const uint32_t u =
+              ((*reinterpret_cast<const uint32_t*>(ws + (k + kk) * C::WLDW) >>
+                (4 * hi)) &
+               0x0F0F0F0Fu) ^
+              0x08080808u;
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+            wr[j] = __fmaf_rn(
+                __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7440 + j)) -
+                    8388608.f,
+                sc[j], sn[j]);
         } else {
           const char4 q =
               *reinterpret_cast<const char4*>(ws + (k + kk) * C::WLDW);
@@ -318,16 +372,17 @@ __device__ __forceinline__ void tile_fma(const float* __restrict__ at,
       }
     }
   }
-  const int col = n0 + 4 * tx;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int row = dst_row<GATHER>(rows, 4 * ty + i);
     if (GATHER && row < 0) continue;
     float v[4];
 #pragma unroll
-    for (int j = 0; j < 4; ++j)
+    for (int j = 0; j < 4; ++j) {
       v[j] = f_epilogue<SILU>(acc[i][j], bias != nullptr,
                               bias != nullptr ? bias[col + j] : 0.f);
+      if (clamp) v[j] = fminf(v[j], upper);
+    }
     *reinterpret_cast<float4*>(out + (size_t)row * N + col) =
         make_float4(v[0], v[1], v[2], v[3]);
   }
@@ -500,20 +555,49 @@ __device__ __forceinline__ void q_widen(const unsigned char* r0,
   }
 }
 
-// K8's int8 B fragments (DEQ): each weight as bf16(q * s), s the bf16
-// scale of its column (bs[j]: tile j's column of this lane). q * s is
-// exact in float32 (8-bit by 8-bit significands), so its one rounding is
-// the TPU kernel's bf16 product.
+// The int4 value of a nibble (the low 4 bits of v) as an exact float:
+// 2^23 + (q + 8) built as float bits, minus 2^23 + 8.
+__device__ __forceinline__ float q4_float(uint32_t v) {
+  return __uint_as_float(0x4B000000u | ((v & 15u) ^ 8u)) - 8388616.f;
+}
+
+// DEQ: the scales of this lane's B columns (tile j's column of the lane)
+// from scale row s: int8 (K8) rounded to bf16, int4 (K7) in float32.
+template <int F>
+__device__ __forceinline__ void q_bscale(const float* __restrict__ s, int n0,
+                                         int N, int wcol, float (&bs)[2]) {
+#pragma unroll
+  for (int j = 0; j < 2; ++j)
+    bs[j] = F == W_Q8 ? to_f(from_f<bf16>(s[n0 + wcol + j]))
+                      : s[n0 / 2 + wcol + j * (N / 2)];
+}
+
+// DEQ B fragments of weight rows k, k + 1 (r0, r1: the lane's bytes in
+// them): each weight as bf16(q * s), s = bs[j] its column's scale, the
+// TPU kernels' rounding. int8 (K8): q * bf16(s) is exact in float32
+// (8-bit by 8-bit significands), so its one rounding is the bf16 product.
+// int4 (K7): the float32 product is rounded, then rounded to bf16, as
+// _unpack_expert rounds it.
+template <int F>
 __device__ __forceinline__ void q_deq(const unsigned char* r0,
                                       const unsigned char* r1,
                                       const float (&bs)[2],
                                       uint32_t (&b)[2]) {
-  float f[4];
-  q8_floats(r0, r1, f);
-  b[0] = bf16x2_bits(
-      __floats2bfloat162_rn(__fmul_rn(f[0], bs[0]), __fmul_rn(f[2], bs[0])));
-  b[1] = bf16x2_bits(
-      __floats2bfloat162_rn(__fmul_rn(f[1], bs[1]), __fmul_rn(f[3], bs[1])));
+  if constexpr (F == W_Q8) {
+    float f[4];
+    q8_floats(r0, r1, f);
+    b[0] = bf16x2_bits(__floats2bfloat162_rn(__fmul_rn(f[0], bs[0]),
+                                             __fmul_rn(f[2], bs[0])));
+    b[1] = bf16x2_bits(__floats2bfloat162_rn(__fmul_rn(f[1], bs[1]),
+                                             __fmul_rn(f[3], bs[1])));
+  } else {  // low nibbles: tile 0's column, high nibbles: tile 1's
+    const uint32_t x0 = *r0, x1 = *r1;
+    b[0] = bf16x2_bits(__floats2bfloat162_rn(__fmul_rn(q4_float(x0), bs[0]),
+                                             __fmul_rn(q4_float(x1), bs[0])));
+    b[1] = bf16x2_bits(
+        __floats2bfloat162_rn(__fmul_rn(q4_float(x0 >> 4), bs[1]),
+                              __fmul_rn(q4_float(x1 >> 4), bs[1])));
+  }
 }
 
 // a8 B fragments of weight rows k .. k + 3 (r: the lane's bytes in row k,
@@ -544,16 +628,17 @@ __device__ __forceinline__ void q_gather(const unsigned char* r, int ld,
 // Weight-only: the tile's 32 rows x the block's 64 columns on bf16 MMAs.
 // Each k16 step's float32 sums are folded into `tot` at the end of each
 // scale group, in ascending g: tot += acc * s_g (__fmul_rn, __fadd_rn).
-// DEQ (int8 only, K8): the weights are bf16(q * bf16(scale[0, n])) and
-// the sums are taken as they are, with no fold. BT: the bias type.
+// DEQ: the weights are dequantized to bf16 before the product (q_deq:
+// K8's int8, K7's int4, whose scales are reloaded at each group end) and
+// the sums are taken as they are, with no fold. BT: the bias type. clamp
+// takes min(v, upper) after the activation.
 template <int F, bool SILU, bool GATHER, bool DEQ = false,
           typename BT = bf16>
 __device__ __forceinline__ void tile_q_mma(
     const bf16* __restrict__ at, const int* rows,
     const int8_t* __restrict__ we, const float* __restrict__ scale, int G,
     const BT* __restrict__ bias, int K, int N, int n0, unsigned char* sm,
-    bf16* __restrict__ out) {
-  static_assert(!DEQ || F == W_Q8, "DEQ takes int8 weights");
+    bf16* __restrict__ out, bool clamp = false, float upper = 0.f) {
   using C = QLayout<F, false>;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int g = lane >> 2, t = lane & 3;
@@ -566,14 +651,11 @@ __device__ __forceinline__ void tile_q_mma(
   const int gs = K / G;
   float acc[2][2][4] = {}, tot[2][2][4] = {};
   float sc[2][2];
-  float bs[2];  // DEQ: the bf16 scales of this lane's B columns
-  if constexpr (DEQ) {
-#pragma unroll
-    for (int j = 0; j < 2; ++j)
-      bs[j] = to_f(from_f<bf16>(scale[n0 + wcol + j]));
-  } else {
+  float bs[2];  // DEQ: the scales of this lane's B columns
+  if constexpr (DEQ)
+    q_bscale<F>(scale, n0, N, wcol, bs);
+  else
     q_load<F>(scale, n0, N, warp, t, sc);
-  }
   int grp = 0, fold_at = gs;
   const int steps = K / Q_BK;
 #pragma unroll
@@ -600,8 +682,8 @@ __device__ __forceinline__ void tile_q_mma(
       mma::ldsm_x4(a1, xs + (16 + lr) * C::XLD + 2 * kk + lc);
       const unsigned char* wr = ws + (kk + 2 * t) * C::WLD;
       if constexpr (DEQ) {
-        q_deq(wr, wr + C::WLD, bs, b0);                   // rows 2t, 2t + 1
-        q_deq(wr + 8 * C::WLD, wr + 9 * C::WLD, bs, b1);  // 2t + 8, + 9
+        q_deq<F>(wr, wr + C::WLD, bs, b0);                   // rows 2t, 2t + 1
+        q_deq<F>(wr + 8 * C::WLD, wr + 9 * C::WLD, bs, b1);  // 2t + 8, + 9
       } else {
         q_widen<F>(wr, wr + C::WLD, b0);               // rows 2t, 2t + 1
         q_widen<F>(wr + 8 * C::WLD, wr + 9 * C::WLD, b1);  // 2t + 8, + 9
@@ -611,20 +693,28 @@ __device__ __forceinline__ void tile_q_mma(
         mma::mma_bf16(acc[0][j], a0, b0[j], b1[j]);
         mma::mma_bf16(acc[1][j], a1, b0[j], b1[j]);
       }
-      if (!DEQ && ks * Q_BK + kk + 16 == fold_at) {  // end of a scale group
+      if constexpr (!DEQ || F == W_Q4) {
+        if (ks * Q_BK + kk + 16 == fold_at) {  // end of a scale group
+          if constexpr (!DEQ) {
 #pragma unroll
-        for (int m = 0; m < 2; ++m)
+            for (int m = 0; m < 2; ++m)
 #pragma unroll
-          for (int j = 0; j < 2; ++j)
+              for (int j = 0; j < 2; ++j)
 #pragma unroll
-            for (int c = 0; c < 4; ++c) {
-              tot[m][j][c] = __fadd_rn(tot[m][j][c],
-                                       __fmul_rn(acc[m][j][c], sc[j][c & 1]));
-              acc[m][j][c] = 0.f;
-            }
-        fold_at += gs;
-        if (++grp < G)
-          q_load<F>(scale + (size_t)grp * N, n0, N, warp, t, sc);
+                for (int c = 0; c < 4; ++c) {
+                  tot[m][j][c] = __fadd_rn(
+                      tot[m][j][c], __fmul_rn(acc[m][j][c], sc[j][c & 1]));
+                  acc[m][j][c] = 0.f;
+                }
+          }
+          fold_at += gs;
+          if (++grp < G) {
+            if constexpr (DEQ)
+              q_bscale<F>(scale + (size_t)grp * N, n0, N, wcol, bs);
+            else
+              q_load<F>(scale + (size_t)grp * N, n0, N, warp, t, sc);
+          }
+        }
       }
     }
   }
@@ -644,22 +734,26 @@ __device__ __forceinline__ void tile_q_mma(
           float x = DEQ ? acc[m][j][2 * h + i] : tot[m][j][2 * h + i];
           if (bias != nullptr) x = __fadd_rn(x, bv[j][i]);
           v[j][i] = SILU ? silu(x) : x;
+          if (clamp) v[j][i] = fminf(v[j][i], upper);
         }
       q_store<F>(out + (size_t)row * N, n0, N, warp, t, v);
     }
 }
 
 // a8: the tile's int8 rows (aq, row scales as) x the block's 64 columns on
-// s8 MMAs into exact s32 sums; the epilogue in tile_gemm_s8's order
-// (moe_common.cuh):
-//   int8: (float(sum) * as[row]) * scale[0, n]
+// s8 MMAs into exact s32 sums (|sum| < 127 * 127 * K); the epilogue in the
+// JAX package's order:
+//   int8: (float(sum) * as[row]) * scale[0, n]     (pallas_moe_runs.py:287)
 //   int4: (sum_g float(sum_g) * scale[g, n]) * as[row]
-template <int F, bool SILU, typename OutT, bool GATHER>
+//                                                 (pallas_moe_q4.py:183-187)
+// then + bias (of type BT), optional SiLU, optional clamp at `upper`.
+template <int F, bool SILU, typename OutT, bool GATHER, typename BT = bf16>
 __device__ __forceinline__ void tile_q_s8(
     const int8_t* __restrict__ aq, const float* __restrict__ as,
     const int* rows, const int8_t* __restrict__ we,
-    const float* __restrict__ scale, int G, const bf16* __restrict__ bias,
-    int K, int N, int n0, unsigned char* sm, OutT* __restrict__ out) {
+    const float* __restrict__ scale, int G, const BT* __restrict__ bias,
+    int K, int N, int n0, unsigned char* sm, OutT* __restrict__ out,
+    bool clamp = false, float upper = 0.f) {
   using C = QLayout<F, true>;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int g = lane >> 2, t = lane & 3;
@@ -744,6 +838,7 @@ __device__ __forceinline__ void tile_q_s8(
                         : __fmul_rn(tot[m][j][2 * h + i], ar);
           if (bias != nullptr) x = __fadd_rn(x, bv[j][i]);
           v[j][i] = SILU ? silu(x) : x;
+          if (clamp) v[j][i] = fminf(v[j][i], upper);
         }
       q_store<F>(out + (size_t)r * N, n0, N, warp, t, v);
     }

@@ -28,9 +28,10 @@
 // The tiles are K5's (expert_tiles.cuh): weight-only on bf16 mma.sync
 // with the int4 values widened exactly in registers and each 128-row
 // group's float32 sums folded at its end (tile_q_mma); w4a8 on s8
-// mma.sync into exact s32 sums with tile_gemm_s8's epilogue (tile_q_s8),
-// after quant_rows launches for x (rows of an expert) and for the float32
-// hidden, as in moe_runs.cu. So K6 w4a8 equals K5 w4a8 bit for bit.
+// mma.sync into exact s32 sums with the JAX package's epilogue order
+// (tile_q_s8), after quant_rows launches for x (rows of an expert) and
+// for the float32 hidden, as in moe_runs.cu. So K6 w4a8 equals K5 w4a8
+// bit for bit.
 //
 // What bounds it on an H100: the bytes of the active experts' packed
 // weights and scales (d=512, h=1024: 0.5 MiB + 48 KiB per expert; ~16 MB

@@ -82,7 +82,7 @@ __global__ void __launch_bounds__(FTile<T>::THREADS)
     tile_mma<SILU, false>(at, nullptr, we, be, K, N, n0, sm, ot);
   } else {
     const int live = counts[e] - (t - starts[e]) * TM;
-    tile_fma<SILU, false>(at, nullptr, we, nullptr, be, K, N, n0, live,
+    tile_fma<SILU, false>(at, nullptr, we, nullptr, 1, be, K, N, n0, live,
                           sm, ot);
   }
 }

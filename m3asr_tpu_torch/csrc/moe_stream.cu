@@ -95,8 +95,8 @@ __global__ void __launch_bounds__(128)
   const float* be = bias == nullptr ? nullptr : bias + (size_t)e * N;
   if constexpr (std::is_same<T, float>::value) {
     tile_fma<SILU, true, W>(a, rows, we, se == nullptr ? nullptr : se + n0,
-                            be, K, N, n0, m, reinterpret_cast<float*>(s_smem),
-                            out);
+                            1, be, K, N, n0, m,
+                            reinterpret_cast<float*>(s_smem), out);
   } else if constexpr (std::is_same<W, int8_t>::value) {
     tile_q_mma<W_Q8, SILU, true, true, float>(a, rows, we, se, 1, be, K, N,
                                               n0, s_smem, out);

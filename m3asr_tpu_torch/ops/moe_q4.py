@@ -21,10 +21,12 @@ tokens, else 128), one expert per tile from the tile->expert table, pad
 rows zero and never gathered back. Its weight-only arithmetic is not
 K5's: each weight is dequantized (nibble x group scale, in float32) and
 rounded to x's dtype before one float32 sum over the contraction; its
-w4a8 arithmetic is K5's. The TPU kernel's ``memoize`` option (the
-unpacked expert kept in VMEM across the sequential grid's tiles) has no
-counterpart: CUDA blocks run in no order, so each dequantizes the
-packed slice it needs and repeated reads come from L2.
+w4a8 arithmetic is K5's, so the two agree bit for bit. The CUDA kernel
+(``csrc/moe_q4_tiled.cu``) runs K5's tiles on 32-row slices of the
+layout's tiles. The TPU kernel's ``memoize`` option (the unpacked expert
+kept in VMEM across the sequential grid's tiles) has no counterpart:
+CUDA blocks run in no order, so each builds the weights of the packed
+slice it stages, and repeated reads come from L2.
 
 Weights ``w1_q4`` ``(E, d, h/2)`` / ``w2_q4`` ``(E, h, d/2)``, or stacked
 ``(L, E, ...)`` with a ``layer`` index; scales and biases are this

@@ -29,6 +29,7 @@ from m3asr_tpu_torch.checkpoint import params_from_jax
 from m3asr_tpu_torch.ops import moe as t_moe
 from m3asr_tpu_torch.ops.moe_q4 import (moe_experts_q4_tiled_reference,
                                         q4_tiled_kernel, tiled_tile)
+from m3asr_tpu_torch.ops.moe_runs import moe_experts_runs_reference
 from m3asr_tpu_torch.ops.moe_stream import (
     moe_experts_dense_stream_reference, stream_kernel)
 from m3asr_tpu_torch.ops.row_tiles import (TILE_ROWS, front_ints, max_tiles,
@@ -297,6 +298,22 @@ def test_q4_tiled_plain_matches_jax_kernel(a8, kind, tile, layer, upper):
                           tile=tile, upper_bound=upper, act_quant=a8, **kw)
     np.testing.assert_allclose(got.numpy(), ref, **_tol(ref, a8))
     assert q4_tiled_kernel.launches == 0
+
+
+@pytest.mark.parametrize("kind", ["skewed", "gap", "one"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_q4_tiled_plain_a8_equals_runs_plain_a8(dtype, kind):
+    """K7's plain w4a8 equals K5's bit for bit: the same per-row int8
+    quantization of x and of the float32 hidden, exact integer sums and
+    the same epilogue order, whatever the tile. The card's check that
+    K7 a8 equals K5 a8 (chip_smoke.py) rests on this."""
+    _, tq = quantized(experts(19), 4, dtype)
+    x = torch.from_numpy(inputs(20)).to(getattr(torch, dtype))
+    gate = torch.from_numpy(routing(kind, (2, 13), 21))
+    got = moe_experts_q4_tiled_reference(tq, x, gate, act_quant=True)
+    want = moe_experts_runs_reference(tq, x, gate, act_quant=True)
+    assert got.dtype == want.dtype == x.dtype
+    assert torch.equal(got, want)
 
 
 def test_q4_tiled_plain_bf16_and_default_tile():
