@@ -75,8 +75,9 @@ result line:
 4. serve, float: the flagship hier MoE conformer (6 embed blocks, 18 MoE
    blocks, 32 experts, vocabulary 5000; random weights from a seeded
    CUDA generator, routers randomised) in an fp32 and a bf16 Engine
-   answers 1x206, 4x1000 and 1x2048 frames. Each forward must launch K1
-   once per MoE block (18), and the logits must match the same engine
+   (phases 4-7 run their engines eager: cuda_graphs=False) answers
+   1x206, 4x1000 and 1x2048 frames. Each forward must launch K1 once per
+   MoE block (18), and the logits must match the same engine
    with moe_impl="dense" on the valid region. fp32: allclose(1e-5,
    1e-3). bf16 rounding sends tokens at router near-ties to other
    experts, differently in the two runs; those flips and the
@@ -121,7 +122,32 @@ result line:
    phase 4's attn_impl="xla" engine with its tokens sent to the flash
    run's experts: fp32 allclose(1e-5, 1e-3), bf16 max|diff| / max|ref|
    <= 0.05 (and printed against the free-running fp32 logits).
-8. train: the flagship's CTC training step (make_train_step, Adam with
+8. serve, graphs: the auto fp32, bf16, int8, w8a8, int4 and w4a8
+   Engines, fp32 and bf16 with attn_impl="flash", fp32 "pallas" (K8) and
+   int4 "tiled" (K7) answer the same requests through the CUDA-graph path
+   (Engine.get_fn: GRAPH_WARMUP_RUNS eager forwards on a side stream,
+   then one captured). Each bucket must be captured (no stage of
+   ops/moe.HOST_SYNC_STAGES on it), launch each kernel of phases 4-7's
+   policy once per MoE block (K2 once per attention layer with flash) in
+   every one of those forwards and in no replay, and give outputs
+   bit-equal to the same engine's eager forward. Eager and graph request
+   latency (median of 5), device time and D2H time under torch.profiler,
+   busy share, peak memory, and each graph's replay by CUDA events are
+   printed. The bf16 engine's argmax and topk (K=8) outputs at 4x1000
+   are held to its logits reduced on the host in float64: argmax ids
+   equal where the top two log-probs are not tied, best log-probs and
+   top-K values within 1e-6, each index naming its value. The fp32
+   engine's beam search (width 8) at 4x1000: its best hypothesis and
+   score (1e-4 relative) equal to the host prefix beam search on the
+   card's log-probs (bf16 logits hold exact ties, at which two searches
+   keep different prefixes). The bytes each mode copies back, and the
+   host's part of a logits copy-back, are printed. infer_long answers
+   one 15000-frame request on the fp32 and int4 engines (out_len the
+   subsampled length, finite logits, a second call equal to the first).
+   K1's layout prep alone is captured and timed at the requests' token
+   counts. Last, the fp32 engine's warmup() captures all 24 buckets: its
+   seconds, launches and peak memory.
+9. train: the flagship's CTC training step (make_train_step, Adam with
    warmup_noam, embed CTC weight 0.3 so that every attention layer
    trains) on 4 x 1000 frames with seeded targets. One fp32 gradient
    with attn_impl="flash" and one with "xla", routing pinned: losses
@@ -133,7 +159,7 @@ result line:
    TF32 is switched on before each fp32 step is built, and
    make_train_step must switch it off again (cuBLAS and cuDNN); cuDNN's
    is switched on again before the steps, which must switch it off.
-9. times: each kernel per call (CUDA events over many calls after
+10. times: each kernel per call (CUDA events over many calls after
    warm-up, layers rotated so weights come from device memory) and its
    launches alone, at the main path's token counts (K1 at 63, 511 and
    1020 with its column block and each launch's live blocks; K6 at 63
@@ -923,9 +949,10 @@ def phase_serve(torch, state):
     engines = {}
     for dtype in ("float32", "bfloat16"):
         engines[dtype] = (
-            Engine(cfg, params, EngineConfig(dtype=dtype), device="cuda"),
+            Engine(cfg, params, EngineConfig(dtype=dtype), device="cuda",
+                   cuda_graphs=False),
             Engine(cfg, params, EngineConfig(dtype=dtype, moe_impl="dense"),
-                   device="cuda"))
+                   device="cuda", cuda_graphs=False))
     state["engines"], state["requests"] = engines, reqs
     state["cfg"], state["params"] = cfg, params
     n_blocks = cfg.encoder_conf.num_blocks
@@ -1069,7 +1096,7 @@ def phase_serve_quant(torch, state, smi):
             eng = Engine(cfg, state["params"] if base is None
                          else base.params,
                          EngineConfig(dtype=dtype, act_quant=act_quant),
-                         device="cuda")
+                         device="cuda", cuda_graphs=False)
             log(f"serve {mode}: engine built in "
                 f"{time.perf_counter() - t0:.2f} s ("
                 + ("experts quantized from their bf16 values" if base is None
@@ -1225,7 +1252,7 @@ def phase_serve_stages(torch, state, smi):
 
     for label, settings, tree, kname, vname in KERNEL_STAGE_ENGINES:
         eng = Engine(cfg, trees[tree], EngineConfig(**settings),
-                     device="cuda")
+                     device="cuda", cuda_graphs=False)
         for w in wrappers.values():
             w.launches = 0              # this engine's run starts here
         for i, (feat, lens) in enumerate(reqs):
@@ -1262,11 +1289,11 @@ def phase_serve_stages(torch, state, smi):
     refs = {}
     for label, settings, tree, ref_settings in PLAIN_STAGE_ENGINES:
         eng = Engine(cfg, trees[tree], EngineConfig(**settings),
-                     device="cuda")
+                     device="cuda", cuda_graphs=False)
         key = tuple(sorted(ref_settings.items()))
         if key not in refs:
             refs[key] = Engine(cfg, trees[tree], EngineConfig(**ref_settings),
-                               device="cuda")
+                               device="cuda", cuda_graphs=False)
         valid, rvalid, got, _ = served_valid(eng, refs[key], moe_mod, feat,
                                              lens)
         ok, rel, held = judge(valid, rvalid,
@@ -1288,18 +1315,19 @@ def phase_serve_stages(torch, state, smi):
     # dense_quant + fuse_qkv: int8 dense kernels, one fused q/k/v product
     feat, lens = reqs[0]                               # 1x206
     eng = Engine(cfg, trees["int4"], EngineConfig(
-        dtype="int4", dense_quant=True, fuse_qkv=True), device="cuda")
+        dtype="int4", dense_quant=True, fuse_qkv=True), device="cuda",
+        cuda_graphs=False)
     sa = eng.params["blocks"]["self_attn"]
     if "linear_q" in sa or sa["linear_qkv"]["kernel_q"].dtype != torch.int8:
         raise SystemExit("FAIL serve dense_quant+fuse_qkv: params not "
                          "fused and quantized")
     deq = Engine(cfg, dequantize_dense_params(eng.params, torch.bfloat16),
-                 EngineConfig(dtype="int4"), device="cuda")
+                 EngineConfig(dtype="int4"), device="cuda", cuda_graphs=False)
     valid, rvalid, got, _ = served_valid(eng, deq, moe_mod, feat, lens)
     ok, rel, held = judge(valid, rvalid, False)
     ok = ok and got == {"K6": n_blocks}
     plain_eng = Engine(cfg, trees["int4"], EngineConfig(dtype="int4"),
-                       device="cuda")
+                       device="cuda", cuda_graphs=False)
     _, pvalid, _, _ = served_valid(eng, plain_eng, moe_mod, feat, lens)
     prel = float(np.abs(valid - pvalid).max() / np.abs(pvalid).max())
     log(f"serve int4+dense_quant+fuse_qkv 1x206: launches per forward {got}"
@@ -1314,7 +1342,6 @@ def phase_serve_stages(torch, state, smi):
                          "launches or logits off the dequantized engine's")
     request_times(torch, eng, "int4+dense_quant+fuse_qkv", [reqs[0]], smi)
     eng = deq = plain_eng = None
-    state.pop("qparams")
     torch.cuda.empty_cache()
     return launches
 
@@ -1346,7 +1373,7 @@ def phase_serve_flash(torch, state, smi):
     launches = {}
     for dtype in ("float32", "bfloat16"):
         eng = Engine(cfg, state["params"], EngineConfig(
-            dtype=dtype, attn_impl="flash"), device="cuda")
+            dtype=dtype, attn_impl="flash"), device="cuda", cuda_graphs=False)
         xla = state["engines"][dtype][0]
         reset_flash(flash_kernels)        # this run starts here
         runs_kernel.launches = 0
@@ -1393,6 +1420,388 @@ def phase_serve_flash(torch, state, smi):
         eng = None
     torch.cuda.empty_cache()
     return launches
+
+
+# engines of phase "serve, graphs": (label, EngineConfig settings, the
+# params they start from, the kernel each request's forward launches once
+# per MoE block: phases 4-7's policy)
+GRAPH_ENGINES = (
+    ("float32", dict(dtype="float32"), "float", ("K1",) * 3),
+    ("bfloat16", dict(dtype="bfloat16"), "float", ("K1",) * 3),
+    ("int8", dict(dtype="int8"), "int8", QUANT_EXPECT["int8"]),
+    ("w8a8", dict(dtype="int8", act_quant=True), "int8",
+     QUANT_EXPECT["int8"]),
+    ("int4", dict(dtype="int4"), "int4", QUANT_EXPECT["int4"]),
+    ("w4a8", dict(dtype="int4", act_quant=True), "int4",
+     QUANT_EXPECT["int4"]),
+    ("float32+flash", dict(dtype="float32", attn_impl="flash"), "float",
+     ("K1",) * 3),
+    ("bfloat16+flash", dict(dtype="bfloat16", attn_impl="flash"), "float",
+     ("K1",) * 3),
+    ("float32 pallas", dict(dtype="float32", moe_impl="pallas"), "float",
+     ("K8",) * 3),
+    ("int4 tiled", dict(dtype="int4", moe_impl="tiled"), "int4",
+     ("K7",) * 3),
+)
+LONG_FRAMES = 15000          # infer_long's request: 3 windows of 6144
+DECODE_TOPK = 8              # K of "topk", the beam width of "beam"
+
+
+def kernel_counts():
+    """Every expert kernel's launches and K2's, the nonzero ones."""
+    from m3asr_tpu_torch.ops.flash_attention import flash_kernels
+    counts = {k: w.launches for k, w in stage_wrappers().items()}
+    counts["K2"] = flash_kernels.fwd_launches
+    return {k: v for k, v in counts.items() if v}
+
+
+def reset_counts():
+    from m3asr_tpu_torch.ops.flash_attention import flash_kernels
+    for w in stage_wrappers().values():
+        w.launches = 0
+    reset_flash(flash_kernels)
+
+
+def serve_times(torch, eng, feat, lens, runs=5):
+    """The request through eng.infer: median host latency of ``runs``
+    requests, peak device memory (allocated and reserved), and under
+    torch.profiler the device time of one request, its device events and
+    the part of it in device-to-host copies. With a CUDA graph, also the
+    median of 5 replays alone timed by CUDA events."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    eng.infer(feat, lens)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    lat = []
+    for _ in range(runs):
+        t0 = time.perf_counter()
+        eng.infer(feat, lens)
+        lat.append((time.perf_counter() - t0) * 1e3)
+    r = {"lat": float(np.median(lat)), "lat_min": min(lat),
+         "lat_max": max(lat),
+         "alloc": torch.cuda.max_memory_allocated() / 2**30,
+         "reserved": torch.cuda.max_memory_reserved() / 2**30}
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        eng.infer(feat, lens)
+    dev = [(e.name, e.time_range.elapsed_us()) for e in prof.events()
+           if e.device_type == DeviceType.CUDA]
+    r["dev"] = sum(us for _, us in dev) / 1e3
+    r["events"] = len(dev)
+    r["d2h"] = sum(us for n, us in dev if "DtoH" in n) / 1e3
+    prog = eng.get_fn(*eng.buckets.pick(*feat.shape[:2]))
+    r["replay"] = None
+    if prog.graph is not None:
+        ms = []
+        for _ in range(5):
+            t0 = torch.cuda.Event(enable_timing=True)
+            t1 = torch.cuda.Event(enable_timing=True)
+            t0.record()
+            prog.run()
+            t1.record()
+            torch.cuda.synchronize()
+            ms.append(t0.elapsed_time(t1))
+        r["replay"] = float(np.median(ms))
+    return r
+
+
+def times_line(label, B, T, path, r, smi):
+    replay = ("" if r["replay"] is None else
+              f", graph replay {r['replay']:.3f} ms by CUDA events")
+    return (f"graphs {label} {B}x{T} {path}: latency median {r['lat']:.3f} "
+            f"ms (min {r['lat_min']:.3f}, max {r['lat_max']:.3f}, 5 runs), "
+            f"device {r['dev']:.3f} ms under torch.profiler ({r['events']} "
+            f"events), busy {r['dev'] / r['lat']:.3f}, D2H {r['d2h']:.3f} "
+            f"ms, peak {r['alloc']:.3f} GiB allocated / {r['reserved']:.3f} "
+            f"GiB reserved{replay}; {smi}")
+
+
+def layout_prep_ms(torch, n_tokens, d, dtype):
+    """Device time of K1's layout prep alone (runs_layout, padding the
+    tokens into tiles and back) for one forward's 18 MoE blocks, captured
+    in a CUDA graph on a router's routing and timed by CUDA events over
+    the replays (median of 5)."""
+    from m3asr_tpu_torch.ops.moe_runs import (TILE, _pad_tokens, _unpad,
+                                              runs_layout)
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    gate = routing(torch, "router", n_tokens, gen).reshape(-1)
+    x = torch.randn(n_tokens, d, generator=gen, device="cuda").to(dtype)
+
+    def prep():
+        for _ in range(L):
+            lay = runs_layout(gate, E, TILE)
+            _unpad(_pad_tokens(x, lay, TILE), lay)
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        prep()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        prep()
+    ms = []
+    for _ in range(5):
+        t0 = torch.cuda.Event(enable_timing=True)
+        t1 = torch.cuda.Event(enable_timing=True)
+        t0.record()
+        graph.replay()
+        t1.record()
+        torch.cuda.synchronize()
+        ms.append(t0.elapsed_time(t1))
+    return float(np.median(ms))
+
+
+def phase_serve_graphs(torch, state, smi):
+    """Every serving mode through the CUDA-graph path (Engine.get_fn):
+    each request's bucket is captured, its kernels counted at capture
+    ((GRAPH_WARMUP_RUNS + 1) forwards of 18 MoE-block launches, 24 K2
+    with flash) and at no replay; no captured stage may run eager; the
+    graph's outputs must be bit-equal to the same engine's eager forward.
+    Eager and graph latency, device time, busy share, D2H time and peak
+    memory per request; the bf16 argmax and topk outputs held to the
+    logits, the fp32 beam search to the host search; infer_long on 15000
+    frames (fp32, int4); the fp32 engine's whole 24-bucket warm-up."""
+    from m3asr_tpu_torch.ops.moe import HOST_SYNC_STAGES
+    from m3asr_tpu_torch.ops.moe_runs import runs_kernel
+    from m3asr_tpu_torch.ops.masking import subsampling4_length
+    from m3asr_tpu_torch.runtime.engine import (Engine, EngineConfig,
+                                                GRAPH_WARMUP_RUNS)
+
+    cfg, reqs = state["cfg"], state["requests"]
+    trees = {"float": state["params"], **state.pop("qparams")}
+    enc = cfg.encoder_conf
+    n_attn, n_moe = enc.embed_conf.num_blocks + enc.num_blocks, enc.num_blocks
+    fwds = GRAPH_WARMUP_RUNS + 1
+    long_feat = np.random.default_rng(3).standard_normal(
+        (1, LONG_FRAMES, cfg.input_dim)).astype(np.float32)
+    for label, settings, tree, expect in GRAPH_ENGINES:
+        eng = Engine(cfg, trees[tree], EngineConfig(**settings),
+                     device="cuda")
+        flash = settings.get("attn_impl") == "flash"
+        for i, (feat, lens) in enumerate(reqs):
+            B, T = feat.shape[:2]
+            bb, bt = eng.buckets.pick(B, T)
+            stage = eng.moe_impl_for(bb, bt)
+            want = {expect[i]: n_moe} if expect[i] else {}
+            if flash:
+                want["K2"] = n_attn
+            reset_counts()                 # this capture starts here
+            t0 = time.perf_counter()
+            prog = eng.get_fn(bb, bt)
+            cap_s = time.perf_counter() - t0
+            at_capture = kernel_counts()
+            reset_counts()
+            out_g = eng.infer(feat, lens)
+            at_replay = kernel_counts()
+            eng.cuda_graphs = False
+            reset_counts()
+            out_e = eng.infer(feat, lens)
+            at_eager = kernel_counts()
+            eng.cuda_graphs = True
+            equal = len(out_g) == len(out_e) and all(
+                a.dtype == b.dtype and np.array_equal(a, b)
+                for a, b in zip(out_g, out_e))
+            ok = (prog.graph is not None and stage not in HOST_SYNC_STAGES
+                  and at_capture == {k: v * fwds for k, v in want.items()}
+                  and not at_replay and at_eager == want and equal
+                  and np.isfinite(out_g[0]).all())
+            log(f"graphs {label} {B}x{T}: stage {stage}, bucket {bb}x{bt} "
+                f"captured in {cap_s:.2f} s with launches {at_capture} "
+                f"({fwds} forwards: {GRAPH_WARMUP_RUNS} warm-up, 1 "
+                f"captured; want {want} a forward), replay launches "
+                f"{at_replay or 'none'}, eager launches {at_eager}; graph "
+                f"logits bit-equal to the eager forward's: {equal} "
+                f"{'OK' if ok else 'FAIL'}")
+            if not ok:
+                raise SystemExit(f"FAIL serve graphs {label} {B}x{T}: capture"
+                                 ", launches or logits off the eager path")
+            for path in ("eager", "graph"):
+                eng.cuda_graphs = path == "graph"
+                log(times_line(label, B, T, path,
+                               serve_times(torch, eng, feat, lens), smi))
+            eng.cuda_graphs = True
+            if label == "bfloat16" and (B, T) == (4, 1000):
+                decode_outputs(torch, eng, feat, lens, out_g, smi)
+            if label == "float32" and (B, T) == (4, 1000):
+                decode_beam(torch, eng, feat, lens, smi)
+        if label in ("float32", "int4"):
+            t0 = time.perf_counter()
+            first = eng.infer_long(long_feat)
+            first_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            res = eng.infer_long(long_feat)
+            again_s = time.perf_counter() - t0
+            n = int(subsampling4_length(LONG_FRAMES))
+            ok = (int(res[1][0]) == n
+                  and res[0].shape == (1, n, cfg.output_dim)
+                  and np.isfinite(res[0]).all()
+                  and all(np.array_equal(a, b) for a, b in zip(first, res)))
+            log(f"graphs {label} infer_long 1x{LONG_FRAMES}: out_len "
+                f"{int(res[1][0])} (want {n}), logits {res[0].shape} finite, "
+                f"first call {first_s:.3f} s (captures 1x"
+                f"{eng.buckets.lengths[-1]}), then {again_s * 1e3:.3f} ms; "
+                f"{smi} {'OK' if ok else 'FAIL'}")
+            if not ok:
+                raise SystemExit(f"FAIL serve graphs {label} infer_long")
+        if label == "float32":
+            for (B, T), n in zip(REQUESTS, (63, 1020, 511)):
+                prep = layout_prep_ms(torch, n, D, torch.float32)
+                log(f"graphs layout prep {B}x{T} ({n} tokens, float32): "
+                    f"{prep:.3f} ms of device time for 18 MoE blocks "
+                    f"(runs_layout and the tile padding, in a CUDA graph, "
+                    f"CUDA events); {smi}")
+        eng = None
+        torch.cuda.empty_cache()
+
+    # the fp32 engine's whole bucket ladder, captured
+    eng = Engine(cfg, trees["float"], EngineConfig(dtype="float32"),
+                 device="cuda")
+    n_buckets = len(eng.buckets.all_buckets())
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    runs_kernel.launches = 0
+    t0 = time.perf_counter()
+    eng.warmup()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    ok = runs_kernel.launches == n_buckets * fwds * n_moe and all(
+        eng.get_fn(b, t).graph is not None
+        for b, t in eng.buckets.all_buckets())
+    log(f"graphs float32 warmup(): {n_buckets} buckets captured in "
+        f"{secs:.2f} s, K1 launches {runs_kernel.launches} (want "
+        f"{n_buckets * fwds * n_moe}), peak "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB allocated / "
+        f"{torch.cuda.max_memory_reserved() / 2**30:.3f} GiB reserved; {smi} "
+        f"{'OK' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("FAIL serve graphs: the ladder's warm-up")
+    eng = None
+    torch.cuda.empty_cache()
+
+
+def decode_outputs(torch, eng, feat, lens, logits_out, smi):
+    """The bf16 engine's argmax and topk (K=8) outputs at one request (its
+    4x1000), through graphs, held to its logits (logits_out, widened
+    exactly from bf16) reduced on the host in float64: argmax ids equal
+    wherever the top two log-probs are not tied, best log-probs and top-K
+    values within 1e-6 (a float32 log-softmax on the card), every top-K
+    index naming its value. Prints the bytes each mode copies back, its
+    times, and the host's part of copying these logits back."""
+    from m3asr_tpu_torch.runtime.engine import Engine, EngineConfig
+
+    logits, out_len = logits_out[0], logits_out[1]
+    B, T = feat.shape[:2]
+    x = logits.astype(np.float64)
+    lp64 = x - x.max(-1, keepdims=True)
+    lp64 -= np.log(np.exp(lp64).sum(-1, keepdims=True))
+    valid = np.arange(lp64.shape[1])[None] < out_len[:, None]
+    top = -np.sort(-lp64, axis=-1)[..., :DECODE_TOPK]
+    tol = 1e-6
+    nbytes = {"logits": logits.size * 2}
+    res = {}
+    for mode in ("argmax", "topk"):
+        m = Engine(eng.model_cfg, eng.params, EngineConfig(
+            dtype="bfloat16", decode_output=mode, decode_topk=DECODE_TOPK),
+            device="cuda")
+        res[mode] = m.infer(feat, lens)
+        nbytes[mode] = sum(a.nbytes for j, a in enumerate(res[mode]) if j != 1)
+        log(times_line(f"bfloat16 decode_output={mode}", B, T, "graph",
+                       serve_times(torch, m, feat, lens), smi))
+        m = None
+    ids, _, best = res["argmax"]
+    untied = valid & (top[..., 0] != top[..., 1])
+    ok_ids = np.array_equal(ids[untied], lp64.argmax(-1)[untied])
+    ok_best = (np.abs(best - top[..., 0]) <= tol)[valid].all()
+    vals, _, idx = res["topk"]
+    ok_vals = (np.abs(vals - top) <= tol)[valid].all()
+    named = np.take_along_axis(lp64, idx.astype(np.int64), -1)
+    ok_idx = (np.abs(vals - named) <= tol)[valid].all()
+    err = float(np.abs(vals - top)[valid].max())
+    ok = ok_ids and ok_best and ok_vals and ok_idx
+    log(f"graphs bfloat16 decode outputs {B}x{T}: argmax ids equal on "
+        f"{int(untied.sum())} untied of {int(valid.sum())} valid frames: "
+        f"{ok_ids}, best log-prob within tolerance: {ok_best}; top-"
+        f"{DECODE_TOPK} values within 1e-6: {ok_vals} "
+        f"(max |diff| {err:.3e}), indices name their values: {ok_idx}; "
+        "bytes copied back: " + ", ".join(f"{k} {v}" for k, v in
+                                          nbytes.items())
+        + f" {'OK' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("FAIL serve graphs: argmax or topk disagrees with "
+                         "the logits")
+    # the host's part of infer's copy-back of these logits: widening the
+    # bf16 bits in numpy and in torch (Engine.infer's way, on the host's
+    # cores), and a float32 engine's copy of the same count in numpy and
+    # in torch (Engine.infer's)
+    bits = np.random.default_rng(15).integers(
+        0, 2**15, logits.shape, dtype=np.uint16)
+    f32 = np.zeros(logits.shape, np.float32)
+    host = {}
+    for name, fn in (
+            ("numpy widen", lambda: (bits.astype(np.uint32) << 16)
+             .view(np.float32)),
+            ("torch widen", lambda: torch.from_numpy(bits.view(np.int16))
+             .view(torch.bfloat16).float().numpy()),
+            ("numpy float32 copy", lambda: f32.astype(np.float32)),
+            ("torch float32 copy",
+             lambda: torch.from_numpy(f32).clone().numpy())):
+        ms = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            fn()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        host[name] = float(np.median(ms))
+    log(f"graphs host copy-back of {B}x{T}'s logits {logits.shape} "
+        "(median of 5): " + ", ".join(f"{k} {v:.3f} ms"
+                                      for k, v in host.items()))
+
+
+def decode_beam(torch, eng, feat, lens, smi):
+    """The fp32 engine's on-device beam search (width 8) at one request
+    (its 4x1000), through a graph: each utterance's best hypothesis and
+    score (within 1e-4 relative) equal to the host prefix beam search on
+    the card's log-probs (the log_softmax mode's); the share of the host
+    n-best the card's n-best holds is printed. In float32, because bf16
+    logits hold exact ties, at which the two searches keep different
+    equally scored prefixes."""
+    from m3asr_tpu_torch.decode.ctc import ctc_prefix_beam_search
+    from m3asr_tpu_torch.runtime.engine import Engine, EngineConfig
+
+    B, T = feat.shape[:2]
+    res = {}
+    for mode in ("beam", "log_softmax"):
+        m = Engine(eng.model_cfg, eng.params, EngineConfig(
+            dtype="float32", decode_output=mode, decode_topk=DECODE_TOPK),
+            device="cuda")
+        res[mode] = m.infer(feat, lens)
+        if mode == "beam":
+            log(times_line("float32 decode_output=beam", B, T, "graph",
+                           serve_times(torch, m, feat, lens), smi))
+        m = None
+    hyp_ids, out_len, hyp_lens, scores = res["beam"]
+    lp = res["log_softmax"][0]
+    agree, total, ok = 0, 0, True
+    for b in range(B):
+        host = ctc_prefix_beam_search(lp[b], int(out_len[b]), DECODE_TOPK)
+        dev = [(tuple(hyp_ids[b, j, :hyp_lens[b, j]].tolist()),
+                float(scores[b, j])) for j in range(DECODE_TOPK)
+               if np.isfinite(scores[b, j])]
+        ok &= (dev[0][0] == host[0][0]
+               and abs(dev[0][1] - host[0][1]) <= 1e-4 * abs(host[0][1]))
+        hmap = dict(host)
+        agree += sum(p in hmap and abs(s - hmap[p]) <= 1e-4 * abs(hmap[p])
+                     for p, s in dev)
+        total += len(host)
+    nbytes = sum(a.nbytes for j, a in enumerate(res["beam"]) if j != 1)
+    log(f"graphs float32 beam {DECODE_TOPK} {B}x{T}: best hypothesis and "
+        f"score equal to the host search's on the card's log-probs for all "
+        f"{B} utterances: {ok}; n-best agreement {agree}/{total}; bytes "
+        f"copied back {nbytes} {'OK' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("FAIL serve graphs: the on-device beam search "
+                         "disagrees with the host search")
 
 
 TRAIN_BATCH = (4, 1000)
@@ -2344,6 +2753,7 @@ def main():
     state["launches_q"] = phase_serve_quant(torch, state, smi)
     state["launches_stage"] = phase_serve_stages(torch, state, smi)
     served = phase_serve_flash(torch, state, smi)
+    phase_serve_graphs(torch, state, smi)
     trained = phase_train(torch, state, smi)
     # K2: serving's forwards and the training steps'; K3: the steps'
     state["launches_flash"] = {}

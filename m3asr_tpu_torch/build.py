@@ -4,7 +4,8 @@
         [-prior prior.txt] [-f | --int8 | --int4 [--act_quant]]
         [--dense_quant] [--fuse_qkv] [--moe_impl NAME]
         [--attn_impl xla|flash] [--buckets 1x256,4x1024] [--strict]
-        [--device cuda|cpu]
+        [--decode_output logits|log_softmax|argmax|topk|beam]
+        [--decode_topk K] [--skip-warmup] [--device cuda|cpu]
 
 Reads a reference YAML config and PyTorch checkpoint, converts the
 weights, and writes an engine directory in the JAX package's format.
@@ -16,6 +17,12 @@ the dense (non-expert) kernels as int8 with per-column scales;
 ``--moe_impl`` bakes an explicit expert stage into ``engine.json`` (the
 JAX engine's names, e.g. ``pallas`` or ``tiled``). ``--attn_impl flash``
 bakes the flash attention kernel (K2) into ``engine.json``.
+``--decode_output`` picks what the engine returns (``argmax`` ids,
+``topk`` candidates with ``--decode_topk`` K, or the on-device ``beam``
+search of width K; see ``Engine.infer``). Before it saves, the engine
+warms every bucket up (``Engine.warmup``): on the card that builds the
+kernels and captures each bucket's CUDA graph, so a bucket that cannot
+be captured fails the build. ``--skip-warmup`` leaves that out.
 Without ``-m`` the weights are random (seed 0). Flags of the JAX
 ``build.py`` that this slice does not run are accepted by name and raise
 NotImplementedError naming the ROADMAP item that brings them.
@@ -48,8 +55,18 @@ def parse_args(argv=None):
     p.add_argument("--attn_impl", default="xla", choices=("xla", "flash"),
                    help="attention: plain PyTorch (xla) or the flash "
                    "kernel (flash)")
+    p.add_argument("--decode_output", default="logits",
+                   choices=("logits", "log_softmax", "argmax", "topk",
+                            "beam"),
+                   help="engine output: logits, log_softmax, per-frame "
+                   "argmax ids, top-K candidates, or the on-device CTC "
+                   "prefix beam search")
+    p.add_argument("--decode_topk", type=int, default=8,
+                   help="K of --decode_output topk; the beam width of beam")
+    p.add_argument("--skip-warmup", action="store_true",
+                   help="save without warming the buckets up (no graph "
+                   "capture)")
     # JAX build.py settings; anything but the default raises
-    p.add_argument("--decode_output", default="logits")
     p.add_argument("--ep", type=int, default=1)
     p.add_argument("--tp", type=int, default=1)
     p.add_argument("--int8", action="store_true",
@@ -84,8 +101,9 @@ def main(argv=None):
     args = parse_args(argv)
     if args.export:
         raise NotImplementedError(
-            "--export is not ported: the port has no ahead-of-time "
-            "artifact (ROADMAP Queue 1 item 5 notes)")
+            "--export is not ported: per-bucket torch.export programs need "
+            "every kernel wrapper registered as a torch.library custom op "
+            "with a fake implementation (ROADMAP Queue 1 item 5c)")
     if args.cmvn_file:
         raise NotImplementedError(
             "-cmvn is not ported yet: ROADMAP Queue 1 item 10")
@@ -104,6 +122,7 @@ def main(argv=None):
              else "bfloat16" if args.bf16 else "float32")
     ecfg, _ = config_from_engine_json(dict(
         dtype=dtype, decode_output=args.decode_output,
+        decode_topk=args.decode_topk,
         attn_impl=args.attn_impl, ep=args.ep, tp=args.tp,
         act_quant=args.act_quant, fuse_qkv=args.fuse_qkv,
         dense_quant=args.dense_quant, moe_impl=args.moe_impl))
@@ -135,6 +154,9 @@ def main(argv=None):
     prior = read_prior(args.prior_file) if args.prior_file else None
     ecfg.use_prior = prior is not None
     engine = Engine(model_cfg, params, ecfg, prior=prior, device=device)
+    if not args.skip_warmup:
+        print("warming up every bucket...")
+        engine.warmup()
     engine.save(args.output, raw_yaml=raw)
     print(f"engine written to {args.output}")
     for b, t in engine.buckets.all_buckets():

@@ -4,10 +4,15 @@
         [-o ref_out.npy] [-d none|greedy|beam] [-b beam_size]
         [--device cuda|cpu]
 
-Loads an engine directory, runs the encoder twice (the second run is
-timed, ending in a device synchronisation), prints output statistics,
-optionally CTC-decodes, and compares against a saved reference output
-with the reference's allclose(rtol=1e-5, atol=1e-3).
+Loads an engine directory, runs the encoder twice (the first builds the
+bucket's program, on the card its CUDA graph; the second is timed and
+ends in a device synchronisation), prints output statistics, optionally
+CTC-decodes, and compares against a saved reference output with the
+reference's allclose(rtol=1e-5, atol=1e-3). Engines built with
+``--decode_output argmax`` / ``topk`` / ``beam`` decode from their
+on-device outputs: greedy from the ids (or the top-1 candidates), the
+prefix beam search over the top-K candidates, or the engine's own beam
+search's best hypothesis.
 """
 
 from __future__ import annotations
@@ -37,8 +42,10 @@ def parse_args(argv=None):
 
 def main(argv=None):
     args = parse_args(argv)
-    from m3asr_tpu_torch.decode.ctc import (ctc_greedy_search,
-                                            ctc_prefix_beam_search)
+    from m3asr_tpu_torch.decode.ctc import (ctc_greedy_from_ids,
+                                            ctc_greedy_search,
+                                            ctc_prefix_beam_search,
+                                            ctc_prefix_beam_search_sparse)
     from m3asr_tpu_torch.runtime.engine import Engine
 
     feat = np.load(args.input_file)
@@ -47,23 +54,47 @@ def main(argv=None):
     feat_len = np.array([feat.shape[1]] * feat.shape[0], np.int32)
     engine = Engine.load(args.plan_name, device=args.device)
 
-    engine.infer(feat, feat_len)                 # warm-up
+    engine.infer(feat, feat_len)                 # warm-up (and capture)
     t1 = time.perf_counter()
-    out, out_lens = engine.infer(feat, feat_len)  # ends in a D2H copy
+    res = engine.infer(feat, feat_len)           # ends in a D2H copy
     t2 = time.perf_counter()
+    out, out_lens = res[0], res[1]
+    dmode = engine.cfg.decode_output
+    aux = res[2] if dmode in ("argmax", "topk") else None
     print("time=" + str((t2 - t1) * 1000) + "ms")
     print("outputs.shape:" + str(out.shape))
     print("outputs.sum:" + str(out.sum()))
     print(out)
 
-    if args.decode == "greedy":
-        hyps = ctc_greedy_search(out, out_lens)
-    elif args.decode == "beam":
-        m = out.max(-1, keepdims=True)
-        lp = out - m - np.log(np.exp(out - m).sum(-1, keepdims=True))
-        hyps = [ctc_prefix_beam_search(lp[b], int(out_lens[b]),
-                                       args.beam_size)[0][0]
+    if dmode == "beam" and args.decode != "none":
+        # the search ran in the engine: (n-best ids, out_len, hyp lens,
+        # scores), best first
+        hyp_lens = res[2]
+        hyps = [out[b, 0, :hyp_lens[b, 0]].tolist()
                 for b in range(out.shape[0])]
+    elif args.decode == "greedy":
+        if dmode == "argmax":
+            hyps = ctc_greedy_from_ids(out, out_lens)
+        elif dmode == "topk":
+            hyps = ctc_greedy_from_ids(aux[..., 0], out_lens)
+        else:
+            hyps = ctc_greedy_search(out, out_lens)
+    elif args.decode == "beam":
+        if dmode == "argmax":
+            raise SystemExit("beam decode needs an engine built with "
+                             "--decode_output topk, beam or logits, not "
+                             "argmax")
+        if dmode == "topk":
+            hyps = [ctc_prefix_beam_search_sparse(
+                        out[b], aux[b], int(out_lens[b]),
+                        args.beam_size)[0][0]
+                    for b in range(out.shape[0])]
+        else:
+            m = out.max(-1, keepdims=True)
+            lp = out - m - np.log(np.exp(out - m).sum(-1, keepdims=True))
+            hyps = [ctc_prefix_beam_search(lp[b], int(out_lens[b]),
+                                           args.beam_size)[0][0]
+                    for b in range(out.shape[0])]
     else:
         hyps = []
     for b, h in enumerate(hyps):

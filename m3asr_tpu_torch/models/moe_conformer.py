@@ -28,10 +28,14 @@ from m3asr_tpu_torch.ops.common import layer_norm, linear
 
 def forward(params, cfg: MoEEncoderConfig, feat: torch.Tensor,
             feat_len: Optional[torch.Tensor], output_embed: bool = False,
-            moe_impl: str = "dense", chunk_mask=None,
-            embed_chunk_mask="same", attn_impl: str = "xla"):
-    """feat: (B, T, input_dim) -> (logits (B, T', V), out_len[,
-    embed_out]).
+            moe_impl: str = "dense", hier_taps: bool = False,
+            chunk_mask=None, embed_chunk_mask="same",
+            return_hidden: bool = False, attn_impl: str = "xla"):
+    """feat: (B, T, input_dim) -> (logits (B, T', V), out_len)
+    | + embed_out (output_embed) | + (h6, h12, h_final) (hier_taps: the
+    hidden after blocks 6 and 12, clamped for shallow models, through
+    after_norm_6 / after_norm_12, and the normalized final hidden) |
+    + h_final (return_hidden), in the JAX package's order.
 
     chunk_mask: optional (B|1, 1, T', T') attend-mask of the MoE blocks;
     embed_chunk_mask: the embed encoder's own ("same": chunk_mask's).
@@ -51,17 +55,33 @@ def forward(params, cfg: MoEEncoderConfig, feat: torch.Tensor,
     x, pos_emb, out_len = conformer.frontend(params, cfg, feat, feat_len)
     kw = conformer.block_kwargs(cfg)
     blocks = params["blocks"]
-    for i in range(conformer.num_layers(blocks)):
+    n_layers = conformer.num_layers(blocks)
+    # taps after blocks 6 and 12 (1-indexed), clamped for shallow models;
+    # no other block's hidden is kept
+    taps = {min(5, n_layers - 1), min(11, n_layers - 1)} if hier_taps \
+        else set()
+    hiddens = {}
+    for i in range(n_layers):
         x = conformer_block(conformer.layer_view(blocks, i), x, out_len,
                             pos_emb, moe=True, embed=embed,
                             moe_impl=moe_impl, mask=chunk_mask,
                             attn_impl=attn_impl, **kw)
-    if cfg.normalize_before:
-        x = layer_norm(params["after_norm"], x)
-    out = linear(params["out_linear"], x)
+        if i in taps:
+            hiddens[i] = x
+    x_normed = layer_norm(params["after_norm"], x) if cfg.normalize_before \
+        else x
+    ret = [linear(params["out_linear"], x_normed), out_len]
     if output_embed:
-        return out, out_len, embed_out
-    return out, out_len
+        ret.append(embed_out)
+    if hier_taps:
+        ret += [layer_norm(params["after_norm_6"],
+                           hiddens[min(5, n_layers - 1)]),
+                layer_norm(params["after_norm_12"],
+                           hiddens[min(11, n_layers - 1)]),
+                x_normed]
+    if return_hidden:
+        ret.append(x_normed)
+    return tuple(ret)
 
 
 # ---------------------------------------------------------------------------

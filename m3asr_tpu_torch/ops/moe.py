@@ -38,6 +38,29 @@ from m3asr_tpu_torch.ops.moe_runs import (_pad_tokens, _unpad, runs_for,
                                           runs_layout)
 from m3asr_tpu_torch.ops.moe_stream import stream_kernel
 
+# The stages that read group sizes on the host (a device sync), which a
+# CUDA graph cannot capture: ``ragged`` and ``ragged_padded`` size each
+# expert's product from counts read with ``.tolist()``; ``capacity`` and
+# ``quant_capacity`` (capacity on dequantized weights) branch to the
+# dense stage on ``counts.max() > C``. Engines run these eager.
+HOST_SYNC_STAGES = frozenset({"ragged", "ragged_padded", "capacity",
+                              "quant_capacity"})
+
+
+def _router_logits(p, router_inputs: torch.Tensor) -> torch.Tensor:
+    """float32 router logits; the kernel is cast to the input dtype
+    first, as the JAX package casts it."""
+    kern = p["kernel"].to(router_inputs.dtype)
+    logits = torch.matmul(router_inputs.float(), kern.float())
+    if p.get("bias") is not None:
+        logits = logits + p["bias"].float()
+    return logits
+
+
+def router_probs(p, router_inputs: torch.Tensor) -> torch.Tensor:
+    """The router's full softmax over the experts, float32 (E last)."""
+    return torch.softmax(_router_logits(p, router_inputs), dim=-1)
+
 
 def softmax_top1_gate(p, router_inputs: torch.Tensor,
                       lengths: Optional[torch.Tensor]
@@ -49,10 +72,7 @@ def softmax_top1_gate(p, router_inputs: torch.Tensor,
     1 / sum(exp(logits - max)); idx = first argmax. Positions past the
     valid length get gate 0 / idx 0. Returns (gate (B,T,1) in the input
     dtype, idx int32 (B,T))."""
-    kern = p["kernel"].to(router_inputs.dtype)
-    logits = torch.matmul(router_inputs.float(), kern.float())
-    if p.get("bias") is not None:
-        logits = logits + p["bias"].float()
+    logits = _router_logits(p, router_inputs)
     m = logits.amax(dim=-1, keepdim=True)
     denom = torch.exp(logits - m).sum(dim=-1, keepdim=True)
     gate_value = (1.0 / denom).to(router_inputs.dtype)

@@ -28,7 +28,10 @@ def sinusoid_table(d_model: int, max_len: int = MAX_LEN,
 
 def rel_positional_encoding(pe: torch.Tensor, x: torch.Tensor
                             ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Returns (x * sqrt(d) (B,T,D), pos_emb = pe[:T] (T,D))."""
+    """Returns (x * sqrt(d) (B,T,D), pos_emb = pe[:T] (T,D)). The scale
+    is rounded to x's dtype first, as the JAX package rounds it (bf16:
+    22.625 for d=512), and filled on x's device: no host-to-device copy,
+    so a CUDA graph can capture it."""
     d, T = x.shape[-1], x.shape[1]
-    xscale = torch.tensor(math.sqrt(d), dtype=x.dtype, device=x.device)
+    xscale = torch.full((), math.sqrt(d), dtype=x.dtype, device=x.device)
     return x * xscale, pe[:T].to(x.dtype)

@@ -38,6 +38,16 @@ Attention: ``attn_impl="xla"`` (plain PyTorch, the default) or
 ``ops/flash_attention.py``). ``fuse_qkv`` folds q/k/v into one
 projection and ``dense_quant`` stores the dense kernels as int8, both
 once at construction, in the JAX engine's order.
+
+Buckets: each (batch, length, output mode) runs as a
+:class:`BucketProgram`, the counterpart of the JAX engine's compiled
+bucket program. On ``cuda`` it is a CUDA graph captured at the bucket's
+first use (``get_fn``; ``warmup`` for every bucket); on the CPU, and for
+the stages that read the host (``ops/moe.HOST_SYNC_STAGES``), it runs the
+eager forward behind the same interface. Outputs follow the JAX engine's
+``decode_output`` contract (logits, log_softmax, argmax, topk, beam),
+optionally with the hier taps or the final hidden; ``infer_long`` decodes
+one utterance longer than the largest bucket in stitched windows.
 """
 
 from __future__ import annotations
@@ -55,9 +65,12 @@ from m3asr_tpu_torch.checkpoint import (flatten_tree, params_to_numpy,
                                         to_torch, unflatten_tree)
 from m3asr_tpu_torch.config import (ModelConfig, model_config_from_dict,
                                     model_config_to_dict)
+from m3asr_tpu_torch.decode.ctc import ctc_prefix_beam_search_sparse
+from m3asr_tpu_torch.decode.device import ctc_beam_search_device
 from m3asr_tpu_torch.device import resolve_device
 from m3asr_tpu_torch.models import moe_conformer
 from m3asr_tpu_torch.ops.attention import fuse_qkv_params
+from m3asr_tpu_torch.ops.moe import HOST_SYNC_STAGES
 from m3asr_tpu_torch.ops.masking import SUBSAMPLED_LENGTH
 from m3asr_tpu_torch.ops.quant import (pack_int4, quantize_dense_params,
                                        quantize_moe_params)
@@ -175,17 +188,20 @@ def moe_auto_impl(tokens: int, requested: str = "auto",
 _NOT_PORTED = {
     "ep": (1, "Queue 1 item 12 (parallelism)"),
     "tp": (1, "Queue 1 item 12 (parallelism)"),
-    "return_hidden": (False, "Queue 1 item 8 (decode outputs and taps)"),
-    "return_taps": (False, "Queue 1 item 8 (decode outputs and taps)"),
 }
 # JAX engine.json settings with no effect on this port's results
-_IGNORED = {"decode_topk", "fp32_precision", "donate_input"}
+_IGNORED = {"fp32_precision", "donate_input"}
+
+DECODE_OUTPUTS = ("logits", "log_softmax", "argmax", "topk", "beam")
 
 
 @dataclasses.dataclass
 class EngineConfig:
     dtype: str = "float32"            # float32 | bfloat16 | int8 | int4
-    decode_output: str = "logits"     # logits | log_softmax
+    decode_output: str = "logits"     # logits | log_softmax | argmax |
+                                      # topk | beam (see Engine.infer)
+    decode_topk: int = 8              # K of "topk"; the beam width of
+                                      # "beam"
     use_prior: bool = False           # subtract log-prior from logits
     bucket_lengths: Tuple[int, ...] = DEFAULT_LENGTHS
     bucket_batches: Tuple[int, ...] = DEFAULT_BATCHES
@@ -200,6 +216,11 @@ class EngineConfig:
     dense_quant: bool = False         # int8 weight-only dense (non-expert)
                                       # kernels (ops/quant.py
                                       # quantize_dense_params)
+    return_hidden: bool = False       # also emit the normalized final
+                                      # hidden (the AED rescoring memory)
+    return_taps: bool = False         # also emit the hier taps (h6, h12,
+                                      # h_final); takes precedence over
+                                      # return_hidden
 
     def validate(self) -> None:
         if self.dtype not in _DTYPES:
@@ -214,11 +235,7 @@ class EngineConfig:
                 "fuse_qkv with attn_impl='flash': the flash kernels read "
                 "the separate q/k/v weights, as the JAX engine's do "
                 "(ROADMAP Queue 1 item 7)")
-        if self.decode_output in ("argmax", "topk", "beam"):
-            raise NotImplementedError(
-                f"decode_output {self.decode_output!r} is not ported yet: "
-                "ROADMAP Queue 1 item 8 (decode outputs)")
-        if self.decode_output not in ("logits", "log_softmax"):
+        if self.decode_output not in DECODE_OUTPUTS:
             raise ValueError(f"unknown decode_output {self.decode_output!r}")
         moe_auto_impl(1, self.moe_impl, _QUANT_BITS.get(self.dtype),
                       self.act_quant)          # raises on a refused name
@@ -264,16 +281,100 @@ def _unflatten(flat: Dict[str, np.ndarray]) -> Dict:
     return unflatten_tree(out)
 
 
+# eager forwards a bucket runs, on a side stream, before its capture: they
+# build the kernels' libraries and warm cuBLAS and cuDNN up
+GRAPH_WARMUP_RUNS = 2
+
+
+def _align(n: int) -> int:
+    return (n + 63) // 64 * 64
+
+
+class HostStaging:
+    """An engine's host buffers for the copies to and from its device:
+    pinned on ``cuda``, so that the copies run asynchronously. Every
+    request reuses them (its copies end before it returns); they grow to
+    the largest request and never shrink."""
+
+    def __init__(self, pin: bool):
+        self.pin, self.bufs = pin, {}
+
+    def views(self, name: str, specs):
+        """Tensors of the given (shape, dtype) specs, carved from buffer
+        ``name``."""
+        sizes = [int(np.prod(shape)) * dt.itemsize for shape, dt in specs]
+        total = sum(map(_align, sizes))
+        buf = self.bufs.get(name)
+        if buf is None or buf.numel() < total:
+            buf = torch.empty(max(1, total), dtype=torch.uint8,
+                              pin_memory=self.pin)
+            self.bufs[name] = buf
+        out, off = [], 0
+        for (shape, dt), n in zip(specs, sizes):
+            out.append(buf[off:off + n].view(dt).view(shape))
+            off += _align(n)
+        return out
+
+
+class BucketProgram:
+    """One (batch, length, out_mode) bucket's forward behind one call
+    interface: static inputs ``feat`` (the engine dtype) and ``feat_len``
+    (int32) on the engine's device, and :meth:`run`, which returns the
+    output tuple. With a graph pool (``cuda``) the program runs its eager
+    forward :data:`GRAPH_WARMUP_RUNS` times on a side stream and captures
+    it into a CUDA graph; :meth:`run` then replays the graph and returns
+    the same static output tensors each time, which stay valid until the
+    next replay of any program sharing the pool. Without one, :meth:`run`
+    calls the eager forward. A failed capture raises."""
+
+    def __init__(self, fn, feat: torch.Tensor, feat_len: torch.Tensor,
+                 graph_pool=None):
+        self.fn, self.feat, self.feat_len = fn, feat, feat_len
+        self.graph = self.outputs = None
+        if graph_pool is not None:
+            dev = feat.device
+            side = torch.cuda.Stream(dev)
+            side.wait_stream(torch.cuda.current_stream(dev))
+            with torch.cuda.stream(side):
+                for _ in range(GRAPH_WARMUP_RUNS):
+                    fn(feat, feat_len)
+            torch.cuda.current_stream(dev).wait_stream(side)
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph, pool=graph_pool):
+                outputs = fn(feat, feat_len)
+            self.graph, self.outputs = graph, outputs
+
+    def run(self):
+        if self.graph is None:
+            return self.fn(self.feat, self.feat_len)
+        self.graph.replay()
+        return self.outputs
+
+
 class Engine:
     """Inference engine for one hier MoE conformer and its weights.
 
     ``device`` defaults to ``cuda`` and raises when there is no card;
-    pass ``device="cpu"`` for the plain PyTorch path."""
+    pass ``device="cpu"`` for the plain PyTorch path. On ``cuda`` each
+    bucket runs as a CUDA graph captured at its first use
+    (:meth:`get_fn`, :meth:`warmup`) unless ``cuda_graphs=False``; the
+    expert stages of :data:`HOST_SYNC_STAGES` read the host and always
+    run eager.
+
+    The bucket programs read ``params`` and ``neg_log_prior`` as they
+    were when they were built (a graph at fixed device addresses): both
+    are frozen once the first program exists, and setting either then
+    raises. Do not write into their tensors either."""
 
     def __init__(self, model_cfg: ModelConfig, params,
                  engine_cfg: Optional[EngineConfig] = None,
-                 prior: Optional[np.ndarray] = None, device=None):
+                 prior: Optional[np.ndarray] = None, device=None,
+                 cuda_graphs: bool = True):
+        self._programs = {}
+        self._graph_pool = None
         self.device = resolve_device(device)
+        self.cuda_graphs = cuda_graphs
+        self._staging = HostStaging(pin=self.device.type == "cuda")
         self.model_cfg = model_cfg
         self.cfg = engine_cfg or EngineConfig()
         self.cfg.validate()
@@ -309,6 +410,15 @@ class Engine:
             self.neg_log_prior = torch.as_tensor(
                 -np.log(np.asarray(prior))).to(self.device, self.dtype)
 
+    def __setattr__(self, name, value):
+        if name in ("params", "neg_log_prior") and \
+                self.__dict__.get("_programs"):
+            raise RuntimeError(
+                f"Engine.{name} is frozen: the bucket programs (CUDA graphs "
+                "on the card) read it at fixed addresses. Set it before the "
+                "first infer, get_fn or warmup.")
+        super().__setattr__(name, value)
+
     def moe_impl_for(self, batch: int, length: int) -> str:
         """The expert stage of a (batch, length) bucket, from its
         post-subsampling token count (the JAX engine's _moe_impl_for)."""
@@ -316,39 +426,249 @@ class Engine:
         return moe_auto_impl(batch * int(sub(length)), self.cfg.moe_impl,
                              self.quant_bits, self.cfg.act_quant)
 
-    def forward(self, feat: torch.Tensor, feat_len: torch.Tensor):
-        """The padded forward on device tensors: (out, out_len)."""
-        out, out_len = moe_conformer.forward(
-            self.params, self.model_cfg.encoder_conf, feat, feat_len,
-            moe_impl=self.moe_impl_for(feat.shape[0], feat.shape[1]),
-            attn_impl=self.cfg.attn_impl)
-        if self.neg_log_prior is not None:
-            out = out + self.neg_log_prior
-        if self.cfg.decode_output == "log_softmax":
-            out = torch.log_softmax(out.float(), dim=-1)
-        return out, out_len
+    def subsample_factor(self) -> int:
+        """Frame-rate reduction of the encoder front."""
+        return {"linear": 1, "conv2d": 4, "conv2d6": 6, "conv2d8": 8}.get(
+            self.model_cfg.encoder_conf.input_layer, 1)
 
-    def infer(self, feat: np.ndarray, feat_len: np.ndarray
-              ) -> Tuple[np.ndarray, np.ndarray]:
+    # ------------------------------------------------------------------
+    # bucket programs
+    # ------------------------------------------------------------------
+    def _forward_fn(self, batch: int, length: int, out_mode=None):
+        """The bucket's forward (feat, feat_len) -> the JAX engine's tuple:
+
+        * ``logits`` / ``log_softmax``: (out (B, T', V), out_len);
+        * ``argmax``: (ids int32 (B, T'), out_len, best log-prob);
+        * ``topk``: (values (B, T', K), out_len, indices int32), best
+          first (K = decode_topk);
+        * ``beam``: (ids int32 (B, beam, T'), out_len, hyp_lens int32
+          (B, beam), scores (B, beam)), the on-device prefix beam search
+          (decode/device.py, beam = decode_topk), best first;
+
+        then (h6, h12, h_final) with ``return_taps``, or h_final with
+        ``return_hidden``. Every mode but ``logits`` runs in float32
+        after log_softmax. ``out_mode`` overrides cfg.decode_output."""
+        mode = out_mode or self.cfg.decode_output
+        if mode not in DECODE_OUTPUTS:
+            raise ValueError(f"unknown decode_output {mode!r}")
+        k = int(self.cfg.decode_topk)
+        if mode in ("topk", "beam") and k < 1:
+            raise ValueError(f"decode_output={mode!r} needs decode_topk >= 1")
+        enc = self.model_cfg.encoder_conf
+        kw = dict(moe_impl=self.moe_impl_for(batch, length),
+                  hier_taps=self.cfg.return_taps,
+                  return_hidden=self.cfg.return_hidden
+                  and not self.cfg.return_taps,
+                  attn_impl=self.cfg.attn_impl)
+        params, prior = self.params, self.neg_log_prior
+
+        def forward(feat, feat_len):
+            res = moe_conformer.forward(params, enc, feat, feat_len, **kw)
+            out, out_len, extra = res[0], res[1], tuple(res[2:])
+            if prior is not None:
+                out = out + prior
+            if mode == "logits":
+                return (out, out_len) + extra
+            lp = torch.log_softmax(out.float(), dim=-1)
+            if mode == "log_softmax":
+                head = (lp, out_len)
+            elif mode == "argmax":
+                head = (torch.argmax(lp, dim=-1).to(torch.int32), out_len,
+                        lp.amax(dim=-1))
+            elif mode == "topk":
+                vals, idx = torch.topk(lp, k, dim=-1)
+                head = (vals, out_len, idx.to(torch.int32))
+            else:
+                ids, hyp_lens, scores = ctc_beam_search_device(lp, out_len, k)
+                head = (ids, out_len, hyp_lens, scores)
+            return head + extra
+
+        return forward
+
+    def get_fn(self, batch: int, length: int,
+               out_mode=None) -> BucketProgram:
+        """The bucket's program, built at its first use. On ``cuda`` (with
+        cuda_graphs, for a stage outside HOST_SYNC_STAGES) that captures
+        its CUDA graph, and a failed capture raises; else the program
+        runs the eager forward behind the same interface."""
+        mode = out_mode or self.cfg.decode_output
+        graph = (self.device.type == "cuda" and self.cuda_graphs
+                 and self.moe_impl_for(batch, length) not in HOST_SYNC_STAGES)
+        key = (batch, length, mode, graph)
+        prog = self._programs.get(key)
+        if prog is None:
+            fn = self._forward_fn(batch, length, mode)
+            pool = None
+            if graph:
+                # One memory pool for all of the engine's graphs: replays
+                # run one at a time and infer copies each one's outputs
+                # out before the next, so no graph's intermediates are
+                # live while another runs, and every graph's static
+                # outputs stay allocated, so no capture reuses them.
+                if self._graph_pool is None:
+                    self._graph_pool = torch.cuda.graph_pool_handle()
+                pool = self._graph_pool
+            with torch.inference_mode():
+                # static inputs, outside the graphs' pool
+                feat = torch.zeros((batch, length, self.model_cfg.input_dim),
+                                   dtype=self.dtype, device=self.device)
+                feat_len = torch.full((batch,), length, dtype=torch.int32,
+                                      device=self.device)
+                prog = BucketProgram(fn, feat, feat_len, pool)
+            self._programs[key] = prog
+        return prog
+
+    def warmup(self, buckets=None, execute: bool = False) -> None:
+        """Build the given (default: all) buckets' programs: on ``cuda``
+        this captures their graphs. ``execute`` also serves one request of
+        zeros on the smallest bucket."""
+        items = list(buckets or self.buckets.all_buckets())
+        for b, t in items:
+            self.get_fn(b, t)
+        if execute and items:
+            b, t = min(items)
+            self.infer(np.zeros((b, t, self.model_cfg.input_dim), np.float32),
+                       np.full((b,), t, np.int32))
+
+    # ------------------------------------------------------------------
+    # inference
+    # ------------------------------------------------------------------
+    def infer(self, feat: np.ndarray, feat_len: np.ndarray, out_mode=None):
         """feat: (B, T, input_dim); feat_len: (B,) or (1, B). Pads to the
-        bucket, runs, trims to the valid region. Returns float32 numpy
-        (B, T', V) and int32 (B,)."""
+        bucket, runs its program, trims to the valid region. Returns
+        numpy arrays in the JAX engine's contract (see _forward_fn):
+        floats as float32, ids and lengths as int32, every frame-aligned
+        output cut to max(out_len) frames. ``out_mode`` overrides
+        cfg.decode_output for this call.
+
+        The features go through a pinned host buffer to the program's
+        static input; out_len comes from the subsampling arithmetic on
+        the host, and only the valid [:B, :max(out_len)] region of each
+        output comes back, in its own dtype (bf16 widened to float32 on
+        the host, which is exact)."""
         feat = np.asarray(feat)
         feat_len = np.asarray(feat_len).reshape(-1).astype(np.int32)
         B, T = feat.shape[:2]
         bb, bt = self.buckets.pick(B, T)
-        pad_feat = np.zeros((bb, bt, feat.shape[2]), np.float32)
-        pad_feat[:B, :T] = feat
-        pad_len = np.zeros((bb,), np.int32)
-        pad_len[:B] = feat_len
-        x = torch.from_numpy(pad_feat).to(self.device, self.dtype)
-        lens = torch.from_numpy(pad_len).to(self.device)
+        mode = out_mode or self.cfg.decode_output
+        prog = self.get_fn(bb, bt, out_mode)
+        sub = SUBSAMPLED_LENGTH[self.model_cfg.encoder_conf.input_layer]
+        out_len = np.asarray(sub(feat_len), np.int32)
+        max_out = int(out_len.max()) if B else 0
         with torch.inference_mode():
-            out, out_len = self.forward(x, lens)
-            out = out.float().cpu().numpy()
-            out_len = out_len.cpu().numpy().astype(np.int32)
-        max_out = int(out_len[:B].max()) if B else 0
-        return out[:B, :max_out], out_len[:B]
+            self._stage_in(prog, feat, feat_len)
+            got = self._copy_back(prog.run(), mode, B, max_out)
+        return (got[0], out_len) + tuple(got[1:])
+
+    def _stage_in(self, prog: BucketProgram, feat: np.ndarray,
+                  feat_len: np.ndarray) -> None:
+        """Pad the request into the host buffer and copy it (on ``cuda``
+        asynchronously, from pinned memory) into the static inputs."""
+        B, T = feat.shape[:2]
+        hf, hl = self._staging.views("in", [
+            (tuple(prog.feat.shape), torch.float32),
+            (tuple(prog.feat_len.shape), torch.int32)])
+        hfn, hln = hf.numpy(), hl.numpy()
+        hfn[:B, :T] = feat
+        hfn[:B, T:] = 0
+        hfn[B:] = 0
+        hln[:] = 0
+        hln[:B] = feat_len
+        prog.feat.copy_(hf, non_blocking=True)
+        prog.feat_len.copy_(hl, non_blocking=True)
+
+    def _copy_back(self, outs, mode: str, B: int, max_out: int):
+        """Every output but out_len, cut to its valid region ([:B] and
+        max_out frames on its time axis) and copied in its own dtype
+        into the host buffer. Returns them as numpy arrays of their own,
+        in order: bf16 widened to float32 on the host (exact), the rest
+        copied out of the reused buffer."""
+        srcs = []
+        for i, t in enumerate(outs):
+            if i == 1:                          # out_len: from the host
+                continue
+            if mode == "beam" and i in (2, 3):  # hyp_lens, scores
+                t = t[:B]
+            elif mode == "beam" and i == 0:     # (B, beam, T') ids
+                t = t[:B, :, :max_out]
+            else:
+                t = t[:B, :max_out]
+            srcs.append(t)
+        hosts = self._staging.views(
+            "out", [(tuple(t.shape), t.dtype) for t in srcs])
+        for h, t in zip(hosts, srcs):
+            h.copy_(t, non_blocking=True)
+        if self.device.type == "cuda":
+            torch.cuda.current_stream(self.device).synchronize()
+        return [(h.float() if h.dtype == torch.bfloat16 else h.clone())
+                .numpy() for h in hosts]
+
+    def infer_long(self, feat: np.ndarray, feat_len: Optional[int] = None,
+                   overlap: Optional[int] = None):
+        """Long-form decode of ONE utterance longer than the largest
+        bucket: forwards over windows of the largest bucket length with
+        ``overlap`` input frames of context on each side, stitched by
+        center cuts (each window gives the output rows whose centers
+        fall in its exclusive region). Returns infer()'s tuple; every
+        frame-aligned extra (best log-prob, top-K indices, taps, hidden)
+        stitches with the same cuts. A ``beam`` engine runs its windows
+        in ``topk`` mode (K = the beam width, the search's own per-frame
+        prune) and finishes one host prefix beam search over the
+        stitched candidates, returning (ids (1, beam, T'), out_len,
+        hyp_lens, scores) (the JAX engine's infer_long)."""
+        feat = np.asarray(feat)
+        if feat.ndim == 3:
+            if feat.shape[0] != 1:
+                raise ValueError("infer_long takes a single utterance")
+            feat = feat[0]
+        T = int(feat_len) if feat_len is not None else feat.shape[0]
+        W = self.buckets.lengths[-1]
+        if T <= W:
+            return self.infer(feat[None, :T], np.array([T]))
+        mode = self.cfg.decode_output
+        win_mode = "topk" if mode == "beam" else None
+        f = self.subsample_factor()
+        # 64 input frames of context per side per subsampling step, at
+        # most a quarter window; aligned to the subsampling grid
+        O = overlap if overlap is not None else min(64 * f, W // 4)
+        O = max(f, (O // f) * f)
+        hop = W - 2 * O
+        if hop <= 0:
+            raise ValueError(f"overlap {O} too large for window {W}")
+        pieces, extras = [], None
+        s = 0
+        while True:
+            e = min(s + W, T)
+            win = e - s
+            r = self.infer(feat[None, s:e], np.array([win]),
+                           out_mode=win_mode)
+            n = int(r[1][0])
+            lo = 0 if s == 0 else O // f
+            hi = n if e == T else min(n, (win - O) // f)
+            pieces.append(r[0][0, lo:hi])
+            if extras is None:
+                extras = [[] for _ in r[2:]]
+            for j, a in enumerate(r[2:]):
+                extras[j].append(a[0, lo:hi])
+            if e == T:
+                break
+            s += hop
+        stitched = np.concatenate(pieces, axis=0)[None]
+        ex = tuple(np.concatenate(x, axis=0)[None] for x in extras)
+        out_len = np.array([stitched.shape[1]], np.int32)
+        if mode != "beam":
+            return (stitched, out_len) + ex
+        beam = int(self.cfg.decode_topk)
+        nbest = ctc_prefix_beam_search_sparse(stitched[0], ex[0][0],
+                                              int(out_len[0]), beam)
+        ids = np.zeros((1, beam, stitched.shape[1]), np.int32)
+        hyp_lens = np.zeros((1, beam), np.int32)
+        scores = np.full((1, beam), -np.inf, np.float32)
+        for i, (prefix, score) in enumerate(nbest[:beam]):
+            ids[0, i, :len(prefix)] = prefix
+            hyp_lens[0, i] = len(prefix)
+            scores[0, i] = score
+        return (ids, out_len, hyp_lens, scores) + ex[1:]
 
     # ------------------------------------------------------------------
     # engine directories (the JAX package's format)

@@ -180,16 +180,29 @@ def test_engine_without_device_needs_a_card():
     {"dtype": "int4", "fuse_qkv": True, "ep": 2},
     {"dtype": "int4", "moe_impl": "quant4_tiled", "ep": 2},
     {"dense_quant": True, "ep": 2}, {"fuse_qkv": True, "tp": 2},
-    {"moe_impl": "ragged", "return_hidden": True},
-    {"ep": 2}, {"tp": 2}, {"return_taps": True}, {"return_hidden": True},
-    {"decode_output": "argmax"}, {"decode_output": "beam"},
-    {"decode_output": "topk"}])
+    {"ep": 2}, {"tp": 2}])
 def test_unsupported_engine_json_raises(setting):
     meta = dict(dtype="float32", fp32_precision="high", donate_input=True,
                 nnet_proto="conformer_fmoe_localComm_catEmbed")
     meta.update(setting)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         config_from_engine_json(meta)
+
+
+@pytest.mark.parametrize("setting", [
+    {"moe_impl": "ragged", "return_hidden": True},
+    {"return_taps": True}, {"return_hidden": True},
+    {"decode_output": "argmax"}, {"decode_output": "beam"},
+    {"decode_output": "topk", "decode_topk": 3}])
+def test_output_engine_json_settings_parse(setting):
+    """The JAX engine.json output settings, refused before the engine's
+    output modes were ported, now parse into the EngineConfig."""
+    meta = dict(dtype="float32", fp32_precision="high", donate_input=True,
+                nnet_proto="conformer_fmoe_localComm_catEmbed")
+    meta.update(setting)
+    cfg, _ = config_from_engine_json(meta)
+    for name, value in setting.items():
+        assert getattr(cfg, name) == value
 
 
 def test_flash_engine_matches_jax_engine_and_roundtrips(tmp_path):
