@@ -145,9 +145,37 @@ result line:
    one 15000-frame request on the fp32 and int4 engines (out_len the
    subsampled length, finite logits, a second call equal to the first).
    K1's layout prep alone is captured and timed at the requests' token
-   counts. Last, the fp32 engine's warmup() captures all 24 buckets: its
-   seconds, launches and peak memory.
-9. train: the flagship's CTC training step (make_train_step, Adam with
+   counts. The six auto engines' graph replays at 1x206, 1x2048 and the
+   largest bucket (1x6144) are printed as the bucket tuner's points
+   (m3asr_tpu_torch/runtime/bucket_tuner.py). Last, the fp32 engine's
+   warmup() captures all 24 buckets: its seconds, launches and peak
+   memory.
+9. stream: the flagship's chunk streams (8 slots, chunk 16, two left
+   chunks; 8 streams of 300-1200 frames, staggered, pushed in uneven
+   pieces) on fp32 and bf16 engines (K1) and an int4 engine (K6), each
+   mode's stage as the port's serve picks it. A StreamBatcher's chunk
+   program is captured (K1/K6 launched 18 times in each of its 3
+   forwards) and replayed tick by tick (no launch), its outputs bit-equal
+   to the same program run eager (18 launches a tick); single-stream
+   StreamingSessions run the same audio through their own graphs, and
+   for four streams also eager, bit-equal chunk for chunk. Held, with the
+   eager session's experts pinned to the batched run's (GateRecorder):
+   batched against single, fp32 allclose(1e-5, 1e-3), bf16 and int4
+   max|diff| / max|ref| <= 0.05; then, on the causal flagship
+   (causal=True in both encoders), the batched streams against
+   moe_conformer.forward with chunk_attention_mask, experts pinned to the
+   streams', on every full chunk's frames, at the same tolerances. The
+   frames whose experts differ when free-running are printed. A
+   loopback m3asr_tpu_torch.serve (--warmup, port 0) on a bf16 engine
+   answers a greedy and a beam request (two hotword phrases, a seeded
+   ARPA bigram LM) and two concurrent beam streams; every response must
+   equal the engine and the host decode called directly (the native C++
+   decoder, which must have built). Two threads call infer and
+   infer_long on that engine, each result equal to the serial one.
+   Printed: the median tick and a stream's chunk latency, graph and
+   eager; a tick's device time and busy share; each graph's pool; K1
+   and K6 alone at 16 and 128 tokens.
+10. train: the flagship's CTC training step (make_train_step, Adam with
    warmup_noam, embed CTC weight 0.3 so that every attention layer
    trains) on 4 x 1000 frames with seeded targets. One fp32 gradient
    with attn_impl="flash" and one with "xla", routing pinned: losses
@@ -159,7 +187,7 @@ result line:
    TF32 is switched on before each fp32 step is built, and
    make_train_step must switch it off again (cuBLAS and cuDNN); cuDNN's
    is switched on again before the steps, which must switch it off.
-10. times: each kernel per call (CUDA events over many calls after
+11. times: each kernel per call (CUDA events over many calls after
    warm-up, layers rotated so weights come from device memory) and its
    launches alone, at the main path's token counts (K1 at 63, 511 and
    1020 with its column block and each launch's live blocks; K6 at 63
@@ -1444,6 +1472,8 @@ GRAPH_ENGINES = (
      ("K7",) * 3),
 )
 LONG_FRAMES = 15000          # infer_long's request: 3 windows of 6144
+# the auto engines whose graph replays give the bucket tuner's points
+TUNER_MODES = ("float32", "bfloat16", "int8", "w8a8", "int4", "w4a8")
 DECODE_TOPK = 8              # K of "topk", the beam width of "beam"
 
 
@@ -1491,19 +1521,22 @@ def serve_times(torch, eng, feat, lens, runs=5):
     r["events"] = len(dev)
     r["d2h"] = sum(us for n, us in dev if "DtoH" in n) / 1e3
     prog = eng.get_fn(*eng.buckets.pick(*feat.shape[:2]))
-    r["replay"] = None
-    if prog.graph is not None:
-        ms = []
-        for _ in range(5):
-            t0 = torch.cuda.Event(enable_timing=True)
-            t1 = torch.cuda.Event(enable_timing=True)
-            t0.record()
-            prog.run()
-            t1.record()
-            torch.cuda.synchronize()
-            ms.append(t0.elapsed_time(t1))
-        r["replay"] = float(np.median(ms))
+    r["replay"] = None if prog.graph is None else replay_ms(torch, prog)
     return r
+
+
+def replay_ms(torch, prog):
+    """Median of 5 replays of a captured program, timed by CUDA events."""
+    ms = []
+    for _ in range(5):
+        t0 = torch.cuda.Event(enable_timing=True)
+        t1 = torch.cuda.Event(enable_timing=True)
+        t0.record()
+        prog.run()
+        t1.record()
+        torch.cuda.synchronize()
+        ms.append(t0.elapsed_time(t1))
+    return float(np.median(ms))
 
 
 def times_line(label, B, T, path, r, smi):
@@ -1570,7 +1603,7 @@ def phase_serve_graphs(torch, state, smi):
                                                 GRAPH_WARMUP_RUNS)
 
     cfg, reqs = state["cfg"], state["requests"]
-    trees = {"float": state["params"], **state.pop("qparams")}
+    trees = {"float": state["params"], **state["qparams"]}
     enc = cfg.encoder_conf
     n_attn, n_moe = enc.embed_conf.num_blocks + enc.num_blocks, enc.num_blocks
     fwds = GRAPH_WARMUP_RUNS + 1
@@ -1580,6 +1613,7 @@ def phase_serve_graphs(torch, state, smi):
         eng = Engine(cfg, trees[tree], EngineConfig(**settings),
                      device="cuda")
         flash = settings.get("attn_impl") == "flash"
+        points = {}
         for i, (feat, lens) in enumerate(reqs):
             B, T = feat.shape[:2]
             bb, bt = eng.buckets.pick(B, T)
@@ -1619,13 +1653,21 @@ def phase_serve_graphs(torch, state, smi):
                                  ", launches or logits off the eager path")
             for path in ("eager", "graph"):
                 eng.cuda_graphs = path == "graph"
-                log(times_line(label, B, T, path,
-                               serve_times(torch, eng, feat, lens), smi))
+                r = serve_times(torch, eng, feat, lens)
+                log(times_line(label, B, T, path, r, smi))
             eng.cuda_graphs = True
+            points[(B, T)] = r["replay"]
             if label == "bfloat16" and (B, T) == (4, 1000):
                 decode_outputs(torch, eng, feat, lens, out_g, smi)
             if label == "float32" and (B, T) == (4, 1000):
                 decode_beam(torch, eng, feat, lens, smi)
+        if label in TUNER_MODES:
+            # the bucket tuner's points (runtime/bucket_tuner.py)
+            top = eng.buckets.lengths[-1]
+            log(f"graphs {label} tuner points: graph replay by CUDA events "
+                f"(median of 5) 1x206 {points[(1, 206)]:.3f} ms, 1x2048 "
+                f"{points[(1, 2048)]:.3f} ms, 1x{top} "
+                f"{replay_ms(torch, eng.get_fn(1, top)):.3f} ms; {smi}")
         if label in ("float32", "int4"):
             t0 = time.perf_counter()
             first = eng.infer_long(long_feat)
@@ -1802,6 +1844,742 @@ def decode_beam(torch, eng, feat, lens, smi):
     if not ok:
         raise SystemExit("FAIL serve graphs: the on-device beam search "
                          "disagrees with the host search")
+
+
+# phase "stream": the flagship's chunk streams (models/streaming.py, the
+# sessions and batchers of runtime/) and the port's server
+STREAM_SLOTS, STREAM_CHUNK, STREAM_LEFT = 8, 16, 2
+STREAM_FRAMES = (1200, 1131, 1010, 917, 763, 640, 488, 300)
+STREAM_PIECES = (37, 90, 13, 211, 64, 150)     # uneven pieces, cycled
+SESSION_CHECKED = (0, 2, 4, 6)   # streams also run by eager sessions
+# (label, EngineConfig settings, the params they start from, the kernel
+# of the chunk programs' expert stage, serve's policy at 16 x 8 tokens)
+STREAM_MODES = (("float32", dict(dtype="float32"), "float", "K1", "runs_f"),
+                ("bfloat16", dict(dtype="bfloat16"), "float", "K1",
+                 "runs_f"),
+                ("int4", dict(dtype="int4"), "int4", "K6", "quant4_pallas"))
+# the offline oracle's expert stage (any length): K1, or K5 on int4
+ORACLE_IMPL = {"float32": "runs_f", "bfloat16": "runs_f",
+               "int4": "quant4_runs"}
+STREAM_TOKENS = (16, 128)     # one stream's chunk; a tick of 8 slots
+SERVE_SETTINGS = dict(dtype="bfloat16", bucket_lengths=(256, 512, 1024,
+                                                        2048),
+                      bucket_batches=(1, 2))
+
+
+def stream_windows(feat, chunk):
+    """The windows a StreamingSession cuts from one (T, D) stream, however
+    it is pushed: full windows of 4 * chunk + 3 frames at stride
+    4 * chunk, then finish()'s zero-padded tail. [(window (1, W, D),
+    output frames kept)]."""
+    W, S = 4 * chunk + 3, 4 * chunk
+    out, i = [], 0
+    while feat.shape[0] - i >= W:
+        out.append((feat[None, i:i + W], chunk))
+        i += S
+    rest = feat.shape[0] - i
+    if rest >= 7 and (rest - 3) // 4 > 0:
+        w = np.zeros((1, W, feat.shape[1]), np.float32)
+        w[0, :rest] = feat[i:]
+        out.append((w, (rest - 3) // 4))
+    return out
+
+
+def batched_ticks(b, streams):
+    """Drive StreamBatcher ``b`` tick by tick: stream i in slot i from
+    tick i, one window a tick. Returns (each stream's kept outputs
+    (frames, V), every tick's (slots, C, V) output, tick times in ms by
+    the host clock)."""
+    from m3asr_tpu_torch.runtime.graphs import DEVICE_LOCK
+    W, D = streams[0][0][0].shape[1:]
+    with DEVICE_LOCK.shared():
+        b._reset_slots(range(b.slots))
+    outs = [[] for _ in streams]
+    raw, ms = [], []
+    for t in range(max(i + len(s) for i, s in enumerate(streams))):
+        windows = np.zeros((b.slots, W, D), np.float32)
+        mask = np.zeros((b.slots,), bool)
+        for i, s in enumerate(streams):
+            if 0 <= t - i < len(s):
+                windows[i], mask[i] = s[t - i][0][0], True
+        t0 = time.perf_counter()
+        with DEVICE_LOCK.shared():
+            out = b._tick(windows, mask)
+        ms.append((time.perf_counter() - t0) * 1e3)
+        raw.append(out)
+        for i, s in enumerate(streams):
+            if 0 <= t - i < len(s):
+                outs[i].append(out[i, :s[t - i][1]])
+    return [np.concatenate(o) for o in outs], raw, ms
+
+
+def pieces_of(T):
+    """Uneven piece sizes covering T frames."""
+    out, k = [], 0
+    while sum(out) < T:
+        out.append(min(STREAM_PIECES[k % len(STREAM_PIECES)], T - sum(out)))
+        k += 1
+    return out
+
+
+def session_run(sess, feat):
+    """One stream through a single StreamingSession (reset first), pushed
+    in uneven pieces, then finish(). Returns (outputs (frames, V), each
+    chunk's outputs, ms per chunk of the pushes that emitted chunks)."""
+    sess.reset()
+    chunks, per_chunk, i = [], [], 0
+    for n in pieces_of(feat.shape[0]):
+        t0 = time.perf_counter()
+        got = sess.push(feat[None, i:i + n])
+        if got:
+            per_chunk.append((time.perf_counter() - t0) * 1e3 / len(got))
+        chunks += got
+        i += n
+    chunks += sess.finish()
+    return np.concatenate([c[0] for c in chunks]), chunks, per_chunk
+
+
+def stream_routing(rec_calls, n_blocks, tick_of, slot):
+    """A stream's expert choices (n_blocks, frames) from a GateRecorder of
+    a batched run: chunk c of the stream ran at tick tick_of(c) in
+    ``slot``."""
+    n_ticks = len(rec_calls) // n_blocks
+    rows = [[] for _ in range(n_blocks)]
+    for c in range(n_ticks):
+        t = tick_of(c)
+        if t is None:
+            break
+        for blk in range(n_blocks):
+            rows[blk].append(rec_calls[t * n_blocks + blk][slot])
+    return rows
+
+
+def routing_frames(rows, n):
+    """stream_routing's rows as one (n_blocks, n) array of its first n
+    frames."""
+    return np.stack([np.concatenate([x.reshape(-1).cpu().numpy()
+                                     for x in r])[:n] for r in rows])
+
+
+def held(a, ref, fp32):
+    """fp32: allclose(1e-5, 1e-3); else max|diff| / max|ref| <= 0.05.
+    Returns (ok, max|diff| / max|ref|)."""
+    rel = float(np.abs(a - ref).max() / np.abs(ref).max())
+    ok = (np.allclose(a, ref, rtol=1e-5, atol=1e-3) if fp32
+          else rel <= 0.05)
+    return ok, rel
+
+
+def write_arpa(path, V, seed):
+    """A seeded random bigram ARPA over unit ids 0..V-1."""
+    rng = np.random.default_rng(seed)
+    bigrams = sorted({(int(a), int(b)) for a, b in
+                      rng.integers(1, V, (2000, 2))})
+    with open(path, "w") as f:
+        f.write(f"\\data\\\nngram 1={V + 1}\nngram 2={len(bigrams)}\n\n"
+                "\\1-grams:\n")
+        f.write(f"-99 <s> {rng.uniform(-1, 0):.4f}\n")
+        for u in range(1, V):
+            f.write(f"{rng.uniform(-5, -2):.4f} {u} "
+                    f"{rng.uniform(-1, 0):.4f}\n")
+        f.write(f"{rng.uniform(-3, -1):.4f} </s>\n\n\\2-grams:\n")
+        for a, b in bigrams:
+            f.write(f"{rng.uniform(-2, -0.1):.4f} {a} {b}\n")
+        f.write("\n\\end\\\n")
+
+
+def rotated_device_ms(torch, fn, iters):
+    """profiled_ms of fn(i) with i counting up across calls (layers
+    rotate as in cuda_time_ms): the device time of one call."""
+    calls = iter(range(10 ** 9))
+    return profiled_ms(torch, lambda: fn(next(calls)), iters)
+
+
+def stream_kernel_check(torch, got, ref, fp32, tol, label):
+    """A stream-count launch against its plain version on the same
+    inputs: fp32 allclose(1e-5, 1e-5), else max|diff| within ``tol`` of
+    max|ref| (phase_kernel's and phase_kernel_quant's tolerances). Logs
+    one line, exits on a failure; returns max|diff|."""
+    err = (got.float() - ref.float()).abs().max().item()
+    scale = ref.float().abs().max().item()
+    ok = np.isfinite(err) and (
+        torch.allclose(got, ref, rtol=1e-5, atol=1e-5) if fp32
+        else err <= tol * scale)
+    log(f"kernel {label}: max_abs_err={err:.3e} max|ref|={scale:.3e} "
+        f"({'allclose(1e-5, 1e-5)' if fp32 else f'held to {tol:g} of it'})"
+        f" {'OK' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit(f"FAIL kernel: {label} disagrees with its plain "
+                         "version")
+    return err
+
+
+def time_stream_kernels(torch, smi):
+    """K1 (fp32, bf16) and K6 (int4, w4a8) at a stream chunk's and an
+    8-slot tick's token counts (16, 128) under the router's routing,
+    layers rotated: each first held against its plain version on the
+    same inputs (stream_kernel_check), then the wrapper call (CUDA
+    events) and its device time (torch.profiler), the plain version and
+    the bound. Returns the worst max_abs_err under the keys of
+    phase_kernel (dtype name) and phase_kernel_quant (("K6", a8))."""
+    from m3asr_tpu_torch.ops import moe_q4, moe_runs
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    worst = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype)[6:]
+        p = expert_weights(torch, dtype, gen, d=D, h=H)
+        for n in STREAM_TOKENS:
+            x = torch.randn(1, n, D, generator=gen, device="cuda").to(dtype)
+            gate = routing(torch, "router", n, gen)
+            elt = x.element_size()
+            t_bytes = (n_active(torch, gate) * (2 * D * H + H + D) * elt
+                       + 2 * n * D * elt + n * 4) / HBM_BYTES_PER_S * 1e3
+            t_ops = 4 * n * D * H / PEAK_OPS_PER_S[dname] * 1e3
+            for layer in (0, L - 1):
+                got = moe_runs.runs_kernel.launch(p, x, gate, layer)
+                torch.cuda.synchronize()
+                err = stream_kernel_check(
+                    torch, got, moe_runs.moe_experts_runs_reference(
+                        p, x, gate, layer), dtype == torch.float32, 1e-2,
+                    f"moe_runs_f {dname} (K1) n={n} router layer={layer}")
+                worst[dname] = max(worst.get(dname, 0.0), err)
+            ms = cuda_time_ms(torch, lambda i: moe_runs.runs_kernel.launch(
+                p, x, gate, i % L), 54)
+            dev = rotated_device_ms(torch, lambda i: (
+                moe_runs.runs_kernel.launch(p, x, gate, i % L)), 18)
+            plain = cuda_time_ms(
+                torch, lambda i: moe_runs.moe_experts_runs_reference(
+                    p, x, gate, i % L), 18)
+            log(f"time stream moe_runs_f[{dname}] (K1) n={n} router: call "
+                f"{ms:.4f} ms (device {dev:.4f} ms), plain {plain:.4f} ms, "
+                f"bound "
+                f"{max(t_bytes, t_ops):.4f} ms (bytes {t_bytes:.4f} / ops "
+                f"{t_ops:.4f}), library_ms none; {smi}")
+    n_layers = 6
+    p = quant_experts(torch, 4, gen, n_layers, d=D, h=H)
+    layers = [at_layer(p, i) for i in range(n_layers)]
+    per_expert = (p["w1_q4"][0, 0].numel() + p["w2_q4"][0, 0].numel()
+                  + 4 * (layers[0]["w1_scale"][0].numel()
+                         + layers[0]["w2_scale"][0].numel()) + 2 * (H + D))
+    for a8 in (False, True):
+        for n in STREAM_TOKENS:
+            x = torch.randn(1, n, D, generator=gen, device="cuda") \
+                .to(torch.bfloat16)
+            gate = routing(torch, "router", n, gen)
+            t_bytes = (n_active(torch, gate) * per_expert + 2 * n * D * 2
+                       + n * 4) / HBM_BYTES_PER_S * 1e3
+            t_ops = 4 * n * D * H / PEAK_OPS_PER_S[
+                "int8" if a8 else "bfloat16"] * 1e3
+            for layer in (0, n_layers - 1):
+                got = moe_q4.q4_kernel.launch(layers[layer], x, gate, layer,
+                                              act_quant=a8)
+                torch.cuda.synchronize()
+                err = stream_kernel_check(
+                    torch, got, moe_q4.moe_experts_q4_reference(
+                        layers[layer], x, gate, layer, act_quant=a8),
+                    False, 2e-2 if a8 else 1e-2,
+                    f"{QUANT_NAMES[('K6', a8)]} (K6) n={n} router "
+                    f"layer={layer}")
+                worst[("K6", a8)] = max(worst.get(("K6", a8), 0.0), err)
+            ms = cuda_time_ms(torch, lambda i: moe_q4.q4_kernel.launch(
+                layers[i % n_layers], x, gate, i % n_layers, act_quant=a8),
+                60)
+            dev = rotated_device_ms(torch, lambda i: moe_q4.q4_kernel.launch(
+                layers[i % n_layers], x, gate, i % n_layers, act_quant=a8),
+                18)
+            plain = cuda_time_ms(torch, lambda i: (
+                moe_q4.moe_experts_q4_reference(
+                    layers[i % n_layers], x, gate, i % n_layers,
+                    act_quant=a8)), 6)
+            log(f"time stream {QUANT_NAMES[('K6', a8)]} (K6) n={n} router: "
+                f"call {ms:.4f} ms (device {dev:.4f} ms), plain "
+                f"{plain:.4f} ms, bound "
+                f"{max(t_bytes, t_ops):.4f} ms (bytes {t_bytes:.4f} / ops "
+                f"{t_ops:.4f}), library_ms none; {smi}")
+    return worst
+
+
+def stream_mode(torch, label, eng, cfg, cfg_c, feats, kname, want_impl, smi):
+    """The checks of phase "stream" for one engine mode; returns the
+    launches of its kernel."""
+    import m3asr_tpu_torch.serve as serve
+    from m3asr_tpu_torch.models import moe_conformer
+    from m3asr_tpu_torch.models.conformer import chunk_attention_mask
+    from m3asr_tpu_torch.ops import moe as moe_mod
+    from m3asr_tpu_torch.ops.moe import HOST_SYNC_STAGES
+    from m3asr_tpu_torch.runtime.graphs import DEVICE_LOCK, GRAPH_WARMUP_RUNS
+    from m3asr_tpu_torch.runtime.streaming_batch import StreamBatcher
+    from m3asr_tpu_torch.runtime.streaming_session import StreamingSession
+
+    fp32 = label == "float32"
+    n_moe = cfg.encoder_conf.num_blocks
+    fwds = GRAPH_WARMUP_RUNS + 1
+    params = serve.stream_params(eng)
+    impl = serve._stream_moe_impl(eng, STREAM_SLOTS)
+    if impl != want_impl or impl in HOST_SYNC_STAGES:
+        raise SystemExit(f"FAIL stream {label}: stage {impl}, want "
+                         f"{want_impl}")
+    streams = [stream_windows(f, STREAM_CHUNK) for f in feats]
+    n_ticks = max(i + len(s) for i, s in enumerate(streams))
+    kw = dict(chunk_size=STREAM_CHUNK, num_left_chunks=STREAM_LEFT,
+              moe=True, moe_impl=impl)
+    bkw = dict(kw, slots=STREAM_SLOTS, input_dim=cfg.input_dim)
+    launched = 0
+
+    def counted(want, what, main=False):
+        """Hold the launches since the last reset to ``want``; the
+        captures (the main path's programs) add to ``launched``."""
+        nonlocal launched
+        got = kernel_counts()
+        if main:
+            launched += got.get(kname, 0)
+        if got != want:
+            raise SystemExit(f"FAIL stream {label}: {what} launched {got}, "
+                             f"want {want}")
+        reset_counts()
+
+    # the batched chunk program: captured (3 forwards counted), replayed
+    # (none), against the same program eager (18 a tick), bit for bit
+    reset_counts()
+    b_g = StreamBatcher(params, cfg.encoder_conf, **bkw)
+    if b_g.graph is None:
+        raise SystemExit(f"FAIL stream {label}: no graph captured")
+    counted({kname: fwds * n_moe}, "the batcher's capture", main=True)
+    outs_b, raw_g, tick_g = batched_ticks(b_g, streams)
+    counted({}, "the graph's replays")
+    b_e = StreamBatcher(params, cfg.encoder_conf, cuda_graphs=False, **bkw)
+    with GateRecorder(moe_mod) as rec_b:
+        _, raw_e, tick_e = batched_ticks(b_e, streams)
+    counted({kname: n_ticks * n_moe}, "the eager ticks")
+    equal = all(np.array_equal(a, b) for a, b in zip(raw_g, raw_e))
+    full = (np.zeros((STREAM_SLOTS,) + streams[0][0][0].shape[1:],
+                     np.float32), np.ones((STREAM_SLOTS,), bool))
+
+    def tick():
+        with DEVICE_LOCK.shared():
+            b_g._tick(*full)
+    dev, events = profiled_events(torch, tick, 5)
+    reset_counts()
+    tg, te = float(np.median(tick_g)), float(np.median(tick_e))
+    log(f"stream {label} batcher ({STREAM_SLOTS} slots, chunk "
+        f"{STREAM_CHUNK}, left {STREAM_LEFT}, stage {impl}): {n_ticks} "
+        f"ticks of {len(streams)} staggered streams; graph outputs "
+        f"bit-equal to the eager step's: {equal}; median tick graph "
+        f"{tg:.3f} ms, eager {te:.3f} ms (host clock); a graph tick's "
+        f"device time {dev:.3f} ms under torch.profiler ({events // 5} "
+        f"events), busy {dev / tg:.3f}; graph pool "
+        f"{b_g.pool_bytes / 2**20:.1f} MiB reserved; {smi} "
+        f"{'OK' if equal else 'FAIL'}")
+    if not equal:
+        raise SystemExit(f"FAIL stream {label}: graph ticks differ from "
+                         "eager")
+    b_g.close()
+    b_e.close()
+
+    # single-stream sessions (scalar offsets), pushed in uneven pieces:
+    # graph against eager bit for bit, then the eager session pinned to
+    # the batched run's experts against the batched outputs
+    s_g = StreamingSession(params, cfg.encoder_conf, **kw)
+    s_e = StreamingSession(params, cfg.encoder_conf, cuda_graphs=False, **kw)
+    lat_g, lat_e, worst, flipped, frames = [], [], 0.0, 0, 0
+    bit_equal, ok_all = True, True
+    for i, f in enumerate(feats):
+        out_g, chunks_g, pc = session_run(s_g, f)
+        if i == 0:      # the capture at its first chunk, then replays
+            counted({kname: fwds * n_moe}, "the session's capture and "
+                    "replays", main=True)
+        lat_g += pc
+        ok_all &= out_g.shape == outs_b[i].shape
+        if i not in SESSION_CHECKED:
+            continue
+        with GateRecorder(moe_mod) as rec_s:
+            out_e, chunks_e, pc = session_run(s_e, f)
+        lat_e += pc
+        bit_equal &= len(chunks_g) == len(chunks_e) and all(
+            np.array_equal(a, b) for a, b in zip(chunks_g, chunks_e))
+        mine = stream_routing(rec_b.calls, n_moe,
+                              lambda c: i + c if c < len(streams[i])
+                              else None, i)
+        free = stream_routing(rec_s.calls, n_moe, lambda c: c, 0)
+        n = out_e.shape[0]
+        flipped += int(np.any(routing_frames(mine, n)
+                              != routing_frames(free, n), 0).sum())
+        frames += n
+        replay = [rec_b.calls[(i + c) * n_moe + blk][i:i + 1]
+                  for c in range(len(streams[i])) for blk in range(n_moe)]
+        with GateRecorder(moe_mod, replay=replay):
+            out_p, _, _ = session_run(s_e, f)
+        ok, rel = held(outs_b[i], out_p, fp32)
+        worst = max(worst, rel)
+        ok_all &= ok
+    eager_chunks = sum(len(streams[i]) for i in SESSION_CHECKED)
+    counted({kname: 2 * eager_chunks * n_moe},
+            "the sessions' replays and two eager runs")
+    log(f"stream {label} sessions: {len(feats)} streams of {STREAM_FRAMES} "
+        f"frames in pieces of {STREAM_PIECES} through the graph, streams "
+        f"{SESSION_CHECKED} also eager (free-running and pinned); graph "
+        f"chunks bit-equal to eager: {bit_equal}; batched vs single session "
+        f"on the batched run's experts: max|diff|/max|ref| {worst:.3e} "
+        f"({'allclose(1e-5, 1e-3)' if fp32 else '<= 0.05'}); frames whose "
+        f"expert differs in some block, free-running: {flipped} of "
+        f"{frames}; chunk latency median graph {np.median(lat_g):.3f} ms, "
+        f"eager {np.median(lat_e):.3f} ms (host clock); session graph "
+        f"pool {s_g._prog.pool_bytes / 2**20:.1f} MiB reserved; {smi} "
+        f"{'OK' if bit_equal and ok_all else 'FAIL'}")
+    if not (bit_equal and ok_all):
+        raise SystemExit(f"FAIL stream {label}: sessions")
+
+    # the oracle: the causal flagship's streams against the offline
+    # forward with the chunk attention mask, routing pinned to the
+    # streams' experts, on every full chunk's frames
+    b_o = StreamBatcher(params, cfg_c.encoder_conf, cuda_graphs=False, **bkw)
+    with GateRecorder(moe_mod) as rec_o:
+        outs_o, _, _ = batched_ticks(b_o, streams)
+    b_o.close()
+    T = max(STREAM_FRAMES)
+    Tp = (T - 3) // 4
+    feat_t = torch.zeros((len(feats), T, cfg.input_dim), device="cuda")
+    for i, f in enumerate(feats):
+        feat_t[i, :f.shape[0]] = torch.from_numpy(f).cuda()
+    lens = torch.tensor([f.shape[0] for f in feats], dtype=torch.int32,
+                        device="cuda")
+    mask = chunk_attention_mask(Tp, STREAM_CHUNK, STREAM_LEFT,
+                                device="cuda")
+    dtype = eng.dtype
+    with torch.inference_mode():
+        with GateRecorder(moe_mod) as rec_f:
+            moe_conformer.forward(params, cfg_c.encoder_conf,
+                                  feat_t.to(dtype), lens,
+                                  moe_impl=ORACLE_IMPL[label],
+                                  chunk_mask=mask)
+        replay = [g.clone() for g in rec_f.calls]
+        for i, s in enumerate(streams):
+            n = (len(s) - (s[-1][1] < STREAM_CHUNK)) * STREAM_CHUNK
+            rows = stream_routing(rec_o.calls, n_moe,
+                                  lambda c: i + c if c < len(s) else None, i)
+            for blk in range(n_moe):
+                replay[blk][i, :n] = torch.cat(rows[blk])[:n]
+        with GateRecorder(moe_mod, replay=replay):
+            ref = moe_conformer.forward(params, cfg_c.encoder_conf,
+                                        feat_t.to(dtype), lens,
+                                        moe_impl=ORACLE_IMPL[label],
+                                        chunk_mask=mask)[0]
+    ref = ref.float().cpu().numpy()
+    worst, flipped, frames, ok_all = 0.0, 0, 0, True
+    for i, s in enumerate(streams):
+        n = (len(s) - (s[-1][1] < STREAM_CHUNK)) * STREAM_CHUNK
+        ok, rel = held(outs_o[i][:n], ref[i, :n], fp32)
+        worst = max(worst, rel)
+        ok_all &= ok
+        free = [rec_f.calls[blk][i, :n].cpu().numpy() for blk in range(n_moe)]
+        mine = [replay[blk][i, :n].cpu().numpy() for blk in range(n_moe)]
+        flipped += int(np.any(np.stack(free) != np.stack(mine), 0).sum())
+        frames += n
+    reset_counts()
+    log(f"stream {label} oracle (causal=True in both encoders): batched "
+        f"streams vs moe_conformer.forward with chunk_attention_mask("
+        f"{Tp}, {STREAM_CHUNK}, {STREAM_LEFT}) ({ORACLE_IMPL[label]}, "
+        f"experts pinned to the streams'), {frames} full-chunk frames: "
+        f"max|diff|/max|ref| {worst:.3e} "
+        f"({'allclose(1e-5, 1e-3)' if fp32 else '<= 0.05'}); frames whose "
+        f"expert differs free-running: {flipped}; {smi} "
+        f"{'OK' if ok_all else 'FAIL'}")
+    if not ok_all:
+        raise SystemExit(f"FAIL stream {label}: streams disagree with the "
+                         "chunk-masked offline forward")
+    return launched
+
+
+def serve_client(port, reqs):
+    """Send requests on one connection; their responses."""
+    import socket
+    with socket.create_connection(("127.0.0.1", port)) as sock:
+        f = sock.makefile("rwb")
+        out = []
+        for r in reqs:
+            f.write((json.dumps(r) + "\n").encode())
+            f.flush()
+            out.append(json.loads(f.readline()))
+        return out
+
+
+def phase_stream_serve(torch, cfg, tree, smi):
+    """A loopback server (m3asr_tpu_torch.serve, --warmup, port 0) on a
+    bf16 engine of the flagship: two offline requests (greedy; beam with
+    a context trie and a seeded ARPA LM) and two concurrent beam streams,
+    each response held equal to the engine and the host decode called
+    directly; the native decoder must be the one that ran, and --warmup
+    must have captured the default stream batcher before the first
+    stream. Then two threads call infer and infer_long on the engine,
+    each result equal to the serial one, and the mixed load
+    (mixed_load). Returns the K1 launches of the server's captures."""
+    import socketserver
+    import tempfile
+    import threading
+    import m3asr_tpu_torch.serve as serve
+    from m3asr_tpu_torch.decode import native
+    from m3asr_tpu_torch.decode.ctc import ContextTrie
+    from m3asr_tpu_torch.decode.lm import NgramLM
+    from m3asr_tpu_torch.runtime.engine import Engine, EngineConfig
+
+    if not native.available():
+        raise SystemExit(f"FAIL stream serve: the native decoder did not "
+                         f"build: {native.load_error()}")
+    eng = Engine(cfg, tree, EngineConfig(**SERVE_SETTINGS), device="cuda")
+    tmp = tempfile.mkdtemp()
+    arpa = os.path.join(tmp, "lm.arpa")
+    write_arpa(arpa, cfg.output_dim, 21)
+    args = serve.parser().parse_args(
+        ["-p", tmp, "--warmup", "--port", "0", "--lm", arpa,
+         "--stream_slots", str(STREAM_SLOTS)])
+    reset_counts()
+    t0 = time.perf_counter()
+    state = serve._build_runtime(args, engine=eng)
+    warm_s = time.perf_counter() - t0
+    warm_key = serve.DEFAULT_STREAM_KEY
+    warm_b = state["stream_batchers"].get(warm_key)
+    if warm_key != (STREAM_CHUNK, STREAM_LEFT) or warm_b is None \
+            or warm_b.graph is None:
+        raise SystemExit("FAIL stream serve: --warmup did not capture the "
+                         f"{warm_key} stream batcher")
+    lm = serve.load_lm(args)
+    srv = socketserver.ThreadingTCPServer(
+        ("127.0.0.1", 0), serve.make_handler(state, args.beam_size, lm=lm))
+    srv.daemon_threads = True
+    th = threading.Thread(target=srv.serve_forever, daemon=True)
+    th.start()
+    port = srv.server_address[1]
+    rng = np.random.default_rng(9)
+    try:
+        # offline: greedy, then beam with hotwords and the LM
+        fa = rng.standard_normal((206, cfg.input_dim)).astype(np.float32)
+        fb = rng.standard_normal((1000, cfg.input_dim)).astype(np.float32)
+        out, out_len = eng.infer(fb[None], np.array([1000]))
+        lp = out[0] - out[0].max(-1, keepdims=True)
+        lp = lp - np.log(np.exp(lp).sum(-1, keepdims=True))
+        greedy_b = native.ctc_greedy_search(out, out_len)[0]
+        ctx = [greedy_b[2:5], greedy_b[8:10]]
+        ra, rb = serve_client(port, [
+            {"id": "a", "feat": fa.tolist()},
+            {"id": "b", "feat": fb.tolist(), "decode": "beam",
+             "beam_size": 8, "context": ctx, "nbest": 3,
+             "timestamps": True}])
+        oa, la = eng.infer(fa[None], np.array([206]))
+        want_a = native.ctc_greedy_search(oa, la)[0]
+        hyps = native.ctc_prefix_beam_search_ext(
+            lp, int(out_len[0]), 8, context=ContextTrie(ctx, 3.0), lm=lm,
+            lm_weight=args.lm_weight)
+        ok_off = (ra.get("hyp") == want_a and rb.get("hyp") ==
+                  list(hyps[0].tokens) and rb.get("times") ==
+                  list(hyps[0].times) and [n["hyp"] for n in rb["nbest"]]
+                  == [list(h.tokens) for h in hyps[:3]] and
+                  [n["score"] for n in rb["nbest"]] ==
+                  [round(float(h.score), 4) for h in hyps[:3]])
+        # two concurrent beam streams
+        feats = [rng.standard_normal((T, cfg.input_dim)).astype(np.float32)
+                 for T in (900, 611)]
+        start = {"stream": "start", "chunk_size": STREAM_CHUNK,
+                 "num_left_chunks": STREAM_LEFT, "decode": "beam",
+                 "beam_size": 8, "timestamps": True}
+
+        def stream_reqs(f):
+            reqs, i = [start], 0
+            for n in pieces_of(f.shape[0]):
+                reqs.append({"stream": "chunk",
+                             "feat": f[i:i + n].tolist()})
+                i += n
+            return reqs + [{"stream": "end"}]
+        got = [None, None]
+        clients = [threading.Thread(target=lambda j: got.__setitem__(
+            j, serve_client(port, stream_reqs(feats[j]))), args=(j,))
+            for j in range(2)]
+        for c in clients:
+            c.start()
+        for c in clients:
+            c.join()
+        stats = serve_client(port, [{"stats": True}])[0]
+        # the same pieces through the server's own batcher and a native
+        # beam state, one stream at a time
+        pool = state["stream_pool"]
+        want, native_used = [], True
+        for f in feats:
+            sess = pool.acquire((STREAM_CHUNK, STREAM_LEFT))
+            beam = native.make_beam_state(8, lm=lm,
+                                          lm_weight=args.lm_weight)
+            native_used &= isinstance(beam, native.NativeBeamState)
+            dec = serve._StreamDecode(sess, beam_state=beam)
+            resp, i = [], 0
+            for n in pieces_of(f.shape[0]):
+                dec.update(sess.push(f[None, i:i + n]))
+                toks, times = dec.result()
+                resp.append((toks, dec.frames, times))
+                i += n
+            dec.update(sess.finish())
+            toks, times = dec.result()
+            resp.append((toks, dec.frames, times))
+            pool.release((STREAM_CHUNK, STREAM_LEFT), sess)
+            want.append(resp)
+        ok_str = all(
+            [(r.get("partial", r.get("hyp")), r["out_frames"], r["times"])
+             for r in g[1:]] == w for g, w in zip(got, want))
+        ticks = stats["stream_batchers"][str((STREAM_CHUNK, STREAM_LEFT))]
+    finally:
+        srv.shutdown()
+        srv.server_close()
+    launches = kernel_counts().get("K1", 0)
+    ok = (ok_off and ok_str and native_used
+          and list(state["stream_batchers"]) == [warm_key])
+    log(f"stream serve (loopback 127.0.0.1:{port}, --warmup: "
+        f"{len(eng.buckets.all_buckets())} buckets and the {warm_key} "
+        f"stream batcher ({warm_b.pool_bytes / 2**20:.1f} MiB pool) "
+        f"captured in {warm_s:.2f} s, before the first stream; batchers "
+        f"after the streams: {list(state['stream_batchers'])}): offline "
+        f"greedy 1x206 and beam "
+        f"(width 8, 2 hotword phrases, {lm.order}-gram ARPA of "
+        f"{len(lm.logp)} ngrams) 1x1000 equal to the engine and host "
+        f"decode called directly: {ok_off}; 2 concurrent beam streams of "
+        f"{[f.shape[0] for f in feats]} frames, "
+        f"{sum(len(g) for g in got)} responses equal to the server's "
+        f"batcher and a native beam state driven directly: {ok_str}; tick "
+        f"batch sizes {ticks['tick_batch_sizes']}; native decoder used: "
+        f"{native_used}; {smi} {'OK' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("FAIL stream serve: responses differ from direct "
+                         "decoding")
+
+    # two threads on one engine: infer and infer_long, against serial
+    short = [rng.standard_normal((1, 206, cfg.input_dim)).astype(np.float32)
+             for _ in range(4)]
+    long_f = rng.standard_normal((1, 5000, cfg.input_dim)).astype(
+        np.float32)
+    ref_s = [eng.infer(f, np.array([206])) for f in short]
+    ref_l = eng.infer_long(long_f)
+    bad = []
+
+    def run_short():
+        for k in range(40):
+            r = eng.infer(short[k % 4], np.array([206]))
+            bad.append(not all(np.array_equal(a, b)
+                               for a, b in zip(r, ref_s[k % 4])))
+
+    def run_long():
+        for _ in range(4):
+            r = eng.infer_long(long_f)
+            bad.append(not all(np.array_equal(a, b)
+                               for a, b in zip(r, ref_l)))
+    ths = [threading.Thread(target=run_short),
+           threading.Thread(target=run_long)]
+    for t in ths:
+        t.start()
+    for t in ths:
+        t.join()
+    ok = len(bad) == 44 and not any(bad)
+    log(f"stream engine threads: 40 infer calls (1x206) and 4 infer_long "
+        f"calls (1x5000) from two threads on one bf16 engine, each equal to "
+        f"its serial result: {len(bad) - sum(bad)} of 44; {smi} "
+        f"{'OK' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("FAIL stream: the engine is not re-entrant")
+    mixed_load(torch, cfg, eng, warm_b, short, ref_s, smi)
+    state["batcher"].close()
+    for b in state["stream_batchers"].values():
+        b.close()
+    return launches
+
+
+def mixed_load(torch, cfg, eng, b, short, ref_s, smi):
+    """Offline requests (infer 1x206, each result held to its serial one)
+    on one thread beside full ticks of the server's stream batcher ``b``
+    on another, 40 calls each: each alone, then both with the device
+    sections shared as the port runs them, against each call holding
+    DEVICE_LOCK exclusively (every section serialised, host work
+    included), in turns. Wall ms by the host clock."""
+    import threading
+    from m3asr_tpu_torch.runtime.graphs import DEVICE_LOCK
+    full = (np.zeros((b.slots, 4 * b.chunk + 3, cfg.input_dim), np.float32),
+            np.ones((b.slots,), bool))
+    n, bad = 40, []
+
+    def offline(side):
+        for k in range(n):
+            with side():
+                r = eng.infer(short[k % 4], np.array([206]))
+            bad.append(not all(np.array_equal(x, y)
+                               for x, y in zip(r, ref_s[k % 4])))
+
+    def ticks(side):
+        for _ in range(n):
+            with side(), DEVICE_LOCK.shared():
+                b._tick(*full)
+
+    def wall(fns, side):
+        ths = [threading.Thread(target=f, args=(side,)) for f in fns]
+        t0 = time.perf_counter()
+        for t in ths:
+            t.start()
+        for t in ths:
+            t.join()
+        return (time.perf_counter() - t0) * 1e3
+    shared, alone = DEVICE_LOCK.shared, DEVICE_LOCK.exclusive
+    walls = {"offline": wall([offline], shared),
+             "stream": wall([ticks], shared)}
+    for k in ("shared", "serialised", "shared", "serialised"):
+        walls.setdefault(k, []).append(
+            wall([offline, ticks], shared if k == "shared" else alone))
+    ok = len(bad) == 5 * n and not any(bad)
+    log(f"stream mixed load: {n} offline 1x206 requests on one thread and "
+        f"{n} full {b.slots}-slot ticks on another; wall ms (host clock): "
+        f"offline alone {walls['offline']:.1f}, ticks alone "
+        f"{walls['stream']:.1f}, both with shared device sections "
+        f"{[round(w, 1) for w in walls['shared']]}, both with every call "
+        f"holding DEVICE_LOCK alone "
+        f"{[round(w, 1) for w in walls['serialised']]}; offline results "
+        f"equal to serial: {len(bad) - sum(bad)} of {len(bad)}; {smi} "
+        f"{'OK' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("FAIL stream: offline results differ beside "
+                         "stream ticks")
+
+
+def phase_stream(torch, state, smi):
+    """Phase "stream": fp32, bf16 (K1) and int4 (K6) streams of the
+    flagship, 8 slots, chunk 16, left 2 (stream_mode), the loopback
+    server and the threaded engine (phase_stream_serve), K1 and K6 alone
+    at 16 and 128 tokens. Returns each mode's launches of its kernel on
+    the phase's main path (the captures), under their report names."""
+    import copy
+    from m3asr_tpu_torch.runtime.engine import Engine, EngineConfig
+
+    cfg = state["cfg"]
+    cfg_c = copy.deepcopy(cfg)
+    cfg_c.encoder_conf.causal = True
+    cfg_c.encoder_conf.embed_conf.causal = True
+    trees = {"float": state["params"], **state.pop("qparams")}
+    rng = np.random.default_rng(8)
+    feats = [rng.standard_normal((T, cfg.input_dim)).astype(np.float32)
+             for T in STREAM_FRAMES]
+    reset_counts()                        # the phase's run starts here
+    t0 = time.perf_counter()
+    launches = {}
+    for label, settings, tree, kname, impl in STREAM_MODES:
+        eng = Engine(cfg, trees[tree], EngineConfig(**settings),
+                     device="cuda")
+        launches[label] = stream_mode(torch, label, eng, cfg, cfg_c, feats,
+                                      kname, impl, smi)
+        eng = None
+        torch.cuda.empty_cache()
+    launches["bfloat16"] += phase_stream_serve(torch, cfg, trees["float"],
+                                               smi)
+    torch.cuda.empty_cache()
+    for key, err in time_stream_kernels(torch, smi).items():
+        errs = state.setdefault(
+            "max_err" if isinstance(key, str) else "max_err_q", {})
+        errs[key] = max(errs.get(key, 0.0), err)
+    log(f"stream: phase took {time.perf_counter() - t0:.1f} s; launches on "
+        f"its main path (captures) {launches}")
+    if not all(launches.values()):
+        raise SystemExit("FAIL stream: a kernel of the path never launched")
+    return launches
 
 
 TRAIN_BATCH = (4, 1000)
@@ -2678,7 +3456,7 @@ def phase_times(torch, state, smi):
             "name": f"moe_runs_f[{dname}]", "route": "cuda",
             "source": "m3asr_tpu_torch/csrc/moe_runs.cu",
             "replaces": "m3asr_tpu/ops/pallas_moe_runs.py:350",
-            "launches": launches[dname],
+            "launches": launches[dname] + state["launches_stream"][dname],
             "max_abs_err": state["max_err"][dname],
             "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
@@ -2694,7 +3472,9 @@ def phase_times(torch, state, smi):
             "replaces": "m3asr_tpu/ops/pallas_moe_q4.py:320"
                         if kname == "K6"
                         else "m3asr_tpu/ops/pallas_moe_runs.py:350",
-            "launches": state["launches_q"][mode][kname],
+            "launches": state["launches_q"][mode][kname] + (
+                state["launches_stream"]["int4"]
+                if (kname, a8) == ("K6", False) else 0),
             "max_abs_err": state["max_err_q"][(kname, a8)],
             "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
@@ -2754,6 +3534,7 @@ def main():
     state["launches_stage"] = phase_serve_stages(torch, state, smi)
     served = phase_serve_flash(torch, state, smi)
     phase_serve_graphs(torch, state, smi)
+    state["launches_stream"] = phase_stream(torch, state, smi)
     trained = phase_train(torch, state, smi)
     # K2: serving's forwards and the training steps'; K3: the steps'
     state["launches_flash"] = {}

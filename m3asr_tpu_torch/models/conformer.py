@@ -15,6 +15,7 @@ import torch
 from m3asr_tpu_torch.config import EncoderConfig
 from m3asr_tpu_torch.models.layers import conformer_block
 from m3asr_tpu_torch.ops import positional
+from m3asr_tpu_torch.ops.masking import subsequent_chunk_mask
 from m3asr_tpu_torch.ops.common import layer_norm, linear
 from m3asr_tpu_torch.ops.subsampling import conv2d_subsampling4
 
@@ -77,6 +78,16 @@ def run_blocks(stacked_blocks, cfg: EncoderConfig, x: torch.Tensor,
         x = conformer_block(layer_view(stacked_blocks, i), x, lengths,
                             pos_emb, mask=mask, attn_impl=attn_impl, **kw)
     return x
+
+
+def chunk_attention_mask(T: int, chunk_size: int, num_left_chunks: int = -1,
+                         device=None) -> torch.Tensor:
+    """Static-chunk attend-mask (1, 1, T, T) of a full-utterance forward
+    that sees what a stream of ``chunk_size`` output frames and
+    ``num_left_chunks`` cached chunks sees: the offline oracle of
+    ``models/streaming.py``."""
+    return subsequent_chunk_mask(T, chunk_size, num_left_chunks,
+                                 device)[None, None]
 
 
 def forward(params, cfg: EncoderConfig, feat: torch.Tensor,

@@ -56,6 +56,7 @@ import dataclasses
 import json
 import logging
 import os
+import threading
 from typing import Dict, Optional, Tuple
 
 import numpy as np
@@ -76,6 +77,8 @@ from m3asr_tpu_torch.ops.quant import (pack_int4, quantize_dense_params,
                                        quantize_moe_params)
 from m3asr_tpu_torch.runtime.buckets import (BucketSpec, DEFAULT_BATCHES,
                                              DEFAULT_LENGTHS)
+from m3asr_tpu_torch.runtime.graphs import (  # noqa: F401 (re-exported)
+    DEVICE_LOCK, GRAPH_WARMUP_RUNS, GraphProgram, HostStaging, copy_to_host)
 
 log = logging.getLogger("m3asr_tpu_torch")
 
@@ -233,8 +236,7 @@ class EngineConfig:
         if self.fuse_qkv and self.attn_impl == "flash":
             raise NotImplementedError(
                 "fuse_qkv with attn_impl='flash': the flash kernels read "
-                "the separate q/k/v weights, as the JAX engine's do "
-                "(ROADMAP Queue 1 item 7)")
+                "the separate q/k/v weights, as the JAX engine's do")
         if self.decode_output not in DECODE_OUTPUTS:
             raise ValueError(f"unknown decode_output {self.decode_output!r}")
         moe_auto_impl(1, self.moe_impl, _QUANT_BITS.get(self.dtype),
@@ -281,74 +283,16 @@ def _unflatten(flat: Dict[str, np.ndarray]) -> Dict:
     return unflatten_tree(out)
 
 
-# eager forwards a bucket runs, on a side stream, before its capture: they
-# build the kernels' libraries and warm cuBLAS and cuDNN up
-GRAPH_WARMUP_RUNS = 2
-
-
-def _align(n: int) -> int:
-    return (n + 63) // 64 * 64
-
-
-class HostStaging:
-    """An engine's host buffers for the copies to and from its device:
-    pinned on ``cuda``, so that the copies run asynchronously. Every
-    request reuses them (its copies end before it returns); they grow to
-    the largest request and never shrink."""
-
-    def __init__(self, pin: bool):
-        self.pin, self.bufs = pin, {}
-
-    def views(self, name: str, specs):
-        """Tensors of the given (shape, dtype) specs, carved from buffer
-        ``name``."""
-        sizes = [int(np.prod(shape)) * dt.itemsize for shape, dt in specs]
-        total = sum(map(_align, sizes))
-        buf = self.bufs.get(name)
-        if buf is None or buf.numel() < total:
-            buf = torch.empty(max(1, total), dtype=torch.uint8,
-                              pin_memory=self.pin)
-            self.bufs[name] = buf
-        out, off = [], 0
-        for (shape, dt), n in zip(specs, sizes):
-            out.append(buf[off:off + n].view(dt).view(shape))
-            off += _align(n)
-        return out
-
-
-class BucketProgram:
-    """One (batch, length, out_mode) bucket's forward behind one call
-    interface: static inputs ``feat`` (the engine dtype) and ``feat_len``
-    (int32) on the engine's device, and :meth:`run`, which returns the
-    output tuple. With a graph pool (``cuda``) the program runs its eager
-    forward :data:`GRAPH_WARMUP_RUNS` times on a side stream and captures
-    it into a CUDA graph; :meth:`run` then replays the graph and returns
-    the same static output tensors each time, which stay valid until the
-    next replay of any program sharing the pool. Without one, :meth:`run`
-    calls the eager forward. A failed capture raises."""
+class BucketProgram(GraphProgram):
+    """One (batch, length, out_mode) bucket's forward as a
+    :class:`GraphProgram` of the static inputs ``feat`` (the engine
+    dtype) and ``feat_len`` (int32) on the engine's device; :meth:`run`
+    returns the output tuple."""
 
     def __init__(self, fn, feat: torch.Tensor, feat_len: torch.Tensor,
                  graph_pool=None):
-        self.fn, self.feat, self.feat_len = fn, feat, feat_len
-        self.graph = self.outputs = None
-        if graph_pool is not None:
-            dev = feat.device
-            side = torch.cuda.Stream(dev)
-            side.wait_stream(torch.cuda.current_stream(dev))
-            with torch.cuda.stream(side):
-                for _ in range(GRAPH_WARMUP_RUNS):
-                    fn(feat, feat_len)
-            torch.cuda.current_stream(dev).wait_stream(side)
-            graph = torch.cuda.CUDAGraph()
-            with torch.cuda.graph(graph, pool=graph_pool):
-                outputs = fn(feat, feat_len)
-            self.graph, self.outputs = graph, outputs
-
-    def run(self):
-        if self.graph is None:
-            return self.fn(self.feat, self.feat_len)
-        self.graph.replay()
-        return self.outputs
+        self.feat, self.feat_len = feat, feat_len
+        super().__init__(fn, (feat, feat_len), graph_pool)
 
 
 class Engine:
@@ -364,7 +308,14 @@ class Engine:
     The bucket programs read ``params`` and ``neg_log_prior`` as they
     were when they were built (a graph at fixed device addresses): both
     are frozen once the first program exists, and setting either then
-    raises. Do not write into their tensors either."""
+    raises. Do not write into their tensors either.
+
+    Threads may share an engine: ``get_fn``, ``infer`` and ``infer_long``
+    (and ``warmup`` through them) hold the engine's re-entrant lock, so
+    one call at a time uses its staging buffers, static inputs and graph
+    pool. A bucket's static inputs and capture also hold
+    :data:`~m3asr_tpu_torch.runtime.graphs.DEVICE_LOCK` exclusively, and
+    the device section of ``infer`` holds it shared."""
 
     def __init__(self, model_cfg: ModelConfig, params,
                  engine_cfg: Optional[EngineConfig] = None,
@@ -372,6 +323,7 @@ class Engine:
                  cuda_graphs: bool = True):
         self._programs = {}
         self._graph_pool = None
+        self._lock = threading.RLock()
         self.device = resolve_device(device)
         self.cuda_graphs = cuda_graphs
         self._staging = HostStaging(pin=self.device.type == "cuda")
@@ -491,6 +443,10 @@ class Engine:
         cuda_graphs, for a stage outside HOST_SYNC_STAGES) that captures
         its CUDA graph, and a failed capture raises; else the program
         runs the eager forward behind the same interface."""
+        with self._lock:
+            return self._get_fn(batch, length, out_mode)
+
+    def _get_fn(self, batch: int, length: int, out_mode) -> BucketProgram:
         mode = out_mode or self.cfg.decode_output
         graph = (self.device.type == "cuda" and self.cuda_graphs
                  and self.moe_impl_for(batch, length) not in HOST_SYNC_STAGES)
@@ -501,14 +457,15 @@ class Engine:
             pool = None
             if graph:
                 # One memory pool for all of the engine's graphs: replays
-                # run one at a time and infer copies each one's outputs
-                # out before the next, so no graph's intermediates are
-                # live while another runs, and every graph's static
-                # outputs stay allocated, so no capture reuses them.
+                # run one at a time (the engine's lock) and infer copies
+                # each one's outputs out before the next, so no graph's
+                # intermediates are live while another runs, and every
+                # graph's static outputs stay allocated, so no capture
+                # reuses them.
                 if self._graph_pool is None:
                     self._graph_pool = torch.cuda.graph_pool_handle()
                 pool = self._graph_pool
-            with torch.inference_mode():
+            with DEVICE_LOCK.exclusive(), torch.inference_mode():
                 # static inputs, outside the graphs' pool
                 feat = torch.zeros((batch, length, self.model_cfg.input_dim),
                                    dtype=self.dtype, device=self.device)
@@ -523,12 +480,14 @@ class Engine:
         this captures their graphs. ``execute`` also serves one request of
         zeros on the smallest bucket."""
         items = list(buckets or self.buckets.all_buckets())
-        for b, t in items:
-            self.get_fn(b, t)
-        if execute and items:
-            b, t = min(items)
-            self.infer(np.zeros((b, t, self.model_cfg.input_dim), np.float32),
-                       np.full((b,), t, np.int32))
+        with self._lock:
+            for b, t in items:
+                self.get_fn(b, t)
+            if execute and items:
+                b, t = min(items)
+                self.infer(np.zeros((b, t, self.model_cfg.input_dim),
+                                    np.float32),
+                           np.full((b,), t, np.int32))
 
     # ------------------------------------------------------------------
     # inference
@@ -551,13 +510,14 @@ class Engine:
         B, T = feat.shape[:2]
         bb, bt = self.buckets.pick(B, T)
         mode = out_mode or self.cfg.decode_output
-        prog = self.get_fn(bb, bt, out_mode)
         sub = SUBSAMPLED_LENGTH[self.model_cfg.encoder_conf.input_layer]
         out_len = np.asarray(sub(feat_len), np.int32)
         max_out = int(out_len.max()) if B else 0
-        with torch.inference_mode():
-            self._stage_in(prog, feat, feat_len)
-            got = self._copy_back(prog.run(), mode, B, max_out)
+        with self._lock:
+            prog = self.get_fn(bb, bt, out_mode)
+            with DEVICE_LOCK.shared(), torch.inference_mode():
+                self._stage_in(prog, feat, feat_len)
+                got = self._copy_back(prog.run(), mode, B, max_out)
         return (got[0], out_len) + tuple(got[1:])
 
     def _stage_in(self, prog: BucketProgram, feat: np.ndarray,
@@ -594,14 +554,7 @@ class Engine:
             else:
                 t = t[:B, :max_out]
             srcs.append(t)
-        hosts = self._staging.views(
-            "out", [(tuple(t.shape), t.dtype) for t in srcs])
-        for h, t in zip(hosts, srcs):
-            h.copy_(t, non_blocking=True)
-        if self.device.type == "cuda":
-            torch.cuda.current_stream(self.device).synchronize()
-        return [(h.float() if h.dtype == torch.bfloat16 else h.clone())
-                .numpy() for h in hosts]
+        return copy_to_host(self._staging, "out", srcs, self.device)
 
     def infer_long(self, feat: np.ndarray, feat_len: Optional[int] = None,
                    overlap: Optional[int] = None):
@@ -616,6 +569,10 @@ class Engine:
         prune) and finishes one host prefix beam search over the
         stitched candidates, returning (ids (1, beam, T'), out_len,
         hyp_lens, scores) (the JAX engine's infer_long)."""
+        with self._lock:
+            return self._infer_long(feat, feat_len, overlap)
+
+    def _infer_long(self, feat, feat_len, overlap):
         feat = np.asarray(feat)
         if feat.ndim == 3:
             if feat.shape[0] != 1:

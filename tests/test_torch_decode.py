@@ -1,13 +1,19 @@
 """CTC decoding in the PyTorch port against the JAX package, on the CPU:
 the batched prefix beam search in device tensors
-(``decode/device.py``) against ``m3asr_tpu.decode.device``, and the host
+(``decode/device.py``) against ``m3asr_tpu.decode.device``; the host
 functions for the engine's on-device outputs (``decode/ctc.py``: the
 sparse prefix beam search, greedy search from ids, emission times,
-confidences) against ``m3asr_tpu.decode.ctc``.
+confidences) against ``m3asr_tpu.decode.ctc``; the extended searches
+(``ContextTrie``, ``PrefixBeamState``, ``ctc_prefix_beam_search[_sparse]
+_ext``) with and without hotwords and the n-gram LM
+(``decode/lm.py``), and the native C++ library the port builds for
+itself (``decode/native.py``) against the JAX package's.
 
-Log-probs are log-softmaxed from seeded numpy draws. Tokens, lengths and
-hypotheses must be equal; scores within 1e-5 (float32 sums in another
-order)."""
+Log-probs are log-softmaxed from seeded numpy draws. Tokens, lengths,
+emission times and hypotheses must be equal, n-best lists entry for
+entry; scores within 1e-5 (float32 sums in another order; the native
+library's float32 scores within 1e-4, the JAX binding's own test's
+tolerance)."""
 
 import numpy as np
 import pytest
@@ -15,9 +21,14 @@ import torch
 
 from m3asr_tpu.decode import ctc as j_ctc
 from m3asr_tpu.decode import device as j_device
+from m3asr_tpu.decode import lm as j_lm
+from m3asr_tpu.decode import native as j_native
 
 from m3asr_tpu_torch.decode import ctc as t_ctc
 from m3asr_tpu_torch.decode import device as t_device
+from m3asr_tpu_torch.decode import lm as t_lm
+from m3asr_tpu_torch.decode import native as t_native
+from m3asr_tpu_torch.utils import native_build
 
 LENS = (40, 17, 1)          # mixed lengths of the (B=3, T=40) batch
 
@@ -153,3 +164,176 @@ def test_token_confidence_dense_and_sparse_match_jax(seed):
                                                    times)
     assert sparse[0] == 0.0
     np.testing.assert_allclose(sparse[1:-1], got[1:], rtol=1e-6)
+
+
+PHRASES = [[1, 2], [3, 4, 5], [1, 6, 2], [7]]
+
+# a bigram ARPA over unit ids 1..7, with <unk> and a symbol-table twin
+ARPA = """\\data\\
+ngram 1=10
+ngram 2=6
+
+\\1-grams:
+-0.9 <s> -0.2
+-1.1 1 -0.3
+-1.2 2 -0.25
+-1.0 3 -0.1
+-1.3 4
+-0.8 5 -0.4
+-1.6 6
+-1.4 7 -0.2
+-2.0 <unk>
+-0.7 </s>
+
+\\2-grams:
+-0.3 <s> 1
+-0.2 1 2
+-0.5 3 4
+-0.4 2 </s>
+-0.6 5 5
+-0.1 7 1
+
+\\end\\
+"""
+
+
+@pytest.fixture
+def lms(tmp_path):
+    """(JAX NgramLM, port NgramLM) of ARPA."""
+    path = tmp_path / "lm.arpa"
+    path.write_text(ARPA)
+    return j_lm.NgramLM(str(path)), t_lm.NgramLM(str(path))
+
+
+def test_context_trie_matches_jax():
+    j, t = j_ctc.ContextTrie(PHRASES, 2.5), t_ctc.ContextTrie(PHRASES, 2.5)
+    assert (t.children, t.depth, t.is_end, t.refund) == \
+        (j.children, j.depth, j.is_end, j.refund)
+    rng = np.random.default_rng(3)
+    sj = st = 0
+    for tok in rng.integers(0, 9, 200):
+        (sj, dj), (st, dt) = j.advance(sj, int(tok)), t.advance(st, int(tok))
+        assert (st, dt) == (sj, dj)
+        assert t.finalize(st) == j.finalize(sj)
+
+
+def test_ngram_lm_matches_jax(lms, tmp_path):
+    j, t = lms
+    assert (t.order, t.logp, t.backoff) == (j.order, j.logp, j.backoff)
+    rng = np.random.default_rng(4)
+    sj, st = j.start(), t.start()
+    assert sj == st
+    for tok in rng.integers(1, 10, 100):
+        (sj, lj), (st, lt) = j.score(sj, int(tok)), t.score(st, int(tok))
+        assert (st, lt) == (sj, lj)
+        assert t.score_eos(st) == j.score_eos(sj)
+    for a, b in zip(t.to_arrays(), j.to_arrays()):
+        np.testing.assert_array_equal(a, b)
+    # ARPA words through a symbol table
+    sym = tmp_path / "units.txt"
+    sym.write_text("a 1\nb 2\n")
+    table = t_lm.read_symbol_table(str(sym))
+    assert table == j_lm.read_symbol_table(str(sym)) == {"a": 1, "b": 2}
+    words = tmp_path / "words.arpa"
+    words.write_text(ARPA.replace(" 1 ", " a ").replace(" 2\n", " b\n"))
+    assert t_lm.NgramLM(str(words), table).logp == \
+        j_lm.NgramLM(str(words), table).logp
+
+
+def assert_hyps_equal(got, ref, atol=1e-5):
+    """Two n-best lists: the same hypotheses, emission times and order;
+    scores within atol."""
+    assert [(h.tokens, h.times) for h in got] == \
+        [(h.tokens, h.times) for h in ref]
+    np.testing.assert_allclose([h.score for h in got],
+                               [h.score for h in ref], rtol=0, atol=atol)
+
+
+@pytest.mark.parametrize("lm_on", [False, True])
+@pytest.mark.parametrize("ctx", [False, True])
+@pytest.mark.parametrize("form", ["dense", "sparse"])
+def test_ext_searches_and_beam_state_match_jax(form, ctx, lm_on, lms):
+    """ctc_prefix_beam_search[_sparse]_ext and PrefixBeamState advanced
+    in uneven chunks, with and without hotwords and the LM: the JAX
+    package's n-best lists, entry for entry."""
+    jlm, tlm = lms if lm_on else (None, None)
+    tctx = t_ctc.ContextTrie(PHRASES, 2.0) if ctx else None
+    jctx = j_ctc.ContextTrie(PHRASES, 2.0) if ctx else None
+    lp = log_probs(70 + 2 * ctx + lm_on, B=1, T=36, V=9, scale=1.5)[0]
+    beam = 4
+    if form == "dense":
+        got = t_ctc.ctc_prefix_beam_search_ext(lp, 36, beam, 0, tctx, tlm,
+                                               0.7)
+        ref = j_ctc.ctc_prefix_beam_search_ext(lp, 36, beam, 0, jctx, jlm,
+                                               0.7)
+    else:
+        idx = np.argsort(-lp, axis=-1, kind="stable")[:, :6].astype(np.int32)
+        vals = np.take_along_axis(lp, idx, -1)
+        got = t_ctc.ctc_prefix_beam_search_sparse_ext(vals, idx, 36, beam, 0,
+                                                      tctx, tlm, 0.7)
+        ref = j_ctc.ctc_prefix_beam_search_sparse_ext(vals, idx, 36, beam, 0,
+                                                      jctx, jlm, 0.7)
+    assert_hyps_equal(got, ref)
+    state = t_ctc.PrefixBeamState(beam, 0, tctx, tlm, 0.7)
+    jstate = j_ctc.PrefixBeamState(beam, 0, jctx, jlm, 0.7)
+    for a, b in ((0, 5), (5, 6), (6, 20), (20, 36)):
+        if form == "dense":
+            state.advance(lp[a:b])
+            jstate.advance(lp[a:b])
+        else:
+            state.advance_sparse(vals[a:b], idx[a:b])
+            jstate.advance_sparse(vals[a:b], idx[a:b])
+        assert_hyps_equal(state.nbest(), jstate.nbest())
+    assert_hyps_equal(state.nbest(), got)
+
+
+def test_native_library_builds_into_the_port():
+    """The port's own library, built from native/ctc_decoder by g++ into
+    m3asr_tpu_torch/_build/ under a name keyed by source and flags."""
+    assert t_native.available(), t_native.load_error()
+    path = native_build.lib_path(t_native.SOURCE)
+    assert path.startswith(native_build.BUILD_DIR)
+    assert native_build.ensure_built(t_native.SOURCE) == path
+
+
+@pytest.mark.parametrize("lm_on", [False, True])
+def test_native_searches_match_jax(lm_on, lms):
+    """The port's native greedy, prefix beam, extended beam (dense and
+    sparse, hotwords, LM) and incremental beam state against the JAX
+    package's native binding."""
+    assert t_native.available() and j_native.available()
+    jlm, tlm = lms if lm_on else (None, None)
+    tctx, jctx = (t_ctc.ContextTrie(PHRASES, 2.0),
+                  j_ctc.ContextTrie(PHRASES, 2.0))
+    lp = log_probs(80 + lm_on, B=2, T=30, V=9, scale=1.5)
+    lens = np.array([30, 21], np.int32)
+    assert t_native.ctc_greedy_search(lp, lens) == \
+        j_native.ctc_greedy_search(lp, lens)
+    got = t_native.ctc_prefix_beam_search(lp[0], 30, 4)
+    ref = j_native.ctc_prefix_beam_search(lp[0], 30, 4)
+    assert [h for h, _ in got] == [h for h, _ in ref]
+    np.testing.assert_allclose([s for _, s in got], [s for _, s in ref],
+                               rtol=0, atol=1e-6)
+    assert_hyps_equal(
+        t_native.ctc_prefix_beam_search_ext(lp[0], 30, 4, context=tctx,
+                                            lm=tlm),
+        j_ctc.ctc_prefix_beam_search_ext(lp[0], 30, 4, context=jctx, lm=jlm),
+        atol=1e-4)
+    idx = np.argsort(-lp[1], axis=-1, kind="stable")[:, :5].astype(np.int32)
+    vals = np.take_along_axis(lp[1], idx, -1)
+    assert_hyps_equal(
+        t_native.ctc_prefix_beam_search_sparse_ext(vals, idx, 21, 4,
+                                                   context=tctx, lm=tlm),
+        j_native.ctc_prefix_beam_search_sparse_ext(vals, idx, 21, 4,
+                                                   context=jctx, lm=jlm))
+    state = t_native.make_beam_state(4, context=tctx, lm=tlm)
+    assert isinstance(state, t_native.NativeBeamState)
+    jstate = j_native.make_beam_state(4, context=jctx, lm=jlm)
+    for a, b in ((0, 7), (7, 30)):
+        state.advance(lp[0, a:b])
+        jstate.advance(lp[0, a:b])
+    assert_hyps_equal(state.nbest(), jstate.nbest())
+    state.reset()
+    state.advance_sparse(vals[:21], idx[:21])
+    assert_hyps_equal(state.nbest(), j_ctc.ctc_prefix_beam_search_sparse_ext(
+        vals, idx, 21, 4, context=jctx, lm=jlm), atol=1e-4)
