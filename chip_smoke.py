@@ -175,7 +175,32 @@ result line:
    Printed: the median tick and a stream's chunk latency, graph and
    eager; a tick's device time and busy share; each graph's pool; K1
    and K6 alone at 16 and 128 tokens.
-10. train: the flagship's CTC training step (make_train_step, Adam with
+10. recognize: the port's recognizer (m3asr_tpu_torch.recognize.main, in
+   process) on the flagship read from configs/3m_asr_18l32e.yaml with
+   three random AED decoders at its width (6 blocks, 8 heads, 2048
+   units; aed.init from a seeded CUDA generator), from a bf16 engine dir
+   saved by the port's build path with decoders.npz (checkpoint.
+   save_decoders). Inputs written by the port's ArkWriter: a Kaldi ark
+   of 8 utterances of 206-7000 frames (the 7000 past the top bucket, so
+   infer_long), an int-vector label ark, CMVN stats and a wav scp of two
+   seeded 16 kHz signals. The native decoder and ark reader must build
+   first (timed apart). Modes: -d greedy, -d beam -b 10, -d rescore
+   --hier_rescore, -d attention (the 7 utterances within the top
+   bucket), --raw_wav -d greedy. Each mode's engine must capture every
+   bucket it uses on K1 (18 launches a forward, 3 forwards a capture, no
+   other kernel, no replay launch), and its transcripts must equal the
+   port's functions called directly on the same engine and inputs
+   (Engine.infer / infer_long, the native searches, then
+   hier_attention_rescoring or attention_search_decode). The decoders
+   on the card against the CPU in float32: score_hyps of each decoder on
+   the 640-frame utterance's taps and n-best within allclose(1e-5,
+   1e-3), the hier best hypothesis the same unless its top two totals
+   are within 1e-3; attention_search_decode's best hypothesis equal on
+   the 206- and 640-frame utterances. Printed per mode: wall seconds,
+   RTF, the split into loader, engine, host search, AED (ms a decode
+   step) and memory copies; the AED's device time under torch.profiler
+   for one hier rescoring and one attention step; peak memory.
+11. train: the flagship's CTC training step (make_train_step, Adam with
    warmup_noam, embed CTC weight 0.3 so that every attention layer
    trains) on 4 x 1000 frames with seeded targets. One fp32 gradient
    with attn_impl="flash" and one with "xla", routing pinned: losses
@@ -187,7 +212,7 @@ result line:
    TF32 is switched on before each fp32 step is built, and
    make_train_step must switch it off again (cuBLAS and cuDNN); cuDNN's
    is switched on again before the steps, which must switch it off.
-11. times: each kernel per call (CUDA events over many calls after
+12. times: each kernel per call (CUDA events over many calls after
    warm-up, layers rotated so weights come from device memory) and its
    launches alone, at the main path's token counts (K1 at 63, 511 and
    1020 with its column block and each launch's live blocks; K6 at 63
@@ -2014,6 +2039,50 @@ def stream_kernel_check(torch, got, ref, fp32, tol, label):
     return err
 
 
+def k1_at_shapes(torch, dtype, shapes, gen, smi, what):
+    """K1 at the main path's (B, T') shapes under the router's routing,
+    layers rotated: at each shape held against its plain version on the
+    same inputs at layers 0 and L-1 (stream_kernel_check), then the
+    wrapper call (CUDA events) and its device time (torch.profiler), the
+    plain version and the bound, logged as "time <what> ...". Returns
+    the worst max_abs_err and {(B, T'): row}."""
+    from m3asr_tpu_torch.ops import moe_runs
+    dname = str(dtype)[6:]
+    p = expert_weights(torch, dtype, gen, d=D, h=H)
+    worst, rows = 0.0, {}
+    for B, T in shapes:
+        n = B * T
+        x = torch.randn(B, T, D, generator=gen, device="cuda").to(dtype)
+        gate = routing(torch, "router", n, gen).reshape(B, T)
+        elt = x.element_size()
+        t_bytes = (n_active(torch, gate) * (2 * D * H + H + D) * elt
+                   + 2 * n * D * elt + n * 4) / HBM_BYTES_PER_S * 1e3
+        t_ops = 4 * n * D * H / PEAK_OPS_PER_S[dname] * 1e3
+        shape = f"n={n}" if B == 1 else f"{B}x{T}={n} tok"
+        for layer in (0, L - 1):
+            got = moe_runs.runs_kernel.launch(p, x, gate, layer)
+            torch.cuda.synchronize()
+            err = stream_kernel_check(
+                torch, got, moe_runs.moe_experts_runs_reference(
+                    p, x, gate, layer), dtype == torch.float32, 1e-2,
+                f"moe_runs_f {dname} (K1) {shape} router layer={layer}")
+            worst = max(worst, err)
+        ms = cuda_time_ms(torch, lambda i: moe_runs.runs_kernel.launch(
+            p, x, gate, i % L), 54)
+        dev = rotated_device_ms(torch, lambda i: (
+            moe_runs.runs_kernel.launch(p, x, gate, i % L)), 18)
+        plain = cuda_time_ms(
+            torch, lambda i: moe_runs.moe_experts_runs_reference(
+                p, x, gate, i % L), 18)
+        rows[(B, T)] = dict(ms=ms, device_ms=dev, plain_ms=plain,
+                            bound_ms=max(t_bytes, t_ops))
+        log(f"time {what} moe_runs_f[{dname}] (K1) {shape} router: call "
+            f"{ms:.4f} ms (device {dev:.4f} ms), plain {plain:.4f} ms, "
+            f"bound {max(t_bytes, t_ops):.4f} ms (bytes {t_bytes:.4f} / "
+            f"ops {t_ops:.4f}), library_ms none; {smi}")
+    return worst, rows
+
+
 def time_stream_kernels(torch, smi):
     """K1 (fp32, bf16) and K6 (int4, w4a8) at a stream chunk's and an
     8-slot tick's token counts (16, 128) under the router's routing,
@@ -2022,39 +2091,13 @@ def time_stream_kernels(torch, smi):
     events) and its device time (torch.profiler), the plain version and
     the bound. Returns the worst max_abs_err under the keys of
     phase_kernel (dtype name) and phase_kernel_quant (("K6", a8))."""
-    from m3asr_tpu_torch.ops import moe_q4, moe_runs
+    from m3asr_tpu_torch.ops import moe_q4
     gen = torch.Generator(device="cuda").manual_seed(11)
     worst = {}
     for dtype in (torch.float32, torch.bfloat16):
-        dname = str(dtype)[6:]
-        p = expert_weights(torch, dtype, gen, d=D, h=H)
-        for n in STREAM_TOKENS:
-            x = torch.randn(1, n, D, generator=gen, device="cuda").to(dtype)
-            gate = routing(torch, "router", n, gen)
-            elt = x.element_size()
-            t_bytes = (n_active(torch, gate) * (2 * D * H + H + D) * elt
-                       + 2 * n * D * elt + n * 4) / HBM_BYTES_PER_S * 1e3
-            t_ops = 4 * n * D * H / PEAK_OPS_PER_S[dname] * 1e3
-            for layer in (0, L - 1):
-                got = moe_runs.runs_kernel.launch(p, x, gate, layer)
-                torch.cuda.synchronize()
-                err = stream_kernel_check(
-                    torch, got, moe_runs.moe_experts_runs_reference(
-                        p, x, gate, layer), dtype == torch.float32, 1e-2,
-                    f"moe_runs_f {dname} (K1) n={n} router layer={layer}")
-                worst[dname] = max(worst.get(dname, 0.0), err)
-            ms = cuda_time_ms(torch, lambda i: moe_runs.runs_kernel.launch(
-                p, x, gate, i % L), 54)
-            dev = rotated_device_ms(torch, lambda i: (
-                moe_runs.runs_kernel.launch(p, x, gate, i % L)), 18)
-            plain = cuda_time_ms(
-                torch, lambda i: moe_runs.moe_experts_runs_reference(
-                    p, x, gate, i % L), 18)
-            log(f"time stream moe_runs_f[{dname}] (K1) n={n} router: call "
-                f"{ms:.4f} ms (device {dev:.4f} ms), plain {plain:.4f} ms, "
-                f"bound "
-                f"{max(t_bytes, t_ops):.4f} ms (bytes {t_bytes:.4f} / ops "
-                f"{t_ops:.4f}), library_ms none; {smi}")
+        worst[str(dtype)[6:]] = k1_at_shapes(
+            torch, dtype, [(1, n) for n in STREAM_TOKENS], gen, smi,
+            "stream")[0]
     n_layers = 6
     p = quant_experts(torch, 4, gen, n_layers, d=D, h=H)
     layers = [at_layer(p, i) for i in range(n_layers)]
@@ -2579,6 +2622,427 @@ def phase_stream(torch, state, smi):
         f"its main path (captures) {launches}")
     if not all(launches.values()):
         raise SystemExit("FAIL stream: a kernel of the path never launched")
+    return launches
+
+
+# phase "recognize": the port's recognizer (python -m
+# m3asr_tpu_torch.recognize) on the flagship and its three AED decoders,
+# from a bf16 engine dir written by the port's build path
+RECOGNIZE_FRAMES = (206, 480, 640, 1000, 1000, 1500, 2048, 7000)
+RECOGNIZE_BATCH = 4               # the recognizer's default --batch_size
+RECOGNIZE_BEAM = 10
+WAV_SECONDS = (3.2, 5.0)          # the --raw_wav scp's two signals
+DECODERS = ("decoder", "decoder_1", "decoder_2")
+AED_CPU_UTTS = (0, 2)             # the 206- and 640-frame utterances
+RESCORE_TIE = 1e-3                # hier totals this close count as a tie
+
+
+def write_int_vectors(path, rows):
+    """A binary Kaldi int-vector ark of {key: ids}."""
+    import struct
+    with open(path, "wb") as f:
+        for key, ids in rows.items():
+            f.write(key.encode() + b" \x00B\x04" + struct.pack("<i", len(ids)))
+            for x in ids:
+                f.write(b"\x04" + struct.pack("<i", int(x)))
+
+
+def recognize_inputs(work, cfg):
+    """The phase's inputs, written under ``work``: feats.ark (the 8
+    utterances), short.ark (those within the top bucket, for -d
+    attention), labels.ark, cmvn.txt (the features' own statistics) and
+    wav.scp (two seeded 16 kHz PCM16 signals). Returns the features."""
+    import wave
+    from m3asr_tpu_torch.io.kaldi_io import ArkWriter
+    rng = np.random.default_rng(21)
+    feats = [(f"utt{i}", rng.standard_normal((T, cfg.input_dim))
+              .astype(np.float32) * 2 + 1)
+             for i, T in enumerate(RECOGNIZE_FRAMES)]
+    with ArkWriter(os.path.join(work, "feats.ark")) as w:
+        for k, f in feats:
+            w.write(k, f)
+    with ArkWriter(os.path.join(work, "short.ark")) as w:
+        for k, f in feats:
+            if f.shape[0] <= 6144:
+                w.write(k, f)
+    write_int_vectors(os.path.join(work, "labels.ark"), {
+        k: rng.integers(1, cfg.output_dim - 1, f.shape[0] // 16)
+        for k, f in feats})
+    allf = np.concatenate([f for _, f in feats]).astype(np.float64)
+    with open(os.path.join(work, "cmvn.txt"), "w") as fh:
+        fh.write("[\n " + " ".join(map(repr, allf.sum(0).tolist()))
+                 + f" {allf.shape[0]}\n "
+                 + " ".join(map(repr, (allf ** 2).sum(0).tolist()))
+                 + " 0 ]\n")
+    with open(os.path.join(work, "wav.scp"), "w") as scp:
+        for i, secs in enumerate(WAV_SECONDS):
+            n = int(16000 * secs)
+            t = np.arange(n) / 16000.0
+            x = (5000 * np.sin(2 * np.pi * (220 + 180 * i) * t)
+                 * np.sin(2 * np.pi * 1.5 * t) + 800 * rng.standard_normal(n))
+            path = os.path.join(work, f"w{i}.wav")
+            with wave.open(path, "wb") as w:
+                w.setnchannels(1)
+                w.setsampwidth(2)
+                w.setframerate(16000)
+                w.writeframes(np.clip(x, -32768, 32767).astype(np.int16)
+                              .tobytes())
+            scp.write(f"wav{i} {path}\n")
+    return feats
+
+
+def run_recognize(torch, argv):
+    """recognize.main(argv) in process: its transcripts {key: ids}, its
+    stats, the engine it loaded (Engine.load recorded) and its wall
+    seconds with the load."""
+    import contextlib
+    import io
+    from m3asr_tpu_torch import recognize
+    from m3asr_tpu_torch.runtime.engine import Engine
+    loaded = []
+    orig = Engine.load.__func__
+
+    def load(cls, *a, **k):
+        loaded.append(orig(cls, *a, **k))
+        return loaded[-1]
+    Engine.load = classmethod(load)
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(out):
+            stats = recognize.main(argv)
+    finally:
+        Engine.load = classmethod(orig)
+    secs = time.perf_counter() - t0
+    hyps = {}
+    for line in out.getvalue().splitlines():
+        key, *toks = line.split()
+        hyps[key] = [int(t) for t in toks]
+    return hyps, stats, loaded[0], secs
+
+
+def loader_batches(feats, transform=None):
+    """The recognizer's batches, made directly: RECOGNIZE_BATCH
+    utterances in order, zero-padded to the longest."""
+    for s in range(0, len(feats), RECOGNIZE_BATCH):
+        chunk = [(k, transform(f) if transform else f)
+                 for k, f in feats[s:s + RECOGNIZE_BATCH]]
+        lens = np.array([f.shape[0] for _, f in chunk], np.int32)
+        data = np.zeros((len(chunk), int(lens.max()), chunk[0][1].shape[1]),
+                        np.float32)
+        for i, (_, f) in enumerate(chunk):
+            data[i, :f.shape[0]] = f
+        yield [k for k, _ in chunk], data, lens
+
+
+def engine_outputs(eng, data, lens):
+    """Engine.infer on a batch, or infer_long on each utterance of a batch
+    past the top bucket with the frame-aligned outputs zero-padded to the
+    batch's longest, as the engine pads them."""
+    if int(lens.max()) <= eng.buckets.lengths[-1]:
+        return eng.infer(data, lens)
+    rs = [eng.infer_long(data[i, :n], int(n)) for i, n in enumerate(lens)]
+    out_len = np.array([int(r[1][0]) for r in rs], np.int32)
+    width = int(out_len.max())
+
+    def pad(a):
+        a = np.asarray(a)[0]
+        return np.pad(a, [(0, width - a.shape[0])] + [(0, 0)] * (a.ndim - 1))
+    res = [np.stack([pad(r[0]) for r in rs]), out_len]
+    return tuple(res + [np.stack([pad(r[j]) for r in rs])
+                        for j in range(2, len(rs[0]))])
+
+
+def direct_hyps(torch, eng, decoders, cfg, mode, feats, transform):
+    """Each utterance's hypothesis from the port's functions called
+    directly: Engine.infer / infer_long, the native CTC searches, then
+    hier_attention_rescoring or attention_search_decode. Also returns,
+    per utterance, what phase 10's CPU checks take: (taps, out_len,
+    n-best) or (hidden, out_len)."""
+    from m3asr_tpu_torch.decode import native
+    from m3asr_tpu_torch.models import aed
+    dc = cfg.decoder_conf
+    hyps, memories = {}, {}
+    for keys, data, lens in loader_batches(feats, transform):
+        res = engine_outputs(eng, data, lens)
+        out, out_len = res[0], res[1]
+        if mode == "attention":
+            got = aed.attention_search_decode(
+                decoders["decoder"], dc, res[2], out_len,
+                beam_size=RECOGNIZE_BEAM, sos=cfg.sos, eos=cfg.eos)
+            for b, k in enumerate(keys):
+                hyps[k] = got[b]
+                memories[k] = (res[2][b:b + 1, :out_len[b]], out_len[b])
+            continue
+        for b, k in enumerate(keys):
+            n = int(out_len[b])
+            if mode == "greedy":
+                hyps[k] = native.ctc_greedy_search(out[b:b + 1], [n])[0]
+                continue
+            x = out[b].astype(np.float32)
+            m = x.max(-1, keepdims=True)
+            lp = x - m - np.log(np.exp(x - m).sum(-1, keepdims=True))
+            nbest = native.ctc_prefix_beam_search(lp, n, RECOGNIZE_BEAM)
+            if mode == "beam":
+                hyps[k] = list(nbest[0][0])
+                continue
+            taps = tuple(torch.from_numpy(h[b:b + 1]).cuda()
+                         for h in res[2:5])
+            hyps[k], _ = aed.hier_attention_rescoring(
+                decoders, dc, nbest, taps, n, sos=cfg.sos, eos=cfg.eos,
+                ignore_id=0, ctc_weight=0.5,
+                reverse_weight=cfg.reverse_weight)
+            memories[k] = (tuple(h[b:b + 1] for h in res[2:5]), n, nbest)
+    return hyps, memories
+
+
+def recognized_graphs(eng, counts, n_moe):
+    """Every bucket program of the recognizer's engine captured, on K1
+    (runs_f), and K1 launched exactly (GRAPH_WARMUP_RUNS + 1) x n_moe
+    times per capture, no other kernel: (ok, programs, want)."""
+    from m3asr_tpu_torch.runtime.engine import GRAPH_WARMUP_RUNS
+    progs = eng._programs
+    want = {"K1": (GRAPH_WARMUP_RUNS + 1) * n_moe * len(progs)}
+    ok = bool(progs) and counts == want and all(
+        p.graph is not None and eng.moe_impl_for(k[0], k[1]) == "runs_f"
+        for k, p in progs.items())
+    return ok, sorted((k[0], k[1], k[2]) for k in progs), want
+
+
+def aed_cpu_checks(torch, cfg, decoders, memories, mode, smi):
+    """The decoders on the card against the same calls on the CPU in
+    float32: rescore, score_hyps of every decoder on the 640-frame
+    utterance's taps and n-best within allclose(rtol 1e-5, atol 1e-3)
+    and the hier best hypothesis the same unless its top two totals are
+    within RESCORE_TIE; attention, the best hypothesis of
+    attention_search_decode equal on the 206- and 640-frame utterances.
+    Returns the largest |card - CPU| of the scores (0 for attention)."""
+    from m3asr_tpu_torch.checkpoint import to_torch
+    from m3asr_tpu_torch.models import aed
+    dc = cfg.decoder_conf
+    cpu = {n: to_torch(t, "cpu") for n, t in decoders.items()}
+    worst = 0.0
+    if mode == "rescore":
+        taps, n, nbest = memories[f"utt{AED_CPU_UTTS[1]}"]
+        hyps = [list(h) for h, _ in nbest]
+        ok = True
+        totals = []
+        for dev, decs in (("cuda", decoders), ("cpu", cpu)):
+            mem = [torch.from_numpy(np.ascontiguousarray(h)).to(dev)
+                   for h in taps]
+            per = {name: aed.score_hyps(decs[name], dc,
+                                        mem[aed.HIER_MEMORY[name]], [n],
+                                        hyps, cfg.sos, cfg.eos, 0)
+                   for name in DECODERS}
+            totals.append((per, np.mean([per[k] for k in DECODERS], 0)
+                           + 0.5 * np.array([s for _, s in nbest])))
+        for name in DECODERS:
+            a, b = totals[0][0][name], totals[1][0][name]
+            worst = max(worst, float(np.abs(a - b).max()))
+            ok &= bool(np.allclose(a, b, rtol=1e-5, atol=1e-3))
+        top = np.sort(totals[1][1])[::-1]
+        tied = len(top) > 1 and top[0] - top[1] < RESCORE_TIE
+        same = int(np.argmax(totals[0][1])) == int(np.argmax(totals[1][1]))
+        ok &= same or tied
+        log(f"recognize AED card vs CPU (float32), utt{AED_CPU_UTTS[1]}: "
+            f"score_hyps of {len(hyps)} hypotheses (up to "
+            f"{max(len(h) for h in hyps)} tokens) x 3 decoders max|diff| "
+            f"{worst:.3e} within allclose(1e-5, 1e-3); hier best the same "
+            f"{same} (top two totals {top[0]:.4f} / "
+            f"{top[1] if len(top) > 1 else float('nan'):.4f}, tie "
+            f"{tied}); {smi} {'OK' if ok else 'FAIL'}")
+    else:
+        ok = True
+        for u in AED_CPU_UTTS:
+            mem, n = memories[f"utt{u}"]
+            got = [aed.attention_search_decode(
+                decs["decoder"], dc, mem, [n], beam_size=RECOGNIZE_BEAM,
+                sos=cfg.sos, eos=cfg.eos)[0] for decs in (decoders, cpu)]
+            ok &= got[0] == got[1]
+            log(f"recognize AED card vs CPU (float32), utt{u} "
+                f"({RECOGNIZE_FRAMES[u]} frames, {n} memory frames): "
+                f"attention_search_decode best hypotheses equal "
+                f"{got[0] == got[1]} ({len(got[0])} tokens); {smi}")
+    if not ok:
+        raise SystemExit(f"FAIL recognize: the decoders on the card "
+                         f"disagree with the CPU ({mode})")
+    return worst
+
+
+def aed_device_times(torch, cfg, decoders, memories, smi):
+    """Device time under torch.profiler of one hier rescoring (the
+    640-frame utterance: 3 decoders x its n-best) and the mean of one
+    attention step (the 206-frame utterance's whole search over its
+    steps)."""
+    from m3asr_tpu_torch.models import aed
+    dc = cfg.decoder_conf
+    taps, n, nbest = memories["rescore"][f"utt{AED_CPU_UTTS[1]}"]
+    taps = [torch.from_numpy(np.ascontiguousarray(h)).cuda() for h in taps]
+    resc, ev = profiled_events(torch, lambda: aed.hier_attention_rescoring(
+        decoders, dc, nbest, taps, n, cfg.sos, cfg.eos, 0), 1, warmup=1)
+    mem, m = memories["attention"][f"utt{AED_CPU_UTTS[0]}"]
+    stats = {}
+    att, ev2 = profiled_events(torch, lambda: aed.attention_search_decode(
+        decoders["decoder"], dc, mem, [m], RECOGNIZE_BEAM, cfg.sos, cfg.eos,
+        stats=stats), 1, warmup=1)
+    steps = stats["steps"] // 2
+    log(f"recognize AED device time (torch.profiler): one hier rescoring "
+        f"of utt{AED_CPU_UTTS[1]} ({len(nbest)} hypotheses x 3 decoders) "
+        f"{resc:.3f} ms ({ev} events); attention on utt{AED_CPU_UTTS[0]} "
+        f"{att:.3f} ms over {steps} steps, {att / steps:.3f} ms a step "
+        f"({ev2 // steps} events a step); {smi}")
+    return resc, att / steps
+
+
+def phase_recognize(torch, state, smi):
+    """Phase "recognize": a bf16 engine dir of the flagship with three
+    random AED decoders at the config's width (aed.init, seeded CUDA
+    generator; decoders.npz by checkpoint.save_decoders, build's writer),
+    recognized through recognize.main with -d greedy, -d beam -b 10, -d
+    rescore --hier_rescore and -d attention (the utterances within the
+    top bucket), and --raw_wav -d greedy. Each mode's engine must run
+    every bucket as a captured graph on K1 (18 launches a forward, 3
+    forwards a capture, no other kernel), its transcripts must equal the
+    port's functions called directly on the same engine, and the
+    decoders on the card must agree with the CPU (aed_cpu_checks), and
+    K1 must agree with its plain version at every captured bucket's
+    token count (k1_at_shapes). Prints wall seconds, RTF and the time
+    split of each mode, the AED's device time, K1's times at those
+    counts and peak memory. Returns K1's launches (the captures)."""
+    import shutil
+    import tempfile
+    import yaml
+    from m3asr_tpu_torch import checkpoint as ckpt
+    from m3asr_tpu_torch.config import model_config_from_dict
+    from m3asr_tpu_torch.frontend import fbank
+    from m3asr_tpu_torch.frontend.features import FeatureTransform
+    from m3asr_tpu_torch.models import aed
+    from m3asr_tpu_torch.ops.masking import SUBSAMPLED_LENGTH
+    from m3asr_tpu_torch.runtime.engine import Engine, EngineConfig
+
+    from m3asr_tpu_torch.decode import native
+    from m3asr_tpu_torch.io import native_io
+
+    t_phase = time.perf_counter()
+    # the host libraries build at first use (g++): build them here, so
+    # that no mode's time holds a build and no mode falls back to Python
+    if not (native.available() and native_io.available()):
+        raise SystemExit(f"FAIL recognize: a native library did not build: "
+                         f"{native.load_error() or native_io.load_error()}")
+    log(f"recognize: native decoder and ark reader loaded in "
+        f"{time.perf_counter() - t_phase:.2f} s")
+    with open(os.path.join(HERE, "configs", "3m_asr_18l32e.yaml")) as f:
+        raw = yaml.safe_load(f)
+    cfg = model_config_from_dict(raw)
+    if cfg.encoder_conf != state["cfg"].encoder_conf:
+        raise SystemExit("FAIL recognize: the flagship YAML is not phase "
+                         "4's configuration")
+    n_moe = cfg.encoder_conf.num_blocks
+    d = cfg.encoder_conf.attention_dim
+    gen = torch.Generator(device="cuda").manual_seed(22)
+    decoders = {name: aed.init(cfg.decoder_conf, cfg.output_dim, d, gen)
+                for name in DECODERS}
+    work = tempfile.mkdtemp(prefix="m3asr_recognize_")
+    try:
+        t0 = time.perf_counter()
+        eng = Engine(cfg, state["params"], EngineConfig(dtype="bfloat16"),
+                     device="cuda")
+        eng.save(work, raw_yaml=raw)
+        ckpt.save_decoders(work, decoders)
+        eng = None
+        torch.cuda.empty_cache()
+        feats = recognize_inputs(work, cfg)
+        gib = [os.path.getsize(os.path.join(work, f)) / 2**30
+               for f in ("params.npz", ckpt.DECODERS_FILE)]
+        log(f"recognize: bf16 engine dir and decoders.npz ({gib[0]:.2f} + "
+            f"{gib[1]:.2f} GiB) and inputs written in "
+            f"{time.perf_counter() - t0:.1f} s")
+        transform = FeatureTransform(cfg.input_dim, order=0,
+                                     cmvn_file=os.path.join(work, "cmvn.txt"))
+        short = [kf for kf in feats if kf[1].shape[0] <= 6144]
+        common = ["-p", work, "--feat_dim", str(cfg.input_dim),
+                  "--batch_size", str(RECOGNIZE_BATCH)]
+        ark = ["-i", os.path.join(work, "feats.ark"), "-l",
+               os.path.join(work, "labels.ark"), "--cmvn",
+               os.path.join(work, "cmvn.txt")]
+        runs = (("greedy", ark + ["-d", "greedy"], feats),
+                ("beam", ark + ["-d", "beam", "-b", str(RECOGNIZE_BEAM)],
+                 feats),
+                ("rescore", ark + ["-d", "rescore", "--hier_rescore", "-b",
+                                   str(RECOGNIZE_BEAM)], feats),
+                ("attention", ["-i", os.path.join(work, "short.ark"), "-l",
+                               os.path.join(work, "labels.ark"), "--cmvn",
+                               os.path.join(work, "cmvn.txt"), "-d",
+                               "attention", "-b", str(RECOGNIZE_BEAM)],
+                 short),
+                ("raw_wav", ["-i", os.path.join(work, "wav.scp"),
+                             "--raw_wav", "-d", "greedy"], None))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        launches, memories, captured = 0, {}, set()
+        for label, argv, inputs in runs:
+            reset_counts()                    # this mode's run starts here
+            hyps, stats, eng, secs = run_recognize(torch, common + argv)
+            counts = kernel_counts()
+            ok, progs, want = recognized_graphs(eng, counts, n_moe)
+            launches += counts.get("K1", 0)
+            captured.update((bb, bt) for bb, bt, _ in progs)
+            mode = "greedy" if label == "raw_wav" else label
+            if inputs is None:
+                inputs = []
+                for line in open(os.path.join(work, "wav.scp")):
+                    key, path = line.split()
+                    wave_, sr = fbank.read_wav(path)
+                    inputs.append((key, fbank.fbank(
+                        wave_, num_mel_bins=cfg.input_dim, frame_length=25,
+                        frame_shift=10, sample_frequency=sr)))
+                tf = None
+            else:
+                tf = transform.transform
+            direct, mems = direct_hyps(torch, eng, decoders, cfg, mode,
+                                       inputs, tf)
+            memories[label] = mems
+            equal = direct == hyps and len(hyps) == len(inputs)
+            split = stats["split_s"]
+            steps = stats.get("aed_steps")
+            step_ms = (f", {split['aed'] / steps * 1e3:.3f} ms a decode "
+                       f"step ({steps} steps)" if steps else "")
+            log(f"recognize {label}: {stats['utts']} utts, "
+                f"{stats['frames']} frames, wall {stats['wall_s']} s "
+                f"after the load (RTF {stats['rtf']}; {secs:.2f} s with "
+                f"the engine load), CER {stats.get('cer')}; split s: "
+                f"loader {split['loader']:.4f}, engine {split['engine']:.4f}"
+                f", host search {split['search']:.4f}, AED "
+                f"{split['aed']:.4f}{step_ms}, memory copies to the card "
+                f"{split['memory_h2d']:.4f}; buckets {progs} captured, "
+                f"launches {counts} (want {want}); transcripts equal to "
+                f"direct calls {equal} ({sum(map(len, hyps.values()))} "
+                f"tokens); {smi} {'OK' if ok and equal else 'FAIL'}")
+            if not (ok and equal):
+                raise SystemExit(f"FAIL recognize {label}: graphs, launches "
+                                 "or transcripts off the direct path")
+            if label in ("rescore", "attention"):
+                aed_cpu_checks(torch, cfg, decoders, mems, label, smi)
+            eng = None
+            torch.cuda.empty_cache()
+        aed_device_times(torch, cfg, decoders, memories, smi)
+        # K1 at the token counts of every bucket the modes captured (B x
+        # T' tokens: 2044 at 4x2048, 1535 at infer_long's 1x6144
+        # window), against its plain version
+        sub = SUBSAMPLED_LENGTH[cfg.encoder_conf.input_layer]
+        shapes = sorted({(bb, int(sub(bt))) for bb, bt in captured},
+                        key=lambda s: s[0] * s[1])
+        err, _ = k1_at_shapes(torch, torch.bfloat16, shapes,
+                              torch.Generator(device="cuda").manual_seed(23),
+                              smi, "recognize")
+        errs = state["max_err"]
+        errs["bfloat16"] = max(errs.get("bfloat16", 0.0), err)
+        log(f"recognize: peak {torch.cuda.max_memory_allocated() / 2**30:.3f}"
+            f" GiB allocated / {torch.cuda.max_memory_reserved() / 2**30:.3f}"
+            f" GiB reserved; phase took {time.perf_counter() - t_phase:.1f} "
+            f"s; K1 launches on its main path (captures) {launches}; {smi}")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
     return launches
 
 
@@ -3456,7 +3920,8 @@ def phase_times(torch, state, smi):
             "name": f"moe_runs_f[{dname}]", "route": "cuda",
             "source": "m3asr_tpu_torch/csrc/moe_runs.cu",
             "replaces": "m3asr_tpu/ops/pallas_moe_runs.py:350",
-            "launches": launches[dname] + state["launches_stream"][dname],
+            "launches": launches[dname] + state["launches_stream"][dname]
+            + (state["launches_recognize"] if dname == "bfloat16" else 0),
             "max_abs_err": state["max_err"][dname],
             "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
@@ -3535,6 +4000,7 @@ def main():
     served = phase_serve_flash(torch, state, smi)
     phase_serve_graphs(torch, state, smi)
     state["launches_stream"] = phase_stream(torch, state, smi)
+    state["launches_recognize"] = phase_recognize(torch, state, smi)
     trained = phase_train(torch, state, smi)
     # K2: serving's forwards and the training steps'; K3: the steps'
     state["launches_flash"] = {}

@@ -1,7 +1,7 @@
 """Engine-building CLI of the PyTorch port.
 
     python -m m3asr_tpu_torch.build -c config.yaml -m ckpt.pt -o engine_dir
-        [-prior prior.txt] [-f | --int8 | --int4 [--act_quant]]
+        [-prior prior.txt] [-cmvn stats] [-f | --int8 | --int4 [--act_quant]]
         [--dense_quant] [--fuse_qkv] [--moe_impl NAME]
         [--attn_impl xla|flash] [--buckets 1x256,4x1024] [--strict]
         [--decode_output logits|log_softmax|argmax|topk|beam]
@@ -9,6 +9,11 @@
 
 Reads a reference YAML config and PyTorch checkpoint, converts the
 weights, and writes an engine directory in the JAX package's format.
+The AED decoders a checkpoint holds (``decoder``, ``decoder_1``,
+``decoder_2``) are converted too and written to ``decoders.npz`` in the
+JAX flat format, for attention rescoring and decoding
+(``python -m m3asr_tpu_torch.recognize``); their keys count as consumed
+under ``--strict``.
 ``--int8`` / ``--int4`` write a bf16 engine with quantized expert
 weights (int4 in 128-row scale groups); ``--act_quant`` adds per-token
 int8 activations in the experts (w8a8 / w4a8). ``--dense_quant`` stores
@@ -23,9 +28,10 @@ search of width K; see ``Engine.infer``). Before it saves, the engine
 warms every bucket up (``Engine.warmup``): on the card that builds the
 kernels and captures each bucket's CUDA graph, so a bucket that cannot
 be captured fails the build. ``--skip-warmup`` leaves that out.
-Without ``-m`` the weights are random (seed 0). Flags of the JAX
-``build.py`` that this slice does not run are accepted by name and raise
-NotImplementedError naming the ROADMAP item that brings them.
+Without ``-m`` the weights are random (seed 0). ``-cmvn`` is accepted
+and not read, as by the JAX ``build.py`` (the recognizer takes
+``--cmvn``). ``--export`` is accepted by name and raises
+NotImplementedError naming the ROADMAP item that brings it.
 """
 
 from __future__ import annotations
@@ -85,7 +91,8 @@ def parse_args(argv=None):
                    help="expert stage: auto, or an explicit name of the "
                    "JAX engine (pallas, tiled, ragged, capacity, ...)")
     p.add_argument("--export", action="store_true", help="not ported")
-    p.add_argument("-cmvn", "--cmvn_file", help="not ported yet")
+    p.add_argument("-cmvn", "--cmvn_file",
+                   help="accepted as the JAX build.py accepts it; not read")
     return p.parse_args(argv)
 
 
@@ -104,9 +111,6 @@ def main(argv=None):
             "--export is not ported: per-bucket torch.export programs need "
             "every kernel wrapper registered as a torch.library custom op "
             "with a fake implementation (ROADMAP Queue 1 item 5c)")
-    if args.cmvn_file:
-        raise NotImplementedError(
-            "-cmvn is not ported yet: ROADMAP Queue 1 item 10")
 
     import yaml
 
@@ -140,9 +144,12 @@ def main(argv=None):
     if args.load_path:
         sd = ckpt.load_torch_checkpoint(args.load_path)
         params = ckpt.convert_encoder(sd, model_cfg)
+        # the AED decoders ride along in the engine dir
+        decoders = ckpt.convert_decoders(sd, model_cfg)
         ckpt.check_consumed(sd, strict=args.strict)
         print(f"Loading model from {args.load_path}")
     else:
+        decoders = {}
         g = torch.Generator(device=device).manual_seed(0)
         params = moe_conformer.init(model_cfg.encoder_conf,
                                     model_cfg.input_dim,
@@ -158,6 +165,9 @@ def main(argv=None):
         print("warming up every bucket...")
         engine.warmup()
     engine.save(args.output, raw_yaml=raw)
+    if decoders:
+        ckpt.save_decoders(args.output, decoders)
+        print(f"decoders saved: {sorted(decoders)}")
     print(f"engine written to {args.output}")
     for b, t in engine.buckets.all_buckets():
         print(f"  feat({b}, {t}, {model_cfg.input_dim})  feat_len({b},)")

@@ -1,5 +1,5 @@
 """Checkpoint ingestion: reference PyTorch state dicts -> the port's
-parameter tree (port of the MoE-encoder converters of
+parameter tree (port of the MoE-encoder and AED-decoder converters of
 ``m3asr_tpu/checkpoint.py``).
 
 The tree is a nested dict of tensors with the JAX package's paths and
@@ -139,11 +139,14 @@ def convert_subsampling(sd: StateDict, input_layer: str) -> Dict:
 
 
 def convert_attention(sd: StateDict) -> Dict:
+    """Self-attention of an encoder block (with its relative-position
+    weights) or an attention of a decoder block (plain)."""
     p = {n: _linear(sd, n) for n in
          ("linear_q", "linear_k", "linear_v", "linear_out")}
-    p["linear_pos"] = _linear(sd, "linear_pos", bias=False)
-    p["pos_bias_u"] = sd.get("pos_bias_u")
-    p["pos_bias_v"] = sd.get("pos_bias_v")
+    if "linear_pos.weight" in sd:
+        p["linear_pos"] = _linear(sd, "linear_pos", bias=False)
+        p["pos_bias_u"] = sd.get("pos_bias_u")
+        p["pos_bias_v"] = sd.get("pos_bias_v")
     return p
 
 
@@ -236,6 +239,87 @@ def convert_encoder(state_dict: Dict[str, Any], cfg: ModelConfig,
     if any(k.startswith("encoder.") for k in state_dict):
         sd = sd.sub("encoder")
     return to_torch(convert_moe_encoder(sd, cfg.encoder_conf), device, dtype)
+
+
+def convert_decoder_layer(sd: StateDict) -> Dict:
+    return {"norm1": _layer_norm(sd, "norm1"),
+            "norm2": _layer_norm(sd, "norm2"),
+            "norm3": _layer_norm(sd, "norm3"),
+            "self_attn": convert_attention(sd.sub("self_attn")),
+            "src_attn": convert_attention(sd.sub("src_attn")),
+            "feed_forward": convert_ffn(sd.sub("feed_forward"))}
+
+
+def _convert_single_decoder(sd: StateDict, num_blocks: int,
+                            d_model: int) -> Dict:
+    p = {"embed": {"weight": sd.get("embed.0.weight")},
+         "pos_enc": {"pe": sinusoid_table(d_model).numpy()},
+         "after_norm": _layer_norm(sd, "after_norm"),
+         "output_layer": _linear(sd, "output_layer")}
+    p["decoders"] = _stack_blocks([
+        convert_decoder_layer(sd.sub(f"decoders.{i}"))
+        for i in range(num_blocks)])
+    return p
+
+
+def convert_decoder(state_dict: Dict[str, Any], cfg: ModelConfig,
+                    name: str = "decoder", device="cpu",
+                    dtype: torch.dtype = torch.float32) -> Dict:
+    """Convert one AED decoder of a reference checkpoint (a
+    TransformerDecoder, or a BiTransformerDecoder's ``left_decoder`` and,
+    with ``r_num_blocks``, ``right_decoder``) into the port's tree on
+    ``device``. The hier AED wrapper has three: decoder, decoder_1 and
+    decoder_2. Every key read counts as consumed for
+    :func:`check_consumed`."""
+    sd = StateDict(state_dict).sub(name)
+    d_model = cfg.encoder_conf.attention_dim
+    dc = cfg.decoder_conf
+    if f"{name}.left_decoder.after_norm.weight" in state_dict:
+        p = {"left_decoder": _convert_single_decoder(
+            sd.sub("left_decoder"), dc.num_blocks, d_model)}
+        if dc.r_num_blocks > 0:
+            p["right_decoder"] = _convert_single_decoder(
+                sd.sub("right_decoder"), dc.r_num_blocks, d_model)
+    else:
+        p = _convert_single_decoder(sd, dc.num_blocks, d_model)
+    return to_torch(p, device, dtype)
+
+
+AED_DECODERS = ("decoder", "decoder_1", "decoder_2")
+
+
+def convert_decoders(state_dict: Dict[str, Any], cfg: ModelConfig,
+                     device="cpu", dtype: torch.dtype = torch.float32
+                     ) -> Dict:
+    """Every AED decoder the checkpoint holds ({name: tree}, possibly
+    empty), as the JAX ``build.py`` collects them."""
+    return {name: convert_decoder(state_dict, cfg, name, device, dtype)
+            for name in AED_DECODERS
+            if any(k.startswith(name + ".") for k in state_dict)}
+
+
+DECODERS_FILE = "decoders.npz"
+
+
+def save_decoders(engine_dir: str, decoders: Dict) -> str:
+    """Write {name: decoder tree} to ``engine_dir/decoders.npz`` in the JAX
+    engine's flat format ("decoder/decoders/norm1/scale", float32), which
+    either package's recognizer reads. Returns the path."""
+    import os
+    flat = flatten_tree({name: params_to_numpy(tree)
+                         for name, tree in decoders.items()})
+    path = os.path.join(engine_dir, DECODERS_FILE)
+    np.savez(path, **flat)
+    return path
+
+
+def load_decoders(engine_dir: str, device="cpu",
+                  dtype: torch.dtype = torch.float32) -> Dict:
+    """Read ``engine_dir/decoders.npz`` (either package's) into
+    {name: tree of tensors on ``device``}."""
+    import os
+    with np.load(os.path.join(engine_dir, DECODERS_FILE)) as z:
+        return to_torch(unflatten_tree(dict(z)), device, dtype)
 
 
 def load_torch_checkpoint(path: str) -> "TrackedDict":

@@ -119,8 +119,7 @@ class MoEEncoderConfig(EncoderConfig):
 
 @dataclass
 class DecoderConfig:
-    """AED decoder config; carried so engine dirs round-trip, unused by
-    the encoder-only inference path."""
+    """AED transformer decoder config (``models/aed.py``)."""
 
     attention_heads: int = 4
     linear_units: int = 2048
@@ -150,6 +149,14 @@ class ModelConfig:
     reverse_weight: float = 0.0
     padding_idx: Optional[int] = None
     extra: Dict[str, Any] = field(default_factory=dict)
+
+    @property
+    def sos(self) -> int:
+        return self.output_dim - 1
+
+    @property
+    def eos(self) -> int:
+        return self.output_dim - 1
 
 
 # nnet_proto values of the hier MoE conformer family

@@ -6,9 +6,9 @@ ctc_prefix_beam.cpp`` into ``m3asr_tpu_torch/_build/`` by
 ``utils/native_build.py`` (g++). When it cannot be built or loaded, every
 search here falls back to its Python twin in ``decode/ctc.py`` (the same
 contract), logs why once, and :func:`load_error` keeps the reason;
-:func:`available` says which one runs. The JAX module's batched
-searches (thread pools over these, for ``recognize.py``) come with the
-recognize flows (ROADMAP Queue 1 item 10).
+:func:`available` says which one runs. The ``*_batch`` searches of the
+recognizer decode a batch's utterances in a thread pool (the C calls
+release the GIL), or one after another when the library is not there.
 """
 
 from __future__ import annotations
@@ -17,6 +17,7 @@ import ctypes
 import logging
 import os
 import weakref
+from concurrent.futures import ThreadPoolExecutor
 from typing import List, Optional, Tuple
 
 import numpy as np
@@ -367,3 +368,46 @@ def ctc_greedy_search(logits: np.ndarray, out_lens: np.ndarray,
             out.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)))
         hyps.append([int(x) for x in out[:n]])
     return hyps
+
+
+def _batched(fn, n: int):
+    """[fn(b) for b in range(n)], in a thread pool when the library is
+    loaded and n > 1 (ctypes releases the GIL in the C search)."""
+    if n <= 1 or _load() is None:
+        return [fn(b) for b in range(n)]
+    with ThreadPoolExecutor(max_workers=min(n, 8)) as ex:
+        return list(ex.map(fn, range(n)))
+
+
+def ctc_prefix_beam_search_batch(log_probs: np.ndarray,
+                                 out_lens: np.ndarray, beam_size: int,
+                                 blank_idx: int = 0):
+    """Prefix beam search over a batch of (B, T, V) log-probs. Returns a
+    list of n-best lists of (tokens, score)."""
+    return _batched(lambda b: ctc_prefix_beam_search(
+        log_probs[b], int(out_lens[b]), beam_size, blank_idx),
+        log_probs.shape[0])
+
+
+def ctc_prefix_beam_search_ext_batch(log_probs: np.ndarray,
+                                     out_lens: np.ndarray, beam_size: int,
+                                     blank_idx: int = 0, context=None,
+                                     lm=None, lm_weight: float = 0.5):
+    """Batched extended prefix beam search (emission frames, context
+    biasing, LM fusion). Returns a list of n-best Hyp lists."""
+    return _batched(lambda b: ctc_prefix_beam_search_ext(
+        log_probs[b], int(out_lens[b]), beam_size, blank_idx, context,
+        lm=lm, lm_weight=lm_weight), log_probs.shape[0])
+
+
+def ctc_prefix_beam_search_sparse_batch(values: np.ndarray,
+                                        indices: np.ndarray,
+                                        out_lens: np.ndarray,
+                                        beam_size: int, blank_idx: int = 0,
+                                        context=None, lm=None,
+                                        lm_weight: float = 0.5):
+    """Batched sparse extended beam over the engine's (B, T, K) "topk"
+    output (values, indices). Returns a list of n-best Hyp lists."""
+    return _batched(lambda b: ctc_prefix_beam_search_sparse_ext(
+        values[b], indices[b], int(out_lens[b]), beam_size, blank_idx,
+        context, lm=lm, lm_weight=lm_weight), values.shape[0])

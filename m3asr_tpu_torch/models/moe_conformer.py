@@ -23,7 +23,8 @@ from m3asr_tpu_torch.config import EncoderConfig, MoEEncoderConfig
 from m3asr_tpu_torch.models import conformer
 from m3asr_tpu_torch.models.layers import conformer_block
 from m3asr_tpu_torch.ops import positional
-from m3asr_tpu_torch.ops.common import layer_norm, linear
+from m3asr_tpu_torch.ops.common import (init_layer_norm, init_linear,
+                                        layer_norm, linear)
 
 
 def forward(params, cfg: MoEEncoderConfig, feat: torch.Tensor,
@@ -100,18 +101,11 @@ class _Init:
     def zeros(self, shape):
         return torch.zeros(shape, device=self.device, dtype=self.dtype)
 
-    def ones(self, shape):
-        return torch.ones(shape, device=self.device, dtype=self.dtype)
-
     def linear(self, d_in, d_out, bias=True):
-        b = 1.0 / math.sqrt(d_in)
-        p = {"kernel": self.uniform((d_in, d_out), b)}
-        if bias:
-            p["bias"] = self.uniform((d_out,), b)
-        return p
+        return init_linear(self.g, d_in, d_out, bias, self.dtype)
 
     def norm(self, d):
-        return {"scale": self.ones((d,)), "bias": self.zeros((d,))}
+        return init_layer_norm(d, self.device, self.dtype)
 
     def subsampling4(self, idim, odim, in_ch):
         f_out = ((idim - 1) // 2 - 1) // 2

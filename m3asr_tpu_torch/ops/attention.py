@@ -1,7 +1,9 @@
-"""Relative-position multi-head self-attention (port of
-``m3asr_tpu/ops/attention.py``): separate q/k/v projections, or the
-fused form of ``fuse_qkv`` engines (one ``(D, 3D)`` ``linear_qkv``
-projection and one score product over ``[q+u; q+v] . [k; pos]``).
+"""Multi-head attention (port of ``m3asr_tpu/ops/attention.py``): the
+encoders' relative-position self-attention, with separate q/k/v
+projections or the fused form of ``fuse_qkv`` engines (one ``(D, 3D)``
+``linear_qkv`` projection and one score product over
+``[q+u; q+v] . [k; pos]``), and the AED decoders' plain self- and
+cross-attention (:func:`mha`).
 
 Scores and the softmax run in float32 even for bf16 activations, as in
 the JAX package (``preferred_element_type=float32`` there): bf16 operands
@@ -15,7 +17,7 @@ from typing import Optional
 
 import torch
 
-from m3asr_tpu_torch.ops.common import linear
+from m3asr_tpu_torch.ops.common import init_linear, linear
 from m3asr_tpu_torch.ops.masking import make_valid_mask
 
 _NEG_INF = -1e30
@@ -61,6 +63,55 @@ def _qkv(p, x: torch.Tensor, h: int):
         return _split_heads(q, h), _split_heads(k, h), _split_heads(v, h)
     return tuple(_split_heads(linear(p[name], x), h)
                  for name in ("linear_q", "linear_k", "linear_v"))
+
+
+def project_kv(p, key: torch.Tensor, value: torch.Tensor,
+               num_heads: int):
+    """The key and value heads of :func:`mha`, (B, H, T2, Dk) each: what
+    :func:`attend` takes, so that a memory attended many times (the AED
+    beam search's steps) is projected once."""
+    return (_split_heads(linear(p["linear_k"], key), num_heads),
+            _split_heads(linear(p["linear_v"], value), num_heads))
+
+
+def _attend_heads(p, q, k, v, lengths, mask):
+    B, _, T, d_k = q.shape
+    scores = torch.matmul(q.float(), k.float().transpose(-1, -2))
+    attn = masked_softmax(scores, lengths, float(d_k) ** -0.5, mask)
+    ctx = torch.matmul(attn.to(v.dtype), v)                  # (B,H,T1,Dk)
+    return linear(p["linear_out"], ctx.transpose(1, 2).reshape(B, T, -1))
+
+
+def attend(p, query: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+           lengths: Optional[torch.Tensor], num_heads: int,
+           mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """:func:`mha` of ``query`` over key/value heads from
+    :func:`project_kv`."""
+    q = _split_heads(linear(p["linear_q"], query), num_heads)
+    return _attend_heads(p, q, k, v, lengths, mask)
+
+
+def mha(p, query: torch.Tensor, key: torch.Tensor, value: torch.Tensor,
+        lengths: Optional[torch.Tensor], num_heads: int,
+        mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Plain scaled-dot-product attention of ``query`` (B, T1, D) over
+    ``key`` / ``value`` (B, T2, D): the AED decoder's self-attention
+    (query is key is value) and its cross-attention on the encoder
+    memory. ``lengths`` masks keys >= length; ``mask`` is an optional
+    bool attend-mask broadcastable to (B, H, T1, T2). Scores and softmax
+    in float32. Returns (B, T1, D)."""
+    if query is key and key is value:
+        return _attend_heads(p, *_qkv(p, query, num_heads), lengths, mask)
+    return attend(p, query, *project_kv(p, key, value, num_heads), lengths,
+                  num_heads, mask)
+
+
+def init_mha(generator: torch.Generator, d_model: int,
+             dtype: torch.dtype = torch.float32):
+    """Random linear_q/k/v/out of :func:`mha` (torch.nn.Linear's init),
+    drawn on ``generator``'s device."""
+    return {name: init_linear(generator, d_model, d_model, dtype=dtype)
+            for name in ("linear_q", "linear_k", "linear_v", "linear_out")}
 
 
 def rel_mha(p, x: torch.Tensor, pos_emb: torch.Tensor,

@@ -6,6 +6,8 @@ linear kernels are stored ``(in, out)``.
 
 from __future__ import annotations
 
+import math
+
 import torch
 
 # LayerNorm epsilon of the reference model zoo
@@ -48,3 +50,24 @@ def scale_shift(p, x: torch.Tensor) -> torch.Tensor:
 def swish(x: torch.Tensor) -> torch.Tensor:
     """Swish/SiLU = x * sigmoid(x)."""
     return x * torch.sigmoid(x)
+
+
+def init_linear(generator: torch.Generator, d_in: int, d_out: int,
+                bias: bool = True, dtype: torch.dtype = torch.float32):
+    """torch.nn.Linear's default init (uniform in +-1/sqrt(d_in)), kernel
+    stored (in, out), drawn on ``generator``'s device."""
+    bound = 1.0 / math.sqrt(d_in)
+
+    def draw(shape):
+        u = torch.rand(shape, generator=generator, device=generator.device)
+        return ((u * 2 - 1) * bound).to(dtype)
+
+    p = {"kernel": draw((d_in, d_out))}
+    if bias:
+        p["bias"] = draw((d_out,))
+    return p
+
+
+def init_layer_norm(d: int, device=None, dtype: torch.dtype = torch.float32):
+    return {"scale": torch.ones((d,), device=device, dtype=dtype),
+            "bias": torch.zeros((d,), device=device, dtype=dtype)}

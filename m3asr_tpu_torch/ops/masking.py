@@ -7,6 +7,12 @@ from typing import Optional
 import torch
 
 
+def make_pad_mask(lengths: torch.Tensor, max_len: int) -> torch.Tensor:
+    """True at PADDED positions: bool (B, max_len)."""
+    pos = torch.arange(max_len, device=lengths.device)
+    return pos[None, :] >= lengths[:, None]
+
+
 def make_valid_mask(lengths: torch.Tensor, max_len: int) -> torch.Tensor:
     """True at VALID positions: bool (B, max_len)."""
     pos = torch.arange(max_len, device=lengths.device)
@@ -36,6 +42,12 @@ def subsampling4_length(lengths):
 
 
 SUBSAMPLED_LENGTH = {"conv2d": subsampling4_length}
+
+
+def subsequent_mask(size: int, device=None) -> torch.Tensor:
+    """Lower-triangular causal mask (size, size), True = attend."""
+    i = torch.arange(size, device=device)
+    return i[None, :] <= i[:, None]
 
 
 def subsequent_chunk_mask(size: int, chunk_size: int,
@@ -105,3 +117,21 @@ def add_optional_chunk_mask(lengths: torch.Tensor, max_len: int,
         return None
     valid = make_valid_mask(lengths, max_len)                # (B, T)
     return (chunk[None] & valid[:, None, :])[:, None]        # (B,1,T,T)
+
+
+def mask_finished_scores(score: torch.Tensor,
+                         flag: torch.Tensor) -> torch.Tensor:
+    """Beam-search finish masking: a finished hypothesis keeps exactly one
+    live branch, candidate 0 at score 0 and the others at -inf, so it
+    rides along unchanged while unfinished ones expand.
+    score: (N, beam) candidate scores; flag: (N, 1) bool finished."""
+    first = torch.arange(score.shape[-1], device=score.device)[None, :] == 0
+    score = score.masked_fill(flag & ~first, float("-inf"))
+    return score.masked_fill(flag & first, 0.0)
+
+
+def mask_finished_preds(pred: torch.Tensor, flag: torch.Tensor,
+                        eos: int) -> torch.Tensor:
+    """Beam-search finish masking: every candidate of a finished
+    hypothesis becomes eos. pred: (N, beam) ints; flag: (N, 1) bool."""
+    return pred.masked_fill(flag, eos)

@@ -1,4 +1,6 @@
-"""Positional encodings (port of ``m3asr_tpu/ops/positional.py``)."""
+"""Positional encodings (port of ``m3asr_tpu/ops/positional.py``): the
+relative-position form of the encoders and the absolute form of the AED
+decoders."""
 
 from __future__ import annotations
 
@@ -35,3 +37,15 @@ def rel_positional_encoding(pe: torch.Tensor, x: torch.Tensor
     d, T = x.shape[-1], x.shape[1]
     xscale = torch.full((), math.sqrt(d), dtype=x.dtype, device=x.device)
     return x * xscale, pe[:T].to(x.dtype)
+
+
+def abs_positional_encoding(pe: torch.Tensor, x: torch.Tensor,
+                            offset: int = 0
+                            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Absolute sinusoid encoding: returns (x * sqrt(d) + pe[offset:offset+T]
+    (B,T,D), that slice of pe (T,D)), the scale and the table rounded to
+    x's dtype first, as the JAX package rounds them."""
+    d, T = x.shape[-1], x.shape[1]
+    xscale = torch.full((), math.sqrt(d), dtype=x.dtype, device=x.device)
+    pos_emb = pe[offset:offset + T].to(x.dtype)
+    return x * xscale + pos_emb[None], pos_emb

@@ -2,12 +2,15 @@
 of ``scripts/tune_buckets.py``):
 
     python -m m3asr_tpu_torch.tune_buckets --lengths_file lens.txt --k 6
+    python -m m3asr_tpu_torch.tune_buckets --ark ark:feats.ark --k 6
 
 Prints a JSON report and the ``--buckets`` string of
 ``python -m m3asr_tpu_torch.build``. Lengths are input frames (before
-subsampling), one per line (the last column, so ``feat-to-len`` output
-works). ``--cost L=ms`` pairs (measured replay times) replace the card's
-built-in curve of ``--mode``.
+subsampling): one per line of ``--lengths_file`` (the last column, so
+``feat-to-len`` output works), or the rows of each matrix of a Kaldi
+``--ark`` (``ark:feats.ark``, ``scp:feats.scp``, or a path; a ``.scp``
+path reads through its index). ``--cost L=ms`` pairs (measured replay
+times) replace the card's built-in curve of ``--mode``.
 """
 
 import argparse
@@ -15,14 +18,18 @@ import json
 
 
 def read_lengths(args):
+    if args.lengths_file:
+        with open(args.lengths_file) as f:
+            return [int(line.split()[-1]) for line in f if line.strip()]
     if args.ark:
-        raise NotImplementedError(
-            "--ark needs the Kaldi reader, which is not ported yet "
-            "(ROADMAP Queue 1 item 10); pass --lengths_file")
-    if not args.lengths_file:
-        raise SystemExit("need --lengths_file")
-    with open(args.lengths_file) as f:
-        return [int(line.split()[-1]) for line in f if line.strip()]
+        from m3asr_tpu_torch.io import kaldi_io
+        kind, _, path = args.ark.partition(":")
+        if kind not in ("ark", "scp"):
+            kind, path = "", args.ark
+        scp = kind == "scp" or (not kind and path.endswith(".scp"))
+        reader = kaldi_io.read_scp if scp else kaldi_io.read_ark
+        return [mat.shape[0] for _, mat in reader(path)]
+    raise SystemExit("need --lengths_file or --ark")
 
 
 def main(args):
@@ -45,7 +52,8 @@ def parser():
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--lengths_file",
                    help="one frame count per line (the last column)")
-    p.add_argument("--ark", help="Kaldi rspecifier (not ported yet)")
+    p.add_argument("--ark", help="Kaldi rspecifier of the features "
+                   "(ark:path, scp:path or a path)")
     p.add_argument("--k", type=int, default=6, help="number of lengths")
     p.add_argument("--align", type=int, default=128)
     p.add_argument("--batches", default="1,2,4,8")

@@ -294,9 +294,16 @@ def test_tune_buckets_cli(tmp_path, capsys):
         cost_table={128: 1.0, 2176: 9.0}))
     assert buckets == "--buckets " + ",".join(
         f"{b}x{t}" for b in (1, 4) for t in ladder)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        tune_buckets.read_lengths(tune_buckets.parser().parse_args(
-            ["--ark", "ark:x.ark"]))
+    # --ark reads the lengths from a Kaldi archive (or its scp index)
+    from m3asr_tpu_torch.io.kaldi_io import ArkWriter
+    rows = [100, 130, 700]
+    with ArkWriter(str(tmp_path / "f.ark"), str(tmp_path / "f.scp")) as w:
+        for i, n in enumerate(rows):
+            w.write(f"u{i}", np.zeros((n, 3), np.float32))
+    for spec in ("ark:" + str(tmp_path / "f.ark"), str(tmp_path / "f.ark"),
+                 "scp:" + str(tmp_path / "f.scp"), str(tmp_path / "f.scp")):
+        assert tune_buckets.read_lengths(tune_buckets.parser().parse_args(
+            ["--ark", spec])) == rows
 
 
 def test_tuner_points_are_the_cards():
