@@ -229,6 +229,39 @@ result line:
    Every device-time line names the expert kernels' (K1, K4-K8, the
    front) summed time in the request.
 
+13. DFSMN (after phase 10; its kernel checks beside phase 3's, its
+   times after phase 12's): K1's and K4-K7's ReLU instantiations (the
+   hidden clamped at 1.0) against their plain versions at the DFSMN
+   widths (E=32, d=512, h=1024, unstacked weights, no b2): K1 fp32/bf16
+   at 512, 2048, 4096 and 24576 tokens, K4/K5 weight-only and a8 at 512
+   and 4096, K6 at 63 and 127, K7 at 511, under the router's, one
+   expert's, half-empty and heavy routing, phase 3's tolerances; K5 a8
+   equal to K6 a8 and K7 a8 bit for bit. K2 through flash_attn_mem (q (B,
+   8, T, 64), 64 memory slots prepended to k/v, lengths + 64) at B=1,
+   T=2048 and 6144 and B=4, T=1000, fp32 and bf16, mixed lengths and a
+   16-frame chunk window: FLASH_TOL against its plain version and
+   against the plain memory-slot attention. Then the MoE DFSMN
+   (dfsmn_san_fmoe_localComm_catEmbed at the reference Net's widths: 3 x
+   10 cFSMN, hidden 1024, memory 512, 8 heads, 64 slots, an embed
+   sub-net of the same, 32 experts, input 40, vocabulary 5000, seeded
+   random weights and routers) built by the port's build in fp32, bf16,
+   bf16 --attn_impl flash, int8, int4 (through an engine dir) and w4a8,
+   and w8a8, int4 tiled and w4a8 tiled engines on the quantized trees,
+   answers 1x512, 4x1000 and 1x6144 frames (int4/w4a8 also 1x100 in a
+   1x128 bucket, K6; the tiled engines 1x512) through CUDA graphs: each
+   capture launches its kernel 29 times a forward (K2 6 times with
+   flash), a replay none, the graph equals its eager forward bit for
+   bit, and the eager logits are held to the same engine on the kernels'
+   plain versions with routing pinned (fp32 allclose(1e-5, 1e-3), else
+   0.05 of max|ref|); flash is held to the bf16 xla engine with the
+   flash run's experts; dfsmn_san_res serves 1x512 in fp32 with flash,
+   held to its xla twin. Latency, device time, busy share and peak
+   memory per request, K1's and K2's share of 1x6144's device time, and
+   a bf16 engine's 24-bucket warm-up (seconds, peak memory, the graph
+   pool). Each ReLU instantiation and flash_attn_mem is timed beside
+   its bound, its plain version and (flash_attn_mem) SDPA on the same
+   masked problem.
+
 The line before the last is one JSON object describing each kernel
 (route, source, launches on the main path, error, times, bound); the
 last line is {"ok": true, "device": {...}}.
@@ -1109,21 +1142,23 @@ class PlainExperts:
         from m3asr_tpu_torch.ops import moe_q4, moe_runs, moe_stream
         inner = self.inner = self.moe_mod._dispatch
 
-        def plain(p, x, gate_idx, impl):
+        def plain(p, x, gate_idx, impl, **act):
+            # act: the DFSMN experts' activation and clamp, if any
             if impl == "runs_f" or impl.endswith("_runs"):
                 return moe_runs.moe_experts_runs_reference(
-                    p, x, gate_idx, act_quant="_a8" in impl)
+                    p, x, gate_idx, act_quant="_a8" in impl, **act)
             if impl in ("quant4_pallas", "quant4_a8") or (
                     impl == "quant_pallas" and "w1_q4" in p):
                 return moe_q4.moe_experts_q4_reference(
-                    p, x, gate_idx, act_quant=impl == "quant4_a8")
+                    p, x, gate_idx, act_quant=impl == "quant4_a8", **act)
             if impl in ("pallas", "quant_pallas"):
                 return moe_stream.moe_experts_dense_stream_reference(
                     p, x, gate_idx)
             if impl in ("quant4_tiled", "quant4_a8_tiled"):
                 return moe_q4.moe_experts_q4_tiled_reference(
-                    p, x, gate_idx, act_quant=impl == "quant4_a8_tiled")
-            return inner(p, x, gate_idx, impl)
+                    p, x, gate_idx, act_quant=impl == "quant4_a8_tiled",
+                    **act)
+            return inner(p, x, gate_idx, impl, **act)
         self.moe_mod._dispatch = plain
         return self
 
@@ -3977,6 +4012,731 @@ def phase_times(torch, state, smi):
     return report
 
 
+# ---------------------------------------------------------------------------
+# 13. DFSMN: the ReLU experts, flash_attn_mem and the served model
+# ---------------------------------------------------------------------------
+
+DFSMN_MOE = "dfsmn_san_fmoe_localComm_catEmbed"
+DFSMN_REQUESTS = ((1, 512), (4, 1000), (1, 6144))
+DFSMN_SHORT = (1, 100)      # int4 / w4a8: the 1x128 bucket of 128 tokens
+DFSMN_BUCKETS = "1x512,4x1024,1x6144"
+DFSMN_SHORT_BUCKET = "1x128"
+RELU_UPPER = 1.0            # the DFSMN experts' clamp
+RELU = dict(activation="relu", upper_bound=RELU_UPPER)
+DFSMN_K1_TOKENS = (512, 2048, 4096, 24576)
+DFSMN_Q_TOKENS = (512, 4096)
+# (kernel, variant) -> the ReLU instantiation's name in the output
+RELU_NAMES = {("K1", "float32"): "moe_runs_f[float32 relu]",
+              ("K1", "bfloat16"): "moe_runs_f[bfloat16 relu]",
+              ("K4", False): "moe_runs_q8[int8 relu]",
+              ("K4", True): "moe_runs_q8[w8a8 relu]",
+              ("K5", False): "moe_runs_q4[int4 relu]",
+              ("K5", True): "moe_runs_q4[w4a8 relu]",
+              ("K6", False): "moe_q4_dense[int4 relu]",
+              ("K6", True): "moe_q4_dense[w4a8 relu]",
+              ("K7", False): "moe_q4_tiled[int4 relu]",
+              ("K7", True): "moe_q4_tiled[w4a8 relu]"}
+FLASH_MEM_NAMES = {"float32": "flash_attn_mem[float32]",
+                   "bfloat16": "flash_attn_mem[bfloat16]"}
+FLASH_MEM_SHAPES = ((1, 2048), (1, 6144), (4, 1000))
+DFSMN_HEADS, DFSMN_SLOTS = 8, 64     # heads of 64, memory slots
+# served engines: (label, build flags or the label of the engine whose
+# quantized tree it takes and the EngineConfig settings, the requests it
+# answers: "all", or "short" too (a 1x128 bucket: K6), or "one" (1x512),
+# the kernel each request's forward launches once per MoE layer)
+DFSMN_ENGINES = (
+    ("float32", [], "all", "K1"),
+    ("bfloat16", ["-f"], "all", "K1"),
+    ("bfloat16+flash", ["-f", "--attn_impl", "flash"], "all", "K1"),
+    ("int8", ["--int8"], "all", "K4"),
+    ("w8a8", ("int8", dict(dtype="int8", act_quant=True)), "all", "K4"),
+    ("int4", ["--int4"], "short", "K5"),
+    ("w4a8", ["--int4", "--act_quant"], "short", "K5"),
+    ("int4 tiled", ("int4", dict(dtype="int4", moe_impl="tiled")), "one",
+     "K7"),
+    ("w4a8 tiled", ("w4a8", dict(dtype="int4", act_quant=True,
+                                 moe_impl="tiled")), "one", "K7"),
+)
+# the engines each engine's tree is still needed by, and when it goes
+DFSMN_FREE_AFTER = {"float32": ("float32",),
+                    "bfloat16+flash": ("bfloat16", "bfloat16+flash"),
+                    "w8a8": ("int8", "w8a8"),
+                    "w4a8 tiled": ("int4", "w4a8", "int4 tiled",
+                                   "w4a8 tiled")}
+
+
+def dfsmn_raw(proto=DFSMN_MOE):
+    """The reference Net's widths (DfsmnEncoderConfig's defaults) in the
+    reference YAML schema: 3 blocks x 10 cFSMN, hidden 1024, memory 512, 8
+    heads, 64 memory slots, LN; the MoE proto with 32 experts (as the
+    flagship), routers drawn at random (rand_init_router), and an embed
+    sub-net of the same defaults."""
+    fsmn = {"hidden_dim": 1024, "memory_dim": 512, "look_back": 4,
+            "look_ahead": 1, "stride_left": 2, "stride_right": 1}
+    san = {"num_head": DFSMN_HEADS, "num_memory": DFSMN_SLOTS,
+           "norm_type": "LN"}
+    if "fmoe" not in proto:
+        return {"nnet_proto": proto, "input_dim": 40, "output_dim": 5000,
+                "model_conf": {"num_block": 3, "fsmn_each_block": 10,
+                               **fsmn, **san}}
+    return {"nnet_proto": proto, "input_dim": 40, "output_dim": 5000,
+            "model_conf": {
+                "num_block": 3, "fsmn_each_block": 10, "fsmn_conf": fsmn,
+                "san_conf": san,
+                "moe_conf": {"num_experts": E, "rand_init_router": True},
+                "embed_conf": {"num_block": 3, "fsmn_each_block": 10,
+                               **fsmn, **san}}}
+
+
+def unstacked(p):
+    """One layer of stacked (1, E, ...) weights and scales, as the DFSMN
+    layers hold them, without b2 (the DFSMN experts' mem_proj has no
+    bias)."""
+    return {k: v[0] if k.startswith("w") else v for k, v in p.items()
+            if k != "b2"}
+
+
+def phase_kernel_dfsmn(torch):
+    """K1, K4-K7's ReLU instantiations (hidden clamped at 1.0) against
+    their plain versions at the DFSMN widths (E=32, d=512, h=1024,
+    unstacked weights, no b2) and token counts, under the router's, one
+    expert's, half-empty and heavy routing: K1 fp32/bf16 at 512-24576
+    tokens (the 8x6144 bucket is 49152 rows), K4/K5 weight-only and a8
+    at 512 and 4096, K6 at 63 and 127, K7 at 511. x is drawn 3x larger
+    than phase 3's so that about a fifth of the hidden values reach the
+    clamp. Phase 3's tolerances; K5 a8 must equal K6 a8 (127 tokens) and
+    K7 a8 (511) bit for bit. Returns the worst max_abs_err per name."""
+    from m3asr_tpu_torch.ops import moe_q4, moe_runs
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    worst = {}
+    kinds = KINDS + ("heavy",)
+
+    def check(key, kern, plain, p, n, kind, dtype, **kw):
+        name = RELU_NAMES[key]
+        x = (torch.randn(1, n, D, generator=gen, device="cuda") * 3) \
+            .to(dtype)
+        gate = routing(torch, kind, n, gen)
+        got = kern.launch(p, x, gate, **kw, **RELU)
+        torch.cuda.synchronize()
+        ref = plain(p, x, gate, **kw, **RELU)
+        err = (got.float() - ref.float()).abs().max().item()
+        scale = ref.float().abs().max().item()
+        tol = (None if dtype == torch.float32 else
+               2e-2 if kw.get("act_quant") else 1e-2)
+        ok = (torch.allclose(got, ref, rtol=1e-5, atol=1e-5) if tol is None
+              else err <= tol * scale)
+        log(f"kernel {name} n={n} {kind} active={n_active(torch, gate)}: "
+            f"max_abs_err={err:.3e} max|ref|={scale:.3e} "
+            f"{'OK' if ok else 'FAIL'}")
+        if not ok:
+            raise SystemExit(f"FAIL kernel: {name} disagrees with its plain "
+                             "version")
+        worst[name] = max(worst.get(name, 0.0), err)
+        return x, gate, got
+
+    for dtype in (torch.float32, torch.bfloat16):
+        p = unstacked(expert_weights(torch, dtype, gen, n_layers=1))
+        for n in DFSMN_K1_TOKENS:
+            for kind in kinds:
+                check(("K1", str(dtype)[6:]), moe_runs.runs_kernel,
+                      moe_runs.moe_experts_runs_reference, p, n, kind, dtype)
+    bf = torch.bfloat16
+    for bits, kname, kern in ((8, "K4", moe_runs.runs_q8_kernel),
+                              (4, "K5", moe_runs.runs_q4_kernel)):
+        p = unstacked(quant_experts(torch, bits, gen, 1))
+        for a8 in (False, True):
+            for n in DFSMN_Q_TOKENS:
+                for kind in kinds:
+                    check((kname, a8), kern,
+                          moe_runs.moe_experts_runs_reference, p, n, kind,
+                          bf, act_quant=a8)
+    p = unstacked(quant_experts(torch, 4, gen, 1))
+    for a8 in (False, True):
+        for n in (63, 127):
+            for kind in kinds:
+                x, gate, got = check(("K6", a8), moe_q4.q4_kernel,
+                                     moe_q4.moe_experts_q4_reference, p, n,
+                                     kind, bf, act_quant=a8)
+                if a8 and n == 127 and kind in ("router", "heavy"):
+                    k5 = moe_runs.runs_q4_kernel.launch(
+                        p, x, gate, act_quant=True, **RELU)
+                    if not torch.equal(got, k5):
+                        raise SystemExit("FAIL kernel: ReLU K6 a8 and K5 a8 "
+                                         "differ")
+                    log(f"kernel {RELU_NAMES[('K6', True)]} == "
+                        f"{RELU_NAMES[('K5', True)]} bit for bit: n={n} "
+                        f"{kind}")
+        for kind in kinds:
+            x, gate, got = check(("K7", a8), moe_q4.q4_tiled_kernel,
+                                 moe_q4.moe_experts_q4_tiled_reference, p,
+                                 511, kind, bf, act_quant=a8)
+            if a8 and kind in ("router", "heavy"):
+                k5 = moe_runs.runs_q4_kernel.launch(p, x, gate,
+                                                    act_quant=True, **RELU)
+                if not torch.equal(got, k5):
+                    raise SystemExit("FAIL kernel: ReLU K7 a8 and K5 a8 "
+                                     "differ")
+                log(f"kernel {RELU_NAMES[('K7', True)]} == "
+                    f"{RELU_NAMES[('K5', True)]} bit for bit: n=511 {kind}")
+    return worst
+
+
+def flash_mem_params(torch, dtype, gen):
+    """The weights of one DFSMN attention layer (d=512, 8 heads of 64, 64
+    memory slots), drawn as models/dfsmn.init_attn_mem draws them."""
+    from m3asr_tpu_torch.models import dfsmn
+    return {k: (v.to(dtype) if k.endswith("memory")
+                else {"kernel": v["kernel"].to(dtype)})
+            for k, v in dfsmn.init_attn_mem(gen, D, DFSMN_HEADS,
+                                            DFSMN_SLOTS).items()}
+
+
+def flash_mem_case(torch, B, T, masks, gen):
+    """Mixed lengths (and with ``window`` a 16-frame chunk mask) of a
+    flash_attn_mem check."""
+    from m3asr_tpu_torch.ops import masking
+    lens = [T, T - 37, T // 2, 7][:B] if B > 1 else [T - 13]
+    lens = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    mask = (masking.subsequent_chunk_mask(T, 16, device="cuda")
+            if masks == "window" else None)
+    return lens, mask
+
+
+def flash_mem_tol(dname, S):
+    """The flash_attn_mem checks' bound: FLASH_TOL, which was set where
+    the main path's rows sum at most 512 keys. In float32 the kernel sums
+    each row's keys in order, tile after tile, and the plain version in
+    cuBLAS's blocked order; the rounding of such sums grows as the square
+    root of the keys summed, so a float32 row of S > 512 keys is held to
+    FLASH_TOL x sqrt(S / 512) (phase 13 also prints both sides' distance
+    from a float64 evaluation)."""
+    scale = (S / 512) ** 0.5 if dname == "float32" and S > 512 else 1.0
+    return FLASH_TOL[dname] * scale
+
+
+def phase_kernel_flash_mem(torch):
+    """K2 through flash_attn_mem (the DFSMN memory-slot attention: q (B,
+    8, T, 64), the 64 slots prepended to k/v, lengths + 64, windows
+    shifted by 64 with mem_cols=64) at B=1, T=2048 and 6144 and B=4,
+    T=1000, fp32 and bf16, with mixed lengths and with a 16-frame chunk
+    window: the kernel against its plain version on the same q, k, v
+    (flash_mem_tol of max|ref| on the rows with a valid key; in float32
+    both are also measured against the plain version in float64), and
+    the whole layer against the plain memory-slot attention
+    (attn_mem_layer, "xla") on the valid frames. Returns the worst
+    max_abs_err per dtype."""
+    from m3asr_tpu_torch.models import dfsmn
+    from m3asr_tpu_torch.ops import flash_attention as fa
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    worst = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype)[6:]
+        p = flash_mem_params(torch, dtype, gen)
+        for B, T in FLASH_MEM_SHAPES:
+            for masks in ("lengths", "window"):
+                lens, mask = flash_mem_case(torch, B, T, masks, gen)
+                x = torch.randn(B, T, D, generator=gen,
+                                device="cuda").to(dtype)
+                q, k, v, klens, window, mem = fa.attn_mem_inputs(
+                    p, x, lens, DFSMN_HEADS, DFSMN_SLOTS, mask)
+                scale = (D // DFSMN_HEADS) ** -0.5
+                out, _ = fa.flash_kernels.forward(q, k, v, klens, scale,
+                                                  window, mem)
+                torch.cuda.synchronize()
+                ref, _ = fa.flash_attention_reference(q, k, v, klens, scale,
+                                                      window, mem)
+                rows = (torch.arange(T, device="cuda")[None]
+                        < lens[:, None])[:, None, :, None]
+                err = ((out.float() - ref.float()).abs() * rows).max().item()
+                rel = err / ref.float().abs().max().item()
+                exact = ""
+                if dtype == torch.float32:
+                    s64 = torch.matmul(q.double(), k.double().transpose(
+                        -1, -2)) * scale
+                    ok64 = fa._attend(B, T, k.shape[2], klens, window, mem,
+                                      q.device)
+                    s64 = s64.masked_fill(~ok64, -1e30)
+                    r64 = torch.matmul(torch.softmax(s64, -1), v.double())
+                    s64 = ok64 = None
+                    top = r64.abs().max().item()
+                    exact = "; from float64: kernel {:.3e}, plain {:.3e}" \
+                        .format(*(((a.double() - r64).abs() * rows).max()
+                                  .item() / top for a in (out, ref)))
+                    r64 = None
+                whole = fa.flash_attn_mem(p, x, lens, DFSMN_HEADS,
+                                          DFSMN_SLOTS, attn_mask=mask)
+                plain = dfsmn.attn_mem_layer(p, x, lens, DFSMN_HEADS,
+                                             DFSMN_SLOTS, attn_mask=mask)
+                valid = torch.cat([whole[b, :lens[b]] for b in range(B)])
+                pvalid = torch.cat([plain[b, :lens[b]] for b in range(B)])
+                lrel = ((valid.float() - pvalid.float()).abs().max()
+                        / pvalid.float().abs().max()).item()
+                tol = flash_mem_tol(dname, k.shape[2])
+                ok = rel <= tol and lrel <= tol and np.isfinite(err)
+                log(f"kernel {FLASH_MEM_NAMES[dname]} B={B} T={T} "
+                    f"S={k.shape[2]} {masks} lens={lens.tolist()} rows "
+                    f"{fa.launch_rows(q, k)[0]}: kernel vs plain "
+                    f"max|diff|/max|ref| {rel:.3e}{exact}; layer vs "
+                    f"attn_mem_layer (xla) {lrel:.3e} (held to {tol:.3e}) "
+                    f"{'OK' if ok else 'FAIL'}")
+                if not ok:
+                    raise SystemExit(f"FAIL kernel: {FLASH_MEM_NAMES[dname]} "
+                                     "disagrees with its plain version")
+                key = FLASH_MEM_NAMES[dname]
+                worst[key] = max(worst.get(key, 0.0), err)
+    return worst
+
+
+def dfsmn_engine(torch, raw_path, flags, label, buckets=DFSMN_BUCKETS):
+    """An engine built by the port's build (m3asr_tpu_torch.build: the
+    config from the YAML, seeded random weights on the card, the flags'
+    dtype and settings, ``buckets``, or the default ladder for None)
+    without its bucket warm-up: the phase captures each bucket it serves
+    itself, or times the warm-up."""
+    from m3asr_tpu_torch import build as t_build
+    argv = ["-c", raw_path, "-o", "unused", "--device", "cuda",
+            "--skip-warmup"] + flags
+    if buckets:
+        argv += ["--buckets", buckets]
+    t0 = time.perf_counter()
+    eng, _, _ = t_build.build_engine(t_build.parse_args(argv))
+    log(f"dfsmn {label}: built by m3asr_tpu_torch.build "
+        f"{' '.join(flags) or '(float32)'} in "
+        f"{time.perf_counter() - t0:.2f} s")
+    return eng
+
+
+def dfsmn_profile(torch, eng, feat, lens):
+    """One request's device time under torch.profiler: (total ms, the
+    five kernels that took most, K1's ms, K2's ms)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        eng.infer(feat, lens)
+    by_name = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            by_name[e.name] = by_name.get(e.name, 0.0) \
+                + e.time_range.elapsed_us() / 1e3
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
+    k1 = sum(ms for n, ms in by_name.items() if expert_kernel(n) == "K1")
+    k2 = sum(ms for n, ms in by_name.items() if "flash_fwd_kernel" in n)
+    return sum(by_name.values()), top, k1, k2
+
+
+def dfsmn_serve(torch, label, eng, reqs, kname, n_moe, n_attn, smi):
+    """Serves each request through eng's CUDA graphs: the bucket's capture
+    launches ``kname`` (GRAPH_WARMUP_RUNS + 1) x n_moe times (and K2 x
+    n_attn with flash), a replay none; the graph's logits equal the eager
+    forward's bit for bit; the eager forward (kname n_moe times) is held
+    to the same engine with its experts on the plain versions and its
+    tokens on the eager run's experts (fp32 allclose(1e-5, 1e-3), else
+    max|diff| / max|ref| <= 0.05 on the valid frames). Returns
+    (launches per kernel over captures and eager runs, the eager logits
+    and the gates of each request)."""
+    from m3asr_tpu_torch.ops import moe as moe_mod
+    from m3asr_tpu_torch.ops.moe import HOST_SYNC_STAGES
+    from m3asr_tpu_torch.runtime.engine import GRAPH_WARMUP_RUNS
+    fwds = GRAPH_WARMUP_RUNS + 1
+    flash = eng.cfg.attn_impl == "flash"
+    fp32 = eng.cfg.dtype == "float32"
+    total, outs, recs = {}, [], []
+    for i, (feat, lens) in enumerate(reqs):
+        B, T = feat.shape[:2]
+        bb, bt = eng.buckets.pick(B, T)
+        stage = eng.moe_impl_for(bb, bt)
+        want = {kname: n_moe} if kname and n_moe else {}
+        if flash:
+            want["K2"] = n_attn
+        reset_counts()
+        t0 = time.perf_counter()
+        prog = eng.get_fn(bb, bt)
+        cap_s = time.perf_counter() - t0
+        at_capture = kernel_counts()
+        reset_counts()
+        out_g = eng.infer(feat, lens)
+        at_replay = kernel_counts()
+        eng.cuda_graphs = False
+        reset_counts()
+        with GateRecorder(moe_mod) as rec:
+            out_e = eng.infer(feat, lens)
+        at_eager = kernel_counts()
+        with GateRecorder(moe_mod, replay=rec.calls), PlainExperts(moe_mod):
+            ref = eng.infer(feat, lens)
+        eng.cuda_graphs = True
+        for k, v in list(at_capture.items()) + list(at_eager.items()):
+            total[k] = total.get(k, 0) + v
+        out_len = out_e[1]
+        g, e, r = (valid_rows(a[0], out_len) for a in (out_g, out_e, ref))
+        if fp32:
+            held_ok = bool(np.allclose(e, r, rtol=1e-5, atol=1e-3))
+        else:
+            held_ok = float(np.abs(e - r).max()) <= 0.05 * float(
+                np.abs(r).max())
+        rel = float(np.abs(e - r).max() / np.abs(r).max())
+        equal = np.array_equal(out_g[0], out_e[0])
+        ok = (prog.graph is not None and stage not in HOST_SYNC_STAGES
+              and at_capture == {k: v * fwds for k, v in want.items()}
+              and not at_replay and at_eager == want and equal and held_ok
+              and np.array_equal(out_len, lens) and np.isfinite(g).all())
+        log(f"dfsmn {label} {B}x{T}: stage {stage}, bucket {bb}x{bt} "
+            f"captured in {cap_s:.2f} s with launches {at_capture} (want "
+            f"{want} a forward x {fwds}), replay launches "
+            f"{at_replay or 'none'}, eager {at_eager}; graph == eager bit "
+            f"for bit: {equal}; vs the kernels' plain versions, routing "
+            f"pinned: max|diff|/max|ref| {rel:.3e} "
+            f"({'allclose(1e-5, 1e-3)' if fp32 else '<= 0.05'}) "
+            f"{'OK' if ok else 'FAIL'}")
+        if not ok:
+            raise SystemExit(f"FAIL dfsmn {label} {B}x{T}: capture, "
+                             "launches or logits off")
+        r = serve_times(torch, eng, feat, lens)
+        log(times_line(f"dfsmn {label}", B, T, "graph", r, smi))
+        if (B, T) == DFSMN_REQUESTS[-1]:
+            dev, top, k1, k2 = dfsmn_profile(torch, eng, feat, lens)
+            log(f"dfsmn {label} 1x{T} device time {dev:.3f} ms under "
+                f"torch.profiler: K1 {k1:.3f} ms ({k1 / dev:.3f}), K2 "
+                f"{k2:.3f} ms ({k2 / dev:.3f}); top kernels: " + "; ".join(
+                    f"{short_name(n)} {ms:.3f} ms" for n, ms in top)
+                + f"; {smi}")
+        outs.append((out_e, out_len))
+        recs.append(rec.calls)
+    return total, outs, recs
+
+
+def phase_dfsmn(torch, state, smi):
+    """The DFSMN families served on the card: the MoE proto at the
+    reference Net's widths built by the port's build in fp32, bf16 (also
+    with --attn_impl flash), int8, int4 and w4a8, and w8a8, int4 tiled and
+    w4a8 tiled engines on the quantized trees, answering 1x512, 4x1000
+    and 1x6144 frames (int4 and w4a8 also 1x100 in a 1x128 bucket: K6;
+    the tiled engines 1x512) through their CUDA graphs (dfsmn_serve). The
+    int4 engine goes through an engine dir (save, Engine.load). The flash
+    engine is held to the bf16 xla engine with its tokens on the flash
+    run's experts (0.05); dfsmn_san_res (no experts) serves 1x512 in fp32
+    with flash, held to its xla twin (allclose(1e-5, 1e-3)). Last, a bf16
+    engine's warmup() captures all 24 default buckets: seconds, peak
+    memory and the graph pools. Sets state["launches_dfsmn"], the
+    launches per engine over the phase's main path."""
+    import tempfile
+
+    import yaml
+    from m3asr_tpu_torch.ops import moe as moe_mod
+    from m3asr_tpu_torch.runtime.engine import Engine, EngineConfig
+    rng = np.random.default_rng(13)
+    reqs = []
+    for B, T in DFSMN_REQUESTS:
+        lens = np.array([T, T - 117, T - 301, T // 2][:B], np.int32)
+        reqs.append((rng.standard_normal((B, T, 40)).astype(np.float32),
+                     lens))
+    short = [(rng.standard_normal(DFSMN_SHORT + (40,)).astype(np.float32),
+              np.array([DFSMN_SHORT[1]], np.int32))]
+    conf = dfsmn_raw()["model_conf"]
+    # per forward: MoE cFSMN layers (all but the first), attention layers
+    n_moe = conf["num_block"] * conf["fsmn_each_block"] - 1
+    n_attn = conf["num_block"] + conf["embed_conf"]["num_block"]
+    work = tempfile.mkdtemp(prefix="dfsmn_")
+    raw_path = os.path.join(work, "dfsmn.yaml")
+    launches, engines = {}, {}
+    t_phase = time.perf_counter()
+    try:
+        with open(raw_path, "w") as f:
+            yaml.safe_dump(dfsmn_raw(), f)
+        for label, how, answers, kname in DFSMN_ENGINES:
+            buckets = (DFSMN_SHORT_BUCKET + "," + DFSMN_BUCKETS
+                       if answers == "short" else DFSMN_BUCKETS)
+            if isinstance(how, list):
+                eng = dfsmn_engine(torch, raw_path, how, label, buckets)
+            else:
+                src, settings = how
+                base = engines[src]
+                eng = Engine(base.model_cfg, base.params, EngineConfig(
+                    **settings, bucket_lengths=base.buckets.lengths,
+                    bucket_batches=base.buckets.batches), device="cuda")
+                base = None
+            if label == "int4":
+                t0 = time.perf_counter()
+                eng.save(os.path.join(work, "int4"))
+                eng = Engine.load(os.path.join(work, "int4"), device="cuda")
+                log(f"dfsmn int4: engine dir saved and loaded in "
+                    f"{time.perf_counter() - t0:.2f} s")
+            engines[label] = eng
+            mine = reqs[:1] if answers == "one" else reqs
+            counts, outs, recs = dfsmn_serve(torch, label, eng, mine, kname,
+                                             n_moe, n_attn, smi)
+            if answers == "short":
+                more, _, _ = dfsmn_serve(torch, label, eng, short, "K6",
+                                         n_moe, n_attn, smi)
+                for k, v in more.items():
+                    counts[k] = counts.get(k, 0) + v
+            launches[label] = counts
+            if label == "bfloat16+flash":
+                # the bf16 xla engine, its tokens on the flash run's experts
+                x_eng = engines["bfloat16"]
+                x_eng.cuda_graphs = False
+                for (feat, lens), (out_f, out_len), rec in zip(mine, outs,
+                                                               recs):
+                    with GateRecorder(moe_mod, replay=rec):
+                        out_x = x_eng.infer(feat, lens)
+                    f_v, x_v = (valid_rows(a[0], out_len)
+                                for a in (out_f, out_x))
+                    rel = float(np.abs(f_v - x_v).max() / np.abs(x_v).max())
+                    log(f"dfsmn bfloat16 flash vs xla {feat.shape[0]}x"
+                        f"{feat.shape[1]}, routing pinned: max|diff|/max|ref|"
+                        f" {rel:.3e} (held to 0.05) "
+                        f"{'OK' if rel <= 0.05 else 'FAIL'}")
+                    if not rel <= 0.05:
+                        raise SystemExit("FAIL dfsmn: flash and xla differ")
+            for done in DFSMN_FREE_AFTER.get(label, ()):
+                engines.pop(done, None)
+            eng = x_eng = None
+            torch.cuda.empty_cache()
+        # dfsmn_san_res: no experts; fp32 with flash against its xla twin
+        with open(raw_path, "w") as f:
+            yaml.safe_dump(dfsmn_raw("dfsmn_san_res"), f)
+        label = "dfsmn_san_res float32+flash"
+        eng = dfsmn_engine(torch, raw_path, ["--attn_impl", "flash"], label)
+        counts, outs, _ = dfsmn_serve(torch, label, eng, reqs[:1], None, 0,
+                                      conf["num_block"], smi)
+        launches[label] = counts
+        twin = Engine(eng.model_cfg, eng.params, EngineConfig(
+            bucket_lengths=eng.buckets.lengths,
+            bucket_batches=eng.buckets.batches), device="cuda",
+            cuda_graphs=False)
+        (out_f, out_len), (feat, lens) = outs[0], reqs[0]
+        x_v = valid_rows(twin.infer(feat, lens)[0], out_len)
+        f_v = valid_rows(out_f[0], out_len)
+        ok = bool(np.allclose(f_v, x_v, rtol=1e-5, atol=1e-3))
+        log(f"dfsmn dfsmn_san_res float32 flash vs xla {feat.shape[0]}x"
+            f"{feat.shape[1]}: max|diff| "
+            f"{float(np.abs(f_v - x_v).max()):.3e} (allclose(1e-5, 1e-3)) "
+            f"{'OK' if ok else 'FAIL'}")
+        if not ok:
+            raise SystemExit("FAIL dfsmn: dfsmn_san_res flash and xla differ")
+        eng = twin = None
+        state["launches_dfsmn"] = launches
+        log(f"dfsmn: main path launches {launches}; "
+            f"{time.perf_counter() - t_phase:.1f} s")
+        with open(raw_path, "w") as f:
+            yaml.safe_dump(dfsmn_raw(), f)
+        dfsmn_ladder(torch, raw_path, smi)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+        eng = twin = x_eng = None
+        engines.clear()
+        torch.cuda.empty_cache()
+
+
+def dfsmn_ladder(torch, raw_path, smi, buckets=None):
+    """A bf16 engine of the port's build, its whole bucket ladder (the
+    default 24 buckets) captured by warmup(): seconds, peak memory, and
+    what the captures added to the shared graph pool."""
+    eng = dfsmn_engine(torch, raw_path, ["-f"], "bfloat16 ladder", buckets)
+    try:
+        n_buckets = len(eng.buckets.all_buckets())
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        eng.warmup()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        progs = [eng.get_fn(b, t) for b, t in eng.buckets.all_buckets()]
+        pools = [p.pool_bytes / 2**30 for p in progs]
+        ok = all(p.graph is not None for p in progs)
+        log(f"dfsmn bfloat16 warmup(): {n_buckets} buckets captured in "
+            f"{secs:.2f} s, peak "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB allocated "
+            f"/ {torch.cuda.max_memory_reserved() / 2**30:.3f} GiB "
+            f"reserved; the shared graph pool grew by {sum(pools):.3f} GiB "
+            f"over the captures (at most {max(pools):.3f} GiB in one); "
+            f"{smi} {'OK' if ok else 'FAIL'}")
+        if not ok:
+            raise SystemExit("FAIL dfsmn: the ladder's warm-up")
+    finally:
+        eng = None
+        torch.cuda.empty_cache()
+
+
+DFSMN_TIME_TOKENS = {"K1": 4096, "K4": 4096, "K5": 4096, "K6": 127,
+                     "K7": 511}
+FLASH_MEM_TIME_T = (2048, 6144)     # B=1; the report's row at the last
+
+
+def time_dfsmn_kernels(torch, smi):
+    """Each ReLU instantiation at a DFSMN token count (K1, K4, K5 at 4096
+    tokens, the 1x4096 bucket; K6 at 127; K7 at 511) under the router's
+    routing, weights stacked over 3 layers with the layer rotating, so
+    weights come from device memory: the wrapper call, its plain version
+    and the bound (active experts' weights, scales and biases, x, y and
+    the gate once; 4 n d h operations at the type's peak: float32 FMA,
+    bf16 tensor cores for weight-only int8/int4, int8 for a8). Then K2
+    through flash_attn_mem at B=1, T=2048 and 6144 (S = T + 64, every key
+    valid), fp32 and bf16: the kernel call, its plain version,
+    scaled_dot_product_attention on the same masked problem (a boolean
+    mask of the memory columns plus the key lengths) and the bound, and
+    the device time of the kernel and of SDPA in turns
+    (paired_device_ms). Returns rows keyed by output name (the flash rows
+    at T=6144)."""
+    import torch.nn.functional as F
+    from m3asr_tpu_torch.ops import flash_attention as fa
+    from m3asr_tpu_torch.ops import moe_q4, moe_runs
+    gen = torch.Generator(device="cuda").manual_seed(15)
+    nl, rows = 3, {}
+
+    def row(name, kern, plain, layer_p, n, dtype, per_expert, peak, **kw):
+        x = (torch.randn(1, n, D, generator=gen, device="cuda") * 3) \
+            .to(dtype)
+        gate = routing(torch, "router", n, gen)
+        active = n_active(torch, gate)
+        t_bytes = (active * per_expert + 2 * n * D * x.element_size()
+                   + 4 * n) / HBM_BYTES_PER_S * 1e3
+        t_ops = 4 * n * D * H / PEAK_OPS_PER_S[peak] * 1e3
+        ms = cuda_time_ms(torch, lambda i: kern.launch(
+            layer_p(i % nl), x, gate, layer=i % nl, **kw, **RELU), 30)
+        turns = iter(range(10 ** 6))
+
+        def call():                    # the layer rotates, as above
+            j = next(turns) % nl
+            return kern.launch(layer_p(j), x, gate, layer=j, **kw, **RELU)
+        dev = profiled_ms(torch, call, 12)
+        plain_ms = cuda_time_ms(torch, lambda i: plain(
+            layer_p(i % nl), x, gate, layer=i % nl, **kw, **RELU), 3)
+        bound = max(t_bytes, t_ops)
+        rows[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound,
+                          bound_by="bytes" if t_bytes >= t_ops
+                          else "operations", library_ms=None)
+        log(f"time {name} n={n} router active={active}: call {ms:.4f} ms "
+            f"(device {dev:.4f} ms under torch.profiler, the layout prep "
+            f"with it), plain {plain_ms:.4f} ms, bound {bound:.4f} ms "
+            f"(bytes {t_bytes:.4f} / ops {t_ops:.4f}), library_ms none; "
+            f"{smi}")
+
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype)[6:]
+        p = expert_weights(torch, dtype, gen, n_layers=nl)
+        p.pop("b2")
+        elt = p["w1"].element_size()
+        row(RELU_NAMES[("K1", dname)], moe_runs.runs_kernel,
+            moe_runs.moe_experts_runs_reference, lambda j: p,
+            DFSMN_TIME_TOKENS["K1"], dtype, (2 * D * H + H) * elt, dname)
+    for bits in (8, 4):
+        p = quant_experts(torch, bits, gen, nl)
+        p.pop("b2")
+        layers = [at_layer(p, j) for j in range(nl)]
+        # weights, float32 scales (int4: 128-row groups), bf16 b1
+        scales = H + D if bits == 8 else D // 128 * H + H // 128 * D
+        per_expert = 2 * D * H * bits // 8 + 4 * scales + 2 * H
+        kinds = (("K4",) if bits == 8 else ("K5", "K6", "K7"))
+        for kname in kinds:
+            kern, plain = {
+                "K4": (moe_runs.runs_q8_kernel,
+                       moe_runs.moe_experts_runs_reference),
+                "K5": (moe_runs.runs_q4_kernel,
+                       moe_runs.moe_experts_runs_reference),
+                "K6": (moe_q4.q4_kernel, moe_q4.moe_experts_q4_reference),
+                "K7": (moe_q4.q4_tiled_kernel,
+                       moe_q4.moe_experts_q4_tiled_reference)}[kname]
+            for a8 in (False, True):
+                row(RELU_NAMES[(kname, a8)], kern, plain,
+                    lambda j: layers[j], DFSMN_TIME_TOKENS[kname],
+                    torch.bfloat16, per_expert,
+                    "int8" if a8 else "bfloat16", act_quant=a8)
+    M, dk = DFSMN_SLOTS, D // DFSMN_HEADS
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype)[6:]
+        p = flash_mem_params(torch, dtype, gen)
+        for T in FLASH_MEM_TIME_T:
+            S = T + M
+            x = torch.randn(1, T, D, generator=gen, device="cuda").to(dtype)
+            lens = torch.full((1,), T, dtype=torch.int32, device="cuda")
+            q, k, v, klens, _, _ = fa.attn_mem_inputs(
+                p, x, lens, DFSMN_HEADS, M)
+            q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+            scale = dk ** -0.5
+            key_mask = (torch.arange(S, device="cuda")[None, :]
+                        < klens[:, None])[:, None, None, :]
+
+            def kernel():
+                return fa.flash_kernels.forward(q, k, v, klens, scale)
+
+            def sdpa():
+                return F.scaled_dot_product_attention(
+                    q, k, v, attn_mask=key_mask, scale=scale)
+            ms = cuda_time_ms(torch, lambda i: kernel(), 20)
+            plain_ms = cuda_time_ms(torch, lambda i: (
+                fa.flash_attention_reference(q, k, v, klens, scale)), 3)
+            lib_ms = cuda_time_ms(torch, lambda i: sdpa(), 20)
+            dev, lib_dev = ("{:.4f} ms ({:.4f}-{:.4f})".format(*t)
+                            for t in paired_device_ms(torch, kernel, sdpa))
+            elt = x.element_size()
+            t_bytes = (elt * DFSMN_HEADS * (2 * T * dk + 2 * S * dk) + 4) \
+                / HBM_BYTES_PER_S * 1e3
+            t_ops = 2 * DFSMN_HEADS * T * S * 2 * dk \
+                / PEAK_OPS_PER_S[dname] * 1e3
+            bound = max(t_bytes, t_ops)
+            r = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound,
+                     bound_by="bytes" if t_bytes >= t_ops else "operations",
+                     library_ms=lib_ms)
+            if T == FLASH_MEM_TIME_T[-1]:
+                rows[FLASH_MEM_NAMES[dname]] = r
+            log(f"time {FLASH_MEM_NAMES[dname]} B=1 T={T} S={S} rows "
+                f"{fa.launch_rows(q, k)[0]}: call {ms:.4f} ms (device "
+                f"{dev}), plain {plain_ms:.4f} ms, "
+                f"scaled_dot_product_attention {lib_ms:.4f} ms (device "
+                f"{lib_dev}), bound {bound:.4f} ms (bytes {t_bytes:.4f} / "
+                f"ops {t_ops:.4f}); {smi}")
+    return rows
+
+
+def dfsmn_report(torch, state, smi):
+    """The kernels line's entries of the ReLU instantiations and
+    flash_attn_mem: launches on the DFSMN path (phase_dfsmn), the worst
+    error of their checks, this run's times and bounds."""
+    launches = state["launches_dfsmn"]
+    by_name = {
+        RELU_NAMES[("K1", "float32")]: [("float32", "K1")],
+        RELU_NAMES[("K1", "bfloat16")]: [("bfloat16", "K1"),
+                                         ("bfloat16+flash", "K1")],
+        RELU_NAMES[("K4", False)]: [("int8", "K4")],
+        RELU_NAMES[("K4", True)]: [("w8a8", "K4")],
+        RELU_NAMES[("K5", False)]: [("int4", "K5")],
+        RELU_NAMES[("K5", True)]: [("w4a8", "K5")],
+        RELU_NAMES[("K6", False)]: [("int4", "K6")],
+        RELU_NAMES[("K6", True)]: [("w4a8", "K6")],
+        RELU_NAMES[("K7", False)]: [("int4 tiled", "K7")],
+        RELU_NAMES[("K7", True)]: [("w4a8 tiled", "K7")],
+        FLASH_MEM_NAMES["float32"]: [("dfsmn_san_res float32+flash", "K2")],
+        FLASH_MEM_NAMES["bfloat16"]: [("bfloat16+flash", "K2")]}
+    rows = time_dfsmn_kernels(torch, smi)
+    report = []
+    for name, where in by_name.items():
+        n = sum(launches[eng].get(k, 0) for eng, k in where)
+        if n == 0:
+            raise SystemExit(f"FAIL report: {name} never launched on the "
+                             "DFSMN path")
+        flash = name in FLASH_MEM_NAMES.values()
+        src = ("flash_attention.cu" if flash else "moe_q4.cu"
+               if "q4_dense" in name else "moe_q4_tiled.cu"
+               if "q4_tiled" in name else "moe_runs.cu")
+        replaces = ("m3asr_tpu/ops/pallas_attention.py:651" if flash
+                    else "m3asr_tpu/ops/pallas_moe_q4.py:320"
+                    if "q4_dense" in name
+                    else "m3asr_tpu/ops/pallas_moe_q4.py:596"
+                    if "q4_tiled" in name
+                    else "m3asr_tpu/ops/pallas_moe_runs.py:350")
+        r = rows[name]
+        report.append({"name": name, "route": "cuda",
+                       "source": f"m3asr_tpu_torch/csrc/{src}",
+                       "replaces": replaces, "launches": n,
+                       "max_abs_err": state["max_err_dfsmn"][name],
+                       "ms": r["ms"], "plain_ms": r["plain_ms"],
+                       "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+                       "library_ms": r["library_ms"]})
+    return report
+
+
 def main():
     import torch
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -3993,7 +4753,9 @@ def main():
     state = {"max_err": phase_kernel(torch, moe_runs),
              "max_err_q": phase_kernel_quant(torch),
              "max_err_flash": phase_kernel_flash(torch),
-             "max_err_stage": phase_kernel_stage(torch)}
+             "max_err_stage": phase_kernel_stage(torch),
+             "max_err_dfsmn": {**phase_kernel_dfsmn(torch),
+                               **phase_kernel_flash_mem(torch)}}
     state["launches"] = phase_serve(torch, state)
     state["launches_q"] = phase_serve_quant(torch, state, smi)
     state["launches_stage"] = phase_serve_stages(torch, state, smi)
@@ -4001,6 +4763,7 @@ def main():
     phase_serve_graphs(torch, state, smi)
     state["launches_stream"] = phase_stream(torch, state, smi)
     state["launches_recognize"] = phase_recognize(torch, state, smi)
+    phase_dfsmn(torch, state, smi)
     trained = phase_train(torch, state, smi)
     # K2: serving's forwards and the training steps'; K3: the steps'
     state["launches_flash"] = {}
@@ -4010,7 +4773,7 @@ def main():
             raise SystemExit("FAIL: K3's two kernels launched unequally")
         state["launches_flash"][("K2", dname)] = served[dname] + fwd
         state["launches_flash"][("K3", dname)] = dq
-    report = phase_times(torch, state, smi)
+    report = phase_times(torch, state, smi) + dfsmn_report(torch, state, smi)
     log(smi)
     log(json.dumps({"kernels": report}))
     log(json.dumps({"ok": True, "device": {

@@ -7,8 +7,10 @@
         [--decode_output logits|log_softmax|argmax|topk|beam]
         [--decode_topk K] [--skip-warmup] [--device cuda|cpu]
 
-Reads a reference YAML config and PyTorch checkpoint, converts the
-weights, and writes an engine directory in the JAX package's format.
+Reads a reference YAML config (a hier MoE conformer or DFSMN proto) and
+PyTorch checkpoint, converts the weights with the proto's family's
+converter (``models/registry.py``), and writes an engine directory in the
+JAX package's format.
 The AED decoders a checkpoint holds (``decoder``, ``decoder_1``,
 ``decoder_2``) are converted too and written to ``decoders.npz`` in the
 JAX flat format, for attention rescoring and decoding
@@ -97,15 +99,17 @@ def parse_args(argv=None):
 
 
 def _leaves(tree):
-    if isinstance(tree, dict):
-        for v in tree.values():
+    if isinstance(tree, (dict, list)):
+        for v in (tree.values() if isinstance(tree, dict) else tree):
             yield from _leaves(v)
     elif tree is not None:
         yield tree
 
 
-def main(argv=None):
-    args = parse_args(argv)
+def build_engine(args):
+    """The engine ``args`` (``parse_args``) describe, warmed up unless
+    ``--skip-warmup``: (engine, the raw YAML dict, the converted AED
+    decoders). :func:`main` saves it."""
     if args.export:
         raise NotImplementedError(
             "--export is not ported: per-bucket torch.export programs need "
@@ -117,7 +121,7 @@ def main(argv=None):
     from m3asr_tpu_torch import checkpoint as ckpt
     from m3asr_tpu_torch.config import model_config_from_dict
     from m3asr_tpu_torch.device import resolve_device
-    from m3asr_tpu_torch.models import moe_conformer
+    from m3asr_tpu_torch.models.registry import get_family
     from m3asr_tpu_torch.runtime.engine import (Engine,
                                                 config_from_engine_json)
     from m3asr_tpu_torch.utils.prior import read_prior
@@ -151,9 +155,7 @@ def main(argv=None):
     else:
         decoders = {}
         g = torch.Generator(device=device).manual_seed(0)
-        params = moe_conformer.init(model_cfg.encoder_conf,
-                                    model_cfg.input_dim,
-                                    model_cfg.output_dim, g, device=device)
+        params = get_family(model_cfg.nnet_proto).init(model_cfg, g)
         print("No checkpoint given — using synthetic init")
     numel = sum(int(np.prod(t.shape)) for t in _leaves(params))
     print(f"model parameter size: {numel}")
@@ -164,13 +166,21 @@ def main(argv=None):
     if not args.skip_warmup:
         print("warming up every bucket...")
         engine.warmup()
+    return engine, raw, decoders
+
+
+def main(argv=None):
+    from m3asr_tpu_torch import checkpoint as ckpt
+    args = parse_args(argv)
+    engine, raw, decoders = build_engine(args)
     engine.save(args.output, raw_yaml=raw)
     if decoders:
         ckpt.save_decoders(args.output, decoders)
         print(f"decoders saved: {sorted(decoders)}")
     print(f"engine written to {args.output}")
     for b, t in engine.buckets.all_buckets():
-        print(f"  feat({b}, {t}, {model_cfg.input_dim})  feat_len({b},)")
+        print(f"  feat({b}, {t}, {engine.model_cfg.input_dim})  "
+              f"feat_len({b},)")
 
 
 if __name__ == "__main__":

@@ -1,6 +1,6 @@
 """Checkpoint ingestion: reference PyTorch state dicts -> the port's
-parameter tree (port of the MoE-encoder and AED-decoder converters of
-``m3asr_tpu/checkpoint.py``).
+parameter tree (port of the MoE-encoder, DFSMN and AED-decoder
+converters of ``m3asr_tpu/checkpoint.py``).
 
 The tree is a nested dict of tensors with the JAX package's paths and
 layouts, so weights carry across by a plain walk:
@@ -12,6 +12,7 @@ layouts, so weights carry across by a plain walk:
  * BatchNorm1d (inference)               -> folded scale/shift, eps 1e-5
  * FMoELinear weight (E, out, in)        -> (E, in, out)
  * per-block trees                       -> stacked over layers (L, ...)
+   (the conformers); the DFSMN nets keep per-layer lists
 
 Conversion runs in numpy on the host; :func:`to_torch` places the
 result on a device.
@@ -234,11 +235,121 @@ def convert_moe_encoder(sd: StateDict, cfg: MoEEncoderConfig) -> Dict:
 def convert_encoder(state_dict: Dict[str, Any], cfg: ModelConfig,
                     device="cpu", dtype: torch.dtype = torch.float32) -> Dict:
     """Convert the encoder of a (possibly AED-wrapped) reference
-    checkpoint into the port's tree of tensors on ``device``."""
-    sd = StateDict(state_dict)
-    if any(k.startswith("encoder.") for k in state_dict):
-        sd = sd.sub("encoder")
-    return to_torch(convert_moe_encoder(sd, cfg.encoder_conf), device, dtype)
+    checkpoint into the port's tree of tensors on ``device``, by the
+    converter of its nnet_proto's family (``models/registry.py``)."""
+    from m3asr_tpu_torch.models.registry import get_family
+    return to_torch(get_family(cfg.nnet_proto).convert(state_dict, cfg),
+                    device, dtype)
+
+
+# ---------------------------------------------------------------------------
+# DFSMN families: per-layer lists, as the JAX package's trees hold them
+# ---------------------------------------------------------------------------
+
+def convert_cfsmn(sd: StateDict) -> Dict:
+    return {"left_factor": sd.get("left_factor"),
+            "cur_factor": sd.get("cur_factor"),
+            "right_factor": sd.get("right_factor"),
+            "hid_proj": _linear(sd, "hid_proj"),
+            "mem_proj": _linear(sd, "mem_proj")}
+
+
+def convert_attn_mem(sd: StateDict) -> Dict:
+    p = {n: _linear(sd, n) for n in ("linear_query", "linear_key",
+                                     "linear_value", "linear_out")}
+    if "key_memory" in sd:
+        p["key_memory"] = sd.get("key_memory")
+        p["value_memory"] = sd.get("value_memory")
+    return p
+
+
+def convert_dfsmn_san(sd: StateDict, num_block: int, fsmn_each_block: int,
+                      norm_type: str = "LN") -> Dict:
+    """A dfsmn_san_res Net state dict."""
+    blocks = []
+    for i in range(num_block):
+        b = sd.sub(f"blocks.{i}")
+        fsmn = [convert_cfsmn(b.sub(f"fsmn_layers.{j}"))
+                for j in range(fsmn_each_block)]
+        attn = {"attn_layer": convert_attn_mem(
+            b.sub("attn_layer.attn_layer"))}
+        if norm_type == "LN":
+            attn["ln_layer"] = _layer_norm(b.sub("attn_layer"), "ln_layer")
+        else:
+            # MaskBatchNorm's eval fold (eps 1e-8), stats shaped (1, D)
+            bb = b.sub("attn_layer.bn_layer")
+            gamma, beta = bb.get("weight")[0], bb.get("bias")[0]
+            mean, var = bb.get("running_mean")[0], bb.get("running_var")[0]
+            scale = gamma / np.sqrt(var + 1e-8)
+            attn["bn_layer"] = {"scale": scale, "bias": beta - mean * scale}
+        blocks.append({"fsmn_layers": fsmn, "attn_layer": attn})
+    return {"blocks": blocks, "out_linear": _linear(sd, "out_linear")}
+
+
+def convert_dfsmn_san_domain_acc(sd: StateDict, num_block: int,
+                                 fsmn_each_block: int,
+                                 norm_type: str = "LN") -> Dict:
+    """A dfsmn_san_res_embed_domain_acc Net state dict: the san net plus
+    out_linear_{domain,accent}[_embed]."""
+    p = convert_dfsmn_san(sd, num_block, fsmn_each_block, norm_type)
+    for name in ("out_linear_domain", "out_linear_accent",
+                 "out_linear_domain_embed", "out_linear_accent_embed"):
+        p[name] = _linear(sd, name)
+    return p
+
+
+def convert_cfsmn_moe(sd: StateDict) -> Dict:
+    """MoE cFSMN layer: FMoELinear experts {hid_proj (bias), mem_proj (no
+    bias)}, the router ('rooter' in the reference) and the FIR factors."""
+    w1 = sd.get("experts.hid_proj.weight")               # (E, h, d)
+    w2 = sd.get("experts.mem_proj.weight")               # (E, d, h)
+    p = {"left_factor": sd.get("left_factor"),
+         "cur_factor": sd.get("cur_factor"),
+         "right_factor": sd.get("right_factor"),
+         "w1": w1.transpose(0, 2, 1).copy(),
+         "b1": sd.get("experts.hid_proj.bias"),
+         "w2": w2.transpose(0, 2, 1).copy(),
+         "b2": None,
+         "router": {"kernel": sd.get("rooter_weights")}}
+    if "rooter_bias" in sd:
+        p["router"]["bias"] = sd.get("rooter_bias")
+    if "ln_for_router.weight" in sd:
+        p["ln_for_router"] = _layer_norm(sd, "ln_for_router")
+    return p
+
+
+def convert_dfsmn_san_moe(sd: StateDict, num_block: int,
+                          fsmn_each_block: int, embed_num_block: int,
+                          embed_fsmn_each_block: int,
+                          norm_type: str = "LN") -> Dict:
+    """A dfsmn_san_fmoe_localComm_catEmbed Net state dict: the embed
+    sub-net and the blocks_sw stack (a layer with experts converts as the
+    MoE layer, the others as plain cFSMN)."""
+    p = {"embed": convert_dfsmn_san(sd.sub("embed"), embed_num_block,
+                                    embed_fsmn_each_block, norm_type)}
+    blocks = []
+    for i in range(num_block):
+        b = sd.sub(f"blocks_sw.{i}")
+        fsmn = []
+        for j in range(fsmn_each_block):
+            lj = b.sub(f"fsmn_layers.{j}")
+            fsmn.append(convert_cfsmn_moe(lj)
+                        if "experts.hid_proj.weight" in lj
+                        else convert_cfsmn(lj))
+        attn = {"attn_layer": convert_attn_mem(
+            b.sub("attn_layer.attn_layer")),
+            "ln_layer": _layer_norm(b.sub("attn_layer"), "ln_layer")}
+        blocks.append({"fsmn_layers": fsmn, "attn_layer": attn})
+    p["blocks_sw"] = blocks
+    p["out_linear_sw"] = _linear(sd, "out_linear_sw")
+    return p
+
+
+def convert_dfsmn_base(sd: StateDict, fsmn_layers: int) -> Dict:
+    """A dfsmn_base_res Net state dict."""
+    return {"fsmn_layers": [convert_cfsmn(sd.sub(f"fsmn_layers.{i}"))
+                            for i in range(fsmn_layers)],
+            "out_linear": _linear(sd, "out_linear")}
 
 
 def convert_decoder_layer(sd: StateDict) -> Dict:
@@ -339,6 +450,8 @@ def to_torch(tree, device="cpu", dtype: torch.dtype = torch.float32,
     weights) keep their type; None leaves stay None."""
     if isinstance(tree, dict):
         return {k: to_torch(v, device, dtype, k) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [to_torch(v, device, dtype, _name) for v in tree]
     if tree is None:
         return None
     t = tree if torch.is_tensor(tree) else torch.tensor(np.asarray(tree))
@@ -348,19 +461,27 @@ def to_torch(tree, device="cpu", dtype: torch.dtype = torch.float32,
 
 
 def flatten_tree(tree, prefix: str = "") -> Dict[str, Any]:
-    """Nested dict -> {"a/b/c": leaf} (the JAX package's flat paths, as in
-    engine ``params.npz``); None leaves are left out."""
+    """Nested dicts and lists -> {"a/b/c": leaf} (the JAX package's flat
+    paths, as in engine ``params.npz``): a list's items take their index
+    as the path element ("blocks/0/fsmn_layers/1/w1", the DFSMN nets'
+    per-layer lists); None leaves are left out."""
     out: Dict[str, Any] = {}
     if isinstance(tree, dict):
-        for k, v in tree.items():
-            out.update(flatten_tree(v, f"{prefix}{k}/"))
-    elif tree is not None:
-        out[prefix[:-1]] = tree
+        items = tree.items()
+    elif isinstance(tree, (list, tuple)):
+        items = enumerate(tree)
+    else:
+        if tree is not None:
+            out[prefix[:-1]] = tree
+        return out
+    for k, v in items:
+        out.update(flatten_tree(v, f"{prefix}{k}/"))
     return out
 
 
 def unflatten_tree(flat: Dict[str, Any]) -> Dict:
-    """Inverse of :func:`flatten_tree`."""
+    """Inverse of :func:`flatten_tree`: a node whose keys are all digits
+    becomes a list in index order (the JAX engine's ``listify``)."""
     tree: Dict = {}
     for path, v in flat.items():
         parts = path.split("/")
@@ -368,7 +489,16 @@ def unflatten_tree(flat: Dict[str, Any]) -> Dict:
         for p in parts[:-1]:
             node = node.setdefault(p, {})
         node[parts[-1]] = v
-    return tree
+
+    def listify(node):
+        if not isinstance(node, dict):
+            return node
+        node = {k: listify(v) for k, v in node.items()}
+        if node and all(k.isdigit() for k in node):
+            return [node[str(i)] for i in range(len(node))]
+        return node
+
+    return listify(tree)
 
 
 def params_to_numpy(tree):
@@ -377,6 +507,8 @@ def params_to_numpy(tree):
     compare leaf by leaf with ``jax.tree.map(np.asarray, ...)``."""
     if isinstance(tree, dict):
         return {k: params_to_numpy(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [params_to_numpy(v) for v in tree]
     if tree is None:
         return None
     t = tree.detach().cpu()
@@ -392,6 +524,8 @@ def params_from_jax(tree, device="cpu", dtype: torch.dtype = torch.float32):
     def walk(node):
         if isinstance(node, dict):
             return {k: walk(v) for k, v in node.items()}
+        if isinstance(node, (list, tuple)):
+            return [walk(v) for v in node]
         if node is None:
             return None
         a = np.asarray(node)

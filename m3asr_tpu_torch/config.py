@@ -1,10 +1,12 @@
-"""Configuration schema for the hier MoE conformer.
+"""Configuration schema for the hier MoE conformer and the DFSMN
+families.
 
 The port's own copy of the reference YAML schema (the JAX package's
-``m3asr_tpu/config.py``), limited to the hier MoE conformer family.
-Other ``nnet_proto`` families raise ``NotImplementedError`` until the
-slice that ports them. ``yaml`` is imported only inside
-:func:`load_yaml_config`: nothing on the inference path reads a YAML.
+``m3asr_tpu/config.py``), limited to the hier MoE conformer family and
+the DFSMN protos (:data:`DFSMN_PROTOS`). The dense conformer protos raise
+``NotImplementedError`` until the slice that ports them. ``yaml`` is
+imported only inside :func:`load_yaml_config`: nothing on the inference
+path reads a YAML.
 """
 
 from __future__ import annotations
@@ -45,6 +47,9 @@ class MoEConfig:
     router_with_bias: bool = False
     keep_expert_output: bool = False
     rand_init_router: bool = False
+    # DFSMN-MoE layer options (dfsmn_base_fmoe_localComm_catEmbed.py):
+    # a LayerNorm on the router input; the expert output not scaled by
+    # its gate value; the router input detached (training only)
     ln_before_router: bool = False
     detach_router_input: bool = False
     non_expert_dropout: float = 0.0
@@ -118,6 +123,46 @@ class MoEEncoderConfig(EncoderConfig):
 
 
 @dataclass
+class DfsmnEncoderConfig:
+    """DFSMN family encoder config. The reference passes ``model_conf``
+    straight into its Nets; the MoE variants nest ``fsmn_conf`` /
+    ``san_conf`` / ``moe_conf`` / ``embed_conf``, which
+    :func:`model_config_from_dict` flattens onto these fields."""
+
+    # SAN family (dfsmn_san_res.py Net kwargs)
+    num_block: int = 3
+    fsmn_each_block: int = 10
+    hidden_dim: int = 1024
+    memory_dim: int = 512
+    look_back: int = 4
+    look_ahead: int = 1
+    stride_left: int = 2
+    stride_right: int = 1
+    num_head: int = 8
+    num_memory: int = 64
+    norm_type: str = "LN"
+    hidden_dropout: float = 0.0
+    attn_dropout: float = 0.0
+    dropout: float = 0.0
+    # domain/accent heads (dfsmn_san_res_embed_domain_acc.py)
+    output_dim_domain: int = 6
+    output_dim_acc: int = 8
+    # base family (dfsmn_base_res.py Net kwargs)
+    fsmn_layers: int = 30
+    # fmoe catEmbed variants
+    embed_before_output: bool = True
+    embed_conf: Dict[str, Any] = field(default_factory=dict)
+    moe_conf: MoEConfig = field(default_factory=MoEConfig)
+    extra: Dict[str, Any] = field(default_factory=dict)
+
+    # the engine's view: DFSMN has no subsampling front
+    input_layer: str = "linear"
+    use_dynamic_chunk: bool = False
+    use_dynamic_left_chunk: bool = False
+    static_chunk_size: int = 0
+
+
+@dataclass
 class DecoderConfig:
     """AED transformer decoder config (``models/aed.py``)."""
 
@@ -169,16 +214,26 @@ MOE_HIER_PROTOS = {
     "conformer_fmoe_localComm_catEmbed",
 }
 
+# nnet_proto values of the DFSMN families
+DFSMN_PROTOS = {
+    "dfsmn_base_res",
+    "dfsmn_san_res",
+    "dfsmn_san_res_embed",
+    "dfsmn_san_res_embed_domain_acc",
+    "dfsmn_base_fmoe_localComm_catEmbed",
+    "dfsmn_san_fmoe_localComm_catEmbed",
+}
+
 
 def model_config_from_dict(configs: Dict[str, Any]) -> ModelConfig:
     """Build a :class:`ModelConfig` from a reference-format config dict."""
     cfg = ModelConfig()
     cfg.nnet_proto = configs.get("nnet_proto", cfg.nnet_proto)
-    if cfg.nnet_proto not in MOE_HIER_PROTOS:
+    if cfg.nnet_proto not in MOE_HIER_PROTOS | DFSMN_PROTOS:
         raise NotImplementedError(
             f"nnet_proto {cfg.nnet_proto!r}: the PyTorch port serves the "
-            "hier MoE conformer family only (ROADMAP Queue 1 item 10 brings "
-            "the dense conformer, AED and DFSMN families)")
+            "hier MoE conformer and DFSMN families only (ROADMAP Queue 1 "
+            "item 10 brings the dense conformer and AED families)")
     cfg.input_dim = configs.get("input_dim", cfg.input_dim)
     cfg.output_dim = configs.get("output_dim", cfg.output_dim)
     model_conf = dict(configs.get("model_conf") or {})
@@ -194,11 +249,25 @@ def model_config_from_dict(configs: Dict[str, Any]) -> ModelConfig:
     enc = dict(enc or {})
     embed_conf = enc.pop("embed_conf", None)
     moe_conf = enc.pop("moe_conf", None)
-    _update_from_dict(cfg.encoder_conf, enc)
-    if embed_conf:
-        _update_from_dict(cfg.encoder_conf.embed_conf, embed_conf)
-    if moe_conf:
-        _update_from_dict(cfg.encoder_conf.moe_conf, moe_conf)
+    if cfg.nnet_proto in DFSMN_PROTOS:
+        dcfg = DfsmnEncoderConfig()
+        # the MoE variants nest the fsmn/san hyperparameters: flatten them
+        for sub in ("fsmn_conf", "san_conf"):
+            d = enc.pop(sub, None)
+            if d:
+                _update_from_dict(dcfg, d)
+        _update_from_dict(dcfg, enc)
+        if embed_conf:
+            dcfg.embed_conf = dict(embed_conf)
+        if moe_conf:
+            _update_from_dict(dcfg.moe_conf, moe_conf)
+        cfg.encoder_conf = dcfg
+    else:
+        _update_from_dict(cfg.encoder_conf, enc)
+        if embed_conf:
+            _update_from_dict(cfg.encoder_conf.embed_conf, embed_conf)
+        if moe_conf:
+            _update_from_dict(cfg.encoder_conf.moe_conf, moe_conf)
     cfg.decoder_type = model_conf.get("decoder_type", cfg.decoder_type)
     if model_conf.get("decoder_conf"):
         _update_from_dict(cfg.decoder_conf, model_conf["decoder_conf"])

@@ -64,9 +64,11 @@
 //     block.
 //
 // Rounding contract of the float tiles: float32 sums, the bias added in
-// float32 before v / (1 + expf(-v)), the output rounded to its type.
-// Every tile takes an optional clamp, min(v, upper) after the activation
-// (K7's upper_bound), off by default.
+// float32 before the activation (v / (1 + expf(-v)) for SiLU, max(v, 0)
+// for ReLU), the output rounded to its type. Every tile takes an optional
+// clamp, min(v, upper) in float32 after the activation and before the
+// output is rounded or quantized (the DFSMN experts' upper_bound), off by
+// default.
 
 #pragma once
 
@@ -175,22 +177,37 @@ __device__ __forceinline__ void f_stage(T* xs, const T* __restrict__ at,
   }
 }
 
-// bias (when there is one) in float32, then the SiLU of GEMM1
-template <bool SILU>
+// The activation of a GEMM's epilogue: none (GEMM2), SiLU (the conformer
+// experts' GEMM1) or ReLU (the DFSMN experts' GEMM1). The wrappers' codes
+// (ops/moe_runs.py ACT_CODES).
+enum Act { ACT_NONE = 0, ACT_SILU = 1, ACT_RELU = 2 };
+
+template <int ACT>
+__device__ __forceinline__ float act_fn(float v) {
+  if constexpr (ACT == ACT_SILU) return silu(v);
+  if constexpr (ACT == ACT_RELU) return fmaxf(v, 0.f);
+  return v;
+}
+
+// bias (when there is one) in float32, then the activation of GEMM1
+template <int ACT>
 __device__ __forceinline__ float f_epilogue(float v, bool has_bias, float b) {
   if (has_bias) v += b;
-  return SILU ? v / (1.0f + expf(-v)) : v;
+  return act_fn<ACT>(v);
 }
 
 // bf16: warp w's 32 rows x F_BN/4 columns as 2 x NT m16n8 tiles. BT: the
-// bias type (bf16 for K1, float32 for K8).
-template <bool SILU, bool GATHER, typename BT>
+// bias type (bf16 for K1, float32 for K8). clamp takes min(v, upper) after
+// the activation.
+template <int ACT, bool GATHER, typename BT>
 __device__ __forceinline__ void tile_mma(const bf16* __restrict__ at,
                                          const int* rows,
                                          const bf16* __restrict__ we,
                                          const BT* __restrict__ bias,
                                          int K, int N, int n0, bf16* sm,
-                                         bf16* __restrict__ out) {
+                                         bf16* __restrict__ out,
+                                         bool clamp = false,
+                                         float upper = 0.f) {
   using C = FLayout<bf16>;
   constexpr int WN = F_BN / 4, NT = WN / 8;
   static_assert(NT % 2 == 0, "B fragments load in pairs");
@@ -245,8 +262,12 @@ __device__ __forceinline__ void tile_mma(const bf16* __restrict__ at,
       for (int h = 0; h < 2; ++h) {
         const int row = dst_row<GATHER>(rows, 16 * m + 8 * h + g);
         if (GATHER && row < 0) continue;
-        const float v0 = f_epilogue<SILU>(acc[m][n][2 * h], hb, b0);
-        const float v1 = f_epilogue<SILU>(acc[m][n][2 * h + 1], hb, b1);
+        float v0 = f_epilogue<ACT>(acc[m][n][2 * h], hb, b0);
+        float v1 = f_epilogue<ACT>(acc[m][n][2 * h + 1], hb, b1);
+        if (clamp) {
+          v0 = fminf(v0, upper);
+          v1 = fminf(v1, upper);
+        }
         *reinterpret_cast<__nv_bfloat162*>(out + (size_t)row * N + col) =
             __floats2bfloat162_rn(v0, v1);
       }
@@ -263,7 +284,7 @@ __device__ __forceinline__ void tile_mma(const bf16* __restrict__ at,
 // Q4x2 the low (tx < 8) or high nibbles of the block's packed bytes
 // 4 (tx % 8) .. + 3, as q_col maps them. clamp takes min(v, upper) after
 // the activation.
-template <bool SILU, bool GATHER, typename W = float>
+template <int ACT, bool GATHER, typename W = float>
 __device__ __forceinline__ void tile_fma(
     const float* __restrict__ at, const int* rows, const W* __restrict__ we,
     const float* __restrict__ scale, int G, const float* __restrict__ bias,
@@ -379,7 +400,7 @@ __device__ __forceinline__ void tile_fma(
     float v[4];
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
-      v[j] = f_epilogue<SILU>(acc[i][j], bias != nullptr,
+      v[j] = f_epilogue<ACT>(acc[i][j], bias != nullptr,
                               bias != nullptr ? bias[col + j] : 0.f);
       if (clamp) v[j] = fminf(v[j], upper);
     }
@@ -632,7 +653,7 @@ __device__ __forceinline__ void q_gather(const unsigned char* r, int ld,
 // K8's int8, K7's int4, whose scales are reloaded at each group end) and
 // the sums are taken as they are, with no fold. BT: the bias type. clamp
 // takes min(v, upper) after the activation.
-template <int F, bool SILU, bool GATHER, bool DEQ = false,
+template <int F, int ACT, bool GATHER, bool DEQ = false,
           typename BT = bf16>
 __device__ __forceinline__ void tile_q_mma(
     const bf16* __restrict__ at, const int* rows,
@@ -733,7 +754,7 @@ __device__ __forceinline__ void tile_q_mma(
         for (int i = 0; i < 2; ++i) {
           float x = DEQ ? acc[m][j][2 * h + i] : tot[m][j][2 * h + i];
           if (bias != nullptr) x = __fadd_rn(x, bv[j][i]);
-          v[j][i] = SILU ? silu(x) : x;
+          v[j][i] = act_fn<ACT>(x);
           if (clamp) v[j][i] = fminf(v[j][i], upper);
         }
       q_store<F>(out + (size_t)row * N, n0, N, warp, t, v);
@@ -746,8 +767,8 @@ __device__ __forceinline__ void tile_q_mma(
 //   int8: (float(sum) * as[row]) * scale[0, n]     (pallas_moe_runs.py:287)
 //   int4: (sum_g float(sum_g) * scale[g, n]) * as[row]
 //                                                 (pallas_moe_q4.py:183-187)
-// then + bias (of type BT), optional SiLU, optional clamp at `upper`.
-template <int F, bool SILU, typename OutT, bool GATHER, typename BT = bf16>
+// then + bias (of type BT), the activation, optional clamp at `upper`.
+template <int F, int ACT, typename OutT, bool GATHER, typename BT = bf16>
 __device__ __forceinline__ void tile_q_s8(
     const int8_t* __restrict__ aq, const float* __restrict__ as,
     const int* rows, const int8_t* __restrict__ we,
@@ -837,7 +858,7 @@ __device__ __forceinline__ void tile_q_s8(
                                     sc[j][i])
                         : __fmul_rn(tot[m][j][2 * h + i], ar);
           if (bias != nullptr) x = __fadd_rn(x, bv[j][i]);
-          v[j][i] = SILU ? silu(x) : x;
+          v[j][i] = act_fn<ACT>(x);
           if (clamp) v[j][i] = fminf(v[j][i], upper);
         }
       q_store<F>(out + (size_t)r * N, n0, N, warp, t, v);

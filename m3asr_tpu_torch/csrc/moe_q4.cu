@@ -22,8 +22,12 @@
 // they are. GEMM2's grid has one more tile slot, which writes the zeros
 // of rows of no expert.
 //
-//     hidden[rows of e] = silu(x[rows of e] @ w1[e] + b1[e])   GEMM1
+//     hidden[rows of e] = act(x[rows of e] @ w1[e] + b1[e])    GEMM1
 //     out[rows of e]    = hidden[rows of e] @ w2[e] + b2[e]    GEMM2
+//
+// act is SiLU (the conformer experts) or ReLU with an optional clamp at
+// upper_bound in float32 before the hidden is rounded or quantized (the
+// DFSMN experts); the SiLU instantiations take no clamp.
 //
 // The tiles are K5's (expert_tiles.cuh): weight-only on bf16 mma.sync
 // with the int4 values widened exactly in registers and each 128-row
@@ -54,19 +58,21 @@ namespace {
 
 // GEMM over the front's tiles: grid (max_tiles [+ 1], N / Q_BN). A8
 // selects the s8 tile on quantized rows (aq, as) instead of the bf16 tile
-// on a; GEMM2 (!SILU) has the zero slot.
-template <bool A8, bool SILU, typename OutT>
+// on a; GEMM2 (ACT_NONE) has the zero slot. ReLU takes min(v, upper) when
+// clamp != 0.
+template <bool A8, int ACT, typename OutT>
 __global__ void __launch_bounds__(Q_THREADS)
     dense_gemm(const bf16* __restrict__ a, const int8_t* __restrict__ aq,
                const float* __restrict__ as,
                const int32_t* __restrict__ front, int n_rows, int max_tiles,
                const int8_t* __restrict__ w, const float* __restrict__ scale,
                int G, const bf16* __restrict__ bias, int n_experts,
-               int layer, int K, int N, OutT* __restrict__ out) {
+               int layer, int K, int N, OutT* __restrict__ out, int clamp,
+               float upper) {
   __shared__ int rows[TM];
   const int t = blockIdx.x;
   const int n0 = blockIdx.y * Q_BN;
-  if (!SILU && t == max_tiles) {
+  if (ACT == ACT_NONE && t == max_tiles) {
     front_zero_rows(front, n_rows, N, n0, Q_BN, Q_THREADS, out);
     return;
   }
@@ -76,12 +82,13 @@ __global__ void __launch_bounds__(Q_THREADS)
   const int8_t* we = q_weights<W_Q4>(w, layer * n_experts + e, K, N, n0);
   const float* se = scale + (size_t)e * G * N;
   const bf16* be = bias == nullptr ? nullptr : bias + (size_t)e * N;
+  const bool cl = ACT == ACT_RELU && clamp != 0;
   if constexpr (A8)
-    tile_q_s8<W_Q4, SILU, OutT, true>(aq, as, rows, we, se, G, be, K, N, n0,
-                                      q_smem, out);
+    tile_q_s8<W_Q4, ACT, OutT, true>(aq, as, rows, we, se, G, be, K, N, n0,
+                                     q_smem, out, cl, upper);
   else
-    tile_q_mma<W_Q4, SILU, true>(a, rows, we, se, G, be, K, N, n0, q_smem,
-                                 out);
+    tile_q_mma<W_Q4, ACT, true>(a, rows, we, se, G, be, K, N, n0, q_smem,
+                                out, cl, upper);
 }
 
 #define RETURN_IF_ERROR()                       \
@@ -89,6 +96,49 @@ __global__ void __launch_bounds__(Q_THREADS)
     cudaError_t err_ = cudaGetLastError();      \
     if (err_ != cudaSuccess) return (int)err_;  \
   } while (0)
+
+template <int ACT>
+int launch_dense(int a8, const bf16* xt, const int32_t* gate, int n_rows,
+                 const int8_t* q1, const float* s1, int g1, const bf16* bias1,
+                 const int8_t* q2, const float* s2, int g2, const bf16* bias2,
+                 int n_experts, int layer, int d, int h, int clamp,
+                 float upper, int32_t* front, void* hidden, int8_t* xq,
+                 float* xs, int8_t* hq, float* hs, void* out,
+                 cudaStream_t s) {
+  using T = bf16;
+  const int tiles = front_max_tiles(n_rows, n_experts);
+  const dim3 grid1(tiles, h / Q_BN), grid2(tiles + 1, d / Q_BN);
+  const int err = (int)launch_row_tiles(gate, n_rows, n_experts, front, s);
+  if (err != 0) return err;
+  if (!a8) {
+    constexpr int smem = QLayout<W_Q4, false>::bytes;
+    dense_gemm<false, ACT, T><<<grid1, Q_THREADS, smem, s>>>(
+        xt, nullptr, nullptr, front, n_rows, tiles, q1, s1, g1, bias1,
+        n_experts, layer, d, h, static_cast<T*>(hidden), clamp, upper);
+    RETURN_IF_ERROR();
+    dense_gemm<false, ACT_NONE, T><<<grid2, Q_THREADS, smem, s>>>(
+        static_cast<const T*>(hidden), nullptr, nullptr, front, n_rows,
+        tiles, q2, s2, g2, bias2, n_experts, layer, h, d,
+        static_cast<T*>(out), 0, 0.f);
+    return (int)cudaGetLastError();
+  }
+  constexpr int smem = QLayout<W_Q4, true>::bytes;
+  quant_rows<T><<<n_rows, QTHREADS, 0, s>>>(xt, d, nullptr, gate, n_experts,
+                                            TM, xq, xs);
+  RETURN_IF_ERROR();
+  dense_gemm<true, ACT, float><<<grid1, Q_THREADS, smem, s>>>(
+      nullptr, xq, xs, front, n_rows, tiles, q1, s1, g1, bias1, n_experts,
+      layer, d, h, static_cast<float*>(hidden), clamp, upper);
+  RETURN_IF_ERROR();
+  quant_rows<float><<<n_rows, QTHREADS, 0, s>>>(
+      static_cast<const float*>(hidden), h, nullptr, gate, n_experts, TM, hq,
+      hs);
+  RETURN_IF_ERROR();
+  dense_gemm<true, ACT_NONE, T><<<grid2, Q_THREADS, smem, s>>>(
+      nullptr, hq, hs, front, n_rows, tiles, q2, s2, g2, bias2, n_experts,
+      layer, h, d, static_cast<T*>(out), 0, 0.f);
+  return (int)cudaGetLastError();
+}
 
 }  // namespace
 
@@ -112,58 +162,45 @@ int moe_q4_row_tiles(const int32_t* gate, int n_rows, int n_experts,
 // x (n_rows, d) bf16, gate (n_rows,) int32; w1 (L*E|E, d, h/2), w2
 // (., h, d/2) packed int4; s1 (E, g1, h), s2 (E, g2, d) float32; b1/b2
 // (E, h)/(E, d) bf16 or null. front: moe_q4_front_ints int32 scratch.
-// a8 != 0 quantizes x into xq/xs (n_rows x d) and the float32 hidden
-// into hq/hs (n_rows x h); the hidden is bf16 otherwise. out (n_rows, d)
-// bf16. d and h are multiples of moe_q4_col_block(), the groups of
-// moe_q4_k_step() rows. Returns cudaGetLastError() of the launches (0 on
-// success).
+// act: GEMM1's activation (ACT_SILU, or ACT_RELU with min(hidden, upper)
+// when clamp != 0). a8 != 0 quantizes x into xq/xs (n_rows x d) and the
+// float32 hidden into hq/hs (n_rows x h); the hidden is bf16 otherwise.
+// out (n_rows, d) bf16. d and h are multiples of moe_q4_col_block(), the
+// groups of moe_q4_k_step() rows. Returns cudaGetLastError() of the
+// launches (0 on success), or cudaErrorInvalidValue for an activation or
+// widths K6 does not take.
+int moe_q4_dense_act(int act, int clamp, float upper, int a8, const void* x,
+                     const int32_t* gate, int n_rows, const void* w1,
+                     const float* s1, int g1, const void* b1, const void* w2,
+                     const float* s2, int g2, const void* b2, int n_experts,
+                     int layer, int d, int h, int32_t* front, void* hidden,
+                     int8_t* xq, float* xs, int8_t* hq, float* hs, void* out,
+                     void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (d % Q_BN != 0 || h % Q_BN != 0) return (int)cudaErrorInvalidValue;
+  if (n_rows == 0) return 0;
+#define K6_ARGS                                                               \
+  a8, static_cast<const bf16*>(x), gate, n_rows,                              \
+      static_cast<const int8_t*>(w1), s1, g1, static_cast<const bf16*>(b1),   \
+      static_cast<const int8_t*>(w2), s2, g2, static_cast<const bf16*>(b2),   \
+      n_experts, layer, d, h, clamp, upper, front, hidden, xq, xs, hq, hs,    \
+      out, s
+  if (act == ACT_SILU) return launch_dense<ACT_SILU>(K6_ARGS);
+  if (act == ACT_RELU) return launch_dense<ACT_RELU>(K6_ARGS);
+#undef K6_ARGS
+  return (int)cudaErrorInvalidValue;
+}
+
+// K6 with SiLU (moe_q4_dense_act(ACT_SILU, 0, 0, ...)).
 int moe_q4_dense(int a8, const void* x, const int32_t* gate, int n_rows,
                  const void* w1, const float* s1, int g1, const void* b1,
                  const void* w2, const float* s2, int g2, const void* b2,
                  int n_experts, int layer, int d, int h, int32_t* front,
                  void* hidden, int8_t* xq, float* xs, int8_t* hq, float* hs,
                  void* out, void* stream) {
-  using T = bf16;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (d % Q_BN != 0 || h % Q_BN != 0) return (int)cudaErrorInvalidValue;
-  if (n_rows == 0) return 0;
-  const T* xt = static_cast<const T*>(x);
-  const T* bias1 = static_cast<const T*>(b1);
-  const T* bias2 = static_cast<const T*>(b2);
-  const int8_t* q1 = static_cast<const int8_t*>(w1);
-  const int8_t* q2 = static_cast<const int8_t*>(w2);
-  const int tiles = front_max_tiles(n_rows, n_experts);
-  const dim3 grid1(tiles, h / Q_BN), grid2(tiles + 1, d / Q_BN);
-  const int err = (int)launch_row_tiles(gate, n_rows, n_experts, front, s);
-  if (err != 0) return err;
-  if (!a8) {
-    constexpr int smem = QLayout<W_Q4, false>::bytes;
-    dense_gemm<false, true, T><<<grid1, Q_THREADS, smem, s>>>(
-        xt, nullptr, nullptr, front, n_rows, tiles, q1, s1, g1, bias1,
-        n_experts, layer, d, h, static_cast<T*>(hidden));
-    RETURN_IF_ERROR();
-    dense_gemm<false, false, T><<<grid2, Q_THREADS, smem, s>>>(
-        static_cast<const T*>(hidden), nullptr, nullptr, front, n_rows,
-        tiles, q2, s2, g2, bias2, n_experts, layer, h, d,
-        static_cast<T*>(out));
-    return (int)cudaGetLastError();
-  }
-  constexpr int smem = QLayout<W_Q4, true>::bytes;
-  quant_rows<T><<<n_rows, QTHREADS, 0, s>>>(xt, d, nullptr, gate, n_experts,
-                                            TM, xq, xs);
-  RETURN_IF_ERROR();
-  dense_gemm<true, true, float><<<grid1, Q_THREADS, smem, s>>>(
-      nullptr, xq, xs, front, n_rows, tiles, q1, s1, g1, bias1, n_experts,
-      layer, d, h, static_cast<float*>(hidden));
-  RETURN_IF_ERROR();
-  quant_rows<float><<<n_rows, QTHREADS, 0, s>>>(
-      static_cast<const float*>(hidden), h, nullptr, gate, n_experts, TM, hq,
-      hs);
-  RETURN_IF_ERROR();
-  dense_gemm<true, false, T><<<grid2, Q_THREADS, smem, s>>>(
-      nullptr, hq, hs, front, n_rows, tiles, q2, s2, g2, bias2, n_experts,
-      layer, h, d, static_cast<T*>(out));
-  return (int)cudaGetLastError();
+  return moe_q4_dense_act(ACT_SILU, 0, 0.f, a8, x, gate, n_rows, w1, s1, g1,
+                          b1, w2, s2, g2, b2, n_experts, layer, d, h, front,
+                          hidden, xq, xs, hq, hs, out, stream);
 }
 
 }  // extern "C"

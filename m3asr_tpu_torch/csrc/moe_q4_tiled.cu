@@ -83,7 +83,7 @@ __device__ __forceinline__ int slice_row0(const int32_t* __restrict__ tile_e,
 
 // Weight-only: one TM x 64 slice of act(a @ deq(w) + bias) [min upper],
 // deq(w)[k, n] = T(nibble(k, n) * scale[k / gs, n]).
-template <typename T, bool SILU>
+template <typename T, int ACT>
 __global__ void __launch_bounds__(Q_THREADS)
     tiled_gemm(const T* __restrict__ a, const int8_t* __restrict__ w,
                const float* __restrict__ scale, int G,
@@ -102,12 +102,12 @@ __global__ void __launch_bounds__(Q_THREADS)
   const float* be = bias == nullptr ? nullptr : bias + (size_t)e * N;
   extern __shared__ __align__(16) unsigned char k7_smem[];
   if constexpr (std::is_same<T, bf16>::value) {
-    tile_q_mma<W_Q4, SILU, false, true, float>(
+    tile_q_mma<W_Q4, ACT, false, true, float>(
         a + (size_t)row0 * K, nullptr, we, se, G, be, K, N, n0, k7_smem,
         out + (size_t)row0 * N, clamp != 0, upper);
   } else {
     const int live = starts[e] * tile + counts[e] - row0;
-    tile_fma<SILU, false, Q4x2>(
+    tile_fma<ACT, false, Q4x2>(
         a + (size_t)row0 * K, nullptr, reinterpret_cast<const Q4x2*>(we),
         se + n0 / 2, G, be, K, N, n0, live,
         reinterpret_cast<float*>(k7_smem), out + (size_t)row0 * N,
@@ -119,7 +119,7 @@ __global__ void __launch_bounds__(Q_THREADS)
 // least 4 blocks an SM: without that bound ptxas held the SiLU form at 72
 // registers and spilled 16 bytes around the calls of the division's slow
 // path; with it all forms take 91 registers and none spills.
-template <bool SILU, typename OutT>
+template <int ACT, typename OutT>
 __global__ void __launch_bounds__(Q_THREADS, 4)
     tiled_gemm_s8(const int8_t* __restrict__ aq, const float* __restrict__ as,
                   const int8_t* __restrict__ w,
@@ -135,7 +135,7 @@ __global__ void __launch_bounds__(Q_THREADS, 4)
   if (row0 < 0) return;
   const int n0 = blockIdx.x * Q_BN;
   extern __shared__ __align__(16) unsigned char k7_smem[];
-  tile_q_s8<W_Q4, SILU, OutT, false, float>(
+  tile_q_s8<W_Q4, ACT, OutT, false, float>(
       aq + (size_t)row0 * K, as + row0, nullptr,
       q_weights<W_Q4>(w, layer * n_experts + e, K, N, n0),
       scale + (size_t)e * G * N, G,
@@ -157,7 +157,7 @@ constexpr int weight_only_smem() {
     return FLayout<float, Q4x2>::bytes;
 }
 
-template <typename T>
+template <typename T, int ACT>
 int launch(int a8, const void* x_pad, const void* w1, const float* s1,
            int g1, const float* b1, const void* w2, const float* s2, int g2,
            const float* b2, const int32_t* tile_e, const int32_t* starts,
@@ -174,11 +174,11 @@ int launch(int a8, const void* x_pad, const void* w1, const float* s1,
   const dim3 grid1(h / Q_BN, rows / TM), grid2(d / Q_BN, rows / TM);
   if (!a8) {
     constexpr int smem = weight_only_smem<T>();
-    tiled_gemm<T, true><<<grid1, Q_THREADS, smem, s>>>(
+    tiled_gemm<T, ACT><<<grid1, Q_THREADS, smem, s>>>(
         x, q1, s1, g1, b1, tile_e, starts, counts, tile, n_experts, layer, d,
         h, clamp, upper, static_cast<T*>(hidden));
     RETURN_IF_ERROR();
-    tiled_gemm<T, false><<<grid2, Q_THREADS, smem, s>>>(
+    tiled_gemm<T, ACT_NONE><<<grid2, Q_THREADS, smem, s>>>(
         static_cast<const T*>(hidden), q2, s2, g2, b2, tile_e, starts,
         counts, tile, n_experts, layer, h, d, 0, 0.f,
         static_cast<T*>(y_pad));
@@ -188,7 +188,7 @@ int launch(int a8, const void* x_pad, const void* w1, const float* s1,
   quant_rows<T><<<rows, QTHREADS, 0, s>>>(x, d, starts, nullptr, n_experts,
                                           tile, xq, xs);
   RETURN_IF_ERROR();
-  tiled_gemm_s8<true, float><<<grid1, Q_THREADS, smem, s>>>(
+  tiled_gemm_s8<ACT, float><<<grid1, Q_THREADS, smem, s>>>(
       xq, xs, q1, s1, g1, b1, tile_e, starts, counts, tile, n_experts, layer,
       d, h, clamp, upper, static_cast<float*>(hidden));
   RETURN_IF_ERROR();
@@ -196,7 +196,7 @@ int launch(int a8, const void* x_pad, const void* w1, const float* s1,
       static_cast<const float*>(hidden), h, starts, nullptr, n_experts, tile,
       hq, hs);
   RETURN_IF_ERROR();
-  tiled_gemm_s8<false, T><<<grid2, Q_THREADS, smem, s>>>(
+  tiled_gemm_s8<ACT_NONE, T><<<grid2, Q_THREADS, smem, s>>>(
       hq, hs, q2, s2, g2, b2, tile_e, starts, counts, tile, n_experts, layer,
       h, d, 0, 0.f, static_cast<T*>(y_pad));
   return (int)cudaGetLastError();
@@ -214,15 +214,39 @@ int moe_q4_tiled_col_block() { return Q_BN; }
 int moe_q4_tiled_k_step() { return Q_GROUP; }
 
 // dtype: 0 = float32, 1 = bfloat16 activations (x_pad, y_pad, and the
-// weight-only hidden). x_pad (n_tiles * tile, d); w1 (L*E|E, d, h/2), w2
-// (., h, d/2) packed int4; s1 (E, g1, h), s2 (E, g2, d) float32; b1/b2
-// (E, h)/(E, d) float32 or null; tile_e (n_tiles,), starts (E+1,) in
-// tiles, counts (E,) tokens. clamp != 0 takes min(hidden, upper) after
-// SiLU. a8 != 0 quantizes x_pad's rows into xq/xs and the float32
-// hidden into hq/hs; the hidden is of the activation type otherwise.
-// x_pad, w1, w2 and the scratch start on 16-byte boundaries. Returns
-// cudaGetLastError() of the launches (0 on success), or
-// cudaErrorInvalidValue for a tile or widths K7 does not take.
+// weight-only hidden). act: GEMM1's activation (ACT_SILU or ACT_RELU).
+// x_pad (n_tiles * tile, d); w1 (L*E|E, d, h/2), w2 (., h, d/2) packed
+// int4; s1 (E, g1, h), s2 (E, g2, d) float32; b1/b2 (E, h)/(E, d) float32
+// or null; tile_e (n_tiles,), starts (E+1,) in tiles, counts (E,) tokens.
+// clamp != 0 takes min(hidden, upper) after the activation. a8 != 0
+// quantizes x_pad's rows into xq/xs and the float32 hidden into hq/hs;
+// the hidden is of the activation type otherwise. x_pad, w1, w2 and the
+// scratch start on 16-byte boundaries. Returns cudaGetLastError() of the
+// launches (0 on success), or cudaErrorInvalidValue for an activation, a
+// tile or widths K7 does not take.
+int moe_q4_tiled_act(int act, int dtype, int a8, const void* x_pad,
+                     const void* w1, const float* s1, int g1, const float* b1,
+                     const void* w2, const float* s2, int g2, const float* b2,
+                     const int32_t* tile_e, const int32_t* starts,
+                     const int32_t* counts, int tile, int n_tiles,
+                     int n_experts, int layer, int d, int h, int clamp,
+                     float upper, void* hidden, int8_t* xq, float* xs,
+                     int8_t* hq, float* hs, void* y_pad, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (tile % TM || d % Q_BN || h % Q_BN) return (int)cudaErrorInvalidValue;
+#define K7_ARGS                                                              \
+  a8, x_pad, w1, s1, g1, b1, w2, s2, g2, b2, tile_e, starts, counts, tile,   \
+      n_tiles, n_experts, layer, d, h, clamp, upper, hidden, xq, xs, hq, hs, \
+      y_pad, s
+  if (act == ACT_SILU && dtype == 0) return launch<float, ACT_SILU>(K7_ARGS);
+  if (act == ACT_SILU && dtype == 1) return launch<bf16, ACT_SILU>(K7_ARGS);
+  if (act == ACT_RELU && dtype == 0) return launch<float, ACT_RELU>(K7_ARGS);
+  if (act == ACT_RELU && dtype == 1) return launch<bf16, ACT_RELU>(K7_ARGS);
+#undef K7_ARGS
+  return (int)cudaErrorInvalidValue;
+}
+
+// K7 with SiLU (moe_q4_tiled_act(ACT_SILU, ...)).
 int moe_q4_tiled(int dtype, int a8, const void* x_pad, const void* w1,
                  const float* s1, int g1, const float* b1, const void* w2,
                  const float* s2, int g2, const float* b2,
@@ -231,17 +255,10 @@ int moe_q4_tiled(int dtype, int a8, const void* x_pad, const void* w1,
                  int layer, int d, int h, int clamp, float upper,
                  void* hidden, int8_t* xq, float* xs, int8_t* hq, float* hs,
                  void* y_pad, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (tile % TM || d % Q_BN || h % Q_BN) return (int)cudaErrorInvalidValue;
-  if (dtype == 0)
-    return launch<float>(a8, x_pad, w1, s1, g1, b1, w2, s2, g2, b2, tile_e,
-                         starts, counts, tile, n_tiles, n_experts, layer, d,
-                         h, clamp, upper, hidden, xq, xs, hq, hs, y_pad, s);
-  if (dtype == 1)
-    return launch<bf16>(a8, x_pad, w1, s1, g1, b1, w2, s2, g2, b2, tile_e,
-                        starts, counts, tile, n_tiles, n_experts, layer, d,
-                        h, clamp, upper, hidden, xq, xs, hq, hs, y_pad, s);
-  return (int)cudaErrorInvalidValue;
+  return moe_q4_tiled_act(ACT_SILU, dtype, a8, x_pad, w1, s1, g1, b1, w2, s2,
+                          g2, b2, tile_e, starts, counts, tile, n_tiles,
+                          n_experts, layer, d, h, clamp, upper, hidden, xq,
+                          xs, hq, hs, y_pad, stream);
 }
 
 }  // extern "C"

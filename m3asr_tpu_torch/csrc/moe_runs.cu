@@ -10,8 +10,15 @@
 // tile of TM rows belongs to one expert (tile_e[t]). For the tiles of
 // each expert that has tokens:
 //
-//     hidden = silu(x_tile @ w1[e] + b1[e])      launch GEMM1 (SILU)
+//     hidden = act(x_tile @ w1[e] + b1[e])       launch GEMM1 (SiLU or
+//                                                 ReLU [min upper])
 //     y_tile = hidden @ w2[e] + b2[e]            launch GEMM2
+
+// act is SiLU for the conformer experts and ReLU, clamped at upper_bound
+// in float32 before the hidden is rounded or quantized, for the DFSMN
+// experts (pallas_moe_runs.py:296-298). The SiLU instantiations take no
+// clamp (the clamp argument is compiled in for ReLU only), so their code
+// is that of the SiLU-only kernels.
 //
 // with the quantized formats' scales applied to the partial sum of each
 // scale group (the rounding contract of moe_common.cuh). The a8 modes add two
@@ -46,8 +53,8 @@
 // bf16 activations (the quantized engines' type). The hidden scratch is in
 // the compute type (weight-only) or float32 (a8); the output is in the
 // activation type. Rounding contract of K1: float32 sums, the bias added
-// in float32 before v / (1 + expf(-v)), the hidden rounded to the compute
-// type between the launches, the output in the compute type.
+// in float32 before the activation (and the clamp), the hidden rounded to
+// the compute type between the launches, the output in the compute type.
 
 #include "expert_tiles.cuh"
 
@@ -60,14 +67,16 @@ namespace {
 //                            + bias[e, n]),  e = tile_e[t]
 // ---------------------------------------------------------------------------
 
-template <typename T, bool SILU>
+template <typename T, int ACT>
 __global__ void __launch_bounds__(FTile<T>::THREADS)
     expert_tile_gemm(const T* __restrict__ a, const T* __restrict__ w,
                      const T* __restrict__ bias,
                      const int32_t* __restrict__ tile_e,
                      const int32_t* __restrict__ starts,
                      const int32_t* __restrict__ counts, int n_experts,
-                     int layer, int K, int N, T* __restrict__ out) {
+                     int layer, int K, int N, T* __restrict__ out,
+                     int clamp, float upper) {
+  const bool cl = ACT == ACT_RELU && clamp != 0;
   const int t = blockIdx.x;
   if (t >= starts[n_experts]) return;  // past the last real tile
   const int e = tile_e[t];
@@ -79,11 +88,11 @@ __global__ void __launch_bounds__(FTile<T>::THREADS)
   extern __shared__ __align__(16) unsigned char f_smem[];
   T* sm = reinterpret_cast<T*>(f_smem);
   if constexpr (std::is_same<T, bf16>::value) {
-    tile_mma<SILU, false>(at, nullptr, we, be, K, N, n0, sm, ot);
+    tile_mma<ACT, false>(at, nullptr, we, be, K, N, n0, sm, ot, cl, upper);
   } else {
     const int live = counts[e] - (t - starts[e]) * TM;
-    tile_fma<SILU, false>(at, nullptr, we, nullptr, 1, be, K, N, n0, live,
-                          sm, ot);
+    tile_fma<ACT, false>(at, nullptr, we, nullptr, 1, be, K, N, n0, live, sm,
+                         ot, cl, upper);
   }
 }
 
@@ -94,29 +103,29 @@ __global__ void __launch_bounds__(FTile<T>::THREADS)
 // ---------------------------------------------------------------------------
 
 // K4 / K5 weight-only: one tile of the expert that owns tile t
-template <int F, bool SILU>
+template <int F, int ACT>
 __global__ void __launch_bounds__(Q_THREADS)
     runs_gemm(const bf16* __restrict__ a, const int8_t* __restrict__ w,
               const float* __restrict__ scale, int G,
               const bf16* __restrict__ bias,
               const int32_t* __restrict__ tile_e,
               const int32_t* __restrict__ starts, int n_experts, int layer,
-              int K, int N, bf16* __restrict__ out) {
+              int K, int N, bf16* __restrict__ out, int clamp, float upper) {
   const int t = blockIdx.x;
   if (t >= starts[n_experts]) return;  // past the last real tile
   const int e = tile_e[t];
   const int n0 = blockIdx.y * Q_BN;
   extern __shared__ __align__(16) unsigned char q_smem[];
-  tile_q_mma<F, SILU, false>(
+  tile_q_mma<F, ACT, false>(
       a + (size_t)t * TM * K, nullptr,
       q_weights<F>(w, layer * n_experts + e, K, N, n0),
       scale + (size_t)e * G * N, G,
       bias == nullptr ? nullptr : bias + (size_t)e * N, K, N, n0, q_smem,
-      out + (size_t)t * TM * N);
+      out + (size_t)t * TM * N, ACT == ACT_RELU && clamp != 0, upper);
 }
 
 // K4 / K5 a8: the same on int8 rows with row scales
-template <int F, bool SILU, typename OutT>
+template <int F, int ACT, typename OutT>
 __global__ void __launch_bounds__(Q_THREADS)
     runs_gemm_s8(const int8_t* __restrict__ aq, const float* __restrict__ as,
                  const int8_t* __restrict__ w,
@@ -124,18 +133,19 @@ __global__ void __launch_bounds__(Q_THREADS)
                  const bf16* __restrict__ bias,
                  const int32_t* __restrict__ tile_e,
                  const int32_t* __restrict__ starts, int n_experts,
-                 int layer, int K, int N, OutT* __restrict__ out) {
+                 int layer, int K, int N, OutT* __restrict__ out, int clamp,
+                 float upper) {
   const int t = blockIdx.x;
   if (t >= starts[n_experts]) return;
   const int e = tile_e[t];
   const int n0 = blockIdx.y * Q_BN;
   extern __shared__ __align__(16) unsigned char q_smem[];
-  tile_q_s8<F, SILU, OutT, false>(
+  tile_q_s8<F, ACT, OutT, false>(
       aq + (size_t)t * TM * K, as + (size_t)t * TM, nullptr,
       q_weights<F>(w, layer * n_experts + e, K, N, n0),
       scale + (size_t)e * G * N, G,
       bias == nullptr ? nullptr : bias + (size_t)e * N, K, N, n0, q_smem,
-      out + (size_t)t * TM * N);
+      out + (size_t)t * TM * N, ACT == ACT_RELU && clamp != 0, upper);
 }
 
 #define RETURN_IF_ERROR()                       \
@@ -146,47 +156,49 @@ __global__ void __launch_bounds__(Q_THREADS)
 
 // One K1 GEMM. The dynamic shared memory limit is raised once per
 // instantiation, before its first launch.
-template <typename T, bool SILU>
+template <typename T, int ACT>
 int launch_gemm_f(const T* a, const T* w, const T* bias,
                   const int32_t* tile_e, const int32_t* starts,
                   const int32_t* counts, int n_tiles, int n_experts,
-                  int layer, int K, int N, T* out, cudaStream_t stream) {
+                  int layer, int K, int N, T* out, int clamp, float upper,
+                  cudaStream_t stream) {
   using C = FLayout<T>;
   static const int attr = (int)cudaFuncSetAttribute(
-      expert_tile_gemm<T, SILU>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      expert_tile_gemm<T, ACT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       C::bytes);
   if (attr != 0) return attr;
-  expert_tile_gemm<T, SILU>
+  expert_tile_gemm<T, ACT>
       <<<dim3(n_tiles, N / F_BN), C::THREADS, C::bytes, stream>>>(
-          a, w, bias, tile_e, starts, counts, n_experts, layer, K, N, out);
+          a, w, bias, tile_e, starts, counts, n_experts, layer, K, N, out,
+          clamp, upper);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, int ACT>
 int launch_f(const void* x_pad, const void* w1, const void* b1,
              const void* w2, const void* b2, const int32_t* tile_e,
              const int32_t* starts, const int32_t* counts, int n_tiles,
-             int n_experts, int layer, int d, int h, void* hidden,
-             void* y_pad, cudaStream_t stream) {
+             int n_experts, int layer, int d, int h, int clamp, float upper,
+             void* hidden, void* y_pad, cudaStream_t stream) {
   if (d % F_BN != 0 || h % F_BN != 0) return (int)cudaErrorInvalidValue;
-  const int err = launch_gemm_f<T, true>(
+  const int err = launch_gemm_f<T, ACT>(
       static_cast<const T*>(x_pad), static_cast<const T*>(w1),
       static_cast<const T*>(b1), tile_e, starts, counts, n_tiles, n_experts,
-      layer, d, h, static_cast<T*>(hidden), stream);
+      layer, d, h, static_cast<T*>(hidden), clamp, upper, stream);
   if (err != 0) return err;
-  return launch_gemm_f<T, false>(
+  return launch_gemm_f<T, ACT_NONE>(
       static_cast<const T*>(hidden), static_cast<const T*>(w2),
       static_cast<const T*>(b2), tile_e, starts, counts, n_tiles, n_experts,
-      layer, h, d, static_cast<T*>(y_pad), stream);
+      layer, h, d, static_cast<T*>(y_pad), 0, 0.f, stream);
 }
 
-template <int F>
+template <int F, int ACT>
 int launch_q(int a8, const void* x_pad, const void* w1, const float* s1,
              int g1, const void* b1, const void* w2, const float* s2, int g2,
              const void* b2, const int32_t* tile_e, const int32_t* starts,
-             int n_tiles, int n_experts, int layer, int d, int h,
-             void* hidden, int8_t* xq, float* xs, int8_t* hq, float* hs,
-             void* y_pad, cudaStream_t stream) {
+             int n_tiles, int n_experts, int layer, int d, int h, int clamp,
+             float upper, void* hidden, int8_t* xq, float* xs, int8_t* hq,
+             float* hs, void* y_pad, cudaStream_t stream) {
   if (d % Q_BN != 0 || h % Q_BN != 0) return (int)cudaErrorInvalidValue;
   const bf16* x = static_cast<const bf16*>(x_pad);
   const int8_t* q1 = static_cast<const int8_t*>(w1);
@@ -196,13 +208,13 @@ int launch_q(int a8, const void* x_pad, const void* w1, const float* s1,
   const dim3 grid1(n_tiles, h / Q_BN), grid2(n_tiles, d / Q_BN);
   if (!a8) {
     constexpr int smem = QLayout<F, false>::bytes;
-    runs_gemm<F, true><<<grid1, Q_THREADS, smem, stream>>>(
+    runs_gemm<F, ACT><<<grid1, Q_THREADS, smem, stream>>>(
         x, q1, s1, g1, bias1, tile_e, starts, n_experts, layer, d, h,
-        static_cast<bf16*>(hidden));
+        static_cast<bf16*>(hidden), clamp, upper);
     RETURN_IF_ERROR();
-    runs_gemm<F, false><<<grid2, Q_THREADS, smem, stream>>>(
+    runs_gemm<F, ACT_NONE><<<grid2, Q_THREADS, smem, stream>>>(
         static_cast<const bf16*>(hidden), q2, s2, g2, bias2, tile_e, starts,
-        n_experts, layer, h, d, static_cast<bf16*>(y_pad));
+        n_experts, layer, h, d, static_cast<bf16*>(y_pad), 0, 0.f);
     return (int)cudaGetLastError();
   }
   constexpr int smem = QLayout<F, true>::bytes;
@@ -210,17 +222,17 @@ int launch_q(int a8, const void* x_pad, const void* w1, const float* s1,
   quant_rows<bf16><<<rows, QTHREADS, 0, stream>>>(x, d, starts, nullptr,
                                                   n_experts, TM, xq, xs);
   RETURN_IF_ERROR();
-  runs_gemm_s8<F, true, float><<<grid1, Q_THREADS, smem, stream>>>(
+  runs_gemm_s8<F, ACT, float><<<grid1, Q_THREADS, smem, stream>>>(
       xq, xs, q1, s1, g1, bias1, tile_e, starts, n_experts, layer, d, h,
-      static_cast<float*>(hidden));
+      static_cast<float*>(hidden), clamp, upper);
   RETURN_IF_ERROR();
   quant_rows<float><<<rows, QTHREADS, 0, stream>>>(
       static_cast<const float*>(hidden), h, starts, nullptr, n_experts, TM,
       hq, hs);
   RETURN_IF_ERROR();
-  runs_gemm_s8<F, false, bf16><<<grid2, Q_THREADS, smem, stream>>>(
+  runs_gemm_s8<F, ACT_NONE, bf16><<<grid2, Q_THREADS, smem, stream>>>(
       hq, hs, q2, s2, g2, bias2, tile_e, starts, n_experts, layer, h, d,
-      static_cast<bf16*>(y_pad));
+      static_cast<bf16*>(y_pad), 0, 0.f);
   return (int)cudaGetLastError();
 }
 
@@ -234,34 +246,72 @@ int moe_runs_col_block() { return Q_BN; }   // K4, K5: d, h multiples
 int moe_runs_k_step() { return Q_GROUP; }   // K4, K5: group multiples
 int moe_runs_f_col_block() { return F_BN; }  // K1: d, h multiples
 
-// K1. dtype: 0 = float32, 1 = bfloat16. counts: (E,) tokens per expert
-// (float32 skips the padding rows' FMAs). Returns cudaGetLastError() of
-// the two launches (0 on success), or cudaErrorInvalidValue for widths K1
-// does not take. All pointers are device pointers.
+// K1 with GEMM1's activation act (ACT_SILU or ACT_RELU); ReLU takes
+// min(hidden, upper) when clamp != 0 (SiLU takes no clamp). dtype: 0 =
+// float32, 1 = bfloat16. counts: (E,) tokens per expert (float32 skips the
+// padding rows' FMAs). Returns cudaGetLastError() of the two launches (0
+// on success), or cudaErrorInvalidValue for an activation, type or widths
+// K1 does not take. All pointers are device pointers.
+int moe_runs_f_act(int act, int clamp, float upper, int dtype,
+                   const void* x_pad, const void* w1, const void* b1,
+                   const void* w2, const void* b2, const int32_t* tile_e,
+                   const int32_t* starts, const int32_t* counts, int n_tiles,
+                   int n_experts, int layer, int d, int h, void* hidden,
+                   void* y_pad, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define K1_ARGS                                                            \
+  x_pad, w1, b1, w2, b2, tile_e, starts, counts, n_tiles, n_experts, layer, \
+      d, h, clamp, upper, hidden, y_pad, s
+  if (act == ACT_SILU && dtype == 0) return launch_f<float, ACT_SILU>(K1_ARGS);
+  if (act == ACT_SILU && dtype == 1) return launch_f<bf16, ACT_SILU>(K1_ARGS);
+  if (act == ACT_RELU && dtype == 0) return launch_f<float, ACT_RELU>(K1_ARGS);
+  if (act == ACT_RELU && dtype == 1) return launch_f<bf16, ACT_RELU>(K1_ARGS);
+#undef K1_ARGS
+  return (int)cudaErrorInvalidValue;
+}
+
+// K1 with SiLU (moe_runs_f_act(ACT_SILU, 0, 0, ...)).
 int moe_runs_f(int dtype, const void* x_pad, const void* w1, const void* b1,
                const void* w2, const void* b2, const int32_t* tile_e,
                const int32_t* starts, const int32_t* counts, int n_tiles,
                int n_experts, int layer, int d, int h, void* hidden,
                void* y_pad, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return launch_f<float>(x_pad, w1, b1, w2, b2, tile_e, starts, counts,
-                           n_tiles, n_experts, layer, d, h, hidden, y_pad, s);
-  if (dtype == 1)
-    return launch_f<bf16>(x_pad, w1, b1, w2, b2, tile_e, starts, counts,
-                          n_tiles, n_experts, layer, d, h, hidden, y_pad, s);
-  return (int)cudaErrorInvalidValue;
+  return moe_runs_f_act(ACT_SILU, 0, 0.f, dtype, x_pad, w1, b1, w2, b2,
+                        tile_e, starts, counts, n_tiles, n_experts, layer, d,
+                        h, hidden, y_pad, stream);
 }
 
 // K4 (fmt 1: int8 (L*E|E, d, h)/(., h, d)) and K5 (fmt 2: packed int4
-// (., d, h/2)/(., h, d/2)), bf16 activations. s1 (E, g1, h), s2 (E, g2,
-// d) float32; int8 takes g1 = g2 = 1, int4 groups of a multiple of
-// moe_runs_k_step() rows. d and h are multiples of moe_runs_col_block();
-// w1, w2, x_pad and the scratch start on 16-byte boundaries. a8 != 0
-// quantizes the activations per row into xq/xs (x_pad's rows x d) and
-// hq/hs (rows x h); hidden is then float32, else bf16. Returns
-// cudaGetLastError() of the launches, or cudaErrorInvalidValue for widths
-// K4/K5 do not take.
+// (., d, h/2)/(., h, d/2)), bf16 activations, GEMM1's activation act as in
+// moe_runs_f_act. s1 (E, g1, h), s2 (E, g2, d) float32; int8 takes g1 = g2
+// = 1, int4 groups of a multiple of moe_runs_k_step() rows. d and h are
+// multiples of moe_runs_col_block(); w1, w2, x_pad and the scratch start
+// on 16-byte boundaries. a8 != 0 quantizes the activations per row into
+// xq/xs (x_pad's rows x d) and hq/hs (rows x h); hidden is then float32,
+// else bf16. Returns cudaGetLastError() of the launches, or
+// cudaErrorInvalidValue for an activation, format or widths K4/K5 do not
+// take.
+int moe_runs_q_act(int act, int clamp, float upper, int fmt, int a8,
+                   const void* x_pad, const void* w1, const float* s1,
+                   int g1, const void* b1, const void* w2, const float* s2,
+                   int g2, const void* b2, const int32_t* tile_e,
+                   const int32_t* starts, int n_tiles, int n_experts,
+                   int layer, int d, int h, void* hidden, int8_t* xq,
+                   float* xs, int8_t* hq, float* hs, void* y_pad,
+                   void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define KQ_ARGS                                                              \
+  a8, x_pad, w1, s1, g1, b1, w2, s2, g2, b2, tile_e, starts, n_tiles,        \
+      n_experts, layer, d, h, clamp, upper, hidden, xq, xs, hq, hs, y_pad, s
+  if (act == ACT_SILU && fmt == W_Q8) return launch_q<W_Q8, ACT_SILU>(KQ_ARGS);
+  if (act == ACT_SILU && fmt == W_Q4) return launch_q<W_Q4, ACT_SILU>(KQ_ARGS);
+  if (act == ACT_RELU && fmt == W_Q8) return launch_q<W_Q8, ACT_RELU>(KQ_ARGS);
+  if (act == ACT_RELU && fmt == W_Q4) return launch_q<W_Q4, ACT_RELU>(KQ_ARGS);
+#undef KQ_ARGS
+  return (int)cudaErrorInvalidValue;
+}
+
+// K4 / K5 with SiLU (moe_runs_q_act(ACT_SILU, 0, 0, ...)).
 int moe_runs_q(int fmt, int a8, const void* x_pad, const void* w1,
                const float* s1, int g1, const void* b1, const void* w2,
                const float* s2, int g2, const void* b2,
@@ -269,16 +319,9 @@ int moe_runs_q(int fmt, int a8, const void* x_pad, const void* w1,
                int n_experts, int layer, int d, int h, void* hidden,
                int8_t* xq, float* xs, int8_t* hq, float* hs, void* y_pad,
                void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (fmt == W_Q8)
-    return launch_q<W_Q8>(a8, x_pad, w1, s1, g1, b1, w2, s2, g2, b2, tile_e,
-                          starts, n_tiles, n_experts, layer, d, h, hidden,
-                          xq, xs, hq, hs, y_pad, s);
-  if (fmt == W_Q4)
-    return launch_q<W_Q4>(a8, x_pad, w1, s1, g1, b1, w2, s2, g2, b2, tile_e,
-                          starts, n_tiles, n_experts, layer, d, h, hidden,
-                          xq, xs, hq, hs, y_pad, s);
-  return (int)cudaErrorInvalidValue;
+  return moe_runs_q_act(ACT_SILU, 0, 0.f, fmt, a8, x_pad, w1, s1, g1, b1, w2,
+                        s2, g2, b2, tile_e, starts, n_tiles, n_experts, layer,
+                        d, h, hidden, xq, xs, hq, hs, y_pad, stream);
 }
 
 }  // extern "C"

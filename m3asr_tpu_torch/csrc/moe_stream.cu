@@ -67,9 +67,9 @@ constexpr int stream_smem() {
 }
 
 // GEMM over the front's tiles: grid (max_tiles [+ 1], N / F_BN); GEMM2
-// (!SILU) has the zero slot. w: (E, K, N); scale: (E, N) float32 for int8
+// (ACT_NONE) has the zero slot. w: (E, K, N); scale: (E, N) float32 for int8
 // weights; bias: (E, N) float32 or null.
-template <typename T, typename W, bool SILU>
+template <typename T, typename W, int ACT>
 __global__ void __launch_bounds__(128)
     stream_gemm(const T* __restrict__ a, const int32_t* __restrict__ front,
                 int n_rows, int max_tiles, const W* __restrict__ w,
@@ -82,7 +82,7 @@ __global__ void __launch_bounds__(128)
   __shared__ int rows[TM];
   const int t = blockIdx.x;
   const int n0 = blockIdx.y * F_BN;
-  if (!SILU && t == max_tiles) {
+  if (ACT == ACT_NONE && t == max_tiles) {
     front_zero_rows(front, n_rows, N, n0, F_BN, 128, out);
     return;
   }
@@ -94,32 +94,32 @@ __global__ void __launch_bounds__(128)
   const float* se = scale == nullptr ? nullptr : scale + (size_t)e * N;
   const float* be = bias == nullptr ? nullptr : bias + (size_t)e * N;
   if constexpr (std::is_same<T, float>::value) {
-    tile_fma<SILU, true, W>(a, rows, we, se == nullptr ? nullptr : se + n0,
-                            1, be, K, N, n0, m,
-                            reinterpret_cast<float*>(s_smem), out);
+    tile_fma<ACT, true, W>(a, rows, we, se == nullptr ? nullptr : se + n0,
+                           1, be, K, N, n0, m,
+                           reinterpret_cast<float*>(s_smem), out);
   } else if constexpr (std::is_same<W, int8_t>::value) {
-    tile_q_mma<W_Q8, SILU, true, true, float>(a, rows, we, se, 1, be, K, N,
-                                              n0, s_smem, out);
+    tile_q_mma<W_Q8, ACT, true, true, float>(a, rows, we, se, 1, be, K, N,
+                                             n0, s_smem, out);
   } else {
-    tile_mma<SILU, true, float>(a, rows, we, be, K, N, n0,
-                                reinterpret_cast<bf16*>(s_smem), out);
+    tile_mma<ACT, true, float>(a, rows, we, be, K, N, n0,
+                               reinterpret_cast<bf16*>(s_smem), out);
   }
 }
 
 // One GEMM. The dynamic shared memory limit is raised once per
 // instantiation, before its first launch.
-template <typename T, typename W, bool SILU>
+template <typename T, typename W, int ACT>
 int launch_gemm(const T* a, const int32_t* front, int n_rows, int tiles,
                 const W* w, const float* scale, const float* bias, int K,
                 int N, T* out, cudaStream_t s) {
   constexpr int smem = stream_smem<T, W>();
   static const int attr = (int)cudaFuncSetAttribute(
-      stream_gemm<T, W, SILU>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      stream_gemm<T, W, ACT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       smem);
   if (attr != 0) return attr;
-  stream_gemm<T, W, SILU><<<dim3(tiles + (SILU ? 0 : 1), N / F_BN), 128,
-                            smem, s>>>(a, front, n_rows, tiles, w, scale,
-                                       bias, K, N, out);
+  stream_gemm<T, W, ACT><<<dim3(tiles + (ACT == ACT_NONE ? 1 : 0), N / F_BN),
+                           128, smem, s>>>(a, front, n_rows, tiles, w, scale,
+                                           bias, K, N, out);
   return (int)cudaGetLastError();
 }
 
@@ -131,13 +131,13 @@ int launch(const void* x, const int32_t* gate, int n_rows, const void* w1,
   const int tiles = front_max_tiles(n_rows, n_experts);
   int err = (int)launch_row_tiles(gate, n_rows, n_experts, front, s);
   if (err != 0) return err;
-  err = launch_gemm<T, W, true>(static_cast<const T*>(x), front, n_rows,
-                                tiles, static_cast<const W*>(w1), s1, b1, d,
-                                h, static_cast<T*>(hidden), s);
+  err = launch_gemm<T, W, ACT_SILU>(static_cast<const T*>(x), front, n_rows,
+                                    tiles, static_cast<const W*>(w1), s1, b1,
+                                    d, h, static_cast<T*>(hidden), s);
   if (err != 0) return err;
-  return launch_gemm<T, W, false>(static_cast<const T*>(hidden), front,
-                                  n_rows, tiles, static_cast<const W*>(w2),
-                                  s2, b2, h, d, static_cast<T*>(out), s);
+  return launch_gemm<T, W, ACT_NONE>(static_cast<const T*>(hidden), front,
+                                     n_rows, tiles, static_cast<const W*>(w2),
+                                     s2, b2, h, d, static_cast<T*>(out), s);
 }
 
 }  // namespace

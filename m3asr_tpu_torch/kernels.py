@@ -125,6 +125,9 @@ class KernelLibrary:
                                        vp, vp, vp, i, i, i, i, i, vp, vp,
                                        vp, vp, vp, vp, vp]
             lib.moe_runs_q.restype = i
+            # the same after (act, clamp, upper): GEMM1's activation
+            for name in ("moe_runs_f", "moe_runs_q"):
+                self._declare_act(lib, name, [i, i, ctypes.c_float])
         elif self.source == "moe_q4.cu":
             for name in ("moe_q4_col_block", "moe_q4_k_step"):
                 getattr(lib, name).argtypes = []
@@ -136,6 +139,7 @@ class KernelLibrary:
                                          vp, i, vp, i, i, i, i, vp, vp, vp,
                                          vp, vp, vp, vp, vp]
             lib.moe_q4_dense.restype = i
+            self._declare_act(lib, "moe_q4_dense", [i, i, ctypes.c_float])
         elif self.source == "moe_q4_tiled.cu":
             for name in ("moe_q4_tiled_slice_rows", "moe_q4_tiled_col_block",
                          "moe_q4_tiled_k_step"):
@@ -149,6 +153,7 @@ class KernelLibrary:
                                          ctypes.c_float, vp, vp, vp, vp, vp,
                                          vp, vp]
             lib.moe_q4_tiled.restype = i
+            self._declare_act(lib, "moe_q4_tiled", [i])
         elif self.source == "moe_stream.cu":
             for name in ("moe_stream_col_block", "moe_stream_k_step"):
                 getattr(lib, name).argtypes = []
@@ -173,6 +178,17 @@ class KernelLibrary:
                 getattr(lib, name).restype = i
         else:
             raise ValueError(f"no C interface declared for {self.source}")
+
+    @staticmethod
+    def _declare_act(lib: ctypes.CDLL, name: str, head: list) -> None:
+        """``name + "_act"``: ``head`` (the activation's arguments), then
+        ``name``'s arguments. A library built from a source older than
+        the activation entry points (``chip_compare.py``'s parent) has
+        none, and gets none declared."""
+        if hasattr(lib, name + "_act"):
+            fn = getattr(lib, name + "_act")
+            fn.argtypes = head + getattr(lib, name).argtypes
+            fn.restype = ctypes.c_int
 
     @staticmethod
     def _declare_front(lib: ctypes.CDLL, prefix: str) -> None:

@@ -52,6 +52,31 @@ def swish(x: torch.Tensor) -> torch.Tensor:
     return x * torch.sigmoid(x)
 
 
+# the expert FFNs' activations by name: swish for the conformer experts,
+# relu for the DFSMN experts
+ACTIVATIONS = {"swish": swish, "silu": swish, "relu": torch.relu}
+
+
+def activation_name(activation) -> str:
+    """The name of an expert activation given by name or as one of the
+    functions of :data:`ACTIVATIONS`; raises ValueError otherwise."""
+    if isinstance(activation, str):
+        if activation not in ACTIVATIONS:
+            raise ValueError(f"unknown activation {activation!r}; choose "
+                             f"one of {sorted(ACTIVATIONS)}")
+        return "swish" if activation == "silu" else activation
+    for name, fn in ACTIVATIONS.items():
+        if activation is fn:
+            return name
+    raise ValueError(f"unknown activation {activation!r}; choose one of "
+                     f"{sorted(ACTIVATIONS)}")
+
+
+def activation_fn(activation):
+    """The function of an expert activation given by name or function."""
+    return ACTIVATIONS[activation_name(activation)]
+
+
 def init_linear(generator: torch.Generator, d_in: int, d_out: int,
                 bias: bool = True, dtype: torch.dtype = torch.float32):
     """torch.nn.Linear's default init (uniform in +-1/sqrt(d_in)), kernel

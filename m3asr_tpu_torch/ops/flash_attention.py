@@ -15,7 +15,8 @@ width (``flash_rel_mha``)::
   computed here, outside the kernels.
 * :class:`FlashAttentionFn`: the autograd pair (the JAX custom VJP,
   ``_trainable_flash``); :func:`flash_rel_mha` the drop-in for
-  ``ops.attention.rel_mha``.
+  ``ops.attention.rel_mha``; :func:`flash_attn_mem` the forward of the
+  DFSMN memory-slot attention (``models/dfsmn.attn_mem_layer``).
 
 Masks, as in the JAX kernel: key ``c < lengths[b]``; with a ``window``
 ``(lo, hi)`` of int32 ``(B, T)``, also ``lo <= c < hi`` or ``c <
@@ -26,8 +27,9 @@ downstream, where the XLA path returns zeros).
 Each function launches its CUDA kernel (``csrc/flash_attention.cu``) on
 CUDA tensors, or raises, and takes its plain version on CPU tensors. The
 kernels take float32 or bfloat16 with ``(D2, Dk)`` of ``(128, 64)`` (the
-flagship's MoE blocks) or ``(256, 128)`` (its embed blocks). Each launch
-gets its block's tile height from :func:`flash_block_rows`.
+flagship's MoE blocks) or ``(256, 128)`` (its embed blocks), and the
+forward also ``(64, 64)`` (the DFSMN heads). Each launch gets its
+block's tile height from :func:`flash_block_rows`.
 """
 
 from __future__ import annotations
@@ -40,6 +42,7 @@ from m3asr_tpu_torch.ops.common import linear
 
 _NEG_INF = -1e30
 WIDTHS = ((128, 64), (256, 128))       # (D2, Dk) the kernels are built for
+FWD_WIDTHS = WIDTHS + ((64, 64),)      # and K2 alone
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 FWD_ROWS = (16, 32, 64)                # tile heights K2 is built for
 BWD_ROWS = (16, 32)                    # and K3's two kernels
@@ -157,19 +160,20 @@ class FlashKernels:
         self.fwd_launches = self.dq_launches = self.dkv_launches = 0
 
     @staticmethod
-    def _check(q2, k2, v, lengths, window, rows, allowed):
-        """Raise unless the kernels take these tensors and each tile height
-        in ``rows`` (one of ``allowed``); returns (dtype code, D2, Dk,
-        lens, lo, hi) with the int32 masks contiguous."""
+    def _check(q2, k2, v, lengths, window, rows, allowed, widths=WIDTHS):
+        """Raise unless the kernels take these tensors, their (D2, Dk) (one
+        of ``widths``) and each tile height in ``rows`` (one of
+        ``allowed``); returns (dtype code, D2, Dk, lens, lo, hi) with the
+        int32 masks contiguous."""
         if q2.dtype not in _DTYPES or not q2.dtype == k2.dtype == v.dtype:
             raise TypeError(f"flash attention takes float32 or bfloat16 "
                             f"q2/k2/v of one dtype, got {q2.dtype}, "
                             f"{k2.dtype}, {v.dtype}")
         B, H, T, D2 = q2.shape
         S, Dk = k2.shape[2], v.shape[3]
-        if (D2, Dk) not in WIDTHS:
+        if (D2, Dk) not in widths:
             raise ValueError(f"the flash attention kernels are built for "
-                             f"(D2, Dk) in {WIDTHS}, got ({D2}, {Dk})")
+                             f"(D2, Dk) in {widths}, got ({D2}, {Dk})")
         if tuple(k2.shape) != (B, H, S, D2) or tuple(v.shape) != (B, H, S,
                                                                   Dk):
             raise ValueError(f"k2 {tuple(k2.shape)} / v {tuple(v.shape)} do "
@@ -214,7 +218,8 @@ class FlashKernels:
         if rows is None:
             rows = launch_rows(q2, k2)[0]
         code, D2, Dk, lens, lo, hi = self._check(q2, k2, v, lengths, window,
-                                                 (rows,), FWD_ROWS)
+                                                 (rows,), FWD_ROWS,
+                                                 FWD_WIDTHS)
         out = torch.empty((B, H, T, Dk), dtype=v.dtype, device=v.device)
         lse = (torch.empty((B, H, T, 1), dtype=torch.float32,
                            device=v.device) if return_lse else None)
@@ -370,4 +375,59 @@ def flash_rel_mha(p, x: torch.Tensor, pos_emb: torch.Tensor,
         window = (lo.expand(B, T), hi.expand(B, T))
     ctx = flash_attention_trainable(q2, k2, v, lengths, float(d_k) ** -0.5,
                                     window)
+    return linear(p["linear_out"], ctx.transpose(1, 2).reshape(B, T, D))
+
+
+def attn_mem_inputs(p, x: torch.Tensor, lengths: Optional[torch.Tensor],
+                    num_heads: int, memory_num: int,
+                    attn_mask: Optional[torch.Tensor] = None):
+    """K2's arguments for the DFSMN memory-slot attention of x (B, T, D):
+    (q (B,H,T,dk), k and v (B,H,M+T,dk) with the M memory slots
+    PREPENDED, key lengths + M, the window (or None) and mem_cols).
+    The softmax does not depend on the keys' order, so the valid keys
+    stay a prefix of ``lengths + M``. ``attn_mask``: optional (T, T) bool
+    over the frames with contiguous-run rows (chunk windows), encoded as
+    per-row key windows shifted by M onto the prepended layout; the slots
+    stay attendable to every row as the kernel's ``mem_cols`` prefix."""
+    B, T, D = x.shape
+    h = num_heads
+    dk = D // h
+
+    def heads(t):                                 # (B,T,D) -> (B,H,T,dk)
+        return t.reshape(B, T, h, dk).transpose(1, 2)
+
+    q = heads(linear(p["linear_query"], x))
+    k = heads(linear(p["linear_key"], x))
+    v = heads(linear(p["linear_value"], x))
+    if memory_num > 0:
+        km = p["key_memory"].to(x.dtype)[None].expand(B, -1, -1, -1)
+        vm = p["value_memory"].to(x.dtype)[None].expand(B, -1, -1, -1)
+        k = torch.cat([km, k], dim=2)
+        v = torch.cat([vm, v], dim=2)
+    if lengths is None:
+        lens = torch.full((B,), T + memory_num, dtype=torch.int32,
+                          device=x.device)
+    else:
+        lens = lengths.to(torch.int32) + memory_num
+    window = None
+    if attn_mask is not None:
+        lo, hi = window_from_mask(attn_mask, T, T)
+        window = (lo.expand(B, T) + memory_num, hi.expand(B, T) + memory_num)
+    return (q, k, v, lens, window,
+            memory_num if window is not None else 0)
+
+
+def flash_attn_mem(p, x: torch.Tensor, lengths: Optional[torch.Tensor],
+                   num_heads: int, memory_num: int,
+                   attn_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The DFSMN memory-slot attention (``models/dfsmn.attn_mem_layer``)
+    on K2, with the arguments of :func:`attn_mem_inputs`. Rows that attend
+    to nothing come back as garbage, as in :func:`flash_rel_mha`. Forward
+    only."""
+    B, T, D = x.shape
+    q, k, v, lens, window, mem_cols = attn_mem_inputs(
+        p, x, lengths, num_heads, memory_num, attn_mask)
+    ctx = flash_attention_trainable(q, k, v, lens,
+                                    float(D // num_heads) ** -0.5, window,
+                                    mem_cols=mem_cols)
     return linear(p["linear_out"], ctx.transpose(1, 2).reshape(B, T, D))

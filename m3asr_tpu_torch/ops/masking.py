@@ -41,7 +41,10 @@ def subsampling4_length(lengths):
     return conv_subsampled_length(conv_subsampled_length(lengths, 2, 2), 2, 2)
 
 
-SUBSAMPLED_LENGTH = {"conv2d": subsampling4_length}
+# output length of each encoder front; "linear" (no subsampling) is the
+# DFSMN families'
+SUBSAMPLED_LENGTH = {"conv2d": subsampling4_length,
+                     "linear": lambda lengths: lengths}
 
 
 def subsequent_mask(size: int, device=None) -> torch.Tensor:

@@ -2,7 +2,9 @@
 
 Expert weights: w1 ``(E, d, h)``, w2 ``(E, h, d)`` (or their int8 /
 packed int4 forms, ``ops/quant.py``); expert math
-``y_e(x) = silu(x w1_e + b1_e) w2_e + b2_e``. Expert stages (``impl``),
+``y_e(x) = act(x w1_e + b1_e) w2_e + b2_e``, ``act`` SiLU for the
+conformer experts and ReLU clamped at ``upper_bound`` for the DFSMN
+experts (``activation``, ``upper_bound``). Expert stages (``impl``),
 with the JAX package's names:
 
 * float weights: ``"dense"`` (every expert on every token, the oracle),
@@ -30,7 +32,7 @@ from typing import List, Optional, Tuple
 
 import torch
 
-from m3asr_tpu_torch.ops.common import swish
+from m3asr_tpu_torch.ops.common import activation_fn, activation_name, swish
 from m3asr_tpu_torch.ops.masking import make_valid_mask
 from m3asr_tpu_torch.ops import quant
 from m3asr_tpu_torch.ops.moe_q4 import q4_kernel, q4_tiled_kernel
@@ -84,14 +86,17 @@ def softmax_top1_gate(p, router_inputs: torch.Tensor,
     return gate_value, gate_idx
 
 
-def moe_experts_dense(p, x: torch.Tensor,
-                      gate_idx: torch.Tensor) -> torch.Tensor:
+def moe_experts_dense(p, x: torch.Tensor, gate_idx: torch.Tensor,
+                      activation=swish,
+                      upper_bound: Optional[float] = None) -> torch.Tensor:
     """Every expert computes every token; the gate index selects.
     x: (B, T, d); gate_idx: (B, T). The oracle for every expert kernel.
 
     Float32 arithmetic with the hidden and the output rounded to x's
     dtype: the rounding points of K1, so in bf16 the two differ only by
-    summation order (bf16 products are exact in float32)."""
+    summation order (bf16 products are exact in float32). The activation
+    and the clamp at ``upper_bound`` run in float32, before the hidden is
+    rounded, as in K1."""
     cdt = x.dtype
 
     def f32(t):
@@ -100,7 +105,10 @@ def moe_experts_dense(p, x: torch.Tensor,
     h = torch.einsum("btd,edh->beth", x.float(), f32(p["w1"]))
     if p.get("b1") is not None:
         h = h + f32(p["b1"])[None, :, None, :]
-    h = f32(swish(h))
+    h = activation_fn(activation)(h)
+    if upper_bound is not None:
+        h = torch.clamp(h, max=upper_bound)
+    h = f32(h)
     y = torch.einsum("beth,ehd->betd", h, f32(p["w2"]))
     if p.get("b2") is not None:
         y = y + f32(p["b2"])[None, :, None, :]
@@ -113,7 +121,7 @@ def moe_experts_dense(p, x: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 def _hidden_act(h: torch.Tensor, activation, upper_bound) -> torch.Tensor:
-    h = activation(h)
+    h = activation_fn(activation)(h)
     if upper_bound is not None:       # the DFSMN expert's clamp
         h = torch.minimum(h, torch.tensor(upper_bound, dtype=h.dtype,
                                           device=h.device))
@@ -297,43 +305,55 @@ def _tile_layout(flat_e: torch.Tensor, N: int, E: int, tile: int):
     return lay.order, lay.slot, lay.n_tiles, lay.tile_e
 
 
-def _dispatch(p, x: torch.Tensor, gate_idx: torch.Tensor,
-              impl: str) -> torch.Tensor:
+def _dispatch(p, x: torch.Tensor, gate_idx: torch.Tensor, impl: str,
+              activation="swish",
+              upper_bound: Optional[float] = None) -> torch.Tensor:
+    """Stage ``impl`` on (p, x, gate_idx) with the experts' activation
+    (``"swish"`` or ``"relu"``) and clamp. K8 (``pallas``, and
+    ``quant_pallas`` on int8 weights) and ``quant_capacity`` run the
+    conformer experts' SiLU only, as their JAX callers do, and raise for
+    anything else."""
+    act = dict(activation=activation, upper_bound=upper_bound)
+    if impl in ("pallas", "quant_capacity") or (
+            impl == "quant_pallas" and "w1_q4" not in p):
+        if activation_name(activation) != "swish" or upper_bound is not None:
+            raise ValueError(f"moe impl {impl!r} runs the SiLU experts only")
     if impl == "dense":
-        return moe_experts_dense(p, x, gate_idx)
+        return moe_experts_dense(p, x, gate_idx, **act)
     if impl == "ragged":
-        return moe_experts_ragged(p, x, gate_idx)
+        return moe_experts_ragged(p, x, gate_idx, **act)
     if impl == "tiled":
-        return moe_experts_tiled(p, x, gate_idx)
+        return moe_experts_tiled(p, x, gate_idx, **act)
     if impl == "ragged_padded":
-        return moe_experts_ragged_padded(p, x, gate_idx)
+        return moe_experts_ragged_padded(p, x, gate_idx, **act)
     if impl == "capacity":
-        return moe_experts_capacity(p, x, gate_idx)
+        return moe_experts_capacity(p, x, gate_idx, **act)
     if impl == "pallas":
         return stream_kernel(p, x, gate_idx)
     if impl == "quant":
-        return quant.moe_experts_dense_q(p, x, gate_idx)
+        return quant.moe_experts_dense_q(p, x, gate_idx, **act)
     if impl == "quant_tiled":
-        return quant.moe_experts_tiled_q(p, x, gate_idx)
+        return quant.moe_experts_tiled_q(p, x, gate_idx, **act)
     if impl == "quant_capacity":
         return quant.moe_experts_capacity_q(p, x, gate_idx)
     if impl == "quant_a8":
-        return quant.moe_experts_dense_w8a8(p, x, gate_idx)
+        return quant.moe_experts_dense_w8a8(p, x, gate_idx, **act)
     if impl == "quant_a8_tiled":
-        return quant.moe_experts_tiled_w8a8(p, x, gate_idx)
+        return quant.moe_experts_tiled_w8a8(p, x, gate_idx, **act)
     if impl == "quant_pallas":
         if "w1_q4" in p:
-            return q4_kernel(p, x, gate_idx)
+            return q4_kernel(p, x, gate_idx, **act)
         return stream_kernel(p, x, gate_idx)
     if impl in ("quant4_pallas", "quant4_a8"):
-        return q4_kernel(p, x, gate_idx, act_quant=impl == "quant4_a8")
+        return q4_kernel(p, x, gate_idx, act_quant=impl == "quant4_a8",
+                         **act)
     if impl in ("quant4_tiled", "quant4_a8_tiled"):
         return q4_tiled_kernel(p, x, gate_idx,
-                               act_quant=impl == "quant4_a8_tiled")
+                               act_quant=impl == "quant4_a8_tiled", **act)
     if impl in ("runs_f", "quant_runs", "quant4_runs"):
-        return runs_for(p)(p, x, gate_idx)
+        return runs_for(p)(p, x, gate_idx, **act)
     if impl in ("quant_a8_runs", "quant4_a8_runs"):
-        return runs_for(p)(p, x, gate_idx, act_quant=True)
+        return runs_for(p)(p, x, gate_idx, act_quant=True, **act)
     raise ValueError(f"unknown moe impl: {impl}")
 
 

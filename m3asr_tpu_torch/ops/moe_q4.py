@@ -33,7 +33,10 @@ Weights ``w1_q4`` ``(E, d, h/2)`` / ``w2_q4`` ``(E, h, d/2)``, or stacked
 layer's (``moe_runs`` module docstring). :data:`q4_kernel` (K6) and
 :data:`q4_tiled_kernel` (K7) are the wrappers: the kernel on a CUDA
 tensor (or it raises), the plain version on a CPU tensor; ``launches``
-counts calls that launched the kernel.
+counts calls that launched the kernel. Both take GEMM1's activation,
+``"swish"`` or ``"relu"``, and an optional clamp of the hidden
+(``upper_bound``), as the run-length kernels do (``moe_runs`` module
+docstring); K7 clamps either activation, K6 its ReLU only.
 """
 
 from __future__ import annotations
@@ -42,9 +45,10 @@ from typing import Optional
 
 import torch
 
-from m3asr_tpu_torch.ops.moe_runs import (_pad_tokens, _prepare, _unpad,
-                                          check_quant_args,
-                                          expert_ffn_reference,
+from m3asr_tpu_torch.ops.common import activation_name
+from m3asr_tpu_torch.ops.moe_runs import (ACT_CODES, _pad_tokens, _prepare,
+                                          _unpad, check_quant_args,
+                                          expert_ffn_reference, kernel_act,
                                           layer_scales, runs_layout)
 from m3asr_tpu_torch.ops.quant import unpack_int4
 from m3asr_tpu_torch.ops.row_tiles import MAX_EXPERTS
@@ -60,7 +64,9 @@ def _q4_args(p, x: torch.Tensor, layer: Optional[int]):
 
 def moe_experts_q4_reference(p, x: torch.Tensor, gate_idx: torch.Tensor,
                              layer: Optional[int] = None,
-                             act_quant: bool = False) -> torch.Tensor:
+                             act_quant: bool = False, activation="swish",
+                             upper_bound: Optional[float] = None
+                             ) -> torch.Tensor:
     """Plain PyTorch version of K6. x: (B, T, d); gate_idx: (B, T).
     Returns (B, T, d) in x's dtype."""
     x, w1, w2, layer, E = _q4_args(p, x, layer)
@@ -75,7 +81,8 @@ def moe_experts_q4_reference(p, x: torch.Tensor, gate_idx: torch.Tensor,
         y = expert_ffn_reference(
             x2[rows], w1[layer * E + e], s1[e],
             None if b1 is None else b1[e], w2[layer * E + e], s2[e],
-            None if b2 is None else b2[e], "q4", act_quant)
+            None if b2 is None else b2[e], "q4", act_quant, upper_bound,
+            activation)
         out[rows] = y.to(x.dtype)
     return out.reshape(B, T, d)
 
@@ -89,21 +96,26 @@ class Q4Kernel:
         self.launches = 0
 
     def __call__(self, p, x: torch.Tensor, gate_idx: torch.Tensor,
-                 layer: Optional[int] = None,
-                 act_quant: bool = False) -> torch.Tensor:
+                 layer: Optional[int] = None, act_quant: bool = False,
+                 activation="swish",
+                 upper_bound: Optional[float] = None) -> torch.Tensor:
         if x.device.type == "cpu":
             return moe_experts_q4_reference(p, x, gate_idx, layer,
-                                            act_quant)
-        return self.launch(p, x, gate_idx, layer, act_quant)
+                                            act_quant, activation,
+                                            upper_bound)
+        return self.launch(p, x, gate_idx, layer, act_quant, activation,
+                           upper_bound)
 
     def launch(self, p, x: torch.Tensor, gate_idx: torch.Tensor,
-               layer: Optional[int] = None,
-               act_quant: bool = False) -> torch.Tensor:
+               layer: Optional[int] = None, act_quant: bool = False,
+               activation="swish",
+               upper_bound: Optional[float] = None) -> torch.Tensor:
         """Run the kernel on CUDA tensors; raises on anything else."""
         from m3asr_tpu_torch import kernels
         if x.device.type != "cuda":
             raise ValueError(f"the int4 dense kernel needs CUDA tensors, "
                              f"got x on {x.device}")
+        act = kernel_act(activation, upper_bound)
         x, w1, w2, layer, E = _q4_args(p, x, layer)
         B, T, _ = x.shape
         if gate_idx.device != x.device or tuple(gate_idx.shape) != (B, T):
@@ -135,8 +147,8 @@ class Q4Kernel:
         front = torch.empty(lib.moe_q4_front_ints(N, E), dtype=torch.int32,
                             device=x.device)
         out = torch.empty_like(x2)
-        err = lib.moe_q4_dense(
-            int(act_quant), x2.data_ptr(), gate.data_ptr(), N,
+        err = lib.moe_q4_dense_act(
+            *act, int(act_quant), x2.data_ptr(), gate.data_ptr(), N,
             w1.data_ptr(), s1.data_ptr(), s1.shape[1], ptr(b1),
             w2.data_ptr(), s2.data_ptr(), s2.shape[1], ptr(b2), E, layer,
             d, h, front.data_ptr(), hidden.data_ptr(), ptr(xq), ptr(xs),
@@ -163,15 +175,9 @@ def tiled_tile(n_tokens: int) -> int:
     return 64 if n_tokens <= 768 else 128
 
 
-def _q4_tiled_args(p, x: torch.Tensor, layer: Optional[int],
-                   activation: str):
+def _q4_tiled_args(p, x: torch.Tensor, layer: Optional[int]):
     """(x, w1, w2, layer, E, s1 (E, G1, h), s2 (E, G2, d)); raises on
-    an activation other than swish and on scale groups that do not
-    divide the contraction dims."""
-    if activation not in ("swish", "silu"):
-        raise NotImplementedError(
-            f"activation {activation!r}: the tiled int4 kernel runs swish "
-            "only; DFSMN's relu comes with ROADMAP Queue 1 item 10")
+    scale groups that do not divide the contraction dims."""
     x, w1, w2, layer, E = _q4_args(p, x, layer)
     s1, s2 = layer_scales(p, E)
     d, h = x.shape[-1], 2 * w1.shape[-1]
@@ -196,15 +202,17 @@ def _dequant_q4(w: torch.Tensor, s: torch.Tensor,
 def moe_experts_q4_tiled_reference(p, x: torch.Tensor,
                                    gate_idx: torch.Tensor,
                                    tile: Optional[int] = None,
-                                   activation: str = "swish",
+                                   activation="swish",
                                    upper_bound: Optional[float] = None,
                                    layer: Optional[int] = None,
                                    act_quant: bool = False) -> torch.Tensor:
     """Plain PyTorch version of K7: the same layout, then a loop over the
     experts' tile runs with K7's arithmetic (module docstring);
-    ``upper_bound`` clamps the hidden after the activation. x: (B, T,
-    d); gate_idx: (B, T). Returns (B, T, d) in x's dtype."""
-    x, w1, w2, layer, E, s1, s2 = _q4_tiled_args(p, x, layer, activation)
+    ``activation`` is ``"swish"`` or ``"relu"``, ``upper_bound`` clamps
+    the hidden after it. x: (B, T, d); gate_idx: (B, T). Returns (B, T,
+    d) in x's dtype."""
+    activation = activation_name(activation)
+    x, w1, w2, layer, E, s1, s2 = _q4_tiled_args(p, x, layer)
     B, T, d = x.shape
     tile = tile or tiled_tile(B * T)
     lay = runs_layout(gate_idx.reshape(B * T), E, tile)
@@ -220,12 +228,13 @@ def moe_experts_q4_tiled_reference(p, x: torch.Tensor,
         bias = (None if b1 is None else b1[e], None if b2 is None else b2[e])
         if act_quant:
             y = expert_ffn_reference(x_pad[r0:r1], we1, s1[e], bias[0], we2,
-                                     s2[e], bias[1], "q4", True, upper_bound)
+                                     s2[e], bias[1], "q4", True, upper_bound,
+                                     activation)
         else:
             y = expert_ffn_reference(
                 x_pad[r0:r1], _dequant_q4(we1, s1[e], x.dtype), None,
                 bias[0], _dequant_q4(we2, s2[e], x.dtype), None, bias[1],
-                "f", False, upper_bound)
+                "f", False, upper_bound, activation)
         y_pad[r0:r1] = y.to(x.dtype)
     return _unpad(y_pad, lay).reshape(B, T, d)
 
@@ -241,7 +250,7 @@ class Q4TiledKernel:
         self.launches = 0
 
     def __call__(self, p, x: torch.Tensor, gate_idx: torch.Tensor,
-                 tile: Optional[int] = None, activation: str = "swish",
+                 tile: Optional[int] = None, activation="swish",
                  upper_bound: Optional[float] = None,
                  layer: Optional[int] = None,
                  act_quant: bool = False) -> torch.Tensor:
@@ -253,7 +262,7 @@ class Q4TiledKernel:
                            layer, act_quant)
 
     def launch(self, p, x: torch.Tensor, gate_idx: torch.Tensor,
-               tile: Optional[int] = None, activation: str = "swish",
+               tile: Optional[int] = None, activation="swish",
                upper_bound: Optional[float] = None,
                layer: Optional[int] = None,
                act_quant: bool = False) -> torch.Tensor:
@@ -262,7 +271,8 @@ class Q4TiledKernel:
         if x.device.type != "cuda":
             raise ValueError(f"the tiled int4 kernel needs CUDA tensors, "
                              f"got x on {x.device}")
-        x, w1, w2, layer, E, _, _ = _q4_tiled_args(p, x, layer, activation)
+        act = ACT_CODES[activation_name(activation)]
+        x, w1, w2, layer, E, _, _ = _q4_tiled_args(p, x, layer)
         B, T, d = x.shape
         N = B * T
         if gate_idx.device != x.device or tuple(gate_idx.shape) != (B, T):
@@ -296,8 +306,8 @@ class Q4TiledKernel:
             xs = torch.empty(rows, dtype=torch.float32, device=x.device)
             hs = torch.empty(rows, dtype=torch.float32, device=x.device)
         y_pad = torch.empty_like(x_pad)
-        err = lib.moe_q4_tiled(
-            self._DTYPES[x.dtype], int(act_quant), x_pad.data_ptr(),
+        err = lib.moe_q4_tiled_act(
+            act, self._DTYPES[x.dtype], int(act_quant), x_pad.data_ptr(),
             w1.data_ptr(), s1.data_ptr(), s1.shape[1], ptr(pk["b1"]),
             w2.data_ptr(), s2.data_ptr(), s2.shape[1], ptr(pk["b2"]),
             lay.tile_e.data_ptr(), lay.starts.data_ptr(),

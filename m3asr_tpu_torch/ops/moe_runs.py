@@ -20,6 +20,12 @@ fmts ``"f"``, ``"q8"`` and ``"q4"``. Three parts:
   CUDA tensor it launches the kernel (or raises); on a CPU tensor it
   takes the plain version. ``launches`` counts calls that launched it.
 
+GEMM1's activation is SiLU (``activation="swish"``, the conformer
+experts) or ReLU (``"relu"``, the DFSMN experts), with an optional clamp
+``min(hidden, upper_bound)`` in float32 after it, before the hidden is
+rounded or quantized. The kernels compile the clamp into their ReLU
+instantiations only: a SiLU call with ``upper_bound`` raises on the card.
+
 Weights are ``(E, d, h)`` / ``(E, h, d)`` (float), ``w*_q`` int8 of the
 same shapes, or ``w*_q4`` packed int4 ``(E, d, h/2)`` / ``(E, h, d/2)``,
 or any of them stacked ``(L, E, ...)`` with a ``layer`` index. Biases
@@ -35,10 +41,25 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from m3asr_tpu_torch.ops.common import swish
+from m3asr_tpu_torch.ops.common import activation_fn, activation_name
 from m3asr_tpu_torch.ops.quant import unpack_int4
 
 TILE = 32   # rows per token tile; the kernel's TM
+
+# GEMM1's activation -> the kernels' code (csrc/expert_tiles.cuh Act)
+ACT_CODES = {"swish": 1, "relu": 2}
+
+
+def kernel_act(activation, upper_bound: Optional[float]):
+    """(activation code, clamp flag, upper) of a kernel call; raises
+    ValueError for a clamp with SiLU, which K1 and K4-K6 do not compile
+    in."""
+    name = activation_name(activation)
+    if upper_bound is not None and name != "relu":
+        raise ValueError(f"upper_bound with activation {name!r}: the expert "
+                         "kernels clamp their ReLU hidden only")
+    return (ACT_CODES[name], int(upper_bound is not None),
+            0.0 if upper_bound is None else float(upper_bound))
 
 # weight keys of each format, and the kernels' code for it
 _WEIGHTS = {"f": ("w1", "w2"), "q8": ("w1_q", "w2_q"),
@@ -142,9 +163,9 @@ def quant_rows(a: torch.Tensor):
 
 def expert_ffn_reference(x: torch.Tensor, w1, s1, b1, w2, s2, b2,
                          fmt: str, act_quant: bool = False,
-                         upper_bound: Optional[float] = None
-                         ) -> torch.Tensor:
-    """One expert's FFN ``silu(x w1 + b1) w2 + b2`` on its rows x (R, d),
+                         upper_bound: Optional[float] = None,
+                         activation="swish") -> torch.Tensor:
+    """One expert's FFN ``act(x w1 + b1) w2 + b2`` on its rows x (R, d),
     with the kernels' arithmetic; returns float32 (R, d).
 
     w1/w2 are this expert's weights in ``fmt``; s1/s2 its (G, out)
@@ -154,8 +175,9 @@ def expert_ffn_reference(x: torch.Tensor, w1, s1, b1, w2, s2, b2,
     the hidden rounded to x's dtype. ``act_quant``: x and the float32
     hidden quantized per row, the integer sums taken exactly (float64),
     rescaled in the JAX package's order: int8 ``(t * s_x) * s_w``, int4
-    ``(sum_g t_g * s_w,g) * s_x``. ``upper_bound`` clamps the float32
-    hidden after SiLU (the DFSMN expert's clamp)."""
+    ``(sum_g t_g * s_w,g) * s_x``. ``activation``: ``"swish"`` or
+    ``"relu"``; ``upper_bound`` clamps the float32 hidden after it (the
+    DFSMN expert's clamp)."""
     cdt = x.dtype
 
     def values(w):
@@ -194,7 +216,7 @@ def expert_ffn_reference(x: torch.Tensor, w1, s1, b1, w2, s2, b2,
     h = mm(x.float(), w1, s1)
     if b1 is not None:
         h = h + b1.float()
-    h = swish(h)
+    h = activation_fn(activation)(h)
     if upper_bound is not None:
         h = torch.clamp(h, max=upper_bound)
     if not act_quant:
@@ -222,7 +244,9 @@ def _unpad(y_pad: torch.Tensor, lay: RunsLayout) -> torch.Tensor:
 def moe_experts_runs_reference(p, x: torch.Tensor, gate_idx: torch.Tensor,
                                layer: Optional[int] = None,
                                act_quant: bool = False,
-                               tile: int = TILE) -> torch.Tensor:
+                               tile: int = TILE, activation="swish",
+                               upper_bound: Optional[float] = None
+                               ) -> torch.Tensor:
     """Plain PyTorch version of K1/K4/K5: same layout, then a loop over
     the experts that have tokens (:func:`expert_ffn_reference`); the
     output is rounded to the compute dtype as the kernel's is. x: (B, T,
@@ -246,7 +270,7 @@ def moe_experts_runs_reference(p, x: torch.Tensor, gate_idx: torch.Tensor,
             x_pad[r0:r1], w1[layer * E + e], None if s1 is None else s1[e],
             None if b1 is None else b1[e], w2[layer * E + e],
             None if s2 is None else s2[e], None if b2 is None else b2[e],
-            fmt, act_quant)
+            fmt, act_quant, upper_bound, activation)
         y_pad[r0:r1] = y.to(x_pad.dtype)
     return _unpad(y_pad, lay).reshape(B, T, d).to(out_dtype)
 
@@ -320,7 +344,7 @@ class RunsKernel:
     ``moe_runs_f`` (K1, fmt "f") or ``moe_runs_q`` (K4 "q8", K5 "q4").
 
     ``launches`` grows by one per call that launched the kernel (two
-    CUDA launches, GEMM1+bias+SiLU then GEMM2+bias; four with
+    CUDA launches, GEMM1+bias+activation then GEMM2+bias; four with
     ``act_quant``, which quantizes x and the hidden first)."""
 
     _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -330,21 +354,26 @@ class RunsKernel:
         self.launches = 0
 
     def __call__(self, p, x: torch.Tensor, gate_idx: torch.Tensor,
-                 layer: Optional[int] = None,
-                 act_quant: bool = False) -> torch.Tensor:
+                 layer: Optional[int] = None, act_quant: bool = False,
+                 activation="swish",
+                 upper_bound: Optional[float] = None) -> torch.Tensor:
         if x.device.type == "cpu":
-            return moe_experts_runs_reference(p, x, gate_idx, layer,
-                                              act_quant)
-        return self.launch(p, x, gate_idx, layer, act_quant)
+            return moe_experts_runs_reference(
+                p, x, gate_idx, layer, act_quant, activation=activation,
+                upper_bound=upper_bound)
+        return self.launch(p, x, gate_idx, layer, act_quant, activation,
+                           upper_bound)
 
     def launch(self, p, x: torch.Tensor, gate_idx: torch.Tensor,
-               layer: Optional[int] = None,
-               act_quant: bool = False) -> torch.Tensor:
+               layer: Optional[int] = None, act_quant: bool = False,
+               activation="swish",
+               upper_bound: Optional[float] = None) -> torch.Tensor:
         """Run the kernel on CUDA tensors; raises on anything else."""
         from m3asr_tpu_torch import kernels
         if x.device.type != "cuda":
             raise ValueError(f"the runs kernel needs CUDA tensors, got "
                              f"x on {x.device}")
+        act = kernel_act(activation, upper_bound)
         out_dtype = x.dtype
         x, w1, w2, layer, E, fmt = _prepare(p, x, layer)
         if fmt != self.fmt:
@@ -381,8 +410,8 @@ class RunsKernel:
         stream = torch.cuda.current_stream(x.device).cuda_stream
         if fmt == "f":
             hidden = torch.empty((rows, h), dtype=w1.dtype, device=x.device)
-            err = lib.moe_runs_f(
-                self._DTYPES[w1.dtype], x_pad.data_ptr(), w1.data_ptr(),
+            err = lib.moe_runs_f_act(
+                *act, self._DTYPES[w1.dtype], x_pad.data_ptr(), w1.data_ptr(),
                 ptr(b1), w2.data_ptr(), ptr(b2), lay.tile_e.data_ptr(),
                 lay.starts.data_ptr(), lay.counts.data_ptr(), lay.n_tiles,
                 E, layer, d, h, hidden.data_ptr(), y_pad.data_ptr(),
@@ -401,8 +430,8 @@ class RunsKernel:
                                  device=x.device)
                 xs = torch.empty(rows, dtype=torch.float32, device=x.device)
                 hs = torch.empty(rows, dtype=torch.float32, device=x.device)
-            err = lib.moe_runs_q(
-                _FMT_CODE[fmt], int(act_quant), x_pad.data_ptr(),
+            err = lib.moe_runs_q_act(
+                *act, _FMT_CODE[fmt], int(act_quant), x_pad.data_ptr(),
                 w1.data_ptr(), s1.data_ptr(), s1.shape[1], ptr(b1),
                 w2.data_ptr(), s2.data_ptr(), s2.shape[1], ptr(b2),
                 lay.tile_e.data_ptr(), lay.starts.data_ptr(), lay.n_tiles,

@@ -12,7 +12,10 @@ values per byte (:func:`pack_int4`). Scales are float32 everywhere.
 The expert stages here are plain PyTorch on purpose: they are the JAX
 package's XLA einsum paths (impls ``quant``, ``quant_a8``,
 ``quant_tiled``, ``quant_a8_tiled``, ``quant_capacity``), not Pallas
-kernels, and round where those round.
+kernels, and round where those round. Each takes the expert activation
+(``activation``: ``swish``, or ``relu`` for the DFSMN experts, by name or
+function) and an optional clamp of the hidden after it (``upper_bound``),
+both applied in x's dtype, as the JAX package applies them.
 """
 
 from __future__ import annotations
@@ -22,7 +25,7 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
-from m3asr_tpu_torch.ops.common import swish
+from m3asr_tpu_torch.ops.common import activation_fn, swish
 
 INT4_GROUP = 128  # contraction-dim scale group for int4 (AWQ layout)
 
@@ -199,8 +202,16 @@ def _select(y: torch.Tensor, gate_idx: torch.Tensor) -> torch.Tensor:
     return torch.gather(y, 1, idx)[:, 0]
 
 
-def moe_experts_dense_q(p, x: torch.Tensor,
-                        gate_idx: torch.Tensor) -> torch.Tensor:
+def _act(h: torch.Tensor, activation, upper_bound) -> torch.Tensor:
+    h = activation_fn(activation)(h)
+    if upper_bound is not None:
+        h = torch.clamp(h, max=upper_bound)
+    return h
+
+
+def moe_experts_dense_q(p, x: torch.Tensor, gate_idx: torch.Tensor,
+                        activation=swish,
+                        upper_bound: Optional[float] = None) -> torch.Tensor:
     """Impl ``quant``: every expert on every token, on int8 or packed
     int4 weights dequantized in x's dtype (``q.to(dtype) * s.to(dtype)``,
     as the JAX package rounds them); both products and the bias adds run
@@ -210,25 +221,26 @@ def moe_experts_dense_q(p, x: torch.Tensor,
     h = torch.einsum("btd,edh->beth", x, w1)
     if p.get("b1") is not None:
         h = h + p["b1"].to(x.dtype)[None, :, None, :]
-    h = swish(h)
+    h = _act(h, activation, upper_bound)
     y = torch.einsum("beth,ehd->betd", h, w2)
     if p.get("b2") is not None:
         y = y + p["b2"].to(x.dtype)[None, :, None, :]
     return _select(y, gate_idx)
 
 
-def moe_experts_capacity_q(p, x: torch.Tensor,
-                           gate_idx: torch.Tensor) -> torch.Tensor:
+def moe_experts_capacity_q(p, x: torch.Tensor, gate_idx: torch.Tensor,
+                           activation=swish) -> torch.Tensor:
     """Impl ``quant_capacity``: the capacity stage
     (``ops/moe.py::moe_experts_capacity``) on int8 or packed int4
     weights dequantized in x's dtype."""
     from m3asr_tpu_torch.ops.moe import moe_experts_capacity
     deq = dict(p, w1=_deq(p, "w1", x.dtype), w2=_deq(p, "w2", x.dtype))
-    return moe_experts_capacity(deq, x, gate_idx)
+    return moe_experts_capacity(deq, x, gate_idx, activation=activation)
 
 
 def moe_experts_tiled_q(p, x: torch.Tensor, gate_idx: torch.Tensor,
-                        tile: int = 128) -> torch.Tensor:
+                        tile: int = 128, activation=swish,
+                        upper_bound: Optional[float] = None) -> torch.Tensor:
     """Impl ``quant_tiled``: the tiled grouped GEMM
     (``ops/moe.py::moe_experts_tiled``) on int8 or packed int4 weights,
     each tile's expert gathered quantized and dequantized in x's dtype
@@ -240,7 +252,7 @@ def moe_experts_tiled_q(p, x: torch.Tensor, gate_idx: torch.Tensor,
     h = torch.bmm(xt, _gather_deq(p, "w1", lay.tile_e, x.dtype))
     if p.get("b1") is not None:
         h = h + p["b1"].to(x.dtype)[te][:, None, :]
-    h = swish(h)
+    h = _act(h, activation, upper_bound)
     y = torch.bmm(h, _gather_deq(p, "w2", lay.tile_e, x.dtype))
     if p.get("b2") is not None:
         y = y + p["b2"].to(x.dtype)[te][:, None, :]
@@ -273,12 +285,15 @@ def _int_product(eq: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.einsum(eq, a.float(), b.float())
 
 
-def moe_experts_dense_w8a8(p, x: torch.Tensor,
-                           gate_idx: torch.Tensor) -> torch.Tensor:
+def moe_experts_dense_w8a8(p, x: torch.Tensor, gate_idx: torch.Tensor,
+                           activation=swish,
+                           upper_bound: Optional[float] = None
+                           ) -> torch.Tensor:
     """Impl ``quant_a8``: every expert on every token with int8 weights
     AND per-token int8 activations; each s8 x s8 product is rescaled per
     token x per output column in float32, then rounded to x's dtype,
-    where the bias, SiLU and the hidden's quantization run."""
+    where the bias, the activation (and clamp) and the hidden's
+    quantization run."""
     if "w1_q" not in p or p["w1_q"].dtype != torch.int8:
         raise ValueError("w8a8 needs int8 expert weights")
     out_dtype = x.dtype
@@ -287,7 +302,7 @@ def moe_experts_dense_w8a8(p, x: torch.Tensor,
     h = (h32 * xs[:, None, :, :] * p["w1_scale"][None]).to(out_dtype)
     if p.get("b1") is not None:
         h = h + p["b1"].to(out_dtype)[None, :, None, :]
-    h = swish(h)
+    h = _act(h, activation, upper_bound)
     hq, hs = quantize_act(h)                         # (B,E,T,H)
     y32 = _int_product("beth,ehd->betd", hq, p["w2_q"])
     y = (y32 * hs * p["w2_scale"][None]).to(out_dtype)
@@ -297,7 +312,9 @@ def moe_experts_dense_w8a8(p, x: torch.Tensor,
 
 
 def moe_experts_tiled_w8a8(p, x: torch.Tensor, gate_idx: torch.Tensor,
-                           tile: int = 128) -> torch.Tensor:
+                           tile: int = 128, activation=swish,
+                           upper_bound: Optional[float] = None
+                           ) -> torch.Tensor:
     """Impl ``quant_a8_tiled``: the tiled grouped GEMM with int8 weights
     and per-token int8 activations (quantized in x's dtype, as
     ``quant_a8``); each tile's s8 x s8 sums rescaled by the token and
@@ -316,7 +333,7 @@ def moe_experts_tiled_w8a8(p, x: torch.Tensor, gate_idx: torch.Tensor,
     h = (h32 * st * p["w1_scale"][te]).to(out_dtype)
     if p.get("b1") is not None:
         h = h + p["b1"].to(out_dtype)[te][:, None, :]
-    h = swish(h)
+    h = _act(h, activation, upper_bound)
     hq, hs = quantize_act(h)
     y32 = _int_product("gth,ghd->gtd", hq, p["w2_q"][te])
     y = (y32 * hs * p["w2_scale"][te]).to(out_dtype)

@@ -1,5 +1,6 @@
 """The inference engine (port of the float and quantized serving
-subset of ``m3asr_tpu/runtime/engine.py``).
+subset of ``m3asr_tpu/runtime/engine.py``), for the hier MoE conformer
+and the DFSMN families (``models/registry.py``).
 
 An engine directory has the JAX package's format, so either package
 reads what the other wrote:
@@ -25,17 +26,24 @@ w4a8).
 
 MoE policy: :func:`moe_auto_impl`, the JAX engine's measured TPU policy
 taken as the card's, chosen per request bucket from its
-post-subsampling token count. Float engines run K1 (``runs_f``); int4
+post-subsampling token count (B x T for DFSMN, which does not
+subsample). Float engines run K1 (``runs_f``); int4
 runs K6 up to 128 tokens and K5 beyond; int8 runs the plain-PyTorch
 ``quant`` stage up to 128 tokens and K4 beyond; ``act_quant`` swaps each
 for its a8 twin. On ``cuda`` the kernels run; on ``cpu`` their plain
 PyTorch versions do, under the same names. An explicit ``moe_impl``
 maps as the JAX engine's TPU branch maps it (``pallas`` to K8 on float
 and int8 experts, ``tiled`` to K7 on int4, or a plain-PyTorch stage).
+The DFSMN-MoE experts are ReLU clamped at 1.0 and take the stages of
+their layer's table only (``models/dfsmn.DFSMN_MOE_STAGES``: no K8, no
+capacity stages); an engine whose stage is outside it raises
+ValueError. Their expert nodes are per-layer dicts, each quantized; the
+dense first cFSMN layer and the embed sub-net keep their weights.
 
 Attention: ``attn_impl="xla"`` (plain PyTorch, the default) or
 ``"flash"``, which runs every attention layer on the flash kernel (K2,
-``ops/flash_attention.py``). ``fuse_qkv`` folds q/k/v into one
+``ops/flash_attention.py``; the DFSMN memory-slot attention through
+``flash_attn_mem``). ``fuse_qkv`` folds q/k/v into one
 projection and ``dense_quant`` stores the dense kernels as int8, both
 once at construction, in the JAX engine's order.
 
@@ -69,7 +77,8 @@ from m3asr_tpu_torch.config import (ModelConfig, model_config_from_dict,
 from m3asr_tpu_torch.decode.ctc import ctc_prefix_beam_search_sparse
 from m3asr_tpu_torch.decode.device import ctc_beam_search_device
 from m3asr_tpu_torch.device import resolve_device
-from m3asr_tpu_torch.models import moe_conformer
+from m3asr_tpu_torch.models.dfsmn import check_moe_stage
+from m3asr_tpu_torch.models.registry import get_family
 from m3asr_tpu_torch.ops.attention import fuse_qkv_params
 from m3asr_tpu_torch.ops.moe import HOST_SYNC_STAGES
 from m3asr_tpu_torch.ops.masking import SUBSAMPLED_LENGTH
@@ -295,8 +304,23 @@ class BucketProgram(GraphProgram):
         super().__init__(fn, (feat, feat_len), graph_pool)
 
 
+def _quantize_expert_nodes(node, bits: int):
+    """Every dict holding float ``w1``, ``w2`` and ``router`` (a MoE
+    layer's experts: the conformer's stacked ``feed_forward``, each
+    DFSMN-MoE layer) quantized; the rest, and experts already quantized,
+    as they are."""
+    if isinstance(node, dict):
+        if "w1" in node and "w2" in node and "router" in node:
+            return quantize_moe_params(node, bits=bits)
+        return {k: _quantize_expert_nodes(v, bits) for k, v in node.items()}
+    if isinstance(node, list):
+        return [_quantize_expert_nodes(v, bits) for v in node]
+    return node
+
+
 class Engine:
-    """Inference engine for one hier MoE conformer and its weights.
+    """Inference engine for one model (hier MoE conformer or DFSMN) and
+    its weights.
 
     ``device`` defaults to ``cuda`` and raises when there is no card;
     pass ``device="cpu"`` for the plain PyTorch path. On ``cuda`` each
@@ -328,8 +352,19 @@ class Engine:
         self.cuda_graphs = cuda_graphs
         self._staging = HostStaging(pin=self.device.type == "cuda")
         self.model_cfg = model_cfg
+        self.family = get_family(model_cfg.nnet_proto)
+        self.is_moe = self.family.name in ("moe_conformer", "dfsmn_moe")
         self.cfg = engine_cfg or EngineConfig()
         self.cfg.validate()
+        if self.cfg.return_hidden and model_cfg.nnet_proto == \
+                "dfsmn_base_res":
+            raise NotImplementedError(
+                "return_hidden: the plain cFSMN stack (dfsmn_base_res) has "
+                "no hidden tap")
+        if self.cfg.return_taps and self.family.name != "moe_conformer":
+            raise NotImplementedError(
+                "return_taps (hier decoder memories h6/h12) requires the "
+                "hier MoE conformer family")
         self.buckets = BucketSpec(tuple(self.cfg.bucket_lengths),
                                   tuple(self.cfg.bucket_batches))
         self.dtype = _DTYPES[self.cfg.dtype]
@@ -341,16 +376,19 @@ class Engine:
             torch.backends.cuda.matmul.allow_tf32 = False
             torch.backends.cudnn.allow_tf32 = False
             log.info("TF32 disabled for cuBLAS and cuDNN")
+        if self.family.name == "dfsmn_moe":
+            # the stage of every bucket (explicit names map the same at
+            # any token count; auto stays in the table): refused names
+            # raise now
+            check_moe_stage(self.moe_impl_for(1, 1))
         self.params = to_torch(params, self.device, self.dtype)
-        blocks = self.params["blocks"]
         # the JAX engine's order: cast, quantize the experts, fuse q/k/v,
         # quantize the dense kernels. Each step leaves params that already
         # carry it (an engine dir, another engine's tree) as they are.
-        if self.quant_bits is not None and "w1" in blocks["feed_forward"]:
-            # quantize once, from the bf16 values
-            blocks["feed_forward"] = to_torch(
-                quantize_moe_params(blocks["feed_forward"],
-                                    bits=self.quant_bits),
+        if self.quant_bits is not None:
+            # once, from the bf16 values
+            self.params = to_torch(
+                _quantize_expert_nodes(self.params, self.quant_bits),
                 self.device, self.dtype)
         if self.cfg.fuse_qkv:
             self.params = fuse_qkv_params(self.params)
@@ -379,7 +417,7 @@ class Engine:
                              self.quant_bits, self.cfg.act_quant)
 
     def subsample_factor(self) -> int:
-        """Frame-rate reduction of the encoder front."""
+        """Frame-rate reduction of the encoder front (1 for DFSMN)."""
         return {"linear": 1, "conv2d": 4, "conv2d6": 6, "conv2d8": 8}.get(
             self.model_cfg.encoder_conf.input_layer, 1)
 
@@ -406,16 +444,22 @@ class Engine:
         k = int(self.cfg.decode_topk)
         if mode in ("topk", "beam") and k < 1:
             raise ValueError(f"decode_output={mode!r} needs decode_topk >= 1")
-        enc = self.model_cfg.encoder_conf
-        kw = dict(moe_impl=self.moe_impl_for(batch, length),
-                  hier_taps=self.cfg.return_taps,
-                  return_hidden=self.cfg.return_hidden
-                  and not self.cfg.return_taps,
-                  attn_impl=self.cfg.attn_impl)
+        # the JAX engine's keywords: the hier taps, else the hidden as
+        # return_hidden (MoE families) or output_embed (dense ones)
+        if self.cfg.return_taps:
+            kw = dict(moe_impl=self.moe_impl_for(batch, length),
+                      hier_taps=True)
+        elif self.is_moe:
+            kw = dict(moe_impl=self.moe_impl_for(batch, length),
+                      return_hidden=self.cfg.return_hidden)
+        else:
+            kw = dict(output_embed=self.cfg.return_hidden)
+        kw["attn_impl"] = self.cfg.attn_impl
+        model_cfg, family_forward = self.model_cfg, self.family.forward
         params, prior = self.params, self.neg_log_prior
 
         def forward(feat, feat_len):
-            res = moe_conformer.forward(params, enc, feat, feat_len, **kw)
+            res = family_forward(params, model_cfg, feat, feat_len, **kw)
             out, out_len, extra = res[0], res[1], tuple(res[2:])
             if prior is not None:
                 out = out + prior

@@ -335,8 +335,7 @@ def test_q4_tiled_plain_bf16_and_default_tile():
 
 def test_q4_tiled_refusals():
     """Scale groups that do not divide the contraction, 5-D (stacked)
-    scales and activations other than swish raise, as in the JAX
-    wrapper (the last naming the ROADMAP item that brings DFSMN)."""
+    scales and an activation other than swish and relu raise."""
     _, tq = quantized(experts(15), 4)
     x = torch.from_numpy(inputs(16))
     gate = torch.from_numpy(routing("skewed", (2, 13), 17))
@@ -346,8 +345,8 @@ def test_q4_tiled_refusals():
     with pytest.raises(ValueError, match="slice"):
         moe_experts_q4_tiled_reference(
             dict(tq, w1_scale=tq["w1_scale"][None]), x, gate)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        moe_experts_q4_tiled_reference(tq, x, gate, activation="relu")
+    with pytest.raises(ValueError, match="activation"):
+        moe_experts_q4_tiled_reference(tq, x, gate, activation="gelu")
 
 
 def test_new_kernel_launch_without_cuda_raises():
