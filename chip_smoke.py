@@ -262,6 +262,41 @@ result line:
    its bound, its plain version and (flash_attn_mem) SDPA on the same
    masked problem.
 
+14. streams and the dense conformer (after phase 13; its kernel checks
+   are phase 13's at 16 and 128 tokens, a stream's chunk and a tick):
+   the MoE DFSMN of phase 13 (the port's build, fp32; bf16, int8, int4
+   and w4a8 engines on its tree) and dfsmn_san_res (fp32, bf16) stream 8
+   staggered streams through a DfsmnStreamBatcher (8 slots x chunk 16,
+   cache_T 256; the expert stage serve picks: K1, plain quant, K6): in
+   fp32 streams of 10-52 s (one past the 5000-row positional table, 329
+   ticks), in the other modes of 10-19 s (131 ticks). The capture launches
+   its kernel 29 times a forward, a replay none, and every tick equals the
+   same program eager bit for bit; ticks 12-15 (every stream past the
+   delay), from the eager run's state, are held to the kernel's plain
+   version with routing pinned; single sessions (pushed in
+   uneven pieces, finished) through their graphs equal, pinned to the
+   batched run's experts, the batched streams after the delay (fp32: also
+   free-running, the long stream too, and graph == eager bit for bit); a
+   causal copy (look_ahead=0) of one stream's first 400 frames equals the
+   offline forward under the chunk mask of its window, experts pinned. A
+   loopback server streams two greedy DFSMN streams (bf16) and two beam
+   dense conformer streams,
+   each answer equal to the server's pool sessions driven directly. The
+   dense conformer proto at the flagship encoder's widths (18 blocks)
+   built in fp32, with bf16 and bf16 flash engines, answers 1x206, 4x1000
+   and 1x2048 through graphs (graph == eager bit for bit; flash launches
+   K2 18 times a forward and is held to xla within 0.05), and each other
+   front end (conv2d6, conv2d8, linear, abs_pos, no_pos, the LayerNorm
+   after the input layer) one 1x1000 request at 2 blocks. Printed: tick
+   and chunk latency (graph, eager), a tick's device time and busy share,
+   pools, request latency and device time. A batcher captured over the
+   DFSMN positional table's first 5000 rows replays bit-equal after an
+   offline 1x6144 request grew the table.
+
+``python3 chip_smoke.py --only NAME [NAME ...]`` runs the build and the
+phases named in ``ALONE`` alone, for work on one of them; it prints no
+result line and exits 1.
+
 The line before the last is one JSON object describing each kernel
 (route, source, launches on the main path, error, times, bound); the
 last line is {"ok": true, "device": {...}}.
@@ -1945,18 +1980,24 @@ def stream_windows(feat, chunk):
     return out
 
 
-def batched_ticks(b, streams):
+def batched_ticks(b, streams, ticks=None, before_tick=None):
     """Drive StreamBatcher ``b`` tick by tick: stream i in slot i from
-    tick i, one window a tick. Returns (each stream's kept outputs
-    (frames, V), every tick's (slots, C, V) output, tick times in ms by
-    the host clock)."""
+    tick i, one window a tick. ``ticks``: only these ticks, from the state
+    the caller left in the slots (by default every tick, from zeroed
+    slots); ``before_tick(t)`` runs before each tick. Returns (each
+    stream's kept outputs (frames, V) of the ticks run, every tick's
+    (slots, C, V) output, tick times in ms by the host clock)."""
     from m3asr_tpu_torch.runtime.graphs import DEVICE_LOCK
     W, D = streams[0][0][0].shape[1:]
-    with DEVICE_LOCK.shared():
-        b._reset_slots(range(b.slots))
+    if ticks is None:
+        ticks = range(max(i + len(s) for i, s in enumerate(streams)))
+        with DEVICE_LOCK.shared():
+            b._reset_slots(range(b.slots))
     outs = [[] for _ in streams]
     raw, ms = [], []
-    for t in range(max(i + len(s) for i, s in enumerate(streams))):
+    for t in ticks:
+        if before_tick is not None:
+            before_tick(t)
         windows = np.zeros((b.slots, W, D), np.float32)
         mask = np.zeros((b.slots,), bool)
         for i, s in enumerate(streams):
@@ -1970,7 +2011,7 @@ def batched_ticks(b, streams):
         for i, s in enumerate(streams):
             if 0 <= t - i < len(s):
                 outs[i].append(out[i, :s[t - i][1]])
-    return [np.concatenate(o) for o in outs], raw, ms
+    return [np.concatenate(o) if o else None for o in outs], raw, ms
 
 
 def pieces_of(T):
@@ -4023,7 +4064,9 @@ DFSMN_BUCKETS = "1x512,4x1024,1x6144"
 DFSMN_SHORT_BUCKET = "1x128"
 RELU_UPPER = 1.0            # the DFSMN experts' clamp
 RELU = dict(activation="relu", upper_bound=RELU_UPPER)
-DFSMN_K1_TOKENS = (512, 2048, 4096, 24576)
+# 16 and 128: a stream's chunk and a tick of 8 slots (phase 14)
+DFSMN_K1_TOKENS = (16, 128, 512, 2048, 4096, 24576)
+DFSMN_K6_TOKENS = (16, 63, 127, 128)
 DFSMN_Q_TOKENS = (512, 4096)
 # (kernel, variant) -> the ReLU instantiation's name in the output
 RELU_NAMES = {("K1", "float32"): "moe_runs_f[float32 relu]",
@@ -4100,9 +4143,10 @@ def phase_kernel_dfsmn(torch):
     """K1, K4-K7's ReLU instantiations (hidden clamped at 1.0) against
     their plain versions at the DFSMN widths (E=32, d=512, h=1024,
     unstacked weights, no b2) and token counts, under the router's, one
-    expert's, half-empty and heavy routing: K1 fp32/bf16 at 512-24576
-    tokens (the 8x6144 bucket is 49152 rows), K4/K5 weight-only and a8
-    at 512 and 4096, K6 at 63 and 127, K7 at 511. x is drawn 3x larger
+    expert's, half-empty and heavy routing: K1 fp32/bf16 at 16-24576
+    tokens (16 and 128: phase 14's stream chunk and tick; the 8x6144
+    bucket is 49152 rows), K4/K5 weight-only and a8 at 512 and 4096, K6
+    at 16, 63, 127 and 128, K7 at 511. x is drawn 3x larger
     than phase 3's so that about a fifth of the hidden values reach the
     clamp. Phase 3's tolerances; K5 a8 must equal K6 a8 (127 tokens) and
     K7 a8 (511) bit for bit. Returns the worst max_abs_err per name."""
@@ -4152,7 +4196,7 @@ def phase_kernel_dfsmn(torch):
                           bf, act_quant=a8)
     p = unstacked(quant_experts(torch, 4, gen, 1))
     for a8 in (False, True):
-        for n in (63, 127):
+        for n in DFSMN_K6_TOKENS:
             for kind in kinds:
                 x, gate, got = check(("K6", a8), moe_q4.q4_kernel,
                                      moe_q4.moe_experts_q4_reference, p, n,
@@ -4287,7 +4331,8 @@ def phase_kernel_flash_mem(torch):
     return worst
 
 
-def dfsmn_engine(torch, raw_path, flags, label, buckets=DFSMN_BUCKETS):
+def dfsmn_engine(torch, raw_path, flags, label, buckets=DFSMN_BUCKETS,
+                 what="dfsmn"):
     """An engine built by the port's build (m3asr_tpu_torch.build: the
     config from the YAML, seeded random weights on the card, the flags'
     dtype and settings, ``buckets``, or the default ladder for None)
@@ -4300,7 +4345,7 @@ def dfsmn_engine(torch, raw_path, flags, label, buckets=DFSMN_BUCKETS):
         argv += ["--buckets", buckets]
     t0 = time.perf_counter()
     eng, _, _ = t_build.build_engine(t_build.parse_args(argv))
-    log(f"dfsmn {label}: built by m3asr_tpu_torch.build "
+    log(f"{what} {label}: built by m3asr_tpu_torch.build "
         f"{' '.join(flags) or '(float32)'} in "
         f"{time.perf_counter() - t0:.2f} s")
     return eng
@@ -4325,7 +4370,8 @@ def dfsmn_profile(torch, eng, feat, lens):
     return sum(by_name.values()), top, k1, k2
 
 
-def dfsmn_serve(torch, label, eng, reqs, kname, n_moe, n_attn, smi):
+def dfsmn_serve(torch, label, eng, reqs, kname, n_moe, n_attn, smi,
+                what="dfsmn"):
     """Serves each request through eng's CUDA graphs: the bucket's capture
     launches ``kname`` (GRAPH_WARMUP_RUNS + 1) x n_moe times (and K2 x
     n_attn with flash), a replay none; the graph's logits equal the eager
@@ -4336,9 +4382,11 @@ def dfsmn_serve(torch, label, eng, reqs, kname, n_moe, n_attn, smi):
     (launches per kernel over captures and eager runs, the eager logits
     and the gates of each request)."""
     from m3asr_tpu_torch.ops import moe as moe_mod
+    from m3asr_tpu_torch.ops.masking import SUBSAMPLED_LENGTH
     from m3asr_tpu_torch.ops.moe import HOST_SYNC_STAGES
     from m3asr_tpu_torch.runtime.engine import GRAPH_WARMUP_RUNS
     fwds = GRAPH_WARMUP_RUNS + 1
+    sub = SUBSAMPLED_LENGTH[eng.model_cfg.encoder_conf.input_layer]
     flash = eng.cfg.attn_impl == "flash"
     fp32 = eng.cfg.dtype == "float32"
     total, outs, recs = {}, [], []
@@ -4379,8 +4427,8 @@ def dfsmn_serve(torch, label, eng, reqs, kname, n_moe, n_attn, smi):
         ok = (prog.graph is not None and stage not in HOST_SYNC_STAGES
               and at_capture == {k: v * fwds for k, v in want.items()}
               and not at_replay and at_eager == want and equal and held_ok
-              and np.array_equal(out_len, lens) and np.isfinite(g).all())
-        log(f"dfsmn {label} {B}x{T}: stage {stage}, bucket {bb}x{bt} "
+              and np.array_equal(out_len, sub(lens)) and np.isfinite(g).all())
+        log(f"{what} {label} {B}x{T}: stage {stage}, bucket {bb}x{bt} "
             f"captured in {cap_s:.2f} s with launches {at_capture} (want "
             f"{want} a forward x {fwds}), replay launches "
             f"{at_replay or 'none'}, eager {at_eager}; graph == eager bit "
@@ -4389,13 +4437,13 @@ def dfsmn_serve(torch, label, eng, reqs, kname, n_moe, n_attn, smi):
             f"({'allclose(1e-5, 1e-3)' if fp32 else '<= 0.05'}) "
             f"{'OK' if ok else 'FAIL'}")
         if not ok:
-            raise SystemExit(f"FAIL dfsmn {label} {B}x{T}: capture, "
+            raise SystemExit(f"FAIL {what} {label} {B}x{T}: capture, "
                              "launches or logits off")
         r = serve_times(torch, eng, feat, lens)
-        log(times_line(f"dfsmn {label}", B, T, "graph", r, smi))
-        if (B, T) == DFSMN_REQUESTS[-1]:
+        log(times_line(f"{what} {label}", B, T, "graph", r, smi))
+        if (B, T) == DFSMN_REQUESTS[-1] or (what != "dfsmn" and i == 1):
             dev, top, k1, k2 = dfsmn_profile(torch, eng, feat, lens)
-            log(f"dfsmn {label} 1x{T} device time {dev:.3f} ms under "
+            log(f"{what} {label} {B}x{T} device time {dev:.3f} ms under "
                 f"torch.profiler: K1 {k1:.3f} ms ({k1 / dev:.3f}), K2 "
                 f"{k2:.3f} ms ({k2 / dev:.3f}); top kernels: " + "; ".join(
                     f"{short_name(n)} {ms:.3f} ms" for n, ms in top)
@@ -4559,6 +4607,49 @@ def dfsmn_ladder(torch, raw_path, smi, buckets=None):
         torch.cuda.empty_cache()
 
 
+def k6_relu_raw(torch, layers, x, gate, a8):
+    """K6's ReLU launches alone: moe_q4_dense_act on buffers allocated
+    once, the layer rotating with the call count i, without the wrapper's
+    allocations and checks (as phase 12's "kernels alone"). ``layers``
+    hold the weights stacked (L, E, ...) and one layer's scales each.
+    Returns fn(i)."""
+    from m3asr_tpu_torch import kernels
+    from m3asr_tpu_torch.ops.moe_runs import kernel_act, layer_scales
+    lib = kernels.MOE_Q4.load()
+    nl, n = len(layers), x.shape[1]
+    w1, w2 = (layers[0][k].reshape((-1,) + tuple(layers[0][k].shape[2:]))
+              for k in ("w1_q4", "w2_q4"))
+    scales = [layer_scales(q, E) for q in layers]
+    b1 = layers[0]["b1"]
+    x2 = x.reshape(n, D).contiguous()
+    g2 = gate.reshape(n).to(torch.int32).contiguous()
+    front = torch.empty(lib.moe_q4_front_ints(n, E), dtype=torch.int32,
+                        device="cuda")
+    hid = torch.empty(n, H, device="cuda",
+                      dtype=torch.float32 if a8 else torch.bfloat16)
+    xq, hq = (torch.empty(n, w, dtype=torch.int8, device="cuda")
+              for w in (D, H))
+    xs, hs = (torch.empty(n, device="cuda") for _ in range(2))
+    y = torch.empty_like(x2)
+    act = kernel_act(RELU["activation"], RELU["upper_bound"])
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def ptr(t):
+        return t.data_ptr() if a8 else None
+
+    def raw(i):
+        j = i % nl
+        s1, s2 = scales[j]
+        if lib.moe_q4_dense_act(
+                *act, int(a8), x2.data_ptr(), g2.data_ptr(), n,
+                w1.data_ptr(), s1.data_ptr(), s1.shape[1], b1.data_ptr(),
+                w2.data_ptr(), s2.data_ptr(), s2.shape[1], None, E, j, D, H,
+                front.data_ptr(), hid.data_ptr(), ptr(xq), ptr(xs), ptr(hq),
+                ptr(hs), y.data_ptr(), stream):
+            raise SystemExit("FAIL times: moe_q4_dense_act launch error")
+    return raw
+
+
 DFSMN_TIME_TOKENS = {"K1": 4096, "K4": 4096, "K5": 4096, "K6": 127,
                      "K7": 511}
 FLASH_MEM_TIME_T = (2048, 6144)     # B=1; the report's row at the last
@@ -4585,7 +4676,8 @@ def time_dfsmn_kernels(torch, smi):
     gen = torch.Generator(device="cuda").manual_seed(15)
     nl, rows = 3, {}
 
-    def row(name, kern, plain, layer_p, n, dtype, per_expert, peak, **kw):
+    def row(name, kern, plain, layer_p, n, dtype, per_expert, peak,
+            alone=None, **kw):
         x = (torch.randn(1, n, D, generator=gen, device="cuda") * 3) \
             .to(dtype)
         gate = routing(torch, "router", n, gen)
@@ -4607,9 +4699,14 @@ def time_dfsmn_kernels(torch, smi):
         rows[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound,
                           bound_by="bytes" if t_bytes >= t_ops
                           else "operations", library_ms=None)
+        # the launches alone by CUDA events (K6), where the profiler's
+        # trace can lose the kernels' events
+        extra = "" if alone is None else (
+            ", its CUDA launches alone {:.4f} ms by CUDA events".format(
+                cuda_time_ms(torch, alone(x, gate), 60)))
         log(f"time {name} n={n} router active={active}: call {ms:.4f} ms "
             f"(device {dev:.4f} ms under torch.profiler, the layout prep "
-            f"with it), plain {plain_ms:.4f} ms, bound {bound:.4f} ms "
+            f"with it{extra}), plain {plain_ms:.4f} ms, bound {bound:.4f} ms "
             f"(bytes {t_bytes:.4f} / ops {t_ops:.4f}), library_ms none; "
             f"{smi}")
 
@@ -4639,10 +4736,13 @@ def time_dfsmn_kernels(torch, smi):
                 "K7": (moe_q4.q4_tiled_kernel,
                        moe_q4.moe_experts_q4_tiled_reference)}[kname]
             for a8 in (False, True):
+                alone = None if kname != "K6" else (
+                    lambda x, gate, a8=a8: k6_relu_raw(torch, layers, x,
+                                                       gate, a8))
                 row(RELU_NAMES[(kname, a8)], kern, plain,
                     lambda j: layers[j], DFSMN_TIME_TOKENS[kname],
                     torch.bfloat16, per_expert,
-                    "int8" if a8 else "bfloat16", act_quant=a8)
+                    "int8" if a8 else "bfloat16", alone=alone, act_quant=a8)
     M, dk = DFSMN_SLOTS, D // DFSMN_HEADS
     for dtype in (torch.float32, torch.bfloat16):
         dname = str(dtype)[6:]
@@ -4709,10 +4809,17 @@ def dfsmn_report(torch, state, smi):
         RELU_NAMES[("K7", True)]: [("w4a8 tiled", "K7")],
         FLASH_MEM_NAMES["float32"]: [("dfsmn_san_res float32+flash", "K2")],
         FLASH_MEM_NAMES["bfloat16"]: [("bfloat16+flash", "K2")]}
+    # phase 14's captures: the DFSMN streams, the server's included
+    streamed = {RELU_NAMES[("K1", "float32")]: ("float32", "K1"),
+                RELU_NAMES[("K1", "bfloat16")]: ("bfloat16", "K1"),
+                RELU_NAMES[("K6", False)]: ("int4", "K6"),
+                RELU_NAMES[("K6", True)]: ("w4a8", "K6")}
     rows = time_dfsmn_kernels(torch, smi)
     report = []
     for name, where in by_name.items():
         n = sum(launches[eng].get(k, 0) for eng, k in where)
+        if name in streamed:
+            n += state["launches_dfsmn_stream"][streamed[name]]
         if n == 0:
             raise SystemExit(f"FAIL report: {name} never launched on the "
                              "DFSMN path")
@@ -4737,6 +4844,675 @@ def dfsmn_report(torch, state, smi):
     return report
 
 
+# ---------------------------------------------------------------------------
+# 14. DFSMN streams, the server's DFSMN and dense conformer streams, and
+#     the dense conformer protos
+# ---------------------------------------------------------------------------
+
+DS_SLOTS, DS_CHUNK, DS_CACHE_T = 8, 16, 256
+# frames of the 8 streams (10 ms each: 10-52 s); the first passes the
+# 5000-row positional table. Its 329 ticks are run by the modes of
+# DS_LONG; the others take a ninth stream of 19.1 s in its place (an
+# eager tick costs 45-80 ms of host time)
+DS_FRAMES = (5200, 1000, 1130, 1260, 1390, 1520, 1650, 1780)
+DS_SHORT = 1910
+DS_LONG = ("float32", "dfsmn_san_res float32")
+DS_CHECKED = 1                # the stream also run by single sessions
+# ticks held to the kernels' plain versions, from the eager run's state at
+# DS_PLAIN_FROM: there stream 7 (the last to start, at tick 7) has fed 96
+# frames, past the MoE net's 59-frame delay, so every MoE layer of every
+# slot sees real frames
+DS_PLAIN_FROM, DS_PLAIN_TICKS = 12, 4
+DS_ORACLE_FRAMES = 400        # the causal copy's frames (past the window)
+# (label, proto, EngineConfig settings on the fp32 engine's tree, the
+# kernel of the chunk programs' expert stage, serve's stage at 16 x 8
+# tokens)
+DS_MODES = (
+    ("float32", DFSMN_MOE, dict(dtype="float32"), "K1", "runs_f"),
+    ("bfloat16", DFSMN_MOE, dict(dtype="bfloat16"), "K1", "runs_f"),
+    ("int8", DFSMN_MOE, dict(dtype="int8"), None, "quant"),
+    ("int4", DFSMN_MOE, dict(dtype="int4"), "K6", "quant4_pallas"),
+    ("w4a8", DFSMN_MOE, dict(dtype="int4", act_quant=True), "K6",
+     "quant4_a8"),
+    ("dfsmn_san_res float32", "dfsmn_san_res", dict(dtype="float32"), None,
+     None),
+    ("dfsmn_san_res bfloat16", "dfsmn_san_res", dict(dtype="bfloat16"),
+     None, None))
+# the dense conformer at the flagship encoder's widths
+DC_REQUESTS = ((1, 206), (4, 1000), (1, 2048))
+DC_BUCKETS = "1x256,4x1024,1x2048"
+DC_BLOCKS = 18
+# the other front ends, one fp32 forward each at 2 blocks:
+# (input_layer, pos_enc_layer_type, subsampling_feat_norm)
+DC_FRONTS = (("conv2d6", "rel_pos", False), ("conv2d8", "rel_pos", False),
+             ("linear", "rel_pos", False), ("conv2d", "abs_pos", False),
+             ("conv2d", "no_pos", False), ("conv2d", "rel_pos", True))
+
+
+def conformer_raw(blocks=DC_BLOCKS, input_layer="conv2d", pos="rel_pos",
+                  feat_norm=False):
+    """The dense ``conformer`` proto at the flagship encoder's widths
+    (configs/3m_asr_18l32e.yaml's encoder: d=512, 8 heads, 2048 linear
+    units, macaron, CNN kernel 15, batch norm), input 40, vocabulary
+    5000."""
+    return {"nnet_proto": "conformer", "input_dim": 40, "output_dim": 5000,
+            "model_conf": {
+                "attention_dim": D, "attention_heads": 8,
+                "linear_units": 2048, "num_blocks": blocks,
+                "macaron_style": True, "use_cnn_module": True,
+                "cnn_module_kernel": 15, "cnn_module_norm": "batch_norm",
+                "input_layer": input_layer, "pos_enc_layer_type": pos,
+                "subsampling_feat_norm": feat_norm}}
+
+
+def dfsmn_chunks(feat, delay, chunk=DS_CHUNK):
+    """The chunks a DFSMN session feeds its program for one (T, D) stream
+    pushed and finished: the full chunks, then the tail and ``delay``
+    zero frames padded to a chunk. [(chunk (1, C, D), C)]."""
+    T = feat.shape[0]
+    n = -(-(T + delay) // chunk)
+    x = np.zeros((n * chunk, feat.shape[1]), np.float32)
+    x[:T] = feat
+    return [(x[None, i * chunk:(i + 1) * chunk], chunk) for i in range(n)]
+
+
+def chunk_gates(rec_calls, n_moe, i, n_chunks):
+    """Stream i's expert choices in a batched run where it sat in slot i
+    from tick i, in a single session's call order (per chunk, per MoE
+    layer)."""
+    return [rec_calls[(i + c) * n_moe + blk][i:i + 1]
+            for c in range(n_chunks) for blk in range(n_moe)]
+
+
+def dfsmn_stream_mode(torch, label, params, cfg, cfg_c, impl, kname, n_moe,
+                      feats, smi):
+    """Phase 14's checks of one DFSMN stream mode. ``params``: the
+    engine's stream parameters; ``impl``: the expert stage serve picks
+    (None: no experts); ``cfg_c``: the causal copy's config. Returns the
+    kernel's launches in the mode's captures (its main path's
+    programs)."""
+    from m3asr_tpu_torch.models import dfsmn as t_dfsmn
+    from m3asr_tpu_torch.models import dfsmn_streaming as ds
+    from m3asr_tpu_torch.ops import moe as moe_mod
+    from m3asr_tpu_torch.ops.masking import subsequent_chunk_mask
+    from m3asr_tpu_torch.runtime.graphs import DEVICE_LOCK, GRAPH_WARMUP_RUNS
+    from m3asr_tpu_torch.runtime.streaming_batch import DfsmnStreamBatcher
+    from m3asr_tpu_torch.runtime.streaming_session import (
+        DfsmnMoeStreamingSession, DfsmnStreamingSession)
+
+    moe = impl is not None
+    fp32 = "float32" in label
+    tol = "allclose(1e-5, 1e-3)" if fp32 else "<= 0.05"
+    fwds = GRAPH_WARMUP_RUNS + 1
+    delay = (ds.moe_stream_delay(cfg, DS_CHUNK) if moe
+             else ds.stream_delay(cfg))
+    streams = [dfsmn_chunks(f, delay) for f in feats]
+    n_ticks = max(i + len(s) for i, s in enumerate(streams))
+    bkw = dict(input_dim=feats[0].shape[1], chunk_size=DS_CHUNK,
+               slots=DS_SLOTS, cache_T=DS_CACHE_T, moe=moe,
+               moe_impl=impl or "dense", window_ms=0.0)
+    skw = dict(cache_T=DS_CACHE_T, **(dict(moe_impl=impl) if moe else {}))
+    cls = DfsmnMoeStreamingSession if moe else DfsmnStreamingSession
+    per_fwd = {kname: n_moe} if kname else {}
+    launched = 0
+
+    def counted(want, what, main=False):
+        """Hold the launches since the last reset to ``want``; the
+        captures (the main path's programs) add to ``launched``."""
+        nonlocal launched
+        got = kernel_counts()
+        if main and kname:
+            launched += got.get(kname, 0)
+        if got != want:
+            raise SystemExit(f"FAIL dfsmn stream {label}: {what} launched "
+                             f"{got}, want {want}")
+        reset_counts()
+
+    # the batched program: captured, replayed tick by tick, and the same
+    # program eager, bit for bit
+    reset_counts()
+    t0 = t_mode = time.perf_counter()
+    b_g = DfsmnStreamBatcher(params, cfg, **bkw)
+    cap_s = time.perf_counter() - t0
+    if b_g.graph is None:
+        raise SystemExit(f"FAIL dfsmn stream {label}: no graph captured")
+    counted({k: fwds * v for k, v in per_fwd.items()},
+            "the batcher's capture", main=True)
+    outs_b, raw_g, tick_g = batched_ticks(b_g, streams)
+    counted({}, "the graph's replays")
+    b_e = DfsmnStreamBatcher(params, cfg, cuda_graphs=False, **bkw)
+    snap = []
+
+    def keep_state(t):
+        if t == DS_PLAIN_FROM:
+            snap.extend(x.clone() for x in b_e._prog.inputs[2:])
+    with GateRecorder(moe_mod) as rec_b:
+        outs_e, raw_e, tick_e = batched_ticks(
+            b_e, streams, before_tick=keep_state if kname else None)
+    counted({k: n_ticks * v for k, v in per_fwd.items()}, "the eager ticks")
+    equal = all(np.array_equal(a, b) for a, b in zip(raw_g, raw_e))
+    finite = all(np.isfinite(o).all() for o in outs_b)
+    full = (np.zeros((DS_SLOTS, DS_CHUNK, bkw["input_dim"]), np.float32),
+            np.ones((DS_SLOTS,), bool))
+
+    def tick():
+        with DEVICE_LOCK.shared():
+            b_g._tick(*full)
+    dev, events = profiled_events(torch, tick, 5)
+    reset_counts()
+    tg, te = float(np.median(tick_g)), float(np.median(tick_e))
+    ok = equal and finite
+    log(f"dfsmn stream {label} batcher ({DS_SLOTS} slots, chunk {DS_CHUNK},"
+        f" cache_T {DS_CACHE_T}, stage {impl}, delay {delay}): captured in "
+        f"{cap_s:.2f} s; {n_ticks} ticks of {len(streams)} staggered "
+        f"streams of {[f.shape[0] for f in feats]} frames; graph outputs "
+        f"bit-equal to the "
+        f"eager step's: {equal}; finite: {finite}; median tick graph "
+        f"{tg:.3f} ms, eager {te:.3f} ms (host clock); a graph tick's "
+        f"device time {dev:.3f} ms under torch.profiler ({events // 5} "
+        f"events), busy {dev / tg:.3f}; graph pool "
+        f"{b_g.pool_bytes / 2**20:.1f} MiB reserved; {smi} "
+        f"{'OK' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit(f"FAIL dfsmn stream {label}: graph ticks differ "
+                         "from eager")
+    b_g.close()
+
+    # the experts on the kernel's plain version, routing pinned to the
+    # eager run's, over ticks past the delay: from the eager run's state
+    # at DS_PLAIN_FROM, the next DS_PLAIN_TICKS ticks, held slot by slot
+    if kname:
+        ticks = range(DS_PLAIN_FROM, DS_PLAIN_FROM + DS_PLAIN_TICKS)
+        with DEVICE_LOCK.shared(), torch.inference_mode():
+            for x, v in zip(b_e._prog.inputs[2:], snap):
+                x.copy_(v)
+        snap.clear()
+        pinned = rec_b.calls[ticks[0] * n_moe:(ticks[-1] + 1) * n_moe]
+        with GateRecorder(moe_mod, replay=pinned), PlainExperts(moe_mod):
+            _, raw_p, _ = batched_ticks(b_e, streams, ticks)
+        reset_counts()
+        worst, ok, n_rows = 0.0, True, 0
+        for t, o_p in zip(ticks, raw_p):
+            live = [i for i, s in enumerate(streams) if 0 <= t - i < len(s)]
+            n_rows += len(live)
+            good, rel = held(raw_e[t][live], o_p[live], fp32)
+            ok &= good
+            worst = max(worst, rel)
+        log(f"dfsmn stream {label}: ticks {ticks[0]}-{ticks[-1]} ({n_rows} "
+            f"slot chunks, every stream past the {delay}-frame delay) from "
+            f"the eager run's state, with the experts on {kname}'s plain "
+            f"version, routing pinned: max|diff|/max|ref| {worst:.3e} "
+            f"({tol}) {'OK' if ok else 'FAIL'}")
+        if not ok:
+            raise SystemExit(f"FAIL dfsmn stream {label}: {kname} against "
+                             "its plain version")
+    b_e.close()
+
+    # single sessions (scalar offsets), pushed in uneven pieces and
+    # finished, held to the batched streams after the delay: through the
+    # graph (fp32 free-running, also the long stream), and eager pinned to
+    # the batched run's experts; fp32 also holds the graph session to the
+    # eager one bit for bit
+    s_g = cls(params, cfg, DS_CHUNK, **skw)
+    s_e = cls(params, cfg, DS_CHUNK, cuda_graphs=False, **skw)
+    i = DS_CHECKED
+    checked = [0, i] if fp32 and feats[0].shape[0] > 5000 else [i]
+    worst, ok_all, bit_equal, lat_g, lat_e = 0.0, True, True, [], []
+    for k in checked:
+        out_g, chunks_g, pc = session_run(s_g, feats[k])
+        lat_g += pc
+        want = outs_b[k][delay:delay + feats[k].shape[0]]
+        ok_all &= out_g.shape == want.shape and bool(np.isfinite(out_g).all())
+        if fp32:
+            good, rel = held(out_g, want, True)
+            ok_all &= good
+            worst = max(worst, rel)
+    counted({k: fwds * v for k, v in per_fwd.items()},
+            "the session's capture and replays", main=True)
+    eager_runs = 1
+    if fp32:
+        out_e, chunks_e, pc = session_run(s_e, feats[i])
+        lat_e += pc
+        eager_runs += 1
+        bit_equal = len(chunks_g) == len(chunks_e) and all(
+            np.array_equal(a, b) for a, b in zip(chunks_g, chunks_e))
+    with GateRecorder(moe_mod, replay=chunk_gates(rec_b.calls, n_moe, i,
+                                                  len(streams[i]))):
+        t0 = time.perf_counter()
+        out_p, _, _ = session_run(s_e, feats[i])
+        if not lat_e:
+            lat_e.append((time.perf_counter() - t0) * 1e3
+                         / len(streams[i]))
+    good, rel = held(out_p, outs_b[i][delay:delay + feats[i].shape[0]],
+                     fp32)
+    ok_all &= good
+    worst = max(worst, rel)
+    counted({k: eager_runs * len(streams[i]) * v
+             for k, v in per_fwd.items()}, "the sessions' replays and eager "
+            "runs")
+    log(f"dfsmn stream {label} sessions: streams {checked} of "
+        f"{[feats[k].shape[0] for k in checked]} frames pushed in pieces of "
+        f"{STREAM_PIECES} and finished through the graph"
+        f"{' (held free-running)' if fp32 else ''}, stream {i} also eager "
+        f"pinned to the batched run's experts"
+        f"{' and free-running' if eager_runs > 1 else ''}; graph chunks "
+        f"bit-equal to eager: {bit_equal if eager_runs > 1 else 'not run'}; "
+        f"single vs batched on the frames after the delay: "
+        f"max|diff|/max|ref| {worst:.3e} ({tol}); chunk latency median "
+        f"graph {np.median(lat_g):.3f} ms, eager {np.median(lat_e):.3f} ms "
+        f"(host clock); session graph pool "
+        f"{s_g._prog.pool_bytes / 2**20:.1f} MiB reserved; {smi} "
+        f"{'OK' if bit_equal and ok_all else 'FAIL'}")
+    if not (bit_equal and ok_all):
+        raise SystemExit(f"FAIL dfsmn stream {label}: sessions")
+    s_g = s_e = None
+
+    # the causal copy (look_ahead=0 in both nets) against the offline
+    # forward under the chunk mask of its 256-frame window, experts
+    # pinned to the streams'
+    oracle = [dfsmn_chunks(feats[DS_CHECKED][:DS_ORACLE_FRAMES], 0)]
+    b_o = DfsmnStreamBatcher(params, cfg_c, cuda_graphs=False, **bkw)
+    with GateRecorder(moe_mod) as rec_o:
+        outs_o, _, _ = batched_ticks(b_o, oracle)
+    b_o.close()
+    Tp = max(len(s) for s in oracle) * DS_CHUNK
+    x = torch.zeros((len(oracle), Tp, bkw["input_dim"]), device="cuda")
+    x[0, :DS_ORACLE_FRAMES] = torch.from_numpy(
+        feats[DS_CHECKED][:DS_ORACLE_FRAMES]).cuda()
+    x = x.to(params["out_linear_sw" if moe else "out_linear"]["kernel"]
+             .dtype)
+    mask = subsequent_chunk_mask(Tp, DS_CHUNK, DS_CACHE_T // DS_CHUNK,
+                                 device="cuda")
+
+    def offline():
+        if moe:
+            return t_dfsmn.dfsmn_san_moe_forward(params, cfg_c, x, None,
+                                                 moe_impl=impl,
+                                                 attn_mask=mask)[0]
+        return t_dfsmn.dfsmn_san_forward(params, cfg_c, x, None,
+                                         attn_mask=mask)[0]
+    with torch.inference_mode():
+        with GateRecorder(moe_mod) as rec_f:
+            offline()
+        replay = [g.clone() for g in rec_f.calls]
+        for j, s in enumerate(oracle):
+            for blk in range(n_moe):
+                replay[blk][j, :len(s) * DS_CHUNK] = torch.cat(
+                    [rec_o.calls[(j + c) * n_moe + blk][j]
+                     for c in range(len(s))])
+        with GateRecorder(moe_mod, replay=replay):
+            ref = offline().float().cpu().numpy()
+    reset_counts()
+    worst, ok_all, flipped = 0.0, True, 0
+    for j, s in enumerate(oracle):
+        n = len(s) * DS_CHUNK
+        good, rel = held(outs_o[j][:n], ref[j, :n], fp32)
+        ok_all &= good
+        worst = max(worst, rel)
+        flipped += sum(int((rec_f.calls[b][j, :n] != replay[b][j, :n])
+                           .sum().item()) for b in range(n_moe))
+    log(f"dfsmn stream {label} oracle (look_ahead=0 in both nets): the "
+        f"first {DS_ORACLE_FRAMES} frames of stream {DS_CHECKED} batched vs "
+        f"the offline forward with "
+        f"subsequent_chunk_mask({Tp}, {DS_CHUNK}, "
+        f"{DS_CACHE_T // DS_CHUNK}), experts pinned to the streams': "
+        f"max|diff|/max|ref| {worst:.3e} ({tol}); (frame, layer) pairs "
+        f"whose expert differs free-running: {flipped}; {smi} "
+        f"{'OK' if ok_all else 'FAIL'}")
+    if not ok_all:
+        raise SystemExit(f"FAIL dfsmn stream {label}: the causal stream "
+                         "differs from the chunk-masked offline forward")
+    log(f"dfsmn stream {label}: {time.perf_counter() - t_mode:.1f} s")
+    return launched
+
+
+def phase_table_growth(torch, state, smi, eng=None):
+    """A captured stream outlives the growth of the DFSMN positional
+    table. A DFSMN stream batcher is captured while the table has its
+    first 5000 rows and runs 8 streams; an offline 1x6144 request then
+    grows the table, NaN fills the memory the allocator hands out next at
+    the old table's size, and the same streams through the same graph
+    give the same outputs bit for bit. ``eng``: the fp32 MoE-DFSMN engine
+    (built here when None)."""
+    import tempfile
+    import yaml
+    import m3asr_tpu_torch.serve as serve
+    from m3asr_tpu_torch.models import dfsmn as t_dfsmn
+    from m3asr_tpu_torch.models import dfsmn_streaming as ds
+    from m3asr_tpu_torch.models.registry import dfsmn_stream_config
+    from m3asr_tpu_torch.runtime.engine import Engine, EngineConfig
+    from m3asr_tpu_torch.runtime.streaming_batch import DfsmnStreamBatcher
+    if eng is None:
+        work = tempfile.mkdtemp(prefix="dfsmn_table_")
+        try:
+            raw_path = os.path.join(work, "dfsmn.yaml")
+            with open(raw_path, "w") as f:
+                yaml.safe_dump(dfsmn_raw(), f)
+            eng = dfsmn_engine(torch, raw_path, [], "table growth", "1x512")
+        finally:
+            shutil.rmtree(work, ignore_errors=True)
+    t0 = time.perf_counter()
+    feat = np.random.default_rng(16).standard_normal(
+        (6144, 40)).astype(np.float32)
+    # start from the first tables, as a server that has served nothing
+    # longer than 5000 frames (position_table keeps the tables it
+    # replaces; so does this)
+    for key in list(t_dfsmn._PE_TABLES):
+        t_dfsmn._PE_SUPERSEDED.append(t_dfsmn._PE_TABLES.pop(key))
+    cfg = dfsmn_stream_config(eng.model_cfg)
+    impl = serve._stream_moe_impl(eng, DS_SLOTS)
+    b = DfsmnStreamBatcher(serve.stream_params(eng), cfg, input_dim=40,
+                           chunk_size=DS_CHUNK, slots=DS_SLOTS,
+                           cache_T=DS_CACHE_T, moe=True, moe_impl=impl,
+                           window_ms=0.0)
+    delay = ds.moe_stream_delay(cfg, DS_CHUNK)
+    streams = [dfsmn_chunks(feat[100 * i:100 * i + 400], delay)
+               for i in range(DS_SLOTS)]
+    before, _, _ = batched_ticks(b, streams)
+    rows = {k: v.shape[0] for k, v in t_dfsmn._PE_TABLES.items()}
+    long = Engine(eng.model_cfg, eng.params, EngineConfig(
+        dtype="float32", bucket_lengths=(6144,), bucket_batches=(1,)),
+        device="cuda")
+    logits, _ = long.infer(feat[None], np.array([6144], np.int32))
+    grown = {k: t_dfsmn._PE_TABLES[k].shape[0] for k in rows}
+    fill = [torch.full((n * k[0],), float("nan"), dtype=k[1], device="cuda")
+            for k, n in rows.items() for _ in range(8)]
+    after, _, _ = batched_ticks(b, streams)
+    b.close()
+    equal = all(np.array_equal(x, y) for x, y in zip(before, after))
+    ok = (equal and rows and all(grown[k] >= 6144 > n
+                                    for k, n in rows.items())
+          and bool(np.isfinite(logits).all()))
+    log(f"dfsmn positional table growth: a batcher captured over tables of "
+        f"{sorted(set(rows.values()))} rows; a 1x6144 offline request grew "
+        f"them to {sorted(set(grown.values()))} rows (finite logits: "
+        f"{bool(np.isfinite(logits).all())}); {len(fill)} NaN blocks at the "
+        f"old tables' size taken; the same {len(streams)} streams replayed "
+        f"through the graph bit-equal to before: {equal}; "
+        f"{time.perf_counter() - t0:.1f} s; {smi} {'OK' if ok else 'FAIL'}")
+    fill = long = None
+    reset_counts()
+    torch.cuda.empty_cache()
+    if not ok:
+        raise SystemExit("FAIL dfsmn positional table growth: a captured "
+                         "stream changed after the table grew")
+
+
+def server_streams(torch, label, eng, key, feats, smi, decode="greedy"):
+    """A loopback server (m3asr_tpu_torch.serve, --warmup, port 0) on
+    ``eng``: two concurrent streams of ``feats`` (chunk 16) pushed in
+    uneven pieces; every partial and the final answer must equal the
+    server's own pool sessions driven directly with the same pieces (a
+    batcher runs all its slots in every tick, so a slot's numbers do not
+    depend on the others). Returns the launches of the server's
+    captures."""
+    import socketserver
+    import tempfile
+    import threading
+    import m3asr_tpu_torch.serve as serve
+    tmp = tempfile.mkdtemp()
+    args = serve.parser().parse_args(["-p", tmp, "--warmup", "--port", "0",
+                                      "--stream_slots", str(DS_SLOTS)])
+    reset_counts()
+    t0 = time.perf_counter()
+    state = serve._build_runtime(args, engine=eng)
+    warm_s = time.perf_counter() - t0
+    launches = kernel_counts()
+    reset_counts()
+    warm = state["stream_batchers"].get(key)
+    if warm is None or warm.graph is None:
+        raise SystemExit(f"FAIL serve {label}: --warmup did not capture the "
+                         f"{key} stream batcher")
+    srv = socketserver.ThreadingTCPServer(
+        ("127.0.0.1", 0), serve.make_handler(state, args.beam_size))
+    srv.daemon_threads = True
+    th = threading.Thread(target=srv.serve_forever, daemon=True)
+    th.start()
+    port = srv.server_address[1]
+    skey = (DS_CHUNK, serve.DEFAULT_STREAM_KEY[1])
+    start = {"stream": "start", "chunk_size": DS_CHUNK, "decode": decode,
+             "timestamps": True}
+    if decode == "beam":
+        start["beam_size"] = 8
+
+    def stream_reqs(f):
+        reqs, i = [start], 0
+        for n in pieces_of(f.shape[0]):
+            reqs.append({"stream": "chunk", "feat": f[i:i + n].tolist()})
+            i += n
+        return reqs + [{"stream": "end"}]
+    try:
+        got = [None, None]
+        clients = [threading.Thread(target=lambda j: got.__setitem__(
+            j, serve_client(port, stream_reqs(feats[j]))), args=(j,))
+            for j in range(2)]
+        for c in clients:
+            c.start()
+        for c in clients:
+            c.join()
+        stats = serve_client(port, [{"stats": True}])[0]
+    finally:
+        srv.shutdown()
+        srv.server_close()
+    pool, want = state["stream_pool"], []
+    for f in feats:
+        sess = pool.acquire(skey)
+        beam = None
+        if decode == "beam":
+            from m3asr_tpu_torch.decode import native
+            beam = native.make_beam_state(8)
+        dec = serve._StreamDecode(sess, beam_state=beam)
+        resp, i = [], 0
+        for n in pieces_of(f.shape[0]):
+            dec.update(sess.push(f[None, i:i + n]))
+            toks, times = dec.result()
+            resp.append((toks, dec.frames, times))
+            i += n
+        dec.update(sess.finish())
+        toks, times = dec.result()
+        resp.append((toks, dec.frames, times))
+        pool.release(skey, sess)
+        want.append(resp)
+    reset_counts()
+    ok = all([(r.get("partial", r.get("hyp")), r["out_frames"], r["times"])
+              for r in g[1:]] == w for g, w in zip(got, want))
+    ok &= all(g[-1].get("final") for g in got)
+    ticks = next(iter(stats["stream_batchers"].values()))
+    log(f"serve {label} (loopback 127.0.0.1:{port}; --warmup: "
+        f"{len(eng.buckets.all_buckets())} bucket(s) and the {key} stream "
+        f"batcher ({warm.pool_bytes / 2**20:.1f} MiB pool) captured in "
+        f"{warm_s:.2f} s): 2 concurrent {decode} streams of "
+        f"{[f.shape[0] for f in feats]} frames, "
+        f"{sum(len(g) for g in got)} responses equal to the server's pool "
+        f"sessions driven directly: {ok}; out_frames "
+        f"{[g[-1].get('out_frames') for g in got]}; tick batch sizes "
+        f"{ticks['tick_batch_sizes'][-12:]}; {smi} {'OK' if ok else 'FAIL'}")
+    state["batcher"].close()
+    for b in state["stream_batchers"].values():
+        b.close()
+    if not ok:
+        raise SystemExit(f"FAIL serve {label}: stream answers differ")
+    return launches
+
+
+def phase_dfsmn_stream(torch, smi):
+    """Phase 14, first part: the DFSMN streams of every mode on engines of
+    the port's build (dfsmn_stream_mode), then the loopback server's
+    DFSMN streams. Returns the launches of the path's captures by (mode,
+    kernel)."""
+    import dataclasses
+    import tempfile
+    import yaml
+    import m3asr_tpu_torch.serve as serve
+    from m3asr_tpu_torch.models.registry import dfsmn_stream_config
+    from m3asr_tpu_torch.runtime.engine import Engine, EngineConfig
+    rng = np.random.default_rng(14)
+    feats = [rng.standard_normal((T, 40)).astype(np.float32)
+             for T in DS_FRAMES + (DS_SHORT,)]
+    work = tempfile.mkdtemp(prefix="dfsmn_stream_")
+    raw_path = os.path.join(work, "dfsmn.yaml")
+    launches, base, server_eng = {}, {}, None
+    conf = dfsmn_raw()["model_conf"]
+    n_moe = conf["num_block"] * conf["fsmn_each_block"] - 1
+    t0 = time.perf_counter()
+    try:
+        for label, proto, settings, kname, want in DS_MODES:
+            if proto not in base:
+                base.clear()
+                torch.cuda.empty_cache()
+                with open(raw_path, "w") as f:
+                    yaml.safe_dump(dfsmn_raw(proto), f)
+                base[proto] = dfsmn_engine(torch, raw_path, [],
+                                           f"stream {proto}", "1x512")
+            src = base[proto]
+            eng = src if settings["dtype"] == "float32" else Engine(
+                src.model_cfg, src.params, EngineConfig(
+                    **settings, bucket_lengths=(512,), bucket_batches=(1,)),
+                device="cuda")
+            cfg = dfsmn_stream_config(eng.model_cfg)
+            causal = dict(look_ahead=0)
+            if proto == DFSMN_MOE:
+                causal["embed_conf"] = dataclasses.replace(cfg.embed_conf,
+                                                           look_ahead=0)
+            impl = (serve._stream_moe_impl(eng, DS_SLOTS)
+                    if proto == DFSMN_MOE else None)
+            if impl != want:
+                raise SystemExit(f"FAIL dfsmn stream {label}: serve's stage "
+                                 f"{impl}, want {want}")
+            mine = feats[:-1] if label in DS_LONG else feats[1:]
+            n = dfsmn_stream_mode(torch, label, serve.stream_params(eng),
+                                  cfg, dataclasses.replace(cfg, **causal),
+                                  impl, kname, n_moe if impl else 0, mine,
+                                  smi)
+            if kname:
+                launches[(label, kname)] = n
+            if label == "float32":
+                phase_table_growth(torch, {}, smi, eng)
+            if label == "bfloat16":
+                server_eng = eng
+            eng = None
+            torch.cuda.empty_cache()
+        base.clear()
+        n = server_streams(torch, "dfsmn bfloat16", server_eng, DS_CHUNK,
+                           feats[1:3], smi)
+        log(f"dfsmn streams: {time.perf_counter() - t0:.1f} s")
+        launches[("bfloat16", "K1")] += n.get("K1", 0)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+        base.clear()
+        server_eng = None
+        torch.cuda.empty_cache()
+    return launches
+
+
+def phase_dense_conformer(torch, smi):
+    """Phase 14, second part: the dense ``conformer`` proto at the
+    flagship encoder's widths built by the port's build in fp32, and bf16
+    and bf16 flash engines on its tree, answering 1x206, 4x1000 and
+    1x2048 through CUDA graphs (dfsmn_serve: graph == eager bit for bit;
+    with flash K2 18 times a forward), flash held to xla; the loopback
+    server's dense conformer streams (beam); each other front end in one
+    fp32 1x1000 request at 2 blocks, graph == eager. Returns K2's
+    launches in the flash engine's captures and eager forwards."""
+    import tempfile
+    import yaml
+    import m3asr_tpu_torch.serve as serve
+    from m3asr_tpu_torch.runtime.engine import Engine, EngineConfig
+    rng = np.random.default_rng(15)
+    reqs = []
+    for B, T in DC_REQUESTS:
+        lens = np.array([T, T - 117, T - 301, T // 2][:B], np.int32)
+        reqs.append((rng.standard_normal((B, T, 40)).astype(np.float32),
+                     lens))
+    work = tempfile.mkdtemp(prefix="conformer_")
+    raw_path = os.path.join(work, "conformer.yaml")
+    engines, k2 = {}, 0
+    t0 = time.perf_counter()
+    try:
+        with open(raw_path, "w") as f:
+            yaml.safe_dump(conformer_raw(), f)
+        src = dfsmn_engine(torch, raw_path, [], "float32", DC_BUCKETS,
+                           what="conformer")
+        engines["float32"] = src
+        for label, settings in (("bfloat16", dict(dtype="bfloat16")),
+                                ("bfloat16+flash", dict(
+                                    dtype="bfloat16", attn_impl="flash"))):
+            engines[label] = Engine(src.model_cfg, src.params, EngineConfig(
+                **settings, bucket_lengths=src.buckets.lengths,
+                bucket_batches=src.buckets.batches), device="cuda")
+        outs = {}
+        for label, eng in engines.items():
+            counts, outs[label], _ = dfsmn_serve(
+                torch, label, eng, reqs, None, 0, DC_BLOCKS, smi,
+                what="conformer")
+            k2 += counts.get("K2", 0)
+        for (feat, lens), (o_f, out_len), (o_x, _) in zip(
+                reqs, outs["bfloat16+flash"], outs["bfloat16"]):
+            f_v, x_v = (valid_rows(a[0], out_len) for a in (o_f, o_x))
+            rel = float(np.abs(f_v - x_v).max() / np.abs(x_v).max())
+            log(f"conformer bfloat16 flash vs xla {feat.shape[0]}x"
+                f"{feat.shape[1]}: max|diff|/max|ref| {rel:.3e} (held to "
+                f"0.05) {'OK' if rel <= 0.05 else 'FAIL'}")
+            if not rel <= 0.05:
+                raise SystemExit("FAIL conformer: flash and xla differ")
+        n = server_streams(torch, "conformer bfloat16", engines["bfloat16"],
+                           (DS_CHUNK, serve.DEFAULT_STREAM_KEY[1]),
+                           [reqs[1][0][0], reqs[0][0][0]], smi,
+                           decode="beam")
+        if n:
+            raise SystemExit(f"FAIL serve conformer: kernels launched {n}")
+        engines.clear()
+        src = None
+        torch.cuda.empty_cache()
+        one = [(reqs[1][0][:1], reqs[1][1][:1])]        # 1 x 1000
+        for layer, pos, norm in DC_FRONTS:
+            with open(raw_path, "w") as f:
+                yaml.safe_dump(conformer_raw(2, layer, pos, norm), f)
+            label = f"{layer} {pos}" + (" +feat_norm" if norm else "")
+            eng = dfsmn_engine(torch, raw_path, [], label, "1x1024",
+                               what="conformer front")
+            dfsmn_serve(torch, label, eng, one, None, 0, 2, smi,
+                        what="conformer front")
+            eng = None
+        log(f"conformer: {time.perf_counter() - t0:.1f} s")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+        engines.clear()
+        torch.cuda.empty_cache()
+    return k2
+
+
+def phase_streams_dense(torch, state, smi):
+    """Phase 14: the DFSMN streams and the dense conformer protos. The
+    counts are set to 0 before the phase's main path and read after it;
+    the launches of its captures join the kernels line."""
+    t0 = time.perf_counter()
+    reset_counts()
+    state["launches_dfsmn_stream"] = phase_dfsmn_stream(torch, smi)
+    state["launches_dense_k2"] = phase_dense_conformer(torch, smi)
+    log(f"streams and dense conformer: phase took "
+        f"{time.perf_counter() - t0:.1f} s; launches of its captures "
+        f"{state['launches_dfsmn_stream']}, K2 (bf16 flash, captures and "
+        f"eager forwards) {state['launches_dense_k2']}")
+    if not (all(state["launches_dfsmn_stream"].values())
+            and state["launches_dense_k2"]):
+        raise SystemExit("FAIL phase 14: a kernel of the path never "
+                         "launched")
+
+
+# phases that run on their own after the build, for work on one of them:
+# ``python3 chip_smoke.py --only NAME [NAME ...]`` runs those named, in
+# order. Such a run is not the smoke: it prints no result line, exits 1
+ALONE = {
+    "front": lambda torch, state, smi: phase_kernel_front(torch),
+    "dfsmn_kernels": lambda torch, state, smi: phase_kernel_dfsmn(torch),
+    "flash_mem": lambda torch, state, smi: phase_kernel_flash_mem(torch),
+    "dfsmn_times": lambda torch, state, smi: time_dfsmn_kernels(torch, smi),
+    "table_growth": phase_table_growth,
+    "streams_dense": phase_streams_dense,
+}
+
+
 def main():
     import torch
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -4749,6 +5525,15 @@ def main():
     from m3asr_tpu_torch import kernels
     from m3asr_tpu_torch.ops import moe_runs
     phase_build(kernels)
+    if sys.argv[1:2] == ["--only"]:
+        names = sys.argv[2:]
+        if not names or not set(names) <= set(ALONE):
+            raise SystemExit(f"--only takes names of {sorted(ALONE)}")
+        state = {}
+        for n in names:
+            ALONE[n](torch, state, smi)
+        log(f"ran {names} alone: not the smoke, no result line")
+        return 1
     phase_kernel_front(torch)
     state = {"max_err": phase_kernel(torch, moe_runs),
              "max_err_q": phase_kernel_quant(torch),
@@ -4764,6 +5549,7 @@ def main():
     state["launches_stream"] = phase_stream(torch, state, smi)
     state["launches_recognize"] = phase_recognize(torch, state, smi)
     phase_dfsmn(torch, state, smi)
+    phase_streams_dense(torch, state, smi)
     trained = phase_train(torch, state, smi)
     # K2: serving's forwards and the training steps'; K3: the steps'
     state["launches_flash"] = {}
@@ -4773,6 +5559,7 @@ def main():
             raise SystemExit("FAIL: K3's two kernels launched unequally")
         state["launches_flash"][("K2", dname)] = served[dname] + fwd
         state["launches_flash"][("K3", dname)] = dq
+    state["launches_flash"][("K2", "bfloat16")] += state["launches_dense_k2"]
     report = phase_times(torch, state, smi) + dfsmn_report(torch, state, smi)
     log(smi)
     log(json.dumps({"kernels": report}))

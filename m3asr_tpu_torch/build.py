@@ -7,10 +7,10 @@
         [--decode_output logits|log_softmax|argmax|topk|beam]
         [--decode_topk K] [--skip-warmup] [--device cuda|cpu]
 
-Reads a reference YAML config (a hier MoE conformer or DFSMN proto) and
-PyTorch checkpoint, converts the weights with the proto's family's
-converter (``models/registry.py``), and writes an engine directory in the
-JAX package's format.
+Reads a reference YAML config (a hier MoE conformer, dense conformer or
+DFSMN proto) and PyTorch checkpoint, converts the weights with the
+proto's family's converter (``models/registry.py``), and writes an engine
+directory in the JAX package's format.
 The AED decoders a checkpoint holds (``decoder``, ``decoder_1``,
 ``decoder_2``) are converted too and written to ``decoders.npz`` in the
 JAX flat format, for attention rescoring and decoding

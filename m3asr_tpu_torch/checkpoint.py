@@ -131,10 +131,15 @@ def _folded_batch_norm(sd: StateDict, name: str, eps: float = BN_EPS) -> Dict:
 
 
 def convert_subsampling(sd: StateDict, input_layer: str) -> Dict:
-    if input_layer != "conv2d":
-        raise NotImplementedError(
-            f"input_layer {input_layer!r}: only 'conv2d' is ported")
-    p = {"conv0": _conv2d(sd, "conv.0"), "conv1": _conv2d(sd, "conv.2")}
+    """The input layer: Conv2dSubsampling4 / 6 / 8 (``conv.0``,
+    ``conv.2``[, ``conv.4``], then ``out`` or ``out.0``) or
+    LinearNoSubsampling (``out.0`` Linear, ``out.1`` LayerNorm)."""
+    if input_layer == "linear":
+        return {"out": _linear(sd, "out.0"), "norm": _layer_norm(sd, "out.1")}
+    convs = {"conv2d": 2, "conv2d6": 2, "conv2d8": 3}.get(input_layer)
+    if convs is None:
+        raise ValueError(f"unknown input_layer {input_layer!r}")
+    p = {f"conv{i}": _conv2d(sd, f"conv.{2 * i}") for i in range(convs)}
     p["out"] = _linear(sd, "out.0" if "out.0.weight" in sd else "out")
     return p
 
@@ -203,12 +208,18 @@ def _stack_blocks(blocks: List[Dict]) -> Dict:
             for k in blocks[0]}
 
 
-def _convert_dense_encoder(sd: StateDict, cfg: EncoderConfig) -> Dict:
+def convert_dense_encoder(sd: StateDict, cfg: EncoderConfig) -> Dict:
+    """Numpy parameter tree of a dense conformer encoder (a dense proto's
+    encoder, or the hier model's embed sub-encoder), with the front end's
+    LayerNorm when the checkpoint has one."""
     p = {"subsampling": convert_subsampling(sd.sub("subsampling"),
                                             cfg.input_layer),
          "pos_enc": {"pe": sinusoid_table(cfg.attention_dim).numpy()},
          "after_norm": _layer_norm(sd, "after_norm"),
          "out_linear": _linear(sd, "out_linear")}
+    if "subsampling_layer_norm.weight" in sd:
+        p["subsampling_layer_norm"] = _layer_norm(sd,
+                                                  "subsampling_layer_norm")
     p["blocks"] = _stack_blocks([convert_block(sd.sub(f"blocks.{i}"), cfg,
                                                moe=False)
                                  for i in range(cfg.num_blocks)])
@@ -217,7 +228,7 @@ def _convert_dense_encoder(sd: StateDict, cfg: EncoderConfig) -> Dict:
 
 def convert_moe_encoder(sd: StateDict, cfg: MoEEncoderConfig) -> Dict:
     """Numpy parameter tree of the hier MoE encoder."""
-    p = {"embed": _convert_dense_encoder(sd.sub("embed"), cfg.embed_conf),
+    p = {"embed": convert_dense_encoder(sd.sub("embed"), cfg.embed_conf),
          "subsampling": convert_subsampling(sd.sub("subsampling"),
                                             cfg.input_layer),
          "pos_enc": {"pe": sinusoid_table(cfg.attention_dim).numpy()},

@@ -1,9 +1,11 @@
-"""Configuration schema for the hier MoE conformer and the DFSMN
-families.
+"""Configuration schema for the hier MoE conformer, the dense conformer
+and the DFSMN families.
 
 The port's own copy of the reference YAML schema (the JAX package's
-``m3asr_tpu/config.py``), limited to the hier MoE conformer family and
-the DFSMN protos (:data:`DFSMN_PROTOS`). The dense conformer protos raise
+``m3asr_tpu/config.py``), limited to the hier MoE conformer protos
+(:data:`MOE_HIER_PROTOS`), the dense conformer protos
+(:data:`DENSE_CONFORMER_PROTOS`) and the DFSMN protos
+(:data:`DFSMN_PROTOS`). Other protos of the model zoo (ExMarc) raise
 ``NotImplementedError`` until the slice that ports them. ``yaml`` is
 imported only inside :func:`load_yaml_config`: nothing on the inference
 path reads a YAML.
@@ -214,6 +216,18 @@ MOE_HIER_PROTOS = {
     "conformer_fmoe_localComm_catEmbed",
 }
 
+# nnet_proto values of the dense conformer family; "ctc_aed" is the joint
+# CTC+AED scaffold, whose only live Net is conformer_aed2's
+DENSE_CONFORMER_PROTOS = {
+    "conformer",
+    "conformer2",
+    "conformer_embed",
+    "conformer_embed_domain_acc",
+    "conformer_aed",
+    "conformer_aed2",
+    "ctc_aed",
+}
+
 # nnet_proto values of the DFSMN families
 DFSMN_PROTOS = {
     "dfsmn_base_res",
@@ -229,11 +243,13 @@ def model_config_from_dict(configs: Dict[str, Any]) -> ModelConfig:
     """Build a :class:`ModelConfig` from a reference-format config dict."""
     cfg = ModelConfig()
     cfg.nnet_proto = configs.get("nnet_proto", cfg.nnet_proto)
-    if cfg.nnet_proto not in MOE_HIER_PROTOS | DFSMN_PROTOS:
+    if cfg.nnet_proto not in (MOE_HIER_PROTOS | DENSE_CONFORMER_PROTOS
+                              | DFSMN_PROTOS):
         raise NotImplementedError(
             f"nnet_proto {cfg.nnet_proto!r}: the PyTorch port serves the "
-            "hier MoE conformer and DFSMN families only (ROADMAP Queue 1 "
-            "item 10 brings the dense conformer and AED families)")
+            "hier MoE conformer, dense conformer and DFSMN families only "
+            "(ROADMAP Queue 1 item 10 brings ExMarc and the rest of the "
+            "model zoo)")
     cfg.input_dim = configs.get("input_dim", cfg.input_dim)
     cfg.output_dim = configs.get("output_dim", cfg.output_dim)
     model_conf = dict(configs.get("model_conf") or {})

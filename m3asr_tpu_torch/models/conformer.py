@@ -1,9 +1,14 @@
-"""Dense conformer encoder, used as the hier model's embed sub-encoder
-(port of ``m3asr_tpu/models/conformer.py``).
+"""Dense conformer encoder (port of ``m3asr_tpu/models/conformer.py``):
+the dense conformer protos' CTC encoder (``conformer``, ``conformer2``,
+``conformer_embed``, ... and the AED wrappers' encoder) and the hier
+model's embed sub-encoder.
 
-Block parameters stay stacked over layers ``(L, ...)`` as in the JAX
-tree; :func:`run_blocks` walks per-layer views of them (indexing a
-contiguous stacked tensor is a view: no copy).
+Every input layer (:data:`SUBSAMPLERS`: ``conv2d``, ``conv2d6``,
+``conv2d8``, ``linear``), the optional LayerNorm after it
+(``subsampling_feat_norm``) and the three positional types (``rel_pos``,
+``abs_pos``, ``no_pos``). Block parameters stay stacked over layers
+``(L, ...)`` as in the JAX tree; :func:`run_blocks` walks per-layer views
+of them (indexing a contiguous stacked tensor is a view: no copy).
 """
 
 from __future__ import annotations
@@ -13,11 +18,24 @@ from typing import Optional
 import torch
 
 from m3asr_tpu_torch.config import EncoderConfig
-from m3asr_tpu_torch.models.layers import conformer_block
+from m3asr_tpu_torch.models.layers import (conformer_block,
+                                           init_conformer_block)
 from m3asr_tpu_torch.ops import positional
+from m3asr_tpu_torch.ops import subsampling as sub
 from m3asr_tpu_torch.ops.masking import subsequent_chunk_mask
-from m3asr_tpu_torch.ops.common import layer_norm, linear
-from m3asr_tpu_torch.ops.subsampling import conv2d_subsampling4
+from m3asr_tpu_torch.ops.common import (init_layer_norm, init_linear,
+                                        layer_norm, linear)
+
+# input_layer -> (forward, init)
+SUBSAMPLERS = {
+    "conv2d": (sub.conv2d_subsampling4, sub.init_conv2d_subsampling4),
+    "conv2d6": (sub.conv2d_subsampling6, sub.init_conv2d_subsampling6),
+    "conv2d8": (sub.conv2d_subsampling8, sub.init_conv2d_subsampling8),
+    "linear": (sub.linear_no_subsampling, sub.init_linear_no_subsampling),
+}
+POS_ENC_TYPES = ("rel_pos", "abs_pos", "no_pos")
+# the LayerNorm after the input layer (torch.nn.LayerNorm's epsilon)
+FEAT_NORM_EPS = 1e-5
 
 
 def layer_view(tree, i: int):
@@ -34,29 +52,40 @@ def num_layers(tree) -> int:
 
 
 def check_supported(cfg: EncoderConfig) -> None:
-    """Reject encoder settings this slice has not ported."""
-    if cfg.input_layer != "conv2d":
-        raise NotImplementedError(
-            f"input_layer {cfg.input_layer!r}: only 'conv2d' "
-            "(Conv2dSubsampling4) is ported (ROADMAP Queue 1 item 10)")
-    if cfg.pos_enc_layer_type != "rel_pos":
-        raise NotImplementedError(
-            f"pos_enc_layer_type {cfg.pos_enc_layer_type!r}: only "
-            "'rel_pos' is ported (ROADMAP Queue 1 item 10)")
-    if cfg.subsampling_feat_norm:
-        raise NotImplementedError(
-            "subsampling_feat_norm is not ported (ROADMAP Queue 1 item 10)")
+    """Raise ValueError for an input layer or positional type outside the
+    JAX package's tables."""
+    if cfg.input_layer not in SUBSAMPLERS:
+        raise ValueError(f"unknown input_layer {cfg.input_layer!r}; choose "
+                         f"one of {sorted(SUBSAMPLERS)}")
+    if cfg.pos_enc_layer_type not in POS_ENC_TYPES:
+        raise ValueError(f"unknown pos_enc_layer_type "
+                         f"{cfg.pos_enc_layer_type!r}; choose one of "
+                         f"{list(POS_ENC_TYPES)}")
 
 
 def frontend(params, cfg: EncoderConfig, feat: torch.Tensor,
              feat_len: Optional[torch.Tensor]):
-    """Subsampling + relative positional encoding.
-    Returns (x (B,T',D), pos_emb (T',D), out_len)."""
+    """The input layer, the optional LayerNorm after it (when the config
+    asks for it and the params carry ``subsampling_layer_norm``, as in
+    JAX) and the positional encoding. Returns (x (B,T',D), pos_emb
+    (T',D), out_len)."""
     check_supported(cfg)
-    x, out_len = conv2d_subsampling4(params["subsampling"], feat, feat_len,
-                                     in_ch=cfg.conv_subsample_in_ch)
-    x, pos_emb = positional.rel_positional_encoding(params["pos_enc"]["pe"],
-                                                    x)
+    fwd, _ = SUBSAMPLERS[cfg.input_layer]
+    if cfg.input_layer == "linear":
+        x, out_len = fwd(params["subsampling"], feat, feat_len)
+    else:
+        x, out_len = fwd(params["subsampling"], feat, feat_len,
+                         in_ch=cfg.conv_subsample_in_ch)
+    if cfg.subsampling_feat_norm and "subsampling_layer_norm" in params:
+        x = layer_norm(params["subsampling_layer_norm"], x,
+                       eps=FEAT_NORM_EPS)
+    if cfg.pos_enc_layer_type == "no_pos":
+        x, pos_emb = positional.no_pos(x, cfg.attention_dim)
+    else:
+        encode = (positional.rel_positional_encoding
+                  if cfg.pos_enc_layer_type == "rel_pos"
+                  else positional.abs_positional_encoding)
+        x, pos_emb = encode(params["pos_enc"]["pe"], x)
     return x, pos_emb, out_len
 
 
@@ -105,3 +134,43 @@ def forward(params, cfg: EncoderConfig, feat: torch.Tensor,
     if output_embed:
         return out, out_len, x
     return out, out_len
+
+
+def init(cfg: EncoderConfig, input_dim: int, output_dim: int,
+         generator: torch.Generator, dtype: torch.dtype = torch.float32):
+    """Seeded random parameters of the dense encoder, drawn on
+    ``generator``'s device: the input layer, the sinusoid table, the
+    blocks (plain MHA for ``no_pos``, as the JAX package's init),
+    after_norm and out_linear. With ``subsampling_feat_norm`` the front
+    end's LayerNorm too (the JAX init leaves it out, and its forward then
+    skips the norm; a converted checkpoint carries it)."""
+    check_supported(cfg)
+    g, dev, d = generator, generator.device, cfg.attention_dim
+    _, sub_init = SUBSAMPLERS[cfg.input_layer]
+    if cfg.input_layer == "linear":
+        subsampling = sub_init(g, input_dim, d, dtype)
+    else:
+        subsampling = sub_init(g, input_dim // cfg.conv_subsample_in_ch, d,
+                               cfg.conv_subsample_in_ch, dtype)
+    params = {
+        "subsampling": subsampling,
+        "pos_enc": {"pe": positional.sinusoid_table(d, dtype=dtype,
+                                                    device=dev)},
+        "after_norm": init_layer_norm(d, dev, dtype),
+        "out_linear": init_linear(g, d, output_dim, dtype=dtype)}
+    if cfg.subsampling_feat_norm:
+        params["subsampling_layer_norm"] = init_layer_norm(d, dev, dtype)
+    blocks = [init_conformer_block(
+        g, d, cfg.attention_heads, cfg.linear_units,
+        cnn_kernel=cfg.cnn_module_kernel, macaron=cfg.macaron_style,
+        use_cnn=cfg.use_cnn_module,
+        rel_attn=cfg.pos_enc_layer_type != "no_pos", dtype=dtype)
+        for _ in range(cfg.num_blocks)]
+    params["blocks"] = _stack(blocks)
+    return params
+
+
+def _stack(trees):
+    if isinstance(trees[0], dict):
+        return {k: _stack([t[k] for t in trees]) for k in trees[0]}
+    return torch.stack(trees)

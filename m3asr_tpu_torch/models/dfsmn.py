@@ -76,6 +76,11 @@ class FsmnConfig:
 
 
 _PE_TABLES = {}
+# Tables a longer one replaced. They stay alive: a captured CUDA graph (an
+# offline bucket, a stream's chunk program) reads the table it was
+# captured with by address, so freeing one would hand its memory to the
+# caching allocator while graphs still replay reads of it.
+_PE_SUPERSEDED = []
 
 
 def position_table(d: int, T: int, dtype: torch.dtype,
@@ -90,6 +95,8 @@ def position_table(d: int, T: int, dtype: torch.dtype,
     key = (d, dtype, str(device))
     pe = _PE_TABLES.get(key)
     if pe is None or pe.shape[0] < n:
+        if pe is not None:
+            _PE_SUPERSEDED.append(pe)
         pe = sinusoid_table(d, n, dtype=dtype, device=device)
         _PE_TABLES[key] = pe
     return pe[:T]

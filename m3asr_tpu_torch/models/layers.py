@@ -7,16 +7,22 @@ Macaron structure with pre-norm (the deployed configuration):
     x += conv_module(LN(x))
     x += 0.5 * ffn(LN(x))          # the MoE FFN in MoE blocks
     x = LN_final(x)
+
+A block whose attention has no ``linear_pos`` (the ``no_pos`` models)
+runs plain multi-head attention, as the JAX package's block does.
+:func:`init_conformer_block` draws a dense block's seeded parameters.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
 
-from m3asr_tpu_torch.ops.attention import rel_mha
-from m3asr_tpu_torch.ops.common import layer_norm, linear, swish
+from m3asr_tpu_torch.ops.attention import init_mha, mha, rel_mha
+from m3asr_tpu_torch.ops.common import (init_layer_norm, init_linear,
+                                        layer_norm, linear, swish)
 from m3asr_tpu_torch.ops.conv import conv_module
 from m3asr_tpu_torch.ops.flash_attention import flash_rel_mha
 from m3asr_tpu_torch.ops.moe import moe_ffn
@@ -53,14 +59,19 @@ def conformer_block(p, x: torch.Tensor, lengths: Optional[torch.Tensor],
                              pre("norm_ff_macaron", x))
         x = post("norm_ff_macaron", x + ff_scale * h)
 
-    if attn_impl == "flash":
-        h = flash_rel_mha(p["self_attn"], pre("norm_mha", x), pos_emb,
-                          lengths, num_heads, mask=mask)
-    elif attn_impl == "xla":
-        h = rel_mha(p["self_attn"], pre("norm_mha", x), pos_emb, lengths,
-                    num_heads, mask=mask)
-    else:
+    if attn_impl not in ("xla", "flash"):
         raise ValueError(f"unknown attn_impl {attn_impl!r}")
+    h = pre("norm_mha", x)
+    if "linear_pos" not in p["self_attn"]:
+        # no_pos blocks carry plain MHA weights; flash serves rel-pos
+        # attention only, as in the JAX package
+        h = mha(p["self_attn"], h, h, h, lengths, num_heads, mask=mask)
+    elif attn_impl == "flash":
+        h = flash_rel_mha(p["self_attn"], h, pos_emb, lengths, num_heads,
+                          mask=mask)
+    else:
+        h = rel_mha(p["self_attn"], h, pos_emb, lengths, num_heads,
+                    mask=mask)
     x = post("norm_mha", x + h)
 
     if use_cnn:
@@ -78,3 +89,78 @@ def conformer_block(p, x: torch.Tensor, lengths: Optional[torch.Tensor],
     if use_cnn:
         x = layer_norm(p["norm_final"], x)
     return x
+
+
+# ---------------------------------------------------------------------------
+# seeded init of a dense block (torch.nn defaults, as the JAX package's
+# init_conformer_block draws them), from a torch.Generator on its device
+# ---------------------------------------------------------------------------
+
+def _uniform(g: torch.Generator, shape, bound: float, dtype):
+    u = torch.rand(shape, generator=g, device=g.device)
+    return ((u * 2 - 1) * bound).to(dtype)
+
+
+def init_ffn(g: torch.Generator, d_model: int, hidden: int,
+             dtype=torch.float32):
+    return {"w_1": init_linear(g, d_model, hidden, dtype=dtype),
+            "w_2": init_linear(g, hidden, d_model, dtype=dtype)}
+
+
+def init_rel_mha(g: torch.Generator, d_model: int, num_heads: int,
+                 dtype=torch.float32):
+    """linear_q/k/v/out, linear_pos (no bias) and the pos_bias_u/v
+    (xavier-uniform over (H, Dk))."""
+    p = init_mha(g, d_model, dtype)
+    p["linear_pos"] = init_linear(g, d_model, d_model, bias=False,
+                                  dtype=dtype)
+    dk = d_model // num_heads
+    bound = math.sqrt(6.0 / (num_heads + dk))
+    p["pos_bias_u"] = _uniform(g, (num_heads, dk), bound, dtype)
+    p["pos_bias_v"] = _uniform(g, (num_heads, dk), bound, dtype)
+    return p
+
+
+def init_conv_module(g: torch.Generator, channels: int, kernel_size: int,
+                     dtype=torch.float32):
+    """The pointwise and depthwise convs (torch Conv1d fan-in bounds, zero
+    biases) and a unit norm."""
+    b1 = 1.0 / math.sqrt(channels)
+    dev = g.device
+
+    def zeros(n):
+        return torch.zeros((n,), device=dev, dtype=dtype)
+    return {
+        "pointwise_conv1": {
+            "kernel": _uniform(g, (channels, 2 * channels), b1, dtype),
+            "bias": zeros(2 * channels)},
+        "depthwise_conv": {
+            "kernel": _uniform(g, (kernel_size, channels),
+                               1.0 / math.sqrt(kernel_size), dtype),
+            "bias": zeros(channels)},
+        "norm": init_layer_norm(channels, dev, dtype),
+        "pointwise_conv2": {
+            "kernel": _uniform(g, (channels, channels), b1, dtype),
+            "bias": zeros(channels)}}
+
+
+def init_conformer_block(g: torch.Generator, d_model: int, num_heads: int,
+                         ffn_hidden: int, cnn_kernel: int = 15,
+                         macaron: bool = True, use_cnn: bool = True,
+                         rel_attn: bool = True, dtype=torch.float32):
+    """A dense conformer block: rel-pos attention, or plain MHA with
+    ``rel_attn=False`` (the no_pos models)."""
+    dev = g.device
+    p = {"norm_mha": init_layer_norm(d_model, dev, dtype),
+         "self_attn": (init_rel_mha(g, d_model, num_heads, dtype)
+                       if rel_attn else init_mha(g, d_model, dtype)),
+         "norm_ff": init_layer_norm(d_model, dev, dtype),
+         "feed_forward": init_ffn(g, d_model, ffn_hidden, dtype)}
+    if macaron:
+        p["norm_ff_macaron"] = init_layer_norm(d_model, dev, dtype)
+        p["feed_forward_macaron"] = init_ffn(g, d_model, ffn_hidden, dtype)
+    if use_cnn:
+        p["norm_conv"] = init_layer_norm(d_model, dev, dtype)
+        p["conv_module"] = init_conv_module(g, d_model, cnn_kernel, dtype)
+        p["norm_final"] = init_layer_norm(d_model, dev, dtype)
+    return p

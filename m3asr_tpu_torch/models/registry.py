@@ -3,10 +3,8 @@
 
 * ``moe_conformer``: the hier MoE conformer protos (``MOE_HIER_PROTOS``);
 * ``dfsmn``: dfsmn_base_res and the dfsmn_san_res protos;
-* ``dfsmn_moe``: the dfsmn_*_fmoe_localComm_catEmbed protos.
-
-The dense conformer protos resolve to ``conformer``, which is not ported
-yet and raises ``NotImplementedError``.
+* ``dfsmn_moe``: the dfsmn_*_fmoe_localComm_catEmbed protos;
+* ``conformer``: the dense conformer protos (``DENSE_CONFORMER_PROTOS``).
 
 A family's ``forward(params, model_cfg, feat, feat_len, **kw)`` keeps the
 JAX family's contract with the engine: ``moe_impl`` and ``attn_impl``,
@@ -26,8 +24,9 @@ from typing import Callable
 
 import torch
 
-from m3asr_tpu_torch.config import (DFSMN_PROTOS, MOE_HIER_PROTOS,
-                                    DfsmnEncoderConfig, ModelConfig)
+from m3asr_tpu_torch.config import (DENSE_CONFORMER_PROTOS, DFSMN_PROTOS,
+                                    MOE_HIER_PROTOS, DfsmnEncoderConfig,
+                                    ModelConfig)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -111,8 +110,15 @@ def dfsmn_base_config(e: DfsmnEncoderConfig):
 
 def dfsmn_stream_config(mc: ModelConfig):
     """The models.dfsmn config a streaming session needs: DfsmnSanMoEConfig
-    for the MoE family, DfsmnSanConfig otherwise."""
+    (its embed_conf filled in) for the MoE family, DfsmnSanConfig
+    otherwise. dfsmn_base_res has no stream forward (no blocks): it
+    raises ValueError here, where the JAX server fails at the first
+    chunk."""
     e = dfsmn_enc_conf(mc)
+    if mc.nnet_proto == "dfsmn_base_res":
+        raise ValueError(f"{mc.nnet_proto}: the plain cFSMN stack has no "
+                         "stream forward (models/dfsmn_streaming.py streams "
+                         "the san nets)")
     return (dfsmn_moe_config(e) if "fmoe" in mc.nnet_proto
             else dfsmn_san_config(e))
 
@@ -206,18 +212,39 @@ def _dfsmn_family(nnet_proto: str) -> ModelFamily:
                        forward=forward, convert=convert)
 
 
-def _conformer_family():
-    raise NotImplementedError(
-        "the dense conformer family is not ported yet (ROADMAP Queue 1 "
-        "item 10)")
+def _conformer_family() -> ModelFamily:
+    """The dense conformer protos (and the AED wrappers' encoder): the
+    forward takes the JAX family's ``output_embed`` and ``attn_impl`` and
+    ignores the rest (an engine's ``moe_impl``: no experts)."""
+    from m3asr_tpu_torch import checkpoint as ckpt
+    from m3asr_tpu_torch.models import conformer
+
+    def convert(sd, mc):
+        s = ckpt.StateDict(sd)
+        if any(k.startswith("encoder.") for k in sd):
+            s = s.sub("encoder")
+        return ckpt.convert_dense_encoder(s, mc.encoder_conf)
+
+    return ModelFamily(
+        name="conformer",
+        init=lambda mc, generator, dtype=torch.float32: conformer.init(
+            mc.encoder_conf, mc.input_dim, mc.output_dim, generator, dtype),
+        forward=lambda p, mc, feat, feat_len, **kw: conformer.forward(
+            p, mc.encoder_conf, feat, feat_len,
+            **{k: v for k, v in kw.items()
+               if k in ("output_embed", "attn_impl")}),
+        convert=convert)
 
 
 def get_family(nnet_proto: str) -> ModelFamily:
-    """The family of ``nnet_proto``; KeyError for an unknown proto."""
-    if nnet_proto in MOE_HIER_PROTOS:
+    """The family of ``nnet_proto``, resolved as the JAX package resolves
+    it (a name outside the tables goes by its parts); KeyError for an
+    unknown proto."""
+    if nnet_proto in MOE_HIER_PROTOS or ("fmoe" in nnet_proto
+                                         and "dfsmn" not in nnet_proto):
         return _moe_family()
-    if nnet_proto in DFSMN_PROTOS:
+    if nnet_proto in DFSMN_PROTOS or nnet_proto.startswith("dfsmn"):
         return _dfsmn_family(nnet_proto)
-    if "conformer" in nnet_proto or nnet_proto == "ctc_aed":
+    if nnet_proto in DENSE_CONFORMER_PROTOS or "conformer" in nnet_proto:
         return _conformer_family()
     raise KeyError(f"unknown nnet_proto: {nnet_proto}")

@@ -126,11 +126,29 @@ def positional_rows(pe: torch.Tensor, offset: torch.Tensor, cache_T: int,
     return rows
 
 
+def check_stream_supported(cfg: EncoderConfig) -> None:
+    """Raise ValueError for an encoder front end the chunk forwards do not
+    run. They run Conv2dSubsampling4 with rel-pos rows and no LayerNorm
+    after it, as the JAX package's chunk front end does whatever the
+    config says (which gives wrong frames for any other front end, with
+    no error)."""
+    bad = [f"{name}={value!r}" for name, value, want in (
+        ("input_layer", cfg.input_layer, "conv2d"),
+        ("pos_enc_layer_type", cfg.pos_enc_layer_type, "rel_pos"),
+        ("subsampling_feat_norm", cfg.subsampling_feat_norm, False))
+        if value != want]
+    if bad:
+        raise ValueError(
+            f"streams run the conv2d input layer with rel_pos encodings "
+            f"and no subsampling_feat_norm only; this encoder has "
+            f"{', '.join(bad)}")
+
+
 def _frontend_chunk(params, cfg: EncoderConfig, chunk_feat: torch.Tensor,
                     state: StreamState, cache_T: int):
     """Subsample a raw chunk; the positional rows and key validity of
     [cache, chunk]. Returns (x (B, C, D), pos_emb, key_valid, C)."""
-    conformer.check_supported(cfg)
+    check_stream_supported(cfg)
     x, _ = conv2d_subsampling4(params["subsampling"], chunk_feat, None,
                                in_ch=cfg.conv_subsample_in_ch)
     C = x.shape[1]

@@ -41,9 +41,21 @@ def subsampling4_length(lengths):
     return conv_subsampled_length(conv_subsampled_length(lengths, 2, 2), 2, 2)
 
 
+def subsampling6_length(lengths):
+    """Conv2dSubsampling6: a k=3 s=2 conv, then a k=5 s=3 one."""
+    return conv_subsampled_length(conv_subsampled_length(lengths, 2, 2), 4, 3)
+
+
+def subsampling8_length(lengths):
+    """Conv2dSubsampling8: three k=3 s=2 convs."""
+    return conv_subsampled_length(subsampling4_length(lengths), 2, 2)
+
+
 # output length of each encoder front; "linear" (no subsampling) is the
-# DFSMN families'
+# DFSMN families' and LinearNoSubsampling's
 SUBSAMPLED_LENGTH = {"conv2d": subsampling4_length,
+                     "conv2d6": subsampling6_length,
+                     "conv2d8": subsampling8_length,
                      "linear": lambda lengths: lengths}
 
 

@@ -1,6 +1,6 @@
 """Positional encodings (port of ``m3asr_tpu/ops/positional.py``): the
-relative-position form of the encoders and the absolute form of the AED
-decoders."""
+relative-position form of the encoders, the absolute form of the AED
+decoders and the abs_pos encoders, and none (no_pos)."""
 
 from __future__ import annotations
 
@@ -49,3 +49,12 @@ def abs_positional_encoding(pe: torch.Tensor, x: torch.Tensor,
     xscale = torch.full((), math.sqrt(d), dtype=x.dtype, device=x.device)
     pos_emb = pe[offset:offset + T].to(x.dtype)
     return x * xscale + pos_emb[None], pos_emb
+
+
+def no_pos(x: torch.Tensor, d_model: int
+           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """No positional encoding: x as it is, and zero rows (T, d_model) for
+    pos_emb, as the JAX package's conformer front end gives a no_pos
+    model (whose blocks run plain attention and never read them)."""
+    return x, torch.zeros((x.shape[1], d_model), dtype=x.dtype,
+                          device=x.device)

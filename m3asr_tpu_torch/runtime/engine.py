@@ -1,6 +1,6 @@
 """The inference engine (port of the float and quantized serving
-subset of ``m3asr_tpu/runtime/engine.py``), for the hier MoE conformer
-and the DFSMN families (``models/registry.py``).
+subset of ``m3asr_tpu/runtime/engine.py``), for the hier MoE conformer,
+the dense conformer and the DFSMN families (``models/registry.py``).
 
 An engine directory has the JAX package's format, so either package
 reads what the other wrote:
@@ -38,12 +38,15 @@ The DFSMN-MoE experts are ReLU clamped at 1.0 and take the stages of
 their layer's table only (``models/dfsmn.DFSMN_MOE_STAGES``: no K8, no
 capacity stages); an engine whose stage is outside it raises
 ValueError. Their expert nodes are per-layer dicts, each quantized; the
-dense first cFSMN layer and the embed sub-net keep their weights.
+dense first cFSMN layer and the embed sub-net keep their weights. A
+family with no experts (the dense conformer) in an ``int8`` / ``int4``
+engine quantizes nothing, as the JAX engine: it is a bf16 engine.
 
 Attention: ``attn_impl="xla"`` (plain PyTorch, the default) or
-``"flash"``, which runs every attention layer on the flash kernel (K2,
-``ops/flash_attention.py``; the DFSMN memory-slot attention through
-``flash_attn_mem``). ``fuse_qkv`` folds q/k/v into one
+``"flash"``, which runs every rel-pos attention layer on the flash
+kernel (K2, ``ops/flash_attention.py``; the DFSMN memory-slot attention
+through ``flash_attn_mem``; a no_pos conformer's plain attention stays
+plain, as in JAX). ``fuse_qkv`` folds q/k/v into one
 projection and ``dense_quant`` stores the dense kernels as int8, both
 once at construction, in the JAX engine's order.
 
@@ -319,8 +322,8 @@ def _quantize_expert_nodes(node, bits: int):
 
 
 class Engine:
-    """Inference engine for one model (hier MoE conformer or DFSMN) and
-    its weights.
+    """Inference engine for one model (hier MoE conformer, dense conformer
+    or DFSMN) and its weights.
 
     ``device`` defaults to ``cuda`` and raises when there is no card;
     pass ``device="cpu"`` for the plain PyTorch path. On ``cuda`` each

@@ -1,5 +1,5 @@
 """Cross-stream chunk micro-batching for streaming serving (port of
-``m3asr_tpu/runtime/streaming_batch.py``, conformer families).
+``m3asr_tpu/runtime/streaming_batch.py``).
 
 Up to ``slots`` concurrent streams share one batched chunk program;
 co-pending chunks of different streams run as one step with an
@@ -8,25 +8,25 @@ traffic per tick.
 
 * The batched state gives every slot its own stream age (per-slot
   offsets drive per-slot positional rows and cache-validity masks).
-* Idle slots get zero windows and keep their state (``select_state``
-  inside the step), so an idle stream never advances.
+* Idle slots get zero windows and keep their state (the step writes the
+  new state into the mask's slots only), so an idle stream never
+  advances.
 * One tick takes at most one pending chunk per slot (a stream's chunks
   depend on each other's state).
 
-On ``cuda`` the step is a CUDA graph (``runtime/graphs.py``) over static
-inputs: the windows (slots, 4 * chunk + 3, input_dim), the slot mask and
-both encoders' state tensors, which the step writes in place. Only the
-chunk outputs cross to the host ((slots, C, K) values and ids with
-``topk``). Each batcher has its own graph pool: its thread replays while
-the engine's ``MicroBatcher`` thread replays the engine's graphs, so the
-two must not share one. Slot resets write zeros into the same state
-tensors, on the same stream, outside the graph; a reset asked for during
-a tick is applied after it (the JAX deferral). The program's
-allocation and capture hold ``DEVICE_LOCK`` exclusively, every other
-device section holds it shared.
-
-``DfsmnStreamBatcher`` and ``BatchedDfsmnStreamingSession`` are not
-ported yet and raise ``NotImplementedError``.
+:class:`StreamBatcher` batches the conformer families' windows (4 *
+chunk + 3 raw frames); :class:`DfsmnStreamBatcher` the DFSMN families'
+frame-aligned chunks. On ``cuda`` the step is a CUDA graph
+(``runtime/graphs.py``) over static inputs: the windows, the slot mask
+and the state tensors, which the step writes in place. Only the chunk
+outputs cross to the host ((slots, C, K) values and ids with ``topk``).
+Each batcher has its own graph pool: its thread replays while the
+engine's ``MicroBatcher`` thread replays the engine's graphs, so the two
+must not share one. Slot resets write zeros into the same state tensors,
+on the same stream, outside the graph; a reset asked for during a tick
+is applied after it (the JAX deferral). The program's allocation and
+capture hold ``DEVICE_LOCK`` exclusively, every other device section
+holds it shared.
 """
 
 from __future__ import annotations
@@ -41,8 +41,11 @@ import torch
 from m3asr_tpu_torch.config import EncoderConfig, MoEEncoderConfig
 from m3asr_tpu_torch.runtime.graphs import (DEVICE_LOCK, GraphProgram,
                                             HostStaging, copy_to_host)
+from m3asr_tpu_torch.models import dfsmn_streaming, streaming
+from m3asr_tpu_torch.models.dfsmn import check_moe_stage
 from m3asr_tpu_torch.runtime.streaming_session import (
-    DfsmnStreamingSession, StreamingSession, chunk_step_fn,
+    DfsmnMoeStreamingSession, DfsmnStreamingSession, StreamingSession,
+    chunk_step_fn, dfsmn_state, dfsmn_step_fn, full_float32,
     params_device_dtype, state_tensors, use_graph)
 
 
@@ -224,49 +227,12 @@ class _BatcherCore:
                 item.event.set()
 
 
-class StreamBatcher(_BatcherCore):
-    """The shared batched chunk program of up to ``slots`` concurrent
-    conformer-family streams of one (chunk_size, num_left_chunks)
-    configuration; the hier MoE variant batches its embed sub-encoder's
-    state too. ``params`` live on the device the batcher runs on, in its
-    activation dtype; ``input_dim`` is the feature width. The chunk
-    program is built here (on ``cuda``: captured). ``pool_bytes`` is what
-    its graph reserved."""
+class _GraphBatcher(_BatcherCore):
+    """A batcher over one chunk program ``self._prog`` whose static inputs
+    are (windows, slot mask, *state tensors with the slots first or
+    second)."""
 
-    def __init__(self, params, cfg: EncoderConfig, *, input_dim: int,
-                 chunk_size: int = 16, num_left_chunks: int = 2,
-                 slots: int = 8, moe: bool = False, moe_impl: str = "dense",
-                 window_ms: float = 2.0, topk: int = 0,
-                 cuda_graphs: bool = True):
-        if moe and not isinstance(cfg, MoEEncoderConfig):
-            raise TypeError("moe=True needs a MoEEncoderConfig")
-        self.params = params
-        self.cfg = cfg
-        self.chunk = chunk_size
-        self.left = num_left_chunks
-        self.slots = slots
-        self.moe = moe
-        self.moe_impl = moe_impl
-        self.topk = topk
-        self.cuda_graphs = cuda_graphs
-        self._cache_T = chunk_size * num_left_chunks
-        self.device, self.dtype = params_device_dtype(params)
-        self._staging = HostStaging(pin=self.device.type == "cuda")
-        with DEVICE_LOCK.exclusive(), torch.inference_mode():
-            windows = torch.zeros((slots, 4 * chunk_size + 3, input_dim),
-                                  dtype=self.dtype, device=self.device)
-            # all False while the program warms up: the state stays
-            mask = torch.zeros((slots,), dtype=torch.bool,
-                               device=self.device)
-            state = state_tensors(cfg, moe, slots, self._cache_T, True,
-                                  self.dtype, self.device)
-            pool = (torch.cuda.graph_pool_handle()
-                    if use_graph(self.device, cuda_graphs, moe, moe_impl)
-                    else None)
-            self._prog = GraphProgram(
-                chunk_step_fn(params, cfg, moe, moe_impl, topk, masked=True),
-                (windows, mask) + state, pool)
-        super().__init__(slots, window_ms, 4 * chunk_size + 3, input_dim)
+    _prog: GraphProgram
 
     @property
     def pool_bytes(self) -> int:
@@ -290,6 +256,60 @@ class StreamBatcher(_BatcherCore):
             out = copy_to_host(self._staging, "out", prog.run(), self.device)
         return tuple(out) if self.topk else out[0]
 
+    def _build(self, fn, windows_shape, state, moe: bool, moe_impl: str):
+        """The chunk program of ``fn`` over zero windows, an all-False
+        mask (the warm-up runs leave the state as it is) and ``state``
+        (a tuple of tensors), allocated by the caller under the exclusive
+        DEVICE_LOCK."""
+        windows = torch.zeros(windows_shape, dtype=self.dtype,
+                              device=self.device)
+        mask = torch.zeros((self.slots,), dtype=torch.bool,
+                           device=self.device)
+        pool = (torch.cuda.graph_pool_handle()
+                if use_graph(self.device, self.cuda_graphs, moe, moe_impl)
+                else None)
+        self._prog = GraphProgram(fn, (windows, mask) + state, pool)
+
+
+class StreamBatcher(_GraphBatcher):
+    """The shared batched chunk program of up to ``slots`` concurrent
+    conformer-family streams of one (chunk_size, num_left_chunks)
+    configuration; the hier MoE variant batches its embed sub-encoder's
+    state too. ``params`` live on the device the batcher runs on, in its
+    activation dtype; ``input_dim`` is the feature width. The chunk
+    program is built here (on ``cuda``: captured). ``pool_bytes`` is what
+    its graph reserved."""
+
+    def __init__(self, params, cfg: EncoderConfig, *, input_dim: int,
+                 chunk_size: int = 16, num_left_chunks: int = 2,
+                 slots: int = 8, moe: bool = False, moe_impl: str = "dense",
+                 window_ms: float = 2.0, topk: int = 0,
+                 cuda_graphs: bool = True):
+        if moe and not isinstance(cfg, MoEEncoderConfig):
+            raise TypeError("moe=True needs a MoEEncoderConfig")
+        streaming.check_stream_supported(cfg)
+        self.params = params
+        self.cfg = cfg
+        self.chunk = chunk_size
+        self.left = num_left_chunks
+        self.slots = slots
+        self.moe = moe
+        self.moe_impl = moe_impl
+        self.topk = topk
+        self.cuda_graphs = cuda_graphs
+        self._cache_T = chunk_size * num_left_chunks
+        self.device, self.dtype = params_device_dtype(params)
+        full_float32(self.device, self.dtype)
+        self._staging = HostStaging(pin=self.device.type == "cuda")
+        with DEVICE_LOCK.exclusive(), torch.inference_mode():
+            state = state_tensors(cfg, moe, slots, self._cache_T, True,
+                                  self.dtype, self.device)
+            self._build(chunk_step_fn(params, cfg, moe, moe_impl, topk,
+                                      masked=True),
+                        (slots, 4 * chunk_size + 3, input_dim), state, moe,
+                        moe_impl)
+        super().__init__(slots, window_ms, 4 * chunk_size + 3, input_dim)
+
     def _reset_slots(self, slots) -> None:
         with torch.inference_mode():
             for t in self._prog.inputs[2:]:
@@ -299,13 +319,51 @@ class StreamBatcher(_BatcherCore):
                     view[s].zero_()
 
 
-class DfsmnStreamBatcher:
-    """The DFSMN family's batched chunk program: not ported yet."""
+class DfsmnStreamBatcher(_GraphBatcher):
+    """The shared batched chunk program of up to ``slots`` concurrent
+    DFSMN-family streams of one chunk size: frame-aligned chunks of
+    ``chunk_size`` frames, a window cache of ``cache_T`` frames per
+    block, per-slot offsets driving the positional gather and the FIR
+    delay masks. ``moe=True`` runs the MoE-DFSMN net with expert stage
+    ``moe_impl`` (its embed sub-stream, ring and input delay buffer are
+    per-slot state too). ``params`` live on the device the batcher runs
+    on, in its activation dtype; ``input_dim`` is the feature width. The
+    chunk program is built here (on ``cuda``: captured)."""
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(
-            "DFSMN stream batching is not ported yet (ROADMAP Queue 1 item "
-            "10)")
+    def __init__(self, params, cfg, *, input_dim: int, chunk_size: int = 16,
+                 slots: int = 8, cache_T: int = 256, moe: bool = False,
+                 moe_impl: str = "dense", window_ms: float = 2.0,
+                 topk: int = 0, cuda_graphs: bool = True):
+        if moe:
+            check_moe_stage(moe_impl)
+        self.params = params
+        self.cfg = cfg
+        self.chunk = chunk_size
+        self.slots = slots
+        self.moe = moe
+        self.moe_impl = moe_impl
+        self.topk = topk
+        self.cuda_graphs = cuda_graphs
+        self._cache_T = cache_T
+        self.device, self.dtype = params_device_dtype(params)
+        full_float32(self.device, self.dtype)
+        self._staging = HostStaging(pin=self.device.type == "cuda")
+        with DEVICE_LOCK.exclusive(), torch.inference_mode():
+            state = dfsmn_state(cfg, moe, slots, cache_T, chunk_size,
+                                input_dim, True, self.dtype, self.device)
+            self._build(dfsmn_step_fn(params, cfg, moe, moe_impl, topk,
+                                      True, state),
+                        (slots, chunk_size, input_dim),
+                        dfsmn_streaming.state_tensors(state), moe, moe_impl)
+        super().__init__(slots, window_ms, chunk_size, input_dim)
+
+    def _reset_slots(self, slots) -> None:
+        with torch.inference_mode():
+            # every state tensor has the slots first: offsets, in_buf, the
+            # embed sub-stream's state, the ring, the caches
+            for t in self._prog.inputs[2:]:
+                for s in slots:
+                    t[s].zero_()
 
 
 class BatchedStreamingSession(StreamingSession):
@@ -357,4 +415,56 @@ class BatchedStreamingSession(StreamingSession):
 
 
 class BatchedDfsmnStreamingSession(DfsmnStreamingSession):
-    """The DFSMN family's batched session: not ported yet."""
+    """A DfsmnStreamingSession whose chunk step runs on a shared
+    DfsmnStreamBatcher slot (either DFSMN family: the batcher owns the
+    whole chunk-program state; this session keeps the host maturity
+    bookkeeping). The slot is taken at the first chunk and released on
+    reset(); when every slot is taken, the session runs a dedicated
+    single-stream session's chunk program for its lifetime, as
+    BatchedStreamingSession does."""
+
+    def __init__(self, batcher: DfsmnStreamBatcher):
+        self.batcher = batcher
+        self.chunk = batcher.chunk
+        self.topk = batcher.topk
+        self.delay = (dfsmn_streaming.moe_stream_delay(batcher.cfg,
+                                                       batcher.chunk)
+                      if batcher.moe
+                      else dfsmn_streaming.stream_delay(batcher.cfg))
+        self.slot = None
+        self._fallback: Optional[DfsmnStreamingSession] = None
+        self._buf = None
+        self._consumed = 0
+        self._fed = 0
+        self._next_pos = 0
+
+    def _step(self, c: np.ndarray):
+        if self._fallback is None and self.slot is None:
+            try:
+                self.slot = self.batcher.open_slot()
+            except SlotsFull:
+                b = self.batcher
+                kw = dict(chunk_size=b.chunk, cache_T=b._cache_T,
+                          topk=b.topk, cuda_graphs=b.cuda_graphs)
+                self._fallback = (
+                    DfsmnMoeStreamingSession(b.params, b.cfg,
+                                             moe_impl=b.moe_impl, **kw)
+                    if b.moe else DfsmnStreamingSession(b.params, b.cfg,
+                                                        **kw))
+        if self._fallback is not None:
+            return self._fallback._step(c)
+        return self.batcher.push(self.slot, c)
+
+    def reset(self) -> None:
+        if self.slot is not None:
+            self.batcher.close_slot(self.slot)
+            self.slot = None
+        if self._fallback is not None:
+            self._fallback.reset()   # keeps its chunk program
+        self._buf = None
+        self._consumed = 0
+        self._fed = 0
+        self._next_pos = 0
+
+    def clone(self):
+        return BatchedDfsmnStreamingSession(self.batcher)

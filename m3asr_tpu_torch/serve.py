@@ -26,7 +26,9 @@ Protocol (one JSON object per line):
 Streaming (one stream per connection; chunk-incremental greedy CTC
 partials, or a prefix beam with hotwords and the server's LM; sessions
 are pooled and share one batched chunk program per (chunk_size,
-num_left_chunks), a CUDA graph on the card):
+num_left_chunks), a CUDA graph on the card; the DFSMN families' per
+chunk_size, of 256 cached frames, whose chunks are frames, not
+subsampled windows):
   {"stream": "start", "chunk_size": 16, "num_left_chunks": 2,
    "decode": "beam", "beam_size": 10, "context": [[ids...]],
    "timestamps": true, "endpoint_blank_frames": N}
@@ -201,8 +203,9 @@ def make_handler(state, default_beam, lm=None, default_lm_weight=0.5):
         def _stream_request(self, req):
             stream_pool = state["stream_pool"]
             if stream_pool is None:
-                return {"error": "streaming unsupported for this model "
-                                 "family"}
+                return {"error": state.get(
+                    "stream_error",
+                    "streaming unsupported for this model family")}
             op = req["stream"]
             if op == "start":
                 if self._stream is not None:
@@ -553,13 +556,23 @@ def _build_runtime(args, engine=None):
     SIGHUP can rebuild the whole runtime from the (possibly updated)
     engine dir and swap it in without dropping the listener. An
     ``engine`` given here is served instead of loading ``args.plan_name``
-    (an in-process server)."""
-    from m3asr_tpu_torch.config import MoEEncoderConfig
+    (an in-process server).
+
+    Streams, by family: the hier MoE and dense conformers share a
+    ``StreamBatcher`` per (chunk, left), the DFSMN families a
+    ``DfsmnStreamBatcher`` per chunk size (their window cache is 256
+    frames whatever ``left`` says), as the JAX server does. A dense
+    conformer whose front end the chunk forwards do not run, and
+    dfsmn_base_res, get no streams: their stream requests are answered
+    with the reason."""
+    from m3asr_tpu_torch.models import streaming
+    from m3asr_tpu_torch.models.registry import dfsmn_stream_config
     from m3asr_tpu_torch.runtime.batching import MicroBatcher
     from m3asr_tpu_torch.runtime.engine import Engine
     from m3asr_tpu_torch.runtime.graphs import DEVICE_LOCK
     from m3asr_tpu_torch.runtime.streaming_batch import (
-        BatchedStreamingSession, StreamBatcher)
+        BatchedDfsmnStreamingSession, BatchedStreamingSession,
+        DfsmnStreamBatcher, StreamBatcher)
 
     if engine is None:
         # its uploads must not meet another thread's capture (SIGHUP)
@@ -574,38 +587,57 @@ def _build_runtime(args, engine=None):
     batcher = MicroBatcher(engine.infer, window_ms=args.batch_window_ms,
                            max_batch=max_batch,
                            beam_output=engine.cfg.decode_output == "beam")
-    enc_cfg = engine.model_cfg.encoder_conf
-    if not isinstance(enc_cfg, MoEEncoderConfig):
-        return {"engine": engine, "batcher": batcher, "stream_pool": None,
-                "stream_batchers": {}}
+    family = engine.family.name
+    dfsmn = family.startswith("dfsmn")
+    runtime = {"engine": engine, "batcher": batcher, "stream_pool": None,
+               "stream_batchers": {}}
+    try:
+        if dfsmn:
+            enc_cfg = dfsmn_stream_config(engine.model_cfg)
+        else:
+            enc_cfg = engine.model_cfg.encoder_conf
+            streaming.check_stream_supported(enc_cfg)
+    except ValueError as e:
+        runtime["stream_error"] = f"streaming unsupported: {e}"
+        return runtime
     params = stream_params(engine)
     moe_impl = _stream_moe_impl(engine, args.stream_slots)
-    # streams of one (chunk, left) share one batched chunk program:
-    # co-pending chunks of different connections run as one tick
-    batchers = {}
+    # streams of one key share one batched chunk program: co-pending
+    # chunks of different connections run as one tick
+    batchers = runtime["stream_batchers"]
     batchers_lock = threading.Lock()
+    common = dict(slots=args.stream_slots, window_ms=args.stream_window_ms,
+                  topk=args.stream_topk,
+                  input_dim=engine.model_cfg.input_dim)
 
     def batcher_for(chunk, left):
-        key = (chunk, left)
+        key = chunk if dfsmn else (chunk, left)
         with batchers_lock:
             if key not in batchers:
-                batchers[key] = StreamBatcher(
-                    params, enc_cfg, chunk_size=chunk, num_left_chunks=left,
-                    slots=args.stream_slots, moe=True, moe_impl=moe_impl,
-                    window_ms=args.stream_window_ms, topk=args.stream_topk,
-                    input_dim=engine.model_cfg.input_dim)
+                if dfsmn:
+                    batchers[key] = DfsmnStreamBatcher(
+                        params, enc_cfg, chunk_size=chunk,
+                        moe=family == "dfsmn_moe", moe_impl=moe_impl,
+                        **common)
+                else:
+                    batchers[key] = StreamBatcher(
+                        params, enc_cfg, chunk_size=chunk,
+                        num_left_chunks=left, moe=engine.is_moe,
+                        moe_impl=moe_impl, **common)
             return batchers[key]
 
     if args.warmup:
-        # the default (chunk, left)'s program too (on the card: its
-        # capture), which live traffic would build at its first stream
+        # the default key's program too (on the card: its capture), which
+        # live traffic would build at its first stream
         batcher_for(*DEFAULT_STREAM_KEY)
 
     def factory(chunk, left):
-        return BatchedStreamingSession(batcher_for(chunk, left))
+        b = batcher_for(chunk, left)
+        return (BatchedDfsmnStreamingSession(b) if dfsmn
+                else BatchedStreamingSession(b))
 
-    return {"engine": engine, "batcher": batcher,
-            "stream_pool": SessionPool(factory), "stream_batchers": batchers}
+    runtime["stream_pool"] = SessionPool(factory)
+    return runtime
 
 
 def load_lm(args):

@@ -63,8 +63,8 @@ def check_supported(model_cfg: ModelConfig, tcfg: TrainConfig) -> None:
     if model_cfg.nnet_proto not in MOE_HIER_PROTOS:
         raise NotImplementedError(
             f"training {model_cfg.nnet_proto!r}: only the hier MoE conformer "
-            "CTC step is ported; the DFSMN branches come with ROADMAP Queue "
-            "1 item 11, the dense conformer with item 10")
+            "CTC step is ported; the DFSMN and dense conformer branches come "
+            "with ROADMAP Queue 1 item 11")
     refused = [("loss_type", tcfg.loss_type != "ctc"),
                ("spec_aug", tcfg.spec_aug),
                ("accum_steps", tcfg.accum_steps > 1),

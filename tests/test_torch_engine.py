@@ -262,7 +262,7 @@ def test_build_cli_attn_impl_flash(tmp_path):
 
 
 def test_build_cli_rejects_unported_flags(tmp_path):
-    """--export stays refused, as do the dense conformer protos; -cmvn is
+    """--export stays refused, as does the ExMarc proto; -cmvn is
     accepted and not read, as by the JAX build.py; --dense_quant and
     --fuse_qkv build an int8 engine that serves, with the settings in
     engine.json."""
@@ -272,7 +272,7 @@ def test_build_cli_rejects_unported_flags(tmp_path):
     with pytest.raises(NotImplementedError, match="export"):
         t_build.main(args + ["--export"])
     with pytest.raises(NotImplementedError):
-        t_config({"nnet_proto": "conformer"})
+        t_config({"nnet_proto": "conformer_fmoeExMarc_localComm_catEmbed"})
     t_build.main(args + ["--dense_quant", "--fuse_qkv", "-cmvn",
                          str(tmp_path / "no_such_cmvn")])
     eng = Engine.load(str(tmp_path / "e"), device="cpu")

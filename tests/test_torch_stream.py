@@ -354,11 +354,28 @@ def test_batched_session_falls_back_when_slots_are_full():
 
 
 def test_dfsmn_sessions_are_not_ported():
+    """The DFSMN stream classes, once stubs, are ported
+    (tests/test_torch_dfsmn_stream.py holds them to JAX); the name stays.
+    Each now builds on a small MoE-DFSMN and refuses an expert stage
+    outside the DFSMN-MoE table with the offline layer's ValueError."""
+    import jax as _jax
+    from m3asr_tpu.models import dfsmn as j_dfsmn
     from m3asr_tpu_torch.runtime.streaming_batch import DfsmnStreamBatcher
-    for cls in (t_session.DfsmnStreamingSession,
-                t_session.DfsmnMoeStreamingSession, DfsmnStreamBatcher):
-        with pytest.raises(NotImplementedError, match="item 10"):
-            cls(None, None)
+    from test_torch_dfsmn_stream import IN, moe_cfgs, moe_params
+    cj, ct = moe_cfgs()
+    assert isinstance(cj, j_dfsmn.DfsmnSanMoEConfig)
+    tp = to_torch(_jax.tree.map(np.asarray, moe_params(cj)))
+    s = t_session.DfsmnMoeStreamingSession(tp, ct, 4, moe_impl="runs_f")
+    assert s.delay == 5 and s.push(np.zeros((1, 3, IN), np.float32)) == []
+    b = DfsmnStreamBatcher(tp, ct, input_dim=IN, chunk_size=4, slots=2,
+                           moe=True, moe_impl="runs_f")
+    b.close()
+    for make in (lambda: t_session.DfsmnMoeStreamingSession(
+                     tp, ct, 4, moe_impl="pallas"),
+                 lambda: DfsmnStreamBatcher(tp, ct, input_dim=IN, moe=True,
+                                            moe_impl="capacity")):
+        with pytest.raises(ValueError, match="DFSMN-MoE"):
+            make()
 
 
 def test_engine_is_reentrant():
