@@ -130,10 +130,11 @@ result line:
    ops/moe.HOST_SYNC_STAGES on it), launch each kernel of phases 4-7's
    policy once per MoE block (K2 once per attention layer with flash) in
    every one of those forwards and in no replay, and give outputs
-   bit-equal to the same engine's eager forward. Eager and graph request
-   latency (median of 5), device time and D2H time under torch.profiler,
-   busy share, peak memory, and each graph's replay by CUDA events are
-   printed. The bf16 engine's argmax and topk (K=8) outputs at 4x1000
+   bit-equal to the same engine's eager forward. Graph request latency
+   (median of 5), device time and D2H time under torch.profiler, busy
+   share, peak memory, and each graph's replay by CUDA events are printed,
+   and the same eager for fp32 and bf16 (phases 4-7 time every mode's
+   eager forward). The bf16 engine's argmax and topk (K=8) outputs at 4x1000
    are held to its logits reduced on the host in float64: argmax ids
    equal where the top two log-probs are not tied, best log-probs and
    top-K values within 1e-6, each index naming its value. The fp32
@@ -292,6 +293,32 @@ result line:
    pools, request latency and device time. A batcher captured over the
    DFSMN positional table's first 5000 rows replays bit-equal after an
    offline 1x6144 request grew the table.
+
+15. ExMarc, top-2 and exported programs (after phase 14): the ExMarc
+   flagship (conformer_fmoeExMarc_localComm_catEmbed: the flagship YAML
+   with the ExMarc proto, 6 embed + 18 MoE blocks, d=512, 32 experts of
+   hidden 1024 at both FFN positions, V=5000) built by the port's build
+   (seeded random weights, both positions' routers redrawn normal x 0.5)
+   serves 1x206, 4x1000 and 1x2048 in fp32, bf16, int8, w8a8, int4, w4a8
+   and bf16 flash through CUDA graphs: each capture launches its stage's
+   kernel 36 times a forward (2 per MoE block; K2 24 times more with
+   flash; none for the int8/w8a8 buckets of <= 128 tokens, which run the
+   plain quant stage), a replay none; graph == eager bit for bit; the
+   eager logits held to the kernels' plain versions with both positions'
+   routing pinned (fp32 allclose(1e-5, 1e-3), else 0.05 of max|ref|);
+   latency, device time and busy share beside phase 8's flagship.
+   moe_ffn(top_k=2) at the flagship widths (1020 tokens) through K1, two
+   launches, held to its plain version (fp32 1e-5, bf16 1e-2 of
+   max|ref|). The custom operators' eager dispatch cost (one K1 call
+   through m3asr::moe_runs_f against its CUDA implementation called
+   directly). The flagship as bf16 and int4 engine dirs with exported
+   programs over the three requests' buckets: export seconds per bucket,
+   a fresh Engine.load runs every bucket from its program (launches
+   counted at the capture from it, none at replay), answers bit-equal to
+   the tracing engine's graphs, load-and-capture seconds beside that
+   engine's warm-up. The exported flagship's depth is cut to 1 embed + 1
+   MoE block: the export traces every operator on the host (31-41 s a
+   bucket at 2 + 6 blocks on the card's host).
 
 ``python3 chip_smoke.py --only NAME [NAME ...]`` runs the build and the
 phases named in ``ALONE`` alone, for work on one of them; it prints no
@@ -759,19 +786,21 @@ FRONT_TOKENS = (1, 63, 127, 511, 1020, 2048)
 
 def phase_kernel_front(torch):
     """K6's and K8's row-tile front (row_tiles, built into each of their
-    libraries) against its plain twin (ops/row_tiles.py): the same tile
+    libraries, called through its custom operator
+    ``m3asr::<library>_row_tiles``) against its plain twin
+    (ops/row_tiles.py): the same tile
     count, rows of no expert, row order and tile table, at 1 to 2048
     rows under every routing, gate -1 padding included. Returns the
     number of cases."""
     from m3asr_tpu_torch import kernels
     from m3asr_tpu_torch.ops import row_tiles
+    from m3asr_tpu_torch.ops.library import OPS
     gen = torch.Generator(device="cuda").manual_seed(12)
-    stream = torch.cuda.current_stream().cuda_stream
     cases = 0
     for lib, prefix in ((kernels.MOE_Q4.load(), "moe_q4"),
                         (kernels.MOE_STREAM.load(), "moe_stream")):
         size = getattr(lib, f"{prefix}_front_ints")
-        run = getattr(lib, f"{prefix}_row_tiles")
+        run = OPS[f"{prefix}_row_tiles"]       # the custom operator
         for n in FRONT_TOKENS:
             if size(n, E) != row_tiles.front_ints(n, E):
                 raise SystemExit(f"FAIL kernel: {prefix} front size "
@@ -779,11 +808,7 @@ def phase_kernel_front(torch):
                                  f"{row_tiles.front_ints(n, E)}")
             for kind in KINDS + ("heavy", "padded"):
                 gate = stage_routing(torch, kind, n, gen).reshape(n)
-                words = torch.full((size(n, E),), -7, dtype=torch.int32,
-                                   device="cuda")
-                if run(gate.data_ptr(), n, E, words.data_ptr(), stream):
-                    raise SystemExit(f"FAIL kernel: {prefix}_row_tiles "
-                                     "launch error")
+                words = run(gate, E)
                 torch.cuda.synchronize()
                 got = row_tiles.read_front(words, n, E)
                 want = row_tiles.read_front(
@@ -1567,6 +1592,7 @@ GRAPH_ENGINES = (
      ("K7",) * 3),
 )
 LONG_FRAMES = 15000          # infer_long's request: 3 windows of 6144
+EAGER_TIMED = ("float32", "bfloat16")    # phase 8's eager timings
 # the auto engines whose graph replays give the bucket tuner's points
 TUNER_MODES = ("float32", "bfloat16", "int8", "w8a8", "int4", "w4a8")
 DECODE_TOPK = 8              # K of "topk", the beam width of "beam"
@@ -1687,8 +1713,8 @@ def phase_serve_graphs(torch, state, smi):
     ((GRAPH_WARMUP_RUNS + 1) forwards of 18 MoE-block launches, 24 K2
     with flash) and at no replay; no captured stage may run eager; the
     graph's outputs must be bit-equal to the same engine's eager forward.
-    Eager and graph latency, device time, busy share, D2H time and peak
-    memory per request; the bf16 argmax and topk outputs held to the
+    Graph (and for EAGER_TIMED, eager) latency, device time, busy share,
+    D2H time and peak memory per request; the bf16 argmax and topk outputs held to the
     logits, the fp32 beam search to the host search; infer_long on 15000
     frames (fp32, int4); the fp32 engine's whole 24-bucket warm-up."""
     from m3asr_tpu_torch.ops.moe import HOST_SYNC_STAGES
@@ -1746,11 +1772,15 @@ def phase_serve_graphs(torch, state, smi):
             if not ok:
                 raise SystemExit(f"FAIL serve graphs {label} {B}x{T}: capture"
                                  ", launches or logits off the eager path")
-            for path in ("eager", "graph"):
+            # eager timings for the main path's engines only (phases 4-7
+            # time every mode's eager forward)
+            for path in (("eager", "graph") if label in EAGER_TIMED
+                         else ("graph",)):
                 eng.cuda_graphs = path == "graph"
                 r = serve_times(torch, eng, feat, lens)
                 log(times_line(label, B, T, path, r, smi))
             eng.cuda_graphs = True
+            state.setdefault("graph_times", {})[(label, (B, T))] = r
             points[(B, T)] = r["replay"]
             if label == "bfloat16" and (B, T) == (4, 1000):
                 decode_outputs(torch, eng, feat, lens, out_g, smi)
@@ -5500,6 +5530,403 @@ def phase_streams_dense(torch, state, smi):
                          "launched")
 
 
+# ---------------------------------------------------------------------------
+# 15. ExMarc, moe_ffn(top_k=2) and the exported programs
+# ---------------------------------------------------------------------------
+
+EXMARC = "conformer_fmoeExMarc_localComm_catEmbed"
+# (label, EngineConfig settings, the tree it starts from, the kernel of
+# each request's bucket: each forward launches it twice per MoE block)
+EXMARC_ENGINES = (
+    ("float32", dict(dtype="float32"), "float", ("K1",) * 3),
+    ("bfloat16", dict(dtype="bfloat16"), "float", ("K1",) * 3),
+    ("int8", dict(dtype="int8"), "int8", QUANT_EXPECT["int8"]),
+    ("w8a8", dict(dtype="int8", act_quant=True), "int8",
+     QUANT_EXPECT["int8"]),
+    ("int4", dict(dtype="int4"), "int4", QUANT_EXPECT["int4"]),
+    ("w4a8", dict(dtype="int4", act_quant=True), "int4",
+     QUANT_EXPECT["int4"]),
+    ("bfloat16+flash", dict(dtype="bfloat16", attn_impl="flash"), "float",
+     ("K1",) * 3),
+)
+EXPORT_BUCKETS = "1x256,4x1024,1x2048"     # the requests' buckets
+EXPORT_DEPTH = (1, 1)                      # embed, MoE blocks exported
+TOPK_TOKENS = 1020                         # moe_ffn(top_k=2): 4 x 255
+
+
+def exmarc_engine(torch, work):
+    """The ExMarc flagship through the port's build: the flagship YAML
+    (configs/3m_asr_18l32e.yaml, 6 embed + 18 MoE blocks, d=512, 32
+    experts of hidden 1024, V=5000) with the ExMarc proto, seeded random
+    weights (build's seed 0), then both positions' routers redrawn
+    normal x 0.5 from a seeded generator so that routing spreads."""
+    import yaml
+    from m3asr_tpu_torch import build
+    with open(os.path.join(HERE, "configs", "3m_asr_18l32e.yaml")) as f:
+        raw = yaml.safe_load(f)
+    raw["nnet_proto"] = EXMARC
+    path = os.path.join(work, "exmarc.yaml")
+    with open(path, "w") as f:
+        yaml.safe_dump(raw, f)
+    eng, _, _ = build.build_engine(build.parse_args(
+        ["-c", path, "-o", os.path.join(work, "unused"), "--skip-warmup",
+         "--device", "cuda"]))
+    if not eng.model_cfg.encoder_conf.exmarc:
+        raise SystemExit("FAIL exmarc: the build did not read an ExMarc "
+                         "config")
+    gen = torch.Generator(device="cuda").manual_seed(15)
+    for pos in ("feed_forward_macaron", "feed_forward"):
+        k = eng.params["blocks"][pos]["router"]["kernel"]
+        k.copy_(torch.randn(k.shape, generator=gen, device="cuda") * 0.5)
+    return eng
+
+
+def exmarc_check(torch, label, eng, feat, lens, moe_mod):
+    """The eager forward held to the same engine on the kernels' plain
+    versions with both positions' routing pinned: fp32 allclose(1e-5,
+    1e-3) on the valid rows, else max|diff| within 0.05 of max|ref|.
+    Returns (max|diff|/max|ref|, the gate calls of one forward)."""
+    eng.cuda_graphs = False
+    try:
+        with GateRecorder(moe_mod) as rec:
+            out, out_len = eng.infer(feat, lens)[:2]
+        with PlainExperts(moe_mod), GateRecorder(moe_mod, replay=rec.calls):
+            ref, _ = eng.infer(feat, lens)[:2]
+    finally:
+        eng.cuda_graphs = True
+    got, want = valid_rows(out, out_len), valid_rows(ref, out_len)
+    rel = float(np.abs(got - want).max() / np.abs(want).max())
+    ok = (np.allclose(got, want, rtol=1e-5, atol=1e-3)
+          if label == "float32" else rel <= 0.05)
+    return ok, rel, len(rec.calls)
+
+
+def exmarc_serve(torch, state, smi):
+    """The ExMarc flagship in every serving mode through CUDA graphs: each
+    request's bucket captured with 36 launches of its kernel a forward (2
+    per MoE block; 24 K2 more with flash) and none at replay, the graph's
+    outputs bit-equal to the eager forward's, the eager logits held to
+    the kernels' plain versions with both positions' routing pinned.
+    Latency, device time and busy share beside phase 8's flagship."""
+    import tempfile
+    from m3asr_tpu_torch.ops import moe as moe_mod
+    from m3asr_tpu_torch.ops.moe import HOST_SYNC_STAGES
+    from m3asr_tpu_torch.runtime.engine import (Engine, EngineConfig,
+                                                GRAPH_WARMUP_RUNS)
+    work = tempfile.mkdtemp(prefix="exmarc_")
+    t0 = time.perf_counter()
+    base = exmarc_engine(torch, work)
+    shutil.rmtree(work)
+    cfg = base.model_cfg
+    enc = cfg.encoder_conf
+    n_attn = enc.embed_conf.num_blocks + enc.num_blocks
+    n_moe = 2 * enc.num_blocks
+    log(f"exmarc: {EXMARC} built by the port's build in "
+        f"{time.perf_counter() - t0:.2f} s: {enc.embed_conf.num_blocks} "
+        f"embed + {enc.num_blocks} MoE blocks, d={enc.attention_dim}, "
+        f"{enc.moe_conf.num_experts} experts of hidden "
+        f"{enc.moe_conf.hidden_units} at both FFN positions, V="
+        f"{cfg.output_dim}")
+    trees = {"float": base.params}
+    base = None
+    # the int8 and int4 trees, quantized on the host from the bf16 values
+    # in two threads at once (numpy releases the GIL; no capture runs yet)
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(2) as pool:
+        futs = {bits: pool.submit(
+            lambda b: Engine(cfg, trees["float"], EngineConfig(dtype=b),
+                             device="cuda", cuda_graphs=False).params, bits)
+            for bits in ("int8", "int4")}
+        trees.update({bits: f.result() for bits, f in futs.items()})
+    log(f"exmarc: int8 and int4 trees, both expert positions quantized, in "
+        f"{time.perf_counter() - t0:.2f} s (two threads)")
+    rng = np.random.default_rng(15)
+    reqs = [(rng.standard_normal((b, t, cfg.input_dim)).astype(np.float32),
+             np.array([t] + [t - 37 * i for i in range(1, b)], np.int32))
+            for b, t in REQUESTS]
+    fwds = GRAPH_WARMUP_RUNS + 1
+    flagship = state.get("graph_times", {})
+    launches = {}
+    for label, settings, tree, expect in EXMARC_ENGINES:
+        eng = Engine(cfg, trees[tree], EngineConfig(**settings),
+                     device="cuda")
+        blocks = eng.params["blocks"]
+        wkey = {"int8": "w1_q", "int4": "w1_q4"}.get(tree, "w1")
+        if not all(wkey in blocks[pos] for pos in ("feed_forward",
+                                                   "feed_forward_macaron")):
+            raise SystemExit(f"FAIL exmarc {label}: an expert position is "
+                             f"not in {wkey}")
+        flash = settings.get("attn_impl") == "flash"
+        total = {}
+        for i, (feat, lens) in enumerate(reqs):
+            B, T = feat.shape[:2]
+            bb, bt = eng.buckets.pick(B, T)
+            stage = eng.moe_impl_for(bb, bt)
+            want = {expect[i]: n_moe} if expect[i] else {}
+            if flash:
+                want["K2"] = n_attn
+            reset_counts()
+            t0 = time.perf_counter()
+            prog = eng.get_fn(bb, bt)
+            cap_s = time.perf_counter() - t0
+            at_capture = kernel_counts()
+            reset_counts()
+            out_g = eng.infer(feat, lens)
+            at_replay = kernel_counts()
+            eng.cuda_graphs = False
+            reset_counts()
+            out_e = eng.infer(feat, lens)
+            at_eager = kernel_counts()
+            eng.cuda_graphs = True
+            equal = len(out_g) == len(out_e) and all(
+                a.dtype == b.dtype and np.array_equal(a, b)
+                for a, b in zip(out_g, out_e))
+            pinned, rel, n_gates = exmarc_check(torch, label, eng, feat,
+                                                lens, moe_mod)
+            ok = (prog.graph is not None and stage not in HOST_SYNC_STAGES
+                  and at_capture == {k: v * fwds for k, v in want.items()}
+                  and not at_replay and at_eager == want and equal
+                  and np.isfinite(out_g[0]).all() and pinned
+                  and n_gates == n_moe)
+            for k, v in list(at_capture.items()) + list(at_eager.items()):
+                total[k] = total.get(k, 0) + v
+            r = serve_times(torch, eng, feat, lens)
+            ref = flagship.get((label, (B, T)))
+            beside = ("" if ref is None else
+                      f"; the flagship (phase 8): latency {ref['lat']:.3f} "
+                      f"ms, device {ref['dev']:.3f} ms, busy "
+                      f"{ref['dev'] / ref['lat']:.3f}")
+            log(f"exmarc {label} {B}x{T}: stage {stage}, bucket {bb}x{bt} "
+                f"captured in {cap_s:.2f} s with launches {at_capture} "
+                f"(want {want} a forward x {fwds}), replay launches "
+                f"{at_replay or 'none'}, eager {at_eager}; graph == eager "
+                f"bit for bit: {equal}; vs plain versions, {n_gates} gates "
+                f"pinned: max|diff|/max|ref|={rel:.3e} "
+                f"{'OK' if ok else 'FAIL'}")
+            log(times_line(f"exmarc {label}", B, T, "graph", r, smi)
+                + beside)
+            if not ok:
+                raise SystemExit(f"FAIL exmarc {label} {B}x{T}: capture, "
+                                 "launches or logits off")
+        launches[label] = total
+        eng = prog = None
+        torch.cuda.empty_cache()
+    trees = None
+    torch.cuda.empty_cache()
+    return launches
+
+
+def exmarc_topk(torch, smi):
+    """moe_ffn(top_k=2) at the flagship widths (1020 tokens, d=512, 32
+    experts of hidden 1024, a random router over catEmbed features)
+    through K1, fp32 and bf16: K1 launches once per k, and the result is
+    held to the same call on K1's plain version (fp32 1e-5, bf16 1e-2 of
+    max|ref|). Returns ({dtype: launches}, {dtype: max_abs_err})."""
+    from m3asr_tpu_torch.ops import moe as moe_mod
+    from m3asr_tpu_torch.ops.moe_runs import runs_kernel
+    gen = torch.Generator(device="cuda").manual_seed(16)
+    launches, errs = {}, {}
+    for dname in ("float32", "bfloat16"):
+        dtype = getattr(torch, dname)
+        p = {k: v[0] if k in ("w1", "w2") else v for k, v in
+             expert_weights(torch, dtype, gen, n_layers=1, d=D,
+                            h=H).items()}
+        p["router"] = {"kernel": (torch.randn(2 * D, E, generator=gen,
+                                              device="cuda") * 0.5)
+                       .to(dtype)}
+        x = torch.randn(4, TOPK_TOKENS // 4, D, generator=gen,
+                        device="cuda").to(dtype)
+        embed = torch.randn(4, TOPK_TOKENS // 4, D, generator=gen,
+                            device="cuda").to(dtype)
+        lens = torch.tensor([255, 240, 201, 160], device="cuda")
+        runs_kernel.launches = 0
+        got = moe_mod.moe_ffn(p, x, embed, lens, impl="runs_f", top_k=2)
+        launches[dname] = runs_kernel.launches
+        with PlainExperts(moe_mod):
+            ref = moe_mod.moe_ffn(p, x, embed, lens, impl="runs_f", top_k=2)
+        if launches[dname] != 2 or runs_kernel.launches != 2:
+            raise SystemExit(f"FAIL exmarc top-2: K1 launched "
+                             f"{runs_kernel.launches} times, want 2")
+        errs[dname] = rel_check(got, ref, 1e-5 if dname == "float32"
+                                else 1e-2, f"moe_ffn(top_k=2) {dname} "
+                                f"{TOPK_TOKENS} tokens through K1",
+                                "moe_ffn top-2")
+    return launches, errs
+
+
+def dispatch_cost(torch, smi):
+    """Host time of one K1 call through its custom operator against the
+    wrapper's CUDA implementation called directly, at 63 tokens (fp32,
+    the kernel queued behind the host): the operator's eager dispatch
+    cost, median of 5 rounds of 200 calls each."""
+    from m3asr_tpu_torch.ops import moe_runs
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    p = {k: v[0] if k in ("w1", "w2") else v for k, v in
+         expert_weights(torch, torch.float32, gen, n_layers=1, d=D,
+                        h=H).items()}
+    x = torch.randn(1, 63, D, generator=gen, device="cuda")
+    gate = routing(torch, "router", 63, gen)
+    k = moe_runs.runs_kernel
+    paths = {"operator": lambda: k(p, x, gate),
+             "direct": lambda: k._launch(p, x, gate, None, False, "swish",
+                                         None)}
+    us = {n: [] for n in paths}
+    for _ in range(5):
+        for n, f in paths.items():
+            f()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(200):
+                f()
+            us[n].append((time.perf_counter() - t0) / 200 * 1e6)
+            torch.cuda.synchronize()
+    op, direct = (float(np.median(us[n])) for n in ("operator", "direct"))
+    log(f"exmarc dispatch: one K1 call at 63 tokens (fp32) takes "
+        f"{op:.1f} us of host time through m3asr::moe_runs_f, {direct:.1f} "
+        f"us through the wrapper's CUDA implementation directly: the "
+        f"operator adds {op - direct:.1f} us a call in eager mode (none in "
+        f"a graph replay); {smi}")
+
+
+def exported_engines(torch, state, smi):
+    """The flagship at its widths, its depth cut to EXPORT_DEPTH (the
+    export traces every operator of the forward on the host: 31-41 s a
+    bucket at 2 + 6 blocks on the card's host), seeded weights, as bf16
+    and int4 engine dirs
+    with exported programs over the requests' three buckets (the save of
+    ``build --export``): export seconds per bucket, a fresh
+    Engine.load, every bucket run from its loaded program
+    (loaded_buckets) and captured from it with the kernels' launches
+    counted, replays bit-equal to the graphs of the engine that traced
+    the model code; load-and-capture seconds beside that engine's
+    warm-up of the same buckets."""
+    import tempfile
+    from m3asr_tpu_torch.models import moe_conformer
+    from m3asr_tpu_torch.runtime.engine import (Engine, EngineConfig,
+                                                GRAPH_WARMUP_RUNS)
+    cfg = flagship_cfg()
+    enc = cfg.encoder_conf
+    enc.embed_conf.num_blocks, enc.num_blocks = EXPORT_DEPTH
+    gen = torch.Generator(device="cuda").manual_seed(19)
+    params = moe_conformer.init(enc, cfg.input_dim, cfg.output_dim, gen,
+                                device="cuda")
+    r = params["blocks"]["feed_forward"]["router"]
+    r["kernel"] = torch.randn(r["kernel"].shape, generator=gen,
+                              device="cuda") * 0.5
+    n_moe = enc.num_blocks
+    fwds = GRAPH_WARMUP_RUNS + 1
+    pairs = [tuple(map(int, b.split("x")))
+             for b in EXPORT_BUCKETS.split(",")]
+    rng = np.random.default_rng(18)
+    reqs = [(rng.standard_normal((b, t, cfg.input_dim)).astype(np.float32),
+             np.full((b,), t, np.int32)) for b, t in REQUESTS]
+    launches = {}
+    for label, settings, expect in (
+            ("bfloat16", dict(dtype="bfloat16"), ("K1",) * 3),
+            ("int4", dict(dtype="int4"), QUANT_EXPECT["int4"])):
+        eng = Engine(cfg, params, EngineConfig(
+            bucket_batches=tuple(sorted({b for b, _ in pairs})),
+            bucket_lengths=tuple(sorted({t for _, t in pairs})),
+            **settings), device="cuda")
+        buckets = [eng.buckets.pick(b, t) for b, t in REQUESTS]
+        work = tempfile.mkdtemp(prefix=f"export_{label}_")
+        t0 = time.perf_counter()
+        eng.save(work)
+        save_s = time.perf_counter() - t0
+        os.makedirs(os.path.join(work, "exported"))
+        export_s = {}
+        for b, t in buckets:
+            t0 = time.perf_counter()
+            torch.export.save(eng.export_bucket(b, t), os.path.join(
+                work, "exported", f"{b}x{t}.{eng.device.type}.pt2"))
+            export_s[f"{b}x{t}"] = round(time.perf_counter() - t0, 3)
+        size = sum(os.path.getsize(os.path.join(work, "exported", f))
+                   for f in os.listdir(os.path.join(work, "exported")))
+        t0 = time.perf_counter()
+        eng.warmup(buckets)
+        torch.cuda.synchronize()
+        traced_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        loaded = Engine.load(work, device="cuda")
+        load_s = time.perf_counter() - t0
+        reset_counts()
+        t0 = time.perf_counter()
+        loaded.warmup(buckets)
+        torch.cuda.synchronize()
+        cap_s = time.perf_counter() - t0
+        at_capture = kernel_counts()
+        want = {}
+        for k in expect:
+            want[k] = want.get(k, 0) + n_moe * fwds
+        reset_counts()
+        equal = True
+        for feat, lens in reqs:
+            a, b = loaded.infer(feat, lens), eng.infer(feat, lens)
+            equal &= len(a) == len(b) and all(
+                x.dtype == y.dtype and np.array_equal(x, y)
+                for x, y in zip(a, b))
+        at_replay = kernel_counts()
+        ok = (loaded.loaded_buckets == set(buckets) and at_capture == want
+              and not at_replay and equal and all(
+                  loaded.get_fn(b, t).graph is not None
+                  for b, t in buckets))
+        log(f"exported {label}: engine dir saved in {save_s:.2f} s, "
+            f"programs "
+            f"exported in {export_s} s ({size / 2**20:.2f} MiB for "
+            f"{len(buckets)} buckets, no weights), loaded in {load_s:.2f} "
+            f"s; loaded buckets {sorted(loaded.loaded_buckets)}; capture "
+            f"from the loaded programs {cap_s:.2f} s (the tracing engine's "
+            f"warm-up of the same buckets {traced_s:.2f} s) with launches "
+            f"{at_capture} (want {want}), replay launches "
+            f"{at_replay or 'none'}; answers bit-equal to the tracing "
+            f"engine's graphs: {equal}; {smi} {'OK' if ok else 'FAIL'}")
+        if not ok:
+            raise SystemExit(f"FAIL exported {label}: programs not loaded, "
+                             "launches off or answers differ")
+        for k, v in at_capture.items():
+            launches[(label, k)] = v
+        shutil.rmtree(work)
+        eng = loaded = None
+        torch.cuda.empty_cache()
+    return launches
+
+
+def phase_exmarc(torch, state, smi):
+    """Phase 15: ExMarc serving, moe_ffn(top_k=2), the custom operators'
+    dispatch cost and the exported programs. Returns the launches of each
+    kernel variant (the kernels line's names) on this path."""
+    t0 = time.perf_counter()
+    served = exmarc_serve(torch, state, smi)
+    topk, errs = exmarc_topk(torch, smi)
+    dispatch_cost(torch, smi)
+    exported = exported_engines(torch, state, smi)
+    names = {("float32", "K1"): "moe_runs_f[float32]",
+             ("bfloat16", "K1"): "moe_runs_f[bfloat16]",
+             ("bfloat16+flash", "K1"): "moe_runs_f[bfloat16]",
+             ("bfloat16+flash", "K2"): "flash_fwd[bfloat16]",
+             ("int8", "K4"): QUANT_NAMES[("K4", False)],
+             ("w8a8", "K4"): QUANT_NAMES[("K4", True)],
+             ("int4", "K5"): QUANT_NAMES[("K5", False)],
+             ("int4", "K6"): QUANT_NAMES[("K6", False)],
+             ("w4a8", "K5"): QUANT_NAMES[("K5", True)],
+             ("w4a8", "K6"): QUANT_NAMES[("K6", True)]}
+    by_name = {}
+    for label, counts in served.items():
+        for k, v in counts.items():
+            name = names[(label, k)]
+            by_name[name] = by_name.get(name, 0) + v
+    for dname, v in topk.items():
+        name = f"moe_runs_f[{dname}]"
+        by_name[name] = by_name.get(name, 0) + v
+    for (label, k), v in exported.items():
+        name = names[(label, k)]
+        by_name[name] = by_name.get(name, 0) + v
+    log(f"exmarc: phase 15 took {time.perf_counter() - t0:.1f} s; launches "
+        f"{by_name}; {smi}")
+    state["max_err_topk"] = errs
+    return by_name
+
+
 # phases that run on their own after the build, for work on one of them:
 # ``python3 chip_smoke.py --only NAME [NAME ...]`` runs those named, in
 # order. Such a run is not the smoke: it prints no result line, exits 1
@@ -5510,6 +5937,7 @@ ALONE = {
     "dfsmn_times": lambda torch, state, smi: time_dfsmn_kernels(torch, smi),
     "table_growth": phase_table_growth,
     "streams_dense": phase_streams_dense,
+    "exmarc": phase_exmarc,
 }
 
 
@@ -5534,6 +5962,10 @@ def main():
             ALONE[n](torch, state, smi)
         log(f"ran {names} alone: not the smoke, no result line")
         return 1
+    start = time.perf_counter()
+
+    def stamp(name):
+        log(f"time: {name} done at {time.perf_counter() - start:.1f} s")
     phase_kernel_front(torch)
     state = {"max_err": phase_kernel(torch, moe_runs),
              "max_err_q": phase_kernel_quant(torch),
@@ -5541,16 +5973,26 @@ def main():
              "max_err_stage": phase_kernel_stage(torch),
              "max_err_dfsmn": {**phase_kernel_dfsmn(torch),
                                **phase_kernel_flash_mem(torch)}}
+    stamp("phases 3 (kernel checks)")
     state["launches"] = phase_serve(torch, state)
     state["launches_q"] = phase_serve_quant(torch, state, smi)
     state["launches_stage"] = phase_serve_stages(torch, state, smi)
     served = phase_serve_flash(torch, state, smi)
+    stamp("phases 4-7")
     phase_serve_graphs(torch, state, smi)
+    stamp("phase 8")
     state["launches_stream"] = phase_stream(torch, state, smi)
+    stamp("phase 9")
     state["launches_recognize"] = phase_recognize(torch, state, smi)
+    stamp("phase 10")
     phase_dfsmn(torch, state, smi)
+    stamp("phase 13")
     phase_streams_dense(torch, state, smi)
+    stamp("phase 14")
+    exmarc = phase_exmarc(torch, state, smi)
+    stamp("phase 15")
     trained = phase_train(torch, state, smi)
+    stamp("phase 11")
     # K2: serving's forwards and the training steps'; K3: the steps'
     state["launches_flash"] = {}
     for dname in ("float32", "bfloat16"):
@@ -5561,6 +6003,14 @@ def main():
         state["launches_flash"][("K3", dname)] = dq
     state["launches_flash"][("K2", "bfloat16")] += state["launches_dense_k2"]
     report = phase_times(torch, state, smi) + dfsmn_report(torch, state, smi)
+    stamp("phases 12 and 13's times")
+    # phase 15's launches: the ExMarc engines, top-2 and the exported
+    # programs' captures
+    for row in report:
+        row["launches"] += exmarc.pop(row["name"], 0)
+    if exmarc:
+        raise SystemExit(f"FAIL report: phase 15 launches of "
+                         f"{sorted(exmarc)} have no entry")
     log(smi)
     log(json.dumps({"kernels": report}))
     log(json.dumps({"ok": True, "device": {

@@ -6,6 +6,7 @@
         [--attn_impl xla|flash] [--buckets 1x256,4x1024] [--strict]
         [--decode_output logits|log_softmax|argmax|topk|beam]
         [--decode_topk K] [--skip-warmup] [--device cuda|cpu]
+        [--export [--export_platforms cuda,cpu]]
 
 Reads a reference YAML config (a hier MoE conformer, dense conformer or
 DFSMN proto) and PyTorch checkpoint, converts the weights with the
@@ -32,8 +33,13 @@ kernels and captures each bucket's CUDA graph, so a bucket that cannot
 be captured fails the build. ``--skip-warmup`` leaves that out.
 Without ``-m`` the weights are random (seed 0). ``-cmvn`` is accepted
 and not read, as by the JAX ``build.py`` (the recognizer takes
-``--cmvn``). ``--export`` is accepted by name and raises
-NotImplementedError naming the ROADMAP item that brings it.
+``--cmvn``). ``--export`` also writes each bucket's model forward as a
+``torch.export`` program for each device of ``--export_platforms``
+(default: the build device) to ``exported/{B}x{T}.{device}.pt2``
+(``Engine.export_bucket``; the weights stay in ``params.npz``), which
+``Engine.load`` (and so ``infer -p``) runs instead of tracing the model
+code; a bucket whose expert stage reads the host cannot be exported and
+fails the build.
 """
 
 from __future__ import annotations
@@ -92,7 +98,12 @@ def parse_args(argv=None):
     p.add_argument("--moe_impl", default="auto",
                    help="expert stage: auto, or an explicit name of the "
                    "JAX engine (pallas, tiled, ragged, capacity, ...)")
-    p.add_argument("--export", action="store_true", help="not ported")
+    p.add_argument("--export", action="store_true",
+                   help="write per-bucket torch.export programs into "
+                   "<engine>/exported/")
+    p.add_argument("--export_platforms", default=None,
+                   help="comma list of devices to export for with "
+                   "--export (cuda, cpu; default the build device)")
     p.add_argument("-cmvn", "--cmvn_file",
                    help="accepted as the JAX build.py accepts it; not read")
     return p.parse_args(argv)
@@ -110,12 +121,6 @@ def build_engine(args):
     """The engine ``args`` (``parse_args``) describe, warmed up unless
     ``--skip-warmup``: (engine, the raw YAML dict, the converted AED
     decoders). :func:`main` saves it."""
-    if args.export:
-        raise NotImplementedError(
-            "--export is not ported: per-bucket torch.export programs need "
-            "every kernel wrapper registered as a torch.library custom op "
-            "with a fake implementation (ROADMAP Queue 1 item 5c)")
-
     import yaml
 
     from m3asr_tpu_torch import checkpoint as ckpt
@@ -173,7 +178,12 @@ def main(argv=None):
     from m3asr_tpu_torch import checkpoint as ckpt
     args = parse_args(argv)
     engine, raw, decoders = build_engine(args)
-    engine.save(args.output, raw_yaml=raw)
+    devices = None
+    if args.export:
+        devices = tuple((args.export_platforms
+                         or engine.device.type).split(","))
+        print(f"exporting buckets (torch.export, devices={devices})...")
+    engine.save(args.output, raw_yaml=raw, export_devices=devices)
     if decoders:
         ckpt.save_decoders(args.output, decoders)
         print(f"decoders saved: {sorted(decoders)}")

@@ -191,8 +191,11 @@ def convert_block(sd: StateDict, cfg: EncoderConfig, moe: bool) -> Dict:
                           else convert_ffn(sd.sub("feed_forward")))}
     if cfg.macaron_style:
         p["norm_ff_macaron"] = _layer_norm(sd, "norm_ff_macaron")
-        p["feed_forward_macaron"] = convert_ffn(
-            sd.sub("feed_forward_macaron"))
+        # ExMarc: the macaron FFN of a MoE block is a MoE FFN too
+        p["feed_forward_macaron"] = (
+            convert_moe_ffn(sd.sub("feed_forward_macaron"))
+            if moe and getattr(cfg, "exmarc", False)
+            else convert_ffn(sd.sub("feed_forward_macaron")))
     if cfg.use_cnn_module:
         p["norm_conv"] = _layer_norm(sd, "norm_conv")
         p["conv_module"] = convert_conv_module(sd.sub("conv_module"),

@@ -2,11 +2,11 @@
 and the DFSMN families.
 
 The port's own copy of the reference YAML schema (the JAX package's
-``m3asr_tpu/config.py``), limited to the hier MoE conformer protos
-(:data:`MOE_HIER_PROTOS`), the dense conformer protos
-(:data:`DENSE_CONFORMER_PROTOS`) and the DFSMN protos
-(:data:`DFSMN_PROTOS`). Other protos of the model zoo (ExMarc) raise
-``NotImplementedError`` until the slice that ports them. ``yaml`` is
+``m3asr_tpu/config.py``), for the 21 reference protos: the hier MoE
+conformer protos (:data:`MOE_HIER_PROTOS`, with the two ExMarc protos of
+:data:`EXMARC_PROTOS`, whose macaron FFN is a MoE FFN too), the dense
+conformer protos (:data:`DENSE_CONFORMER_PROTOS`) and the DFSMN protos
+(:data:`DFSMN_PROTOS`). ``yaml`` is
 imported only inside :func:`load_yaml_config`: nothing on the inference
 path reads a YAML.
 """
@@ -216,6 +216,13 @@ MOE_HIER_PROTOS = {
     "conformer_fmoe_localComm_catEmbed",
 }
 
+# the ExMarc ("Expert-Macaron") protos: the hier MoE conformer with both
+# FFN positions of every MoE block a catEmbed MoE FFN
+EXMARC_PROTOS = {
+    "conformer_fmoeExMarc_localComm_catEmbed",
+    "conformer_aed_fmoeExMarc_localComm_catEmbed",
+}
+
 # nnet_proto values of the dense conformer family; "ctc_aed" is the joint
 # CTC+AED scaffold, whose only live Net is conformer_aed2's
 DENSE_CONFORMER_PROTOS = {
@@ -243,13 +250,9 @@ def model_config_from_dict(configs: Dict[str, Any]) -> ModelConfig:
     """Build a :class:`ModelConfig` from a reference-format config dict."""
     cfg = ModelConfig()
     cfg.nnet_proto = configs.get("nnet_proto", cfg.nnet_proto)
-    if cfg.nnet_proto not in (MOE_HIER_PROTOS | DENSE_CONFORMER_PROTOS
-                              | DFSMN_PROTOS):
-        raise NotImplementedError(
-            f"nnet_proto {cfg.nnet_proto!r}: the PyTorch port serves the "
-            "hier MoE conformer, dense conformer and DFSMN families only "
-            "(ROADMAP Queue 1 item 10 brings ExMarc and the rest of the "
-            "model zoo)")
+    if cfg.nnet_proto not in (MOE_HIER_PROTOS | EXMARC_PROTOS
+                              | DENSE_CONFORMER_PROTOS | DFSMN_PROTOS):
+        raise ValueError(f"unknown nnet_proto {cfg.nnet_proto!r}")
     cfg.input_dim = configs.get("input_dim", cfg.input_dim)
     cfg.output_dim = configs.get("output_dim", cfg.output_dim)
     model_conf = dict(configs.get("model_conf") or {})
@@ -284,6 +287,8 @@ def model_config_from_dict(configs: Dict[str, Any]) -> ModelConfig:
             _update_from_dict(cfg.encoder_conf.embed_conf, embed_conf)
         if moe_conf:
             _update_from_dict(cfg.encoder_conf.moe_conf, moe_conf)
+    if "ExMarc" in cfg.nnet_proto:
+        cfg.encoder_conf.exmarc = True
     cfg.decoder_type = model_conf.get("decoder_type", cfg.decoder_type)
     if model_conf.get("decoder_conf"):
         _update_from_dict(cfg.decoder_conf, model_conf["decoder_conf"])

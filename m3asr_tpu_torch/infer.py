@@ -12,7 +12,9 @@ reference's allclose(rtol=1e-5, atol=1e-3). Engines built with
 ``--decode_output argmax`` / ``topk`` / ``beam`` decode from their
 on-device outputs: greedy from the ids (or the top-1 candidates), the
 prefix beam search over the top-K candidates, or the engine's own beam
-search's best hypothesis.
+search's best hypothesis. An engine dir built with ``--export`` serves
+its buckets from the exported programs for this device
+(``Engine.load``); the run prints which.
 """
 
 from __future__ import annotations
@@ -62,6 +64,9 @@ def main(argv=None):
     dmode = engine.cfg.decode_output
     aux = res[2] if dmode in ("argmax", "topk") else None
     print("time=" + str((t2 - t1) * 1000) + "ms")
+    if engine.loaded_buckets:
+        print("exported programs run: " + ", ".join(
+            f"{b}x{t}" for b, t in sorted(engine.loaded_buckets)))
     print("outputs.shape:" + str(out.shape))
     print("outputs.sum:" + str(out.sum()))
     print(out)

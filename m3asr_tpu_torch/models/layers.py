@@ -8,6 +8,10 @@ Macaron structure with pre-norm (the deployed configuration):
     x += 0.5 * ffn(LN(x))          # the MoE FFN in MoE blocks
     x = LN_final(x)
 
+In the ExMarc blocks (``moe_macaron=True``) the macaron FFN is a MoE FFN
+too, routed on the same catEmbed router input; its residual keeps the
+0.5 scale.
+
 A block whose attention has no ``linear_pos`` (the ``no_pos`` models)
 runs plain multi-head attention, as the JAX package's block does.
 :func:`init_conformer_block` draws a dense block's seeded parameters.
@@ -25,7 +29,7 @@ from m3asr_tpu_torch.ops.common import (init_layer_norm, init_linear,
                                         layer_norm, linear, swish)
 from m3asr_tpu_torch.ops.conv import conv_module
 from m3asr_tpu_torch.ops.flash_attention import flash_rel_mha
-from m3asr_tpu_torch.ops.moe import moe_ffn
+from m3asr_tpu_torch.ops.moe import init_moe_ffn, moe_ffn
 
 
 def positionwise_ffn(p, x: torch.Tensor) -> torch.Tensor:
@@ -39,13 +43,17 @@ def conformer_block(p, x: torch.Tensor, lengths: Optional[torch.Tensor],
                     conv_layer_norm: bool = False, conv_lorder: int = 0,
                     normalize_before: bool = True, moe: bool = False,
                     embed: Optional[torch.Tensor] = None,
-                    moe_impl: str = "dense",
+                    moe_impl: str = "dense", moe_macaron: bool = False,
                     mask: Optional[torch.Tensor] = None,
-                    attn_impl: str = "xla") -> torch.Tensor:
+                    return_moe_aux: bool = False,
+                    attn_impl: str = "xla"):
     """One conformer block; ``moe=True`` makes the final FFN the catEmbed
-    MoE FFN with ``embed`` as the router's extra feature. ``mask``: an
+    MoE FFN with ``embed`` as the router's extra feature, and
+    ``moe_macaron=True`` the macaron FFN as well (ExMarc). ``mask``: an
     optional (B|1, 1, T, T) chunk attend-mask; ``attn_impl="flash"`` runs
-    the attention on the flash kernels (K2, K3 when training)."""
+    the attention on the flash kernels (K2, K3 when training).
+    ``return_moe_aux``: return (x, the final FFN router's probabilities
+    (B, T, E) float32), as the JAX block does."""
     ff_scale = 0.5 if macaron else 1.0
 
     def pre(name, v):
@@ -55,8 +63,12 @@ def conformer_block(p, x: torch.Tensor, lengths: Optional[torch.Tensor],
         return v if normalize_before else layer_norm(p[name], v)
 
     if macaron:
-        h = positionwise_ffn(p["feed_forward_macaron"],
-                             pre("norm_ff_macaron", x))
+        h = pre("norm_ff_macaron", x)
+        if moe_macaron:
+            h = moe_ffn(p["feed_forward_macaron"], h, embed, lengths,
+                        impl=moe_impl)
+        else:
+            h = positionwise_ffn(p["feed_forward_macaron"], h)
         x = post("norm_ff_macaron", x + ff_scale * h)
 
     if attn_impl not in ("xla", "flash"):
@@ -80,15 +92,19 @@ def conformer_block(p, x: torch.Tensor, lengths: Optional[torch.Tensor],
         x = post("norm_conv", x + h)
 
     h = pre("norm_ff", x)
+    probs = None
     if moe:
-        h = moe_ffn(p["feed_forward"], h, embed, lengths, impl=moe_impl)
+        h = moe_ffn(p["feed_forward"], h, embed, lengths, impl=moe_impl,
+                    return_router_probs=return_moe_aux)
+        if return_moe_aux:
+            h, probs = h
     else:
         h = positionwise_ffn(p["feed_forward"], h)
     x = post("norm_ff", x + ff_scale * h)
 
     if use_cnn:
         x = layer_norm(p["norm_final"], x)
-    return x
+    return (x, probs) if return_moe_aux else x
 
 
 # ---------------------------------------------------------------------------
@@ -147,18 +163,30 @@ def init_conv_module(g: torch.Generator, channels: int, kernel_size: int,
 def init_conformer_block(g: torch.Generator, d_model: int, num_heads: int,
                          ffn_hidden: int, cnn_kernel: int = 15,
                          macaron: bool = True, use_cnn: bool = True,
+                         moe: bool = False, moe_embed_dim: int = 0,
+                         moe_num_experts: int = 0, moe_hidden: int = 0,
+                         router_with_bias: bool = False,
+                         moe_macaron: bool = False,
                          rel_attn: bool = True, dtype=torch.float32):
-    """A dense conformer block: rel-pos attention, or plain MHA with
-    ``rel_attn=False`` (the no_pos models)."""
+    """A conformer block: rel-pos attention, or plain MHA with
+    ``rel_attn=False`` (the no_pos models). ``moe=True`` makes the final
+    FFN a catEmbed MoE FFN (:func:`~m3asr_tpu_torch.ops.moe.init_moe_ffn`)
+    and ``moe_macaron=True`` the macaron FFN as well (ExMarc)."""
     dev = g.device
+
+    def ffn(is_moe):
+        if is_moe:
+            return init_moe_ffn(g, d_model, moe_embed_dim, moe_num_experts,
+                                moe_hidden, router_with_bias, dtype)
+        return init_ffn(g, d_model, ffn_hidden, dtype)
     p = {"norm_mha": init_layer_norm(d_model, dev, dtype),
          "self_attn": (init_rel_mha(g, d_model, num_heads, dtype)
                        if rel_attn else init_mha(g, d_model, dtype)),
          "norm_ff": init_layer_norm(d_model, dev, dtype),
-         "feed_forward": init_ffn(g, d_model, ffn_hidden, dtype)}
+         "feed_forward": ffn(moe)}
     if macaron:
         p["norm_ff_macaron"] = init_layer_norm(d_model, dev, dtype)
-        p["feed_forward_macaron"] = init_ffn(g, d_model, ffn_hidden, dtype)
+        p["feed_forward_macaron"] = ffn(moe and moe_macaron)
     if use_cnn:
         p["norm_conv"] = init_layer_norm(d_model, dev, dtype)
         p["conv_module"] = init_conv_module(g, d_model, cnn_kernel, dtype)

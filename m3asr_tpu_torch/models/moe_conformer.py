@@ -10,6 +10,8 @@ the CTC training step):
 
 The block loop walks per-layer views of the stacked ``(L, ...)``
 parameters; the expert weights ``(L, E, d, h)`` are indexed, not copied.
+The ExMarc protos (``cfg.exmarc``) make each block's macaron FFN a MoE
+FFN as well: two expert stacks per block, each indexed the same way.
 """
 
 from __future__ import annotations
@@ -25,25 +27,26 @@ from m3asr_tpu_torch.models.layers import conformer_block
 from m3asr_tpu_torch.ops import positional
 from m3asr_tpu_torch.ops.common import (init_layer_norm, init_linear,
                                         layer_norm, linear)
+from m3asr_tpu_torch.ops.moe import init_moe_ffn
 
 
 def forward(params, cfg: MoEEncoderConfig, feat: torch.Tensor,
             feat_len: Optional[torch.Tensor], output_embed: bool = False,
             moe_impl: str = "dense", hier_taps: bool = False,
             chunk_mask=None, embed_chunk_mask="same",
-            return_hidden: bool = False, attn_impl: str = "xla"):
+            return_hidden: bool = False, attn_impl: str = "xla",
+            return_router_probs: bool = False):
     """feat: (B, T, input_dim) -> (logits (B, T', V), out_len)
     | + embed_out (output_embed) | + (h6, h12, h_final) (hier_taps: the
     hidden after blocks 6 and 12, clamped for shallow models, through
     after_norm_6 / after_norm_12, and the normalized final hidden) |
-    + h_final (return_hidden), in the JAX package's order.
+    + router probs (return_router_probs: (L, B, T', E) float32, each
+    block's final FFN router only) | + h_final (return_hidden), in the
+    JAX package's order.
 
     chunk_mask: optional (B|1, 1, T', T') attend-mask of the MoE blocks;
     embed_chunk_mask: the embed encoder's own ("same": chunk_mask's).
     attn_impl: "xla" or "flash" for every attention layer."""
-    if cfg.exmarc:
-        raise NotImplementedError("the ExMarc (MoE macaron) variant is not "
-                                  "ported (ROADMAP Queue 1 item 10)")
     if isinstance(embed_chunk_mask, str) and embed_chunk_mask == "same":
         embed_chunk_mask = chunk_mask
     embed_out, _, embed = conformer.forward(
@@ -61,12 +64,17 @@ def forward(params, cfg: MoEEncoderConfig, feat: torch.Tensor,
     # no other block's hidden is kept
     taps = {min(5, n_layers - 1), min(11, n_layers - 1)} if hier_taps \
         else set()
-    hiddens = {}
+    hiddens, probs = {}, []
     for i in range(n_layers):
         x = conformer_block(conformer.layer_view(blocks, i), x, out_len,
                             pos_emb, moe=True, embed=embed,
-                            moe_impl=moe_impl, mask=chunk_mask,
+                            moe_impl=moe_impl, moe_macaron=cfg.exmarc,
+                            mask=chunk_mask,
+                            return_moe_aux=return_router_probs,
                             attn_impl=attn_impl, **kw)
+        if return_router_probs:
+            x, p_i = x
+            probs.append(p_i)
         if i in taps:
             hiddens[i] = x
     x_normed = layer_norm(params["after_norm"], x) if cfg.normalize_before \
@@ -80,6 +88,8 @@ def forward(params, cfg: MoEEncoderConfig, feat: torch.Tensor,
                 layer_norm(params["after_norm_12"],
                            hiddens[min(11, n_layers - 1)]),
                 x_normed]
+    if return_router_probs:
+        ret.append(torch.stack(probs))
     if return_hidden:
         ret.append(x_normed)
     return tuple(ret)
@@ -117,7 +127,8 @@ class _Init:
         return {"conv0": conv(in_ch), "conv1": conv(odim),
                 "out": self.linear(odim * f_out, odim)}
 
-    def block(self, d, heads, ffn_hidden, kernel, moe=None):
+    def block(self, d, heads, ffn_hidden, kernel, moe=None,
+              moe_macaron=False):
         dk = d // heads
         xb = math.sqrt(6.0 / (heads + dk))
         attn = {n: self.linear(d, d) for n in
@@ -128,8 +139,10 @@ class _Init:
         p = {
             "norm_mha": self.norm(d), "self_attn": attn,
             "norm_ff": self.norm(d), "norm_ff_macaron": self.norm(d),
-            "feed_forward_macaron": {"w_1": self.linear(d, ffn_hidden),
-                                     "w_2": self.linear(ffn_hidden, d)},
+            "feed_forward_macaron": (
+                init_moe_ffn(self.g, d, *moe, self.dtype) if moe_macaron else
+                {"w_1": self.linear(d, ffn_hidden),
+                 "w_2": self.linear(ffn_hidden, d)}),
             "norm_conv": self.norm(d),
             "conv_module": {
                 "pointwise_conv1": {
@@ -149,14 +162,7 @@ class _Init:
             p["feed_forward"] = {"w_1": self.linear(d, ffn_hidden),
                                  "w_2": self.linear(ffn_hidden, d)}
         else:
-            embed_dim, E, h = moe
-            # FMoELinear: xavier-uniform, gain 0.5, over (out, in) slices
-            xb = 0.5 * math.sqrt(6.0 / (d + h))
-            # zero routers, as the reference initialises them
-            p["feed_forward"] = {
-                "router": {"kernel": self.zeros((d + embed_dim, E))},
-                "w1": self.uniform((E, d, h), xb), "b1": self.zeros((E, h)),
-                "w2": self.uniform((E, h, d), xb), "b2": self.zeros((E, d))}
+            p["feed_forward"] = init_moe_ffn(self.g, d, *moe, self.dtype)
         return p
 
     def stacked(self, n, make):
@@ -190,7 +196,8 @@ def init(cfg: MoEEncoderConfig, input_dim: int, output_dim: int,
     """Random parameters for the hier MoE conformer, drawn on
     ``generator``'s device. Routers start at zero, as in the reference
     (every token then goes to expert 0): randomise them for real
-    dispatch."""
+    dispatch. ExMarc configs (``cfg.exmarc``) get a MoE macaron FFN in
+    every MoE block."""
     ini = _Init(generator, device, dtype)
     d = cfg.attention_dim
     params = ini.dense_encoder(cfg, input_dim, output_dim)
@@ -198,10 +205,10 @@ def init(cfg: MoEEncoderConfig, input_dim: int, output_dim: int,
     params["embed"] = ini.dense_encoder(cfg.embed_conf, input_dim,
                                         output_dim)
     moe = (cfg.embed_dim, cfg.moe_conf.total_experts,
-           cfg.moe_conf.hidden_units)
+           cfg.moe_conf.hidden_units, cfg.moe_conf.router_with_bias)
     params["blocks"] = ini.stacked(cfg.num_blocks, lambda: ini.block(
         d, cfg.attention_heads, cfg.moe_conf.hidden_units,
-        cfg.cnn_module_kernel, moe=moe))
+        cfg.cnn_module_kernel, moe=moe, moe_macaron=cfg.exmarc))
     params["after_norm_6"] = ini.norm(d)
     params["after_norm_12"] = ini.norm(d)
     return params

@@ -131,7 +131,12 @@ def check_stream_supported(cfg: EncoderConfig) -> None:
     run. They run Conv2dSubsampling4 with rel-pos rows and no LayerNorm
     after it, as the JAX package's chunk front end does whatever the
     config says (which gives wrong frames for any other front end, with
-    no error)."""
+    no error). An ExMarc encoder (``exmarc``) raises too: the JAX chunk
+    block runs the dense FFN on its MoE macaron weights and fails."""
+    if getattr(cfg, "exmarc", False):
+        raise ValueError("streams of an ExMarc encoder (exmarc=True, the "
+                         "MoE macaron FFN) are not run: the JAX chunk block "
+                         "reads the macaron FFN as a dense FFN")
     bad = [f"{name}={value!r}" for name, value, want in (
         ("input_layer", cfg.input_layer, "conv2d"),
         ("pos_enc_layer_type", cfg.pos_enc_layer_type, "rel_pos"),
@@ -289,9 +294,7 @@ def forward_chunk_moe(params, cfg: MoEEncoderConfig,
     """One streaming step of the hier MoE encoder: the embed sub-encoder
     streams in lock-step (its own caches) and its normalized chunk hidden
     feeds the routers. Returns (logits, new state, new embed state)."""
-    if cfg.exmarc:
-        raise NotImplementedError("the ExMarc (MoE macaron) variant is not "
-                                  "ported (ROADMAP Queue 1 item 10)")
+    check_stream_supported(cfg)
     e_cfg = cfg.embed_conf
     e_cache_T = embed_state.att_cache.shape[3]
     ex, e_pos, e_valid, C = _frontend_chunk(params["embed"], e_cfg,

@@ -96,3 +96,76 @@ def init_linear(generator: torch.Generator, d_in: int, d_out: int,
 def init_layer_norm(d: int, device=None, dtype: torch.dtype = torch.float32):
     return {"scale": torch.ones((d,), device=device, dtype=dtype),
             "bias": torch.zeros((d,), device=device, dtype=dtype)}
+
+
+# ---------------------------------------------------------------------------
+# the model zoo's other norms; statistics in float32, the result in x's
+# dtype
+# ---------------------------------------------------------------------------
+
+def group_norm(p, x: torch.Tensor, num_groups: int,
+               eps: float = 1e-5) -> torch.Tensor:
+    """GroupNorm over the last dim: ``num_groups`` groups of C/num_groups
+    channels, biased variance."""
+    *lead, C = x.shape
+    if C % num_groups:
+        raise ValueError(f"{C} channels do not split into {num_groups} "
+                         "groups")
+    xg = x.float().reshape(*lead, num_groups, C // num_groups)
+    mean = xg.mean(dim=-1, keepdim=True)
+    var = (xg - mean).square().mean(dim=-1, keepdim=True)
+    y = ((xg - mean) * torch.rsqrt(var + eps)).reshape(*lead, C)
+    y = y * p["scale"].float() + p["bias"].float()
+    return y.to(x.dtype)
+
+
+def mask_batch_norm(p, x: torch.Tensor, valid_mask: torch.Tensor,
+                    train: bool = False, eps: float = 1e-8,
+                    momentum: float = 0.99):
+    """BatchNorm with statistics over the valid frames only. x: (N, D)
+    flat frames; valid_mask: (N,) bool; p: {"scale", "bias",
+    "running_mean", "running_var"}. Returns (y, the new running stats).
+
+    Train mode takes the masked batch mean and the unbiased (n - 1)
+    variance, and updates the running stats as ``old * momentum + batch
+    * (1 - momentum)``; eval mode normalizes with the running stats and
+    returns them as they are."""
+    xf = x.float()
+    m = valid_mask.float()[:, None]
+    if train:
+        n = m.sum().clamp(min=1.0)
+        mean = (xf * m).sum(dim=0, keepdim=True) / n
+        var = ((xf - mean).square() * m).sum(dim=0, keepdim=True) \
+            / (n - 1.0).clamp(min=1.0)
+        new_mean = p["running_mean"] * momentum + mean[0] * (1 - momentum)
+        new_var = p["running_var"] * momentum + var[0] * (1 - momentum)
+    else:
+        mean = p["running_mean"][None].float()
+        var = p["running_var"][None].float()
+        new_mean, new_var = p["running_mean"], p["running_var"]
+    y = (xf - mean) / torch.sqrt(var + eps)
+    y = y * p["scale"].float() + p["bias"].float()
+    return y.to(x.dtype), {"running_mean": new_mean, "running_var": new_var}
+
+
+def varlen_instance_norm_2d(p, x: torch.Tensor, lengths: torch.Tensor,
+                            eps: float = 1e-8,
+                            affine: bool = False) -> torch.Tensor:
+    """InstanceNorm2d over each utterance's valid frames, as the
+    reference computes it: for x (B, C, T, F), sums over (channel, valid
+    time) for each feature column, divided by ``lengths * F`` bins (the
+    reference's count); the padded frames are zeroed first."""
+    B, C, T, F = x.shape
+    valid = (torch.arange(T, device=x.device)[None]
+             < lengths.reshape(-1, 1)).float()
+    m = valid[:, None, :, None]
+    num_bins = (lengths.float() * F).reshape(B, 1, 1, 1)
+    xm = x.float() * m
+    mean = xm.sum(dim=(1, 2), keepdim=True) / num_bins
+    var = ((xm - mean).square() * m).sum(dim=(1, 2), keepdim=True) \
+        / num_bins
+    y = (xm - mean) / torch.sqrt(var + eps)
+    if affine:
+        y = y * p["scale"].float().reshape(1, -1, 1, 1) \
+            + p["bias"].float().reshape(1, -1, 1, 1)
+    return y.to(x.dtype)

@@ -26,6 +26,9 @@ downstream, where the XLA path returns zeros).
 
 Each function launches its CUDA kernel (``csrc/flash_attention.cu``) on
 CUDA tensors, or raises, and takes its plain version on CPU tensors. The
+forward runs through the custom operator ``m3asr::flash_fwd``
+(``ops/library.py``), so that ``torch.export`` traces through it; the
+backward (K3) stays behind :class:`FlashAttentionFn`. The
 kernels take float32 or bfloat16 with ``(D2, Dk)`` of ``(128, 64)`` (the
 flagship's MoE blocks) or ``(256, 128)`` (its embed blocks), and the
 forward also ``(64, 64)`` (the DFSMN heads). Each launch gets its
@@ -39,6 +42,7 @@ from typing import Optional, Tuple
 import torch
 
 from m3asr_tpu_torch.ops.common import linear
+from m3asr_tpu_torch.ops.library import kernel_op
 
 _NEG_INF = -1e30
 WIDTHS = ((128, 64), (256, 128))       # (D2, Dk) the kernels are built for
@@ -208,9 +212,23 @@ class FlashKernels:
     def forward(self, q2, k2, v, lengths, scale: float, window: Window = None,
                 mem_cols: int = 0, return_lse: bool = False,
                 rows: Optional[int] = None):
-        """K2 on CUDA tensors: out (B,H,T,Dk) and lse (B,H,T,1) or None.
-        ``rows``: the block's query rows, by default
-        :func:`launch_rows`."""
+        """K2 on CUDA tensors (``m3asr::flash_fwd``): out (B,H,T,Dk) and
+        lse (B,H,T,1) or None. ``rows``: the block's query rows, by
+        default :func:`launch_rows`. Raises on anything the kernel does
+        not take, CPU tensors included."""
+        if q2.device.type != "cuda":
+            self._check(q2, k2, v, lengths, window,
+                        () if rows is None else (rows,), FWD_ROWS,
+                        FWD_WIDTHS)
+        lo, hi = (None, None) if window is None else window
+        out, lse = flash_fwd(q2, k2, v, lengths, lo, hi, float(scale),
+                             int(mem_cols), return_lse, rows)
+        return out, (lse if return_lse else None)
+
+    def _forward(self, q2, k2, v, lengths, scale: float, window: Window,
+                 mem_cols: int, return_lse: bool, rows: Optional[int]):
+        """``m3asr::flash_fwd``'s CUDA implementation: checks, then the
+        launch."""
         from m3asr_tpu_torch import kernels
         q2, k2, v = q2.contiguous(), k2.contiguous(), v.contiguous()
         B, H, T, _ = q2.shape
@@ -278,6 +296,41 @@ def _ptr(t: Optional[torch.Tensor]):
 flash_kernels = FlashKernels()
 
 
+def _flash_fwd_cpu(q2, k2, v, lengths, lo, hi, scale, mem_cols, return_lse,
+                   rows):
+    window = None if lo is None else (lo, hi)
+    out, lse = flash_attention_reference(q2, k2, v, lengths, scale, window,
+                                         mem_cols)
+    return out, (lse if return_lse else lse.new_empty((0,)))
+
+
+def _flash_fwd_cuda(q2, k2, v, lengths, lo, hi, scale, mem_cols, return_lse,
+                    rows):
+    window = None if lo is None else (lo, hi)
+    out, lse = flash_kernels._forward(q2, k2, v, lengths, scale, window,
+                                      mem_cols, return_lse, rows)
+    return out, (lse if return_lse else
+                 torch.empty((0,), dtype=torch.float32, device=v.device))
+
+
+def _flash_fwd_fake(q2, k2, v, lengths, lo, hi, scale, mem_cols, return_lse,
+                    rows):
+    B, H, T, _ = q2.shape
+    lse = (q2.new_empty((B, H, T, 1), dtype=torch.float32) if return_lse
+           else q2.new_empty((0,), dtype=torch.float32))
+    return v.new_empty((B, H, T, v.shape[3])), lse
+
+
+# K2: (out (B,H,T,Dk) in v's dtype, lse float32 (B,H,T,1), or (0,)
+# without return_lse)
+flash_fwd = kernel_op(
+    "flash_fwd",
+    "(Tensor q2, Tensor k2, Tensor v, Tensor? lengths, Tensor? lo, "
+    "Tensor? hi, float scale, int mem_cols, bool return_lse, int? rows) "
+    "-> (Tensor, Tensor)",
+    _flash_fwd_cpu, _flash_fwd_cuda, _flash_fwd_fake)
+
+
 def flash_attention_bhtd(q2: torch.Tensor, k2: torch.Tensor, v: torch.Tensor,
                          lengths: Optional[torch.Tensor], scale: float,
                          window: Window = None, mem_cols: int = 0,
@@ -285,13 +338,10 @@ def flash_attention_bhtd(q2: torch.Tensor, k2: torch.Tensor, v: torch.Tensor,
     """q2 (B,H,T,D2), k2 (B,H,S,D2), v (B,H,S,Dk), lengths int (B,) or
     None. Returns out (B,H,T,Dk) in v's dtype, or (out, lse (B,H,T,1)
     float32) with ``return_lse``. K2 on CUDA, its plain version on the
-    CPU."""
-    if q2.device.type == "cpu":
-        out, lse = flash_attention_reference(q2, k2, v, lengths, scale,
-                                             window, mem_cols)
-    else:
-        out, lse = flash_kernels.forward(q2, k2, v, lengths, scale, window,
-                                         mem_cols, return_lse)
+    CPU (``m3asr::flash_fwd``)."""
+    lo, hi = (None, None) if window is None else window
+    out, lse = flash_fwd(q2, k2, v, lengths, lo, hi, float(scale),
+                         int(mem_cols), return_lse, None)
     return (out, lse) if return_lse else out
 
 

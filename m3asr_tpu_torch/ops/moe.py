@@ -1,4 +1,6 @@
-"""Top-1 catEmbed MoE FFN (port of ``m3asr_tpu/ops/moe.py``).
+"""catEmbed MoE FFN (port of ``m3asr_tpu/ops/moe.py``): the deployed
+top-1 softmax gate, and fastmoe's top-k gates (:func:`naive_topk_gate`,
+:func:`noisy_topk_gate`) for ``moe_ffn(top_k > 1)``.
 
 Expert weights: w1 ``(E, d, h)``, w2 ``(E, h, d)`` (or their int8 /
 packed int4 forms, ``ops/quant.py``); expert math
@@ -28,6 +30,7 @@ product and bias add in x's dtype.
 
 from __future__ import annotations
 
+import math
 from typing import List, Optional, Tuple
 
 import torch
@@ -44,7 +47,8 @@ from m3asr_tpu_torch.ops.moe_stream import stream_kernel
 # CUDA graph cannot capture: ``ragged`` and ``ragged_padded`` size each
 # expert's product from counts read with ``.tolist()``; ``capacity`` and
 # ``quant_capacity`` (capacity on dequantized weights) branch to the
-# dense stage on ``counts.max() > C``. Engines run these eager.
+# dense stage on ``counts.max() > C``. Engines run these eager and do not
+# export them.
 HOST_SYNC_STAGES = frozenset({"ragged", "ragged_padded", "capacity",
                               "quant_capacity"})
 
@@ -84,6 +88,66 @@ def softmax_top1_gate(p, router_inputs: torch.Tensor,
         gate_value = gate_value.masked_fill(~valid[..., None], 0.0)
         gate_idx = gate_idx.masked_fill(~valid, 0)
     return gate_value, gate_idx
+
+
+def naive_topk_gate(p, x: torch.Tensor, top_k: int,
+                    lengths: Optional[torch.Tensor] = None
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """fastmoe's NaiveGate: float32 logits -> top-k -> softmax over the k
+    chosen, in x's dtype. Positions past the valid length get gate 0 and
+    index 0. Returns (gate (B, T, k), idx int32 (B, T, k))."""
+    vals, idx = _topk(_router_logits(p, x), top_k)
+    gate = torch.softmax(vals, dim=-1).to(x.dtype)
+    return _mask_topk(gate, idx, lengths)
+
+
+def noisy_topk_gate(p, x: torch.Tensor, top_k: int,
+                    generator: Optional[torch.Generator] = None,
+                    lengths: Optional[torch.Tensor] = None,
+                    train: bool = True, noise: Optional[torch.Tensor] = None):
+    """fastmoe's NoisyGate: clean logits plus gaussian noise scaled by
+    ``softplus(x noise_kernel) + 1e-2`` (train only) -> top-k -> softmax
+    over the k chosen. The noise is drawn from ``generator`` (where the
+    JAX package takes a key), or given as ``noise`` (B, T, E). Returns
+    (gate (B, T, k), idx int32 (B, T, k), cv2): cv2 is the CV^2 of each
+    expert's summed gate over the valid tokens, the load-balance aux
+    loss. In eval mode the gate equals :func:`naive_topk_gate` (without
+    a router bias)."""
+    clean = _router_logits({"kernel": p["kernel"]}, x)
+    logits = clean
+    if train:
+        raw = _router_logits({"kernel": p["noise_kernel"]}, x)
+        std = torch.nn.functional.softplus(raw) + 1e-2
+        if noise is None:
+            noise = torch.randn(clean.shape, generator=generator,
+                                device=clean.device)
+        logits = clean + noise.float() * std
+    vals, idx = _topk(logits, top_k)
+    gate = torch.softmax(vals, dim=-1).to(x.dtype)
+    gate, idx = _mask_topk(gate, idx, lengths)
+    E = clean.shape[-1]
+    onehot = torch.nn.functional.one_hot(idx.long(), E).float()
+    if lengths is not None:
+        valid = make_valid_mask(lengths, x.shape[1])
+        onehot = onehot * valid[..., None, None]
+    importance = (onehot * gate.float()[..., None]).sum(dim=(0, 1, 2))
+    cv2 = importance.var(unbiased=False) / (importance.mean() ** 2 + 1e-10)
+    return gate, idx, cv2
+
+
+def _topk(logits: torch.Tensor, k: int):
+    """``lax.top_k``: the k largest, ties to the lower index (a stable
+    descending sort: torch.topk leaves the order of ties open), idx
+    int32."""
+    vals, idx = torch.sort(logits, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k].to(torch.int32)
+
+
+def _mask_topk(gate, idx, lengths):
+    if lengths is None:
+        return gate, idx
+    valid = make_valid_mask(lengths, gate.shape[1])[..., None]
+    return gate.masked_fill(~valid, 0.0), idx.masked_fill(~valid, 0)
 
 
 def moe_experts_dense(p, x: torch.Tensor, gate_idx: torch.Tensor,
@@ -358,11 +422,54 @@ def _dispatch(p, x: torch.Tensor, gate_idx: torch.Tensor, impl: str,
 
 
 def moe_ffn(p, x: torch.Tensor, embed: Optional[torch.Tensor],
-            lengths: Optional[torch.Tensor],
-            impl: str = "dense") -> torch.Tensor:
-    """catEmbed top-1 MoE FFN: router(cat[embed, x]) -> gate -> expert
-    FFN -> * gate value."""
+            lengths: Optional[torch.Tensor], impl: str = "dense",
+            keep_expert_output: bool = False, top_k: int = 1,
+            return_router_probs: bool = False):
+    """catEmbed MoE FFN: router(cat[embed, x]) -> gate -> expert FFN ->
+    * gate value. ``top_k=1`` is the deployed softmax top-1 gate
+    (``keep_expert_output`` skips the gate product; ``return_router_probs``
+    also returns the router's full softmax, float32 (B, T, E)); ``top_k >
+    1`` is fastmoe's NaiveGate path: the gate-weighted sum of one stage
+    call per k, each of which launches its kernel (padded rows: gate 0,
+    expert 0)."""
     router_inputs = x if embed is None else torch.cat([embed, x], dim=-1)
-    gate_value, gate_idx = softmax_top1_gate(p["router"], router_inputs,
-                                             lengths)
-    return _dispatch(p, x, gate_idx, impl) * gate_value
+    if top_k == 1:
+        gate_value, gate_idx = softmax_top1_gate(p["router"], router_inputs,
+                                                 lengths)
+        y = _dispatch(p, x, gate_idx, impl)
+        if not keep_expert_output:
+            y = y * gate_value
+        if return_router_probs:
+            return y, router_probs(p["router"], router_inputs)
+        return y
+    gate, idx = naive_topk_gate(p["router"], router_inputs, top_k, lengths)
+    y = torch.zeros_like(x)
+    for k in range(top_k):
+        y = y + _dispatch(p, x, idx[..., k], impl) * gate[..., k:k + 1]
+    return y
+
+
+def init_moe_ffn(g: torch.Generator, d_model: int, embed_dim: int,
+                 num_experts: int, hidden_units: int,
+                 router_with_bias: bool = False, dtype=torch.float32):
+    """A catEmbed MoE FFN's seeded parameters, drawn on ``g``'s device:
+    FMoELinear's xavier-uniform (gain 0.5) experts, zero biases and a
+    zero router, as the reference initialises them (every token then
+    goes to expert 0: randomise the router for real dispatch)."""
+    dev = g.device
+    xb = 0.5 * math.sqrt(6.0 / (d_model + hidden_units))
+
+    def uniform(shape):
+        u = torch.rand(shape, generator=g, device=dev)
+        return ((u * 2 - 1) * xb).to(dtype)
+
+    def zeros(*shape):
+        return torch.zeros(shape, device=dev, dtype=dtype)
+    p = {"router": {"kernel": zeros(d_model + embed_dim, num_experts)},
+         "w1": uniform((num_experts, d_model, hidden_units)),
+         "b1": zeros(num_experts, hidden_units),
+         "w2": uniform((num_experts, hidden_units, d_model)),
+         "b2": zeros(num_experts, d_model)}
+    if router_with_bias:
+        p["router"]["bias"] = zeros(num_experts)
+    return p

@@ -31,12 +31,15 @@ slice it stages, and repeated reads come from L2.
 Weights ``w1_q4`` ``(E, d, h/2)`` / ``w2_q4`` ``(E, h, d/2)``, or stacked
 ``(L, E, ...)`` with a ``layer`` index; scales and biases are this
 layer's (``moe_runs`` module docstring). :data:`q4_kernel` (K6) and
-:data:`q4_tiled_kernel` (K7) are the wrappers: the kernel on a CUDA
-tensor (or it raises), the plain version on a CPU tensor; ``launches``
-counts calls that launched the kernel. Both take GEMM1's activation,
-``"swish"`` or ``"relu"``, and an optional clamp of the hidden
-(``upper_bound``), as the run-length kernels do (``moe_runs`` module
-docstring); K7 clamps either activation, K6 its ReLU only.
+:data:`q4_tiled_kernel` (K7) are the wrappers, through the custom
+operators ``m3asr::moe_q4_dense`` and ``m3asr::moe_q4_tiled``
+(``ops/library.py``; ``m3asr::moe_q4_row_tiles`` is K6's row-tile front
+alone): the kernel on a CUDA tensor (or it raises), the plain version on
+a CPU tensor; ``launches`` counts calls that launched the kernel. Both
+take GEMM1's activation, ``"swish"`` or ``"relu"``, and an optional
+clamp of the hidden (``upper_bound``), as the run-length kernels do
+(``moe_runs`` module docstring); K7 clamps either activation, K6 its
+ReLU only.
 """
 
 from __future__ import annotations
@@ -46,7 +49,9 @@ from typing import Optional
 import torch
 
 from m3asr_tpu_torch.ops.common import activation_name
-from m3asr_tpu_torch.ops.moe_runs import (ACT_CODES, _pad_tokens, _prepare,
+from m3asr_tpu_torch.ops.library import kernel_op
+from m3asr_tpu_torch.ops.moe_runs import (ACT_CODES, _ACT_ARGS, _expert_tree,
+                                          _pad_tokens, _prepare, _same_as_x,
                                           _unpad, check_quant_args,
                                           expert_ffn_reference, kernel_act,
                                           layer_scales, runs_layout)
@@ -99,18 +104,26 @@ class Q4Kernel:
                  layer: Optional[int] = None, act_quant: bool = False,
                  activation="swish",
                  upper_bound: Optional[float] = None) -> torch.Tensor:
-        if x.device.type == "cpu":
-            return moe_experts_q4_reference(p, x, gate_idx, layer,
-                                            act_quant, activation,
-                                            upper_bound)
-        return self.launch(p, x, gate_idx, layer, act_quant, activation,
-                           upper_bound)
+        """``m3asr::moe_q4_dense``: the kernel on a CUDA tensor, the plain
+        version on a CPU tensor."""
+        return moe_q4_dense(x, gate_idx, *_q4_tensors(p), layer, act_quant,
+                            activation_name(activation), upper_bound)
 
     def launch(self, p, x: torch.Tensor, gate_idx: torch.Tensor,
                layer: Optional[int] = None, act_quant: bool = False,
                activation="swish",
                upper_bound: Optional[float] = None) -> torch.Tensor:
         """Run the kernel on CUDA tensors; raises on anything else."""
+        if x.device.type != "cuda":
+            raise ValueError(f"the int4 dense kernel needs CUDA tensors, "
+                             f"got x on {x.device}")
+        return self(p, x, gate_idx, layer, act_quant, activation,
+                    upper_bound)
+
+    def _launch(self, p, x: torch.Tensor, gate_idx: torch.Tensor,
+                layer: Optional[int], act_quant: bool, activation,
+                upper_bound: Optional[float]) -> torch.Tensor:
+        """The operator's CUDA implementation: checks, then the launch."""
         from m3asr_tpu_torch import kernels
         if x.device.type != "cuda":
             raise ValueError(f"the int4 dense kernel needs CUDA tensors, "
@@ -162,6 +175,27 @@ class Q4Kernel:
 
 
 q4_kernel = Q4Kernel()   # K6
+
+
+def _q4_tensors(p):
+    """(w1, s1, b1, w2, s2, b2) of an int4 expert tree, as the operators
+    take them."""
+    return (p["w1_q4"], p["w1_scale"], p.get("b1"), p["w2_q4"],
+            p["w2_scale"], p.get("b2"))
+
+
+_Q4_ARGS = ("Tensor x, Tensor gate_idx, Tensor w1, Tensor s1, Tensor? b1, "
+            "Tensor w2, Tensor s2, Tensor? b2, int? layer, bool act_quant")
+
+moe_q4_dense = kernel_op(
+    "moe_q4_dense", f"({_Q4_ARGS}, {_ACT_ARGS}) -> Tensor",
+    lambda x, g, w1, s1, b1, w2, s2, b2, layer, a8, act, ub:
+        moe_experts_q4_reference(_expert_tree("q4", w1, s1, b1, w2, s2, b2),
+                                 x, g, layer, a8, act, ub),
+    lambda x, g, w1, s1, b1, w2, s2, b2, layer, a8, act, ub:
+        q4_kernel._launch(_expert_tree("q4", w1, s1, b1, w2, s2, b2), x, g,
+                          layer, a8, act, ub),
+    _same_as_x)
 
 
 # ---------------------------------------------------------------------------
@@ -254,12 +288,10 @@ class Q4TiledKernel:
                  upper_bound: Optional[float] = None,
                  layer: Optional[int] = None,
                  act_quant: bool = False) -> torch.Tensor:
-        if x.device.type == "cpu":
-            return moe_experts_q4_tiled_reference(
-                p, x, gate_idx, tile, activation, upper_bound, layer,
-                act_quant)
-        return self.launch(p, x, gate_idx, tile, activation, upper_bound,
-                           layer, act_quant)
+        """``m3asr::moe_q4_tiled``: the kernel on a CUDA tensor, the plain
+        version on a CPU tensor."""
+        return moe_q4_tiled(x, gate_idx, *_q4_tensors(p), layer, act_quant,
+                            tile, activation_name(activation), upper_bound)
 
     def launch(self, p, x: torch.Tensor, gate_idx: torch.Tensor,
                tile: Optional[int] = None, activation="swish",
@@ -267,6 +299,17 @@ class Q4TiledKernel:
                layer: Optional[int] = None,
                act_quant: bool = False) -> torch.Tensor:
         """Run the kernel on CUDA tensors; raises on anything else."""
+        if x.device.type != "cuda":
+            raise ValueError(f"the tiled int4 kernel needs CUDA tensors, "
+                             f"got x on {x.device}")
+        return self(p, x, gate_idx, tile, activation, upper_bound, layer,
+                    act_quant)
+
+    def _launch(self, p, x: torch.Tensor, gate_idx: torch.Tensor,
+                tile: Optional[int], activation,
+                upper_bound: Optional[float], layer: Optional[int],
+                act_quant: bool) -> torch.Tensor:
+        """The operator's CUDA implementation: checks, then the launch."""
         from m3asr_tpu_torch import kernels
         if x.device.type != "cuda":
             raise ValueError(f"the tiled int4 kernel needs CUDA tensors, "
@@ -324,3 +367,14 @@ class Q4TiledKernel:
 
 
 q4_tiled_kernel = Q4TiledKernel()   # K7
+
+moe_q4_tiled = kernel_op(
+    "moe_q4_tiled", f"({_Q4_ARGS}, int? tile, {_ACT_ARGS}) -> Tensor",
+    lambda x, g, w1, s1, b1, w2, s2, b2, layer, a8, tile, act, ub:
+        moe_experts_q4_tiled_reference(
+            _expert_tree("q4", w1, s1, b1, w2, s2, b2), x, g, tile, act, ub,
+            layer, a8),
+    lambda x, g, w1, s1, b1, w2, s2, b2, layer, a8, tile, act, ub:
+        q4_tiled_kernel._launch(_expert_tree("q4", w1, s1, b1, w2, s2, b2),
+                                x, g, tile, act, ub, layer, a8),
+    _same_as_x)

@@ -16,9 +16,11 @@ fmts ``"f"``, ``"q8"`` and ``"q4"``. Three parts:
   (:func:`expert_ffn_reference`). The CPU path and the tests use it.
 * :class:`RunsKernel`: the wrapper of ``csrc/moe_runs.cu``, one instance
   per weight format (:data:`runs_kernel`, :data:`runs_q8_kernel`,
-  :data:`runs_q4_kernel`; :func:`runs_for` picks by the params). On a
-  CUDA tensor it launches the kernel (or raises); on a CPU tensor it
-  takes the plain version. ``launches`` counts calls that launched it.
+  :data:`runs_q4_kernel`; :func:`runs_for` picks by the params). It calls
+  the custom operator ``m3asr::moe_runs_f`` (K1) or ``m3asr::moe_runs_q``
+  (K4/K5, with the a8 row quantization) (``ops/library.py``): on a CUDA
+  tensor that launches the kernel (or raises); on a CPU tensor it takes
+  the plain version. ``launches`` counts calls that launched it.
 
 GEMM1's activation is SiLU (``activation="swish"``, the conformer
 experts) or ReLU (``"relu"``, the DFSMN experts), with an optional clamp
@@ -42,6 +44,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from m3asr_tpu_torch.ops.common import activation_fn, activation_name
+from m3asr_tpu_torch.ops.library import kernel_op
 from m3asr_tpu_torch.ops.quant import unpack_int4
 
 TILE = 32   # rows per token tile; the kernel's TM
@@ -357,18 +360,38 @@ class RunsKernel:
                  layer: Optional[int] = None, act_quant: bool = False,
                  activation="swish",
                  upper_bound: Optional[float] = None) -> torch.Tensor:
-        if x.device.type == "cpu":
-            return moe_experts_runs_reference(
-                p, x, gate_idx, layer, act_quant, activation=activation,
-                upper_bound=upper_bound)
-        return self.launch(p, x, gate_idx, layer, act_quant, activation,
-                           upper_bound)
+        """The operator of ``p``'s weight format: the kernel on a CUDA
+        tensor, the plain version on a CPU tensor."""
+        fmt = weight_format(p)
+        if act_quant and fmt == "f":
+            raise ValueError("act_quant needs int8/int4 expert weights")
+        name = activation_name(activation)
+        w1, w2 = (p[k] for k in _WEIGHTS[fmt])
+        if fmt == "f":
+            return moe_runs_f(x, gate_idx, w1, p.get("b1"), w2, p.get("b2"),
+                              layer, name, upper_bound)
+        return moe_runs_q(x, gate_idx, w1, p["w1_scale"], p.get("b1"), w2,
+                          p["w2_scale"], p.get("b2"), fmt, layer, act_quant,
+                          name, upper_bound)
 
     def launch(self, p, x: torch.Tensor, gate_idx: torch.Tensor,
                layer: Optional[int] = None, act_quant: bool = False,
                activation="swish",
                upper_bound: Optional[float] = None) -> torch.Tensor:
         """Run the kernel on CUDA tensors; raises on anything else."""
+        if x.device.type != "cuda":
+            raise ValueError(f"the runs kernel needs CUDA tensors, got "
+                             f"x on {x.device}")
+        if weight_format(p) != self.fmt:
+            raise ValueError(f"the {self.fmt!r} runs kernel got "
+                             f"{weight_format(p)!r} weights")
+        return self(p, x, gate_idx, layer, act_quant, activation,
+                    upper_bound)
+
+    def _launch(self, p, x: torch.Tensor, gate_idx: torch.Tensor,
+                layer: Optional[int], act_quant: bool, activation,
+                upper_bound: Optional[float]) -> torch.Tensor:
+        """The operators' CUDA implementation: checks, then the launch."""
         from m3asr_tpu_torch import kernels
         if x.device.type != "cuda":
             raise ValueError(f"the runs kernel needs CUDA tensors, got "
@@ -474,6 +497,49 @@ runs_kernel = RunsKernel("f")        # K1
 runs_q8_kernel = RunsKernel("q8")    # K4
 runs_q4_kernel = RunsKernel("q4")    # K5
 _BY_FMT = {"f": runs_kernel, "q8": runs_q8_kernel, "q4": runs_q4_kernel}
+
+
+def _expert_tree(fmt: str, w1, s1, b1, w2, s2, b2):
+    """The operators' tensors as the expert tree the wrappers take."""
+    k1, k2 = _WEIGHTS[fmt]
+    p = {k1: w1, k2: w2, "b1": b1, "b2": b2}
+    if s1 is not None:
+        p["w1_scale"], p["w2_scale"] = s1, s2
+    return p
+
+
+def _same_as_x(x: torch.Tensor, *_args) -> torch.Tensor:
+    """Fake implementation: the output is x's shape and dtype."""
+    return x.new_empty(x.shape)
+
+
+_ACT_ARGS = "str activation, float? upper_bound"
+
+moe_runs_f = kernel_op(
+    "moe_runs_f",
+    "(Tensor x, Tensor gate_idx, Tensor w1, Tensor? b1, Tensor w2, "
+    f"Tensor? b2, int? layer, {_ACT_ARGS}) -> Tensor",
+    lambda x, g, w1, b1, w2, b2, layer, act, ub: moe_experts_runs_reference(
+        _expert_tree("f", w1, None, b1, w2, None, b2), x, g, layer,
+        activation=act, upper_bound=ub),
+    lambda x, g, w1, b1, w2, b2, layer, act, ub: runs_kernel._launch(
+        _expert_tree("f", w1, None, b1, w2, None, b2), x, g, layer, False,
+        act, ub),
+    _same_as_x)
+
+moe_runs_q = kernel_op(
+    "moe_runs_q",
+    "(Tensor x, Tensor gate_idx, Tensor w1, Tensor s1, Tensor? b1, "
+    "Tensor w2, Tensor s2, Tensor? b2, str fmt, int? layer, bool act_quant, "
+    f"{_ACT_ARGS}) -> Tensor",
+    lambda x, g, w1, s1, b1, w2, s2, b2, fmt, layer, a8, act, ub:
+        moe_experts_runs_reference(
+            _expert_tree(fmt, w1, s1, b1, w2, s2, b2), x, g, layer, a8,
+            activation=act, upper_bound=ub),
+    lambda x, g, w1, s1, b1, w2, s2, b2, fmt, layer, a8, act, ub:
+        _BY_FMT[fmt]._launch(_expert_tree(fmt, w1, s1, b1, w2, s2, b2), x,
+                             g, layer, a8, act, ub),
+    _same_as_x)
 
 
 def runs_for(p) -> RunsKernel:

@@ -22,8 +22,10 @@ output in x's dtype. This is not K4's arithmetic (exact integer sums
 times float32 scales).
 
 Weights are ``(E, d, h)`` / ``(E, h, d)`` (one layer; the model passes
-per-layer views). :data:`stream_kernel` is the wrapper: the kernel on a
-CUDA tensor (or it raises), the plain version on a CPU tensor;
+per-layer views). :data:`stream_kernel` is the wrapper, through the
+custom operator ``m3asr::moe_stream`` (``ops/library.py``;
+``m3asr::moe_stream_row_tiles`` is its row-tile front alone): the kernel
+on a CUDA tensor (or it raises), the plain version on a CPU tensor;
 ``launches`` counts calls that launched the kernel.
 """
 
@@ -31,7 +33,8 @@ from __future__ import annotations
 
 import torch
 
-from m3asr_tpu_torch.ops.moe_runs import expert_ffn_reference
+from m3asr_tpu_torch.ops.library import kernel_op
+from m3asr_tpu_torch.ops.moe_runs import _same_as_x, expert_ffn_reference
 from m3asr_tpu_torch.ops.row_tiles import MAX_EXPERTS
 
 
@@ -100,13 +103,29 @@ class StreamKernel:
 
     def __call__(self, p, x: torch.Tensor,
                  gate_idx: torch.Tensor) -> torch.Tensor:
-        if x.device.type == "cpu":
-            return moe_experts_dense_stream_reference(p, x, gate_idx)
-        return self.launch(p, x, gate_idx)
+        """``m3asr::moe_stream``: the kernel on a CUDA tensor, the plain
+        version on a CPU tensor."""
+        if "w1_q" in p:
+            return moe_stream(x, gate_idx, p["w1_q"], p["w1_scale"],
+                              p.get("b1"), p["w2_q"], p["w2_scale"],
+                              p.get("b2"))
+        if "w1" not in p:
+            raise ValueError("the streamer takes float (w1/w2) or int8 "
+                             "(w1_q/w2_q) expert weights")
+        return moe_stream(x, gate_idx, p["w1"], None, p.get("b1"), p["w2"],
+                          None, p.get("b2"))
 
     def launch(self, p, x: torch.Tensor,
                gate_idx: torch.Tensor) -> torch.Tensor:
         """Run the kernel on CUDA tensors; raises on anything else."""
+        if x.device.type != "cuda":
+            raise ValueError(f"the streamer kernel needs CUDA tensors, got "
+                             f"x on {x.device}")
+        return self(p, x, gate_idx)
+
+    def _launch(self, p, x: torch.Tensor,
+                gate_idx: torch.Tensor) -> torch.Tensor:
+        """The operator's CUDA implementation: checks, then the launch."""
         from m3asr_tpu_torch import kernels
         if x.device.type != "cuda":
             raise ValueError(f"the streamer kernel needs CUDA tensors, got "
@@ -166,3 +185,20 @@ class StreamKernel:
 
 
 stream_kernel = StreamKernel()   # K8
+
+
+def _stream_tree(w1, s1, b1, w2, s2, b2):
+    if s1 is None:
+        return {"w1": w1, "w2": w2, "b1": b1, "b2": b2}
+    return {"w1_q": w1, "w2_q": w2, "w1_scale": s1, "w2_scale": s2,
+            "b1": b1, "b2": b2}
+
+
+moe_stream = kernel_op(
+    "moe_stream",
+    "(Tensor x, Tensor gate_idx, Tensor w1, Tensor? s1, Tensor? b1, "
+    "Tensor w2, Tensor? s2, Tensor? b2) -> Tensor",
+    lambda x, g, *w: moe_experts_dense_stream_reference(_stream_tree(*w), x,
+                                                        g),
+    lambda x, g, *w: stream_kernel._launch(_stream_tree(*w), x, g),
+    _same_as_x)

@@ -4,8 +4,12 @@
 up to ``TILE_ROWS`` rows of one expert on the device, before the two
 GEMMs of K6 (``csrc/moe_q4.cu``) and K8 (``csrc/moe_stream.cu``) run
 over them. This module is its plain twin: the same int32 words from the
-same gate vector, and the reader of those words. ``chip_smoke.py`` holds
-the device front against it; the CPU tests check its invariants.
+same gate vector, and the reader of those words. :func:`front_op`
+registers each library's front as a custom operator at import
+(``m3asr::moe_q4_row_tiles``, ``m3asr::moe_stream_row_tiles``: the device
+front on a CUDA tensor, :func:`row_tiles_reference` on a CPU tensor).
+``chip_smoke.py`` holds the device front against it; the CPU tests check
+its invariants.
 
 The words (``front_ints(N, E)`` of them):
 
@@ -23,6 +27,7 @@ from typing import NamedTuple
 
 import torch
 
+from m3asr_tpu_torch.ops.library import kernel_op
 from m3asr_tpu_torch.ops.moe_runs import TILE as TILE_ROWS   # moe::TM
 
 MAX_EXPERTS = 127       # FRONT_MAX_EXPERTS: the front's buckets less one
@@ -90,3 +95,40 @@ def read_front(words: torch.Tensor, n_rows: int, n_experts: int) -> RowTiles:
     base = HEAD + n_rows
     return RowTiles(nt, n_none, words[HEAD:base],
                     *(words[base + i * m:base + i * m + nt] for i in range(3)))
+
+
+def front_op(prefix: str, library: str):
+    """Register ``m3asr::<prefix>_row_tiles(gate, n_experts) -> words``:
+    the front built into the kernel library ``kernels.<library>``. Its
+    CUDA implementation launches the front alone (which the GEMMs' entry
+    point does itself, on the words it is handed) on words filled with
+    -1, a value no word the front writes takes, so a word it fails to
+    write shows."""
+    def cuda(gate: torch.Tensor, n_experts: int) -> torch.Tensor:
+        from m3asr_tpu_torch import kernels
+        lib = getattr(kernels, library).load()
+        g = gate.reshape(-1).to(torch.int32).contiguous()
+        n = g.numel()
+        if not 1 <= n_experts <= MAX_EXPERTS:
+            raise ValueError(f"the row-tile front takes 1..{MAX_EXPERTS} "
+                             f"experts, got {n_experts}")
+        words = torch.full((getattr(lib, f"{prefix}_front_ints")(
+            n, n_experts),), -1, dtype=torch.int32, device=gate.device)
+        err = getattr(lib, f"{prefix}_row_tiles")(
+            g.data_ptr(), n, n_experts, words.data_ptr(),
+            torch.cuda.current_stream(gate.device).cuda_stream)
+        if err:
+            raise RuntimeError(f"{prefix}_row_tiles launch failed: CUDA "
+                               f"error {err}")
+        return words
+
+    def fake(gate: torch.Tensor, n_experts: int) -> torch.Tensor:
+        return gate.new_empty((front_ints(gate.numel(), n_experts),),
+                              dtype=torch.int32)
+    return kernel_op(f"{prefix}_row_tiles",
+                     "(Tensor gate, int n_experts) -> Tensor",
+                     row_tiles_reference, cuda, fake)
+
+
+moe_q4_row_tiles = front_op("moe_q4", "MOE_Q4")              # K6's front
+moe_stream_row_tiles = front_op("moe_stream", "MOE_STREAM")  # K8's front

@@ -350,6 +350,9 @@ class Engine:
                  cuda_graphs: bool = True):
         self._programs = {}
         self._graph_pool = None
+        self._exported_dir = None     # an engine dir's exported/ programs
+        self._loaded = {}             # (batch, length) -> module or None
+        self.loaded_buckets = set()   # buckets running a loaded program
         self._lock = threading.RLock()
         self.device = resolve_device(device)
         self.cuda_graphs = cuda_graphs
@@ -427,26 +430,11 @@ class Engine:
     # ------------------------------------------------------------------
     # bucket programs
     # ------------------------------------------------------------------
-    def _forward_fn(self, batch: int, length: int, out_mode=None):
-        """The bucket's forward (feat, feat_len) -> the JAX engine's tuple:
-
-        * ``logits`` / ``log_softmax``: (out (B, T', V), out_len);
-        * ``argmax``: (ids int32 (B, T'), out_len, best log-prob);
-        * ``topk``: (values (B, T', K), out_len, indices int32), best
-          first (K = decode_topk);
-        * ``beam``: (ids int32 (B, beam, T'), out_len, hyp_lens int32
-          (B, beam), scores (B, beam)), the on-device prefix beam search
-          (decode/device.py, beam = decode_topk), best first;
-
-        then (h6, h12, h_final) with ``return_taps``, or h_final with
-        ``return_hidden``. Every mode but ``logits`` runs in float32
-        after log_softmax. ``out_mode`` overrides cfg.decode_output."""
-        mode = out_mode or self.cfg.decode_output
-        if mode not in DECODE_OUTPUTS:
-            raise ValueError(f"unknown decode_output {mode!r}")
-        k = int(self.cfg.decode_topk)
-        if mode in ("topk", "beam") and k < 1:
-            raise ValueError(f"decode_output={mode!r} needs decode_topk >= 1")
+    def _model_fn(self, batch: int, length: int):
+        """The bucket's model forward ``(params, feat, feat_len) ->`` the
+        family forward's tuple (logits, out_len, then the taps or the
+        hidden): what :meth:`export_bucket` exports, with the parameter
+        tree a runtime input."""
         # the JAX engine's keywords: the hier taps, else the hidden as
         # return_hidden (MoE families) or output_embed (dense ones)
         if self.cfg.return_taps:
@@ -459,10 +447,40 @@ class Engine:
             kw = dict(output_embed=self.cfg.return_hidden)
         kw["attn_impl"] = self.cfg.attn_impl
         model_cfg, family_forward = self.model_cfg, self.family.forward
+
+        def model(params, feat, feat_len):
+            return tuple(family_forward(params, model_cfg, feat, feat_len,
+                                        **kw))
+        return model
+
+    def _forward_fn(self, batch: int, length: int, out_mode=None,
+                    model=None):
+        """The bucket's forward (feat, feat_len) -> the JAX engine's tuple:
+
+        * ``logits`` / ``log_softmax``: (out (B, T', V), out_len);
+        * ``argmax``: (ids int32 (B, T'), out_len, best log-prob);
+        * ``topk``: (values (B, T', K), out_len, indices int32), best
+          first (K = decode_topk);
+        * ``beam``: (ids int32 (B, beam, T'), out_len, hyp_lens int32
+          (B, beam), scores (B, beam)), the on-device prefix beam search
+          (decode/device.py, beam = decode_topk), best first;
+
+        then (h6, h12, h_final) with ``return_taps``, or h_final with
+        ``return_hidden``. Every mode but ``logits`` runs in float32
+        after log_softmax. ``out_mode`` overrides cfg.decode_output.
+        ``model``: the model forward (:meth:`_model_fn`'s signature; a
+        loaded program's), under the prior and the output mode."""
+        mode = out_mode or self.cfg.decode_output
+        if mode not in DECODE_OUTPUTS:
+            raise ValueError(f"unknown decode_output {mode!r}")
+        k = int(self.cfg.decode_topk)
+        if mode in ("topk", "beam") and k < 1:
+            raise ValueError(f"decode_output={mode!r} needs decode_topk >= 1")
+        model = model or self._model_fn(batch, length)
         params, prior = self.params, self.neg_log_prior
 
         def forward(feat, feat_len):
-            res = family_forward(params, model_cfg, feat, feat_len, **kw)
+            res = model(params, feat, feat_len)
             out, out_len, extra = res[0], res[1], tuple(res[2:])
             if prior is not None:
                 out = out + prior
@@ -500,7 +518,8 @@ class Engine:
         key = (batch, length, mode, graph)
         prog = self._programs.get(key)
         if prog is None:
-            fn = self._forward_fn(batch, length, mode)
+            fn = self._forward_fn(batch, length, mode,
+                                  self._exported_fn(batch, length))
             pool = None
             if graph:
                 # One memory pool for all of the engine's graphs: replays
@@ -521,6 +540,102 @@ class Engine:
                 prog = BucketProgram(fn, feat, feat_len, pool)
             self._programs[key] = prog
         return prog
+
+    # ------------------------------------------------------------------
+    # exported programs: the port of the JAX engine's jax.export
+    # artifacts. One torch.export program per (bucket, device) of the
+    # model forward, the parameter tree a runtime input (the program
+    # holds no weights); the prior and the output mode run on top of it.
+    # ------------------------------------------------------------------
+    def export_bucket(self, batch: int, length: int, device=None):
+        """The bucket's model forward as a ``torch.export`` program for
+        ``device`` (default: the engine's), traced on fake tensors of the
+        parameter tree's shapes (nothing is computed or copied). The
+        kernels appear in it as their ``m3asr::`` operators. A bucket
+        whose expert stage reads the host (``HOST_SYNC_STAGES``) cannot
+        be exported and raises ValueError."""
+        from torch._subclasses.fake_tensor import FakeTensorMode
+        from torch.utils import _pytree
+        impl = self.moe_impl_for(batch, length) if self.is_moe else None
+        if impl in HOST_SYNC_STAGES:
+            raise ValueError(
+                f"bucket {batch}x{length}: expert stage {impl!r} reads "
+                "group sizes on the host and cannot be exported (the JAX "
+                "engine exports it through lax.cond)")
+        dev = torch.device(device or self.device)
+        if dev.type == "cuda" and not torch.backends.cuda.is_built():
+            raise ValueError("cannot export for cuda: this PyTorch is "
+                             "built without CUDA")
+        model = self._model_fn(batch, length)
+
+        class Bucket(torch.nn.Module):
+            def forward(self, params, feat, feat_len):
+                return model(params, feat, feat_len)
+
+        with FakeTensorMode(allow_non_fake_inputs=True):
+            args = _pytree.tree_map(
+                lambda t: torch.empty(t.shape, dtype=t.dtype, device=dev),
+                (self.params,
+                 torch.empty((batch, length, self.model_cfg.input_dim),
+                             dtype=self.dtype),
+                 torch.empty((batch,), dtype=torch.int32)))
+        with torch.no_grad():
+            ep = torch.export.export(Bucket(), args, strict=False)
+        ep._example_inputs = None      # fake tensors: nothing to keep
+        return ep
+
+    def _exported_fn(self, batch: int, length: int):
+        """The bucket's loaded program (:meth:`_model_fn`'s signature) if
+        the engine dir holds one for this device, else None (the bucket
+        is traced as the model code says). A program that cannot be read,
+        or that was built for another device or another parameter tree,
+        logs a warning and is not used. :attr:`loaded_buckets` records
+        the buckets that run a loaded program."""
+        d = self._exported_dir
+        if not d or self.moe_impl_for(batch, length) in HOST_SYNC_STAGES:
+            return None
+        if (batch, length) in self._loaded:
+            return self._loaded[(batch, length)]
+        path = os.path.join(d, f"{batch}x{length}.{self.device.type}.pt2")
+        try:
+            if not os.path.exists(path):
+                others = sorted(f for f in os.listdir(d)
+                                if f.startswith(f"{batch}x{length}."))
+                if not others:
+                    return None
+                raise ValueError(f"built for another device: {others}")
+            ep = torch.export.load(path)
+            self._check_program(ep, batch, length)
+            module = ep.module()
+        except Exception as e:       # unreadable, another device or tree
+            log.warning("exported bucket %s unusable (%s); retracing",
+                        path, e)
+            self._loaded[(batch, length)] = None
+            return None
+        self._loaded[(batch, length)] = module
+        self.loaded_buckets.add((batch, length))
+        return module
+
+    def _check_program(self, ep, batch: int, length: int) -> None:
+        """Raise ValueError unless ``ep`` takes this engine's parameter
+        tree and the bucket's inputs, on this device."""
+        from torch.utils import _pytree
+        feat = torch.empty((batch, length, self.model_cfg.input_dim),
+                           dtype=self.dtype, device="meta")
+        lens = torch.empty((batch,), dtype=torch.int32, device="meta")
+        leaves, spec = _pytree.tree_flatten(((self.params, feat, lens), {}))
+        if spec != ep.call_spec.in_spec:
+            raise ValueError("its inputs are not this engine's parameter "
+                             "tree and bucket")
+        vals = [n.meta.get("val") for n in ep.graph.nodes
+                if n.op == "placeholder"][-len(leaves):]
+        for v, t in zip(vals, leaves):
+            if v is None or tuple(v.shape) != tuple(t.shape) \
+                    or v.dtype != t.dtype:
+                raise ValueError("its input shapes or dtypes differ")
+            if v.device.type != self.device.type:
+                raise ValueError(f"built for {v.device.type}, not "
+                                 f"{self.device.type}")
 
     def warmup(self, buckets=None, execute: bool = False) -> None:
         """Build the given (default: all) buckets' programs: on ``cuda``
@@ -677,9 +792,21 @@ class Engine:
     # ------------------------------------------------------------------
     # engine directories (the JAX package's format)
     # ------------------------------------------------------------------
-    def save(self, engine_dir: str, raw_yaml: Optional[dict] = None):
+    def save(self, engine_dir: str, raw_yaml: Optional[dict] = None,
+             export_devices: Optional[Tuple[str, ...]] = None):
+        """Write the engine dir; ``export_devices`` (e.g. ``("cuda",
+        "cpu")``) also writes every bucket's program for each device,
+        ``exported/{B}x{T}.{device}.pt2`` (:meth:`export_bucket`)."""
         import yaml
         os.makedirs(engine_dir, exist_ok=True)
+        if export_devices:
+            exp_dir = os.path.join(engine_dir, "exported")
+            os.makedirs(exp_dir, exist_ok=True)
+            for dev in export_devices:
+                for b, t in self.buckets.all_buckets():
+                    torch.export.save(
+                        self.export_bucket(b, t, dev),
+                        os.path.join(exp_dir, f"{b}x{t}.{dev}.pt2"))
         np.savez(os.path.join(engine_dir, "params.npz"),
                  **_flatten(self.params))
         meta = dataclasses.asdict(self.cfg)
@@ -702,6 +829,9 @@ class Engine:
         with np.load(os.path.join(engine_dir, "params.npz")) as z:
             params = _unflatten(dict(z))
         eng = cls(model_cfg, params, ecfg, device=device)
+        exp_dir = os.path.join(engine_dir, "exported")
+        if os.path.isdir(exp_dir):
+            eng._exported_dir = exp_dir
         if neg_log_prior is not None:
             eng.neg_log_prior = torch.as_tensor(
                 np.asarray(neg_log_prior)).to(eng.device, eng.dtype)

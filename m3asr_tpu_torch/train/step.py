@@ -26,7 +26,8 @@ from typing import Optional
 import torch
 
 from m3asr_tpu_torch.checkpoint import flatten_tree, unflatten_tree
-from m3asr_tpu_torch.config import MOE_HIER_PROTOS, ModelConfig
+from m3asr_tpu_torch.config import (EXMARC_PROTOS, MOE_HIER_PROTOS,
+                                    ModelConfig)
 from m3asr_tpu_torch.device import resolve_device
 from m3asr_tpu_torch.models import moe_conformer
 from m3asr_tpu_torch.ops import masking
@@ -60,11 +61,11 @@ class TrainConfig:
 def check_supported(model_cfg: ModelConfig, tcfg: TrainConfig) -> None:
     """Raise NotImplementedError for the settings this slice does not
     train, naming the ROADMAP item that brings them."""
-    if model_cfg.nnet_proto not in MOE_HIER_PROTOS:
+    if model_cfg.nnet_proto not in MOE_HIER_PROTOS | EXMARC_PROTOS:
         raise NotImplementedError(
             f"training {model_cfg.nnet_proto!r}: only the hier MoE conformer "
-            "CTC step is ported; the DFSMN and dense conformer branches come "
-            "with ROADMAP Queue 1 item 11")
+            "CTC step (with the ExMarc protos) is ported; the DFSMN and "
+            "dense conformer branches come with ROADMAP Queue 1 item 11")
     refused = [("loss_type", tcfg.loss_type != "ctc"),
                ("spec_aug", tcfg.spec_aug),
                ("accum_steps", tcfg.accum_steps > 1),
@@ -188,7 +189,7 @@ def make_train_step(model_cfg: ModelConfig, tcfg: TrainConfig,
     if with_domain_acc:
         raise NotImplementedError(
             "the domain/accent heads (DFSMN in-model heads) are not ported "
-            "yet: ROADMAP Queue 1 item 10")
+            "yet: ROADMAP Queue 1 item 11")
     dev = resolve_device(device)
     full_fp32 = dev.type == "cuda" and tcfg.compute_dtype == "float32"
 

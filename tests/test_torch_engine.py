@@ -262,17 +262,16 @@ def test_build_cli_attn_impl_flash(tmp_path):
 
 
 def test_build_cli_rejects_unported_flags(tmp_path):
-    """--export stays refused, as does the ExMarc proto; -cmvn is
-    accepted and not read, as by the JAX build.py; --dense_quant and
-    --fuse_qkv build an int8 engine that serves, with the settings in
-    engine.json."""
+    """ep and tp (parallelism) stay refused; -cmvn is accepted and not
+    read, as by the JAX build.py; --dense_quant and --fuse_qkv build an
+    int8 engine that serves, with the settings in engine.json."""
     _write_inputs(tmp_path)
     args = ["-c", str(tmp_path / "cfg.yaml"), "-o", str(tmp_path / "e"),
             "--int8", "--device", "cpu", "--buckets", "2x64"]
-    with pytest.raises(NotImplementedError, match="export"):
-        t_build.main(args + ["--export"])
-    with pytest.raises(NotImplementedError):
-        t_config({"nnet_proto": "conformer_fmoeExMarc_localComm_catEmbed"})
+    with pytest.raises(NotImplementedError, match="ep=2"):
+        t_build.main(args + ["--ep", "2"])
+    with pytest.raises(NotImplementedError, match="tp=2"):
+        t_build.main(args + ["--tp", "2"])
     t_build.main(args + ["--dense_quant", "--fuse_qkv", "-cmvn",
                          str(tmp_path / "no_such_cmvn")])
     eng = Engine.load(str(tmp_path / "e"), device="cpu")

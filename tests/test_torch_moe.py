@@ -201,3 +201,133 @@ def test_k1_width_rule(widths):
             check_f_widths(d, h, 64)
     else:
         check_f_widths(d, h, 64)
+
+
+# ---------------------------------------------------------------------------
+# fastmoe's top-k gates and moe_ffn(top_k > 1)
+# ---------------------------------------------------------------------------
+
+def _gate_inputs(seed, B=2, T=9, d=12, E=6):
+    rng = np.random.default_rng(seed)
+    p = {"kernel": (rng.standard_normal((d, E)) * 0.5).astype(np.float32),
+         "noise_kernel": (rng.standard_normal((d, E)) * 0.5)
+         .astype(np.float32)}
+    x = rng.standard_normal((B, T, d)).astype(np.float32)
+    return p, x, np.array([T, T - 4], np.int32)
+
+
+@pytest.mark.parametrize("top_k", [1, 2, 3])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_naive_topk_gate_matches_jax(top_k, dtype):
+    """NaiveGate: the same experts in the same order (lax.top_k's ties to
+    the lower index) and the softmax over the k chosen, padded rows gate
+    0 / expert 0; float32 within 1e-6, bf16 within one bf16 step."""
+    p, x, lens = _gate_inputs(top_k)
+    p["bias"] = np.linspace(-0.2, 0.2, 6).astype(np.float32)
+    jdt, tdt = jnp.dtype(dtype), getattr(torch, dtype)
+    jg, ji = j_moe.naive_topk_gate(
+        {k: jnp.asarray(v) for k, v in p.items()}, jnp.asarray(x, jdt),
+        top_k, jnp.asarray(lens))
+    tg, ti = t_moe.naive_topk_gate(
+        {k: torch.from_numpy(v) for k, v in p.items()},
+        torch.from_numpy(x).to(tdt), top_k, torch.from_numpy(lens))
+    assert ti.dtype == torch.int32 and tg.dtype == tdt
+    np.testing.assert_array_equal(ti.numpy(), np.asarray(ji))
+    np.testing.assert_allclose(tg.float().numpy(),
+                               np.asarray(jg, np.float32),
+                               atol=1e-6 if dtype == "float32" else 4e-3)
+    assert not tg[1, 5:].any() and not ti[1, 5:].any()
+
+
+def test_noisy_gate_eval_equals_naive_and_jax():
+    """NoisyGate in eval mode: no noise, so the naive gate's experts and
+    values, and JAX's gate, experts and CV^2 aux."""
+    p, x, lens = _gate_inputs(7)
+    tp = {k: torch.from_numpy(v) for k, v in p.items()}
+    tg, ti, cv2 = t_moe.noisy_topk_gate(tp, torch.from_numpy(x), 2,
+                                        lengths=torch.from_numpy(lens),
+                                        train=False)
+    ng, ni = t_moe.naive_topk_gate({"kernel": tp["kernel"]},
+                                   torch.from_numpy(x), 2,
+                                   torch.from_numpy(lens))
+    np.testing.assert_array_equal(ti.numpy(), ni.numpy())
+    np.testing.assert_array_equal(tg.numpy(), ng.numpy())
+    jg, ji, jcv2 = j_moe.noisy_topk_gate(
+        {k: jnp.asarray(v) for k, v in p.items()}, jnp.asarray(x), 2,
+        jax.random.PRNGKey(0), jnp.asarray(lens), train=False)
+    np.testing.assert_array_equal(ti.numpy(), np.asarray(ji))
+    np.testing.assert_allclose(tg.numpy(), np.asarray(jg), atol=1e-6)
+    np.testing.assert_allclose(cv2.item(), float(jcv2), rtol=1e-5)
+
+
+def test_noisy_gate_train_follows_jax_formula_on_the_same_noise():
+    """NoisyGate in train mode, given the normal draw that JAX's key
+    makes: logits + noise * (softplus(x noise_kernel) + 1e-2), then the
+    same experts, gate values and CV^2 as JAX's gate; a generator draws
+    the noise when none is given."""
+    p, x, lens = _gate_inputs(8)
+    key = jax.random.PRNGKey(3)
+    noise = np.asarray(jax.random.normal(key, (2, 9, 6)))
+    jg, ji, jcv2 = j_moe.noisy_topk_gate(
+        {k: jnp.asarray(v) for k, v in p.items()}, jnp.asarray(x), 2, key,
+        jnp.asarray(lens), train=True)
+    tp = {k: torch.from_numpy(v) for k, v in p.items()}
+    tg, ti, cv2 = t_moe.noisy_topk_gate(
+        tp, torch.from_numpy(x), 2, lengths=torch.from_numpy(lens),
+        noise=torch.from_numpy(noise))
+    np.testing.assert_array_equal(ti.numpy(), np.asarray(ji))
+    np.testing.assert_allclose(tg.numpy(), np.asarray(jg), atol=1e-6)
+    np.testing.assert_allclose(cv2.item(), float(jcv2), rtol=1e-5)
+    g1 = t_moe.noisy_topk_gate(tp, torch.from_numpy(x), 2,
+                               torch.Generator().manual_seed(5))
+    g2 = t_moe.noisy_topk_gate(tp, torch.from_numpy(x), 2,
+                               torch.Generator().manual_seed(5))
+    assert torch.equal(g1[1], g2[1]) and torch.isfinite(g1[2])
+
+
+@pytest.mark.parametrize("impl", ["dense", "runs_f", "tiled", "pallas"])
+def test_moe_ffn_top2_matches_jax(impl):
+    """moe_ffn(top_k=2): the gate-weighted sum of one stage call per k
+    (K1 and K8 as their plain versions here) against the JAX top-2 path
+    with its dense stage, float32 within rtol 1e-5 / atol 1e-6; padded
+    rows are 0."""
+    p = expert_params(21)
+    rng = np.random.default_rng(22)
+    router = (rng.standard_normal((D + 8, E)) * 0.5).astype(np.float32)
+    x = rng.standard_normal((2, 11, D)).astype(np.float32)
+    embed = rng.standard_normal((2, 11, 8)).astype(np.float32)
+    lens = np.array([11, 6], np.int32)
+    jp = dict(jax_tree(p), router={"kernel": jnp.asarray(router)})
+    ref = j_moe.moe_ffn(jp, jnp.asarray(x), jnp.asarray(embed),
+                        jnp.asarray(lens), impl="dense", top_k=2)
+    tp = dict(params_from_jax(p), router={"kernel": torch.from_numpy(router)})
+    got = t_moe.moe_ffn(tp, torch.from_numpy(x), torch.from_numpy(embed),
+                        torch.from_numpy(lens), impl=impl, top_k=2)
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=1e-5,
+                               atol=1e-6)
+    assert not got[1, 6:].any()
+    assert runs_kernel.launches == 0
+
+
+def test_moe_ffn_keep_expert_output_and_router_probs():
+    """top_k=1 with keep_expert_output (no gate product) and
+    return_router_probs against JAX."""
+    p = expert_params(23)
+    rng = np.random.default_rng(24)
+    router = (rng.standard_normal((D, E)) * 0.5).astype(np.float32)
+    x = rng.standard_normal((2, 7, D)).astype(np.float32)
+    jp = dict(jax_tree(p), router={"kernel": jnp.asarray(router)})
+    tp = dict(params_from_jax(p), router={"kernel": torch.from_numpy(router)})
+    ref = j_moe.moe_ffn(jp, jnp.asarray(x), None, None, impl="dense",
+                        keep_expert_output=True)
+    got = t_moe.moe_ffn(tp, torch.from_numpy(x), None, None, impl="runs_f",
+                        keep_expert_output=True)
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=1e-5,
+                               atol=1e-6)
+    ref_y, ref_p = j_moe.moe_ffn(jp, jnp.asarray(x), None, None,
+                                 return_router_probs=True)
+    got_y, got_p = t_moe.moe_ffn(tp, torch.from_numpy(x), None, None,
+                                 return_router_probs=True)
+    np.testing.assert_allclose(got_p.numpy(), np.asarray(ref_p), atol=1e-6)
+    np.testing.assert_allclose(got_y.numpy(), np.asarray(ref_y), rtol=1e-5,
+                               atol=1e-6)

@@ -187,3 +187,82 @@ def test_rel_mha():
     ref = j_attn.rel_mha(jp, jnp.asarray(x), jnp.asarray(pos),
                          jnp.asarray(lens), H)
     close(got, ref)
+
+
+# ---------------------------------------------------------------------------
+# the model zoo's other norms: float32 statistics, padded rows
+# ---------------------------------------------------------------------------
+
+def _norm_close(got, ref, dtype):
+    """float32: the module tolerance; bf16: within one bf16 step of the
+    output's scale (both sides round the same float32 value)."""
+    got = got.float().numpy()
+    ref = np.asarray(ref, np.float32)
+    if dtype == "float32":
+        np.testing.assert_allclose(got, ref, rtol=RTOL, atol=ATOL)
+    else:
+        assert np.abs(got - ref).max() <= 8e-3 * np.abs(ref).max()
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_group_norm(dtype):
+    rng = np.random.default_rng(31)
+    x = rnd(rng, 2, 7, 24, scale=3.0) + 1.5
+    p = {"scale": rnd(rng, 24) + 1.0, "bias": rnd(rng, 24)}
+    jdt, tdt = jnp.dtype(dtype), getattr(torch, dtype)
+    ref = j_common.group_norm({k: jnp.asarray(v) for k, v in p.items()},
+                              jnp.asarray(x, jdt), 4)
+    got = t_common.group_norm({k: torch.from_numpy(v) for k, v in p.items()},
+                              torch.from_numpy(x).to(tdt), 4)
+    assert got.dtype == tdt
+    _norm_close(got, ref, dtype)
+    with pytest.raises(ValueError, match="groups"):
+        t_common.group_norm(p, torch.zeros(2, 10), 4)
+
+
+@pytest.mark.parametrize("train", [False, True])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_mask_batch_norm(train, dtype):
+    """Masked statistics over the valid frames (the padded ones hold
+    large values that must not count), the unbiased variance and the
+    momentum update in train mode, the running stats in eval mode."""
+    rng = np.random.default_rng(32)
+    x = rnd(rng, 20, 16, scale=2.0)
+    valid = np.arange(20) < 13
+    x[~valid] = 1e3
+    p = {"scale": rnd(rng, 16) + 1.0, "bias": rnd(rng, 16),
+         "running_mean": rnd(rng, 16), "running_var": np.abs(rnd(rng, 16))
+         + 0.5}
+    jdt, tdt = jnp.dtype(dtype), getattr(torch, dtype)
+    ref, ref_stats = j_common.mask_batch_norm(
+        {k: jnp.asarray(v) for k, v in p.items()}, jnp.asarray(x, jdt),
+        jnp.asarray(valid), train=train)
+    got, stats = t_common.mask_batch_norm(
+        {k: torch.from_numpy(v) for k, v in p.items()},
+        torch.from_numpy(x).to(tdt), torch.from_numpy(valid), train=train)
+    _norm_close(got[:13], np.asarray(ref)[:13], dtype)
+    for k in ("running_mean", "running_var"):
+        np.testing.assert_allclose(stats[k].float().numpy(),
+                                   np.asarray(ref_stats[k], np.float32),
+                                   rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("affine", [False, True])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_varlen_instance_norm_2d(affine, dtype):
+    """Per-utterance statistics over (channel, valid time) per feature
+    column, divided by lengths x F bins; padded frames zeroed."""
+    rng = np.random.default_rng(33)
+    x = rnd(rng, 2, 3, 11, 5, scale=2.0) + 0.5
+    lens = np.array([11, 6], np.int32)
+    x[1, :, 6:] = 50.0
+    p = {"scale": rnd(rng, 3) + 1.0, "bias": rnd(rng, 3)}
+    jdt, tdt = jnp.dtype(dtype), getattr(torch, dtype)
+    ref = j_common.varlen_instance_norm_2d(
+        {k: jnp.asarray(v) for k, v in p.items()}, jnp.asarray(x, jdt),
+        jnp.asarray(lens), affine=affine)
+    got = t_common.varlen_instance_norm_2d(
+        {k: torch.from_numpy(v) for k, v in p.items()},
+        torch.from_numpy(x).to(tdt), torch.from_numpy(lens), affine=affine)
+    assert got.dtype == tdt
+    _norm_close(got, ref, dtype)
