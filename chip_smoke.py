@@ -320,6 +320,37 @@ result line:
    MoE block: the export traces every operator on the host (31-41 s a
    bucket at 2 + 6 blocks on the card's host).
 
+16. the training CLI (after phase 11): ``m3asr_tpu_torch.train.cli.main``
+   in process on the flagship YAML (32 experts, d=512, V=5000, its
+   collate_conf; batch 4, log_period 1, save_period 4 = an epoch,
+   attn_impl flash, accum_steps 2, device SpecAugment) with the hier
+   recipe (three AED decoders of 6 blocks) and the domain/accent heads,
+   fp32, on a Kaldi ark of 16 utterances of 300-1000 frames with CTC,
+   AED, domain and accent arks, and 4 validation utterances. The CLI's
+   depth is cut to 6 embed + 2 MoE blocks: the checkpoints are written
+   under TMPDIR, and the whole script keeps its disk writes under 45 GiB
+   (at 18 MoE blocks a checkpoint is 9-18 GiB and the two runs write
+   90-99 GiB; at 2, 24-27 GiB). Run 1 (max_epoch 1): 4 steps of 2 microbatches with
+   finite losses, K2 launched 72 times (8 in each of 8 microbatch
+   forwards and the validation forward) and each K3 kernel 64 (8 in each
+   backward: the heads train the embed encoder), checkpoint_last,
+   checkpoint_best, scalars.jsonl and an event file written. Run 2
+   (--resume, max_epoch 2): starts at global step 4 from parameters equal
+   bit for bit to run 1's checkpoint_last.pkl, the same launches, 4 more
+   steps, checkpoint_final written. The GiB of checkpoints the runs wrote
+   are printed.
+   Then, on one hier batch of 4 x 1000 frames at the flagship's widths and
+   depth (6 + 18 blocks):
+   (i) the fp32 flash hier gradient against xla, routing pinned (loss
+   within 1e-5 relative, every group within TRAIN_GRAD_TOL of its
+   max|g|, the decoders' and heads' groups included); (ii) accum_steps=2
+   against 1 (xla, routing pinned), the same bounds; (iii) the CTC
+   step's gradient with remat against without (flash), the same bounds,
+   remat's peak memory below plain's and K2 launched 42 times (the 18
+   MoE blocks twice); (iv) the bf16-compute hier loss within 2e-2 of
+   fp32's. Printed: step times and frames/s, checkpoint seconds and
+   sizes, one hier step's device time and busy share, peak memory.
+
 ``python3 chip_smoke.py --only NAME [NAME ...]`` runs the build and the
 phases named in ``ALONE`` alone, for work on one of them; it prints no
 result line and exits 1.
@@ -3192,11 +3223,11 @@ def train_config(attn_impl, dtype="float32"):
                           embed_ctc_weight=0.3, warmup_steps=1000)
 
 
-def group_rel(got, ref):
+def group_rel(got, ref, group=param_group):
     """max|got - ref| / max|ref| per parameter group."""
     groups = {}
     for k in ref:
-        grp = groups.setdefault(param_group(k), [0.0, 0.0])
+        grp = groups.setdefault(group(k), [0.0, 0.0])
         grp[0] = max(grp[0], (got[k] - ref[k]).abs().max().item())
         grp[1] = max(grp[1], ref[k].abs().max().item())
     return {k: d / m if m > 0 else d for k, (d, m) in groups.items()}
@@ -5927,6 +5958,385 @@ def phase_exmarc(torch, state, smi):
     return by_name
 
 
+TRAIN_CLI_FRAMES = (1000, 930, 870, 820, 760, 700, 655, 610, 560, 520, 480,
+                    450, 410, 380, 340, 300)   # the 16 training utterances
+TRAIN_CLI_CV = (990, 720, 505, 310)            # the 4 validation ones
+TRAIN_CLI_STEPS = 4          # an epoch: 16 utterances in batches of 4
+TRAIN_CLI_ACCUM = 2          # microbatches a step (accum_steps)
+# the CLI runs' MoE blocks: a checkpoint (parameters and Adam moments, and
+# their best copies where those differ) is 2.43-4.86 GiB at 2 blocks,
+# 9.01-18.02 at 18, and the script keeps its disk writes under 45 GiB
+TRAIN_CLI_MOE_BLOCKS = 2
+
+
+def train_cli_inputs(work, cfg):
+    """The CLI's inputs under ``work``: tr.ark / cv.ark (Kaldi features at
+    the flagship's 40 dims) with their CTC label arks, the training
+    utterances' AED label, domain and accent id arks, and cfg1.yaml /
+    cfg2.yaml: the flagship YAML at TRAIN_CLI_MOE_BLOCKS MoE blocks with
+    batch_size 4, log_period 1, save_period an epoch, attn_impl flash,
+    accum_steps 2, device SpecAugment, and max_epoch 1 (run 1) or 2 (run
+    2, the resume)."""
+    import yaml
+    from m3asr_tpu_torch.io.kaldi_io import ArkWriter
+    rng = np.random.default_rng(16)
+    V = cfg.output_dim
+    for name, frames in (("tr", TRAIN_CLI_FRAMES), ("cv", TRAIN_CLI_CV)):
+        keys = [f"{name}{i}" for i in range(len(frames))]
+        with ArkWriter(os.path.join(work, f"{name}.ark")) as w:
+            for k, T in zip(keys, frames):
+                w.write(k, rng.standard_normal((T, cfg.input_dim))
+                        .astype(np.float32))
+        write_int_vectors(os.path.join(work, f"{name}_ctc.ark"), {
+            k: rng.integers(1, V - 1, T // 40) for k, T in zip(keys, frames)})
+        write_int_vectors(os.path.join(work, f"{name}_aed.ark"), {
+            k: rng.integers(1, V - 1, T // 50) for k, T in zip(keys, frames)})
+        write_int_vectors(os.path.join(work, f"{name}_domain.ark"),
+                          {k: [rng.integers(0, 6)] for k in keys})
+        write_int_vectors(os.path.join(work, f"{name}_acc.ark"),
+                          {k: [rng.integers(0, 8)] for k in keys})
+    with open(os.path.join(HERE, "configs", "3m_asr_18l32e.yaml")) as f:
+        raw = yaml.safe_load(f)
+    raw["loader_conf"]["batch_size"] = 4
+    raw["model_conf"]["encoder_conf"]["num_blocks"] = TRAIN_CLI_MOE_BLOCKS
+    raw.update(log_period=1, save_period=TRAIN_CLI_STEPS, attn_impl="flash",
+               accum_steps=TRAIN_CLI_ACCUM, spec_aug_device=True)
+    for epochs in (1, 2):
+        with open(os.path.join(work, f"cfg{epochs}.yaml"), "w") as f:
+            yaml.safe_dump(dict(raw, max_epoch=epochs), f)
+
+
+def train_cli_argv(work, out, epochs):
+    a = lambda name: os.path.join(work, name)
+    argv = ["--config", a(f"cfg{epochs}.yaml"), "--output_dir", out,
+            "--tr_rspecifier", a("tr.ark"), "--tr_labels", a("tr_ctc.ark"),
+            "--tr_aed_labels", a("tr_aed.ark"),
+            "--tr_domain_labels", a("tr_domain.ark"),
+            "--tr_acc_labels", a("tr_acc.ark"),
+            "--cv_rspecifier", a("cv.ark"), "--cv_labels", a("cv_ctc.ark")]
+    return argv + (["--resume"] if epochs > 1 else [])
+
+
+class TrainCliSpy:
+    """Times the CLI's steps and checkpoint saves (the step synced to the
+    card), and keeps the parameters a resume loads (on the host)."""
+
+    def __init__(self, torch):
+        from m3asr_tpu_torch.train import step as ts
+        from m3asr_tpu_torch.train import trainer as tr
+        self.torch, self.ts, self.tr = torch, ts, tr
+        self.step_ms, self.frames, self.saves = [], [], []
+        self.loaded = None
+
+    def __enter__(self):
+        torch, spy = self.torch, self
+        self.make, self.save, self.load = (self.ts.make_hier_train_step,
+                                           self.tr.Trainer.save_checkpoint,
+                                           self.tr.Trainer.load_checkpoint)
+
+        def make(*a, **k):
+            step = spy.make(*a, **k)
+
+            def timed(*args, **kw):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = step(*args, **kw)
+                torch.cuda.synchronize()
+                spy.step_ms.append((time.perf_counter() - t0) * 1e3)
+                spy.frames.append(int(np.sum(args[3])))
+                return out
+            return timed
+
+        def save(trainer, tag="last"):
+            t0 = time.perf_counter()
+            spy.save(trainer, tag)
+            path = trainer._ckpt_path(tag)
+            spy.saves.append((tag, time.perf_counter() - t0,
+                              os.path.getsize(path) / 2 ** 30))
+
+        def load(trainer, tag="last"):
+            ok = spy.load(trainer, tag)
+            from m3asr_tpu_torch.checkpoint import flatten_tree
+            spy.loaded = (trainer.global_step, {
+                k: v.cpu() for k, v in flatten_tree(trainer.params).items()})
+            return ok
+        self.ts.make_hier_train_step = make
+        self.tr.Trainer.save_checkpoint = save
+        self.tr.Trainer.load_checkpoint = load
+        return self
+
+    def __exit__(self, *exc):
+        self.ts.make_hier_train_step = self.make
+        self.tr.Trainer.save_checkpoint = self.save
+        self.tr.Trainer.load_checkpoint = self.load
+
+
+def train_cli_run(torch, work, out, epochs, want, smi):
+    """One in-process run of the training CLI; holds its launches of K2
+    and K3 to ``want`` and its logged losses finite. Returns the spy, the
+    peak memory and the launches (K2, K3 dq, K3 dkv) counted."""
+    import contextlib
+    import io
+    from m3asr_tpu_torch.ops.flash_attention import flash_kernels
+    from m3asr_tpu_torch.train import cli
+    reset_flash(flash_kernels)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with TrainCliSpy(torch) as spy, contextlib.redirect_stdout(io.StringIO()):
+        trainer = cli.main(train_cli_argv(work, out, epochs))
+    secs = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    got = (flash_kernels.fwd_launches, flash_kernels.dq_launches,
+           flash_kernels.dkv_launches)
+    with open(os.path.join(out, "scalars", "scalars.jsonl")) as f:
+        losses = [json.loads(line)["value"] for line in f
+                  if '"train/loss"' in line]
+    losses = losses[-TRAIN_CLI_STEPS:]
+    med = float(np.median(spy.step_ms))
+    rate = float(np.sum(spy.frames) / (np.sum(spy.step_ms) / 1e3))
+    log(f"train_cli run {epochs}: {len(spy.step_ms)} steps of "
+        f"{TRAIN_CLI_ACCUM} microbatches to global step "
+        f"{trainer.global_step}, {secs:.1f} s; losses "
+        f"{[round(v, 6) for v in losses]}; step ms "
+        f"{[round(v, 3) for v in spy.step_ms]} (median {med:.3f}), "
+        f"{rate:.0f} frames/s; checkpoints (tag, s, GiB) "
+        f"{[(t, round(s, 2), round(g, 2)) for t, s, g in spy.saves]}; "
+        f"launches (K2, K3 dq, K3 dkv) {got}, want {want}; peak memory "
+        f"{peak:.3f} GiB; {smi}")
+    if (got != want or len(losses) != TRAIN_CLI_STEPS
+            or not np.all(np.isfinite(losses))
+            or trainer.global_step != TRAIN_CLI_STEPS * epochs):
+        raise SystemExit(f"FAIL train_cli run {epochs}: launches {got}, "
+                         f"want {want}; losses {losses}; global step "
+                         f"{trainer.global_step}")
+    del trainer
+    torch.cuda.empty_cache()
+    return spy, peak, got
+
+
+def hier_tree(torch, cfg, params):
+    """The hier recipe's tree at the flagship's widths: the encoder,
+    three AED decoders of 6 blocks (8 heads, 2048 units) and the
+    domain/accent heads, from a seeded generator on the card."""
+    from m3asr_tpu_torch.config import DecoderConfig
+    from m3asr_tpu_torch.models import aed
+    from m3asr_tpu_torch.train import step as ts
+    cfg.decoder_conf = DecoderConfig(attention_heads=8, linear_units=2048,
+                                     num_blocks=6)
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    tree = {"encoder": params}
+    for name in DECODERS:
+        tree[name] = aed.init(cfg.decoder_conf, cfg.output_dim,
+                              cfg.encoder_conf.attention_dim, gen)
+    tree.update(ts.init_domain_acc_heads(
+        gen, cfg.encoder_conf.embed_conf.attention_dim, 6, 8))
+    return tree
+
+
+def hier_batch(torch, cfg):
+    """train_batch's 4 x 1000 frames and CTC targets, with AED targets and
+    domain / accent ids, on the card."""
+    rng = np.random.default_rng(8)
+    aed_lens = np.array([30, 27, 22, 19], np.int32)
+    extra = (rng.integers(1, cfg.output_dim - 1, (4, 30)).astype(np.int32),
+             aed_lens, np.array([0, 3, 5, 2], np.int32),
+             np.array([7, 1, 4, 0], np.int32))
+    return train_batch(torch, cfg) + tuple(torch.from_numpy(a).cuda()
+                                           for a in extra)
+
+
+def hier_group(path):
+    """param_group of an encoder path, else the module down to a decoder
+    block's sublayer ("decoder_1/decoders/src_attn", "acc_head/out")."""
+    head, _, rest = path.partition("/")
+    if head == "encoder":
+        return "encoder/" + param_group(rest)
+    return "/".join(path.split("/")[:-1][:3])
+
+
+def held_grads(label, loss, ref_loss, rels, extra=""):
+    """Holds a loss within 1e-5 relative and every group's gradient
+    distance within TRAIN_GRAD_TOL; returns the largest distance."""
+    rel = abs(loss - ref_loss) / abs(ref_loss)
+    worst = max(rels.values())
+    ok = rel <= 1e-5 and worst <= TRAIN_GRAD_TOL
+    log(f"train_cli {label}: loss {loss:.6f} vs {ref_loss:.6f} (rel "
+        f"{rel:.3e}, held to 1e-5); largest max|diff|/max|g| of a group "
+        f"{worst:.3e} ({max(rels, key=rels.get)}), held to "
+        f"{TRAIN_GRAD_TOL}{extra} {'OK' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit(f"FAIL train_cli {label}")
+    return worst
+
+
+def hier_checks(torch, cfg, tree, batch, smi):
+    """(i)-(iv) on one hier batch at the flagship's widths."""
+    from m3asr_tpu_torch.ops import moe as moe_mod
+    from m3asr_tpu_torch.ops.flash_attention import flash_kernels
+    from m3asr_tpu_torch.train import step as ts
+
+    def hcfg(**kw):
+        return ts.HierTrainConfig(**{"attn_impl": "flash", **kw})
+
+    def hvg(tcfg, replay=None, record=False):
+        with GateRecorder(moe_mod, replay=replay) as rec:
+            (loss, _), g = ts.hier_value_and_grad(
+                tree, cfg, tcfg, *batch[:6], domain_targets=batch[6],
+                acc_targets=batch[7])
+        return loss.item(), g, rec.calls if record else None
+
+    # (i) flash against xla, routing pinned
+    loss_f, g_f, calls = hvg(hcfg(), record=True)
+    loss_x, g_x, _ = hvg(hcfg(attn_impl="xla"), replay=calls)
+    held_grads("(i) hier fp32 flash vs xla (routing pinned, heads and decoders "
+         "in the groups)", loss_f, loss_x, group_rel(g_f, g_x, hier_group))
+    del g_f
+    # (ii) two microbatches against the full batch, xla, routing pinned
+    half = batch[0].shape[0] // 2
+    mb_calls = [c[:half] for c in calls] + [c[half:] for c in calls]
+    loss_a, g_a, _ = hvg(hcfg(attn_impl="xla", accum_steps=2),
+                         replay=mb_calls)
+    held_grads("(ii) hier fp32 xla accum_steps=2 vs 1 (routing pinned)", loss_a,
+         loss_x, group_rel(g_a, g_x, hier_group))
+    del g_a, g_x
+    torch.cuda.empty_cache()
+    # (iii) remat against plain, the CTC step, flash
+    runs = {}
+    for remat in (False, True):
+        reset_flash(flash_kernels)
+        torch.cuda.reset_peak_memory_stats()
+        (loss, _), g = ts.value_and_grad(
+            tree["encoder"], cfg, ts.TrainConfig(
+                attn_impl="flash", embed_ctc_weight=0.3, remat=remat),
+            *batch[:4])
+        torch.cuda.synchronize()
+        runs[remat] = (loss.item(), g,
+                       torch.cuda.max_memory_allocated() / 2 ** 30,
+                       (flash_kernels.fwd_launches, flash_kernels.dq_launches,
+                        flash_kernels.dkv_launches))
+        del g
+    (l0, g0, m0, k0), (l1, g1, m1, k1) = runs[False], runs[True]
+    diff = max((g1[k] - g0[k]).abs().max().item() for k in g0)
+    held_grads("(iii) CTC fp32 flash remat vs plain", l1, l0,
+         group_rel(g1, g0), f"; largest |diff| {diff:.3e}; peak memory "
+         f"{m1:.3f} GiB with remat, {m0:.3f} without; launches (K2, K3 dq, "
+         f"K3 dkv) {k1} with remat, {k0} without; {smi}")
+    n_moe = cfg.encoder_conf.num_blocks
+    n_attn = n_moe + cfg.encoder_conf.embed_conf.num_blocks
+    if m1 >= m0 or k1 != (n_moe + n_attn, n_attn, n_attn) or \
+            k0 != (n_attn,) * 3:
+        raise SystemExit(f"FAIL train_cli (iii): peak {m1:.3f} GiB with "
+                         f"remat, {m0:.3f} without; launches {k1}, {k0}")
+    del runs, g0, g1
+    torch.cuda.empty_cache()
+    # (iv) the bf16-compute hier loss against fp32's
+    with torch.no_grad():
+        lb = ts.hier_aed_loss_fn(tree, cfg, hcfg(compute_dtype="bfloat16"),
+                                 *batch[:6], domain_targets=batch[6],
+                                 acc_targets=batch[7])[0].item()
+    rel = abs(lb - loss_f) / abs(loss_f)
+    log(f"train_cli (iv) hier bf16-compute flash loss {lb:.6f} vs fp32 "
+        f"{loss_f:.6f}: rel {rel:.3e}, held to 2e-2 "
+        f"{'OK' if rel <= 2e-2 else 'FAIL'}")
+    if rel > 2e-2:
+        raise SystemExit("FAIL train_cli (iv): the bf16 hier loss is off")
+
+
+def hier_step_profile(torch, cfg, tree, batch, smi):
+    """One hier step with the CLI's settings (flash, two microbatches,
+    Adam) on the 4 x 1000 batch: wall and device time, busy share."""
+    from m3asr_tpu_torch.train import step as ts
+    tcfg = ts.HierTrainConfig(attn_impl="flash", accum_steps=TRAIN_CLI_ACCUM)
+    opt = ts.make_optimizer(tcfg)
+    state = ts.init_opt_state(opt, tree)
+    step = ts.make_hier_train_step(cfg, tcfg, opt, with_domain_acc=True,
+                                   device="cuda")
+    ms = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = step(tree, state, *batch)
+        out[2]["loss"].item()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        del out
+    dev_ms = profiled_ms(torch, lambda: step(tree, state, *batch), 1,
+                         warmup=0)
+    log(f"train_cli hier step (flash, {TRAIN_CLI_ACCUM} microbatches, "
+        f"4 x 1000 frames): wall ms {[round(v, 3) for v in ms]}; device "
+        f"time {dev_ms:.3f} ms under torch.profiler, busy "
+        f"{dev_ms / np.median(ms):.3f} of the median step; {smi}")
+
+
+def phase_train_cli(torch, state, smi):
+    """Phase 16: the port's training CLI on the flagship's widths at
+    TRAIN_CLI_MOE_BLOCKS MoE blocks (hier recipe with the heads, flash,
+    two microbatches, device SpecAugment), run and resumed; then checks
+    (i)-(iv) at the flagship's widths and depth. Returns K2's and K3's
+    launches counted in the two runs (K3: the dq kernel's, which the runs
+    hold equal to the dkv kernel's)."""
+    import pickle
+    import shutil
+    import tempfile
+    from m3asr_tpu_torch.checkpoint import flatten_tree
+    t_start = time.perf_counter()
+    cfg = flagship_cfg()
+    n_attn = cfg.encoder_conf.embed_conf.num_blocks + TRAIN_CLI_MOE_BLOCKS
+    n_mb = TRAIN_CLI_STEPS * TRAIN_CLI_ACCUM
+    # K2 in every microbatch forward and once a layer in the validation
+    # forward (4 utterances, one batch); K3 in every microbatch backward
+    # (the heads train the embed encoder: every attention layer)
+    want = ((n_mb + 1) * n_attn, n_mb * n_attn, n_mb * n_attn)
+    work = tempfile.mkdtemp(prefix="train_cli_")
+    out = os.path.join(work, "exp")
+    try:
+        train_cli_inputs(work, cfg)
+        spy1, peak, got1 = train_cli_run(torch, work, out, 1, want, smi)
+        names = set(os.listdir(out))
+        events = [f for f in os.listdir(os.path.join(out, "scalars"))
+                  if f.startswith("events.out.tfevents")]
+        need = {"checkpoint_last.pkl", "checkpoint_best.pkl", "train.log"}
+        if not need <= names or not events:
+            raise SystemExit(f"FAIL train_cli run 1 wrote {sorted(names)}")
+        t0 = time.perf_counter()
+        with open(os.path.join(out, "checkpoint_last.pkl"), "rb") as f:
+            last = flatten_tree(pickle.load(f)["params"])
+        read_s = time.perf_counter() - t0
+        os.remove(os.path.join(out, "checkpoint_final.pkl"))  # run 2's own
+        spy2, _, got2 = train_cli_run(torch, work, out, 2, want, smi)
+        step0, loaded = spy2.loaded
+        same = sorted(loaded) == sorted(last) and all(
+            np.array_equal(loaded[k].numpy(), v) for k, v in last.items())
+        log(f"train_cli resume: started at global step {step0} from "
+            f"{len(loaded)} tensors {'bit-equal' if same else 'NOT equal'}"
+            f" to run 1's checkpoint_last.pkl (read in {read_s:.1f} s); "
+            f"checkpoint_final.pkl "
+            f"{'written' if os.path.exists(os.path.join(out, 'checkpoint_final.pkl')) else 'MISSING'}")
+        if step0 != TRAIN_CLI_STEPS or not same or not os.path.exists(
+                os.path.join(out, "checkpoint_final.pkl")):
+            raise SystemExit("FAIL train_cli resume")
+        del last, loaded
+        spy2.loaded = None
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    written = sum(g for spy in (spy1, spy2) for _, _, g in spy.saves)
+    log(f"train_cli: the CLI runs (6 embed + {TRAIN_CLI_MOE_BLOCKS} MoE "
+        f"blocks) took {time.perf_counter() - t_start:.1f} s and wrote "
+        f"{written:.2f} GiB of checkpoints; peak memory {peak:.3f} GiB in "
+        f"run 1; {smi}")
+    params = state.get("params")
+    if params is None:
+        cfg, params = flagship_params(torch)
+    tree = hier_tree(torch, cfg, params)
+    batch = hier_batch(torch, cfg)
+    hier_checks(torch, cfg, tree, batch, smi)
+    hier_step_profile(torch, cfg, tree, batch, smi)
+    del tree
+    torch.cuda.empty_cache()
+    log(f"train_cli: phase 16 took {time.perf_counter() - t_start:.1f} s; "
+        f"{smi}")
+    return {"K2": got1[0] + got2[0], "K3": got1[1] + got2[1]}
+
+
 # phases that run on their own after the build, for work on one of them:
 # ``python3 chip_smoke.py --only NAME [NAME ...]`` runs those named, in
 # order. Such a run is not the smoke: it prints no result line, exits 1
@@ -5938,6 +6348,7 @@ ALONE = {
     "table_growth": phase_table_growth,
     "streams_dense": phase_streams_dense,
     "exmarc": phase_exmarc,
+    "train_cli": phase_train_cli,
 }
 
 
@@ -5993,6 +6404,8 @@ def main():
     stamp("phase 15")
     trained = phase_train(torch, state, smi)
     stamp("phase 11")
+    trained_cli = phase_train_cli(torch, state, smi)
+    stamp("phase 16")
     # K2: serving's forwards and the training steps'; K3: the steps'
     state["launches_flash"] = {}
     for dname in ("float32", "bfloat16"):
@@ -6002,6 +6415,9 @@ def main():
         state["launches_flash"][("K2", dname)] = served[dname] + fwd
         state["launches_flash"][("K3", dname)] = dq
     state["launches_flash"][("K2", "bfloat16")] += state["launches_dense_k2"]
+    # phase 16: the training CLI's runs (fp32)
+    for kname in ("K2", "K3"):
+        state["launches_flash"][(kname, "float32")] += trained_cli[kname]
     report = phase_times(torch, state, smi) + dfsmn_report(torch, state, smi)
     stamp("phases 12 and 13's times")
     # phase 15's launches: the ExMarc engines, top-2 and the exported

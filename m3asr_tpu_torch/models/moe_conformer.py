@@ -20,6 +20,7 @@ import math
 from typing import Optional
 
 import torch
+import torch.utils.checkpoint
 
 from m3asr_tpu_torch.config import EncoderConfig, MoEEncoderConfig
 from m3asr_tpu_torch.models import conformer
@@ -35,23 +36,30 @@ def forward(params, cfg: MoEEncoderConfig, feat: torch.Tensor,
             moe_impl: str = "dense", hier_taps: bool = False,
             chunk_mask=None, embed_chunk_mask="same",
             return_hidden: bool = False, attn_impl: str = "xla",
-            return_router_probs: bool = False):
+            return_router_probs: bool = False, remat: bool = False,
+            return_embed_hidden: bool = False):
     """feat: (B, T, input_dim) -> (logits (B, T', V), out_len)
     | + embed_out (output_embed) | + (h6, h12, h_final) (hier_taps: the
     hidden after blocks 6 and 12, clamped for shallow models, through
     after_norm_6 / after_norm_12, and the normalized final hidden) |
     + router probs (return_router_probs: (L, B, T', E) float32, each
-    block's final FFN router only) | + h_final (return_hidden), in the
-    JAX package's order.
+    block's final FFN router only) | + h_final (return_hidden) | + the
+    embed encoder's hidden before the routers' detach
+    (return_embed_hidden: the domain/accent heads train through it), in
+    the JAX package's order.
 
     chunk_mask: optional (B|1, 1, T', T') attend-mask of the MoE blocks;
     embed_chunk_mask: the embed encoder's own ("same": chunk_mask's).
-    attn_impl: "xla" or "flash" for every attention layer."""
+    attn_impl: "xla" or "flash" for every attention layer. remat: each
+    MoE block's activations are recomputed in the backward
+    (``torch.utils.checkpoint``, as ``jax.checkpoint`` per block), so its
+    forward runs twice in a training step; the embed encoder has none."""
     if isinstance(embed_chunk_mask, str) and embed_chunk_mask == "same":
         embed_chunk_mask = chunk_mask
     embed_out, _, embed = conformer.forward(
         params["embed"], cfg.embed_conf, feat, feat_len, output_embed=True,
         chunk_mask=embed_chunk_mask, attn_impl=attn_impl)
+    embed_hidden = embed
     # the router input never backprops into the embed encoder: it trains
     # only through its own CTC head (jax.lax.stop_gradient in the JAX
     # package)
@@ -65,13 +73,21 @@ def forward(params, cfg: MoEEncoderConfig, feat: torch.Tensor,
     taps = {min(5, n_layers - 1), min(11, n_layers - 1)} if hier_taps \
         else set()
     hiddens, probs = {}, []
+
+    def block(p, h):
+        return conformer_block(p, h, out_len, pos_emb, moe=True,
+                               embed=embed, moe_impl=moe_impl,
+                               moe_macaron=cfg.exmarc, mask=chunk_mask,
+                               return_moe_aux=return_router_probs,
+                               attn_impl=attn_impl, **kw)
+
     for i in range(n_layers):
-        x = conformer_block(conformer.layer_view(blocks, i), x, out_len,
-                            pos_emb, moe=True, embed=embed,
-                            moe_impl=moe_impl, moe_macaron=cfg.exmarc,
-                            mask=chunk_mask,
-                            return_moe_aux=return_router_probs,
-                            attn_impl=attn_impl, **kw)
+        p_i = conformer.layer_view(blocks, i)
+        if remat:
+            x = torch.utils.checkpoint.checkpoint(block, p_i, x,
+                                                  use_reentrant=False)
+        else:
+            x = block(p_i, x)
         if return_router_probs:
             x, p_i = x
             probs.append(p_i)
@@ -92,6 +108,8 @@ def forward(params, cfg: MoEEncoderConfig, feat: torch.Tensor,
         ret.append(torch.stack(probs))
     if return_hidden:
         ret.append(x_normed)
+    if return_embed_hidden:
+        ret.append(embed_hidden)
     return tuple(ret)
 
 

@@ -77,6 +77,30 @@ def activation_fn(activation):
     return ACTIVATIONS[activation_name(activation)]
 
 
+_ACTIVATIONS = {
+    "hardtanh": torch.nn.functional.hardtanh,
+    "tanh": torch.tanh,
+    "relu": torch.relu,
+    "selu": torch.nn.functional.selu,
+    "swish": swish,
+    "silu": swish,
+    # jax.nn.gelu defaults to the tanh approximation
+    "gelu": lambda x: torch.nn.functional.gelu(x, approximate="tanh"),
+}
+
+
+def get_activation(name: str):
+    """The activation registry of the model zoo, by name (KeyError for an
+    unknown one)."""
+    return _ACTIVATIONS[name]
+
+
+def dump_tensor(x: torch.Tensor, name: str = "") -> torch.Tensor:
+    """Debug identity that prints the tensor's shape, sum and values."""
+    print(f"{name} shape={tuple(x.shape)} sum={x.sum().item()}\n{x}")
+    return x
+
+
 def init_linear(generator: torch.Generator, d_in: int, d_out: int,
                 bias: bool = True, dtype: torch.dtype = torch.float32):
     """torch.nn.Linear's default init (uniform in +-1/sqrt(d_in)), kernel

@@ -150,3 +150,63 @@ def mask_finished_preds(pred: torch.Tensor, flag: torch.Tensor,
     """Beam-search finish masking: every candidate of a finished
     hypothesis becomes eos. pred: (N, beam) ints; flag: (N, 1) bool."""
     return pred.masked_fill(flag, eos)
+
+
+def spec_augment_draws(generator: torch.Generator, feat_len: torch.Tensor,
+                       D: int, num_t_mask: int = 2, num_f_mask: int = 2,
+                       max_t: int = 50, max_f: int = 10):
+    """The random draws of :func:`spec_augment` for a batch of lengths
+    ``feat_len`` (B,) and ``D`` feature bins, from a CPU generator, on
+    feat_len's device: ``t_start`` in [0, max(len - 1, 1)), ``t_len`` in
+    [1, max(max_t, 2)), ``f_start`` in [0, max(D - 1, 1)), ``f_len`` in
+    [1, max(max_f, 2)), each int32 (B, num masks)."""
+    B = feat_len.shape[0]
+    dev = feat_len.device
+    u = torch.rand((B, num_t_mask), generator=generator)
+    t_len = torch.randint(1, max(max_t, 2), (B, num_t_mask),
+                          generator=generator)
+    f_start = torch.randint(0, max(D - 1, 1), (B, num_f_mask),
+                            generator=generator)
+    f_len = torch.randint(1, max(max_f, 2), (B, num_f_mask),
+                          generator=generator)
+    hi = (feat_len.to(torch.int32)[:, None] - 1).clamp(min=1)
+    t_start = (u.to(dev) * hi).to(torch.int32)
+    return {"t_start": t_start, "t_len": t_len.to(dev, torch.int32),
+            "f_start": f_start.to(dev, torch.int32),
+            "f_len": f_len.to(dev, torch.int32)}
+
+
+def apply_spec_augment(feat: torch.Tensor, feat_len: torch.Tensor,
+                       draws) -> torch.Tensor:
+    """Zero the time and frequency masks of ``draws`` in feat (B, T, D),
+    in its dtype: a time mask ends at the utterance's length, a frequency
+    mask at D."""
+    B, T, D = feat.shape
+    t_start = draws["t_start"]
+    t_end = torch.minimum(t_start + draws["t_len"],
+                          feat_len.to(torch.int32)[:, None])
+    t_idx = torch.arange(T, device=feat.device)[None, :, None]
+    t_hit = ((t_idx >= t_start[:, None, :])
+             & (t_idx < t_end[:, None, :])).any(-1)             # (B, T)
+    f_start = draws["f_start"]
+    f_end = (f_start + draws["f_len"]).clamp(max=D)
+    f_idx = torch.arange(D, device=feat.device)[None, :, None]
+    f_hit = ((f_idx >= f_start[:, None, :])
+             & (f_idx < f_end[:, None, :])).any(-1)             # (B, D)
+    keep = ~(t_hit[:, :, None] | f_hit[:, None, :])
+    return feat * keep.to(feat.dtype)
+
+
+def spec_augment(generator: torch.Generator, feat: torch.Tensor,
+                 feat_len: torch.Tensor, num_t_mask: int = 2,
+                 num_f_mask: int = 2, max_t: int = 50,
+                 max_f: int = 10) -> torch.Tensor:
+    """Batched SpecAugment on the device (port of
+    ``m3asr_tpu/ops/masking.py::spec_augment``): ``num_t_mask`` time masks
+    starting within each utterance's valid length and ``num_f_mask``
+    frequency masks, zero-filled. The draws come from ``generator`` (a CPU
+    ``torch.Generator``), so their numbers differ from ``jax.random``'s;
+    their bounds are the JAX function's. feat (B, T, D), feat_len (B,)."""
+    return apply_spec_augment(feat, feat_len, spec_augment_draws(
+        generator, feat_len, feat.shape[2], num_t_mask, num_f_mask, max_t,
+        max_f))

@@ -340,3 +340,15 @@ def moe_experts_tiled_w8a8(p, x: torch.Tensor, gate_idx: torch.Tensor,
     if p.get("b2") is not None:
         y = y + p["b2"].to(out_dtype)[te][:, None, :]
     return untile(y, lay, x.shape)
+
+
+def moe_ffn_q(p, x: torch.Tensor, embed: Optional[torch.Tensor],
+              lengths: Optional[torch.Tensor]) -> torch.Tensor:
+    """Top-1 MoE FFN on int8 expert weights with the dense dispatch:
+    router(cat[embed, x]) -> every expert on every token
+    (:func:`moe_experts_dense_q`) -> the chosen one * the gate value."""
+    from m3asr_tpu_torch.ops.moe import softmax_top1_gate
+    router_inputs = x if embed is None else torch.cat([embed, x], dim=-1)
+    gate_value, gate_idx = softmax_top1_gate(p["router"], router_inputs,
+                                             lengths)
+    return moe_experts_dense_q(p, x, gate_idx) * gate_value

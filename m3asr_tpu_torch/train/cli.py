@@ -1,0 +1,258 @@
+"""Training CLI of the port (the twin of the root ``train.py``):
+
+    python -m m3asr_tpu_torch.train --config cfg.yaml \\
+        --tr_rspecifier feats.scp --tr_labels labels.ark \\
+        [--tr_aed_labels aed.ark [--tr_domain_labels d.ark \\
+         --tr_acc_labels a.ark]] [--cv_rspecifier cv.scp --cv_labels
+         cv.ark] --output_dir exp [--resume] [--device cpu]
+
+The YAML schema is the JAX CLI's: model_conf / loader_conf /
+collate_conf plus the optimizer keys (lr, optim, optim_conf,
+schedule_type, schedule_conf, max_grad_norm, weight_decay, name_nodecay)
+and the step's (embed_ctc_weight, ce_weight, attn_impl, compute_dtype,
+accum_steps, spec_aug_device[_conf], loader_conf.mode -> loss_type,
+ctc_weight, tap_weight, loss_scale, lsm_weight). AED labels select the
+hier AED recipe. The step runs on ``--device`` (``cuda`` unless the
+caller asks for the CPU). The run writes ``train.log``, ``scalars/`` and
+``checkpoint_{last,best,final}.pkl`` under ``--output_dir``.
+
+The parallel and sequence-training flags parse as the JAX CLI's and are
+refused: ``--tp/--sp/--pp/--ep > 1``, ``--zero1`` and ``--fsdp`` (ROADMAP
+Queue 1 item 12), ``--bmuf`` and ``--smbr_cmd`` (item 11e).
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import sys
+
+
+def parse_args(argv=None):
+    p = argparse.ArgumentParser(description="ASR training (PyTorch port)")
+    p.add_argument("--output_dir", required=True)
+    p.add_argument("--tr_rspecifier", required=True,
+                   help="training features ark/scp (or wav scp with "
+                   "loader_conf.raw_wav)")
+    p.add_argument("--tr_labels", required=True)
+    p.add_argument("--tr_aed_labels", required=False)
+    p.add_argument("--tr_domain_labels", required=False,
+                   help="per-utterance domain-id int-vector ark; activates "
+                   "the domain classifier head")
+    p.add_argument("--tr_acc_labels", required=False,
+                   help="per-utterance accent-id int-vector ark; activates "
+                   "the accent classifier head")
+    p.add_argument("--cv_rspecifier", required=False)
+    p.add_argument("--cv_labels", required=False)
+    p.add_argument("--config", required=True)
+    p.add_argument("--log_file", required=False)
+    p.add_argument("--tp", type=int, default=1,
+                   help="tensor parallelism (not ported: item 12)")
+    p.add_argument("--sp", type=int, default=1,
+                   help="sequence parallelism (not ported: item 12)")
+    p.add_argument("--pp", type=int, default=1,
+                   help="pipeline parallelism (not ported: item 12)")
+    p.add_argument("--pp_microbatches", type=int, default=2)
+    p.add_argument("--ep", type=int, default=1,
+                   help="expert parallelism (not ported: item 12)")
+    p.add_argument("--zero1", action="store_true",
+                   help="sharded optimizer state (not ported: item 12)")
+    p.add_argument("--fsdp", action="store_true",
+                   help="sharded parameters (not ported: item 12)")
+    p.add_argument("--smbr_cmd", required=False,
+                   help="sMBR sequence training (not ported: item 11e)")
+    p.add_argument("--tr_trans_file", required=False)
+    p.add_argument("--bmuf", action="store_true",
+                   help="BMUF training (not ported: item 11e)")
+    p.add_argument("--sync_period", type=int, default=0)
+    p.add_argument("--max_epochs", type=int, default=20)
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--resume", action="store_true")
+    p.add_argument("--device", default=None,
+                   help="cuda (default) or cpu")
+    return p.parse_args(argv)
+
+
+def refuse_unported(args) -> None:
+    """NotImplementedError for the flags whose code paths are not ported,
+    naming the ROADMAP item that brings them."""
+    parallel = [f"--{n} {getattr(args, n)}" for n in ("tp", "sp", "pp", "ep")
+                if getattr(args, n) > 1]
+    parallel += [f"--{n}" for n in ("zero1", "fsdp") if getattr(args, n)]
+    if parallel:
+        raise NotImplementedError(
+            f"{', '.join(parallel)}: parallel training is not ported yet: "
+            "ROADMAP Queue 1 item 12")
+    if args.bmuf or args.smbr_cmd:
+        raise NotImplementedError(
+            f"{'--bmuf' if args.bmuf else '--smbr_cmd'}: BMUF and sMBR "
+            "training are not ported yet: ROADMAP Queue 1 item 11e")
+
+
+def train_config_kwargs(raw: dict, loader_conf: dict) -> dict:
+    """The TrainConfig settings the YAML gives, read through the JAX
+    CLI's keys."""
+    return dict(
+        learning_rate=raw.get("lr", 1e-3),
+        warmup_steps=(raw.get("schedule_conf") or {}).get("warmup_steps",
+                                                          25000),
+        grad_clip=raw.get("max_grad_norm", 5.0),
+        weight_decay=raw.get("weight_decay", 0.0),
+        embed_ctc_weight=raw.get("embed_ctc_weight", 0.0),
+        ce_weight=raw.get("ce_weight", 1e-5),
+        attn_impl=raw.get("attn_impl", "xla"),
+        compute_dtype=raw.get("compute_dtype", "float32"),
+        accum_steps=int(raw.get("accum_steps", 1)),
+        spec_aug=bool(raw.get("spec_aug_device", False)),
+        spec_aug_conf=raw.get("spec_aug_device_conf"),
+        loss_type=loader_conf.get("mode", "ctc"))
+
+
+def main(argv=None):
+    """Train as ``argv`` says, in this process; returns the Trainer."""
+    args = parse_args(argv)
+    refuse_unported(args)
+    import torch
+    import yaml
+
+    from m3asr_tpu_torch.config import model_config_from_dict
+    from m3asr_tpu_torch.device import resolve_device
+    from m3asr_tpu_torch.frontend.augment import CollateFunc
+    from m3asr_tpu_torch.io.loader import DataLoader
+    from m3asr_tpu_torch.models import aed
+    from m3asr_tpu_torch.models.registry import get_family
+    from m3asr_tpu_torch.train.lr_scheduler import build_optimizer
+    from m3asr_tpu_torch.train.metrics import set_logger
+    from m3asr_tpu_torch.train.step import (HierTrainConfig, TrainConfig,
+                                            check_supported,
+                                            init_domain_acc_heads, loss_fn,
+                                            make_hier_train_step,
+                                            make_train_step,
+                                            needs_generator)
+    from m3asr_tpu_torch.train.trainer import Trainer
+
+    device = resolve_device(args.device)
+    with open(args.config) as f:
+        raw = yaml.safe_load(f)
+    model_cfg = model_config_from_dict(raw)
+
+    collate = CollateFunc(**(raw.get("collate_conf") or {}))
+    loader_conf = dict(raw.get("loader_conf") or {})
+    loader_conf.setdefault("drop_last", True)
+
+    def make_tr_loader(skip):
+        loader = DataLoader(args.tr_rspecifier, args.tr_labels,
+                            training=True, loader_conf=loader_conf,
+                            collate_func=collate,
+                            aed_label_rspec=args.tr_aed_labels,
+                            domain_rspec=args.tr_domain_labels,
+                            acc_rspec=args.tr_acc_labels)
+        return loader(skip_num=skip)
+
+    cv_loader = None
+    if args.cv_rspecifier:
+        # validation sees every utterance
+        cv_conf = dict(loader_conf, drop_last=False)
+
+        def cv_loader():
+            return DataLoader(args.cv_rspecifier, args.cv_labels,
+                              loader_conf=cv_conf)()
+
+    probe = DataLoader(args.tr_rspecifier, args.tr_labels,
+                       loader_conf=loader_conf)
+    model_cfg.input_dim = probe.input_dim
+
+    hier = bool(args.tr_aed_labels)
+    tkw = train_config_kwargs(raw, loader_conf)
+    if hier:
+        tcfg = HierTrainConfig(
+            **tkw, ctc_weight=raw.get("ctc_weight", 0.7),
+            tap_weight=raw.get("tap_weight", 0.1),
+            loss_scale=raw.get("loss_scale", 1e-4),
+            lsm_weight=raw.get("lsm_weight", 0.1))
+    else:
+        tcfg = TrainConfig(**tkw)
+    # DFSMN and dense conformer protos are refused here, before any init
+    check_supported(model_cfg, tcfg)
+    if bool(args.tr_domain_labels) != bool(args.tr_acc_labels):
+        sys.exit("--tr_domain_labels and --tr_acc_labels go together "
+                 "(the domain_acc recipe carries both streams)")
+    domain_acc = bool(args.tr_domain_labels)
+    if domain_acc and not hier:
+        sys.exit("--tr_domain_labels/--tr_acc_labels require the hier "
+                 "recipe (--tr_aed_labels); without it the streams would "
+                 "be silently ignored")
+
+    family = get_family(model_cfg.nnet_proto)
+    params = family.init(model_cfg, torch.Generator(device=device)
+                         .manual_seed(args.seed))
+    if hier:
+        d_model = model_cfg.encoder_conf.attention_dim
+        g = torch.Generator(device=device).manual_seed(args.seed + 1)
+        params = {"encoder": params}
+        for name in ("decoder", "decoder_1", "decoder_2"):
+            params[name] = aed.init(model_cfg.decoder_conf,
+                                    model_cfg.output_dim, d_model, g)
+    if domain_acc:
+        enc_conf = model_cfg.encoder_conf
+        params.update(init_domain_acc_heads(
+            torch.Generator(device=device).manual_seed(args.seed + 2),
+            enc_conf.embed_conf.attention_dim, enc_conf.output_dim_domain,
+            enc_conf.output_dim_acc))
+    optimizer = build_optimizer(
+        raw.get("schedule_type", "warmup_noam"), raw.get("schedule_conf"),
+        raw.get("lr", 1e-3), optim_type=raw.get("optim", "adam"),
+        optim_conf=raw.get("optim_conf"),
+        max_grad_norm=raw.get("max_grad_norm", 5.0),
+        weight_decay=raw.get("weight_decay", 0.0),
+        name_nodecay=raw.get("name_nodecay"), params=params)
+    step = (make_hier_train_step(model_cfg, tcfg, optimizer,
+                                 with_domain_acc=domain_acc, device=device)
+            if hier else make_train_step(model_cfg, tcfg, optimizer,
+                                         device=device))
+
+    valid_step = None
+    if cv_loader is not None:
+        # validation never augments; the hier recipe scores the encoder's
+        # CTC (the cv arks carry CTC labels)
+        vcfg = TrainConfig(**dict(tkw, spec_aug=False))
+
+        def valid_step(p, feat, feat_len, targets, target_lens):
+            enc = p["encoder"] if hier else p
+            batch = tuple(torch.as_tensor(a, device=device)
+                          for a in (feat, feat_len, targets, target_lens))
+            with torch.no_grad():
+                return loss_fn(enc, model_cfg, vcfg, *batch)[0].item()
+
+    os.makedirs(args.output_dir, exist_ok=True)
+    logger = set_logger("m3asr.train",
+                        log_file=args.log_file or
+                        os.path.join(args.output_dir, "train.log"))
+    batch_keys = ("data", "lens", "target", "target_lens")
+    if hier:
+        batch_keys += ("aed_target", "aed_target_lens")
+    if domain_acc:
+        batch_keys += ("domain", "acc")
+    trainer = Trainer(model_cfg, params, optimizer, step,
+                      batch_keys=batch_keys,
+                      make_loader=make_tr_loader, valid_loader=cv_loader,
+                      save_dir=args.output_dir,
+                      log_period=raw.get("log_period", 100),
+                      save_period=raw.get("save_period"),
+                      max_epochs=raw.get("max_epoch", args.max_epochs),
+                      step_takes_rng=needs_generator(model_cfg, tcfg),
+                      seed=args.seed,
+                      scalar_dir=os.path.join(args.output_dir, "scalars"),
+                      logger=logger)
+    if args.resume:
+        trainer.load_checkpoint("last")
+    trainer.run(valid_step)
+    trainer.save_checkpoint("final")
+    for w in trainer.writers:
+        w.close()
+    print(f"training done: {args.output_dir}")
+    return trainer
+
+
+if __name__ == "__main__":
+    main()

@@ -1,4 +1,6 @@
-"""Training losses (port of the CTC loss of ``m3asr_tpu/train/losses.py``).
+"""Training losses (port of ``m3asr_tpu/train/losses.py``): CTC, label
+smoothing, frame-level CE, and the MoE router regularizers and balance
+metrics. All loss math runs in float32.
 
 The JAX package takes ``optax.ctc_loss``: raw logits, a log-softmax
 inside, and impossible transitions weighted by a finite log-epsilon of
@@ -12,8 +14,12 @@ for the infeasible ones, where PyTorch's loss is infinite.
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 import torch.nn.functional as F
+
+from m3asr_tpu_torch.ops.masking import make_valid_mask
 
 LOG_EPSILON = -1e5        # optax.ctc_loss's log_epsilon
 
@@ -81,3 +87,139 @@ def ctc_loss(logits: torch.Tensor, logit_lens: torch.Tensor,
             (idx,), _ctc_optax(logp[idx], in_lens[idx], targets[idx],
                                tl[idx], blank_idx))
     return per_seq.mean()
+
+
+def label_smoothing_loss(logits: torch.Tensor, targets: torch.Tensor,
+                         padding_idx: int, smoothing: float = 0.1,
+                         normalize_length: bool = False) -> torch.Tensor:
+    """KL-divergence label smoothing loss; positions where ``targets ==
+    padding_idx`` are left out; the sum is divided by the batch (default)
+    or by the number of valid tokens."""
+    V = logits.shape[-1]
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    confidence = 1.0 - smoothing
+    low = smoothing / (V - 1)
+    valid = targets != padding_idx
+    tgt = torch.where(valid, targets, torch.zeros_like(targets)).long()
+    onehot = F.one_hot(tgt, V).float()
+    true_dist = low * (1.0 - onehot) + confidence * onehot
+    kl = (true_dist * (torch.log(true_dist + 1e-38) - logp)).sum(-1)
+    kl = torch.where(valid, kl, torch.zeros_like(kl))
+    denom = valid.sum() if normalize_length else logits.shape[0]
+    return kl.sum() / denom
+
+
+def ce_loss(logits: torch.Tensor, targets: torch.Tensor, padding_idx: int,
+            mean_in_frames: bool = False):
+    """Frame-level CE with likelihood and hit metrics. logits (B, T, V);
+    targets (B, T) with ``padding_idx`` at ignored frames. Returns (loss,
+    (loss_sum, likely, hit), (frames, frames, frames))."""
+    V = logits.shape[-1]
+    flat = logits.reshape(-1, V).float()
+    tgt = targets.reshape(-1).long()
+    valid = tgt != padding_idx
+    safe_tgt = torch.where(valid, tgt, torch.zeros_like(tgt))
+    logp = torch.log_softmax(flat, dim=-1)
+    prob = torch.exp(logp)
+    nll = -torch.gather(logp, 1, safe_tgt[:, None])[:, 0]
+    zero = torch.zeros_like(nll)
+    loss = torch.where(valid, nll, zero).sum()
+    frames = valid.sum()
+    true_prob = torch.gather(prob, 1, safe_tgt[:, None])[:, 0]
+    likely = torch.where(valid, true_prob, zero).sum()
+    hit = (valid & (torch.argmax(prob, dim=-1) == tgt)).sum()
+    metrics = (loss, likely, hit)
+    counts = (frames, frames, frames)
+    if mean_in_frames:
+        loss = loss / frames.clamp(min=1)
+    return loss, metrics, counts
+
+
+class MoELayerScaleAuxLoss:
+    """Aux-loss combiner with dynamic scale annealing: scale_i goes toward
+    0 as the aux metric approaches its target minimum."""
+
+    def __init__(self, num_aux: int, aux_scale, loss_minimum=None):
+        assert len(aux_scale) == num_aux
+        if loss_minimum is not None:
+            assert len(loss_minimum) == num_aux
+        self.max_aux_scale = list(aux_scale)
+        self.aux_scale = list(aux_scale)
+        self.loss_minimum = loss_minimum
+
+    def adjust_aux_scale(self, aux_metric):
+        if self.loss_minimum is None:
+            return self.aux_scale
+        for i in range(len(aux_metric)):
+            delta = (aux_metric[i] - self.loss_minimum[i]) \
+                / self.loss_minimum[i] * 3
+            self.aux_scale[i] = self.max_aux_scale[i] * min(delta, 1.0)
+        return self.aux_scale
+
+    def __call__(self, aux_loss):
+        """aux_loss: per layer, per aux type, (loss_value, loss_metric).
+        Returns (loss, metric sums, counts)."""
+        num_aux = len(aux_loss[0])
+        total = 0.0
+        sums = [0.0] * num_aux
+        for per_layer in aux_loss:
+            for j in range(num_aux):
+                val, item = per_layer[j]
+                total = total + self.aux_scale[j] * val
+                sums[j] += float(item)
+        return total, tuple(sums), tuple(1 for _ in range(num_aux))
+
+
+def gshard_balance_loss(router_probs: torch.Tensor, expert_mask: torch.Tensor,
+                        num_experts: int) -> torch.Tensor:
+    """GShard load-balance loss: mean(f_e * p_e) * E^2, f_e the dispatch
+    fraction and p_e the mean router probability. Inputs (..., E)."""
+    probs = router_probs.reshape(-1, router_probs.shape[-1]).float()
+    mask = expert_mask.reshape(-1, expert_mask.shape[-1]).float()
+    return (mask.mean(0) * probs.mean(0)).mean() * num_experts * num_experts
+
+
+def expert_importance_loss(router_probs: torch.Tensor,
+                           num_experts: int) -> torch.Tensor:
+    """E * sum(mean_gate^2)."""
+    mean_gate = router_probs.reshape(-1, router_probs.shape[-1]).float() \
+        .mean(0)
+    return (mean_gate * mean_gate).sum() * num_experts
+
+
+def balance_metrics(gate_idx: torch.Tensor, num_experts: int):
+    """Per-expert load statistics of the token counts: coefficient of
+    variation, Lmax/Lmin and Lmax/Lmean."""
+    c_e = torch.bincount(gate_idx.reshape(-1).long(),
+                         minlength=num_experts)[:num_experts].float()
+    mean = c_e.mean()
+    return {
+        "coefficient-variation": c_e.std(unbiased=False) / (mean + 1e-10),
+        "Lmax-over-Lmin": (c_e.max() + 1) / (c_e.min() + 1),
+        "Lmax-over-Lmean": c_e.max() / (mean + 1e-10),
+    }
+
+
+def router_l1_loss(router_probs: torch.Tensor,
+                   lengths: Optional[torch.Tensor]) -> torch.Tensor:
+    """Sparse L1: the mean over valid tokens of each router row's L1 norm
+    over its L2 norm. router_probs (B, T, E)."""
+    p = router_probs.float()
+    ratio = p.abs().sum(-1) / torch.sqrt(p.square().sum(-1) + 1e-12)
+    if lengths is None:
+        return ratio.mean()
+    valid = make_valid_mask(lengths, p.shape[1])
+    ratio = torch.where(valid, ratio, torch.zeros_like(ratio))
+    return ratio.sum() / valid.sum().clamp(min=1)
+
+
+def router_importance_loss(router_probs: torch.Tensor,
+                           lengths: Optional[torch.Tensor]) -> torch.Tensor:
+    """CV^2 of the per-expert importance (the summed router mass over the
+    valid tokens). router_probs (B, T, E)."""
+    p = router_probs.float()
+    if lengths is not None:
+        p = p * make_valid_mask(lengths, p.shape[1])[..., None]
+    importance = p.sum((0, 1))
+    mean = importance.mean()
+    return importance.var(unbiased=False) / (mean * mean + 1e-10)

@@ -1,21 +1,26 @@
-"""CTC training step of the hier MoE conformer (port of the MoE-conformer
-CTC branch of ``m3asr_tpu/train/step.py``).
+"""Training steps of the hier MoE conformer family (port of the MoE
+conformer branches of ``m3asr_tpu/train/step.py``): the CTC / CE step
+(:func:`make_train_step`) and the deployed hier AED recipe
+(:func:`make_hier_train_step`).
 
 One step: the forward with the dense expert stage (every expert on every
-token, as the JAX step trains), the CTC loss of the final logits (plus
-the embed encoder's, weighted by ``embed_ctc_weight``), gradients by
+token, as the JAX step trains), the loss in float32, gradients by
 autograd with respect to every float leaf of the parameter tree, and the
-optimizer (``lr_scheduler.Optimizer``). With ``attn_impl="flash"`` the 24
-attention layers run K2 forward and K3 backward (``ops/flash_attention``).
+optimizer (``lr_scheduler.Optimizer``). With ``attn_impl="flash"`` every
+attention layer runs K2 forward and K3 backward (``ops/flash_attention``).
 With ``compute_dtype="bfloat16"`` the forward and backward run on bf16
 copies of the float32 master weights, and the gradients come back to
-them in float32 through the casts.
+them in float32 through the casts. ``accum_steps`` splits the batch into
+equal microbatches, each run forward and backward on its own, and takes
+the means; ``remat`` recomputes each MoE block in the backward;
+``spec_aug`` masks the features on the device first.
 
 The step is functional, as the JAX one: it returns new parameters and
-optimizer state and leaves its inputs as they were (the card holds both
-copies for the length of the update). A parameter the loss does not
-reach (the embed encoder, without an embed CTC weight: the routers see
-its output detached) gets a zero gradient, as ``jax.grad`` gives it.
+optimizer state and leaves its inputs as they were. A parameter the loss
+does not reach (the embed encoder, without an embed CTC weight or the
+heads: the routers see its output detached) gets a zero gradient, as
+``jax.grad`` gives it. Random draws (SpecAugment, dynamic chunk sizes)
+come from a CPU ``torch.Generator`` handed to the step.
 """
 
 from __future__ import annotations
@@ -29,13 +34,15 @@ from m3asr_tpu_torch.checkpoint import flatten_tree, unflatten_tree
 from m3asr_tpu_torch.config import (EXMARC_PROTOS, MOE_HIER_PROTOS,
                                     ModelConfig)
 from m3asr_tpu_torch.device import resolve_device
-from m3asr_tpu_torch.models import moe_conformer
+from m3asr_tpu_torch.models import aed, moe_conformer
 from m3asr_tpu_torch.ops import masking
+from m3asr_tpu_torch.ops.common import init_linear, linear
 from m3asr_tpu_torch.train import losses
 from m3asr_tpu_torch.train.lr_scheduler import (Optimizer, build_optimizer,
                                                 global_norm)
 
-_TODO = "ROADMAP Queue 1 item 11 (training: the rest)"
+_TODO_11C = ("ROADMAP Queue 1 item 11c (DFSMN and dense conformer "
+             "training)")
 
 
 @dataclasses.dataclass
@@ -45,43 +52,60 @@ class TrainConfig:
     weight_decay: float = 0.0
     grad_clip: float = 5.0
     ctc_weight: float = 1.0
-    loss_type: str = "ctc"            # 'ce' is not ported
+    loss_type: str = "ctc"            # 'ctc' | 'ce' (frame-level CE on
+                                      # alignment labels)
+    padding_idx: int = -1             # ignored frame label in CE mode
     embed_ctc_weight: float = 0.0     # aux CTC on the embed encoder head
-    router_l1_weight: float = 0.0     # > 0 is not ported
-    router_importance_weight: float = 0.0
+    router_l1_weight: float = 0.0     # read by the hier recipe only, as
+    router_importance_weight: float = 0.0   # in the JAX package
     blank_idx: int = 0
-    remat: bool = False               # True is not ported
+    remat: bool = False               # per-block rematerialization
+    ce_weight: float = 1e-5           # domain/accent head CE weight
     attn_impl: str = "xla"            # 'flash': K2 forward, K3 backward
     compute_dtype: str = "float32"    # 'bfloat16': bf16 compute over
                                       # float32 master weights
-    spec_aug: bool = False            # True is not ported
-    accum_steps: int = 1              # > 1 is not ported
+    spec_aug: bool = False            # SpecAugment on the device
+    spec_aug_conf: Optional[dict] = None  # num_t_mask/num_f_mask/max_t/
+                                          # max_f overrides
+    accum_steps: int = 1              # equal microbatches per update
+
+
+@dataclasses.dataclass
+class HierTrainConfig(TrainConfig):
+    """Weights of the deployed hier recipe:
+
+        loss = [ctc_w*CTC + (1-ctc_w)*(AED + tap_w*AED_6 + tap_w*AED_12)]
+               * loss_scale + embed_ctc_weight*CTC(embed) + ce_weight*heads
+               + router aux
+
+    ``loss_scale`` (1e-4) multiplies the CTC + AED sum before the embed,
+    head and router terms are added."""
+    ctc_weight: float = 0.7
+    lsm_weight: float = 0.1
+    tap_weight: float = 0.1
+    loss_scale: float = 1e-4
+    embed_ctc_weight: float = 0.3
+    router_l1_weight: float = 0.0
+    router_importance_weight: float = 0.0
 
 
 def check_supported(model_cfg: ModelConfig, tcfg: TrainConfig) -> None:
-    """Raise NotImplementedError for the settings this slice does not
-    train, naming the ROADMAP item that brings them."""
+    """Raise NotImplementedError for the model families this slice does
+    not train, naming the ROADMAP item that brings them; ValueError for
+    an unknown setting."""
     if model_cfg.nnet_proto not in MOE_HIER_PROTOS | EXMARC_PROTOS:
         raise NotImplementedError(
             f"training {model_cfg.nnet_proto!r}: only the hier MoE conformer "
-            "CTC step (with the ExMarc protos) is ported; the DFSMN and "
-            "dense conformer branches come with ROADMAP Queue 1 item 11")
-    refused = [("loss_type", tcfg.loss_type != "ctc"),
-               ("spec_aug", tcfg.spec_aug),
-               ("accum_steps", tcfg.accum_steps > 1),
-               ("remat", tcfg.remat),
-               ("router_l1_weight", tcfg.router_l1_weight > 0),
-               ("router_importance_weight",
-                tcfg.router_importance_weight > 0)]
-    for name, bad in refused:
-        if bad:
-            raise NotImplementedError(
-                f"TrainConfig {name}={getattr(tcfg, name)!r} is not ported "
-                f"yet: {_TODO}")
+            "family (with the ExMarc protos) is ported; the DFSMN and dense "
+            f"conformer branches come with {_TODO_11C}")
+    if tcfg.loss_type not in ("ctc", "ce"):
+        raise ValueError(f"unknown loss_type {tcfg.loss_type!r}")
     if tcfg.attn_impl not in ("xla", "flash"):
         raise ValueError(f"unknown attn_impl {tcfg.attn_impl!r}")
     if tcfg.compute_dtype not in ("float32", "bfloat16"):
         raise ValueError(f"unknown compute_dtype {tcfg.compute_dtype!r}")
+    if tcfg.accum_steps < 1:
+        raise ValueError(f"accum_steps must be >= 1, not {tcfg.accum_steps}")
 
 
 def make_optimizer(cfg: TrainConfig) -> Optimizer:
@@ -123,25 +147,61 @@ def _cast_compute(params, feat: torch.Tensor, tcfg: TrainConfig):
     return cast(params), feat.to(torch.bfloat16)
 
 
+def _apply_spec_aug(tcfg: TrainConfig, generator, feat, feat_len):
+    if not tcfg.spec_aug:
+        return feat
+    if generator is None:
+        raise ValueError("spec_aug=True needs the per-batch step generator")
+    return masking.spec_augment(generator, feat, feat_len,
+                                **(tcfg.spec_aug_conf or {}))
+
+
+def _ce_targets(targets, target_lens, T_out: int, padding_idx: int):
+    """CE labels padded (or cut) to the model's T_out frames, padding_idx
+    past each length."""
+    U = targets.shape[1]
+    tgt = targets.long()
+    if U < T_out:
+        tgt = torch.cat([tgt, tgt.new_full((tgt.shape[0], T_out - U),
+                                           padding_idx)], 1)
+    else:
+        tgt = tgt[:, :T_out]
+    valid = torch.arange(T_out, device=tgt.device)[None, :] \
+        < target_lens[:, None]
+    return torch.where(valid, tgt, torch.full_like(tgt, padding_idx))
+
+
 def loss_fn(params, model_cfg: ModelConfig, tcfg: TrainConfig,
             feat: torch.Tensor, feat_len: torch.Tensor,
             targets: torch.Tensor, target_lens: torch.Tensor,
             generator: Optional[torch.Generator] = None):
-    """(loss, metrics) of the MoE-conformer CTC branch; the loss math runs
-    in float32 whatever the compute dtype."""
+    """(loss, metrics) of the MoE-conformer CTC (or CE) branch; the loss
+    math runs in float32 whatever the compute dtype. The router weights
+    are not read here, as in the JAX package."""
     check_supported(model_cfg, tcfg)
     enc = model_cfg.encoder_conf
     params, feat = _cast_compute(params, feat, tcfg)
+    feat = _apply_spec_aug(tcfg, generator, feat, feat_len)
     chunk_mask = train_chunk_mask(enc, feat, feat_len, generator)
     embed_mask = train_chunk_mask(enc.embed_conf, feat, feat_len, generator)
     out, out_len, embed_out = moe_conformer.forward(
         params, enc, feat, feat_len, output_embed=True, moe_impl="dense",
         chunk_mask=chunk_mask, embed_chunk_mask=embed_mask,
-        attn_impl=tcfg.attn_impl)
+        remat=tcfg.remat, attn_impl=tcfg.attn_impl)
+    out = out.float()
     metrics = {}
-    loss = tcfg.ctc_weight * losses.ctc_loss(out.float(), out_len, targets,
-                                             target_lens, tcfg.blank_idx)
-    metrics["ctc_loss"] = loss
+    if tcfg.loss_type == "ce":
+        tgt = _ce_targets(targets, target_lens, out.shape[1],
+                          tcfg.padding_idx)
+        loss, (_, likely, hit), (frames, _, _) = losses.ce_loss(
+            out, tgt, tcfg.padding_idx, mean_in_frames=True)
+        metrics["ce_loss"] = loss
+        metrics["likely"] = likely / frames.clamp(min=1)
+        metrics["acc"] = hit / frames.clamp(min=1)
+    else:
+        loss = tcfg.ctc_weight * losses.ctc_loss(out, out_len, targets,
+                                                 target_lens, tcfg.blank_idx)
+        metrics["ctc_loss"] = loss
     if tcfg.embed_ctc_weight > 0:
         e_loss = losses.ctc_loss(embed_out.float(), out_len, targets,
                                  target_lens, tcfg.blank_idx)
@@ -151,17 +211,151 @@ def loss_fn(params, model_cfg: ModelConfig, tcfg: TrainConfig,
     return loss, metrics
 
 
-def value_and_grad(params, model_cfg: ModelConfig, tcfg: TrainConfig, feat,
-                   feat_len, targets, target_lens, generator=None):
-    """((loss, metrics), grads): grads a flat ``{"a/b/c": tensor}`` dict
-    over every float leaf of ``params``, zeros where the loss does not
-    reach (``jax.value_and_grad`` of ``loss_fn``)."""
+def add_sos_eos_t(targets: torch.Tensor, target_lens: torch.Tensor, sos: int,
+                  eos: int, ignore_id: int):
+    """(B, U) -> ys_in, ys_out (B, U+1) on the device (``add_sos_eos_jnp``):
+    ys_in = sos + targets, ys_out = targets + eos, ignore_id past each."""
+    B, U = targets.shape
+    tgt = targets.long()
+    lens = target_lens.long()[:, None]
+    pos = torch.arange(U + 1, device=tgt.device)[None, :]
+    zero = tgt.new_zeros((B, 1))
+    shifted = torch.cat([zero, tgt], 1)
+    ys_in = torch.where(pos == 0, torch.full_like(shifted, sos),
+                        torch.where(pos <= lens, shifted,
+                                    torch.full_like(shifted, ignore_id)))
+    padded = torch.cat([tgt, zero], 1)
+    ys_out = torch.where(pos == lens, torch.full_like(padded, eos),
+                         torch.where(pos < lens, padded,
+                                     torch.full_like(padded, ignore_id)))
+    return ys_in, ys_out
+
+
+def init_domain_acc_heads(generator: torch.Generator, d_model: int,
+                          output_dim_domain: int = 6,
+                          output_dim_acc: int = 8, bottleneck: int = 4,
+                          dtype: torch.dtype = torch.float32):
+    """The domain and accent classifier heads on the embed hidden: a
+    Linear(d -> bottleneck) and a Linear(bottleneck -> classes) each,
+    torch.nn.Linear's init drawn on ``generator``'s device."""
+    def head(n_out):
+        return {"embed": init_linear(generator, d_model, bottleneck,
+                                     dtype=dtype),
+                "out": init_linear(generator, bottleneck, n_out,
+                                   dtype=dtype)}
+    return {"domain_head": head(output_dim_domain),
+            "acc_head": head(output_dim_acc)}
+
+
+DECODER_TAPS = (("decoder", "h_final"), ("decoder_1", "h6"),
+                ("decoder_2", "h12"))
+
+
+def hier_aed_loss_fn(params, model_cfg: ModelConfig,
+                     tcfg: HierTrainConfig, feat, feat_len, targets,
+                     target_lens, aed_targets, aed_target_lens,
+                     generator: Optional[torch.Generator] = None,
+                     domain_targets=None, acc_targets=None):
+    """The deployed recipe: CTC (final) + label-smoothing AED on the
+    final hidden and the taps after blocks 6 and 12, scaled by
+    ``loss_scale``, + embed CTC + the domain/accent heads on the embed
+    hidden pooled over the valid frames + the router aux terms (averaged
+    over the blocks). ``params`` holds ``encoder`` and the decoders
+    ``decoder``, ``decoder_1``, ``decoder_2`` (and the heads). No remat,
+    as in the JAX recipe."""
+    check_supported(model_cfg, tcfg)
+    params, feat = _cast_compute(params, feat, tcfg)
+    feat = _apply_spec_aug(tcfg, generator, feat, feat_len)
+    enc = params["encoder"] if "encoder" in params else params
+    enc_cfg = model_cfg.encoder_conf
+    chunk_mask = train_chunk_mask(enc_cfg, feat, feat_len, generator)
+    embed_mask = train_chunk_mask(enc_cfg.embed_conf, feat, feat_len,
+                                  generator)
+    with_heads = domain_targets is not None or acc_targets is not None
+    res = moe_conformer.forward(enc, enc_cfg, feat, feat_len,
+                                output_embed=True, hier_taps=True,
+                                return_router_probs=True, moe_impl="dense",
+                                chunk_mask=chunk_mask,
+                                embed_chunk_mask=embed_mask,
+                                return_embed_hidden=with_heads,
+                                attn_impl=tcfg.attn_impl)
+    out, out_len, embed_out, h6, h12, h_final, router_ps = res[:7]
+    taps = {"h6": h6, "h12": h12, "h_final": h_final}
+    embed_hidden = res[7] if with_heads else None
+    metrics = {}
+    ctc = losses.ctc_loss(out.float(), out_len, targets, target_lens,
+                          tcfg.blank_idx)
+    metrics["ctc_loss"] = ctc
+    loss = tcfg.ctc_weight * ctc
+
+    sos = eos = model_cfg.output_dim - 1
+    ys_in, ys_out = add_sos_eos_t(aed_targets, aed_target_lens, sos, eos, -1)
+    ys_in = ys_in.clamp(min=0)
+    ys_in_lens = aed_target_lens + 1
+    aed_total = 0.0
+    for i, (name, tap) in enumerate(DECODER_TAPS):
+        if name not in params:
+            continue
+        dp = params[name]
+        dp = dp.get("left_decoder", dp)
+        dec_out = aed.forward(dp, model_cfg.decoder_conf, taps[tap], out_len,
+                              ys_in, ys_in_lens)
+        a_loss = losses.label_smoothing_loss(dec_out.float(), ys_out, -1,
+                                             tcfg.lsm_weight)
+        metrics[f"aed_loss_{i}"] = a_loss
+        aed_total = aed_total + (a_loss if i == 0
+                                 else tcfg.tap_weight * a_loss)
+    loss = loss + (1.0 - tcfg.ctc_weight) * aed_total
+    loss = loss * tcfg.loss_scale
+
+    if tcfg.embed_ctc_weight > 0:
+        e_loss = losses.ctc_loss(embed_out.float(), out_len, targets,
+                                 target_lens, tcfg.blank_idx)
+        metrics["embed_ctc_loss"] = e_loss
+        loss = loss + tcfg.embed_ctc_weight * e_loss
+
+    B = feat.shape[0]
+    for tag, head_name, tgt in (("domain", "domain_head", domain_targets),
+                                ("acc", "acc_head", acc_targets)):
+        if tgt is None or head_name not in params:
+            continue
+        head = params[head_name]
+        valid = (torch.arange(embed_hidden.shape[1],
+                              device=feat.device)[None, :]
+                 < out_len[:, None]).to(embed_hidden.dtype)
+        pooled = ((embed_hidden * valid[:, :, None]).sum(1)
+                  / valid.sum(1).clamp(min=1.0)[:, None])
+        logits = linear(head["out"], linear(head["embed"], pooled)).float()
+        ce_sum, (_, _, hit), (frames, _, _) = losses.ce_loss(
+            logits[:, None, :], tgt[:, None], -1, mean_in_frames=False)
+        ce = ce_sum / B
+        metrics[f"{tag}_loss"] = ce
+        metrics[f"{tag}_hit"] = hit / frames.clamp(min=1)
+        loss = loss + tcfg.ce_weight * ce
+
+    if tcfg.router_l1_weight > 0 or tcfg.router_importance_weight > 0:
+        ps = router_ps.float()                    # (L, B, T', E)
+        l1 = torch.stack([losses.router_l1_loss(p, out_len)
+                          for p in ps]).mean()
+        imp = torch.stack([losses.router_importance_loss(p, out_len)
+                           for p in ps]).mean()
+        metrics["router_l1"] = l1
+        metrics["router_importance"] = imp
+        loss = loss + tcfg.router_l1_weight * l1 + \
+            tcfg.router_importance_weight * imp
+
+    metrics["loss"] = loss
+    return loss, metrics
+
+
+def _value_and_grad(call, params):
+    """((loss, metrics), grads) of ``call(tree) -> (loss, metrics)``:
+    grads a flat ``{"a/b/c": tensor}`` dict over every float leaf of
+    ``params``, zeros where the loss does not reach."""
     flat = flatten_tree(params)
     leaves = {k: v.detach().requires_grad_(True) for k, v in flat.items()
               if v.is_floating_point()}
-    loss, metrics = loss_fn(unflatten_tree({**flat, **leaves}), model_cfg,
-                            tcfg, feat, feat_len, targets, target_lens,
-                            generator)
+    loss, metrics = call(unflatten_tree({**flat, **leaves}))
     names = list(leaves)
     got = torch.autograd.grad(loss, [leaves[k] for k in names],
                               allow_unused=True)
@@ -171,25 +365,75 @@ def value_and_grad(params, model_cfg: ModelConfig, tcfg: TrainConfig, feat,
         grads
 
 
-def make_train_step(model_cfg: ModelConfig, tcfg: TrainConfig,
-                    optimizer: Optimizer, with_domain_acc: bool = False,
-                    device=None):
-    """step(params, opt_state, feat, feat_len, targets, target_lens,
-    generator=None) -> (params, opt_state, metrics), metrics holding
-    ``loss``, ``ctc_loss`` and ``grad_norm`` (before clipping). The step
-    runs on ``device`` (``cuda`` unless the caller asks for the CPU): the
-    parameters must lie there, the batch (tensors or numpy arrays) is
-    moved there. The optimizer state comes from :func:`init_opt_state`.
-    ``generator`` (a CPU ``torch.Generator``) draws the dynamic chunk
-    sizes, when the config asks for them. A float32 step on CUDA turns
-    TF32 off for cuBLAS and cuDNN (process-wide flags) when it is built,
-    as the engine does, and again at each call; bf16 compute leaves them
-    as they are."""
-    check_supported(model_cfg, tcfg)
-    if with_domain_acc:
-        raise NotImplementedError(
-            "the domain/accent heads (DFSMN in-model heads) are not ported "
-            "yet: ROADMAP Queue 1 item 11")
+def _accum_value_and_grad(per_mb_loss, params, mb_arrays, accum_steps: int):
+    """Gradient accumulation over ``accum_steps`` equal microbatches, in
+    row order: each runs forward and backward on its own (peak activation
+    memory is one microbatch); the loss, metrics and gradients returned
+    are the microbatch means, summed in order and scaled by
+    1 / accum_steps as the JAX scan does. per_mb_loss(tree, mb) -> (loss,
+    metrics); mb_arrays: batch-leading tensors (entries may be None)."""
+    B = next(a.shape[0] for a in mb_arrays if a is not None)
+    if B % accum_steps != 0:
+        raise ValueError(f"batch {B} not divisible by accum_steps "
+                         f"{accum_steps}")
+    n = B // accum_steps
+    loss = metrics = grads = None
+    for i in range(accum_steps):
+        mb = tuple(None if a is None else a[i * n:(i + 1) * n]
+                   for a in mb_arrays)
+        (l_i, m_i), g_i = _value_and_grad(lambda p: per_mb_loss(p, mb),
+                                          params)
+        if loss is None:
+            loss, metrics, grads = l_i, m_i, g_i
+            continue
+        loss = loss + l_i
+        metrics = {k: metrics[k] + m_i[k] for k in metrics}
+        for k, g in g_i.items():
+            grads[k].add_(g)
+        del g_i
+    inv = 1.0 / accum_steps
+    return (loss * inv, {k: v * inv for k, v in metrics.items()}), \
+        {k: g.mul_(inv) for k, g in grads.items()}
+
+
+def value_and_grad(params, model_cfg: ModelConfig, tcfg: TrainConfig, feat,
+                   feat_len, targets, target_lens, generator=None):
+    """((loss, metrics), grads) of :func:`loss_fn` (``jax.value_and_grad``),
+    over ``accum_steps`` microbatches when it is > 1."""
+    def call(p, mb):
+        return loss_fn(p, model_cfg, tcfg, *mb, generator=generator)
+    batch = (feat, feat_len, targets, target_lens)
+    if tcfg.accum_steps > 1:
+        return _accum_value_and_grad(call, params, batch, tcfg.accum_steps)
+    return _value_and_grad(lambda p: call(p, batch), params)
+
+
+def hier_value_and_grad(params, model_cfg: ModelConfig,
+                        tcfg: HierTrainConfig, feat, feat_len, targets,
+                        target_lens, aed_targets, aed_target_lens,
+                        generator=None, domain_targets=None,
+                        acc_targets=None):
+    """((loss, metrics), grads) of :func:`hier_aed_loss_fn`, over
+    ``accum_steps`` microbatches when it is > 1."""
+    def call(p, mb):
+        f, fl, tg, tl, at, atl, dt, ac = mb
+        return hier_aed_loss_fn(p, model_cfg, tcfg, f, fl, tg, tl, at, atl,
+                                generator=generator, domain_targets=dt,
+                                acc_targets=ac)
+    batch = (feat, feat_len, targets, target_lens, aed_targets,
+             aed_target_lens, domain_targets, acc_targets)
+    if tcfg.accum_steps > 1:
+        return _accum_value_and_grad(call, params, batch, tcfg.accum_steps)
+    return _value_and_grad(lambda p: call(p, batch), params)
+
+
+def _step_runner(tcfg: TrainConfig, optimizer: Optimizer, device):
+    """run(params, opt_state, batch, value_and_grad_of_batch) -> (params,
+    opt_state, metrics) on ``device``: the batch (tensors, numpy arrays or
+    None) moved there, the update, and ``grad_norm`` (before clipping). A
+    float32 step on CUDA turns TF32 off for cuBLAS and cuDNN (process-wide
+    flags) when it is built, as the engine does, and again at each call;
+    bf16 compute leaves them as they are."""
     dev = resolve_device(device)
     full_fp32 = dev.type == "cuda" and tcfg.compute_dtype == "float32"
 
@@ -201,20 +445,16 @@ def make_train_step(model_cfg: ModelConfig, tcfg: TrainConfig,
     if full_fp32:
         no_tf32()
 
-    def step(params, opt_state, feat, feat_len, targets, target_lens,
-             generator=None):
+    def run(params, opt_state, batch, vg):
         if full_fp32:        # in case TF32 was turned on since
             no_tf32()
         if any(t.device.type != dev.type
                for t in flatten_tree(params).values()):
             raise ValueError(f"the step runs on {dev}: the parameters "
                              "must lie there")
-        feat, feat_len, targets, target_lens = (
-            torch.as_tensor(a, device=dev)
-            for a in (feat, feat_len, targets, target_lens))
-        (_, metrics), grads = value_and_grad(
-            params, model_cfg, tcfg, feat, feat_len, targets, target_lens,
-            generator)
+        batch = tuple(None if a is None else torch.as_tensor(a, device=dev)
+                      for a in batch)
+        (_, metrics), grads = vg(params, batch)
         flat = flatten_tree(params)
         current = {k: flat[k] for k in grads}
         updates, opt_state = optimizer.update(grads, opt_state, current)
@@ -222,17 +462,81 @@ def make_train_step(model_cfg: ModelConfig, tcfg: TrainConfig,
         metrics["grad_norm"] = global_norm(grads.values())
         return unflatten_tree(flat), opt_state, metrics
 
+    return run
+
+
+def make_train_step(model_cfg: ModelConfig, tcfg: TrainConfig,
+                    optimizer: Optimizer, with_domain_acc: bool = False,
+                    device=None):
+    """step(params, opt_state, feat, feat_len, targets, target_lens,
+    generator=None) -> (params, opt_state, metrics), metrics holding
+    ``loss``, ``ctc_loss`` (``ce_loss``, ``likely``, ``acc`` in CE mode)
+    and ``grad_norm`` (before clipping). The step runs on ``device``
+    (``cuda`` unless the caller asks for the CPU): the parameters must lie
+    there, the batch (tensors or numpy arrays) is moved there. The
+    optimizer state comes from :func:`init_opt_state`. ``generator`` (a
+    CPU ``torch.Generator``) draws the SpecAugment masks and the dynamic
+    chunk sizes, when the config asks for them."""
+    check_supported(model_cfg, tcfg)
+    if with_domain_acc:
+        raise NotImplementedError(
+            "the domain/accent heads of the CTC step (the DFSMN in-model "
+            f"heads) are not ported yet: {_TODO_11C}")
+    run = _step_runner(tcfg, optimizer, device)
+
+    def step(params, opt_state, feat, feat_len, targets, target_lens,
+             generator=None):
+        return run(params, opt_state, (feat, feat_len, targets, target_lens),
+                   lambda p, b: value_and_grad(p, model_cfg, tcfg, *b,
+                                               generator=generator))
     return step
+
+
+def make_hier_train_step(model_cfg: ModelConfig, tcfg: HierTrainConfig,
+                         optimizer: Optimizer, with_domain_acc: bool = False,
+                         device=None):
+    """The deployed hier AED recipe's step: step(params, opt_state, feat,
+    feat_len, targets, target_lens, aed_targets, aed_target_lens,
+    generator=None), with ``with_domain_acc`` taking the per-utterance
+    domain and accent ids after the AED labels (the Trainer's batch key
+    order) and training the heads of :func:`init_domain_acc_heads` on the
+    embed hidden. Device, batch and generator as :func:`make_train_step`."""
+    check_supported(model_cfg, tcfg)
+    run = _step_runner(tcfg, optimizer, device)
+
+    def vg(generator):
+        return lambda p, b: hier_value_and_grad(p, model_cfg, tcfg, *b[:6],
+                                                generator=generator,
+                                                domain_targets=b[6],
+                                                acc_targets=b[7])
+
+    if with_domain_acc:
+        def step(params, opt_state, feat, feat_len, targets, target_lens,
+                 aed_targets, aed_target_lens, domain_targets, acc_targets,
+                 generator=None):
+            return run(params, opt_state,
+                       (feat, feat_len, targets, target_lens, aed_targets,
+                        aed_target_lens, domain_targets, acc_targets),
+                       vg(generator))
+    else:
+        def step(params, opt_state, feat, feat_len, targets, target_lens,
+                 aed_targets, aed_target_lens, generator=None):
+            return run(params, opt_state,
+                       (feat, feat_len, targets, target_lens, aed_targets,
+                        aed_target_lens, None, None), vg(generator))
+    return step
+
+
+def needs_generator(model_cfg: ModelConfig, tcfg: TrainConfig) -> bool:
+    """Whether a step draws random numbers (SpecAugment, dynamic chunks):
+    the JAX ``_needs_rng``."""
+    enc = model_cfg.encoder_conf
+    embed = getattr(enc, "embed_conf", None)
+    return bool(tcfg.spec_aug or enc.use_dynamic_chunk
+                or getattr(embed, "use_dynamic_chunk", False))
 
 
 def init_opt_state(optimizer: Optimizer, params):
     """The optimizer state of a parameter tree (its float leaves)."""
     return optimizer.init({k: v for k, v in flatten_tree(params).items()
                            if v.is_floating_point()})
-
-
-def make_hier_train_step(*_, **__):
-    """The deployed hier AED recipe (CTC + AED taps + router aux)."""
-    raise NotImplementedError(
-        "the hier AED training recipe is not ported yet: ROADMAP Queue 1 "
-        "item 11 (training: the rest)")

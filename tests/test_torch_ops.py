@@ -266,3 +266,103 @@ def test_varlen_instance_norm_2d(affine, dtype):
         torch.from_numpy(x).to(tdt), torch.from_numpy(lens), affine=affine)
     assert got.dtype == tdt
     _norm_close(got, ref, dtype)
+
+
+# ---------------------------------------------------------------------------
+# SpecAugment, the activation registry, dump_tensor, the int8 MoE FFN
+# ---------------------------------------------------------------------------
+
+def test_spec_augment_matches_jax_on_its_draws():
+    """The port's masking given the draws JAX's spec_augment takes from its
+    key (test_torch_train.jax_spec_aug_draws) equals the JAX function's
+    output exactly, on float32 and bf16 features, with mask widths past
+    the utterance's end and the feature dimension."""
+    from test_torch_train import jax_spec_aug_draws
+    rng = np.random.default_rng(0)
+    feat = rnd(rng, 3, 40, 12)
+    lens = np.array([40, 17, 2], np.int32)
+    for seed in range(4):
+        key = jax.random.PRNGKey(seed)
+        conf = dict(num_t_mask=3, num_f_mask=2, max_t=15, max_f=6)
+        for dtype, tdtype in ((jnp.float32, torch.float32),
+                              (jnp.bfloat16, torch.bfloat16)):
+            ref = j_mask.spec_augment(key, jnp.asarray(feat, dtype),
+                                      jnp.asarray(lens), **conf)
+            draws = jax_spec_aug_draws(key, lens, 12, **conf)
+            got = t_mask.apply_spec_augment(
+                torch.from_numpy(feat).to(tdtype), torch.from_numpy(lens),
+                draws)
+            assert got.dtype == tdtype
+            np.testing.assert_array_equal(got.float().numpy(),
+                                          np.asarray(ref, np.float32))
+
+
+def test_spec_augment_draws_keep_jax_bounds():
+    """Over 200 seeds of the port's CPU generator: time masks start in
+    [0, max(len - 1, 1)) and are [1, max(max_t, 2)) wide, frequency masks
+    start in [0, max(D - 1, 1)) and are [1, max(max_f, 2)) wide; the
+    masked features are zero and the rest untouched, in the input's
+    dtype; a time mask ends at the utterance's length."""
+    lens = torch.tensor([50, 9, 1, 2])
+    D = 8
+    feat = torch.ones((4, 50, D), dtype=torch.bfloat16)
+    for seed in range(200):
+        g = torch.Generator().manual_seed(seed)
+        d = t_mask.spec_augment_draws(g, lens, D, 2, 3, max_t=7, max_f=1)
+        hi = (lens - 1).clamp(min=1)[:, None]
+        assert ((d["t_start"] >= 0) & (d["t_start"] < hi)).all()
+        assert ((d["t_len"] >= 1) & (d["t_len"] < 7)).all()
+        assert ((d["f_start"] >= 0) & (d["f_start"] < D - 1)).all()
+        assert (d["f_len"] == 1).all()
+        out = t_mask.apply_spec_augment(feat, lens, d)
+        assert out.dtype == torch.bfloat16
+        assert set(out.unique().tolist()) <= {0.0, 1.0}
+        for b in range(4):
+            t_end = torch.minimum(d["t_start"][b] + d["t_len"][b], lens[b])
+            for t0, t1 in zip(d["t_start"][b], t_end):
+                assert (out[b, t0:t1] == 0).all()
+            for f0, n in zip(d["f_start"][b], d["f_len"][b]):
+                assert (out[b, :, f0:f0 + n] == 0).all()
+    g = torch.Generator().manual_seed(0)
+    torch.testing.assert_close(
+        t_mask.spec_augment(g, feat.float(), lens),
+        t_mask.apply_spec_augment(feat.float(), lens, t_mask.spec_augment_draws(
+            torch.Generator().manual_seed(0), lens, D)))
+
+
+@pytest.mark.parametrize("name", ["hardtanh", "tanh", "relu", "selu",
+                                  "swish", "silu", "gelu"])
+def test_get_activation_matches_jax(name):
+    """Every name of the registry (gelu: jax.nn.gelu's tanh
+    approximation) on values across [-6, 6]."""
+    x = np.linspace(-6, 6, 101, dtype=np.float32)
+    close(t_common.get_activation(name)(torch.from_numpy(x)),
+          j_common.get_activation(name)(jnp.asarray(x)))
+
+
+def test_dump_tensor_prints_and_returns_its_input(capsys):
+    x = torch.arange(6.0).reshape(2, 3)
+    assert t_common.dump_tensor(x, "h") is x
+    out = capsys.readouterr().out
+    assert "h shape=(2, 3) sum=15.0" in out
+
+
+def test_moe_ffn_q_matches_jax():
+    """The int8 MoE FFN (router on cat[embed, x], every expert dequantized
+    on every token, the chosen one times the gate) on JAX-quantized
+    weights, with padded rows: rtol 1e-5, atol 1e-5."""
+    from m3asr_tpu.ops import moe as j_moe
+    from m3asr_tpu.ops import quant as j_quant
+    from m3asr_tpu_torch.ops import quant as t_quant
+    rng = np.random.default_rng(3)
+    p = j_moe.init_moe_ffn(jax.random.PRNGKey(1), 16, 8, 4, 24)
+    p = jax.tree.map(np.asarray, p)
+    p["router"]["kernel"] = rnd(rng, 24, 4, scale=0.5)
+    q = jax.tree.map(np.asarray, j_quant.quantize_moe_params(p, bits=8))
+    x, embed = rnd(rng, 2, 7, 16), rnd(rng, 2, 7, 8)
+    lens = np.array([7, 4], np.int32)
+    ref = j_quant.moe_ffn_q(jax.tree.map(jnp.asarray, q), jnp.asarray(x),
+                            jnp.asarray(embed), jnp.asarray(lens))
+    got = t_quant.moe_ffn_q(params_from_jax(q), torch.from_numpy(x),
+                            torch.from_numpy(embed), torch.from_numpy(lens))
+    close(got, ref)
