@@ -18,7 +18,8 @@ result line:
    front (row_tiles) must run bf16, int8-on-bf16 K8 and K4-K7
    weight-only on HMMA.16816.F32.BF16, K4-K7 a8 on IMMA.16832.S8.S8 and
    float32 on FFMA, with no other MMA and no atomic; the front runs no
-   MMA.
+   MMA. K3's eight instantiations at the DFSMN width (D2, Dk) = (64, 64)
+   must have a ptxas record, and no flash kernel may spill.
 3. kernels against their plain PyTorch versions at the flagship widths
    (E=32, d=512, h=1024):
    K6's and K8's row-tile front (row_tiles, in each library) against its
@@ -270,7 +271,7 @@ result line:
    staggered streams through a DfsmnStreamBatcher (8 slots x chunk 16,
    cache_T 256; the expert stage serve picks: K1, plain quant, K6): in
    fp32 streams of 10-52 s (one past the 5000-row positional table, 329
-   ticks), in the other modes of 10-19 s (131 ticks). The capture launches
+   ticks), in the other modes of 5.0-9.6 s (71 ticks). The capture launches
    its kernel 29 times a forward, a replay none, and every tick equals the
    same program eager bit for bit; ticks 12-15 (every stream past the
    delay), from the eager run's state, are held to the kernel's plain
@@ -350,6 +351,44 @@ result line:
    MoE blocks twice); (iv) the bf16-compute hier loss within 2e-2 of
    fp32's. Printed: step times and frames/s, checkpoint seconds and
    sizes, one hier step's device time and busy share, peak memory.
+
+17. DFSMN and dense conformer training (after phase 16):
+   (a) K3 at the DFSMN width (D2, Dk) = (64, 64) on the memory-slot
+   layout (64 slots prepended, key lengths + 64) at B=1, T=2048 and 6144
+   and B=4, T=1000 with mixed lengths, with and without the 16-frame chunk
+   window (shifted by 64, mem_cols=64), fp32 and bf16, from K2's LSE: dq,
+   dk, dv against the plain version on the valid rows within FLASH_TOL x
+   sqrt(S / 512) past 512 keys in fp32 (FLASH_TOL in bf16), two calls
+   bit-equal. (b) The DFSMN-MoE CTC step at the reference Net's widths
+   and depth (phase 13's model) on 4 x 1000 frames, embed CTC weight 0.3:
+   fp32 flash against xla with routing pinned (loss within 1e-5
+   relative, every cFSMN / attention layer's gradients within
+   TRAIN_GRAD_TOL of its max|g|), K2 and each K3 kernel launched once per
+   attention layer (3 + 3); the bf16-compute flash gradient (routing
+   pinned) finite, its loss within 2e-2 of fp32's; a CE step (alignment
+   labels, no embed CTC: K3 only in the main net's 3 layers) held the same
+   way; three Adam steps timed, one profiled, peak memory. (c)
+   dfsmn_san_res_embed_domain_acc (same widths) with its in-model heads:
+   flash against xla, the heads' leaves with non-zero gradients. (d) The
+   dense conformer (the flagship encoder's widths, 18 blocks) with dynamic
+   chunks (a seed drawing a chunk shorter than the utterance): flash
+   against xla, 18 launches each. (e) The training CLI on the DFSMN-MoE
+   cut to 1 x 4 cFSMN in the main net and the embed sub-net (widths kept:
+   at 3 x 10 a checkpoint with Adam moments is about 12 GiB, and the
+   script keeps its disk writes under 45 GiB), CE mode on alignment arks,
+   batch 4, flash, checkpoints under TMPDIR: a run of 2 steps and its
+   --resume (parameters loaded bit-equal to checkpoint_last.pkl); a
+   --bmuf --sync_period 2 run of 4 steps, each sync's replicas equal to
+   the block-momentum update recomputed on the host (1e-6 of max|global|)
+   and the checkpoint's bmuf entry; a --smbr_cmd run on the dense
+   conformer (18 blocks, SGD) with a lattice command that is a Python
+   script writing the gradient of sum_t [logsumexp(l_t) - l_t[t % V]]:
+   smbr_epoch0.pkl equal to autograd's update of that loss within 1e-4 of
+   each leaf's largest value. The launches of K2 and K3 at (64, 64) (the
+   kernels line's flash_attn_mem and flash_attn_mem_bwd rows) and of the
+   dense conformer's K2/K3 are counted; K3 (64, 64) is timed at the
+   training batch and both long requests beside its plain version, SDPA's
+   backward and its bound.
 
 ``python3 chip_smoke.py --only NAME [NAME ...]`` runs the build and the
 phases named in ``ALONE`` alone, for work on one of them; it prints no
@@ -450,6 +489,14 @@ def phase_build(kernels):
                 if spilled:
                     raise SystemExit(f"FAIL build: {kern} spills: "
                                      + " | ".join(spilled))
+            if lib.source == "flash_attention.cu":
+                missing = [k for k in FLASH_MEM_BWD_KERNELS
+                           if not any(ln.startswith(k + ":") for ln in ptxas)]
+                spilled = [ln for ln in ptxas if "SPILLS" in ln]
+                if missing or spilled:
+                    raise SystemExit(f"FAIL build: flash kernels without a "
+                                     f"ptxas record {missing}; spilling "
+                                     + " | ".join(spilled))
     log(f"build: all kernels in {time.perf_counter() - t0:.2f} s")
     kernel_sass(kernels)
 
@@ -494,6 +541,12 @@ KERNEL_NAMES = {"K1": "expert_tile_gemm", "K4/K5": "runs_gemm",
                 "K6 a8": "dense_gemm a8", "K7": "tiled_gemm",
                 "K7 a8": "tiled_gemm_s8", "K8": "stream_gemm",
                 "front": "row_tiles"}
+# K3's instantiations at the DFSMN width, which must have a ptxas record
+# (no flash kernel may spill)
+FLASH_MEM_BWD_KERNELS = tuple(
+    f"{kern}<{t}, 64, 64, {rows}>"
+    for kern in ("flash_bwd_dq_kernel", "flash_bwd_dkv_kernel")
+    for t in ("float", "__nv_bfloat16") for rows in (16, 32))
 # per library, the kernels that must have a ptxas record and no spill
 BUILD_GATES = {"moe_runs.cu": ("K1", "K4/K5", "K4/K5 a8"),
                "moe_q4.cu": ("K6", "K6 a8", "front"),
@@ -4913,10 +4966,11 @@ def dfsmn_report(torch, state, smi):
 DS_SLOTS, DS_CHUNK, DS_CACHE_T = 8, 16, 256
 # frames of the 8 streams (10 ms each: 10-52 s); the first passes the
 # 5000-row positional table. Its 329 ticks are run by the modes of
-# DS_LONG; the others take a ninth stream of 19.1 s in its place (an
-# eager tick costs 45-80 ms of host time)
+# DS_LONG; the others run DS_HALF, streams of 5.0-9.6 s (71 ticks): an
+# eager tick costs 45-80 ms of host time, and the whole script must end
+# within its 1200 s (131 ticks there took it to 1082.7-1116.0 s)
 DS_FRAMES = (5200, 1000, 1130, 1260, 1390, 1520, 1650, 1780)
-DS_SHORT = 1910
+DS_HALF = (500, 565, 630, 695, 760, 825, 890, 955)
 DS_LONG = ("float32", "dfsmn_san_res float32")
 DS_CHECKED = 1                # the stream also run by single sessions
 # ticks held to the kernels' plain versions, from the eager run's state at
@@ -5408,8 +5462,9 @@ def phase_dfsmn_stream(torch, smi):
     from m3asr_tpu_torch.models.registry import dfsmn_stream_config
     from m3asr_tpu_torch.runtime.engine import Engine, EngineConfig
     rng = np.random.default_rng(14)
-    feats = [rng.standard_normal((T, 40)).astype(np.float32)
-             for T in DS_FRAMES + (DS_SHORT,)]
+    long_feats, half_feats = ([rng.standard_normal((T, 40))
+                               .astype(np.float32) for T in frames]
+                              for frames in (DS_FRAMES, DS_HALF))
     work = tempfile.mkdtemp(prefix="dfsmn_stream_")
     raw_path = os.path.join(work, "dfsmn.yaml")
     launches, base, server_eng = {}, {}, None
@@ -5440,7 +5495,7 @@ def phase_dfsmn_stream(torch, smi):
             if impl != want:
                 raise SystemExit(f"FAIL dfsmn stream {label}: serve's stage "
                                  f"{impl}, want {want}")
-            mine = feats[:-1] if label in DS_LONG else feats[1:]
+            mine = long_feats if label in DS_LONG else half_feats
             n = dfsmn_stream_mode(torch, label, serve.stream_params(eng),
                                   cfg, dataclasses.replace(cfg, **causal),
                                   impl, kname, n_moe if impl else 0, mine,
@@ -5455,7 +5510,7 @@ def phase_dfsmn_stream(torch, smi):
             torch.cuda.empty_cache()
         base.clear()
         n = server_streams(torch, "dfsmn bfloat16", server_eng, DS_CHUNK,
-                           feats[1:3], smi)
+                           half_feats[:2], smi)
         log(f"dfsmn streams: {time.perf_counter() - t0:.1f} s")
         launches[("bfloat16", "K1")] += n.get("K1", 0)
     finally:
@@ -6019,18 +6074,19 @@ def train_cli_argv(work, out, epochs):
 
 class TrainCliSpy:
     """Times the CLI's steps and checkpoint saves (the step synced to the
-    card), and keeps the parameters a resume loads (on the host)."""
+    card), and keeps the parameters a resume loads (on the host). The
+    steps are those of the step factory ``factory`` of train/step.py."""
 
-    def __init__(self, torch):
+    def __init__(self, torch, factory="make_hier_train_step"):
         from m3asr_tpu_torch.train import step as ts
         from m3asr_tpu_torch.train import trainer as tr
-        self.torch, self.ts, self.tr = torch, ts, tr
+        self.torch, self.ts, self.tr, self.factory = torch, ts, tr, factory
         self.step_ms, self.frames, self.saves = [], [], []
         self.loaded = None
 
     def __enter__(self):
         torch, spy = self.torch, self
-        self.make, self.save, self.load = (self.ts.make_hier_train_step,
+        self.make, self.save, self.load = (getattr(self.ts, self.factory),
                                            self.tr.Trainer.save_checkpoint,
                                            self.tr.Trainer.load_checkpoint)
 
@@ -6060,13 +6116,13 @@ class TrainCliSpy:
             spy.loaded = (trainer.global_step, {
                 k: v.cpu() for k, v in flatten_tree(trainer.params).items()})
             return ok
-        self.ts.make_hier_train_step = make
+        setattr(self.ts, self.factory, make)
         self.tr.Trainer.save_checkpoint = save
         self.tr.Trainer.load_checkpoint = load
         return self
 
     def __exit__(self, *exc):
-        self.ts.make_hier_train_step = self.make
+        setattr(self.ts, self.factory, self.make)
         self.tr.Trainer.save_checkpoint = self.save
         self.tr.Trainer.load_checkpoint = self.load
 
@@ -6154,18 +6210,18 @@ def hier_group(path):
     return "/".join(path.split("/")[:-1][:3])
 
 
-def held_grads(label, loss, ref_loss, rels, extra=""):
+def held_grads(label, loss, ref_loss, rels, extra="", phase="train_cli"):
     """Holds a loss within 1e-5 relative and every group's gradient
     distance within TRAIN_GRAD_TOL; returns the largest distance."""
     rel = abs(loss - ref_loss) / abs(ref_loss)
     worst = max(rels.values())
     ok = rel <= 1e-5 and worst <= TRAIN_GRAD_TOL
-    log(f"train_cli {label}: loss {loss:.6f} vs {ref_loss:.6f} (rel "
+    log(f"{phase} {label}: loss {loss:.6f} vs {ref_loss:.6f} (rel "
         f"{rel:.3e}, held to 1e-5); largest max|diff|/max|g| of a group "
         f"{worst:.3e} ({max(rels, key=rels.get)}), held to "
         f"{TRAIN_GRAD_TOL}{extra} {'OK' if ok else 'FAIL'}")
     if not ok:
-        raise SystemExit(f"FAIL train_cli {label}")
+        raise SystemExit(f"FAIL {phase} {label}")
     return worst
 
 
@@ -6337,6 +6393,769 @@ def phase_train_cli(torch, state, smi):
     return {"K2": got1[0] + got2[0], "K3": got1[1] + got2[1]}
 
 
+# ---------------------------------------------------------------------------
+# 17. DFSMN and dense conformer training: K3 at (64, 64), the steps, the
+#     CLI with BMUF and sMBR
+# ---------------------------------------------------------------------------
+
+FLASH_MEM_BWD_NAMES = {"float32": "flash_attn_mem_bwd[float32]",
+                       "bfloat16": "flash_attn_mem_bwd[bfloat16]"}
+# the K3 (64, 64) timings: the training batch (the kernels line's row),
+# phase 13's 2048- and 6144-frame requests
+FLASH_MEM_BWD_TIME = ((4, 1000), (1, 2048), (1, 6144))
+# the CLI runs' DFSMN-MoE depth, (num_block, fsmn_each_block) of the main
+# net and of the embed sub-net: at the full 3 x 10 a checkpoint with Adam
+# moments is about 12 GiB, and the three runs would write past the 45 GiB
+# a chip call may
+DT_CLI_DEPTH = (1, 4)
+DT_CLI_FRAMES = (1000, 960, 880, 800, 990, 720, 505, 310)  # 2 steps of 4
+DT_CLI_CV = (900, 600)
+DT_CLI_SYNC = 2                 # --sync_period of the BMUF run
+DT_SMBR_FRAMES = (1000, 960, 880, 800)     # one sMBR batch of 4
+SMBR_TOOL = '''import sys
+import numpy as np
+from m3asr_tpu_torch.io.kaldi_io import ArkWriter, read_ark
+# d(loss)/d(logits) of sum_t [logsumexp(l_t) - l_t[t % V]]
+post, grad = sys.argv[1:3]
+with ArkWriter(grad) as w:
+    for key, m in read_ark(post):
+        m = m.astype(np.float64)
+        e = np.exp(m - m.max(-1, keepdims=True))
+        g = e / e.sum(-1, keepdims=True)
+        g[np.arange(len(g)), np.arange(len(g)) % g.shape[1]] -= 1.0
+        w.write(key, g.astype(np.float32))
+'''
+
+
+def dfsmn_group(path):
+    """The group of a DFSMN or dense conformer parameter path in the
+    gradient comparisons: its cFSMN layer ("blocks_sw/1/fsmn_layers/3"),
+    its attention layer ("embed/blocks/2/attn_layer"), its conformer
+    sublayer (param_group), or its module ("out_linear")."""
+    parts = path.split("/")
+    for name, extra in (("fsmn_layers", 2), ("attn_layer", 1)):
+        if name in parts:
+            return "/".join(parts[:parts.index(name) + extra])
+    return param_group(path) if "blocks" in parts else "/".join(parts[:-1])
+
+
+def k3_mem_case(torch, B, T, masks, dtype, gen):
+    """The backward's inputs of one flash_attn_mem check (phase 13's q, k,
+    v of a DFSMN attention layer with mixed lengths and the 16-frame
+    window, g random) and K2's out and LSE for them."""
+    from m3asr_tpu_torch.ops import flash_attention as fa
+    p = flash_mem_params(torch, dtype, gen)
+    lens, mask = flash_mem_case(torch, B, T, masks, gen)
+    x = torch.randn(B, T, D, generator=gen, device="cuda").to(dtype)
+    q, k, v, klens, window, mem = fa.attn_mem_inputs(
+        p, x, lens, DFSMN_HEADS, DFSMN_SLOTS, mask)
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    g = torch.randn(q.shape, generator=gen, device="cuda").to(dtype)
+    scale = (D // DFSMN_HEADS) ** -0.5
+    out, lse = fa.flash_kernels.forward(q, k, v, klens, scale, window, mem,
+                                        return_lse=True)
+    delta = (g.float() * out.float()).sum(-1, keepdim=True)
+    return q, k, v, g, lse, delta, lens, klens, window, mem, scale
+
+
+def phase_kernel_flash_mem_bwd(torch):
+    """K3 at the DFSMN width (D2, Dk) = (64, 64) against its plain version
+    on the same inputs, from K2's LSE: B=1, T=2048 and 6144 and B=4,
+    T=1000 (S = T + 64), fp32 and bf16, mixed lengths and the 16-frame
+    chunk window shifted by 64 with mem_cols=64, at the wrapper's tile
+    heights. dq on the valid query rows, dk and dv on the valid keys,
+    each max|diff| / max|ref| within flash_mem_tol; two calls bit-equal.
+    Returns the worst max_abs_err per name."""
+    from m3asr_tpu_torch.ops import flash_attention as fa
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    worst = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype)[6:]
+        for B, T in FLASH_MEM_SHAPES:
+            for masks in ("lengths", "window"):
+                q, k, v, g, lse, delta, lens, klens, window, mem, scale = \
+                    k3_mem_case(torch, B, T, masks, dtype, gen)
+                got = fa.flash_kernels.backward(q, k, v, g, lse, delta,
+                                                klens, scale, window, mem)
+                again = fa.flash_kernels.backward(q, k, v, g, lse, delta,
+                                                  klens, scale, window, mem)
+                torch.cuda.synchronize()
+                ref = fa.flash_attention_bwd_reference(
+                    q, k, v, g, lse, delta, klens, scale, window, mem)
+                S = k.shape[2]
+                rows = (torch.arange(T, device="cuda")[None]
+                        < lens[:, None])[:, None, :, None]
+                keys = (torch.arange(S, device="cuda")[None]
+                        < klens[:, None])[:, None, :, None]
+                errs, rels = [], []
+                for a, r, valid in zip(got, ref, (rows, keys, keys)):
+                    e = ((a.float() - r.float()).abs() * valid).max().item()
+                    errs.append(e)
+                    rels.append(e / (r.float().abs() * valid).max().item())
+                same = all(torch.equal(a, b) for a, b in zip(got, again))
+                tol = flash_mem_tol(dname, S)
+                ok = max(rels) <= tol and same and np.isfinite(errs).all()
+                log(f"kernel {FLASH_MEM_BWD_NAMES[dname]} B={B} T={T} S={S}"
+                    f" {masks} lens={lens.tolist()} rows "
+                    f"{fa.launch_rows(q, k)[1]}: max|diff|/max|ref| dq "
+                    f"{rels[0]:.3e}, dk {rels[1]:.3e}, dv {rels[2]:.3e} "
+                    f"(held to {tol:.3e}), two calls bit-equal {same} "
+                    f"{'OK' if ok else 'FAIL'}")
+                if not ok:
+                    raise SystemExit(f"FAIL kernel: {FLASH_MEM_BWD_NAMES[dname]}"
+                                     " disagrees with its plain version")
+                key = FLASH_MEM_BWD_NAMES[dname]
+                worst[key] = max(worst.get(key, 0.0), max(errs))
+                del got, again, ref
+        torch.cuda.empty_cache()
+    return worst
+
+
+def time_flash_mem_bwd(torch, smi):
+    """K3 at (64, 64) on the memory-slot layout at FLASH_MEM_BWD_TIME (the
+    training batch with TRAIN_LENS, the two requests with every frame
+    valid), fp32 and bf16: the wrapper call, its two CUDA launches alone,
+    the plain version, scaled_dot_product_attention's backward with a
+    boolean key mask on the same q, k, v and g (autograd), and the bound
+    (q, k, v, g, LSE, delta read once, dq, dk, dv written once; the
+    scores, dp, dv, dq and dk products over the valid pairs); at the
+    training batch also the device time of the call and of SDPA's
+    backward in turns. Returns the rows at the training batch by name."""
+    import torch.nn.functional as F
+    from m3asr_tpu_torch import kernels
+    from m3asr_tpu_torch.ops import flash_attention as fa
+    gen = torch.Generator(device="cuda").manual_seed(18)
+    lib = kernels.FLASH.load()
+    stream = torch.cuda.current_stream().cuda_stream
+    M, dk = DFSMN_SLOTS, D // DFSMN_HEADS
+    rows = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype)[6:]
+        code = 0 if dtype == torch.float32 else 1
+        p = flash_mem_params(torch, dtype, gen)
+        for B, T in FLASH_MEM_BWD_TIME:
+            S = T + M
+            valid = TRAIN_LENS if B == 4 else (T,)
+            lens = torch.tensor(valid, dtype=torch.int32, device="cuda")
+            x = torch.randn(B, T, D, generator=gen, device="cuda").to(dtype)
+            q, k, v, klens, _, _ = fa.attn_mem_inputs(p, x, lens,
+                                                      DFSMN_HEADS, M)
+            q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+            g = torch.randn(q.shape, generator=gen, device="cuda").to(dtype)
+            scale = dk ** -0.5
+            out, lse = fa.flash_kernels.forward(q, k, v, klens, scale,
+                                                return_lse=True)
+            delta = (g.float() * out.float()).sum(-1, keepdim=True)
+            dq, dkk, dv = (torch.empty_like(t) for t in (q, k, v))
+            b_rows = fa.launch_rows(q, k)[1]
+            args = (code, dk, dk, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                    g.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+                    klens.data_ptr(), None, None, 0, B, DFSMN_HEADS, T, S,
+                    scale)
+
+            def raw(i):
+                if lib.flash_bwd_dq(*args, b_rows[0], dq.data_ptr(),
+                                    stream) or \
+                        lib.flash_bwd_dkv(*args, b_rows[1], dkk.data_ptr(),
+                                          dv.data_ptr(), stream):
+                    raise SystemExit("FAIL times: flash_bwd launch error")
+
+            def kernel():
+                return fa.flash_kernels.backward(q, k, v, g, lse, delta,
+                                                 klens, scale)
+            key_mask = (torch.arange(S, device="cuda")[None, :]
+                        < klens[:, None])[:, None, None, :]
+            ql, kl, vl = (t.detach().requires_grad_(True) for t in (q, k, v))
+            lib_out = F.scaled_dot_product_attention(ql, kl, vl,
+                                                     attn_mask=key_mask,
+                                                     scale=scale)
+
+            def sdpa_bwd():
+                return torch.autograd.grad(lib_out, (ql, kl, vl), g,
+                                           retain_graph=True)
+            iters = 20 if T < 6000 else 5
+            ms = cuda_time_ms(torch, lambda i: kernel(), iters)
+            alone = cuda_time_ms(torch, raw, iters)
+            plain_ms = cuda_time_ms(torch, lambda i: (
+                fa.flash_attention_bwd_reference(q, k, v, g, lse, delta,
+                                                 klens, scale)), 2)
+            lib_ms = cuda_time_ms(torch, lambda i: sdpa_bwd(), iters)
+            elt = x.element_size()
+            pairs = DFSMN_HEADS * sum(n * (n + M) for n in valid)
+            t_bytes = (elt * B * DFSMN_HEADS * dk * (3 * T + 4 * S)
+                       + 8 * B * DFSMN_HEADS * T + 4 * B) \
+                / HBM_BYTES_PER_S * 1e3
+            t_ops = 2 * pairs * 5 * dk / PEAK_OPS_PER_S[dname] * 1e3
+            bound = max(t_bytes, t_ops)
+            dev = ""
+            if B == 4:
+                rows[FLASH_MEM_BWD_NAMES[dname]] = dict(
+                    ms=ms, plain_ms=plain_ms, bound_ms=bound,
+                    bound_by="bytes" if t_bytes >= t_ops else "operations",
+                    library_ms=lib_ms)
+                dev = "; device {:.4f} ms ({:.4f}-{:.4f}), SDPA backward " \
+                      "{:.4f} ms ({:.4f}-{:.4f}) in turns".format(
+                          *(x for t in paired_device_ms(
+                              torch, kernel, sdpa_bwd) for x in t))
+            log(f"time {FLASH_MEM_BWD_NAMES[dname]} B={B} T={T} S={S} rows "
+                f"{b_rows}: call {ms:.4f} ms (launches alone {alone:.4f} "
+                f"ms), plain {plain_ms:.4f} ms, scaled_dot_product_attention"
+                f" backward {lib_ms:.4f} ms, bound {bound:.4f} ms (bytes "
+                f"{t_bytes:.4f} / ops {t_ops:.4f}){dev}; {smi}")
+            del lib_out, ql, kl, vl
+    torch.cuda.empty_cache()
+    return rows
+
+
+def count_flash(flash_kernels):
+    return (flash_kernels.fwd_launches, flash_kernels.dq_launches,
+            flash_kernels.dkv_launches)
+
+
+def flash_vs_xla(torch, label, cfg, params, batch, want, tcfg_kw,
+                 heads=None, moe=True, generator_seed=None):
+    """The fp32 loss and gradients with attn_impl flash against xla on the
+    same parameters and batch, the xla run's tokens sent to the flash
+    run's experts (moe): the loss within 1e-5 relative, every group
+    (dfsmn_group) within TRAIN_GRAD_TOL of its max|g|; the flash run's
+    launches (K2, K3 dq, K3 dkv) must be ``want``. Returns (loss, flash
+    gradients, the flash run's routing)."""
+    from m3asr_tpu_torch.ops import moe as moe_mod
+    from m3asr_tpu_torch.ops.flash_attention import flash_kernels
+    from m3asr_tpu_torch.train import step as ts
+    extra = {} if heads is None else dict(domain_targets=heads[0],
+                                          acc_targets=heads[1])
+
+    def run(attn_impl, replay=None):
+        gen = (None if generator_seed is None
+               else torch.Generator().manual_seed(generator_seed))
+        with GateRecorder(moe_mod, replay=replay) as rec:
+            (loss, _), g = ts.value_and_grad(
+                params, cfg, ts.TrainConfig(attn_impl=attn_impl, **tcfg_kw),
+                *batch, generator=gen, **extra)
+        return loss.item(), g, rec.calls
+
+    reset_flash(flash_kernels)
+    loss_f, g_f, calls = run("flash")
+    torch.cuda.synchronize()
+    got = count_flash(flash_kernels)
+    loss_x, g_x, _ = run("xla", replay=calls if moe else None)
+    finite = np.isfinite(loss_f) and all(
+        bool(torch.isfinite(v).all()) for v in g_f.values())
+    held_grads(f"{label} fp32 flash vs xla{' (routing pinned)' if moe else ''}"
+               f"; flash launches (K2, K3 dq, K3 dkv) {got}, want {want}",
+               loss_f, loss_x, group_rel(g_f, g_x, dfsmn_group),
+               phase="train_dfsmn")
+    if got != want or not finite:
+        raise SystemExit(f"FAIL train_dfsmn {label}: launches {got}, want "
+                         f"{want}; finite {finite}")
+    del g_x
+    return loss_f, g_f, calls
+
+
+def step_times(torch, label, cfg, params, batch, n_attn, smi,
+               generator_seed=None, **tcfg_kw):
+    """Three CTC steps (make_train_step, fp32 flash, Adam) from the same
+    parameters on the 4 x 1000 batch, and a fourth under torch.profiler:
+    wall times, device time and busy share, peak memory; K2 and each K3
+    kernel must launch ``n_attn`` times a step. Returns the four steps'
+    launches (K2, K3)."""
+    from m3asr_tpu_torch.ops.flash_attention import flash_kernels
+    from m3asr_tpu_torch.train import step as ts
+    tcfg = ts.TrainConfig(attn_impl="flash", warmup_steps=1000, **tcfg_kw)
+    opt = ts.make_optimizer(tcfg)
+    state = ts.init_opt_state(opt, params)
+    step = ts.make_train_step(cfg, tcfg, opt, device="cuda")
+
+    def run():
+        kw = {} if generator_seed is None else {
+            "generator": torch.Generator().manual_seed(generator_seed)}
+        return step(params, state, *batch, **kw)
+    reset_flash(flash_kernels)
+    torch.cuda.reset_peak_memory_stats()
+    ms, losses = [], []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = run()
+        losses.append(out[2]["loss"].item())
+        ms.append((time.perf_counter() - t0) * 1e3)
+        del out
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    dev_ms = profiled_ms(torch, run, 1, warmup=0)
+    got = count_flash(flash_kernels)
+    frames = int(batch[1].sum())
+    log(f"train_dfsmn {label} step (fp32 flash, Adam, 4 x 1000 "
+        f"frames): losses {[round(v, 4) for v in losses]}; wall ms "
+        f"{[round(v, 3) for v in ms]} (median {float(np.median(ms)):.3f}, "
+        f"{frames / np.median(ms) * 1e3:.0f} frames/s); device time "
+        f"{dev_ms:.3f} ms under torch.profiler, busy "
+        f"{dev_ms / np.median(ms):.3f} of the median step; peak memory "
+        f"{peak:.3f} GiB; launches (K2, K3 dq, K3 dkv) {got}; {smi}")
+    if not np.all(np.isfinite(losses)) or got != (4 * n_attn,) * 3:
+        raise SystemExit(f"FAIL train_dfsmn {label} steps: losses {losses}"
+                         f", launches {got}, want {4 * n_attn} each")
+    return got[0], got[1]
+
+
+def dfsmn_train_checks(torch, smi):
+    """(b) the DFSMN-MoE steps at the reference Net's widths and depth,
+    (c) dfsmn_san_res_embed_domain_acc with its heads. Returns the flash
+    launches {(kernel, dtype): n}."""
+    from m3asr_tpu_torch.config import model_config_from_dict
+    from m3asr_tpu_torch.models.registry import (dfsmn_embed_config,
+                                                 get_family)
+    from m3asr_tpu_torch.ops import moe as moe_mod
+    from m3asr_tpu_torch.ops.flash_attention import flash_kernels
+    from m3asr_tpu_torch.train import step as ts
+    launches = {}
+
+    def add(kname, dname, n):
+        launches[(kname, dname)] = launches.get((kname, dname), 0) + n
+
+    cfg = model_config_from_dict(dfsmn_raw())
+    params = get_family(DFSMN_MOE).init(
+        cfg, torch.Generator(device="cuda").manual_seed(17))
+    e = cfg.encoder_conf
+    n_attn = e.num_block + dfsmn_embed_config(e).num_block
+    batch = train_batch(torch, cfg)
+    # (b) CTC, embed CTC weight 0.3: every attention layer trains
+    want = (n_attn,) * 3
+    loss32, _, calls = flash_vs_xla(
+        torch, f"{DFSMN_MOE} CTC", cfg, params, batch, want,
+        dict(embed_ctc_weight=0.3))
+    for kname, n in (("K2", n_attn), ("K3", n_attn)):
+        add(kname, "float32", n)
+    reset_flash(flash_kernels)
+    with GateRecorder(moe_mod, replay=calls):
+        (loss_b, _), g_b = ts.value_and_grad(
+            params, cfg, ts.TrainConfig(attn_impl="flash",
+                                        compute_dtype="bfloat16",
+                                        embed_ctc_weight=0.3), *batch)
+    got = count_flash(flash_kernels)
+    rel = abs(loss_b.item() - loss32) / abs(loss32)
+    finite = all(bool(torch.isfinite(v).all()) for v in g_b.values())
+    ok = rel <= 2e-2 and got == want and finite
+    log(f"train_dfsmn {DFSMN_MOE} bf16-compute flash (routing pinned): loss "
+        f"{loss_b.item():.6f} vs fp32 {loss32:.6f}: rel {rel:.3e}, held to "
+        f"2e-2; gradients finite {finite}; launches (K2, K3 dq, K3 dkv) "
+        f"{got}, want {want} {'OK' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("FAIL train_dfsmn: the bf16 DFSMN step is off")
+    del g_b
+    add("K2", "bfloat16", n_attn)
+    add("K3", "bfloat16", n_attn)
+    # the CE step (alignment labels, no embed CTC: the embed sub-net's
+    # attention runs forward only)
+    rng = np.random.default_rng(17)
+    align = torch.from_numpy(rng.integers(
+        0, cfg.output_dim, (len(TRAIN_LENS), max(TRAIN_LENS)))
+        .astype(np.int32)).cuda()
+    ce_batch = batch[:2] + (align, batch[1])
+    flash_vs_xla(torch, f"{DFSMN_MOE} CE", cfg, params, ce_batch,
+                 (n_attn, e.num_block, e.num_block), dict(loss_type="ce"))
+    add("K2", "float32", n_attn)
+    add("K3", "float32", e.num_block)
+    torch.cuda.empty_cache()
+    k2, k3 = step_times(torch, DFSMN_MOE, cfg, params, batch, n_attn, smi,
+                        embed_ctc_weight=0.3)
+    add("K2", "float32", k2)
+    add("K3", "float32", k3)
+    del params
+    torch.cuda.empty_cache()
+    # (c) the in-model domain/accent heads
+    proto = "dfsmn_san_res_embed_domain_acc"
+    cfg = model_config_from_dict(dfsmn_raw(proto))
+    params = get_family(proto).init(
+        cfg, torch.Generator(device="cuda").manual_seed(18))
+    heads = (torch.tensor([0, 3, 5, 2], dtype=torch.int32, device="cuda"),
+             torch.tensor([7, 1, 4, 0], dtype=torch.int32, device="cuda"))
+    n = cfg.encoder_conf.num_block
+    _, g, _ = flash_vs_xla(torch, f"{proto} heads", cfg, params, batch,
+                           (n, n, n), dict(ce_weight=0.5), heads=heads,
+                           moe=False)
+    zero = [k for k in g if k.startswith("out_linear_") and not g[k].any()]
+    log(f"train_dfsmn {proto}: heads' leaves with a zero gradient {zero}")
+    if zero:
+        raise SystemExit(f"FAIL train_dfsmn: {zero} get no gradient")
+    add("K2", "float32", n)
+    add("K3", "float32", n)
+    del params, g
+    torch.cuda.empty_cache()
+    return launches
+
+
+def dense_train_check(torch, smi):
+    """(d) the dense conformer's CTC step at the flagship encoder's widths
+    with dynamic chunks (the generator seeded alike for both runs; a seed
+    that draws a chunk shorter than the utterance): flash against xla, and
+    three steps timed. Returns the flash launches (K2, K3)."""
+    from m3asr_tpu_torch.config import model_config_from_dict
+    from m3asr_tpu_torch.models.registry import get_family
+    from m3asr_tpu_torch.train import step as ts
+    raw = conformer_raw()
+    raw["model_conf"]["use_dynamic_chunk"] = True
+    cfg = model_config_from_dict(raw)
+    params = get_family("conformer").init(
+        cfg, torch.Generator(device="cuda").manual_seed(19))
+    batch = train_batch(torch, cfg)
+    T_sub = None
+    for seed in range(20):
+        mask = ts.train_chunk_mask(cfg.encoder_conf, batch[0], batch[1],
+                                   torch.Generator().manual_seed(seed))
+        chunk = int(mask[0, 0, 0].sum())   # row 0 sees its first chunk
+        T_sub = mask.shape[-1]
+        if chunk < T_sub:
+            break
+    n = DC_BLOCKS
+    flash_vs_xla(torch, f"conformer CTC (dynamic chunk {chunk} of {T_sub} "
+                 f"frames)", cfg, params, batch, (n, n, n),
+                 dict(embed_ctc_weight=0.0), moe=False, generator_seed=seed)
+    k2, k3 = step_times(torch, "conformer", cfg, params, batch, n, smi,
+                        generator_seed=seed)
+    del params
+    torch.cuda.empty_cache()
+    return n + k2, n + k3
+
+
+def dfsmn_cli_inputs(work, cfg):
+    """The DFSMN CLI runs' inputs under ``work``: tr.ark / cv.ark (40-dim
+    features), frame-level alignment arks (CE labels, one a frame), and
+    dfsmn.yaml: the DFSMN-MoE YAML cut to DT_CLI_DEPTH (widths kept), CE
+    mode, batch 4, log_period 1, save_period an epoch, flash attention,
+    block momentum 0.5 and block LR 0.9 for BMUF."""
+    import yaml
+    from m3asr_tpu_torch.io.kaldi_io import ArkWriter
+    rng = np.random.default_rng(20)
+    for name, frames in (("tr", DT_CLI_FRAMES), ("cv", DT_CLI_CV)):
+        keys = [f"{name}{i}" for i in range(len(frames))]
+        with ArkWriter(os.path.join(work, f"{name}.ark")) as w:
+            for k, T in zip(keys, frames):
+                w.write(k, rng.standard_normal((T, cfg.input_dim))
+                        .astype(np.float32))
+        write_int_vectors(os.path.join(work, f"{name}_ali.ark"), {
+            k: rng.integers(0, cfg.output_dim, T)
+            for k, T in zip(keys, frames)})
+    raw = dfsmn_raw()
+    nb, each = DT_CLI_DEPTH
+    raw["model_conf"].update(num_block=nb, fsmn_each_block=each)
+    raw["model_conf"]["embed_conf"].update(num_block=nb, fsmn_each_block=each)
+    raw.update(loader_conf={"batch_size": 4, "mode": "ce"}, log_period=1,
+               save_period=len(DT_CLI_FRAMES) // 4, attn_impl="flash",
+               bmuf_conf={"block_momentum": 0.5, "block_lr": 0.9})
+    with open(os.path.join(work, "dfsmn.yaml"), "w") as f:
+        yaml.safe_dump(raw, f)
+
+
+def dfsmn_cli_argv(work, out, epochs, *extra):
+    a = lambda name: os.path.join(work, name)       # noqa: E731
+    return ["--config", a("dfsmn.yaml"), "--output_dir", out,
+            "--tr_rspecifier", a("tr.ark"), "--tr_labels", a("tr_ali.ark"),
+            "--cv_rspecifier", a("cv.ark"), "--cv_labels", a("cv_ali.ark"),
+            "--max_epochs", str(epochs)] + list(extra)
+
+
+class BmufSpy:
+    """Recomputes each BMUF sync on the host: from the recipe's global
+    parameters and block momentum buffer and the replicas' local trees
+    (copied to the host before the sync), the new global parameters in
+    float32 numpy; records the largest distance of the synced replicas
+    from them, relative to each leaf's largest value."""
+
+    def __init__(self):
+        from m3asr_tpu_torch.train import bmuf
+        self.bmuf, self.worst, self.syncs = bmuf, 0.0, 0
+
+    def __enter__(self):
+        from m3asr_tpu_torch.checkpoint import flatten_tree
+        spy, real = self, self.bmuf.BmufRecipe.sync
+        self.real = real
+
+        def host(tree):
+            return {k: v.detach().cpu().numpy()
+                    for k, v in flatten_tree(tree).items()}
+
+        def sync(recipe, stacked):
+            glob, prev = (host(recipe.state.global_params),
+                          host(recipe.state.delta_prev))
+            local = host(stacked)
+            new, ok = real(recipe, stacked)
+            m, blr = recipe.block_momentum, recipe.block_lr
+            got = host(new)
+            for k, g in glob.items():
+                delta = g - local[k].mean(0)
+                dp = m * prev[k] + blr * (1.0 - m) * delta
+                want = g - (1.0 + m) * dp
+                top = max(float(np.abs(want).max()), 1e-30)
+                for r in range(got[k].shape[0]):
+                    spy.worst = max(spy.worst, float(
+                        np.abs(got[k][r] - want).max()) / top)
+            spy.syncs += 1
+            return new, ok
+        self.bmuf.BmufRecipe.sync = sync
+        return self
+
+    def __exit__(self, *exc):
+        self.bmuf.BmufRecipe.sync = self.real
+
+
+def dfsmn_cli_run(torch, argv, label, want, smi):
+    """One in-process run of the training CLI on the DFSMN YAML: its
+    K2/K3 launches must be ``want`` and its logged losses finite.
+    Returns (trainer, spy)."""
+    import contextlib
+    import io
+    from m3asr_tpu_torch.ops.flash_attention import flash_kernels
+    from m3asr_tpu_torch.train import cli
+    reset_flash(flash_kernels)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with TrainCliSpy(torch, "make_train_step") as spy, \
+            contextlib.redirect_stdout(io.StringIO()):
+        trainer = cli.main(argv)
+    secs = time.perf_counter() - t0
+    got = count_flash(flash_kernels)
+    out = argv[argv.index("--output_dir") + 1]
+    with open(os.path.join(out, "scalars", "scalars.jsonl")) as f:
+        losses = [json.loads(line)["value"] for line in f
+                  if '"train/loss"' in line]
+    log(f"train_dfsmn cli {label}: {len(spy.step_ms)} steps to global step "
+        f"{trainer.global_step}, {secs:.1f} s; losses "
+        f"{[round(v, 5) for v in losses]}; step ms "
+        f"{[round(v, 3) for v in spy.step_ms]}; checkpoints (tag, s, GiB) "
+        f"{[(t, round(s, 2), round(g, 3)) for t, s, g in spy.saves]}; "
+        f"launches (K2, K3 dq, K3 dkv) {got}, want {want}; peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2 ** 30:.3f} GiB; {smi}")
+    if got != want or not losses or not np.all(np.isfinite(losses)):
+        raise SystemExit(f"FAIL train_dfsmn cli {label}: launches {got}, "
+                         f"want {want}; losses {losses}")
+    return trainer, spy
+
+
+def smbr_cli_check(torch, work, smi):
+    """The --smbr_cmd run on the dense conformer at the flagship encoder's
+    widths: one batch of 4 utterances, SGD at a constant LR, the lattice
+    command a Python script (SMBR_TOOL) whose gradient is that of
+    sum_t [logsumexp(l_t) - l_t[t % V]] over each utterance's frames.
+    smbr_epoch0.pkl must equal the update of autograd's gradient of that
+    surrogate on the same batch from the same seeded init, within rtol
+    1e-4 of each leaf's largest value."""
+    import contextlib
+    import io
+    import pickle
+    import sys as _sys
+    import yaml
+    from m3asr_tpu_torch.checkpoint import flatten_tree
+    from m3asr_tpu_torch.config import model_config_from_dict
+    from m3asr_tpu_torch.io.kaldi_io import ArkWriter
+    from m3asr_tpu_torch.io.loader import DataLoader
+    from m3asr_tpu_torch.models.registry import get_family
+    from m3asr_tpu_torch.train import cli
+    from m3asr_tpu_torch.train.lr_scheduler import build_optimizer
+    rng = np.random.default_rng(21)
+    keys = [f"s{i}" for i in range(len(DT_SMBR_FRAMES))]
+    with ArkWriter(os.path.join(work, "s.ark")) as w:
+        for k, T in zip(keys, DT_SMBR_FRAMES):
+            w.write(k, rng.standard_normal((T, 40)).astype(np.float32))
+    write_int_vectors(os.path.join(work, "s_ctc.ark"),
+                      {k: rng.integers(1, 4999, T // 40)
+                       for k, T in zip(keys, DT_SMBR_FRAMES)})
+    with open(os.path.join(work, "s_trans.txt"), "w") as f:
+        f.writelines(f"{k} word{i}\n" for i, k in enumerate(keys))
+    with open(os.path.join(work, "tool.py"), "w") as f:
+        f.write(SMBR_TOOL)
+    raw = conformer_raw()
+    raw.update(loader_conf={"batch_size": 4}, optim="sgd",
+               schedule_type="constant", lr=1e-3, max_epoch=1, log_period=1)
+    with open(os.path.join(work, "smbr.yaml"), "w") as f:
+        yaml.safe_dump(raw, f)
+    out = os.path.join(work, "smbr")
+    old_path = os.environ.get("PYTHONPATH")
+    os.environ["PYTHONPATH"] = HERE + (os.pathsep + old_path if old_path
+                                       else "")
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(io.StringIO()):
+            _, _, n = cli.main([
+                "--config", os.path.join(work, "smbr.yaml"),
+                "--output_dir", out,
+                "--tr_rspecifier", os.path.join(work, "s.ark"),
+                "--tr_labels", os.path.join(work, "s_ctc.ark"),
+                "--tr_trans_file", os.path.join(work, "s_trans.txt"),
+                "--smbr_cmd", f"{_sys.executable} "
+                f"{os.path.join(work, 'tool.py')} {{post}} {{grad}} "
+                "{trans}"])
+    finally:
+        if old_path is None:
+            os.environ.pop("PYTHONPATH")
+        else:
+            os.environ["PYTHONPATH"] = old_path
+    secs = time.perf_counter() - t0
+    with open(os.path.join(out, "smbr_epoch0.pkl"), "rb") as f:
+        saved = flatten_tree(pickle.load(f))
+    # the surrogate's autograd step from the CLI's seeded init
+    cfg = model_config_from_dict(raw)
+    fam = get_family("conformer")
+    params = fam.init(cfg, torch.Generator(device="cuda").manual_seed(0))
+    batch = next(DataLoader(os.path.join(work, "s.ark"),
+                            os.path.join(work, "s_ctc.ark"), training=True,
+                            loader_conf=dict(raw["loader_conf"],
+                                             drop_last=True))())
+    flat = flatten_tree(params)
+    leaves = {k: v.detach().requires_grad_(True) for k, v in flat.items()
+              if v.is_floating_point()}
+    from m3asr_tpu_torch.checkpoint import unflatten_tree
+    logits, out_len = fam.forward(unflatten_tree({**flat, **leaves}), cfg,
+                                  torch.from_numpy(batch["data"]).cuda(),
+                                  torch.from_numpy(batch["lens"]).cuda())
+    T, V = logits.shape[1], logits.shape[2]
+    t = torch.arange(T, device="cuda")
+    valid = (t[None] < out_len[:, None]).float()
+    lp = torch.log_softmax(logits.float(), -1)
+    pick = lp.gather(-1, (t % V)[None, :, None].expand(logits.shape[0], -1,
+                                                      1))[..., 0]
+    loss = -(pick * valid).sum()
+    names = list(leaves)
+    grads = dict(zip(names, torch.autograd.grad(
+        loss, [leaves[k] for k in names])))
+    opt = build_optimizer("constant", None, 1e-3, optim_type="sgd",
+                          max_grad_norm=raw.get("max_grad_norm", 5.0))
+    cur = {k: flat[k] for k in grads}
+    upd, _ = opt.update(grads, opt.init(cur), cur)
+    want = {k: v.detach().cpu().numpy()
+            for k, v in opt.apply_updates(cur, upd).items()}
+    worst, moved = 0.0, 0.0
+    for k, v in want.items():
+        top = max(float(np.abs(v).max()), 1e-3)
+        worst = max(worst, float(np.abs(saved[k] - v).max()) / top)
+        moved = max(moved, float(np.abs(saved[k] - flat[k].cpu().numpy())
+                                 .max()))
+    ok = n == 1 and worst <= 1e-4 and moved > 0
+    log(f"train_dfsmn cli smbr (conformer, {DC_BLOCKS} blocks, lattice "
+        f"command a script): {n} batch in {secs:.1f} s; smbr_epoch0.pkl "
+        f"against the surrogate's autograd step: largest max|diff| / "
+        f"max|param| of a leaf {worst:.3e}, held to 1e-4; largest move "
+        f"{moved:.3e} {'OK' if ok else 'FAIL'}; {smi}")
+    if not ok:
+        raise SystemExit("FAIL train_dfsmn cli smbr")
+
+
+def dfsmn_cli_checks(torch, smi):
+    """(e) the CLI: the cut DFSMN-MoE in CE mode run and resumed, a BMUF
+    run, an sMBR run; checkpoints under TMPDIR. Returns the K2 and K3
+    launches of the runs."""
+    import pickle
+    import shutil
+    import tempfile
+    from m3asr_tpu_torch.checkpoint import flatten_tree
+    from m3asr_tpu_torch.config import model_config_from_dict
+    cfg = model_config_from_dict(dfsmn_raw())
+    work = tempfile.mkdtemp(prefix="train_dfsmn_")
+    steps = len(DT_CLI_FRAMES) // 4
+    nb = DT_CLI_DEPTH[0]
+    # K2: the main net's and the embed sub-net's attention in each step
+    # and validation forward; K3: the main net's (no embed CTC in CE mode)
+    per_epoch = ((steps + 1) * 2 * nb, steps * nb, steps * nb)
+    k2 = k3 = 0
+    try:
+        dfsmn_cli_inputs(work, cfg)
+        out = os.path.join(work, "exp")
+        t1, _ = dfsmn_cli_run(torch, dfsmn_cli_argv(work, out, 1), "CE run",
+                              per_epoch, smi)
+        del t1
+        with open(os.path.join(out, "checkpoint_last.pkl"), "rb") as f:
+            last = flatten_tree(pickle.load(f)["params"])
+        _, spy = dfsmn_cli_run(torch, dfsmn_cli_argv(work, out, 2,
+                                                     "--resume"),
+                               "CE resume", per_epoch, smi)
+        step0, loaded = spy.loaded
+        same = sorted(loaded) == sorted(last) and all(
+            np.array_equal(loaded[k].numpy(), v) for k, v in last.items())
+        log(f"train_dfsmn cli resume: started at global step {step0} from "
+            f"{len(loaded)} tensors {'bit-equal' if same else 'NOT equal'} "
+            f"to run 1's checkpoint_last.pkl")
+        if step0 != steps or not same:
+            raise SystemExit("FAIL train_dfsmn cli resume")
+        del last, loaded, spy
+        k2, k3 = 2 * per_epoch[0], 2 * per_epoch[1]
+        shutil.rmtree(out)
+        with BmufSpy() as bspy:
+            tb, _ = dfsmn_cli_run(
+                torch, dfsmn_cli_argv(work, out, 2, "--bmuf",
+                                      "--sync_period", str(DT_CLI_SYNC)),
+                "BMUF run", (2 * per_epoch[0], 2 * per_epoch[1],
+                             2 * per_epoch[2]), smi)
+        with open(os.path.join(out, "checkpoint_last.pkl"), "rb") as f:
+            entry = pickle.load(f)["bmuf"]
+        ok = (bspy.syncs == 2 * steps // DT_CLI_SYNC and bspy.worst <= 1e-6
+              and tb.bmuf.dp == 1 and entry["sync_period"] == DT_CLI_SYNC
+              and entry["block_momentum"] == 0.5)
+        log(f"train_dfsmn cli BMUF: {bspy.syncs} syncs, each replica after "
+            f"each against the block-momentum formula recomputed on the "
+            f"host: largest max|diff| / max|global| {bspy.worst:.3e}, held "
+            f"to 1e-6; checkpoint bmuf entry sync_period "
+            f"{entry['sync_period']}, block_momentum "
+            f"{entry['block_momentum']}, block_lr {entry['block_lr']} "
+            f"{'OK' if ok else 'FAIL'}")
+        if not ok:
+            raise SystemExit("FAIL train_dfsmn cli BMUF")
+        del tb, entry
+        k2, k3 = k2 + 2 * per_epoch[0], k3 + 2 * per_epoch[1]
+        shutil.rmtree(out)
+        torch.cuda.empty_cache()
+        smbr_cli_check(torch, work, smi)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return k2, k3
+
+
+def flash_mem_bwd_report(torch, state, launches, smi):
+    """The kernels line's entries of K3 at (64, 64): phase 17's launches,
+    the worst error of its checks, this run's times and bound."""
+    rows = time_flash_mem_bwd(torch, smi)
+    report = []
+    for dname, name in FLASH_MEM_BWD_NAMES.items():
+        n = launches[("K3mem", dname)]
+        if n == 0:
+            raise SystemExit(f"FAIL report: {name} never launched on the "
+                             "DFSMN training path")
+        r = rows[name]
+        report.append({"name": name, "route": "cuda",
+                       "source": "m3asr_tpu_torch/csrc/flash_attention.cu",
+                       "replaces": "m3asr_tpu/ops/pallas_attention.py:377",
+                       "launches": n,
+                       "max_abs_err": state["max_err_mem_bwd"][name],
+                       "ms": r["ms"], "plain_ms": r["plain_ms"],
+                       "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+                       "library_ms": r["library_ms"]})
+    return report
+
+
+def phase_train_dfsmn(torch, state, smi):
+    """Phase 17: K3 at (64, 64) against its plain version, the DFSMN and
+    dense conformer training steps, the CLI with BMUF and sMBR. Returns
+    the launches {(kernel, dtype): n} of K2 at (64, 64), K3 at (64, 64)
+    ("K3mem") and the dense conformer's K2 / K3, and keeps the K3 (64, 64)
+    checks' worst errors in state["max_err_mem_bwd"]."""
+    t0 = time.perf_counter()
+    state["max_err_mem_bwd"] = phase_kernel_flash_mem_bwd(torch)
+    log(f"train_dfsmn: (a) K3 (64, 64) checks done at "
+        f"{time.perf_counter() - t0:.1f} s")
+    mem = dfsmn_train_checks(torch, smi)
+    log(f"train_dfsmn: (b), (c) done at {time.perf_counter() - t0:.1f} s")
+    dense = dense_train_check(torch, smi)
+    cli_k2, cli_k3 = dfsmn_cli_checks(torch, smi)
+    launches = {("K2mem", "float32"): mem[("K2", "float32")] + cli_k2,
+                ("K2mem", "bfloat16"): mem[("K2", "bfloat16")],
+                ("K3mem", "float32"): mem[("K3", "float32")] + cli_k3,
+                ("K3mem", "bfloat16"): mem[("K3", "bfloat16")],
+                ("K2", "float32"): dense[0], ("K3", "float32"): dense[1]}
+    log(f"train_dfsmn: phase 17 took {time.perf_counter() - t0:.1f} s; "
+        f"launches {launches}; {smi}")
+    return launches
+
+
 # phases that run on their own after the build, for work on one of them:
 # ``python3 chip_smoke.py --only NAME [NAME ...]`` runs those named, in
 # order. Such a run is not the smoke: it prints no result line, exits 1
@@ -6349,6 +7168,8 @@ ALONE = {
     "streams_dense": phase_streams_dense,
     "exmarc": phase_exmarc,
     "train_cli": phase_train_cli,
+    "train_dfsmn": lambda torch, state, smi: (
+        phase_train_dfsmn(torch, state, smi), time_flash_mem_bwd(torch, smi)),
 }
 
 
@@ -6406,6 +7227,8 @@ def main():
     stamp("phase 11")
     trained_cli = phase_train_cli(torch, state, smi)
     stamp("phase 16")
+    trained_dfsmn = phase_train_dfsmn(torch, state, smi)
+    stamp("phase 17")
     # K2: serving's forwards and the training steps'; K3: the steps'
     state["launches_flash"] = {}
     for dname in ("float32", "bfloat16"):
@@ -6415,11 +7238,19 @@ def main():
         state["launches_flash"][("K2", dname)] = served[dname] + fwd
         state["launches_flash"][("K3", dname)] = dq
     state["launches_flash"][("K2", "bfloat16")] += state["launches_dense_k2"]
-    # phase 16: the training CLI's runs (fp32)
+    # phase 16: the training CLI's runs (fp32); phase 17: the dense
+    # conformer's step (fp32)
     for kname in ("K2", "K3"):
-        state["launches_flash"][(kname, "float32")] += trained_cli[kname]
-    report = phase_times(torch, state, smi) + dfsmn_report(torch, state, smi)
-    stamp("phases 12 and 13's times")
+        state["launches_flash"][(kname, "float32")] += \
+            trained_cli[kname] + trained_dfsmn[(kname, "float32")]
+    report = (phase_times(torch, state, smi) + dfsmn_report(torch, state, smi)
+              + flash_mem_bwd_report(torch, state, trained_dfsmn, smi))
+    stamp("phases 12, 13 and 17's times")
+    # phase 17's K2 launches at (64, 64): the DFSMN training steps and CLI
+    for row in report:
+        for dname, mem_name in FLASH_MEM_NAMES.items():
+            if row["name"] == mem_name:
+                row["launches"] += trained_dfsmn[("K2mem", dname)]
     # phase 15's launches: the ExMarc engines, top-2 and the exported
     # programs' captures
     for row in report:

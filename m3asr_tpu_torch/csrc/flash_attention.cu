@@ -1,8 +1,8 @@
 // Flash attention for the rel-pos conformer, forward (K2) and backward
 // (K3: one kernel for dQ, one for dK and dV), on Hopper's tensor cores.
-// The forward also serves the DFSMN memory-slot attention
-// (flash_attn_mem in the wrapper: the memory slots prepended as keys,
-// D2 = Dk = 64).
+// Both also serve the DFSMN memory-slot attention (flash_attn_mem in the
+// wrapper: the memory slots prepended as keys, D2 = Dk = 64), in serving
+// and in training.
 //
 // Replaces m3asr_tpu/ops/pallas_attention.py::flash_attention_bhtd
 // (_flash_kernel) and ::flash_attention_bwd (_flash_bwd_dq_kernel,
@@ -748,11 +748,11 @@ __global__ void __launch_bounds__(THREADS, 1)
 
 // Runs a functor's instantiation for (dtype, D2, DK, rows), or returns
 // cudaErrorInvalidValue for any other type, width or tile height. The
-// widths are the flagship's MoE blocks (8 heads of 64: D2 = 128) and embed
-// blocks (4 heads of 128: D2 = 256), and for the forward alone the DFSMN
-// memory-slot attention's plain heads (8 heads of 64: D2 = DK = 64, no
-// rel-pos half); rows 16, 32 or 64, the backward's only 16 or 32 (at 64 a
-// dK/dV thread would hold up to 192 accumulators).
+// widths are the flagship's MoE blocks (8 heads of 64: D2 = 128), its
+// embed blocks (4 heads of 128: D2 = 256) and the DFSMN memory-slot
+// attention's plain heads (8 heads of 64: D2 = DK = 64, no rel-pos half);
+// rows 16, 32 or 64, the backward's only 16 or 32 (at 64 a dK/dV thread
+// would hold up to 192 accumulators).
 template <typename F, typename T, int D2, int DK>
 int by_rows(int rows, F& f) {
   if (rows == 16) return f.template run<T, D2, DK, 16>();
@@ -765,11 +765,9 @@ int by_rows(int rows, F& f) {
 
 template <typename F>
 int dispatch(int dtype, int d2, int dk, int rows, F& f) {
-  if constexpr (F::PLAIN64) {
-    if (d2 == 64 && dk == 64) {
-      if (dtype == 0) return by_rows<F, float, 64, 64>(rows, f);
-      if (dtype == 1) return by_rows<F, bf16, 64, 64>(rows, f);
-    }
+  if (d2 == 64 && dk == 64) {
+    if (dtype == 0) return by_rows<F, float, 64, 64>(rows, f);
+    if (dtype == 1) return by_rows<F, bf16, 64, 64>(rows, f);
   }
   if (d2 == 128 && dk == 64) {
     if (dtype == 0) return by_rows<F, float, 128, 64>(rows, f);
@@ -799,7 +797,7 @@ struct Common {
 };
 
 struct Fwd {
-  static constexpr bool WIDE64 = true, PLAIN64 = true;
+  static constexpr bool WIDE64 = true;
   Common c;
   void* out;
   float* lse;
@@ -818,7 +816,7 @@ struct Fwd {
 };
 
 struct BwdDq {
-  static constexpr bool WIDE64 = false, PLAIN64 = false;
+  static constexpr bool WIDE64 = false;
   Common c;
   const void* g;
   const float *lse, *delta;
@@ -839,7 +837,7 @@ struct BwdDq {
 };
 
 struct BwdDkv {
-  static constexpr bool WIDE64 = false, PLAIN64 = false;
+  static constexpr bool WIDE64 = false;
   Common c;
   const void* g;
   const float *lse, *delta;
@@ -865,9 +863,9 @@ struct BwdDkv {
 extern "C" {
 
 // All pointers are device pointers; tensors are contiguous. dtype: 0 =
-// float32, 1 = bfloat16; (d2, dk) is (128, 64) or (256, 128), or for
-// flash_fwd also (64, 64). lens (B,)
-// and lo/hi (B, T) are int32 or null; lse (B, H, T) float32 or null.
+// float32, 1 = bfloat16; (d2, dk) is (64, 64), (128, 64) or (256, 128).
+// lens (B,) and lo/hi (B, T) are int32 or null; lse (B, H, T) float32 or
+// null.
 // rows: the block's query rows (flash_fwd, flash_bwd_dq) or keys
 // (flash_bwd_dkv): 16, 32 or 64 for flash_fwd, 16 or 32 for the others.
 // Each returns cudaGetLastError() after its launch (0 on success).

@@ -15,8 +15,9 @@ width (``flash_rel_mha``)::
   computed here, outside the kernels.
 * :class:`FlashAttentionFn`: the autograd pair (the JAX custom VJP,
   ``_trainable_flash``); :func:`flash_rel_mha` the drop-in for
-  ``ops.attention.rel_mha``; :func:`flash_attn_mem` the forward of the
-  DFSMN memory-slot attention (``models/dfsmn.attn_mem_layer``).
+  ``ops.attention.rel_mha``; :func:`flash_attn_mem` the DFSMN
+  memory-slot attention (``models/dfsmn.attn_mem_layer``), forward and
+  backward.
 
 Masks, as in the JAX kernel: key ``c < lengths[b]``; with a ``window``
 ``(lo, hi)`` of int32 ``(B, T)``, also ``lo <= c < hi`` or ``c <
@@ -30,9 +31,9 @@ forward runs through the custom operator ``m3asr::flash_fwd``
 (``ops/library.py``), so that ``torch.export`` traces through it; the
 backward (K3) stays behind :class:`FlashAttentionFn`. The
 kernels take float32 or bfloat16 with ``(D2, Dk)`` of ``(128, 64)`` (the
-flagship's MoE blocks) or ``(256, 128)`` (its embed blocks), and the
-forward also ``(64, 64)`` (the DFSMN heads). Each launch gets its
-block's tile height from :func:`flash_block_rows`.
+flagship's MoE blocks), ``(256, 128)`` (its embed blocks) or ``(64, 64)``
+(the DFSMN heads), forward and backward. Each launch gets its block's
+tile height from :func:`flash_block_rows`.
 """
 
 from __future__ import annotations
@@ -45,8 +46,7 @@ from m3asr_tpu_torch.ops.common import linear
 from m3asr_tpu_torch.ops.library import kernel_op
 
 _NEG_INF = -1e30
-WIDTHS = ((128, 64), (256, 128))       # (D2, Dk) the kernels are built for
-FWD_WIDTHS = WIDTHS + ((64, 64),)      # and K2 alone
+WIDTHS = ((128, 64), (256, 128), (64, 64))   # (D2, Dk) the kernels take
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 FWD_ROWS = (16, 32, 64)                # tile heights K2 is built for
 BWD_ROWS = (16, 32)                    # and K3's two kernels
@@ -164,9 +164,9 @@ class FlashKernels:
         self.fwd_launches = self.dq_launches = self.dkv_launches = 0
 
     @staticmethod
-    def _check(q2, k2, v, lengths, window, rows, allowed, widths=WIDTHS):
+    def _check(q2, k2, v, lengths, window, rows, allowed):
         """Raise unless the kernels take these tensors, their (D2, Dk) (one
-        of ``widths``) and each tile height in ``rows`` (one of
+        of :data:`WIDTHS`) and each tile height in ``rows`` (one of
         ``allowed``); returns (dtype code, D2, Dk, lens, lo, hi) with the
         int32 masks contiguous."""
         if q2.dtype not in _DTYPES or not q2.dtype == k2.dtype == v.dtype:
@@ -175,9 +175,9 @@ class FlashKernels:
                             f"{k2.dtype}, {v.dtype}")
         B, H, T, D2 = q2.shape
         S, Dk = k2.shape[2], v.shape[3]
-        if (D2, Dk) not in widths:
+        if (D2, Dk) not in WIDTHS:
             raise ValueError(f"the flash attention kernels are built for "
-                             f"(D2, Dk) in {widths}, got ({D2}, {Dk})")
+                             f"(D2, Dk) in {WIDTHS}, got ({D2}, {Dk})")
         if tuple(k2.shape) != (B, H, S, D2) or tuple(v.shape) != (B, H, S,
                                                                   Dk):
             raise ValueError(f"k2 {tuple(k2.shape)} / v {tuple(v.shape)} do "
@@ -218,8 +218,7 @@ class FlashKernels:
         not take, CPU tensors included."""
         if q2.device.type != "cuda":
             self._check(q2, k2, v, lengths, window,
-                        () if rows is None else (rows,), FWD_ROWS,
-                        FWD_WIDTHS)
+                        () if rows is None else (rows,), FWD_ROWS)
         lo, hi = (None, None) if window is None else window
         out, lse = flash_fwd(q2, k2, v, lengths, lo, hi, float(scale),
                              int(mem_cols), return_lse, rows)
@@ -236,8 +235,7 @@ class FlashKernels:
         if rows is None:
             rows = launch_rows(q2, k2)[0]
         code, D2, Dk, lens, lo, hi = self._check(q2, k2, v, lengths, window,
-                                                 (rows,), FWD_ROWS,
-                                                 FWD_WIDTHS)
+                                                 (rows,), FWD_ROWS)
         out = torch.empty((B, H, T, Dk), dtype=v.dtype, device=v.device)
         lse = (torch.empty((B, H, T, 1), dtype=torch.float32,
                            device=v.device) if return_lse else None)
@@ -471,9 +469,11 @@ def flash_attn_mem(p, x: torch.Tensor, lengths: Optional[torch.Tensor],
                    num_heads: int, memory_num: int,
                    attn_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The DFSMN memory-slot attention (``models/dfsmn.attn_mem_layer``)
-    on K2, with the arguments of :func:`attn_mem_inputs`. Rows that attend
-    to nothing come back as garbage, as in :func:`flash_rel_mha`. Forward
-    only."""
+    on K2, with the arguments of :func:`attn_mem_inputs`; under autograd
+    its backward runs K3 (:class:`FlashAttentionFn`), and the gradients
+    of the prepended slots flow back to ``key_memory`` and
+    ``value_memory``. Rows that attend to nothing come back as garbage,
+    as in :func:`flash_rel_mha`."""
     B, T, D = x.shape
     q, k, v, lens, window, mem_cols = attn_mem_inputs(
         p, x, lengths, num_heads, memory_num, attn_mask)

@@ -2,23 +2,33 @@
 
     python -m m3asr_tpu_torch.train --config cfg.yaml \\
         --tr_rspecifier feats.scp --tr_labels labels.ark \\
-        [--tr_aed_labels aed.ark [--tr_domain_labels d.ark \\
-         --tr_acc_labels a.ark]] [--cv_rspecifier cv.scp --cv_labels
-         cv.ark] --output_dir exp [--resume] [--device cpu]
+        [--tr_aed_labels aed.ark] [--tr_domain_labels d.ark \\
+         --tr_acc_labels a.ark] [--cv_rspecifier cv.scp --cv_labels
+         cv.ark] [--bmuf [--sync_period N] | --smbr_cmd "tool {post}
+         {grad} {trans}" --tr_trans_file trans.txt] --output_dir exp
+        [--resume] [--device cpu]
 
 The YAML schema is the JAX CLI's: model_conf / loader_conf /
 collate_conf plus the optimizer keys (lr, optim, optim_conf,
 schedule_type, schedule_conf, max_grad_norm, weight_decay, name_nodecay)
 and the step's (embed_ctc_weight, ce_weight, attn_impl, compute_dtype,
 accum_steps, spec_aug_device[_conf], loader_conf.mode -> loss_type,
-ctc_weight, tap_weight, loss_scale, lsm_weight). AED labels select the
-hier AED recipe. The step runs on ``--device`` (``cuda`` unless the
-caller asks for the CPU). The run writes ``train.log``, ``scalars/`` and
-``checkpoint_{last,best,final}.pkl`` under ``--output_dir``.
+ctc_weight, tap_weight, loss_scale, lsm_weight, bmuf_conf). Every proto
+trains with the CTC / CE step; AED labels select the hier AED recipe of
+the MoE conformers; domain and accent labels train the hier recipe's
+heads or the in-model heads of ``dfsmn_san_res_embed_domain_acc``.
+``--bmuf`` trains in BMUF mode (one replica on one device, synced every
+``sync_period`` steps); ``--smbr_cmd`` runs sMBR training with the
+external lattice command and writes ``smbr_epoch{n}.pkl``. The step runs
+on ``--device`` (``cuda`` unless the caller asks for the CPU). The run
+writes ``train.log``, ``scalars/`` and ``checkpoint_{last,best,final}.pkl``
+under ``--output_dir``.
 
-The parallel and sequence-training flags parse as the JAX CLI's and are
+It exits where the root ``train.py`` exits (DFSMN with AED labels, sMBR
+with the hier recipe, BMUF with ``--zero1/--fsdp``, domain labels without
+heads to train). The parallel flags parse as the JAX CLI's and are
 refused: ``--tp/--sp/--pp/--ep > 1``, ``--zero1`` and ``--fsdp`` (ROADMAP
-Queue 1 item 12), ``--bmuf`` and ``--smbr_cmd`` (item 11e).
+Queue 1 item 12).
 """
 
 from __future__ import annotations
@@ -60,11 +70,17 @@ def parse_args(argv=None):
     p.add_argument("--fsdp", action="store_true",
                    help="sharded parameters (not ported: item 12)")
     p.add_argument("--smbr_cmd", required=False,
-                   help="sMBR sequence training (not ported: item 11e)")
-    p.add_argument("--tr_trans_file", required=False)
+                   help="external lattice command for sMBR training; "
+                   "{post}/{grad}/{trans} are substituted per batch")
+    p.add_argument("--tr_trans_file", required=False,
+                   help="per-utterance transcript lines ('uttid w1 w2 "
+                   "...'), parallel to the feature stream")
     p.add_argument("--bmuf", action="store_true",
-                   help="BMUF training (not ported: item 11e)")
-    p.add_argument("--sync_period", type=int, default=0)
+                   help="BMUF training: local replica steps and a "
+                   "block-momentum sync every sync_period batches")
+    p.add_argument("--sync_period", type=int, default=0,
+                   help="BMUF sync period in batches (or YAML "
+                   "bmuf_conf.sync_period; default 100)")
     p.add_argument("--max_epochs", type=int, default=20)
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--resume", action="store_true")
@@ -74,8 +90,12 @@ def parse_args(argv=None):
 
 
 def refuse_unported(args) -> None:
-    """NotImplementedError for the flags whose code paths are not ported,
+    """SystemExit for --bmuf with --zero1/--fsdp (as the root train.py),
+    NotImplementedError for the flags whose code paths are not ported,
     naming the ROADMAP item that brings them."""
+    if (args.zero1 or args.fsdp) and args.bmuf:
+        sys.exit("--zero1/--fsdp shard the global state over dp; BMUF keeps "
+                 "per-replica local optimizers — pick one")
     parallel = [f"--{n} {getattr(args, n)}" for n in ("tp", "sp", "pp", "ep")
                 if getattr(args, n) > 1]
     parallel += [f"--{n}" for n in ("zero1", "fsdp") if getattr(args, n)]
@@ -83,10 +103,6 @@ def refuse_unported(args) -> None:
         raise NotImplementedError(
             f"{', '.join(parallel)}: parallel training is not ported yet: "
             "ROADMAP Queue 1 item 12")
-    if args.bmuf or args.smbr_cmd:
-        raise NotImplementedError(
-            f"{'--bmuf' if args.bmuf else '--smbr_cmd'}: BMUF and sMBR "
-            "training are not ported yet: ROADMAP Queue 1 item 11e")
 
 
 def train_config_kwargs(raw: dict, loader_conf: dict) -> dict:
@@ -109,7 +125,9 @@ def train_config_kwargs(raw: dict, loader_conf: dict) -> dict:
 
 
 def main(argv=None):
-    """Train as ``argv`` says, in this process; returns the Trainer."""
+    """Train as ``argv`` says, in this process; returns the Trainer, or
+    with ``--smbr_cmd`` what ``run_smbr_training`` returns (params,
+    opt_state, number of batches)."""
     args = parse_args(argv)
     refuse_unported(args)
     import torch
@@ -123,9 +141,11 @@ def main(argv=None):
     from m3asr_tpu_torch.models.registry import get_family
     from m3asr_tpu_torch.train.lr_scheduler import build_optimizer
     from m3asr_tpu_torch.train.metrics import set_logger
+    from m3asr_tpu_torch.train.bmuf import BmufRecipe
     from m3asr_tpu_torch.train.step import (HierTrainConfig, TrainConfig,
                                             check_supported,
-                                            init_domain_acc_heads, loss_fn,
+                                            init_domain_acc_heads,
+                                            init_opt_state, loss_fn,
                                             make_hier_train_step,
                                             make_train_step,
                                             needs_generator)
@@ -163,6 +183,9 @@ def main(argv=None):
     model_cfg.input_dim = probe.input_dim
 
     hier = bool(args.tr_aed_labels)
+    if hier and "dfsmn" in model_cfg.nnet_proto:
+        sys.exit("DFSMN protos carry no AED decoders (the reference's "
+                 "DFSMN recipes are CTC/CE-trained) — drop --tr_aed_labels")
     tkw = train_config_kwargs(raw, loader_conf)
     if hier:
         tcfg = HierTrainConfig(
@@ -172,16 +195,21 @@ def main(argv=None):
             lsm_weight=raw.get("lsm_weight", 0.1))
     else:
         tcfg = TrainConfig(**tkw)
-    # DFSMN and dense conformer protos are refused here, before any init
-    check_supported(model_cfg, tcfg)
+    # the hier recipe on a proto outside the MoE conformers is refused
+    # here, before any init
+    check_supported(model_cfg, tcfg, hier=hier)
     if bool(args.tr_domain_labels) != bool(args.tr_acc_labels):
         sys.exit("--tr_domain_labels and --tr_acc_labels go together "
                  "(the domain_acc recipe carries both streams)")
-    domain_acc = bool(args.tr_domain_labels)
-    if domain_acc and not hier:
+    dfsmn_domain_acc = (model_cfg.nnet_proto
+                        == "dfsmn_san_res_embed_domain_acc")
+    if args.tr_domain_labels and not (hier or dfsmn_domain_acc):
         sys.exit("--tr_domain_labels/--tr_acc_labels require the hier "
-                 "recipe (--tr_aed_labels); without it the streams would "
-                 "be silently ignored")
+                 "recipe (--tr_aed_labels) or the "
+                 "dfsmn_san_res_embed_domain_acc proto (in-model "
+                 "heads); without either the streams would be "
+                 "silently ignored")
+    domain_acc = bool(args.tr_domain_labels)
 
     family = get_family(model_cfg.nnet_proto)
     params = family.init(model_cfg, torch.Generator(device=device)
@@ -193,7 +221,9 @@ def main(argv=None):
         for name in ("decoder", "decoder_1", "decoder_2"):
             params[name] = aed.init(model_cfg.decoder_conf,
                                     model_cfg.output_dim, d_model, g)
-    if domain_acc:
+    if domain_acc and hier:
+        # add-on heads over the embed hidden (the DFSMN domain_acc proto's
+        # heads live in the model itself)
         enc_conf = model_cfg.encoder_conf
         params.update(init_domain_acc_heads(
             torch.Generator(device=device).manual_seed(args.seed + 2),
@@ -206,10 +236,31 @@ def main(argv=None):
         max_grad_norm=raw.get("max_grad_norm", 5.0),
         weight_decay=raw.get("weight_decay", 0.0),
         name_nodecay=raw.get("name_nodecay"), params=params)
+
+    if args.smbr_cmd:
+        if hier:
+            sys.exit("--smbr_cmd trains on encoder posteriors; drop "
+                     "--tr_aed_labels (the reference's sMBR recipe is "
+                     "CTC-posterior based)")
+        return smbr(args, raw, model_cfg, family, params, optimizer,
+                    loader_conf, collate)
     step = (make_hier_train_step(model_cfg, tcfg, optimizer,
                                  with_domain_acc=domain_acc, device=device)
             if hier else make_train_step(model_cfg, tcfg, optimizer,
+                                         with_domain_acc=domain_acc,
                                          device=device))
+    bmuf_recipe = opt_state = None
+    if args.bmuf:
+        # one device: dp = gcd(batch_size, devices) = 1, as the JAX CLI
+        # computes it there
+        bconf = dict(raw.get("bmuf_conf") or {})
+        sync_period = args.sync_period or bconf.get("sync_period", 100)
+        opt_state = BmufRecipe.stack(init_opt_state(optimizer, params), 1)
+        params = BmufRecipe.stack(params, 1)
+        bmuf_recipe = BmufRecipe(
+            params, sync_period,
+            block_momentum=bconf.get("block_momentum", 0.875),
+            block_lr=bconf.get("block_lr", 1.0))
 
     valid_step = None
     if cv_loader is not None:
@@ -234,6 +285,7 @@ def main(argv=None):
     if domain_acc:
         batch_keys += ("domain", "acc")
     trainer = Trainer(model_cfg, params, optimizer, step,
+                      bmuf=bmuf_recipe, opt_state=opt_state,
                       batch_keys=batch_keys,
                       make_loader=make_tr_loader, valid_loader=cv_loader,
                       save_dir=args.output_dir,
@@ -252,6 +304,39 @@ def main(argv=None):
         w.close()
     print(f"training done: {args.output_dir}")
     return trainer
+
+
+def smbr(args, raw, model_cfg, family, params, optimizer, loader_conf,
+         collate):
+    """The --smbr_cmd mode: sMBR training on the model's posteriors with
+    the external lattice command, one checkpoint per epoch under
+    --output_dir."""
+    import shlex
+
+    from m3asr_tpu_torch.io.loader import DataLoader
+    from m3asr_tpu_torch.train.metrics import set_logger
+    from m3asr_tpu_torch.train.smbr import (KaldiLatticeBridge,
+                                            run_smbr_training)
+    loader = DataLoader(args.tr_rspecifier, args.tr_labels, training=True,
+                        loader_conf=loader_conf, collate_func=collate,
+                        trans_file=args.tr_trans_file)
+
+    def fwd(p, feat, feat_len):
+        return family.forward(p, model_cfg, feat, feat_len)
+
+    os.makedirs(args.output_dir, exist_ok=True)
+    logger = set_logger("m3asr.smbr",
+                        log_file=args.log_file or
+                        os.path.join(args.output_dir, "train.log"))
+    out = run_smbr_training(
+        model_cfg, fwd, params, optimizer,
+        make_loader=lambda: loader(output_keys=True),
+        bridge=KaldiLatticeBridge(command=shlex.split(args.smbr_cmd)),
+        work_dir=args.output_dir,
+        max_epochs=raw.get("max_epoch", args.max_epochs), logger=logger,
+        log_period=raw.get("log_period", 100))
+    print(f"smbr training done: {out[2]} batches -> {args.output_dir}")
+    return out
 
 
 if __name__ == "__main__":

@@ -1,13 +1,17 @@
-"""Training steps of the hier MoE conformer family (port of the MoE
-conformer branches of ``m3asr_tpu/train/step.py``): the CTC / CE step
-(:func:`make_train_step`) and the deployed hier AED recipe
+"""Training steps (port of ``m3asr_tpu/train/step.py``): the CTC / CE
+step of every model family (:func:`make_train_step`: the hier MoE and
+ExMarc conformers, the dense conformers, the DFSMN nets with the
+in-model domain/accent heads of ``dfsmn_san_res_embed_domain_acc``) and
+the deployed hier AED recipe of the MoE conformers
 (:func:`make_hier_train_step`).
 
 One step: the forward with the dense expert stage (every expert on every
 token, as the JAX step trains), the loss in float32, gradients by
 autograd with respect to every float leaf of the parameter tree, and the
 optimizer (``lr_scheduler.Optimizer``). With ``attn_impl="flash"`` every
-attention layer runs K2 forward and K3 backward (``ops/flash_attention``).
+attention layer runs K2 forward and K3 backward (``ops/flash_attention``:
+the conformers' rel-pos blocks, the DFSMN memory-slot attention; the
+no_pos blocks' plain MHA has no flash path, as in the JAX package).
 With ``compute_dtype="bfloat16"`` the forward and backward run on bf16
 copies of the float32 master weights, and the gradients come back to
 them in float32 through the casts. ``accum_steps`` splits the batch into
@@ -17,9 +21,9 @@ the means; ``remat`` recomputes each MoE block in the backward;
 
 The step is functional, as the JAX one: it returns new parameters and
 optimizer state and leaves its inputs as they were. A parameter the loss
-does not reach (the embed encoder, without an embed CTC weight or the
-heads: the routers see its output detached) gets a zero gradient, as
-``jax.grad`` gives it. Random draws (SpecAugment, dynamic chunk sizes)
+does not reach (an embed encoder or sub-net, without an embed CTC weight
+or the heads: the routers see its output detached) gets a zero gradient,
+as ``jax.grad`` gives it. Random draws (SpecAugment, dynamic chunk sizes)
 come from a CPU ``torch.Generator`` handed to the step.
 """
 
@@ -34,16 +38,13 @@ from m3asr_tpu_torch.checkpoint import flatten_tree, unflatten_tree
 from m3asr_tpu_torch.config import (EXMARC_PROTOS, MOE_HIER_PROTOS,
                                     ModelConfig)
 from m3asr_tpu_torch.device import resolve_device
-from m3asr_tpu_torch.models import aed, moe_conformer
+from m3asr_tpu_torch.models import aed, conformer, dfsmn, moe_conformer
+from m3asr_tpu_torch.models import registry
 from m3asr_tpu_torch.ops import masking
 from m3asr_tpu_torch.ops.common import init_linear, linear
 from m3asr_tpu_torch.train import losses
 from m3asr_tpu_torch.train.lr_scheduler import (Optimizer, build_optimizer,
                                                 global_norm)
-
-_TODO_11C = ("ROADMAP Queue 1 item 11c (DFSMN and dense conformer "
-             "training)")
-
 
 @dataclasses.dataclass
 class TrainConfig:
@@ -89,15 +90,19 @@ class HierTrainConfig(TrainConfig):
     router_importance_weight: float = 0.0
 
 
-def check_supported(model_cfg: ModelConfig, tcfg: TrainConfig) -> None:
-    """Raise NotImplementedError for the model families this slice does
-    not train, naming the ROADMAP item that brings them; ValueError for
-    an unknown setting."""
-    if model_cfg.nnet_proto not in MOE_HIER_PROTOS | EXMARC_PROTOS:
-        raise NotImplementedError(
-            f"training {model_cfg.nnet_proto!r}: only the hier MoE conformer "
-            "family (with the ExMarc protos) is ported; the DFSMN and dense "
-            f"conformer branches come with {_TODO_11C}")
+MOE_PROTOS = MOE_HIER_PROTOS | EXMARC_PROTOS
+
+
+def check_supported(model_cfg: ModelConfig, tcfg: TrainConfig,
+                    hier: bool = False) -> None:
+    """Raise ValueError for an unknown setting, and for the hier recipe
+    (``hier``) on a proto outside the MoE conformers: the recipe runs
+    ``moe_conformer.forward`` and its taps, which the JAX recipe calls on
+    any proto and which fails there inside the forward."""
+    if hier and model_cfg.nnet_proto not in MOE_PROTOS:
+        raise ValueError(
+            f"the hier AED recipe trains the MoE conformer protos only, not "
+            f"{model_cfg.nnet_proto!r}: train it with the CTC / CE step")
     if tcfg.loss_type not in ("ctc", "ce"):
         raise ValueError(f"unknown loss_type {tcfg.loss_type!r}")
     if tcfg.attn_impl not in ("xla", "flash"):
@@ -141,6 +146,8 @@ def _cast_compute(params, feat: torch.Tensor, tcfg: TrainConfig):
     def cast(t):
         if isinstance(t, dict):
             return {k: cast(v) for k, v in t.items()}
+        if isinstance(t, (list, tuple)):      # the DFSMN nets' layer lists
+            return [cast(v) for v in t]
         if t is not None and t.is_floating_point():
             return t.to(torch.bfloat16)
         return t
@@ -171,23 +178,66 @@ def _ce_targets(targets, target_lens, T_out: int, padding_idx: int):
     return torch.where(valid, tgt, torch.full_like(tgt, padding_idx))
 
 
+def _forward(params, model_cfg: ModelConfig, tcfg: TrainConfig, feat,
+             feat_len, generator, domain_acc: bool):
+    """The CTC / CE branch's forward of each family: (out, out_len,
+    embed_out or None, (out_pool, out_pool_acc) or None). The MoE nets run
+    the dense expert stage; the DFSMN nets run unsubsampled and take no
+    chunk mask, as in the JAX step."""
+    if "dfsmn" in model_cfg.nnet_proto:
+        e = registry.dfsmn_enc_conf(model_cfg)
+        if "fmoe" in model_cfg.nnet_proto:
+            out, embed_out, out_len = dfsmn.dfsmn_san_moe_forward(
+                params, registry.dfsmn_moe_config(e), feat, feat_len,
+                moe_impl="dense", attn_impl=tcfg.attn_impl)
+            return out, out_len, embed_out, None
+        fwd = registry.get_family(model_cfg.nnet_proto).forward
+        if domain_acc:
+            out, out_len, pool, pool_acc = fwd(
+                params, model_cfg, feat, feat_len, domain_acc=True,
+                attn_impl=tcfg.attn_impl)
+            return out, out_len, None, (pool, pool_acc)
+        out, out_len = fwd(params, model_cfg, feat, feat_len,
+                           attn_impl=tcfg.attn_impl)
+        return out, out_len, None, None
+    enc = model_cfg.encoder_conf
+    chunk_mask = train_chunk_mask(enc, feat, feat_len, generator)
+    if model_cfg.nnet_proto in MOE_PROTOS:
+        embed_mask = train_chunk_mask(enc.embed_conf, feat, feat_len,
+                                      generator)
+        out, out_len, embed_out = moe_conformer.forward(
+            params, enc, feat, feat_len, output_embed=True,
+            moe_impl="dense", chunk_mask=chunk_mask,
+            embed_chunk_mask=embed_mask, remat=tcfg.remat,
+            attn_impl=tcfg.attn_impl)
+        return out, out_len, embed_out, None
+    out, out_len = conformer.forward(params, enc, feat, feat_len,
+                                     chunk_mask=chunk_mask,
+                                     attn_impl=tcfg.attn_impl)
+    return out, out_len, None, None
+
+
 def loss_fn(params, model_cfg: ModelConfig, tcfg: TrainConfig,
             feat: torch.Tensor, feat_len: torch.Tensor,
             targets: torch.Tensor, target_lens: torch.Tensor,
-            generator: Optional[torch.Generator] = None):
-    """(loss, metrics) of the MoE-conformer CTC (or CE) branch; the loss
+            generator: Optional[torch.Generator] = None,
+            domain_targets: Optional[torch.Tensor] = None,
+            acc_targets: Optional[torch.Tensor] = None):
+    """(loss, metrics) of the CTC (or CE) branch of any family; the loss
     math runs in float32 whatever the compute dtype. The router weights
-    are not read here, as in the JAX package."""
+    are not read here, as in the JAX package. With domain or accent ids
+    (B,) on ``dfsmn_san_res_embed_domain_acc``, its in-model pooled heads
+    add their CE (summed over the batch, / B) at ``ce_weight``, with the
+    hit rate as a metric; on any other proto the ids are not read, as in
+    the JAX package."""
     check_supported(model_cfg, tcfg)
-    enc = model_cfg.encoder_conf
     params, feat = _cast_compute(params, feat, tcfg)
     feat = _apply_spec_aug(tcfg, generator, feat, feat_len)
-    chunk_mask = train_chunk_mask(enc, feat, feat_len, generator)
-    embed_mask = train_chunk_mask(enc.embed_conf, feat, feat_len, generator)
-    out, out_len, embed_out = moe_conformer.forward(
-        params, enc, feat, feat_len, output_embed=True, moe_impl="dense",
-        chunk_mask=chunk_mask, embed_chunk_mask=embed_mask,
-        remat=tcfg.remat, attn_impl=tcfg.attn_impl)
+    domain_acc = (model_cfg.nnet_proto == "dfsmn_san_res_embed_domain_acc"
+                  and (domain_targets is not None
+                       or acc_targets is not None))
+    out, out_len, embed_out, pools = _forward(
+        params, model_cfg, tcfg, feat, feat_len, generator, domain_acc)
     out = out.float()
     metrics = {}
     if tcfg.loss_type == "ce":
@@ -202,11 +252,23 @@ def loss_fn(params, model_cfg: ModelConfig, tcfg: TrainConfig,
         loss = tcfg.ctc_weight * losses.ctc_loss(out, out_len, targets,
                                                  target_lens, tcfg.blank_idx)
         metrics["ctc_loss"] = loss
-    if tcfg.embed_ctc_weight > 0:
+    if embed_out is not None and tcfg.embed_ctc_weight > 0:
         e_loss = losses.ctc_loss(embed_out.float(), out_len, targets,
                                  target_lens, tcfg.blank_idx)
         metrics["embed_ctc_loss"] = e_loss
         loss = loss + tcfg.embed_ctc_weight * e_loss
+    if pools is not None:
+        B = feat.shape[0]
+        for tag, logits, tgt in (("domain", pools[0], domain_targets),
+                                 ("acc", pools[1], acc_targets)):
+            if tgt is None:
+                continue
+            ce_sum, (_, _, hit), (frames, _, _) = losses.ce_loss(
+                logits.float(), tgt[:, None], -1, mean_in_frames=False)
+            ce = ce_sum / B
+            metrics[f"{tag}_loss"] = ce
+            metrics[f"{tag}_hit"] = hit / frames.clamp(min=1)
+            loss = loss + tcfg.ce_weight * ce
     metrics["loss"] = loss
     return loss, metrics
 
@@ -263,7 +325,7 @@ def hier_aed_loss_fn(params, model_cfg: ModelConfig,
     over the blocks). ``params`` holds ``encoder`` and the decoders
     ``decoder``, ``decoder_1``, ``decoder_2`` (and the heads). No remat,
     as in the JAX recipe."""
-    check_supported(model_cfg, tcfg)
+    check_supported(model_cfg, tcfg, hier=True)
     params, feat = _cast_compute(params, feat, tcfg)
     feat = _apply_spec_aug(tcfg, generator, feat, feat_len)
     enc = params["encoder"] if "encoder" in params else params
@@ -397,12 +459,17 @@ def _accum_value_and_grad(per_mb_loss, params, mb_arrays, accum_steps: int):
 
 
 def value_and_grad(params, model_cfg: ModelConfig, tcfg: TrainConfig, feat,
-                   feat_len, targets, target_lens, generator=None):
+                   feat_len, targets, target_lens, generator=None,
+                   domain_targets=None, acc_targets=None):
     """((loss, metrics), grads) of :func:`loss_fn` (``jax.value_and_grad``),
     over ``accum_steps`` microbatches when it is > 1."""
     def call(p, mb):
-        return loss_fn(p, model_cfg, tcfg, *mb, generator=generator)
-    batch = (feat, feat_len, targets, target_lens)
+        f, fl, tg, tl, dt, ac = mb
+        return loss_fn(p, model_cfg, tcfg, f, fl, tg, tl,
+                       generator=generator, domain_targets=dt,
+                       acc_targets=ac)
+    batch = (feat, feat_len, targets, target_lens, domain_targets,
+             acc_targets)
     if tcfg.accum_steps > 1:
         return _accum_value_and_grad(call, params, batch, tcfg.accum_steps)
     return _value_and_grad(lambda p: call(p, batch), params)
@@ -471,24 +538,37 @@ def make_train_step(model_cfg: ModelConfig, tcfg: TrainConfig,
     """step(params, opt_state, feat, feat_len, targets, target_lens,
     generator=None) -> (params, opt_state, metrics), metrics holding
     ``loss``, ``ctc_loss`` (``ce_loss``, ``likely``, ``acc`` in CE mode)
-    and ``grad_norm`` (before clipping). The step runs on ``device``
-    (``cuda`` unless the caller asks for the CPU): the parameters must lie
-    there, the batch (tensors or numpy arrays) is moved there. The
-    optimizer state comes from :func:`init_opt_state`. ``generator`` (a
-    CPU ``torch.Generator``) draws the SpecAugment masks and the dynamic
-    chunk sizes, when the config asks for them."""
+    and ``grad_norm`` (before clipping). With ``with_domain_acc`` the step
+    takes the per-utterance domain and accent ids after the CTC labels
+    (the Trainer's batch key order: ``..., domain, acc[, generator]``)
+    and trains the in-model heads of ``dfsmn_san_res_embed_domain_acc``.
+    The step runs on ``device`` (``cuda`` unless the caller asks for the
+    CPU): the parameters must lie there, the batch (tensors or numpy
+    arrays) is moved there. The optimizer state comes from
+    :func:`init_opt_state`. ``generator`` (a CPU ``torch.Generator``)
+    draws the SpecAugment masks and the dynamic chunk sizes, when the
+    config asks for them."""
     check_supported(model_cfg, tcfg)
-    if with_domain_acc:
-        raise NotImplementedError(
-            "the domain/accent heads of the CTC step (the DFSMN in-model "
-            f"heads) are not ported yet: {_TODO_11C}")
     run = _step_runner(tcfg, optimizer, device)
 
-    def step(params, opt_state, feat, feat_len, targets, target_lens,
-             generator=None):
-        return run(params, opt_state, (feat, feat_len, targets, target_lens),
-                   lambda p, b: value_and_grad(p, model_cfg, tcfg, *b,
-                                               generator=generator))
+    def vg(generator):
+        return lambda p, b: value_and_grad(p, model_cfg, tcfg, *b[:4],
+                                           generator=generator,
+                                           domain_targets=b[4],
+                                           acc_targets=b[5])
+
+    if with_domain_acc:
+        def step(params, opt_state, feat, feat_len, targets, target_lens,
+                 domain_targets, acc_targets, generator=None):
+            return run(params, opt_state,
+                       (feat, feat_len, targets, target_lens,
+                        domain_targets, acc_targets), vg(generator))
+    else:
+        def step(params, opt_state, feat, feat_len, targets, target_lens,
+                 generator=None):
+            return run(params, opt_state,
+                       (feat, feat_len, targets, target_lens, None, None),
+                       vg(generator))
     return step
 
 
@@ -500,8 +580,9 @@ def make_hier_train_step(model_cfg: ModelConfig, tcfg: HierTrainConfig,
     generator=None), with ``with_domain_acc`` taking the per-utterance
     domain and accent ids after the AED labels (the Trainer's batch key
     order) and training the heads of :func:`init_domain_acc_heads` on the
-    embed hidden. Device, batch and generator as :func:`make_train_step`."""
-    check_supported(model_cfg, tcfg)
+    embed hidden. Device, batch and generator as :func:`make_train_step`.
+    ValueError for a proto outside the MoE conformers."""
+    check_supported(model_cfg, tcfg, hier=True)
     run = _step_runner(tcfg, optimizer, device)
 
     def vg(generator):

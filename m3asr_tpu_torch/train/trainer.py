@@ -5,17 +5,25 @@ divergence recovery (port of ``m3asr_tpu/train/trainer.py``).
 * periodic validation and best-model tracking, early stop;
 * checkpoints ``checkpoint_{last,best,final}.pkl``: a pickle of
   ``{epoch, global_step, resume_skip, best_valid, early_stop, lr_scale,
-  params, best_params, opt_state, best_opt_state}`` with every tensor as
-  a numpy array (the port's tree layout), so a checkpoint does not depend
-  on a device (:class:`CheckpointPickler`); resume puts them back on the
-  step's device and skips ``resume_skip`` utterances of the data stream;
-* divergence recovery: a non-finite loss reloads the best parameters and
-  their optimizer state, halves the LR scale and counts toward early
-  stop.
+  params, best_params, opt_state, best_opt_state}`` (and ``bmuf`` in BMUF
+  mode) with every tensor as a numpy array (the port's tree layout), so a
+  checkpoint does not depend on a device (:class:`CheckpointPickler`);
+  resume puts them back on the step's device and skips ``resume_skip``
+  utterances of the data stream;
+* divergence recovery: a non-finite loss (or a BMUF STOP) reloads the
+  best parameters and their optimizer state, halves the LR scale and
+  counts toward early stop;
+* BMUF mode (``bmuf``, a ``train.bmuf.BmufRecipe``): the parameters and
+  the optimizer state carry a leading ``dp`` axis, the batch is split
+  into ``dp`` equal slices, the step runs on each replica's slice of the
+  trees (the JAX Trainer's ``jax.vmap(step)``), ``sync()`` runs every
+  ``sync_period`` steps, the checkpoint carries the recipe's ``bmuf``
+  entry, and validation runs on replica 0.
 
 The per-step random draws (SpecAugment masks, dynamic chunk sizes) come
 from a fresh CPU ``torch.Generator`` seeded from ``(seed, global_step)``,
-so a resumed run draws what a run that was never stopped draws.
+so a resumed run draws what a run that was never stopped draws; in BMUF
+mode each replica gets a generator seeded from that one's draws.
 """
 
 from __future__ import annotations
@@ -27,6 +35,7 @@ from typing import Callable, Dict, Iterable, Optional, Tuple
 import numpy as np
 import torch
 
+from m3asr_tpu_torch.train.bmuf import replica, restack
 from m3asr_tpu_torch.train.lr_scheduler import set_lr_scale
 from m3asr_tpu_torch.train.metrics import (MetricStat, ScalarWriter,
                                            TensorBoardWriter,
@@ -38,6 +47,14 @@ def step_generator(seed: int, global_step: int) -> torch.Generator:
     """The CPU generator of one training step."""
     return torch.Generator().manual_seed(
         ((int(seed) & 0xFFFFFFFF) << 32) | (int(global_step) & 0xFFFFFFFF))
+
+
+def replica_generators(seed: int, global_step: int, dp: int):
+    """One CPU generator per BMUF replica, seeded from the step
+    generator's draws (the JAX Trainer splits the step's key over dp)."""
+    seeds = torch.randint(0, 2 ** 62, (dp,),
+                          generator=step_generator(seed, global_step))
+    return [torch.Generator().manual_seed(int(x)) for x in seeds]
 
 
 # the reconstructor of numpy's own protocol-5 pickles of an array
@@ -108,9 +125,6 @@ class Trainer:
                                                 "target_lens"),
                  ckpt_format: str = "pickle", bmuf=None,
                  opt_state=None):
-        if bmuf is not None:
-            raise NotImplementedError(
-                "BMUF training is not ported yet: ROADMAP Queue 1 item 11e")
         if ckpt_format != "pickle":
             raise ValueError(
                 f"ckpt_format {ckpt_format!r}: orbax is a JAX library's "
@@ -145,6 +159,7 @@ class Trainer:
         self.seed = seed
         self.batch_keys = tuple(batch_keys)
         self.ckpt_format = ckpt_format
+        self.bmuf = bmuf
         self.writers = []
         if scalar_dir:
             self.writers = [
@@ -158,7 +173,7 @@ class Trainer:
         return os.path.join(self.save_dir, f"checkpoint_{tag}.pkl")
 
     def _gather_state(self):
-        return {
+        state = {
             "epoch": self.epoch,
             "global_step": self.global_step,
             "resume_skip": self.resume_skip,
@@ -170,6 +185,9 @@ class Trainer:
             "opt_state": self.opt_state,
             "best_opt_state": self.best_opt_state,
         }
+        if self.bmuf is not None:
+            state["bmuf"] = self.bmuf.state_dict()
+        return state
 
     def _apply_state(self, state):
         self.epoch = int(state["epoch"])
@@ -187,6 +205,8 @@ class Trainer:
         self.best_opt_state = to_device_tree(
             state.get("best_opt_state", state["opt_state"]), self.device,
             memo)
+        if self.bmuf is not None and state.get("bmuf") is not None:
+            self.bmuf.load_state_dict(state["bmuf"])
 
     def save_checkpoint(self, tag: str = "last"):
         os.makedirs(self.save_dir, exist_ok=True)
@@ -233,17 +253,41 @@ class Trainer:
     # ------------------------------------------------------------------
     # loops
     # ------------------------------------------------------------------
+    def _step(self, batch):
+        """One training step on ``batch``: (params, opt_state, metrics). In
+        BMUF mode the step runs on each replica's slice of the trees and
+        of the batch (its leading axis split into dp equal parts), and the
+        replicas' results are stacked again."""
+        vals = tuple(batch[k] for k in self.batch_keys)
+        if self.bmuf is None:
+            kw = {}
+            if self.step_takes_rng:
+                kw["generator"] = step_generator(self.seed, self.global_step)
+            return self.train_step(self.params, self.opt_state, *vals, **kw)
+        dp = self.bmuf.dp
+        for v in vals:
+            if v.shape[0] % dp != 0:
+                raise ValueError(f"batch {v.shape[0]} not divisible by "
+                                 f"dp={dp} (use loader drop_last)")
+        gens = (replica_generators(self.seed, self.global_step, dp)
+                if self.step_takes_rng else None)
+        outs = []
+        for r in range(dp):
+            n = vals[0].shape[0] // dp
+            kw = {} if gens is None else {"generator": gens[r]}
+            outs.append(self.train_step(
+                replica(self.params, r), replica(self.opt_state, r),
+                *(v[r * n:(r + 1) * n] for v in vals), **kw))
+        metrics = {k: torch.stack([o[2][k] for o in outs])
+                   for k in outs[0][2]}
+        return (restack([o[0] for o in outs]),
+                restack([o[1] for o in outs]), metrics)
+
     def train_one_epoch(self) -> Dict[str, float]:
         stat = None
         meter = ThroughputMeter()
         for i, batch in enumerate(self.make_loader(self.resume_skip)):
-            args = (self.params, self.opt_state) + tuple(
-                batch[k] for k in self.batch_keys)
-            kw = {}
-            if self.step_takes_rng:
-                kw["generator"] = step_generator(self.seed, self.global_step)
-            self.params, self.opt_state, metrics = self.train_step(*args,
-                                                                   **kw)
+            self.params, self.opt_state, metrics = self._step(batch)
             tags = list(metrics)
             values = torch.stack([metrics[k].float().mean()
                                   for k in tags]).tolist()
@@ -255,6 +299,15 @@ class Trainer:
                     raise RuntimeError("early stop: too many divergences")
                 continue
             self.global_step += 1
+            if self.bmuf is not None and \
+                    self.global_step % self.bmuf.sync_period == 0:
+                self.params, ok = self.bmuf.sync(self.params)
+                if not ok:    # STOP: a non-finite delta
+                    self._recover_from_divergence()
+                    if self.early_stop >= self.early_stop_limit:
+                        raise RuntimeError(
+                            "early stop: too many divergences")
+                    continue
             self.resume_skip += int(batch["data"].shape[0])
             if stat is None:
                 # 'loss' leads the line; the rest alphabetical
@@ -283,9 +336,12 @@ class Trainer:
 
     def validate(self, valid_step) -> float:
         assert self.valid_loader is not None
+        # BMUF: replica 0 (every replica right after a sync)
+        params = (self.params if self.bmuf is None
+                  else replica(self.params, 0))
         total, count = 0.0, 0
         for batch in self.valid_loader():
-            loss = float(valid_step(self.params, batch["data"],
+            loss = float(valid_step(params, batch["data"],
                                     batch["lens"], batch["target"],
                                     batch["target_lens"]))
             total += loss

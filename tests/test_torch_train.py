@@ -659,19 +659,42 @@ def test_hier_recipe_and_domain_heads_match_jax():
 @pytest.mark.parametrize("proto", ["dfsmn_san_res",
                                    "conformer_aed"])
 def test_other_families_refuse_to_train(proto):
-    """The DFSMN and dense conformer steps are item 11c's."""
+    """The CTC step builds for a DFSMN or dense conformer proto; the hier
+    AED recipe, which runs the MoE conformer's forward and taps, refuses
+    them up front with a ValueError naming the proto (the JAX recipe
+    fails inside its forward)."""
     raw = dict(small_yaml(), nnet_proto=proto)
-    with pytest.raises(NotImplementedError, match="11c"):
-        t_step.make_train_step(t_config(raw), t_step.TrainConfig(), None,
-                               device="cpu")
+    t_step.make_train_step(t_config(raw), t_step.TrainConfig(), None,
+                           device="cpu")
+    with pytest.raises(ValueError, match=proto):
+        t_step.make_hier_train_step(t_config(raw), t_step.HierTrainConfig(),
+                                    None, device="cpu")
 
 
 def test_ctc_step_refuses_domain_heads():
-    """The CTC step's in-model heads (the DFSMN domain/accent proto) are
-    item 11c's; the hier recipe's heads are ported."""
-    with pytest.raises(NotImplementedError, match="11c"):
-        t_step.make_train_step(t_config(small_yaml()), t_step.TrainConfig(),
-                               None, with_domain_acc=True, device="cpu")
+    """The CTC step with the domain/accent ids on a proto without in-model
+    heads (the small MoE conformer) takes them in the JAX positional
+    order and does not read them, as the JAX loss_fn: its update equals
+    the step's without them, bit for bit."""
+    tree = random_params(6)
+    feat, lens, targets, tlens = _batch(7)
+    tt = t_step.TrainConfig(warmup_steps=10)
+    opt = t_step.make_optimizer(tt)
+    cfg = t_config(small_yaml())
+    runs = []
+    for heads in (False, True):
+        params = params_from_jax(tree)
+        step = t_step.make_train_step(cfg, tt, opt, with_domain_acc=heads,
+                                      device="cpu")
+        extra = (np.array([1, 0], np.int32), np.array([2, 3], np.int32)) \
+            if heads else ()
+        runs.append(step(params, t_step.init_opt_state(opt, params), feat,
+                         lens, targets, tlens, *extra))
+    (p0, _, m0), (p1, _, m1) = runs
+    assert sorted(m0) == sorted(m1)
+    assert all(torch.equal(m0[k], m1[k]) for k in m0)
+    f0, f1 = flatten_tree(p0), flatten_tree(p1)
+    assert all(torch.equal(f0[k], f1[k]) for k in f0)
 
 
 @pytest.fixture

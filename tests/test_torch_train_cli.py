@@ -5,12 +5,17 @@ process through ``train.cli.main``) and package-level API on the CPU:
   tiny Kaldi ark (the small model of ``test_torch_model``, AED decoders
   of one block), with SpecAugment on the device, two accumulated
   microbatches and flash attention: the files it writes, and a resumed
-  run that starts from checkpoint_last.pkl;
+  run that starts from checkpoint_last.pkl; a small DFSMN proto with its
+  in-model heads in BMUF mode, run and resumed;
 * what the CLI builds from a YAML that sets every key it reads (the
   model config, TrainConfig / HierTrainConfig, the optimizer's arguments
   and its updates, the parameter tree, the Trainer's settings) against
-  what the root ``train.py`` builds from the same YAML and arks;
-* each refused flag and model family, naming its ROADMAP item;
+  what the root ``train.py`` builds from the same YAML and arks; the same
+  for a DFSMN proto with its in-model heads, for ``--bmuf`` (the BMUF
+  recipe's settings and the stacked trees) and for ``--smbr_cmd`` (what
+  reaches ``run_smbr_training``);
+* each refused flag, naming its ROADMAP item, and the exits that mirror
+  the root ``train.py``'s;
 * the loader's training options the flagship YAML sets (collate_conf
   spec_aug, batch_size, drop_last, the AED / domain / accent label
   streams) against the JAX loader on the same ark;
@@ -301,25 +306,238 @@ def test_cli_builds_what_train_py_builds(work, tmp_path, monkeypatch, hier):
     (["--tp", "2"], "item 12"), (["--sp", "2"], "item 12"),
     (["--pp", "2"], "item 12"), (["--ep", "2"], "item 12"),
     (["--zero1"], "item 12"), (["--fsdp"], "item 12"),
-    (["--bmuf"], "item 11e"), (["--smbr_cmd", "tool {post}"], "item 11e"),
+    (["--bmuf", "--zero1"], "pick one"),
+    (["--smbr_cmd", "tool {post}"], "drop --tr_aed_labels"),
 ])
 def test_cli_refuses_unported_flags(work, tmp_path, extra, item):
-    with pytest.raises(NotImplementedError, match=item):
+    """The parallel flags are item 12's (NotImplementedError); --bmuf with
+    --zero1 and --smbr_cmd with the hier recipe exit as the root
+    train.py exits, with its message."""
+    want = NotImplementedError if item == "item 12" else SystemExit
+    with pytest.raises(want, match=item):
         cli.main(_argv(work, tmp_path / "exp", *extra))
 
 
 @pytest.mark.parametrize("proto", ["dfsmn_san_res", "conformer"])
 def test_cli_refuses_other_families(work, tmp_path, proto):
-    """DFSMN and dense conformer training are item 11c's."""
+    """With AED labels (the hier recipe), a DFSMN proto exits as the root
+    train.py exits (DFSMN nets carry no AED decoders) and a dense
+    conformer is refused naming the proto (the recipe runs the MoE
+    conformer's forward), before any parameter is drawn."""
     with open(work / "cfg.yaml") as f:
         raw = yaml.safe_load(f)
     raw["nnet_proto"] = proto
     with open(tmp_path / "cfg.yaml", "w") as f:
         yaml.safe_dump(raw, f)
-    argv = _argv(work, tmp_path / "exp", hier=False)
+    argv = _argv(work, tmp_path / "exp", hier=True)
     argv[1] = str(tmp_path / "cfg.yaml")
-    with pytest.raises(NotImplementedError, match="11c"):
+    want, match = ((SystemExit, "no AED decoders") if "dfsmn" in proto
+                   else (ValueError, proto))
+    with pytest.raises(want, match=match):
         cli.main(argv)
+
+
+DFSMN_YAML = {
+    "nnet_proto": "dfsmn_san_res_embed_domain_acc", "input_dim": 20,
+    "output_dim": 11,
+    "model_conf": {"num_block": 2, "fsmn_each_block": 3, "hidden_dim": 32,
+                   "memory_dim": 16, "num_head": 4, "num_memory": 8,
+                   "output_dim_domain": 3, "output_dim_acc": 4},
+    "loader_conf": {"feat_dim": 20, "batch_size": 2}, "log_period": 1,
+    "save_period": 2, "attn_impl": "flash", "lr": 2e-3, "ce_weight": 0.5,
+    "schedule_conf": {"warmup_steps": 4},
+    "bmuf_conf": {"block_momentum": 0.5, "block_lr": 0.9}}
+
+
+def _dfsmn_argv(work, tmp_path, out, *extra):
+    """The DFSMN proto with its in-model heads: CTC and domain/accent
+    labels, validation arks."""
+    cfg = tmp_path / "dfsmn.yaml"
+    with open(cfg, "w") as f:
+        yaml.safe_dump(DFSMN_YAML, f)
+    argv = _argv(work, out, hier=False)
+    argv[1] = str(cfg)
+    return argv + ["--tr_domain_labels", str(work / "tr_domain.ark"),
+                   "--tr_acc_labels", str(work / "tr_acc.ark")] + list(extra)
+
+
+def test_cli_trains_dfsmn_heads_in_bmuf_mode_and_resumes(work, tmp_path):
+    """dfsmn_san_res_embed_domain_acc with its in-model heads, flash
+    attention, --bmuf --sync_period 2 (one replica): four steps with
+    finite losses and the heads' metrics in train.log; checkpoint_last.pkl
+    holds the bmuf entry (block momentum and LR from bmuf_conf, the
+    sync period from the flag) whose global parameters equal the
+    parameters (the run ends on a sync) with a leading replica axis of 1.
+    A resumed run (--max_epochs 2) starts at step 4 with the recipe's
+    state equal, bit for bit, to that entry, and ends at step 8."""
+    out = tmp_path / "exp"
+    t1 = cli.main(_dfsmn_argv(work, tmp_path, out, "--max_epochs", "1",
+                              "--bmuf", "--sync_period", "2"))
+    assert t1.global_step == N_TRAIN // 2 and t1.bmuf.dp == 1
+    log = (out / "train.log").read_text()
+    steps = [line for line in log.splitlines() if " step " in line
+             and "domain_loss" in line and "acc_hit" in line]
+    assert len(steps) == N_TRAIN // 2
+    assert np.all(np.isfinite([float(line.split(" loss ")[1].split()[0])
+                               for line in steps]))
+    with open(out / "checkpoint_last.pkl", "rb") as f:
+        last = pickle.load(f)
+    entry = last["bmuf"]
+    assert (entry["sync_period"], entry["block_momentum"],
+            entry["block_lr"]) == (2, 0.5, 0.9)
+    params = flatten_tree(last["params"])
+    glob = flatten_tree(entry["global_params"])
+    assert sorted(glob) == sorted(params)
+    for k, v in glob.items():
+        assert params[k].shape == (1,) + v.shape
+        assert np.array_equal(params[k][0], v), k
+
+    seen = {}
+    from m3asr_tpu_torch.train import trainer as tr_mod
+    real = tr_mod.Trainer.load_checkpoint
+
+    def spy(self, tag="last"):
+        ok = real(self, tag)
+        seen["step"] = self.global_step
+        seen["state"] = {k: v.clone() for k, v in flatten_tree(
+            self.bmuf.state_dict()).items() if torch.is_tensor(v)}
+        return ok
+    tr_mod.Trainer.load_checkpoint = spy
+    try:
+        t2 = cli.main(_dfsmn_argv(work, tmp_path, out, "--max_epochs", "2",
+                                  "--bmuf", "--sync_period", "2",
+                                  "--resume"))
+    finally:
+        tr_mod.Trainer.load_checkpoint = real
+    assert seen["step"] == N_TRAIN // 2 and t2.global_step == N_TRAIN
+    ref = {k: v for k, v in flatten_tree(entry).items()
+           if isinstance(v, np.ndarray)}
+    assert sorted(ref) == sorted(seen["state"])
+    for k, v in ref.items():
+        assert np.array_equal(seen["state"][k].numpy(), v), k
+
+
+def _root_and_port(monkeypatch, argv, capture):
+    """The root train.py (run as a script, without --device) and the
+    port's CLI on ``argv``, each stopped by ``capture(lr, step, trainer
+    modules)``'s patches; returns (JAX record, port record)."""
+    i = argv.index("--device")
+    root_argv = argv[:i] + argv[i + 2:]
+    ref = capture(monkeypatch, j_lr, j_step, j_trainer)
+    monkeypatch.setattr(sys, "argv", ["train.py"] + root_argv)
+    monkeypatch.setattr(sys, "path", list(sys.path))
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    with pytest.raises(_Built):
+        runpy.run_path(os.path.join(root, "train.py"), run_name="__main__")
+    got = capture(monkeypatch, t_lr, t_step, t_trainer)
+    with pytest.raises(_Built):
+        cli.main(argv)
+    return ref, got
+
+
+@pytest.mark.parametrize("bmuf", [False, True])
+def test_cli_builds_what_train_py_builds_for_dfsmn(work, tmp_path,
+                                                    monkeypatch, bmuf):
+    """The DFSMN proto with its in-model heads (domain and accent labels,
+    no AED labels), plain and with --bmuf --sync_period 3: the root
+    train.py and the port's CLI, each stopped where it starts its
+    Trainer, call the same step factory with the heads, with equal model
+    configs, TrainConfigs and build_optimizer arguments, parameter trees
+    of the same leaves and shapes (a leading replica axis of 1 in BMUF
+    mode: gcd(batch 2, 1 device), the JAX run given one of its CPU
+    devices) and equal Trainer settings; in BMUF mode
+    the recipes' dp, sync period, block momentum and block LR are equal
+    and the optimizer states stacked alike."""
+    extra = ["--bmuf", "--sync_period", "3"] if bmuf else []
+    argv = _dfsmn_argv(work, tmp_path, tmp_path / "exp", *extra)
+    # one device, as the port trains on one card (the tests' JAX has
+    # several CPU devices)
+    devices = jax.devices
+    monkeypatch.setattr(jax, "devices", lambda *a, **k: devices(*a, **k)[:1])
+    ref, got = _root_and_port(monkeypatch, argv + ["--seed", "3"], _capture)
+    assert got["factory"] == ref["factory"] == "make_train_step"
+    assert got["with_domain_acc"] and ref["with_domain_acc"]
+    assert dataclasses.asdict(got["model_cfg"]) == \
+        dataclasses.asdict(ref["model_cfg"])
+    assert dataclasses.asdict(got["tcfg"]) == dataclasses.asdict(ref["tcfg"])
+    assert got["opt_args"] == ref["opt_args"]
+    ref_tree = flatten_tree(jax.tree.map(np.asarray, ref["params"]))
+    got_tree = flatten_tree(params_to_numpy(got["params"]))
+    assert {k: v.shape for k, v in got_tree.items()} == \
+        {k: v.shape for k, v in ref_tree.items()}
+    keep = ("batch_keys", "save_dir", "log_period", "save_period",
+            "max_epochs", "step_takes_rng", "seed", "scalar_dir")
+    assert {k: got["trainer"][k] for k in keep} == \
+        {k: ref["trainer"][k] for k in keep}
+    assert got["trainer"]["batch_keys"][-2:] == ("domain", "acc")
+    if not bmuf:
+        assert got["trainer"]["bmuf"] is ref["trainer"]["bmuf"] is None
+        return
+    rb, gb = ref["trainer"]["bmuf"], got["trainer"]["bmuf"]
+    assert (gb.dp, gb.sync_period, gb.block_momentum, gb.block_lr) == \
+        (rb.dp, rb.sync_period, rb.block_momentum, rb.block_lr) == \
+        (1, 3, 0.5, 0.9)
+    assert all(v.shape[0] == 1 for v in got_tree.values())
+    # the moments, stacked (the counts and LR scales are (1,) in JAX)
+    ref_m = [a.shape for a in jax.tree.leaves(ref["trainer"]["opt_state"])
+             if getattr(a, "ndim", 0) > 1]
+    state = got["trainer"]["opt_state"]
+    got_m = [v.shape for m in ("mu", "nu") for v in state[m].values()]
+    assert sorted(got_m) == sorted(ref_m)
+
+
+def test_cli_smbr_hands_run_smbr_training_what_train_py_does(
+        work, tmp_path, monkeypatch):
+    """--smbr_cmd with --tr_trans_file on the dense conformer, stopped
+    where each CLI calls run_smbr_training: the same model config,
+    optimizer arguments, parameter tree shapes, command (split as the
+    shell would), epochs and log period, and loaders that yield the same
+    keys and transcripts."""
+    with open(work / "cfg.yaml") as f:
+        raw = yaml.safe_load(f)
+    raw["nnet_proto"] = "conformer"
+    raw["model_conf"] = {"attention_dim": 32, "attention_heads": 4,
+                         "linear_units": 48, "num_blocks": 2}
+    cfg = tmp_path / "smbr.yaml"
+    with open(cfg, "w") as f:
+        yaml.safe_dump(raw, f)
+    trans = tmp_path / "trans.txt"
+    with open(trans, "w") as f:
+        for i in range(N_TRAIN):
+            f.write(f"tr{i} word{i}\n")
+    argv = _argv(work, tmp_path / "exp", hier=False)
+    argv[1] = str(cfg)
+    argv += ["--smbr_cmd", "tool --post {post} --grad '{grad}'",
+             "--tr_trans_file", str(trans), "--seed", "3"]
+
+    def capture(mp, lr_mod, step_mod, trainer_mod):
+        got = _capture(mp, lr_mod, step_mod, trainer_mod)
+        smbr_mod = sys.modules[lr_mod.__name__.rsplit(".", 1)[0] + ".smbr"]
+
+        def run(model_cfg, forward, params, optimizer, make_loader, bridge,
+                work_dir, max_epochs=1, logger=None, log_period=100):
+            got.update(model_cfg=model_cfg, params=params,
+                       command=bridge.command, max_epochs=max_epochs,
+                       log_period=log_period, work_dir=work_dir,
+                       batches=[(b["keys"], b["trans"])
+                                for b in make_loader()])
+            raise _Built
+        mp.setattr(smbr_mod, "run_smbr_training", run)
+        return got
+    import m3asr_tpu.train.smbr          # noqa: F401 (patched above)
+    import m3asr_tpu_torch.train.smbr    # noqa: F401
+    ref, got = _root_and_port(monkeypatch, argv, capture)
+    assert dataclasses.asdict(got["model_cfg"]) == \
+        dataclasses.asdict(ref["model_cfg"])
+    assert got["opt_args"] == ref["opt_args"]
+    assert {k: v.shape for k, v in flatten_tree(
+        params_to_numpy(got["params"])).items()} == \
+        {k: v.shape for k, v in flatten_tree(
+            jax.tree.map(np.asarray, ref["params"])).items()}
+    for k in ("command", "max_epochs", "log_period", "work_dir", "batches"):
+        assert got[k] == ref[k], k
+    assert got["command"] == ["tool", "--post", "{post}", "--grad", "{grad}"]
+    assert len(got["batches"]) == N_TRAIN // 2
 
 
 def test_cli_defaults_to_the_card(work, tmp_path, monkeypatch):

@@ -313,8 +313,10 @@ def test_divergence_recovery(steps, tmp_path):
 def test_checkpoint_layout_and_refusals(tmp_path):
     """checkpoint_{last,best}.pkl hold the JAX trainer's keys with every
     tensor a numpy array; after a validation the best parameters are the
-    current ones and are stored once. Orbax checkpoints and BMUF are
-    refused, naming why."""
+    current ones and are stored once. Orbax checkpoints are refused,
+    naming why. A Trainer in BMUF mode adds the recipe's ``bmuf`` entry:
+    its global parameters (the replicas' mean), a zero block momentum
+    buffer and its settings."""
     cfg, _, opt, step = _setup(spec_aug=False)
     batches = make_batches(2)
     trainer = Trainer(cfg, params_from_jax(random_params(2)), opt, step,
@@ -338,8 +340,19 @@ def test_checkpoint_layout_and_refusals(tmp_path):
     with pytest.raises(ValueError, match="orbax"):
         Trainer(cfg, trainer.params, opt, step, lambda s: [],
                 ckpt_format="orbax")
-    with pytest.raises(NotImplementedError, match="11e"):
-        Trainer(cfg, trainer.params, opt, step, lambda s: [], bmuf=object())
+    from m3asr_tpu_torch.train.bmuf import BmufRecipe
+    stacked = BmufRecipe.stack(trainer.params, 2)
+    recipe = BmufRecipe(stacked, 3, block_momentum=0.5)
+    bmuf = Trainer(cfg, stacked, opt, step, lambda s: [], bmuf=recipe,
+                   opt_state=BmufRecipe.stack(trainer.opt_state, 2))
+    entry = bmuf._gather_state()["bmuf"]
+    assert (entry["sync_period"], entry["block_momentum"],
+            entry["block_lr"]) == (3, 0.5, 1.0)
+    flat = flatten_tree(trainer.params)
+    for k, v in flatten_tree(entry["global_params"]).items():
+        assert torch.equal(v, flat[k]), k
+    assert all(not v.any()
+               for v in flatten_tree(entry["delta_prev"]).values())
 
 
 def test_checkpoint_pickler_writes_numpy_pickles():
