@@ -73,7 +73,15 @@ result line:
    int4 within 1e-2, a8 within 2e-2. Under the router's and the heavy
    routing at 511 and 1020 tokens K7 a8 must equal K5 a8 bit for bit
    (the same quant_rows, s8 tiles, exact s32 sums and epilogue).
-4. serve, float: the flagship hier MoE conformer (6 embed blocks, 18 MoE
+Depth: since phase 18 the flagship runs at 6 embed + 9 MoE blocks (its
+YAML's 18 cut), the DFSMN nets at 3 x 5 cFSMN layers (the reference
+Net's 3 x 10) and the dense conformer at 9 blocks (18), for the script's
+1200 s; widths, requests and checks are kept. Phase 17 keeps the DFSMN
+nets' and the dense conformer's own depths. Counts below that name 18
+MoE blocks (or 24 attention layers, 29 cFSMN MoE layers) scale with the
+depth; the phases derive them from the config.
+
+4. serve, float: the flagship hier MoE conformer (6 embed blocks, 9 MoE
    blocks, 32 experts, vocabulary 5000; random weights from a seeded
    CUDA generator, routers randomised) in an fp32 and a bf16 Engine
    (phases 4-7 run their engines eager: cuda_graphs=False) answers
@@ -297,12 +305,13 @@ result line:
 
 15. ExMarc, top-2 and exported programs (after phase 14): the ExMarc
    flagship (conformer_fmoeExMarc_localComm_catEmbed: the flagship YAML
-   with the ExMarc proto, 6 embed + 18 MoE blocks, d=512, 32 experts of
-   hidden 1024 at both FFN positions, V=5000) built by the port's build
+   with the ExMarc proto, 6 embed + 9 MoE blocks: the YAML's 18 cut for
+   the script's time since phase 18; d=512, 32 experts of hidden 1024 at
+   both FFN positions, V=5000) built by the port's build
    (seeded random weights, both positions' routers redrawn normal x 0.5)
    serves 1x206, 4x1000 and 1x2048 in fp32, bf16, int8, w8a8, int4, w4a8
    and bf16 flash through CUDA graphs: each capture launches its stage's
-   kernel 36 times a forward (2 per MoE block; K2 24 times more with
+   kernel twice a MoE block a forward (18; K2 15 times more with
    flash; none for the int8/w8a8 buckets of <= 128 tokens, which run the
    plain quant stage), a replay none; graph == eager bit for bit; the
    eager logits held to the kernels' plain versions with both positions'
@@ -390,6 +399,29 @@ result line:
    training batch and both long requests beside its plain version, SDPA's
    backward and its bound.
 
+18. parallel: expert- and tensor-parallel serving on gloo ranks sharing
+   the card. The flagship (d=512, 32 experts of hidden 1024, V=5000;
+   seeded random weights and routers) at 6 embed + 9 MoE blocks (its 18
+   cut for the script's time) is built by
+   the port's build (``build_engine`` + ``Engine.save(shards=(ep,
+   tp))``, what ``build --ep/--tp`` runs) as engine dirs: fp32 at ep=4,
+   tp=4 and (ep=2, tp=2), bf16 flash at ep=4, int8 at (ep=2, tp=2), int4
+   at ep=4 and at tp=2 (w1 repacked, ``w1_q4c``). Two worlds run them,
+   ``python -m torch.distributed.run --standalone`` with 4 and 2 ranks of
+   this script (``--parallel-rank``): each rank loads the dir (its
+   shard) on cuda:0 and answers 1x206 and 4x1000 eagerly, the requests
+   also timed (host median of 3), one under torch.profiler on rank 0
+   (the host-side all-reduces' share of it) and its peak memory read. Every rank's
+   outputs must be bit-identical to rank 0's; rank 0's logits must match
+   the unsharded engine of the same mode on the card: fp32 allclose(1e-5,
+   1e-3) free-running, bf16 / int8 / int4 within 0.05 of max|ref| with
+   the routing pinned to rank 0's (its experts' stages on their plain
+   versions); the bf16 flash ranks must launch K2 once per attention
+   layer a forward (6 + 9). A rank's non-zero exit or a world's timeout
+   fails the phase; the engine dirs are deleted as it goes. The times
+   are of gloo ranks on one card (all-reduces through host memory), not
+   an NCCL deployment's.
+
 ``python3 chip_smoke.py --only NAME [NAME ...]`` runs the build and the
 phases named in ``ALONE`` alone, for work on one of them; it prints no
 result line and exits 1.
@@ -412,6 +444,15 @@ import numpy as np
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12            # H100 SXM device memory
+# Depth cuts for the script's 1200 s (since phase 18; widths kept): the
+# flagship's 18 MoE blocks (configs/3m_asr_18l32e.yaml) run as 9, the
+# DFSMN nets' 3 x 10 cFSMN layers as 3 x 5 and the dense conformer's 18
+# blocks as 9, except in phase 17: its flash-vs-xla gradient checks run
+# at the models' own depths (at 3 x 5 the DFSMN CE check read 1.851e-3
+# of a group's max|g|, past TRAIN_GRAD_TOL, where 3 x 10 reads 6.3e-4)
+FLAGSHIP_MOE_BLOCKS = 9
+DFSMN_EACH_BLOCK, DFSMN_NET_EACH = 5, 10
+DC_BLOCKS, DC_NET_BLOCKS = 9, 18
 PEAK_OPS_PER_S = {"float32": 67e12,  # fp32 outside the tensor cores
                   "bfloat16": 989e12, "int8": 1979e12}
 E, D, H, L = 32, 512, 1024, 18
@@ -1116,7 +1157,7 @@ def flagship_cfg():
                                         MoEConfig, MoEEncoderConfig)
     cfg = ModelConfig(input_dim=40, output_dim=5000)
     cfg.encoder_conf = MoEEncoderConfig(
-        attention_dim=512, attention_heads=8, num_blocks=18,
+        attention_dim=512, attention_heads=8, num_blocks=FLAGSHIP_MOE_BLOCKS,
         embed_conf=EncoderConfig(attention_dim=512, attention_heads=4,
                                  linear_units=1024, num_blocks=6),
         moe_conf=MoEConfig(num_experts=32, hidden_units=1024))
@@ -3123,6 +3164,7 @@ def phase_recognize(torch, state, smi):
         f"{time.perf_counter() - t_phase:.2f} s")
     with open(os.path.join(HERE, "configs", "3m_asr_18l32e.yaml")) as f:
         raw = yaml.safe_load(f)
+    raw["model_conf"]["encoder_conf"]["num_blocks"] = FLAGSHIP_MOE_BLOCKS
     cfg = model_config_from_dict(raw)
     if cfg.encoder_conf != state["cfg"].encoder_conf:
         raise SystemExit("FAIL recognize: the flagship YAML is not phase "
@@ -4222,9 +4264,10 @@ DFSMN_FREE_AFTER = {"float32": ("float32",),
                                    "w4a8 tiled")}
 
 
-def dfsmn_raw(proto=DFSMN_MOE):
+def dfsmn_raw(proto=DFSMN_MOE, each=DFSMN_EACH_BLOCK):
     """The reference Net's widths (DfsmnEncoderConfig's defaults) in the
-    reference YAML schema: 3 blocks x 10 cFSMN, hidden 1024, memory 512, 8
+    reference YAML schema: 3 blocks x ``each`` cFSMN (the Net's 10, cut to
+    DFSMN_EACH_BLOCK for time outside phase 17), hidden 1024, memory 512, 8
     heads, 64 memory slots, LN; the MoE proto with 32 experts (as the
     flagship), routers drawn at random (rand_init_router), and an embed
     sub-net of the same defaults."""
@@ -4234,14 +4277,17 @@ def dfsmn_raw(proto=DFSMN_MOE):
            "norm_type": "LN"}
     if "fmoe" not in proto:
         return {"nnet_proto": proto, "input_dim": 40, "output_dim": 5000,
-                "model_conf": {"num_block": 3, "fsmn_each_block": 10,
+                "model_conf": {"num_block": 3,
+                               "fsmn_each_block": each,
                                **fsmn, **san}}
     return {"nnet_proto": proto, "input_dim": 40, "output_dim": 5000,
             "model_conf": {
-                "num_block": 3, "fsmn_each_block": 10, "fsmn_conf": fsmn,
+                "num_block": 3, "fsmn_each_block": each,
+                "fsmn_conf": fsmn,
                 "san_conf": san,
                 "moe_conf": {"num_experts": E, "rand_init_router": True},
-                "embed_conf": {"num_block": 3, "fsmn_each_block": 10,
+                "embed_conf": {"num_block": 3,
+                               "fsmn_each_block": each,
                                **fsmn, **san}}}
 
 
@@ -4996,7 +5042,6 @@ DS_MODES = (
 # the dense conformer at the flagship encoder's widths
 DC_REQUESTS = ((1, 206), (4, 1000), (1, 2048))
 DC_BUCKETS = "1x256,4x1024,1x2048"
-DC_BLOCKS = 18
 # the other front ends, one fp32 forward each at 2 blocks:
 # (input_layer, pos_enc_layer_type, subsampling_feat_norm)
 DC_FRONTS = (("conv2d6", "rel_pos", False), ("conv2d8", "rel_pos", False),
@@ -5642,8 +5687,9 @@ TOPK_TOKENS = 1020                         # moe_ffn(top_k=2): 4 x 255
 
 def exmarc_engine(torch, work):
     """The ExMarc flagship through the port's build: the flagship YAML
-    (configs/3m_asr_18l32e.yaml, 6 embed + 18 MoE blocks, d=512, 32
-    experts of hidden 1024, V=5000) with the ExMarc proto, seeded random
+    (configs/3m_asr_18l32e.yaml, d=512, 32 experts of hidden 1024,
+    V=5000; 6 embed + FLAGSHIP_MOE_BLOCKS MoE blocks) with the ExMarc
+    proto, seeded random
     weights (build's seed 0), then both positions' routers redrawn
     normal x 0.5 from a seeded generator so that routing spreads."""
     import yaml
@@ -5651,6 +5697,7 @@ def exmarc_engine(torch, work):
     with open(os.path.join(HERE, "configs", "3m_asr_18l32e.yaml")) as f:
         raw = yaml.safe_load(f)
     raw["nnet_proto"] = EXMARC
+    raw["model_conf"]["encoder_conf"]["num_blocks"] = FLAGSHIP_MOE_BLOCKS
     path = os.path.join(work, "exmarc.yaml")
     with open(path, "w") as f:
         yaml.safe_dump(raw, f)
@@ -5689,8 +5736,9 @@ def exmarc_check(torch, label, eng, feat, lens, moe_mod):
 
 def exmarc_serve(torch, state, smi):
     """The ExMarc flagship in every serving mode through CUDA graphs: each
-    request's bucket captured with 36 launches of its kernel a forward (2
-    per MoE block; 24 K2 more with flash) and none at replay, the graph's
+    request's bucket captured with 2 launches of its kernel a MoE block
+    a forward (one K2 more an attention layer with flash) and none at
+    replay, the graph's
     outputs bit-equal to the eager forward's, the eager logits held to
     the kernels' plain versions with both positions' routing pinned.
     Latency, device time and busy share beside phase 8's flagship."""
@@ -6713,7 +6761,7 @@ def dfsmn_train_checks(torch, smi):
     def add(kname, dname, n):
         launches[(kname, dname)] = launches.get((kname, dname), 0) + n
 
-    cfg = model_config_from_dict(dfsmn_raw())
+    cfg = model_config_from_dict(dfsmn_raw(each=DFSMN_NET_EACH))
     params = get_family(DFSMN_MOE).init(
         cfg, torch.Generator(device="cuda").manual_seed(17))
     e = cfg.encoder_conf
@@ -6765,7 +6813,7 @@ def dfsmn_train_checks(torch, smi):
     torch.cuda.empty_cache()
     # (c) the in-model domain/accent heads
     proto = "dfsmn_san_res_embed_domain_acc"
-    cfg = model_config_from_dict(dfsmn_raw(proto))
+    cfg = model_config_from_dict(dfsmn_raw(proto, each=DFSMN_NET_EACH))
     params = get_family(proto).init(
         cfg, torch.Generator(device="cuda").manual_seed(18))
     heads = (torch.tensor([0, 3, 5, 2], dtype=torch.int32, device="cuda"),
@@ -6793,7 +6841,7 @@ def dense_train_check(torch, smi):
     from m3asr_tpu_torch.config import model_config_from_dict
     from m3asr_tpu_torch.models.registry import get_family
     from m3asr_tpu_torch.train import step as ts
-    raw = conformer_raw()
+    raw = conformer_raw(DC_NET_BLOCKS)
     raw["model_conf"]["use_dynamic_chunk"] = True
     cfg = model_config_from_dict(raw)
     params = get_family("conformer").init(
@@ -6807,7 +6855,7 @@ def dense_train_check(torch, smi):
         T_sub = mask.shape[-1]
         if chunk < T_sub:
             break
-    n = DC_BLOCKS
+    n = DC_NET_BLOCKS
     flash_vs_xla(torch, f"conformer CTC (dynamic chunk {chunk} of {T_sub} "
                  f"frames)", cfg, params, batch, (n, n, n),
                  dict(embed_ctc_weight=0.0), moe=False, generator_seed=seed)
@@ -6964,7 +7012,7 @@ def smbr_cli_check(torch, work, smi):
         f.writelines(f"{k} word{i}\n" for i, k in enumerate(keys))
     with open(os.path.join(work, "tool.py"), "w") as f:
         f.write(SMBR_TOOL)
-    raw = conformer_raw()
+    raw = conformer_raw(DC_NET_BLOCKS)
     raw.update(loader_conf={"batch_size": 4}, optim="sgd",
                schedule_type="constant", lr=1e-3, max_epoch=1, log_period=1)
     with open(os.path.join(work, "smbr.yaml"), "w") as f:
@@ -7031,7 +7079,7 @@ def smbr_cli_check(torch, work, smi):
         moved = max(moved, float(np.abs(saved[k] - flat[k].cpu().numpy())
                                  .max()))
     ok = n == 1 and worst <= 1e-4 and moved > 0
-    log(f"train_dfsmn cli smbr (conformer, {DC_BLOCKS} blocks, lattice "
+    log(f"train_dfsmn cli smbr (conformer, {DC_NET_BLOCKS} blocks, lattice "
         f"command a script): {n} batch in {secs:.1f} s; smbr_epoch0.pkl "
         f"against the surrogate's autograd step: largest max|diff| / "
         f"max|param| of a leaf {worst:.3e}, held to 1e-4; largest move "
@@ -7157,6 +7205,336 @@ def phase_train_dfsmn(torch, state, smi):
 
 
 # phases that run on their own after the build, for work on one of them:
+# ---------------------------------------------------------------------------
+# 18. expert- and tensor-parallel serving on gloo ranks sharing the card
+# ---------------------------------------------------------------------------
+
+PAR_REQUESTS = ((1, 206), (4, 1000))
+PAR_LENS = {1: (206,), 4: (1000, 937, 811, 650)}
+PAR_BUCKETS = "1x256,4x1024"
+# build flags of a mode -> its cases (label, ep, tp)
+PAR_MODES = (
+    ("fp32", ["--moe_impl", "dense"],
+     (("fp32 ep4", 4, 1), ("fp32 tp4", 1, 4), ("fp32 ep2 tp2", 2, 2))),
+    ("bf16 flash", ["-f", "--attn_impl", "flash", "--moe_impl", "dense"],
+     (("bf16 flash ep4", 4, 1),)),
+    ("int8", ["--int8", "--moe_impl", "quant"], (("int8 ep2 tp2", 2, 2),)),
+    ("int4", ["--int4"], (("int4 ep4", 4, 1), ("int4 tp2", 1, 2))),
+)
+PAR_WORLD_S = 420             # a world's run, its start included
+PAR_RUNS = 3                  # timed requests a case
+
+
+def par_feats():
+    """The phase's two requests, seeded: {(B, T): (feat, lens)}."""
+    rng = np.random.default_rng(18)
+    return {(B, T): (rng.standard_normal((B, T, 40)).astype(np.float32),
+                     np.array(PAR_LENS[B], np.int32))
+            for B, T in PAR_REQUESTS}
+
+
+def par_rank(work):
+    """One rank of a phase-18 world (``chip_smoke.py --parallel-rank
+    WORK``, under torch.distributed.run): every case of
+    ``cases_{world}.json`` loaded from its engine dir and served; writes
+    ``rank_{world}_{rank}.json`` (times, memory, K2 launches, the
+    all-reduces' share, a hash of each output) and, on rank 0, the
+    logits and each MoE block's experts (``out_*.npz``)."""
+    t_start = time.perf_counter()
+    import contextlib
+    import hashlib
+    import torch
+    import torch.distributed as dist
+    from torch.profiler import ProfilerActivity, profile
+    from m3asr_tpu_torch.ops import moe as moe_mod
+    from m3asr_tpu_torch.ops.flash_attention import flash_kernels
+    from m3asr_tpu_torch.parallel import distributed
+    from m3asr_tpu_torch.runtime.engine import Engine
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t_imported = time.perf_counter()
+    distributed.initialize(timeout_s=PAR_WORLD_S)
+    n, rank = dist.get_world_size(), dist.get_rank()
+    spans = {"imports_s": t_imported - t_start,
+             "init_s": time.perf_counter() - t_imported}
+    with open(os.path.join(work, f"cases_{n}.json")) as f:
+        cases = json.load(f)
+    feats = par_feats()
+    if rank == 0:             # the profiler's start-up, outside the times
+        with profile(activities=[ProfilerActivity.CPU]):
+            pass
+    res = {"backend": dist.get_backend(), "cases": {}, "spans": spans}
+    for case in cases:
+        t0 = time.perf_counter()
+        eng = Engine.load(case["dir"], device="cuda")
+        r = {"load_s": time.perf_counter() - t0, "attn": eng.cfg.attn_impl,
+             "impl": eng.moe_impl_for(4, 1024), "mesh": repr(eng.mesh)}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_flash(flash_kernels)
+        saved = {}
+        for (B, T), (feat, lens) in feats.items():
+            key = f"{B}x{T}"
+            with GateRecorder(moe_mod) as rec:
+                out, out_len = eng.infer(feat, lens)
+            r[key] = {"sha": hashlib.sha256(out.tobytes()
+                                            + out_len.tobytes()).hexdigest()}
+            if rank == 0:
+                saved[f"{key}_out"] = out
+                for i, g in enumerate(rec.calls):
+                    saved[f"{key}_gate{i}"] = g.cpu().numpy()
+        r["k2"] = flash_kernels.fwd_launches
+        r["forwards"] = len(feats)
+        for (B, T), (feat, lens) in feats.items():
+            key = f"{B}x{T}"
+            lat = []
+            for _ in range(PAR_RUNS):
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                eng.infer(feat, lens)
+                lat.append((time.perf_counter() - t1) * 1e3)
+            # the all-reduces' share of one request: host-side events
+            # (gloo runs them on the host), profiled on rank 0 only
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            prof = profile(activities=[ProfilerActivity.CPU]) \
+                if rank == 0 else contextlib.nullcontext()
+            with prof:
+                eng.infer(feat, lens)
+            wall = (time.perf_counter() - t1) * 1e3
+            # an all-reduce may leave nested or overlapping events (the
+            # calling thread's, gloo's): the union of their time ranges
+            ranges, names, ops = [], set(), 0
+            for e in (prof.events() if rank == 0 else ()):
+                if "all_reduce" in e.name or "allreduce" in e.name:
+                    ranges.append((e.time_range.start, e.time_range.end))
+                    names.add(e.name)
+                    ops += e.name == "c10d::allreduce_"   # one a call
+            merged = []
+            for a, b in sorted(ranges):
+                if merged and a <= merged[-1][1]:
+                    merged[-1][1] = max(merged[-1][1], b)
+                else:
+                    merged.append([a, b])
+            name = "+".join(sorted(names)) or "none"
+            cnt, us = ops or len(merged), sum(b - a for a, b in merged)
+            r[key].update(lat=float(np.median(lat)), lat_min=min(lat),
+                          lat_max=max(lat), prof_ms=wall,
+                          ar_name=name, ar_calls=cnt, ar_ms=us / 1e3)
+        r["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        if rank == 0:
+            np.savez(os.path.join(work, f"out_{case['label']}.npz"), **saved)
+        res["cases"][case["label"]] = r
+        r["case_s"] = time.perf_counter() - t0
+        del eng
+        torch.cuda.empty_cache()
+        dist.barrier()
+    spans["rank_s"] = time.perf_counter() - t_start
+    with open(os.path.join(work, f"rank_{n}_{rank}.json"), "w") as f:
+        json.dump(res, f)
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+def par_world(n, work):
+    """Run a world of n ranks of this script on the card; fail on a
+    rank's non-zero exit or after PAR_WORLD_S (the world is killed)."""
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           f"--nproc-per-node={n}", os.path.abspath(__file__),
+           "--parallel-rank", work]
+    env = dict(os.environ, OMP_NUM_THREADS="2",
+               PYTHONPATH=HERE + os.pathsep + os.environ.get("PYTHONPATH",
+                                                              ""))
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, env=env, cwd=HERE, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True,
+                            start_new_session=True)
+    try:
+        out = proc.communicate(timeout=PAR_WORLD_S)[0]
+    except subprocess.TimeoutExpired:
+        import signal
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.communicate()
+        raise SystemExit(f"FAIL parallel: the {n}-rank world timed out "
+                         f"after {PAR_WORLD_S} s")
+    if proc.returncode != 0:
+        log(out[-6000:])
+        raise SystemExit(f"FAIL parallel: the {n}-rank world exited "
+                         f"{proc.returncode}")
+    return time.perf_counter() - t0
+
+
+def par_engines(torch, work):
+    """Each mode's unsharded engine (the reference) through the port's
+    build, routers redrawn normal x 0.5 from a seeded generator, and each
+    case's dir written by build's save (the mode's weights once; a case
+    whose bytes equal an earlier case's links its params.npz)."""
+    import yaml
+    from m3asr_tpu_torch import build
+    with open(os.path.join(HERE, "configs", "3m_asr_18l32e.yaml")) as f:
+        raw = yaml.safe_load(f)
+    raw["model_conf"]["encoder_conf"]["num_blocks"] = FLAGSHIP_MOE_BLOCKS
+    path = os.path.join(work, "flagship_cut.yaml")
+    with open(path, "w") as f:
+        yaml.safe_dump(raw, f)
+    engines, cases = {}, {2: [], 4: []}
+    for mode, flags, mode_cases in PAR_MODES:
+        eng, _, _ = build.build_engine(build.parse_args(
+            ["-c", path, "-o", "unused", "--skip-warmup", "--device", "cuda",
+             "--buckets", PAR_BUCKETS] + flags))
+        eng.cuda_graphs = False
+        gen = torch.Generator(device="cuda").manual_seed(18)
+        k = eng.params["blocks"]["feed_forward"]["router"]["kernel"]
+        k.copy_(torch.randn(k.shape, generator=gen, device="cuda") * 0.5)
+        engines[mode] = eng
+        first = None
+        for label, ep, tp in mode_cases:
+            d = os.path.join(work, label.replace(" ", "_"))
+            if first is not None and not (mode == "int4" and tp > 1):
+                os.makedirs(d)
+                for name in ("params.npz", "config.yaml"):
+                    os.link(os.path.join(first, name), os.path.join(d, name))
+                with open(os.path.join(first, "engine.json")) as f:
+                    meta = json.load(f)
+                meta.update(ep=ep, tp=tp)
+                with open(os.path.join(d, "engine.json"), "w") as f:
+                    json.dump(meta, f)
+            else:
+                eng.save(d, raw_yaml=raw, shards=(ep, tp))
+                first = first or d
+            cases[ep * tp].append({"label": label, "dir": d, "mode": mode})
+    return engines, cases
+
+
+def par_held(torch, label, mode, eng, saved, feats):
+    """Rank 0's logits against the unsharded engine on the card: fp32
+    free-running allclose(1e-5, 1e-3); the others with the routing
+    pinned to rank 0's and the expert stages on their plain versions,
+    within 0.05 of max|ref| on every valid frame. Returns the worst
+    distance / max|ref|."""
+    from m3asr_tpu_torch.ops import moe as moe_mod
+    worst = 0.0
+    for (B, T), (feat, lens) in feats.items():
+        key = f"{B}x{T}"
+        got = saved[f"{key}_out"]
+        gates = [torch.as_tensor(saved[f"{key}_gate{i}"], device="cuda")
+                 for i in range(sum(k.startswith(f"{key}_gate")
+                                    for k in saved))]
+        with torch.inference_mode():
+            if mode == "fp32":
+                ref, out_len = eng.infer(feat, lens)
+            else:
+                with GateRecorder(moe_mod, replay=gates), \
+                        PlainExperts(moe_mod):
+                    ref, out_len = eng.infer(feat, lens)
+        for b, L in enumerate(out_len):
+            g, w = got[b, :L], ref[b, :L]
+            rel = float(np.abs(g - w).max() / np.abs(w).max())
+            worst = max(worst, rel)
+            if mode == "fp32":
+                if not np.allclose(g, w, rtol=1e-5, atol=1e-3):
+                    raise SystemExit(f"FAIL parallel {label} {key} row {b}: "
+                                     f"max|diff| {np.abs(g - w).max():.3e}")
+            elif rel > 0.05:
+                raise SystemExit(f"FAIL parallel {label} {key} row {b}: "
+                                 f"{rel:.3e} of max|ref|")
+    return worst
+
+
+def phase_parallel(torch, state, smi):
+    """Phase 18; returns the bf16 flash ranks' K2 launches (all ranks)."""
+    import shutil as sh
+    import tempfile
+    t0 = time.perf_counter()
+    work = tempfile.mkdtemp(prefix="par18_")
+    try:
+        engines, cases = par_engines(torch, work)
+        t_build = time.perf_counter() - t0
+        feats = par_feats()
+        world_s = {}
+        for n in (4, 2):
+            with open(os.path.join(work, f"cases_{n}.json"), "w") as f:
+                json.dump(cases[n], f)
+            world_s[n] = par_world(n, work)
+            for c in cases[n]:               # its dirs are read
+                sh.rmtree(c["dir"], ignore_errors=True)
+        k2 = 0
+        for n in (4, 2):
+            ranks = []
+            for r in range(n):
+                with open(os.path.join(work, f"rank_{n}_{r}.json")) as f:
+                    ranks.append(json.load(f))
+            sp = ranks[0]["spans"]
+            log(f"parallel: {n}-rank world {world_s[n]:.1f} s: rank 0 "
+                f"imports {sp['imports_s']:.1f} s, process group "
+                f"{sp['init_s']:.1f} s, cases " + ", ".join(
+                    f"{c['label']} {ranks[0]['cases'][c['label']]['case_s']:.1f}"
+                    for c in cases[n]) + f" s, in all {sp['rank_s']:.1f} s "
+                f"of the rank's life")
+            for c in cases[n]:
+                label, mode = c["label"], c["mode"]
+                rs = [x["cases"][label] for x in ranks]
+                for key in (f"{B}x{T}" for B, T in PAR_REQUESTS):
+                    if any(x[key]["sha"] != rs[0][key]["sha"] for x in rs):
+                        raise SystemExit(f"FAIL parallel {label} {key}: the "
+                                         "ranks' outputs differ")
+                want_impl = {"fp32": "dense", "bf16 flash": "dense",
+                             "int8": "quant", "int4": "quant"}[mode]
+                if rs[0]["impl"] != want_impl:
+                    raise SystemExit(f"FAIL parallel {label}: stage "
+                                     f"{rs[0]['impl']}, not {want_impl}")
+                if mode == "bf16 flash":
+                    enc = engines[mode].model_cfg.encoder_conf
+                    per = (enc.embed_conf.num_blocks + enc.num_blocks) * \
+                        rs[0]["forwards"]
+                    if any(x["k2"] != per for x in rs) or \
+                            rs[0]["attn"] != "flash":
+                        raise SystemExit(f"FAIL parallel {label}: K2 "
+                                         f"launches {[x['k2'] for x in rs]},"
+                                         f" want {per} a rank")
+                    k2 += sum(x["k2"] for x in rs)
+                elif any(x["k2"] for x in rs):
+                    raise SystemExit(f"FAIL parallel {label}: K2 launched")
+                with np.load(os.path.join(
+                        work, f"out_{label}.npz")) as z:
+                    saved = dict(z)
+                worst = par_held(torch, label, mode, engines[mode], saved,
+                                 feats)
+                line = (f"parallel {label} ({rs[0]['mesh']}, {n} gloo ranks "
+                        f"sharing one card, backend {ranks[0]['backend']}, "
+                        f"stage {rs[0]['impl']}, attention {rs[0]['attn']}):"
+                        f" ranks bit-identical; rank 0 against the unsharded "
+                        f"engine {worst:.3e} of max|ref|"
+                        + (" (routing pinned)" if mode != "fp32" else "")
+                        + f"; load {rs[0]['load_s']:.1f} s")
+                for key in (f"{B}x{T}" for B, T in PAR_REQUESTS):
+                    x = rs[0][key]
+                    line += (f"; {key} eager {x['lat']:.3f} ms (min "
+                             f"{x['lat_min']:.3f}, max {x['lat_max']:.3f}, "
+                             f"{PAR_RUNS} runs), all-reduce {x['ar_calls']} "
+                             f"x {x['ar_name']} {x['ar_ms']:.3f} ms = "
+                             f"{x['ar_ms'] / x['prof_ms']:.3f} of a profiled "
+                             f"{x['prof_ms']:.3f} ms")
+                line += (f"; {FLAGSHIP_MOE_BLOCKS} MoE blocks; peak per rank "
+                         + " / ".join(
+                    f"{x['peak_gib']:.3f}" for x in rs) + " GiB")
+                if mode == "bf16 flash":
+                    line += f"; K2 {rs[0]['k2']} launches a rank"
+                log(line + f"; {smi}")
+        for eng in engines.values():
+            del eng
+        engines.clear()
+        torch.cuda.empty_cache()
+        log(f"parallel: build and dirs {t_build:.1f} s, worlds "
+            + ", ".join(f"{n} ranks {s:.1f} s" for n, s in world_s.items())
+            + f", phase {time.perf_counter() - t0:.1f} s; gloo ranks on one "
+            f"card, not an NCCL deployment; {smi}")
+        return k2
+    finally:
+        sh.rmtree(work, ignore_errors=True)
+
+
 # ``python3 chip_smoke.py --only NAME [NAME ...]`` runs those named, in
 # order. Such a run is not the smoke: it prints no result line, exits 1
 ALONE = {
@@ -7170,10 +7548,13 @@ ALONE = {
     "train_cli": phase_train_cli,
     "train_dfsmn": lambda torch, state, smi: (
         phase_train_dfsmn(torch, state, smi), time_flash_mem_bwd(torch, smi)),
+    "parallel": phase_parallel,
 }
 
 
 def main():
+    if sys.argv[1:2] == ["--parallel-rank"]:
+        return par_rank(sys.argv[2])
     import torch
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -7229,6 +7610,8 @@ def main():
     stamp("phase 16")
     trained_dfsmn = phase_train_dfsmn(torch, state, smi)
     stamp("phase 17")
+    parallel_k2 = phase_parallel(torch, state, smi)
+    stamp("phase 18")
     # K2: serving's forwards and the training steps'; K3: the steps'
     state["launches_flash"] = {}
     for dname in ("float32", "bfloat16"):
@@ -7238,6 +7621,8 @@ def main():
         state["launches_flash"][("K2", dname)] = served[dname] + fwd
         state["launches_flash"][("K3", dname)] = dq
     state["launches_flash"][("K2", "bfloat16")] += state["launches_dense_k2"]
+    # phase 18: the bf16 flash ep=4 engine's ranks
+    state["launches_flash"][("K2", "bfloat16")] += parallel_k2
     # phase 16: the training CLI's runs (fp32); phase 17: the dense
     # conformer's step (fp32)
     for kname in ("K2", "K3"):

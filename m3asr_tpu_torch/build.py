@@ -40,11 +40,22 @@ and not read, as by the JAX ``build.py`` (the recognizer takes
 ``Engine.load`` (and so ``infer -p``) runs instead of tracing the model
 code; a bucket whose expert stage reads the host cannot be exported and
 fails the build.
+
+``--ep N`` / ``--tp M`` write the dir of an expert- / tensor-parallel
+engine (the JAX ``build.py``'s engine.json): the whole tree, int4 w1
+repacked for tp (``w1_q4c``), ``ep``/``tp`` in engine.json. The build
+itself is one process and does not warm up (the buckets run on the
+ranks); serve the dir on N x M ranks (``infer``). The JAX engine's
+refusals hold: only the moe_conformer family shards, ``--fuse_qkv`` and
+``--dense_quant`` do not, and tp with ``--attn_impl flash`` serves xla.
+``--export`` of a sharded engine is not ported (ROADMAP Queue 1 item
+12c).
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 
 import numpy as np
 import torch
@@ -80,9 +91,11 @@ def parse_args(argv=None):
     p.add_argument("--skip-warmup", action="store_true",
                    help="save without warming the buckets up (no graph "
                    "capture)")
-    # JAX build.py settings; anything but the default raises
-    p.add_argument("--ep", type=int, default=1)
-    p.add_argument("--tp", type=int, default=1)
+    p.add_argument("--ep", type=int, default=1,
+                   help="expert-parallel ranks: experts split over ep ranks")
+    p.add_argument("--tp", type=int, default=1,
+                   help="tensor-parallel ranks: Megatron column/row splits "
+                   "over tp ranks (composes with --ep)")
     p.add_argument("--int8", action="store_true",
                    help="int8 expert weights (bf16 activations)")
     p.add_argument("--int4", action="store_true",
@@ -128,7 +141,8 @@ def build_engine(args):
     from m3asr_tpu_torch.device import resolve_device
     from m3asr_tpu_torch.models.registry import get_family
     from m3asr_tpu_torch.runtime.engine import (Engine,
-                                                config_from_engine_json)
+                                                config_from_engine_json,
+                                                sharded_config)
     from m3asr_tpu_torch.utils.prior import read_prior
 
     dtype = ("int4" if args.int4 else "int8" if args.int8
@@ -167,8 +181,17 @@ def build_engine(args):
 
     prior = read_prior(args.prior_file) if args.prior_file else None
     ecfg.use_prior = prior is not None
+    shards = ecfg.ep * ecfg.tp > 1
+    if shards:
+        # refused settings raise now; the engine built here is the
+        # unsharded one, written as the sharded dir by main
+        sharded_config(ecfg, get_family(model_cfg.nnet_proto).name)
+        ecfg = dataclasses.replace(ecfg, ep=1, tp=1)
     engine = Engine(model_cfg, params, ecfg, prior=prior, device=device)
-    if not args.skip_warmup:
+    if shards:
+        print(f"ep={args.ep} x tp={args.tp}: no warm-up (the buckets run "
+              "on the ranks)")
+    elif not args.skip_warmup:
         print("warming up every bucket...")
         engine.warmup()
     return engine, raw, decoders
@@ -177,13 +200,18 @@ def build_engine(args):
 def main(argv=None):
     from m3asr_tpu_torch import checkpoint as ckpt
     args = parse_args(argv)
+    if args.export and args.ep * args.tp > 1:
+        raise NotImplementedError(
+            "--export of an ep/tp-sharded engine is not ported yet: ROADMAP "
+            "Queue 1 item 12c")
     engine, raw, decoders = build_engine(args)
     devices = None
     if args.export:
         devices = tuple((args.export_platforms
                          or engine.device.type).split(","))
         print(f"exporting buckets (torch.export, devices={devices})...")
-    engine.save(args.output, raw_yaml=raw, export_devices=devices)
+    engine.save(args.output, raw_yaml=raw, export_devices=devices,
+                shards=(args.ep, args.tp))
     if decoders:
         ckpt.save_decoders(args.output, decoders)
         print(f"decoders saved: {sorted(decoders)}")

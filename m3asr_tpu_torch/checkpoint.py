@@ -547,3 +547,41 @@ def params_from_jax(tree, device="cpu", dtype: torch.dtype = torch.float32):
             a = a.astype(np.float32)
         return a
     return to_torch(walk(tree), device, dtype)
+
+
+# ---------------------------------------------------------------------------
+# expert resharding of reference state dicts (the reference's
+# state_dict_comm / load_state_dict_comm)
+# ---------------------------------------------------------------------------
+
+_EXPERT_RE = re.compile(r"experts")
+
+
+def shard_experts(state_dict: Dict[str, np.ndarray], rank: int,
+                  world_size: int) -> Dict[str, np.ndarray]:
+    """A gathered full-expert state dict sliced to ``rank``'s shard: every
+    key naming ``experts`` keeps its ``[rank*E/w, (rank+1)*E/w)`` slice of
+    the leading expert axis; the rest stays whole."""
+    out = {}
+    for k, v in state_dict.items():
+        if _EXPERT_RE.search(k):
+            e = v.shape[0]
+            if e % world_size:
+                raise ValueError(f"{k}: {e} experts do not split over "
+                                 f"{world_size} ranks")
+            per = e // world_size
+            out[k] = v[rank * per:(rank + 1) * per]
+        else:
+            out[k] = v
+    return out
+
+
+def gather_expert_shards(shards: List[Dict[str, np.ndarray]]
+                         ) -> Dict[str, np.ndarray]:
+    """Inverse of :func:`shard_experts`: the ranks' expert slices
+    concatenated in rank order; other keys from the first shard."""
+    out = dict(shards[0])
+    for k in shards[0]:
+        if _EXPERT_RE.search(k):
+            out[k] = np.concatenate([s[k] for s in shards], axis=0)
+    return out

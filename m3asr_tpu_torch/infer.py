@@ -15,6 +15,16 @@ prefix beam search over the top-K candidates, or the engine's own beam
 search's best hypothesis. An engine dir built with ``--export`` serves
 its buckets from the exported programs for this device
 (``Engine.load``); the run prints which.
+
+An ep/tp-sharded engine dir (``build --ep/--tp``) runs on ep*tp ranks:
+
+    python -m torch.distributed.run --nproc-per-node N \
+        -m m3asr_tpu_torch.infer -p engine_dir -i feat.npy
+
+Every rank reads the same input and runs its shard; only rank 0 prints
+(``parallel/distributed.py`` picks the backend: gloo when the ranks
+share one card). Without the torch.distributed env it runs as one
+process.
 """
 
 from __future__ import annotations
@@ -48,8 +58,15 @@ def main(argv=None):
                                             ctc_greedy_search,
                                             ctc_prefix_beam_search,
                                             ctc_prefix_beam_search_sparse)
+    from m3asr_tpu_torch.parallel import distributed
     from m3asr_tpu_torch.runtime.engine import Engine
 
+    distributed.initialize()
+    if distributed.rank() == 0:
+        say = print
+    else:
+        def say(*a, **k):
+            pass
     feat = np.load(args.input_file)
     if feat.ndim == 2:
         feat = feat[None]
@@ -63,13 +80,13 @@ def main(argv=None):
     out, out_lens = res[0], res[1]
     dmode = engine.cfg.decode_output
     aux = res[2] if dmode in ("argmax", "topk") else None
-    print("time=" + str((t2 - t1) * 1000) + "ms")
+    say("time=" + str((t2 - t1) * 1000) + "ms")
     if engine.loaded_buckets:
-        print("exported programs run: " + ", ".join(
+        say("exported programs run: " + ", ".join(
             f"{b}x{t}" for b, t in sorted(engine.loaded_buckets)))
-    print("outputs.shape:" + str(out.shape))
-    print("outputs.sum:" + str(out.sum()))
-    print(out)
+    say("outputs.shape:" + str(out.shape))
+    say("outputs.sum:" + str(out.sum()))
+    say(out)
 
     if dmode == "beam" and args.decode != "none":
         # the search ran in the engine: (n-best ids, out_len, hyp lens,
@@ -103,16 +120,16 @@ def main(argv=None):
     else:
         hyps = []
     for b, h in enumerate(hyps):
-        print(f"utt{b} hyp: {list(h)}")
+        say(f"utt{b} hyp: {list(h)}")
 
     if args.compare_output_file:
         cmp_out = np.load(args.compare_output_file)
-        print(f"compare_output={args.compare_output_file}, "
+        say(f"compare_output={args.compare_output_file}, "
               f"dtype={cmp_out.dtype}, shape={cmp_out.shape}")
-        print("output.sum:" + str(cmp_out.sum()))
+        say("output.sum:" + str(cmp_out.sum()))
         if cmp_out.shape == out.shape:
             ok = np.allclose(cmp_out, out, rtol=1e-5, atol=1e-3)
-            print("allclose(rtol=1e-05, atol=1e-03): " + str(ok))
+            say("allclose(rtol=1e-05, atol=1e-03): " + str(ok))
 
 
 if __name__ == "__main__":

@@ -26,15 +26,18 @@ import torch
 
 from m3asr_tpu_torch.ops.attention import init_mha, mha, rel_mha
 from m3asr_tpu_torch.ops.common import (init_layer_norm, init_linear,
-                                        layer_norm, linear, swish)
+                                        layer_norm, linear,
+                                        row_parallel_linear, swish)
 from m3asr_tpu_torch.ops.conv import conv_module
 from m3asr_tpu_torch.ops.flash_attention import flash_rel_mha
 from m3asr_tpu_torch.ops.moe import init_moe_ffn, moe_ffn
 
 
 def positionwise_ffn(p, x: torch.Tensor) -> torch.Tensor:
-    """Dense FFN: linear -> SiLU -> linear."""
-    return linear(p["w_2"], swish(linear(p["w_1"], x)))
+    """Dense FFN: linear -> SiLU -> linear (under a tp mesh w_1's columns
+    and w_2's rows are this rank's, w_2's partial product summed over
+    "tp")."""
+    return row_parallel_linear(p["w_2"], swish(linear(p["w_1"], x)))
 
 
 def conformer_block(p, x: torch.Tensor, lengths: Optional[torch.Tensor],

@@ -10,6 +10,9 @@ the CTC training step):
 
 The block loop walks per-layer views of the stacked ``(L, ...)``
 parameters; the expert weights ``(L, E, d, h)`` are indexed, not copied.
+Under an ep/tp mesh (``parallel/mesh.sharded``) the MoE blocks hold this
+rank's shard and reduce across ranks; the embed sub-encoder stays
+replicated and runs outside the mesh.
 The ExMarc protos (``cfg.exmarc``) make each block's macaron FFN a MoE
 FFN as well: two expert stacks per block, each indexed the same way.
 """
@@ -29,6 +32,7 @@ from m3asr_tpu_torch.ops import positional
 from m3asr_tpu_torch.ops.common import (init_layer_norm, init_linear,
                                         layer_norm, linear)
 from m3asr_tpu_torch.ops.moe import init_moe_ffn
+from m3asr_tpu_torch.parallel import mesh as pmesh
 
 
 def forward(params, cfg: MoEEncoderConfig, feat: torch.Tensor,
@@ -56,9 +60,11 @@ def forward(params, cfg: MoEEncoderConfig, feat: torch.Tensor,
     forward runs twice in a training step; the embed encoder has none."""
     if isinstance(embed_chunk_mask, str) and embed_chunk_mask == "same":
         embed_chunk_mask = chunk_mask
-    embed_out, _, embed = conformer.forward(
-        params["embed"], cfg.embed_conf, feat, feat_len, output_embed=True,
-        chunk_mask=embed_chunk_mask, attn_impl=attn_impl)
+    with pmesh.sharded(None):     # the embed sub-encoder is replicated
+        embed_out, _, embed = conformer.forward(
+            params["embed"], cfg.embed_conf, feat, feat_len,
+            output_embed=True, chunk_mask=embed_chunk_mask,
+            attn_impl=attn_impl)
     embed_hidden = embed
     # the router input never backprops into the embed encoder: it trains
     # only through its own CTC head (jax.lax.stop_gradient in the JAX

@@ -17,7 +17,7 @@ from typing import Optional
 
 import torch
 
-from m3asr_tpu_torch.ops.common import init_linear, linear
+from m3asr_tpu_torch.ops.common import init_linear, linear, row_parallel_linear
 from m3asr_tpu_torch.ops.masking import make_valid_mask
 
 _NEG_INF = -1e30
@@ -126,8 +126,13 @@ def rel_mha(p, x: torch.Tensor, pos_emb: torch.Tensor,
     ``[q+u; q+v] . [k; pos]`` over a 2*Dk contraction.
     x: (B, T, D); pos_emb: (T, D); mask: optional bool attend-mask
     broadcastable to (B, H, T, T) (chunk masks, ``(B, 1, T, T)``).
-    Returns (B, T, D)."""
-    h = num_heads
+    Returns (B, T, D).
+
+    Under a tp mesh (``parallel/mesh.py``) the weights are this rank's
+    heads: q/k/v/pos columns and pos_bias_u/v split by heads (the local
+    head count is the biases'), linear_out's rows split, its partial
+    product summed over "tp" before the bias."""
+    h = p["pos_bias_u"].shape[0] if "pos_bias_u" in p else num_heads
     q, k, v = _qkv(p, x, h)                                  # (B,H,T,Dk)
     pp = _split_heads(linear(p["linear_pos"], pos_emb[None]), h)[0]
     u = p["pos_bias_u"].to(x.dtype)[None, :, None, :]         # (1,H,1,Dk)
@@ -144,7 +149,8 @@ def rel_mha(p, x: torch.Tensor, pos_emb: torch.Tensor,
     attn = masked_softmax(scores, lengths, float(d_k) ** -0.5, mask)
     ctx = torch.matmul(attn.to(v.dtype), v)                  # (B,H,T,Dk)
     B, T = x.shape[:2]
-    return linear(p["linear_out"], ctx.transpose(1, 2).reshape(B, T, -1))
+    return row_parallel_linear(p["linear_out"],
+                               ctx.transpose(1, 2).reshape(B, T, -1))
 
 
 def fuse_qkv_params(tree):

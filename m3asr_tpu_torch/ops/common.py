@@ -10,6 +10,8 @@ import math
 
 import torch
 
+from m3asr_tpu_torch.parallel import mesh as pmesh
+
 # LayerNorm epsilon of the reference model zoo
 LN_EPS = 1e-12
 
@@ -30,6 +32,18 @@ def linear(p, x: torch.Tensor) -> torch.Tensor:
     if p.get("bias") is not None:
         y = y + p["bias"].to(x.dtype)
     return y
+
+
+def row_parallel_linear(p, x: torch.Tensor) -> torch.Tensor:
+    """:func:`linear` whose kernel rows (and x's last dim) may be split
+    over the active mesh's "tp" ranks (``parallel/mesh.py``): the partial
+    products are summed over "tp", then the bias is added once. Without
+    a tp mesh it is :func:`linear`."""
+    if pmesh.axis_size("tp") == 1:
+        return linear(p, x)
+    y = pmesh.psum(linear({k: v for k, v in p.items() if k != "bias"}, x),
+                   "tp")
+    return y if p.get("bias") is None else y + p["bias"].to(x.dtype)
 
 
 def layer_norm(p, x: torch.Tensor, eps: float = LN_EPS) -> torch.Tensor:

@@ -42,6 +42,7 @@ from m3asr_tpu_torch.ops.moe_q4 import q4_kernel, q4_tiled_kernel
 from m3asr_tpu_torch.ops.moe_runs import (_pad_tokens, _unpad, runs_for,
                                           runs_layout)
 from m3asr_tpu_torch.ops.moe_stream import stream_kernel
+from m3asr_tpu_torch.parallel import mesh as pmesh
 
 # The stages that read group sizes on the host (a device sync), which a
 # CUDA graph cannot capture: ``ragged`` and ``ragged_padded`` size each
@@ -369,11 +370,60 @@ def _tile_layout(flat_e: torch.Tensor, N: int, E: int, tile: int):
     return lay.order, lay.slot, lay.n_tiles, lay.tile_e
 
 
+# The stages a sharded engine runs (the JAX engine's mesh policy: the
+# dense einsums split cleanly over the expert and hidden axes)
+MESH_STAGES = ("dense", "quant", "quant_a8")
+
+
+def _num_experts(p) -> int:
+    return next(p[k] for k in ("w1", "w1_q", "w1_q4", "w1_q4c")
+                if k in p).shape[0]
+
+
+def _dispatch_on_mesh(mesh, p, x: torch.Tensor, gate_idx: torch.Tensor,
+                      impl: str, act) -> torch.Tensor:
+    """Stage ``impl`` on this rank's shard of the experts (the
+    ``param_sharding`` layout), summed over the ep x tp ranks: over "ep"
+    the rank holds experts [r*E_local, (r+1)*E_local), maps the global
+    ids into its slice and gives the other tokens 0; over "tp" it holds
+    a slice of each expert's hidden (w1/b1 columns, w2 rows) and only
+    tp rank 0 adds b2, so the sum adds it once."""
+    if impl not in MESH_STAGES:
+        raise ValueError(f"moe impl {impl!r} has no sharded form: a "
+                         f"sharded engine runs {MESH_STAGES}")
+    idx, keep = gate_idx, None
+    if mesh.axis_size("ep") > 1:
+        E_local = _num_experts(p)
+        local = gate_idx - mesh.coord("ep") * E_local
+        keep = (local >= 0) & (local < E_local)
+        idx = torch.where(keep, local, torch.zeros_like(local))
+    if mesh.axis_size("tp") > 1 and mesh.coord("tp") != 0:
+        p = dict(p, b2=None)
+    y = _stage(p, x, idx, impl, **act)
+    if keep is not None:
+        y = torch.where(keep[..., None], y, torch.zeros_like(y))
+    return mesh.all_reduce(y, ("ep", "tp"))
+
+
 def _dispatch(p, x: torch.Tensor, gate_idx: torch.Tensor, impl: str,
               activation="swish",
               upper_bound: Optional[float] = None) -> torch.Tensor:
     """Stage ``impl`` on (p, x, gate_idx) with the experts' activation
-    (``"swish"`` or ``"relu"``) and clamp. K8 (``pallas``, and
+    (``"swish"`` or ``"relu"``) and clamp (:func:`_stage`). Under an ep or
+    tp mesh (``parallel/mesh.sharded``) the stage runs on this rank's
+    expert shard and the ranks' outputs are summed
+    (:func:`_dispatch_on_mesh`)."""
+    act = dict(activation=activation, upper_bound=upper_bound)
+    mesh = pmesh.active_mesh()
+    if mesh is not None and mesh.axis_size(("ep", "tp")) > 1:
+        return _dispatch_on_mesh(mesh, p, x, gate_idx, impl, act)
+    return _stage(p, x, gate_idx, impl, **act)
+
+
+def _stage(p, x: torch.Tensor, gate_idx: torch.Tensor, impl: str,
+           activation="swish",
+           upper_bound: Optional[float] = None) -> torch.Tensor:
+    """Stage ``impl`` on (p, x, gate_idx). K8 (``pallas``, and
     ``quant_pallas`` on int8 weights) and ``quant_capacity`` run the
     conformer experts' SiLU only, as their JAX callers do, and raise for
     anything else."""

@@ -26,6 +26,7 @@ import numpy as np
 import torch
 
 from m3asr_tpu_torch.ops.common import activation_fn, swish
+from m3asr_tpu_torch.parallel import mesh as pmesh
 
 INT4_GROUP = 128  # contraction-dim scale group for int4 (AWQ layout)
 
@@ -49,6 +50,35 @@ def unpack_int4(packed: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     lo = ((p & 15) ^ 8) - 8
     hi = (((p >> 4) & 15) ^ 8) - 8
     return torch.cat([lo, hi], dim=-1).to(dtype)
+
+
+def repack_int4_tp(q4: np.ndarray, tp: int) -> np.ndarray:
+    """Repack globally packed nibbles (..., in, out/2) into a tp-chunked
+    layout (..., in, tp, out/(2*tp)) whose chunk k is an independent
+    :func:`pack_int4` of output columns [k*out/tp, (k+1)*out/tp): a
+    contiguous split of the tp axis hands each tensor-parallel rank a
+    self-contained packed block, and :func:`unpack_int4_tp` gives the
+    columns in their global order. Bit-exact (the JAX package's
+    layout)."""
+    q4 = np.asarray(q4)
+    out = 2 * q4.shape[-1]
+    if out % (2 * tp):
+        raise ValueError(f"out={out} not splittable by tp={tp}")
+    p32 = q4.astype(np.int32)
+    lo = ((p32 & 15) ^ 8) - 8
+    hi = (((p32 >> 4) & 15) ^ 8) - 8
+    vals = np.concatenate([lo, hi], axis=-1).astype(np.int8)
+    return np.stack([pack_int4(c) for c in np.split(vals, tp, axis=-1)],
+                    axis=-2)
+
+
+def unpack_int4_tp(packed: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """Inverse of :func:`repack_int4_tp`: (..., in, tp, out/(2*tp)) ->
+    (..., in, out) ``dtype``; each chunk unpacks on its own, then the
+    chunks merge in order (a rank's local (..., in, 1, chunk) gives its
+    own columns)."""
+    u = unpack_int4(packed, dtype)
+    return u.reshape(u.shape[:-2] + (u.shape[-2] * u.shape[-1],))
 
 
 def _host_f32(w) -> np.ndarray:
@@ -176,6 +206,9 @@ def _apply_scale(qf: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
 
 
 def _deq(p, name: str, dtype: torch.dtype) -> torch.Tensor:
+    q4c = p.get(name + "_q4c")
+    if q4c is not None:       # tp-chunked packing (repack_int4_tp)
+        return _apply_scale(unpack_int4_tp(q4c, dtype), p[name + "_scale"])
     q4 = p.get(name + "_q4")
     if q4 is not None:
         return _apply_scale(unpack_int4(q4, dtype), p[name + "_scale"])
@@ -259,12 +292,16 @@ def moe_experts_tiled_q(p, x: torch.Tensor, gate_idx: torch.Tensor,
     return untile(y, lay, x.shape)
 
 
-def quantize_act(x: torch.Tensor, qmax: float = 127.0):
+def quantize_act(x: torch.Tensor, qmax: float = 127.0,
+                 split_over: Optional[str] = None):
     """Per-token symmetric int8 quantization, as the JAX package's XLA
     path does it: the scale ``amax / qmax`` is taken in x's dtype and
     the division ``x / scale`` too. x (..., d) -> (q int8, scale (..., 1)
-    float32)."""
+    float32). ``split_over``: a mesh axis over which x's last dim is
+    split (the tp hidden), whose ranks' amax is combined first."""
     amax = x.abs().amax(dim=-1, keepdim=True)
+    if split_over is not None:
+        amax = pmesh.pmax(amax, split_over)
     s = torch.where(amax > 0, amax / qmax, torch.ones_like(amax)).float()
     q = torch.clamp(torch.round(x / s.to(x.dtype)), -qmax, qmax)
     return q.to(torch.int8), s
@@ -303,7 +340,7 @@ def moe_experts_dense_w8a8(p, x: torch.Tensor, gate_idx: torch.Tensor,
     if p.get("b1") is not None:
         h = h + p["b1"].to(out_dtype)[None, :, None, :]
     h = _act(h, activation, upper_bound)
-    hq, hs = quantize_act(h)                         # (B,E,T,H)
+    hq, hs = quantize_act(h, split_over="tp")        # (B,E,T,H)
     y32 = _int_product("beth,ehd->betd", hq, p["w2_q"])
     y = (y32 * hs * p["w2_scale"][None]).to(out_dtype)
     if p.get("b2") is not None:

@@ -295,7 +295,7 @@ def main(argv=None):
     args = parse_args(argv)
     from m3asr_tpu_torch import checkpoint as ckpt
     from m3asr_tpu_torch.io.loader import DataLoader
-    from m3asr_tpu_torch.runtime.engine import Engine
+    from m3asr_tpu_torch.runtime.engine import Engine, refuse_sharded_dir
     from m3asr_tpu_torch.utils.text import cer
 
     context = None
@@ -319,6 +319,7 @@ def main(argv=None):
                 sys.exit("--lm shallow fusion needs -d beam/rescore")
             lm = NgramLM(args.lm, symtab)
 
+    refuse_sharded_dir(args.plan_name, "recognize")
     engine = Engine.load(args.plan_name, device=args.device)
     decoders = None
     hier = False

@@ -59,6 +59,18 @@ eager forward behind the same interface. Outputs follow the JAX engine's
 ``decode_output`` contract (logits, log_softmax, argmax, topk, beam),
 optionally with the hier taps or the final hidden; ``infer_long`` decodes
 one utterance longer than the largest bucket in stitched windows.
+
+Sharding: ``ep`` / ``tp`` > 1 (the moe_conformer family only, as in the
+JAX engine) runs one rank per shard on a ``torch.distributed`` world of
+exactly ep x tp ranks (``parallel/``): every rank builds the whole tree
+on the host (int4 w1 repacked per tp chunk), keeps its shard
+(``parallel/mesh.param_sharding``: experts over "ep", Megatron splits
+over "tp" in the main blocks), and every rank calls :meth:`Engine.infer`
+with the same request; the forward all-reduces where GSPMD would and
+every rank returns the same output. The expert stage is the JAX mesh
+policy's (``dense``, ``quant``, ``quant_a8``) and the buckets run eager
+(gloo's collectives cannot be captured). ``save`` gathers the whole tree
+(every rank calls it; rank 0 writes); ``load`` shards again.
 """
 
 from __future__ import annotations
@@ -86,7 +98,8 @@ from m3asr_tpu_torch.ops.attention import fuse_qkv_params
 from m3asr_tpu_torch.ops.moe import HOST_SYNC_STAGES
 from m3asr_tpu_torch.ops.masking import SUBSAMPLED_LENGTH
 from m3asr_tpu_torch.ops.quant import (pack_int4, quantize_dense_params,
-                                       quantize_moe_params)
+                                       quantize_moe_params, repack_int4_tp)
+from m3asr_tpu_torch.parallel import mesh as pmesh
 from m3asr_tpu_torch.runtime.buckets import (BucketSpec, DEFAULT_BATCHES,
                                              DEFAULT_LENGTHS)
 from m3asr_tpu_torch.runtime.graphs import (  # noqa: F401 (re-exported)
@@ -198,12 +211,6 @@ def moe_auto_impl(tokens: int, requested: str = "auto",
     return impl
 
 
-# JAX engine.json settings this slice does not run: name -> (the value
-# the port runs, the ROADMAP item that brings the others)
-_NOT_PORTED = {
-    "ep": (1, "Queue 1 item 12 (parallelism)"),
-    "tp": (1, "Queue 1 item 12 (parallelism)"),
-}
 # JAX engine.json settings with no effect on this port's results
 _IGNORED = {"fp32_precision", "donate_input"}
 
@@ -236,6 +243,12 @@ class EngineConfig:
     return_taps: bool = False         # also emit the hier taps (h6, h12,
                                       # h_final); takes precedence over
                                       # return_hidden
+    ep: int = 1                       # expert-parallel ranks (experts split
+                                      # over "ep")
+    tp: int = 1                       # tensor-parallel ranks (Megatron
+                                      # column/row splits over "tp"); an
+                                      # engine with ep*tp > 1 runs on a
+                                      # torch.distributed world of ep*tp
 
     def validate(self) -> None:
         if self.dtype not in _DTYPES:
@@ -251,23 +264,27 @@ class EngineConfig:
                 "the separate q/k/v weights, as the JAX engine's do")
         if self.decode_output not in DECODE_OUTPUTS:
             raise ValueError(f"unknown decode_output {self.decode_output!r}")
+        if self.ep < 1 or self.tp < 1:
+            raise ValueError(f"ep={self.ep}, tp={self.tp}: each must be >= 1")
+        if self.fuse_qkv and self.ep * self.tp > 1:
+            raise NotImplementedError(
+                "fuse_qkv with ep/tp-sharded serving: the tp head-split rules "
+                "for the fused qkv kernel are not wired yet")
+        if self.dense_quant and self.ep * self.tp > 1:
+            raise NotImplementedError(
+                "dense_quant with ep/tp-sharded serving: the tp column-split "
+                "rules for kernel_q/kernel_scale pairs are not wired yet — "
+                "serve dense-quant engines unsharded or drop dense_quant")
         moe_auto_impl(1, self.moe_impl, _QUANT_BITS.get(self.dtype),
                       self.act_quant)          # raises on a refused name
 
 
 def config_from_engine_json(meta: Dict) -> Tuple[EngineConfig, Optional[list]]:
-    """Parse a (JAX- or port-written) engine.json. Settings this slice
-    does not run raise NotImplementedError naming their ROADMAP item.
-    Returns (config, neg_log_prior or None)."""
+    """Parse a (JAX- or port-written) engine.json; settings the JAX engine
+    refuses raise as there. Returns (config, neg_log_prior or None)."""
     meta = dict(meta)
     meta.pop("nnet_proto", None)
     neg_log_prior = meta.pop("neg_log_prior", None)
-    for name, (ported, item) in _NOT_PORTED.items():
-        value = meta.pop(name, ported)
-        if value != ported:
-            raise NotImplementedError(
-                f"engine.json {name}={value!r} is not ported yet: "
-                f"ROADMAP {item}")
     for name in _IGNORED:
         meta.pop(name, None)
     fields = {f.name for f in dataclasses.fields(EngineConfig)}
@@ -305,6 +322,72 @@ class BucketProgram(GraphProgram):
                  graph_pool=None):
         self.feat, self.feat_len = feat, feat_len
         super().__init__(fn, (feat, feat_len), graph_pool)
+
+
+def sharded_config(cfg: EngineConfig, family_name: str) -> EngineConfig:
+    """The settings an ep/tp-sharded engine serves, as the JAX engine
+    settles them: only the moe_conformer family shards, and under tp
+    ``attn_impl="flash"`` logs a warning and serves ``xla``."""
+    if family_name != "moe_conformer":
+        raise NotImplementedError(
+            "ep/tp-sharded serving supports the moe_conformer family "
+            "(scan-stacked (L, E, ...) expert tensors)")
+    if cfg.tp > 1 and cfg.attn_impl == "flash":
+        log.warning("tp-sharded serving: attn_impl='flash' has no SPMD "
+                    "partitioning rule for head-split weights; falling "
+                    "back to attn_impl='xla' for this engine")
+        cfg = dataclasses.replace(cfg, attn_impl="xla")
+    return cfg
+
+
+def repack_for_tp(tree, tp: int):
+    """Every int4 ``w1_q4`` of ``tree`` repacked per tp chunk into
+    ``w1_q4c`` (``ops/quant.repack_int4_tp``), so that w1's columns split
+    contiguously over "tp"; w2 splits its unpacked rows and keeps its
+    bytes. A new tree (the repacked leaves on the CPU)."""
+    if isinstance(tree, dict):
+        if "w1_q4" in tree:
+            tree = dict(tree)
+            q4 = tree.pop("w1_q4")
+            tree["w1_q4c"] = torch.from_numpy(repack_int4_tp(
+                q4.cpu().numpy() if torch.is_tensor(q4) else q4, tp))
+            return tree
+        return {k: repack_for_tp(v, tp) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [repack_for_tp(v, tp) for v in tree]
+    return tree
+
+
+def serving_mesh(ep: int, tp: int) -> pmesh.Mesh:
+    """The (dp=1, ep, tp) mesh of a sharded engine over the default
+    process group, which must hold exactly ep*tp ranks (the JAX engine
+    takes the first ep*tp devices)."""
+    import torch.distributed as dist
+    n = ep * tp
+    if not dist.is_initialized():
+        raise RuntimeError(
+            f"ep={ep} x tp={tp} serving runs one rank per shard: launch "
+            f"{n} ranks with python -m torch.distributed.run "
+            f"--nproc-per-node {n} (parallel.distributed.initialize() "
+            "then brings the process group up)")
+    if dist.get_world_size() != n:
+        raise RuntimeError(f"ep={ep} x tp={tp} needs a world of {n} ranks, "
+                           f"not {dist.get_world_size()}")
+    return pmesh.make_mesh(dp=1, ep=ep, tp=tp)
+
+
+def refuse_sharded_dir(engine_dir: str, what: str) -> None:
+    """Raise NotImplementedError if ``engine_dir`` holds an ep/tp-sharded
+    engine: ``what`` (a loop serving requests) would need every rank to
+    run it on rank 0's inputs."""
+    with open(os.path.join(engine_dir, "engine.json")) as f:
+        meta = json.load(f)
+    ep, tp = int(meta.get("ep", 1)), int(meta.get("tp", 1))
+    if ep * tp > 1:
+        raise NotImplementedError(
+            f"{what} on an ep={ep} x tp={tp} engine dir is not ported yet: "
+            "the ranks other than 0 need a loop fed by a broadcast from rank "
+            "0 (ROADMAP Queue 1 item 12c); infer runs it on ranks")
 
 
 def _quantize_expert_nodes(node, bits: int):
@@ -387,20 +470,38 @@ class Engine:
             # any token count; auto stays in the table): refused names
             # raise now
             check_moe_stage(self.moe_impl_for(1, 1))
-        self.params = to_torch(params, self.device, self.dtype)
+        # ep/tp: every rank builds the whole tree on the host, then keeps
+        # its shard (mesh / _specs; a world of ep*tp ranks is required)
+        self.mesh = self._specs = None
+        if self.cfg.ep * self.cfg.tp > 1:
+            self.cfg = sharded_config(self.cfg, self.family.name)
+            self.mesh = serving_mesh(self.cfg.ep, self.cfg.tp)
+        home = torch.device("cpu") if self.mesh is not None else self.device
+        self.params = to_torch(params, home, self.dtype)
         # the JAX engine's order: cast, quantize the experts, fuse q/k/v,
-        # quantize the dense kernels. Each step leaves params that already
-        # carry it (an engine dir, another engine's tree) as they are.
+        # quantize the dense kernels, shard. Each step leaves params that
+        # already carry it (an engine dir, another engine's tree) as they
+        # are.
         if self.quant_bits is not None:
             # once, from the bf16 values
             self.params = to_torch(
                 _quantize_expert_nodes(self.params, self.quant_bits),
-                self.device, self.dtype)
+                home, self.dtype)
         if self.cfg.fuse_qkv:
             self.params = fuse_qkv_params(self.params)
         if self.cfg.dense_quant:
             self.params = to_torch(quantize_dense_params(self.params),
                                    self.device, self.dtype)
+        if self.mesh is not None:
+            full = self.params
+            if self.cfg.tp > 1:
+                full = to_torch(repack_for_tp(full, self.cfg.tp), home,
+                                self.dtype)
+            self._specs = pmesh.param_sharding(self.mesh, full,
+                                               tp=self.cfg.tp > 1)
+            self.params = to_torch(
+                pmesh.shard_tree(full, self._specs, self.mesh),
+                self.device, self.dtype)
         self.neg_log_prior = None
         if prior is not None and self.cfg.use_prior:
             self.neg_log_prior = torch.as_tensor(
@@ -417,7 +518,15 @@ class Engine:
 
     def moe_impl_for(self, batch: int, length: int) -> str:
         """The expert stage of a (batch, length) bucket, from its
-        post-subsampling token count (the JAX engine's _moe_impl_for)."""
+        post-subsampling token count (the JAX engine's _moe_impl_for).
+        A sharded engine runs the JAX engine's mesh policy, whatever
+        ``moe_impl`` asks: ``dense`` for float experts, ``quant`` for
+        quantized ones (``quant_a8`` for w8a8)."""
+        if self.cfg.ep * self.cfg.tp > 1:
+            if self.quant_bits is None:
+                return "dense"
+            return "quant_a8" if self.cfg.act_quant and \
+                self.quant_bits == 8 else "quant"
         sub = SUBSAMPLED_LENGTH[self.model_cfg.encoder_conf.input_layer]
         return moe_auto_impl(batch * int(sub(length)), self.cfg.moe_impl,
                              self.quant_bits, self.cfg.act_quant)
@@ -447,10 +556,12 @@ class Engine:
             kw = dict(output_embed=self.cfg.return_hidden)
         kw["attn_impl"] = self.cfg.attn_impl
         model_cfg, family_forward = self.model_cfg, self.family.forward
+        mesh = self.mesh
 
         def model(params, feat, feat_len):
-            return tuple(family_forward(params, model_cfg, feat, feat_len,
-                                        **kw))
+            with pmesh.sharded(mesh):
+                return tuple(family_forward(params, model_cfg, feat,
+                                            feat_len, **kw))
         return model
 
     def _forward_fn(self, batch: int, length: int, out_mode=None,
@@ -513,7 +624,9 @@ class Engine:
 
     def _get_fn(self, batch: int, length: int, out_mode) -> BucketProgram:
         mode = out_mode or self.cfg.decode_output
+        # sharded buckets run eager: gloo's collectives cannot be captured
         graph = (self.device.type == "cuda" and self.cuda_graphs
+                 and self.mesh is None
                  and self.moe_impl_for(batch, length) not in HOST_SYNC_STAGES)
         key = (batch, length, mode, graph)
         prog = self._programs.get(key)
@@ -556,6 +669,11 @@ class Engine:
         be exported and raises ValueError."""
         from torch._subclasses.fake_tensor import FakeTensorMode
         from torch.utils import _pytree
+        if self.mesh is not None:
+            raise NotImplementedError(
+                "exporting an ep/tp-sharded engine's buckets (collectives in "
+                "a torch.export program) is not ported yet: ROADMAP Queue 1 "
+                "item 12c")
         impl = self.moe_impl_for(batch, length) if self.is_moe else None
         if impl in HOST_SYNC_STAGES:
             raise ValueError(
@@ -592,7 +710,8 @@ class Engine:
         logs a warning and is not used. :attr:`loaded_buckets` records
         the buckets that run a loaded program."""
         d = self._exported_dir
-        if not d or self.moe_impl_for(batch, length) in HOST_SYNC_STAGES:
+        if not d or self.mesh is not None or \
+                self.moe_impl_for(batch, length) in HOST_SYNC_STAGES:
             return None
         if (batch, length) in self._loaded:
             return self._loaded[(batch, length)]
@@ -793,11 +912,29 @@ class Engine:
     # engine directories (the JAX package's format)
     # ------------------------------------------------------------------
     def save(self, engine_dir: str, raw_yaml: Optional[dict] = None,
-             export_devices: Optional[Tuple[str, ...]] = None):
+             export_devices: Optional[Tuple[str, ...]] = None,
+             shards: Optional[Tuple[int, int]] = None):
         """Write the engine dir; ``export_devices`` (e.g. ``("cuda",
         "cpu")``) also writes every bucket's program for each device,
-        ``exported/{B}x{T}.{device}.pt2`` (:meth:`export_bucket`)."""
+        ``exported/{B}x{T}.{device}.pt2`` (:meth:`export_bucket`).
+
+        A sharded engine writes the whole tree, as the JAX engine does:
+        every rank calls ``save`` (the shards are gathered), rank 0
+        writes. ``shards=(ep, tp)`` writes this single-device engine as
+        the dir of an ep x tp engine (``build --ep/--tp``): the sharded
+        settings in engine.json, int4 w1 repacked for tp."""
         import yaml
+        cfg, params = self.cfg, self.params
+        if self.mesh is not None:
+            params = pmesh.gather_tree(params, self._specs, self.mesh)
+            if self.mesh.rank != 0:
+                return
+        elif shards is not None and shards[0] * shards[1] > 1:
+            cfg = sharded_config(dataclasses.replace(
+                cfg, ep=shards[0], tp=shards[1]), self.family.name)
+            cfg.validate()
+            if cfg.tp > 1:
+                params = repack_for_tp(params, cfg.tp)
         os.makedirs(engine_dir, exist_ok=True)
         if export_devices:
             exp_dir = os.path.join(engine_dir, "exported")
@@ -807,9 +944,8 @@ class Engine:
                     torch.export.save(
                         self.export_bucket(b, t, dev),
                         os.path.join(exp_dir, f"{b}x{t}.{dev}.pt2"))
-        np.savez(os.path.join(engine_dir, "params.npz"),
-                 **_flatten(self.params))
-        meta = dataclasses.asdict(self.cfg)
+        np.savez(os.path.join(engine_dir, "params.npz"), **_flatten(params))
+        meta = dataclasses.asdict(cfg)
         meta["nnet_proto"] = self.model_cfg.nnet_proto
         if self.neg_log_prior is not None:
             meta["neg_log_prior"] = self.neg_log_prior.float().cpu().tolist()

@@ -568,13 +568,14 @@ def _build_runtime(args, engine=None):
     from m3asr_tpu_torch.models import streaming
     from m3asr_tpu_torch.models.registry import dfsmn_stream_config
     from m3asr_tpu_torch.runtime.batching import MicroBatcher
-    from m3asr_tpu_torch.runtime.engine import Engine
+    from m3asr_tpu_torch.runtime.engine import Engine, refuse_sharded_dir
     from m3asr_tpu_torch.runtime.graphs import DEVICE_LOCK
     from m3asr_tpu_torch.runtime.streaming_batch import (
         BatchedDfsmnStreamingSession, BatchedStreamingSession,
         DfsmnStreamBatcher, StreamBatcher)
 
     if engine is None:
+        refuse_sharded_dir(args.plan_name, "serve")
         # its uploads must not meet another thread's capture (SIGHUP)
         with DEVICE_LOCK.shared():
             engine = Engine.load(args.plan_name, device=args.device)

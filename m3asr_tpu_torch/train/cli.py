@@ -28,7 +28,7 @@ It exits where the root ``train.py`` exits (DFSMN with AED labels, sMBR
 with the hier recipe, BMUF with ``--zero1/--fsdp``, domain labels without
 heads to train). The parallel flags parse as the JAX CLI's and are
 refused: ``--tp/--sp/--pp/--ep > 1``, ``--zero1`` and ``--fsdp`` (ROADMAP
-Queue 1 item 12).
+Queue 1 item 12b).
 """
 
 from __future__ import annotations
@@ -57,18 +57,18 @@ def parse_args(argv=None):
     p.add_argument("--config", required=True)
     p.add_argument("--log_file", required=False)
     p.add_argument("--tp", type=int, default=1,
-                   help="tensor parallelism (not ported: item 12)")
+                   help="tensor parallelism (not ported: item 12b)")
     p.add_argument("--sp", type=int, default=1,
-                   help="sequence parallelism (not ported: item 12)")
+                   help="sequence parallelism (not ported: item 12b)")
     p.add_argument("--pp", type=int, default=1,
-                   help="pipeline parallelism (not ported: item 12)")
+                   help="pipeline parallelism (not ported: item 12b)")
     p.add_argument("--pp_microbatches", type=int, default=2)
     p.add_argument("--ep", type=int, default=1,
-                   help="expert parallelism (not ported: item 12)")
+                   help="expert parallelism (not ported: item 12b)")
     p.add_argument("--zero1", action="store_true",
-                   help="sharded optimizer state (not ported: item 12)")
+                   help="sharded optimizer state (not ported: item 12b)")
     p.add_argument("--fsdp", action="store_true",
-                   help="sharded parameters (not ported: item 12)")
+                   help="sharded parameters (not ported: item 12b)")
     p.add_argument("--smbr_cmd", required=False,
                    help="external lattice command for sMBR training; "
                    "{post}/{grad}/{trans} are substituted per batch")
@@ -102,7 +102,7 @@ def refuse_unported(args) -> None:
     if parallel:
         raise NotImplementedError(
             f"{', '.join(parallel)}: parallel training is not ported yet: "
-            "ROADMAP Queue 1 item 12")
+            "ROADMAP Queue 1 item 12b")
 
 
 def train_config_kwargs(raw: dict, loader_conf: dict) -> dict:

@@ -182,13 +182,24 @@ def test_engine_without_device_needs_a_card():
     {"dense_quant": True, "ep": 2}, {"fuse_qkv": True, "tp": 2},
     {"ep": 2}, {"tp": 2}])
 def test_unsupported_engine_json_raises(setting):
-    """Settings not ported yet name their ROADMAP item; fuse_qkv with
-    flash is refused as the JAX engine refuses it (no item: parity)."""
+    """The settings the JAX engine refuses raise with its words: fuse_qkv
+    with flash, and fuse_qkv or dense_quant with ep/tp-sharded serving.
+    The sharded settings alone (ep, tp, int4 with an explicit stage)
+    parse, as the JAX engine takes them (its mesh policy then picks the
+    stage)."""
     meta = dict(dtype="float32", fp32_precision="high", donate_input=True,
                 nnet_proto="conformer_fmoe_localComm_catEmbed")
     meta.update(setting)
-    match = ("separate q/k/v weights" if setting.get("attn_impl") == "flash"
-             else "ROADMAP")
+    if setting.get("attn_impl") == "flash":
+        match = "separate q/k/v weights"
+    elif setting.get("fuse_qkv"):
+        match = "fuse_qkv with ep/tp-sharded serving: the tp head-split"
+    elif setting.get("dense_quant"):
+        match = "dense_quant with ep/tp-sharded serving: the tp column-split"
+    else:
+        cfg, _ = config_from_engine_json(meta)
+        assert (cfg.ep, cfg.tp) == (setting.get("ep", 1), setting.get("tp", 1))
+        return
     with pytest.raises(NotImplementedError, match=match):
         config_from_engine_json(meta)
 
@@ -262,16 +273,23 @@ def test_build_cli_attn_impl_flash(tmp_path):
 
 
 def test_build_cli_rejects_unported_flags(tmp_path):
-    """ep and tp (parallelism) stay refused; -cmvn is accepted and not
-    read, as by the JAX build.py; --dense_quant and --fuse_qkv build an
-    int8 engine that serves, with the settings in engine.json."""
+    """--ep and --tp build sharded engine dirs (engine.json as the JAX
+    build.py writes it; with --dense_quant they are refused in the JAX
+    engine's words); -cmvn is accepted and not read, as by the JAX
+    build.py; --dense_quant and --fuse_qkv build an int8 engine that
+    serves, with the settings in engine.json."""
     _write_inputs(tmp_path)
     args = ["-c", str(tmp_path / "cfg.yaml"), "-o", str(tmp_path / "e"),
             "--int8", "--device", "cpu", "--buckets", "2x64"]
-    with pytest.raises(NotImplementedError, match="ep=2"):
-        t_build.main(args + ["--ep", "2"])
-    with pytest.raises(NotImplementedError, match="tp=2"):
-        t_build.main(args + ["--tp", "2"])
+    for flag in ("--ep", "--tp"):
+        t_build.main(args + [flag, "2"])
+        with open(tmp_path / "e" / "engine.json") as f:
+            meta = json.load(f)
+        assert (meta["ep"], meta["tp"]) == ((2, 1) if flag == "--ep"
+                                            else (1, 2))
+        with pytest.raises(NotImplementedError, match="dense_quant with "
+                           "ep/tp-sharded serving"):
+            t_build.main(args + [flag, "2", "--dense_quant"])
     t_build.main(args + ["--dense_quant", "--fuse_qkv", "-cmvn",
                          str(tmp_path / "no_such_cmvn")])
     eng = Engine.load(str(tmp_path / "e"), device="cpu")

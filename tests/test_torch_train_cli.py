@@ -303,17 +303,17 @@ def test_cli_builds_what_train_py_builds(work, tmp_path, monkeypatch, hier):
 
 
 @pytest.mark.parametrize("extra,item", [
-    (["--tp", "2"], "item 12"), (["--sp", "2"], "item 12"),
-    (["--pp", "2"], "item 12"), (["--ep", "2"], "item 12"),
-    (["--zero1"], "item 12"), (["--fsdp"], "item 12"),
+    (["--tp", "2"], "item 12b"), (["--sp", "2"], "item 12b"),
+    (["--pp", "2"], "item 12b"), (["--ep", "2"], "item 12b"),
+    (["--zero1"], "item 12b"), (["--fsdp"], "item 12b"),
     (["--bmuf", "--zero1"], "pick one"),
     (["--smbr_cmd", "tool {post}"], "drop --tr_aed_labels"),
 ])
 def test_cli_refuses_unported_flags(work, tmp_path, extra, item):
-    """The parallel flags are item 12's (NotImplementedError); --bmuf with
-    --zero1 and --smbr_cmd with the hier recipe exit as the root
-    train.py exits, with its message."""
-    want = NotImplementedError if item == "item 12" else SystemExit
+    """The parallel training flags are item 12b's (NotImplementedError);
+    --bmuf with --zero1 and --smbr_cmd with the hier recipe exit as the
+    root train.py exits, with its message."""
+    want = NotImplementedError if item == "item 12b" else SystemExit
     with pytest.raises(want, match=item):
         cli.main(_argv(work, tmp_path / "exp", *extra))
 
