@@ -73,15 +73,15 @@ result line:
    int4 within 1e-2, a8 within 2e-2. Under the router's and the heavy
    routing at 511 and 1020 tokens K7 a8 must equal K5 a8 bit for bit
    (the same quant_rows, s8 tiles, exact s32 sums and epilogue).
-Depth: since phase 18 the flagship runs at 6 embed + 9 MoE blocks (its
-YAML's 18 cut), the DFSMN nets at 3 x 5 cFSMN layers (the reference
-Net's 3 x 10) and the dense conformer at 9 blocks (18), for the script's
-1200 s; widths, requests and checks are kept. Phase 17 keeps the DFSMN
+Depth: since phase 19 the flagship runs at 6 embed + 6 MoE blocks (its
+YAML's 18 cut; 9 in phase 18), the DFSMN nets at 3 x 5 cFSMN layers
+(the reference Net's 3 x 10) and the dense conformer at 9 blocks (18),
+for the script's 1200 s; widths, requests and checks are kept. Phase 17 keeps the DFSMN
 nets' and the dense conformer's own depths. Counts below that name 18
 MoE blocks (or 24 attention layers, 29 cFSMN MoE layers) scale with the
 depth; the phases derive them from the config.
 
-4. serve, float: the flagship hier MoE conformer (6 embed blocks, 9 MoE
+4. serve, float: the flagship hier MoE conformer (6 embed blocks, 6 MoE
    blocks, 32 experts, vocabulary 5000; random weights from a seeded
    CUDA generator, routers randomised) in an fp32 and a bf16 Engine
    (phases 4-7 run their engines eager: cuda_graphs=False) answers
@@ -305,7 +305,7 @@ depth; the phases derive them from the config.
 
 15. ExMarc, top-2 and exported programs (after phase 14): the ExMarc
    flagship (conformer_fmoeExMarc_localComm_catEmbed: the flagship YAML
-   with the ExMarc proto, 6 embed + 9 MoE blocks: the YAML's 18 cut for
+   with the ExMarc proto, 6 embed + 6 MoE blocks: the YAML's 18 cut for
    the script's time since phase 18; d=512, 32 experts of hidden 1024 at
    both FFN positions, V=5000) built by the port's build
    (seeded random weights, both positions' routers redrawn normal x 0.5)
@@ -401,7 +401,7 @@ depth; the phases derive them from the config.
 
 18. parallel: expert- and tensor-parallel serving on gloo ranks sharing
    the card. The flagship (d=512, 32 experts of hidden 1024, V=5000;
-   seeded random weights and routers) at 6 embed + 9 MoE blocks (its 18
+   seeded random weights and routers) at 6 embed + 6 MoE blocks (its 18
    cut for the script's time) is built by
    the port's build (``build_engine`` + ``Engine.save(shards=(ep,
    tp))``, what ``build --ep/--tp`` runs) as engine dirs: fp32 at ep=4,
@@ -417,10 +417,35 @@ depth; the phases derive them from the config.
    1e-3) free-running, bf16 / int8 / int4 within 0.05 of max|ref| with
    the routing pinned to rank 0's (its experts' stages on their plain
    versions); the bf16 flash ranks must launch K2 once per attention
-   layer a forward (6 + 9). A rank's non-zero exit or a world's timeout
+   layer a forward (6 + 6). A rank's non-zero exit or a world's timeout
    fails the phase; the engine dirs are deleted as it goes. The times
    are of gloo ranks on one card (all-reduces through host memory), not
    an NCCL deployment's.
+
+19. train_parallel: parallel training on phase 18's gloo ranks (its two
+   worlds, after their serving cases; ``--only train_parallel`` starts
+   them for this phase alone). First, in this process, K2 and K3 against
+   their plain versions at the sp shape (a rank's 125 query rows against
+   250 keys, fp32 and bf16, with and without an offset chunk window) and
+   their device times beside the plain versions'. Then the flagship's
+   widths at 6 embed + 2 MoE blocks (seeded weights, routers normal x
+   0.5) on TRAIN_LENS: rank 0 takes the unsharded step's loss and
+   gradients (fp32 flash, fp32 xla, bf16 flash; BMUF's replica on its own
+   rows) and every rank the routing it chose. 4 ranks: dp2 x ep2 flash,
+   dp2 x tp2 xla, dp2 x sp2 flash, dp2 x ep2 ZeRO-1, dp4 FSDP, pp2 x dp2
+   flash (2 microbatches), BMUF dp4 (a sync after step 2); 2 ranks: ep2
+   bf16 flash, the CLI (``train.cli.main`` with ``--ep 2``: 2 steps, a
+   final checkpoint read back whole and deleted) and
+   ``dryrun_multichip(2)``. Each step case's first step, routing pinned
+   to the unsharded step's: the loss within rtol 1e-5 (bf16 0.05), every
+   gathered gradient group within TRAIN_GRAD_TOL of its max|g| (bf16
+   0.05), and every rank holding a block of a leaf holding the same bits
+   after the update (BMUF: every leaf after the sync); K2 and each K3
+   kernel launched once per attention layer a pass on every flash rank
+   (6 + 2, pp's stage included), exactly. The step times (host, the
+   steps after the first), the all-reduces' share of a step (rank 0,
+   torch.profiler) and each rank's peak memory are printed, as gloo
+   ranks sharing one card, not an NCCL deployment's.
 
 ``python3 chip_smoke.py --only NAME [NAME ...]`` runs the build and the
 phases named in ``ALONE`` alone, for work on one of them; it prints no
@@ -445,12 +470,13 @@ import numpy as np
 HERE = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12            # H100 SXM device memory
 # Depth cuts for the script's 1200 s (since phase 18; widths kept): the
-# flagship's 18 MoE blocks (configs/3m_asr_18l32e.yaml) run as 9, the
+# flagship's 18 MoE blocks (configs/3m_asr_18l32e.yaml) run as 6 (9
+# before phase 19 was added), the
 # DFSMN nets' 3 x 10 cFSMN layers as 3 x 5 and the dense conformer's 18
 # blocks as 9, except in phase 17: its flash-vs-xla gradient checks run
 # at the models' own depths (at 3 x 5 the DFSMN CE check read 1.851e-3
 # of a group's max|g|, past TRAIN_GRAD_TOL, where 3 x 10 reads 6.3e-4)
-FLAGSHIP_MOE_BLOCKS = 9
+FLAGSHIP_MOE_BLOCKS = 6
 DFSMN_EACH_BLOCK, DFSMN_NET_EACH = 5, 10
 DC_BLOCKS, DC_NET_BLOCKS = 9, 18
 PEAK_OPS_PER_S = {"float32": 67e12,  # fp32 outside the tensor cores
@@ -4186,7 +4212,11 @@ def phase_times(torch, state, smi):
                 "source": "m3asr_tpu_torch/csrc/flash_attention.cu",
                 "replaces": f"m3asr_tpu/ops/pallas_attention.py:{line}",
                 "launches": state["launches_flash"][(kname, dname)],
-                "max_abs_err": state["max_err_flash"][(kname, dname)],
+                # phase 3's shapes and phase 19's sp shape
+                "max_abs_err": max(
+                    state["max_err_flash"][(kname, dname)],
+                    state.get("max_err_flash_sp", {}).get((kname, dname),
+                                                          0.0)),
                 "ms": r["ms"], "plain_ms": r["plain_ms"],
                 "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
                 "library_ms": r["library_ms"]})
@@ -7221,7 +7251,7 @@ PAR_MODES = (
     ("int8", ["--int8", "--moe_impl", "quant"], (("int8 ep2 tp2", 2, 2),)),
     ("int4", ["--int4"], (("int4 ep4", 4, 1), ("int4 tp2", 1, 2))),
 )
-PAR_WORLD_S = 420             # a world's run, its start included
+PAR_WORLD_S = 720             # a world's run, its start included
 PAR_RUNS = 3                  # timed requests a case
 
 
@@ -7329,6 +7359,8 @@ def par_rank(work):
         del eng
         torch.cuda.empty_cache()
         dist.barrier()
+    if os.path.exists(os.path.join(work, f"train_cases_{n}.json")):
+        res["train"] = tp_rank(torch, work, n, rank)     # phase 19
     spans["rank_s"] = time.perf_counter() - t_start
     with open(os.path.join(work, f"rank_{n}_{rank}.json"), "w") as f:
         json.dump(res, f)
@@ -7442,24 +7474,33 @@ def par_held(torch, label, mode, eng, saved, feats):
     return worst
 
 
-def phase_parallel(torch, state, smi):
-    """Phase 18; returns the bf16 flash ranks' K2 launches (all ranks)."""
+def phase_parallel(torch, state, smi, serve=True, train=True):
+    """Phase 18 (``serve``) and phase 19 (``train``, in the same worlds,
+    after the serving cases); returns the bf16 flash ranks' K2 launches
+    (all ranks) and phase 19's K2/K3 launches by (kernel, dtype)."""
     import shutil as sh
     import tempfile
     t0 = time.perf_counter()
     work = tempfile.mkdtemp(prefix="par18_")
     try:
-        engines, cases = par_engines(torch, work)
+        engines, cases = par_engines(torch, work) if serve else \
+            ({}, {2: [], 4: []})
         t_build = time.perf_counter() - t0
         feats = par_feats()
+        if train:
+            state.setdefault("max_err_flash_sp", tp_flash_sp(torch, smi))
         world_s = {}
         for n in (4, 2):
             with open(os.path.join(work, f"cases_{n}.json"), "w") as f:
                 json.dump(cases[n], f)
+            if train:
+                with open(os.path.join(work, f"train_cases_{n}.json"),
+                          "w") as f:
+                    json.dump([c[0] for c in TP_CASES[n]], f)
             world_s[n] = par_world(n, work)
             for c in cases[n]:               # its dirs are read
                 sh.rmtree(c["dir"], ignore_errors=True)
-        k2 = 0
+        k2, trained = 0, {}
         for n in (4, 2):
             ranks = []
             for r in range(n):
@@ -7468,9 +7509,9 @@ def phase_parallel(torch, state, smi):
             sp = ranks[0]["spans"]
             log(f"parallel: {n}-rank world {world_s[n]:.1f} s: rank 0 "
                 f"imports {sp['imports_s']:.1f} s, process group "
-                f"{sp['init_s']:.1f} s, cases " + ", ".join(
+                f"{sp['init_s']:.1f} s, " + "".join(
                     f"{c['label']} {ranks[0]['cases'][c['label']]['case_s']:.1f}"
-                    for c in cases[n]) + f" s, in all {sp['rank_s']:.1f} s "
+                    " s, " for c in cases[n]) + f"in all {sp['rank_s']:.1f} s "
                 f"of the rank's life")
             for c in cases[n]:
                 label, mode = c["label"], c["mode"]
@@ -7522,17 +7563,599 @@ def phase_parallel(torch, state, smi):
                 if mode == "bf16 flash":
                     line += f"; K2 {rs[0]['k2']} launches a rank"
                 log(line + f"; {smi}")
+            if train:
+                for kn, cnt in tp_report(torch, n, ranks, smi).items():
+                    trained[kn] = trained.get(kn, 0) + cnt
         for eng in engines.values():
             del eng
         engines.clear()
         torch.cuda.empty_cache()
         log(f"parallel: build and dirs {t_build:.1f} s, worlds "
             + ", ".join(f"{n} ranks {s:.1f} s" for n, s in world_s.items())
-            + f", phase {time.perf_counter() - t0:.1f} s; gloo ranks on one "
+            + f", phases {time.perf_counter() - t0:.1f} s; gloo ranks on one "
             f"card, not an NCCL deployment; {smi}")
-        return k2
+        return k2, trained
     finally:
         sh.rmtree(work, ignore_errors=True)
+
+
+# ---------------------------------------------------------------------------
+# 19. parallel training on phase 18's gloo ranks: dp/ep/tp/sp/pp steps,
+#     ZeRO-1, FSDP and BMUF held to the unsharded step, then the CLI and
+#     dryrun_multichip on ranks
+# ---------------------------------------------------------------------------
+
+TP_MOE_BLOCKS = 2             # 6 embed + 2 MoE blocks, as phase 16 cuts it
+TP_STEPS = 3                  # a case's steps: the checked one, then timed;
+                              # then one more, profiled (rank 0)
+TP_SP_SHAPE = (2, 125, 250)   # K2/K3 under dp2 x sp2: (B, T = T'/sp, S)
+TP_CLI_FRAMES = (1000, 960, 880, 800, 990, 720, 505, 310)  # 2 steps of 4
+TP_BF16_TOL = 0.05            # the bf16 case: of max|ref| (and the loss)
+# world size -> (label, mesh, layout, attn_impl, compute dtype)
+TP_CASES = {
+    4: (("dp2 ep2 flash", dict(dp=2, ep=2), {}, "flash", "float32"),
+        ("dp2 tp2 xla", dict(dp=2, tp=2), {"tp": True}, "xla", "float32"),
+        ("dp2 sp2 flash", dict(dp=2, sp=2), {}, "flash", "float32"),
+        ("dp2 ep2 zero1", dict(dp=2, ep=2), {"zero1": True}, "flash",
+         "float32"),
+        ("dp4 flash", dict(dp=4), {}, "flash", "float32"),
+        ("dp4 fsdp", dict(dp=4), {"fsdp": True}, "flash", "float32"),
+        ("pp2 dp2 flash", dict(pp=2, dp=2),
+         {"pp": True, "pp_microbatches": 2}, "flash", "float32"),
+        ("bmuf dp4", dict(dp=4), {"bmuf": True}, "flash", "float32")),
+    2: (("ep2 bf16 flash", dict(ep=2), {}, "flash", "bfloat16"),
+        ("cli ep2", None, None, "flash", "float32"),
+        ("dryrun_multichip(2)", None, None, "xla", "float32")),
+}
+# a split state's case -> the replicated case its peak memory is set beside
+TP_MEM_BASE = {"dp2 ep2 zero1": "dp2 ep2 flash", "dp4 fsdp": "dp4 flash"}
+
+
+def tp_flash_per_pass(cfg, shape, layout, attn):
+    """(K2, K3 dq, K3 dkv) launches a rank makes in one forward and
+    backward, from the schedule: each attention layer it runs launches K2
+    once in the forward and each K3 kernel once in the backward. Every
+    rank runs the embed sub-encoder's blocks on its rows and the main
+    blocks it holds; a pp stage holds L/S of them and runs each once a
+    microbatch. Under sp a rank's query rows take one launch a layer, as
+    a dp slice does. The unsharded reference is ``shape`` None."""
+    if attn != "flash":
+        return (0, 0, 0)
+    enc = cfg.encoder_conf
+    S = (shape or {}).get("pp", 1)
+    M = layout.get("pp_microbatches", 1) if S > 1 else 1
+    n = enc.embed_conf.num_blocks + enc.num_blocks // S * M
+    return (n, n, n)
+
+
+def tp_model(torch):
+    """The phase's config (the flagship's widths, TP_MOE_BLOCKS MoE
+    blocks), its seeded tree on the card (routers normal x 0.5) and the
+    training batch (TRAIN_LENS)."""
+    from m3asr_tpu_torch.models import moe_conformer
+    cfg = flagship_cfg()
+    cfg.encoder_conf.num_blocks = TP_MOE_BLOCKS
+    gen = torch.Generator(device="cuda").manual_seed(19)
+    params = moe_conformer.init(cfg.encoder_conf, cfg.input_dim,
+                                cfg.output_dim, gen, device="cuda")
+    r = params["blocks"]["feed_forward"]["router"]
+    r["kernel"] = torch.randn(r["kernel"].shape, generator=gen,
+                              device="cuda") * 0.5
+    return cfg, params, train_batch(torch, cfg)
+
+
+class PinnedGates:
+    """Sends each MoE call's tokens on this rank to the experts the
+    unsharded reference chose for them (``gates``: one (B, T') index
+    tensor a block, in block order): the rank's rows are its dp slice
+    (its pipeline microbatch under pp) and its sp rows, the padded rows
+    expert 0. Without pinning, a router near-tie could flip between the
+    two summation orders and move a gradient group past the bound."""
+
+    def __init__(self, torch, moe_mod, gates, mesh, microbatches=1):
+        self.torch, self.moe_mod, self.gates = torch, moe_mod, gates
+        self.mesh, self.M, self.n = mesh, microbatches, 0
+
+    def __enter__(self):
+        self.inner = self.moe_mod.softmax_top1_gate
+        mesh, torch = self.mesh, self.torch
+
+        def gate(p, router_inputs, lengths):
+            value, idx = self.inner(p, router_inputs, lengths)
+            c, self.n = self.n, self.n + 1
+            B, T = idx.shape
+            S, s = mesh.shape["pp"], mesh.coord("pp")
+            per = len(self.gates) // S
+            mb, j = divmod(c, per) if S > 1 else (0, c)
+            ref = self.gates[s * per + j].to(idx.device)
+            Bd = ref.shape[0] // mesh.shape["dp"]
+            row = mesh.coord("dp") * Bd + mb * B
+            cols = T * mesh.shape["sp"]
+            full = torch.zeros((B, cols), dtype=idx.dtype,
+                               device=idx.device)
+            part = ref[row:row + B, :cols]
+            full[:part.shape[0], :part.shape[1]] = part
+            off = mesh.coord("sp") * T
+            return value, full[:, off:off + T].contiguous()
+        self.moe_mod.softmax_top1_gate = gate
+        return self
+
+    def __exit__(self, *exc):
+        self.moe_mod.softmax_top1_gate = self.inner
+
+
+def tp_digests(torch, mesh, tree, specs):
+    """{leaf: [ranks]} of the leaves whose bits differ between ranks that
+    hold the same block of them (collective)."""
+    import hashlib
+    import torch.distributed as dist
+    from m3asr_tpu_torch.checkpoint import flatten_tree
+    from m3asr_tpu_torch.train.parallel import split_axes
+    mine = {}
+    for k, v in flatten_tree(tree).items():
+        block = tuple((a, mesh.coord(a)) for a in split_axes(specs[k]))
+        mine[k] = (block, hashlib.sha1(
+            v.detach().contiguous().cpu().numpy().tobytes()).hexdigest())
+    every = [None] * dist.get_world_size()
+    dist.all_gather_object(every, mine)
+    bad = {}
+    for k in mine:
+        seen = {}
+        for r, d in enumerate(every):
+            if seen.setdefault(d[k][0], d[k][1]) != d[k][1]:
+                bad.setdefault(k, []).append(r)
+    return bad
+
+
+def allreduce_union(prof):
+    """(calls, ms, names) of the all-reduces in a CPU profile: the union
+    of their time ranges (nested and overlapping events, the calling
+    thread's and gloo's, merged)."""
+    ranges, names, ops = [], set(), 0
+    for e in prof.events():
+        if "all_reduce" in e.name or "allreduce" in e.name:
+            ranges.append((e.time_range.start, e.time_range.end))
+            names.add(e.name)
+            ops += e.name == "c10d::allreduce_"
+    merged = []
+    for a, b in sorted(ranges):
+        if merged and a <= merged[-1][1]:
+            merged[-1][1] = max(merged[-1][1], b)
+        else:
+            merged.append([a, b])
+    return (ops or len(merged), sum(b - a for a, b in merged) / 1e3,
+            "+".join(sorted(names)) or "none")
+
+
+def tp_refs(torch, cfg, params, batch, keys, rank):
+    """Rank 0's unsharded references: {(attn_impl, dtype, rows): (loss,
+    grads, gates, launches (K2, K3 dq, K3 dkv))} of one pass on the whole
+    batch (rows None) or on its first ``rows`` rows (BMUF's replica 0);
+    every rank gets the gates."""
+    import torch.distributed as dist
+    from m3asr_tpu_torch.ops import moe as moe_mod
+    from m3asr_tpu_torch.ops.flash_attention import flash_kernels
+    from m3asr_tpu_torch.train import step as ts
+    refs = {}
+    for key in keys:
+        attn, dtype, rows = key
+        got = None
+        if rank == 0:
+            b = batch if rows is None else tuple(a[:rows] for a in batch)
+            reset_flash(flash_kernels)
+            t0 = time.perf_counter()
+            with GateRecorder(moe_mod) as rec:
+                (loss, _), g = ts.value_and_grad(
+                    params, cfg, train_config(attn, dtype), *b)
+            loss = loss.item()
+            got = (loss, [x.cpu() for x in rec.calls],
+                   count_flash(flash_kernels), time.perf_counter() - t0)
+        box = [None if got is None else (got[0], got[1], got[2])]
+        dist.broadcast_object_list(box, src=0)
+        refs[key] = (box[0][0], g if rank == 0 else None, box[0][1],
+                     box[0][2])
+        if rank == 0:
+            log(f"train_parallel reference {attn} {dtype} rows "
+                f"{rows or 'all'}: loss {loss:.6f}, one pass "
+                f"{got[3]:.1f} s")
+    return refs
+
+
+def tp_step_case(torch, case, cfg, params, batch, refs, rank):
+    """One case: the checked pass (routing pinned to the reference's),
+    its gradient gathered and held to the reference's per group, the
+    update, the bit check, then timed steps (rank 0 profiles one)."""
+    import contextlib
+    from torch.profiler import ProfilerActivity, profile
+    from m3asr_tpu_torch.checkpoint import flatten_tree
+    from m3asr_tpu_torch.ops import moe as moe_mod
+    from m3asr_tpu_torch.ops.flash_attention import flash_kernels
+    from m3asr_tpu_torch.parallel.mesh import make_mesh
+    from m3asr_tpu_torch.train import step as ts
+    from m3asr_tpu_torch.train.bmuf import BmufRecipe, replica
+    from m3asr_tpu_torch.train.parallel import Parallel
+    label, shape, layout, attn, dtype = case
+    bmuf = layout.get("bmuf", False)
+    mesh = make_mesh(**shape)
+    par = Parallel(mesh, params, **layout)
+    tcfg = train_config(attn, dtype)
+    opt = ts.make_optimizer(tcfg)
+    step = ts.make_train_step(cfg, tcfg, opt, device="cuda", mesh=par)
+    if bmuf:
+        # a replica a dp rank, stepping on its own rows
+        n = batch[0].shape[0] // mesh.shape["dp"]
+        r = mesh.coord("dp")
+        b = tuple(a[r * n:(r + 1) * n] for a in batch)
+        local = par.shard(params, par.param_specs)
+        stacked = BmufRecipe.stack(local, 1)
+        recipe = BmufRecipe(stacked, 2, mesh=mesh)
+        state = ts.init_opt_state(opt, local)
+        ref = refs[(attn, dtype, n)]
+    else:
+        b = batch
+        local = par.shard_params(params)
+        state = par.init_opt_state(opt, local)
+        ref = refs[(attn, dtype, None)]
+    per_ref = tp_flash_per_pass(cfg, None, {}, attn)
+    if tuple(ref[3]) != per_ref:
+        raise SystemExit(f"FAIL train_parallel {label}: the unsharded "
+                         f"reference pass launched (K2, K3 dq, K3 dkv) "
+                         f"{tuple(ref[3])}, the schedule {per_ref}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_flash(flash_kernels)
+    pin = PinnedGates(torch, moe_mod, ref[2], mesh,
+                      layout.get("pp_microbatches", 1)) \
+        if not bmuf or rank == 0 else contextlib.nullcontext()
+    t0 = time.perf_counter()
+    with pin:
+        m, g, norm = step.value_and_grad(local, *b)
+    loss = m["loss"].item()
+    first_s = time.perf_counter() - t0
+    res = {"loss": loss, "ref_loss": ref[0], "first_s": first_s,
+           "mesh": repr(mesh)}
+    whole = par.gather(g, par.param_specs)
+    if rank == 0:
+        got = {k: v.cuda() for k, v in flatten_tree(whole).items()}
+        rels = group_rel(got, ref[1])
+        rel_loss = abs(loss - ref[0]) / abs(ref[0])
+        tol = TRAIN_GRAD_TOL if dtype == "float32" else TP_BF16_TOL
+        worst = max(rels, key=rels.get)
+        res.update(rel_loss=rel_loss, worst_group=worst,
+                   worst_rel=rels[worst], tol=tol)
+        loss_tol = 1e-5 if dtype == "float32" else TP_BF16_TOL
+        if rel_loss > loss_tol or rels[worst] > tol:
+            raise SystemExit(
+                f"FAIL train_parallel {label}: loss {loss:.6f} vs "
+                f"{ref[0]:.6f} (rel {rel_loss:.3e}), gradient group "
+                f"{worst} at {rels[worst]:.3e} of max|g| (held to {tol})")
+        del got
+    del whole
+    local, state, _ = step.apply(local, state, m, g, norm)
+    if bmuf:
+        stacked = BmufRecipe.stack(local, 1)
+    del g
+    launches = [count_flash(flash_kernels)]
+    # steps 1 .. TP_STEPS - 1 timed; step TP_STEPS under the profiler on
+    # rank 0 (every rank runs it), kept out of the times. BMUF syncs after
+    # steps 1 and 3 (sync_period 2): the profiled step is a sync step
+    times, syncs, prof_row = [], [], None
+    for i in range(1, TP_STEPS + 1):
+        profiled = i == TP_STEPS
+        sync = bmuf and (i + 1) % recipe.sync_period == 0
+        prof = profile(activities=[ProfilerActivity.CPU]) \
+            if profiled and rank == 0 else contextlib.nullcontext()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        with prof:
+            if bmuf:
+                p, state, m = step(replica(stacked, 0), state, *b)
+                stacked = BmufRecipe.stack(p, 1)
+                if sync:
+                    stacked, ok = recipe.sync(stacked)
+                    if not ok:
+                        raise SystemExit(f"FAIL train_parallel {label}: "
+                                         "BMUF STOP")
+                    synced = replica(stacked, 0)
+            else:
+                local, state, m = step(local, state, *b)
+            m["loss"].item()
+        ms = (time.perf_counter() - t1) * 1e3
+        if not profiled:
+            times.append(ms)
+            syncs.append(sync)
+        elif rank == 0:
+            calls, ar_ms, name = allreduce_union(prof)
+            prof_row = {"ar_calls": calls, "ar_ms": ar_ms, "ar_name": name,
+                        "prof_ms": ms, "sync": sync}
+    # every rank holding a block of a leaf holds the same bits: right after
+    # the BMUF sync, every leaf of every replica
+    if bmuf:
+        bad = tp_digests(torch, mesh, synced,
+                         {k: () for k in par.param_specs})
+        del synced
+    else:
+        bad = tp_digests(torch, mesh, local, par.param_specs)
+    if bad:
+        raise SystemExit(f"FAIL train_parallel {label}: ranks holding the "
+                         f"same block differ in {sorted(bad)[:5]}")
+    k = count_flash(flash_kernels)
+    res.update(launches=k, times=times, syncs=syncs, prof=prof_row,
+               peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+               case_s=time.perf_counter() - t0)
+    # the checked pass, the timed steps and the profiled one
+    per = tp_flash_per_pass(cfg, shape, layout, attn)
+    want = tuple((TP_STEPS + 1) * x for x in per)
+    res["per"] = list(per)
+    if k != want or launches[0] != per:
+        raise SystemExit(f"FAIL train_parallel {label}: launches (K2, K3 "
+                         f"dq, K3 dkv) {launches[0]} in the checked pass "
+                         f"and {k} in all, want {per} and {want}")
+    del local, state
+    if bmuf:
+        del stacked, recipe
+    torch.cuda.empty_cache()
+    return res
+
+
+def tp_cli_case(torch, work, rank, cfg):
+    """The port's CLI in this world (``train.cli.main`` with ``--ep 2``):
+    2 steps of 4 utterances, flash, a final checkpoint that rank 0 reads
+    back whole and deletes."""
+    import pickle
+    import shutil
+    import yaml
+    import torch.distributed as dist
+    from m3asr_tpu_torch.io.kaldi_io import ArkWriter
+    from m3asr_tpu_torch.ops.flash_attention import flash_kernels
+    from m3asr_tpu_torch.train import cli
+    d = os.path.join(work, "cli")
+    if rank == 0:
+        os.makedirs(d)
+        rng = np.random.default_rng(19)
+        keys = [f"u{i}" for i in range(len(TP_CLI_FRAMES))]
+        with ArkWriter(os.path.join(d, "tr.ark")) as w:
+            for k, T in zip(keys, TP_CLI_FRAMES):
+                w.write(k, rng.standard_normal((T, cfg.input_dim))
+                        .astype(np.float32))
+        write_int_vectors(os.path.join(d, "tr_ctc.ark"), {
+            k: rng.integers(1, cfg.output_dim - 1, T // 40)
+            for k, T in zip(keys, TP_CLI_FRAMES)})
+        with open(os.path.join(HERE, "configs", "3m_asr_18l32e.yaml")) as f:
+            raw = yaml.safe_load(f)
+        raw["loader_conf"]["batch_size"] = 4
+        raw["model_conf"]["encoder_conf"]["num_blocks"] = TP_MOE_BLOCKS
+        raw.update(log_period=1, save_period=2, attn_impl="flash",
+                   max_epoch=1, embed_ctc_weight=0.3)
+        with open(os.path.join(d, "cfg.yaml"), "w") as f:
+            yaml.safe_dump(raw, f)
+    dist.barrier()
+    out = os.path.join(d, "exp")
+    reset_flash(flash_kernels)
+    t0 = time.perf_counter()
+    trainer = cli.main(["--config", os.path.join(d, "cfg.yaml"),
+                        "--output_dir", out, "--tr_rspecifier",
+                        os.path.join(d, "tr.ark"), "--tr_labels",
+                        os.path.join(d, "tr_ctc.ark"), "--ep", "2"])
+    res = {"steps": trainer.global_step, "run_s": time.perf_counter() - t0,
+           "launches": count_flash(flash_kernels),
+           "mesh": repr(trainer.parallel.mesh)}
+    # 2 steps, one pass each on the rank's whole batch (ep splits experts)
+    want = tuple(2 * x for x in tp_flash_per_pass(cfg, {"ep": 2}, {},
+                                                  "flash"))
+    if tuple(res["launches"]) != want:
+        raise SystemExit(f"FAIL train_parallel cli ep2: launches (K2, K3 "
+                         f"dq, K3 dkv) {res['launches']} on rank {rank}, "
+                         f"the schedule {want}")
+    del trainer
+    torch.cuda.empty_cache()
+    dist.barrier()
+    if rank == 0:
+        path = os.path.join(out, "checkpoint_final.pkl")
+        res["gib"] = os.path.getsize(path) / 2 ** 30
+        t1 = time.perf_counter()
+        with open(path, "rb") as f:
+            state = pickle.load(f)
+        res["read_s"] = time.perf_counter() - t1
+        w1 = state["params"]["blocks"]["feed_forward"]["w1"]
+        mu = state["opt_state"]["mu"]["blocks/feed_forward/w1"]
+        res["w1"], res["mu_w1"] = list(w1.shape), list(mu.shape)
+        res["global_step"] = state["global_step"]
+        del state, w1, mu
+        shutil.rmtree(d, ignore_errors=True)
+    dist.barrier()
+    return res
+
+
+def tp_rank(torch, work, n, rank):
+    """Phase 19's cases on this rank of a phase-18 world
+    (``train_cases_{n}.json``); raises SystemExit on a failed check.
+    Returns the numbers rank 0's report prints."""
+    import torch.distributed as dist
+    from m3asr_tpu_torch.parallel.dryrun import dryrun_multichip
+    with open(os.path.join(work, f"train_cases_{n}.json")) as f:
+        labels = json.load(f)
+    cases = [c for c in TP_CASES[n] if c[0] in labels]
+    t0 = time.perf_counter()
+    cfg, params, batch = tp_model(torch)
+    keys = sorted({(c[3], c[4], (batch[0].shape[0] // c[1]["dp"]
+                                 if c[2].get("bmuf") else None))
+                   for c in cases if c[1] is not None},
+                  key=lambda k: (k[0], k[1], k[2] or 0))
+    refs = tp_refs(torch, cfg, params, batch, keys, rank)
+    out = {"setup_s": time.perf_counter() - t0, "cases": {}}
+    for c in cases:
+        if c[0] == "cli ep2":
+            r = tp_cli_case(torch, work, rank, cfg)
+        elif c[0].startswith("dryrun"):
+            t1 = time.perf_counter()
+            r = {"dryrun": dryrun_multichip(n, "cuda"),
+                 "run_s": time.perf_counter() - t1}
+        else:
+            r = tp_step_case(torch, c, cfg, params, batch, refs, rank)
+        out["cases"][c[0]] = r
+        dist.barrier()
+    del refs, params
+    torch.cuda.empty_cache()
+    return out
+
+
+def tp_flash_sp(torch, smi):
+    """K2 (out, LSE) and K3 against their plain versions at the sp shape
+    of the dp2 x sp2 case (a rank's 125 query rows of T' = 249 padded to
+    250, against all 250 keys; the dp slice's key lengths 249 and 239),
+    without a mask and with a 16-frame chunk window offset to the rank's
+    global rows; then each kernel's device time beside its plain
+    version's (fp32). Returns the worst max_abs_err per (kernel,
+    dtype)."""
+    from m3asr_tpu_torch.ops import flash_attention as fa
+    from m3asr_tpu_torch.ops import masking
+    gen = torch.Generator(device="cuda").manual_seed(19)
+    B, T, S = TP_SP_SHAPE
+    H, Dk = FLASH_HEADS[0]
+    scale = Dk ** -0.5
+    lens = torch.tensor([249, 239], dtype=torch.int32, device="cuda")
+    worst = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype)[6:]
+        q2 = torch.randn(B, H, T, 2 * Dk, generator=gen, device="cuda") \
+            .to(dtype)
+        k2 = torch.randn(B, H, S, 2 * Dk, generator=gen, device="cuda") \
+            .to(dtype)
+        v = torch.randn(B, H, S, Dk, generator=gen, device="cuda").to(dtype)
+        g = torch.randn(B, H, T, Dk, generator=gen, device="cuda").to(dtype)
+        m = masking.add_optional_chunk_mask(lens, S, False, False, 0, 16, -1)
+        rows = fa.window_from_mask(m[:, :, S - T:], T, S)
+        for masks, window in (("lengths", None), ("window", rows)):
+            out, lse = fa.flash_kernels.forward(q2, k2, v, lens, scale,
+                                                window, 0, True)
+            delta = (g.float() * out.float()).sum(-1, keepdim=True)
+            grads = fa.flash_kernels.backward(q2, k2, v, g, lse, delta, lens,
+                                              scale, window, 0)
+            r_out, r_lse = fa.flash_attention_reference(q2, k2, v, lens,
+                                                        scale, window, 0)
+            r_grads = fa.flash_attention_bwd_reference(
+                q2, k2, v, g, r_lse,
+                (g.float() * r_out.float()).sum(-1, keepdim=True), lens,
+                scale, window, 0)
+            keep = r_lse > -1e29
+            rels = []
+            for kern, name, a, r in (
+                    ("K2", "out", out, r_out),
+                    ("K2", "lse", lse[keep], r_lse[keep]),
+                    ("K3", "dq2", grads[0], r_grads[0]),
+                    ("K3", "dk2", grads[1], r_grads[1]),
+                    ("K3", "dv", grads[2], r_grads[2])):
+                err = (a.float() - r.float()).abs().max().item()
+                rel = err / r.float().abs().max().item()
+                worst[(kern, dname)] = max(worst.get((kern, dname), 0.0),
+                                           err)
+                rels.append(f"{name} {rel:.2e}")
+                if not (rel <= FLASH_TOL[dname] and np.isfinite(err)):
+                    raise SystemExit(f"FAIL train_parallel: K2/K3 at the sp "
+                                     f"shape: {name} {rel:.3e} of max|ref| "
+                                     f"({dname} {masks})")
+            log(f"kernel flash sp shape {dname} B={B} T={T} S={S} H={H} "
+                f"Dk={Dk} {masks}: max|diff|/max|ref| " + ", ".join(rels)
+                + f" (held to {FLASH_TOL[dname]}) OK")
+        if dtype == torch.float32:
+            lse_d = lse
+            (k2_ms, p2_ms) = paired_device_ms(
+                torch, lambda: fa.flash_kernels.forward(
+                    q2, k2, v, lens, scale, None, 0, True),
+                lambda: fa.flash_attention_reference(q2, k2, v, lens, scale,
+                                                     None, 0))
+            (k3_ms, p3_ms) = paired_device_ms(
+                torch, lambda: fa.flash_kernels.backward(
+                    q2, k2, v, g, lse_d, delta, lens, scale, None, 0),
+                lambda: fa.flash_attention_bwd_reference(
+                    q2, k2, v, g, lse_d, delta, lens, scale, None, 0))
+            log(f"time flash sp shape float32 B={B} T={T} S={S} H={H} "
+                f"Dk={Dk}: K2 {k2_ms[0]:.4f} ms (range {k2_ms[1]:.4f}-"
+                f"{k2_ms[2]:.4f}) vs plain {p2_ms[0]:.4f} ms; K3 "
+                f"{k3_ms[0]:.4f} ms ({k3_ms[1]:.4f}-{k3_ms[2]:.4f}) vs "
+                f"plain {p3_ms[0]:.4f} ms (device time, in turns); {smi}")
+    return worst
+
+
+def tp_report(torch, n, ranks, smi):
+    """Rank 0's lines of a world's phase-19 cases (times, all-reduce
+    share, peak memory of every rank); returns the ranks' K2/K3
+    launches by dtype."""
+    launches = {}
+    tr = [x["train"] for x in ranks]
+    log(f"train_parallel: {n}-rank world: the model and the unsharded "
+        f"references {tr[0]['setup_s']:.1f} s on rank 0")
+    for label, _, _, attn, dtype in TP_CASES[n]:
+        if label not in tr[0]["cases"]:
+            continue
+        rs = [t["cases"][label] for t in tr]
+        r = rs[0]
+        if label == "cli ep2":
+            if r["steps"] != 2 or r["global_step"] != 2 or \
+                    r["w1"] != r["mu_w1"] or r["w1"][1] != 32:
+                raise SystemExit(f"FAIL train_parallel {label}: {r}")
+            log(f"train_parallel {label} ({r['mesh']}, {n} gloo ranks "
+                f"sharing one card): 2 steps of the CLI in {r['run_s']:.1f} "
+                f"s; checkpoint_final.pkl {r['gib']:.2f} GiB holds the whole "
+                f"tree (w1 {r['w1']}, Adam mu the same), read in "
+                f"{r['read_s']:.1f} s and deleted; launches (K2, K3 dq, K3 "
+                f"dkv) per rank {[x['launches'] for x in rs]}; {smi}")
+            for x in rs:
+                for kname, cnt in (("K2", x["launches"][0]),
+                                   ("K3", x["launches"][1])):
+                    launches[(kname, "float32")] = \
+                        launches.get((kname, "float32"), 0) + cnt
+            continue
+        if label.startswith("dryrun"):
+            d = r["dryrun"]
+            log(f"train_parallel {label}: losses " + ", ".join(
+                f"{k} {v[0]:.4f}" for k, v in d.items()
+                if k != "serving_err") + f" agree; ep2 engine vs one rank "
+                f"{d['serving_err']:.2e}; {r['run_s']:.1f} s")
+            continue
+        for x in rs:
+            for kname, cnt in (("K2", x["launches"][0]),
+                               ("K3", x["launches"][1])):
+                launches[(kname, dtype)] = launches.get((kname, dtype),
+                                                        0) + cnt
+        p = r["prof"]
+        if any(r["syncs"]):
+            # BMUF: the steps that sync and those that do not, apart
+            sync = [t for t, y in zip(r["times"], r["syncs"]) if y]
+            local = [t for t, y in zip(r["times"], r["syncs"]) if not y]
+            steps = (f"sync step {float(np.median(sync)):.1f} ms, local "
+                     f"step {float(np.median(local)):.1f} ms (host, "
+                     f"without the profiler: {[round(t, 1) for t in sync]}"
+                     f" / {[round(t, 1) for t in local]})")
+        else:
+            steps = (f"step {float(np.median(r['times'])):.1f} ms (host "
+                     f"median of the {len(r['times'])} after the first, "
+                     f"without the profiler: "
+                     f"{[round(t, 1) for t in r['times']]})")
+        mem = ""
+        base = TP_MEM_BASE.get(label)
+        if base in tr[0]["cases"]:
+            bs = [t["cases"][base]["peak_gib"] for t in tr]
+            mem = (f" (the replicated {base}: " + " / ".join(
+                f"{x:.3f}" for x in bs) + " GiB; ratio " + " / ".join(
+                f"{x['peak_gib'] / y:.3f}" for x, y in zip(rs, bs)) + ")")
+        log(f"train_parallel {label} ({r['mesh']}, {n} gloo ranks sharing "
+            f"one card, {dtype} {attn}): first step loss {r['loss']:.6f} "
+            f"vs unsharded {r['ref_loss']:.6f} (rel {r['rel_loss']:.2e}); "
+            f"gradients gathered, worst group {r['worst_group']} "
+            f"{r['worst_rel']:.2e} of max|g| (held to {r['tol']}; routing "
+            f"pinned to the unsharded step's); shared blocks bit-identical "
+            f"on every rank after the update; {steps}; all-reduce on rank "
+            f"0 {p['ar_calls']} x {p['ar_name']} {p['ar_ms']:.1f} ms = "
+            f"{p['ar_ms'] / p['prof_ms']:.3f} of one more "
+            f"{'sync ' if p['sync'] else ''}step, profiled, "
+            f"{p['prof_ms']:.1f} ms; launches (K2, K3 dq, K3 dkv) "
+            f"{r['launches']} a rank over {TP_STEPS + 1} steps (the "
+            f"schedule's {r['per']} a "
+            f"pass, held exactly); peak per rank " + " / ".join(
+                f"{x['peak_gib']:.3f}" for x in rs) + f" GiB{mem}; {smi}")
+    return launches
 
 
 # ``python3 chip_smoke.py --only NAME [NAME ...]`` runs those named, in
@@ -7548,7 +8171,10 @@ ALONE = {
     "train_cli": phase_train_cli,
     "train_dfsmn": lambda torch, state, smi: (
         phase_train_dfsmn(torch, state, smi), time_flash_mem_bwd(torch, smi)),
-    "parallel": phase_parallel,
+    "parallel": lambda torch, state, smi: phase_parallel(
+        torch, state, smi, train=False),
+    "train_parallel": lambda torch, state, smi: phase_parallel(
+        torch, state, smi, serve=False),
 }
 
 
@@ -7610,8 +8236,8 @@ def main():
     stamp("phase 16")
     trained_dfsmn = phase_train_dfsmn(torch, state, smi)
     stamp("phase 17")
-    parallel_k2 = phase_parallel(torch, state, smi)
-    stamp("phase 18")
+    parallel_k2, trained_par = phase_parallel(torch, state, smi)
+    stamp("phases 18 and 19")
     # K2: serving's forwards and the training steps'; K3: the steps'
     state["launches_flash"] = {}
     for dname in ("float32", "bfloat16"):
@@ -7621,8 +8247,11 @@ def main():
         state["launches_flash"][("K2", dname)] = served[dname] + fwd
         state["launches_flash"][("K3", dname)] = dq
     state["launches_flash"][("K2", "bfloat16")] += state["launches_dense_k2"]
-    # phase 18: the bf16 flash ep=4 engine's ranks
+    # phase 18: the bf16 flash ep=4 engine's ranks; phase 19: the
+    # training ranks' steps and the CLI's
     state["launches_flash"][("K2", "bfloat16")] += parallel_k2
+    for key, cnt in trained_par.items():
+        state["launches_flash"][key] += cnt
     # phase 16: the training CLI's runs (fp32); phase 17: the dense
     # conformer's step (fp32)
     for kname in ("K2", "K3"):

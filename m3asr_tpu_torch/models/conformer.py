@@ -25,6 +25,8 @@ from m3asr_tpu_torch.ops import subsampling as sub
 from m3asr_tpu_torch.ops.masking import subsequent_chunk_mask
 from m3asr_tpu_torch.ops.common import (init_layer_norm, init_linear,
                                         layer_norm, linear)
+from m3asr_tpu_torch.parallel import fsdp
+from m3asr_tpu_torch.parallel import sp as psp
 
 # input_layer -> (forward, init)
 SUBSAMPLERS = {
@@ -38,17 +40,28 @@ POS_ENC_TYPES = ("rel_pos", "abs_pos", "no_pos")
 FEAT_NORM_EPS = 1e-5
 
 
-def layer_view(tree, i: int):
-    """The i-th layer of a tree of stacked (L, ...) tensors, as views."""
+def _index_view(tree, i: int):
     if isinstance(tree, dict):
-        return {k: layer_view(v, i) for k, v in tree.items()}
+        return {k: _index_view(v, i) for k, v in tree.items()}
     return tree[i]
 
 
-def num_layers(tree) -> int:
+def layer_view(tree, i: int):
+    """The i-th layer of a tree of stacked (L, ...) tensors, as views
+    (gathered over dp where ``parallel/fsdp.gathering`` says)."""
+    return fsdp.layer_view(tree, i, _index_view)
+
+
+def _count(tree) -> int:
     while isinstance(tree, dict):
         tree = next(iter(tree.values()))
     return tree.shape[0]
+
+
+def num_layers(tree) -> int:
+    """The layer count of a tree of stacked (L, ...) tensors (under FSDP's
+    ``parallel/fsdp.gathering`` the whole stack's)."""
+    return fsdp.num_layers(tree, _count)
 
 
 def check_supported(cfg: EncoderConfig) -> None:
@@ -101,12 +114,16 @@ def run_blocks(stacked_blocks, cfg: EncoderConfig, x: torch.Tensor,
                lengths: Optional[torch.Tensor], pos_emb: torch.Tensor,
                mask: Optional[torch.Tensor] = None, attn_impl: str = "xla"):
     """The dense block stack: a Python loop over per-layer views. ``mask``
-    is an optional (B|1, 1, T, T) chunk attend-mask."""
+    is an optional (B|1, 1, T, T) chunk attend-mask. Under an sp mesh the
+    stack runs on this rank's rows (``parallel/sp.py``)."""
     kw = block_kwargs(cfg)
+    sp_mesh = psp.active()
+    if sp_mesh is not None:
+        x, pos_emb, _, mask, T = psp.split(sp_mesh, x, pos_emb, None, mask)
     for i in range(num_layers(stacked_blocks)):
         x = conformer_block(layer_view(stacked_blocks, i), x, lengths,
                             pos_emb, mask=mask, attn_impl=attn_impl, **kw)
-    return x
+    return x if sp_mesh is None else psp.join(sp_mesh, x, T)
 
 
 def chunk_attention_mask(T: int, chunk_size: int, num_left_chunks: int = -1,

@@ -31,13 +31,16 @@ from m3asr_tpu_torch.ops.common import (init_layer_norm, init_linear,
 from m3asr_tpu_torch.ops.conv import conv_module
 from m3asr_tpu_torch.ops.flash_attention import flash_rel_mha
 from m3asr_tpu_torch.ops.moe import init_moe_ffn, moe_ffn
+from m3asr_tpu_torch.parallel import mesh as pmesh
+from m3asr_tpu_torch.parallel import sp as psp
 
 
 def positionwise_ffn(p, x: torch.Tensor) -> torch.Tensor:
     """Dense FFN: linear -> SiLU -> linear (under a tp mesh w_1's columns
     and w_2's rows are this rank's, w_2's partial product summed over
     "tp")."""
-    return row_parallel_linear(p["w_2"], swish(linear(p["w_1"], x)))
+    return row_parallel_linear(p["w_2"], swish(linear(p["w_1"],
+                                                      pmesh.into(x, "tp"))))
 
 
 def conformer_block(p, x: torch.Tensor, lengths: Optional[torch.Tensor],
@@ -58,6 +61,14 @@ def conformer_block(p, x: torch.Tensor, lengths: Optional[torch.Tensor],
     ``return_moe_aux``: return (x, the final FFN router's probabilities
     (B, T, E) float32), as the JAX block does."""
     ff_scale = 0.5 if macaron else 1.0
+    # under sp, x holds this rank's rows: ``lengths`` masks them as the
+    # global lengths mask the global rows; attention reads the gathered
+    # keys with the global lengths
+    key_lengths = lengths
+    sp_mesh = psp.active()
+    if sp_mesh is not None:
+        lengths = psp.row_lengths(sp_mesh, key_lengths, x.shape[1])
+        mask = psp.local_rows(sp_mesh, mask, x.shape[1])
 
     def pre(name, v):
         return layer_norm(p[name], v) if normalize_before else v
@@ -77,16 +88,20 @@ def conformer_block(p, x: torch.Tensor, lengths: Optional[torch.Tensor],
     if attn_impl not in ("xla", "flash"):
         raise ValueError(f"unknown attn_impl {attn_impl!r}")
     h = pre("norm_mha", x)
+    kv = None if sp_mesh is None else psp.gather_time(sp_mesh, h)
     if "linear_pos" not in p["self_attn"]:
         # no_pos blocks carry plain MHA weights; flash serves rel-pos
         # attention only, as in the JAX package
-        h = mha(p["self_attn"], h, h, h, lengths, num_heads, mask=mask)
+        hq = pmesh.into(h, "tp")
+        hk = hq if kv is None else pmesh.into(kv, "tp")
+        h = mha(p["self_attn"], hq, hk, hk, key_lengths,
+                num_heads // pmesh.axis_size("tp"), mask=mask)
     elif attn_impl == "flash":
-        h = flash_rel_mha(p["self_attn"], h, pos_emb, lengths, num_heads,
-                          mask=mask)
+        h = flash_rel_mha(p["self_attn"], h, pos_emb, key_lengths,
+                          num_heads, mask=mask, kv=kv)
     else:
-        h = rel_mha(p["self_attn"], h, pos_emb, lengths, num_heads,
-                    mask=mask)
+        h = rel_mha(p["self_attn"], h, pos_emb, key_lengths, num_heads,
+                    mask=mask, kv=kv)
     x = post("norm_mha", x + h)
 
     if use_cnn:

@@ -33,6 +33,8 @@ from m3asr_tpu_torch.ops.common import (init_layer_norm, init_linear,
                                         layer_norm, linear)
 from m3asr_tpu_torch.ops.moe import init_moe_ffn
 from m3asr_tpu_torch.parallel import mesh as pmesh
+from m3asr_tpu_torch.parallel import pp as ppipe
+from m3asr_tpu_torch.parallel import sp as psp
 
 
 def forward(params, cfg: MoEEncoderConfig, feat: torch.Tensor,
@@ -57,7 +59,13 @@ def forward(params, cfg: MoEEncoderConfig, feat: torch.Tensor,
     attn_impl: "xla" or "flash" for every attention layer. remat: each
     MoE block's activations are recomputed in the backward
     (``torch.utils.checkpoint``, as ``jax.checkpoint`` per block), so its
-    forward runs twice in a training step; the embed encoder has none."""
+    forward runs twice in a training step; the embed encoder has none.
+
+    Under a mesh (``parallel/mesh.sharded``) with "sp" the blocks run on
+    this rank's rows (``parallel/sp.py``), and with "pp" as a GPipe
+    pipeline over this stage's blocks (``parallel/pp.py``: the
+    ``pp.microbatches`` count; not with hier_taps or
+    return_router_probs)."""
     if isinstance(embed_chunk_mask, str) and embed_chunk_mask == "same":
         embed_chunk_mask = chunk_mask
     with pmesh.sharded(None):     # the embed sub-encoder is replicated
@@ -74,11 +82,33 @@ def forward(params, cfg: MoEEncoderConfig, feat: torch.Tensor,
     kw = conformer.block_kwargs(cfg)
     blocks = params["blocks"]
     n_layers = conformer.num_layers(blocks)
+    mesh = pmesh.active_mesh()
+    # sequence parallelism: the blocks run on this rank's rows
+    sp_mesh = psp.active()
+    if sp_mesh is not None:
+        x, pos_emb, embed, chunk_mask, T = psp.split(
+            sp_mesh, x, pos_emb, embed, chunk_mask)
+    hiddens, probs = {}, []
+    if mesh is not None and mesh.shape[pmesh.PIPE_AXIS] > 1:
+        # GPipe over "pp": this stage's blocks (parallel/pp.py)
+        if hier_taps or return_router_probs:
+            raise ValueError(
+                "pipeline parallelism runs the non-hier recipes without "
+                "router-prob outputs (the hier taps need every block's "
+                "hidden on one stage)")
+
+        def block_fn(p, h, lengths, emb, mask, pos):
+            return conformer_block(p, h, lengths, pos, moe=True, embed=emb,
+                                   moe_impl=moe_impl, moe_macaron=cfg.exmarc,
+                                   mask=mask, attn_impl=attn_impl, **kw)
+        x = ppipe.pipeline_blocks(mesh, block_fn, blocks, x, out_len,
+                                  pos_emb, embed=embed, mask=chunk_mask,
+                                  remat=remat)
+        n_layers = 0
     # taps after blocks 6 and 12 (1-indexed), clamped for shallow models;
     # no other block's hidden is kept
     taps = {min(5, n_layers - 1), min(11, n_layers - 1)} if hier_taps \
         else set()
-    hiddens, probs = {}, []
 
     def block(p, h):
         return conformer_block(p, h, out_len, pos_emb, moe=True,
@@ -99,6 +129,10 @@ def forward(params, cfg: MoEEncoderConfig, feat: torch.Tensor,
             probs.append(p_i)
         if i in taps:
             hiddens[i] = x
+    if sp_mesh is not None:
+        x = psp.join(sp_mesh, x, T)
+        hiddens = {i: psp.join(sp_mesh, h, T) for i, h in hiddens.items()}
+        probs = [psp.join(sp_mesh, p, T) for p in probs]
     x_normed = layer_norm(params["after_norm"], x) if cfg.normalize_before \
         else x
     ret = [linear(params["out_linear"], x_normed), out_len]

@@ -19,6 +19,7 @@ import torch
 
 from m3asr_tpu_torch.ops.common import init_linear, linear, row_parallel_linear
 from m3asr_tpu_torch.ops.masking import make_valid_mask
+from m3asr_tpu_torch.parallel import mesh as pmesh
 
 _NEG_INF = -1e30
 
@@ -79,7 +80,8 @@ def _attend_heads(p, q, k, v, lengths, mask):
     scores = torch.matmul(q.float(), k.float().transpose(-1, -2))
     attn = masked_softmax(scores, lengths, float(d_k) ** -0.5, mask)
     ctx = torch.matmul(attn.to(v.dtype), v)                  # (B,H,T1,Dk)
-    return linear(p["linear_out"], ctx.transpose(1, 2).reshape(B, T, -1))
+    return row_parallel_linear(p["linear_out"],
+                               ctx.transpose(1, 2).reshape(B, T, -1))
 
 
 def attend(p, query: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -116,7 +118,8 @@ def init_mha(generator: torch.Generator, d_model: int,
 
 def rel_mha(p, x: torch.Tensor, pos_emb: torch.Tensor,
             lengths: Optional[torch.Tensor], num_heads: int,
-            mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+            mask: Optional[torch.Tensor] = None,
+            kv: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Transformer-XL relative-position self-attention:
 
         ac = (q + pos_bias_u) k^T,  bd = (q + pos_bias_v) linear_pos(pos)^T
@@ -131,9 +134,19 @@ def rel_mha(p, x: torch.Tensor, pos_emb: torch.Tensor,
     Under a tp mesh (``parallel/mesh.py``) the weights are this rank's
     heads: q/k/v/pos columns and pos_bias_u/v split by heads (the local
     head count is the biases'), linear_out's rows split, its partial
-    product summed over "tp" before the bias."""
+    product summed over "tp" before the bias.
+
+    ``kv``: the keys' and values' input (B, S, D) when it is not x (under
+    sp, x's rows are this rank's and kv is the gathered hidden; pos_emb
+    and the lengths are then S long, the mask (B|1, 1, T, S))."""
     h = p["pos_bias_u"].shape[0] if "pos_bias_u" in p else num_heads
-    q, k, v = _qkv(p, x, h)                                  # (B,H,T,Dk)
+    x = pmesh.into(x, "tp")
+    if kv is None:
+        q, k, v = _qkv(p, x, h)                              # (B,H,T,Dk)
+    else:
+        q = _split_heads(linear(p["linear_q"], x), h)
+        k, v = project_kv(p, *(pmesh.into(kv, "tp"),) * 2, h)
+    pos_emb = pmesh.into(pos_emb, "tp")
     pp = _split_heads(linear(p["linear_pos"], pos_emb[None]), h)[0]
     u = p["pos_bias_u"].to(x.dtype)[None, :, None, :]         # (1,H,1,Dk)
     w = p["pos_bias_v"].to(x.dtype)[None, :, None, :]

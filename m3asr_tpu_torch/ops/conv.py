@@ -13,6 +13,7 @@ import torch.nn.functional as F
 
 from m3asr_tpu_torch.ops.common import layer_norm, linear, scale_shift, swish
 from m3asr_tpu_torch.ops.masking import masked_fill
+from m3asr_tpu_torch.parallel import sp as psp
 
 
 def glu(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
@@ -39,10 +40,17 @@ def depthwise_conv1d(p, x: torch.Tensor, lorder: int = 0) -> torch.Tensor:
 def conv_module(p, x: torch.Tensor, lengths: Optional[torch.Tensor],
                 use_layer_norm: bool = False, lorder: int = 0
                 ) -> torch.Tensor:
-    """Full conformer conv module. x: (B, T, C) -> (B, T, C)."""
+    """Full conformer conv module. x: (B, T, C) -> (B, T, C).
+
+    Under sequence parallelism (``parallel/sp.py``) x holds this rank's
+    rows and ``lengths`` masks them; the depthwise conv runs on the
+    gathered time axis (the causal left pad in front of it) and keeps
+    this rank's rows, as the JAX package pins the conv's operands
+    time-replicated."""
+    sp_mesh = psp.active()
     if lengths is not None:
         x = masked_fill(x, lengths, 0.0)
-    if lorder > 0:
+    if lorder > 0 and sp_mesh is None:
         # causal: left-pad before pointwise_conv1, as the reference does
         x = F.pad(x, (0, 0, lorder, 0))
     x = glu(linear(p["pointwise_conv1"], x), dim=-1)
@@ -51,7 +59,20 @@ def conv_module(p, x: torch.Tensor, lengths: Optional[torch.Tensor],
         # the depthwise conv would read them; zero them so a bucket-
         # padded batch equals an exact-length run
         x = masked_fill(x, lengths, 0.0)
-    x = depthwise_conv1d(p["depthwise_conv"], x, lorder=lorder)
+    if sp_mesh is None:
+        x = depthwise_conv1d(p["depthwise_conv"], x, lorder=lorder)
+    else:
+        T = x.shape[1]
+        off = psp.offset(sp_mesh, T)
+        x = psp.gather_time(sp_mesh, x)
+        if lorder > 0:
+            # the left pad's frames, as pointwise_conv1 makes them
+            pad = x.new_zeros((x.shape[0], lorder,
+                               p["pointwise_conv1"]["kernel"].shape[0]))
+            x = torch.cat([glu(linear(p["pointwise_conv1"], pad), dim=-1),
+                           x], dim=1)
+        x = depthwise_conv1d(p["depthwise_conv"], x,
+                             lorder=lorder)[:, off:off + T]
     if use_layer_norm:
         x = layer_norm(p["norm"], x)
     else:

@@ -395,22 +395,27 @@ def flash_attention_trainable(q2, k2, v, lengths, scale: float,
 
 def flash_rel_mha(p, x: torch.Tensor, pos_emb: torch.Tensor,
                   lengths: Optional[torch.Tensor], num_heads: int,
-                  mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+                  mask: Optional[torch.Tensor] = None,
+                  kv: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Drop-in for ``ops.attention.rel_mha`` on the flash kernels; same
     parameters. ``mask``: optional attend-mask with contiguous-run rows
     (``add_optional_chunk_mask``), encoded as per-row key windows. Rows
     that attend to nothing come back as garbage instead of the XLA path's
-    zeros; both are discarded by length downstream."""
+    zeros; both are discarded by length downstream. ``kv`` (B, S, D):
+    the keys' and values' input when it is not x (sequence parallelism:
+    x's T rows are this rank's queries, the windows S-long key ranges)."""
     h = num_heads
     B, T, D = x.shape
     d_k = D // h
+    kv = x if kv is None else kv
+    S = kv.shape[1]
 
     def heads(t):                                 # (b,T,D) -> (b,H,T,Dk)
         return t.reshape(t.shape[0], -1, h, d_k).transpose(1, 2)
 
     q = heads(linear(p["linear_q"], x))
-    k = heads(linear(p["linear_k"], x))
-    v = heads(linear(p["linear_v"], x))
+    k = heads(linear(p["linear_k"], kv))
+    v = heads(linear(p["linear_v"], kv))
     pp = heads(linear(p["linear_pos"], pos_emb[None]))         # (1,H,S,Dk)
     u = p["pos_bias_u"].to(x.dtype)[None, :, None, :]
     w = p["pos_bias_v"].to(x.dtype)[None, :, None, :]
@@ -419,7 +424,7 @@ def flash_rel_mha(p, x: torch.Tensor, pos_emb: torch.Tensor,
     k2 = torch.cat([k, pp.expand(B, -1, -1, -1)], dim=-1)
     window = None
     if mask is not None:
-        lo, hi = window_from_mask(mask, T, T)
+        lo, hi = window_from_mask(mask, T, S)
         window = (lo.expand(B, T), hi.expand(B, T))
     ctx = flash_attention_trainable(q2, k2, v, lengths, float(d_k) ** -0.5,
                                     window)

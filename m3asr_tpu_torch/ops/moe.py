@@ -405,6 +405,34 @@ def _dispatch_on_mesh(mesh, p, x: torch.Tensor, gate_idx: torch.Tensor,
     return mesh.all_reduce(y, ("ep", "tp"))
 
 
+def _dispatch_train(mesh, p, x: torch.Tensor, gate_idx: torch.Tensor,
+                    impl: str, act) -> torch.Tensor:
+    """The training form of :func:`_dispatch_on_mesh`, which autograd
+    differentiates: x enters the ep x tp region through
+    ``collectives.copy_to`` (its cotangent summed over the ranks), the
+    rank's experts run on every token of its slice, and the output
+    leaves through ``collectives.reduce_from``. b2 is counted once: on tp
+    ranks past the first its value is taken out (``b2 - b2.detach()``, an
+    exact 0) while its gradient stays, so every tp rank holds b2's whole
+    gradient, as every rank holds the other replicated leaves'."""
+    from m3asr_tpu_torch.parallel.collectives import copy_to, reduce_from
+    axes = ("ep", "tp")
+    x = copy_to(mesh, x, axes)
+    idx, keep = gate_idx, None
+    if mesh.axis_size("ep") > 1:
+        E_local = _num_experts(p)
+        local = gate_idx - mesh.coord("ep") * E_local
+        keep = (local >= 0) & (local < E_local)
+        idx = torch.where(keep, local, torch.zeros_like(local))
+    if mesh.axis_size("tp") > 1 and mesh.coord("tp") != 0 \
+            and p.get("b2") is not None:
+        p = dict(p, b2=p["b2"] - p["b2"].detach())
+    y = _stage(p, x, idx, impl, **act)
+    if keep is not None:
+        y = torch.where(keep[..., None], y, torch.zeros_like(y))
+    return reduce_from(mesh, y, axes)
+
+
 def _dispatch(p, x: torch.Tensor, gate_idx: torch.Tensor, impl: str,
               activation="swish",
               upper_bound: Optional[float] = None) -> torch.Tensor:
@@ -412,10 +440,15 @@ def _dispatch(p, x: torch.Tensor, gate_idx: torch.Tensor, impl: str,
     (``"swish"`` or ``"relu"``) and clamp (:func:`_stage`). Under an ep or
     tp mesh (``parallel/mesh.sharded``) the stage runs on this rank's
     expert shard and the ranks' outputs are summed
-    (:func:`_dispatch_on_mesh`)."""
+    (:func:`_dispatch_on_mesh`; :func:`_dispatch_train` under
+    autograd)."""
     act = dict(activation=activation, upper_bound=upper_bound)
     mesh = pmesh.active_mesh()
     if mesh is not None and mesh.axis_size(("ep", "tp")) > 1:
+        if torch.is_grad_enabled() and (x.requires_grad or any(
+                torch.is_tensor(v) and v.requires_grad
+                for v in p.values())):
+            return _dispatch_train(mesh, p, x, gate_idx, impl, act)
         return _dispatch_on_mesh(mesh, p, x, gate_idx, impl, act)
     return _stage(p, x, gate_idx, impl, **act)
 

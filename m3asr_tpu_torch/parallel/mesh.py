@@ -85,6 +85,24 @@ class Mesh:
                                "torch.distributed world")
         return self.groups[axes]
 
+    def add_groups(self, axes_list) -> None:
+        """Create the process groups of the axis sets in ``axes_list`` that
+        this mesh lacks (collective: every rank of the world calls it with
+        the same list, in the same order)."""
+        import torch.distributed as dist
+        n = self.size
+        for axes in axes_list:
+            axes = tuple(a for a in AXES if a in _axes(axes)
+                         and self.shape[a] > 1)
+            if not axes or axes in self.groups:
+                continue
+            for row in _lines(self.shape, axes):
+                ranks = [int(r) for r in row]
+                g = (dist.group.WORLD if len(ranks) == n
+                     else dist.new_group(ranks))
+                if self.rank in ranks:
+                    self.groups[axes] = g
+
     def all_reduce(self, t: torch.Tensor, axes, op: str = "sum"
                    ) -> torch.Tensor:
         """``t`` reduced over the ranks of its line along ``axes`` (sum or
@@ -465,9 +483,28 @@ def axis_size(axes) -> int:
 
 
 def psum(t: torch.Tensor, axes: Sequence[str]) -> torch.Tensor:
-    """``t`` summed over the active mesh's ``axes`` (identity without)."""
+    """``t`` summed over the active mesh's ``axes`` (identity without).
+    Under autograd the cotangent passes through unchanged
+    (``collectives.reduce_from``: a row-split product leaving its
+    region)."""
     mesh = active_mesh()
-    return t if mesh is None else mesh.all_reduce(t, axes)
+    if mesh is None:
+        return t
+    if torch.is_grad_enabled() and t.requires_grad:
+        from m3asr_tpu_torch.parallel.collectives import reduce_from
+        return reduce_from(mesh, t, axes)
+    return mesh.all_reduce(t, axes)
+
+
+def into(t: torch.Tensor, axes: Sequence[str]) -> torch.Tensor:
+    """``t`` entering a region split over the active mesh's ``axes``:
+    unchanged, and under autograd its cotangent is summed over them
+    (``collectives.copy_to``); the identity without a mesh."""
+    mesh = active_mesh()
+    if mesh is None or mesh.axis_size(axes) == 1:
+        return t
+    from m3asr_tpu_torch.parallel.collectives import copy_to
+    return copy_to(mesh, t, axes)
 
 
 def pmax(t: torch.Tensor, axes: Sequence[str]) -> torch.Tensor:

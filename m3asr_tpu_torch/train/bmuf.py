@@ -124,15 +124,33 @@ class BmufRecipe:
     the best model and halves the LR."""
 
     def __init__(self, stacked_params, sync_period: int,
-                 block_momentum: float = 0.875, block_lr: float = 1.0):
+                 block_momentum: float = 0.875, block_lr: float = 1.0,
+                 mesh=None):
         self.sync_period = int(sync_period)
         self.block_momentum = float(block_momentum)
         self.block_lr = float(block_lr)
         first = next(iter(flatten_tree(stacked_params).values()))
-        self.dp = int(first.shape[0])
+        # replicas on ranks: each dp rank of ``mesh`` holds its own (a
+        # leading axis of 1), and the mean runs over the dp ranks
+        self.mesh = mesh if mesh is not None and mesh.shape["dp"] > 1 \
+            else None
+        self.dp = int(first.shape[0]) * (1 if self.mesh is None
+                                         else self.mesh.shape["dp"])
         self.device = first.device
-        self.state = init_state(tree_map(lambda x: x.mean(0),
-                                         stacked_params))
+        self.state = init_state(tree_map(self.mean, stacked_params))
+
+    def mean(self, stacked: torch.Tensor) -> torch.Tensor:
+        """The mean over every replica of a stacked leaf."""
+        if self.mesh is None:
+            return stacked.mean(0)
+        return self.mesh.all_reduce(stacked.sum(0), "dp") / self.dp
+
+    def local_replicas(self):
+        """The replicas this process steps: all of them in one process, a
+        dp rank's own on ranks."""
+        if self.mesh is None:
+            return list(range(self.dp))
+        return [self.mesh.coord("dp")]
 
     @staticmethod
     def stack(tree, dp: int):
@@ -146,7 +164,7 @@ class BmufRecipe:
     def sync(self, stacked_params):
         """(new stacked params, ok); ok False -> divergence recovery, the
         state unchanged."""
-        local_mean = tree_map(lambda x: x.mean(0), stacked_params)
+        local_mean = tree_map(self.mean, stacked_params)
         new_state, new_global, status = bmuf_update(
             self.state, local_mean, self.block_momentum, self.block_lr)
         if status == STOP:

@@ -25,15 +25,28 @@ writes ``train.log``, ``scalars/`` and ``checkpoint_{last,best,final}.pkl``
 under ``--output_dir``.
 
 It exits where the root ``train.py`` exits (DFSMN with AED labels, sMBR
-with the hier recipe, BMUF with ``--zero1/--fsdp``, domain labels without
-heads to train). The parallel flags parse as the JAX CLI's and are
-refused: ``--tp/--sp/--pp/--ep > 1``, ``--zero1`` and ``--fsdp`` (ROADMAP
-Queue 1 item 12b).
+with the hier recipe, BMUF with ``--zero1/--fsdp`` or tp/sp/pp, domain
+labels without heads to train, the meshes it refuses for a model).
+
+Parallel training runs one rank per process over ``torch.distributed``
+(``train/parallel.py``):
+
+    python -m torch.distributed.run --nproc-per-node 4 \
+        -m m3asr_tpu_torch.train ... --ep 2 --tp 2 [--sp N] [--pp N
+        --pp_microbatches M] [--zero1 | --fsdp | --bmuf]
+
+The mesh is (pp, dp, sp, ep, tp) with dp = gcd(batch_size, world // (ep
+tp sp pp)), and the world must be exactly that many ranks. Every rank
+draws the same seeded trees and keeps its blocks; only rank 0 logs and
+writes scalars and checkpoints, which hold the whole trees in the
+one-process format (``--resume`` cuts them again, so a run saved on
+ranks resumes in one process and the other way round).
 """
 
 from __future__ import annotations
 
 import argparse
+import logging
 import os
 import sys
 
@@ -57,18 +70,23 @@ def parse_args(argv=None):
     p.add_argument("--config", required=True)
     p.add_argument("--log_file", required=False)
     p.add_argument("--tp", type=int, default=1,
-                   help="tensor parallelism (not ported: item 12b)")
+                   help="tensor-parallel mesh axis (Megatron column/row "
+                   "splits)")
     p.add_argument("--sp", type=int, default=1,
-                   help="sequence parallelism (not ported: item 12b)")
+                   help="sequence-parallel mesh axis (the main blocks' "
+                   "hiddens split over time)")
     p.add_argument("--pp", type=int, default=1,
-                   help="pipeline parallelism (not ported: item 12b)")
-    p.add_argument("--pp_microbatches", type=int, default=2)
+                   help="pipeline-parallel mesh axis (GPipe over the "
+                   "block stack)")
+    p.add_argument("--pp_microbatches", type=int, default=2,
+                   help="GPipe microbatches per step (with --pp)")
     p.add_argument("--ep", type=int, default=1,
-                   help="expert parallelism (not ported: item 12b)")
+                   help="expert-parallel mesh axis")
     p.add_argument("--zero1", action="store_true",
-                   help="sharded optimizer state (not ported: item 12b)")
+                   help="ZeRO-1: optimizer moments split over dp")
     p.add_argument("--fsdp", action="store_true",
-                   help="sharded parameters (not ported: item 12b)")
+                   help="FSDP: parameters split over dp too, gathered "
+                   "where they are used")
     p.add_argument("--smbr_cmd", required=False,
                    help="external lattice command for sMBR training; "
                    "{post}/{grad}/{trans} are substituted per batch")
@@ -89,20 +107,77 @@ def parse_args(argv=None):
     return p.parse_args(argv)
 
 
-def refuse_unported(args) -> None:
-    """SystemExit for --bmuf with --zero1/--fsdp (as the root train.py),
-    NotImplementedError for the flags whose code paths are not ported,
-    naming the ROADMAP item that brings them."""
+def refuse_flags(args) -> None:
+    """SystemExit where the root train.py exits before it reads the
+    model (its words): BMUF with --zero1/--fsdp or with tp/sp/pp. Also
+    sMBR with any parallel flag or more than one rank: its loop runs in
+    one process, so every rank would run the whole job unsharded."""
+    mesh_flags = (args.ep > 1 or args.tp > 1 or args.sp > 1
+                  or args.pp > 1 or args.zero1 or args.fsdp or args.bmuf)
+    if args.smbr_cmd and (mesh_flags
+                          or int(os.environ.get("WORLD_SIZE", "1")) > 1):
+        sys.exit("--smbr_cmd trains in one process on one device: drop "
+                 "--ep/--tp/--sp/--pp/--zero1/--fsdp/--bmuf and launch it "
+                 "without torch.distributed.run")
     if (args.zero1 or args.fsdp) and args.bmuf:
         sys.exit("--zero1/--fsdp shard the global state over dp; BMUF keeps "
                  "per-replica local optimizers — pick one")
-    parallel = [f"--{n} {getattr(args, n)}" for n in ("tp", "sp", "pp", "ep")
-                if getattr(args, n) > 1]
-    parallel += [f"--{n}" for n in ("zero1", "fsdp") if getattr(args, n)]
-    if parallel:
-        raise NotImplementedError(
-            f"{', '.join(parallel)}: parallel training is not ported yet: "
-            "ROADMAP Queue 1 item 12b")
+    if (args.tp > 1 or args.sp > 1 or args.pp > 1) and args.bmuf:
+        raise SystemExit("--bmuf composes with dp/ep only "
+                         "(tp/sp/pp need the fused-step path)")
+
+
+def refuse_mesh(args, model_cfg, hier: bool, attn_impl: str) -> None:
+    """SystemExit for the mesh the root train.py refuses for this model,
+    in its words."""
+    tp, sp, pp = max(args.tp, 1), max(args.sp, 1), max(args.pp, 1)
+    if pp > 1 and hier:
+        raise SystemExit("--pp supports the non-hier recipes (the hier "
+                         "taps need every block's hidden on one stage)")
+    if (tp > 1 or sp > 1 or pp > 1) and "dfsmn" in model_cfg.nnet_proto:
+        raise SystemExit("--tp/--sp/--pp cover the conformer families; "
+                         "DFSMN protos train with dp/ep")
+    if pp > 1 and "fmoe" not in model_cfg.nnet_proto:
+        raise SystemExit("--pp supports the MoE conformer protos")
+    if tp > 1 and attn_impl == "flash":
+        raise SystemExit("--tp with attn_impl=flash is unsupported: the "
+                         "Pallas kernel has no SPMD rule for head-split "
+                         "weights (use attn_impl=xla)")
+
+
+def build_mesh(args, batch_size: int):
+    """The (pp, dp, sp, ep, tp) mesh of the run, over the ranks of
+    ``torch.distributed`` (initialized from the env, as the JAX CLI's
+    ``distributed.initialize``): dp = gcd(batch_size, world // (ep tp sp
+    pp)), as the JAX CLI caps it. None for one process and no parallel
+    flag. Raises unless the world is exactly dp x ep x tp x sp x pp
+    ranks."""
+    import math
+
+    from m3asr_tpu_torch.parallel import distributed
+    from m3asr_tpu_torch.parallel.mesh import make_mesh
+    ep, tp = max(args.ep, 1), max(args.tp, 1)
+    sp, pp = max(args.sp, 1), max(args.pp, 1)
+    model = ep * tp * sp * pp
+    if not distributed.initialize():
+        if model == 1:
+            return None      # one device: --zero1/--fsdp split nothing
+        world = 1
+    else:
+        import torch.distributed as dist
+        world = dist.get_world_size()
+    dp = math.gcd(batch_size, world // model) if world >= model else 0
+    if dp * model != world:
+        n = max(dp, 1) * model
+        raise SystemExit(
+            f"the mesh dp{max(dp, 1)} x ep{ep} x tp{tp} x sp{sp} x pp{pp} "
+            f"needs {n} ranks, one process each (batch_size {batch_size}); "
+            f"this world has {world}: launch with python -m "
+            f"torch.distributed.run --nproc-per-node {n} -m "
+            "m3asr_tpu_torch.train ...")
+    if world == 1:
+        return None
+    return make_mesh(dp=dp, ep=ep, tp=tp, sp=sp, pp=pp)
 
 
 def train_config_kwargs(raw: dict, loader_conf: dict) -> dict:
@@ -129,7 +204,7 @@ def main(argv=None):
     with ``--smbr_cmd`` what ``run_smbr_training`` returns (params,
     opt_state, number of batches)."""
     args = parse_args(argv)
-    refuse_unported(args)
+    refuse_flags(args)
     import torch
     import yaml
 
@@ -149,6 +224,7 @@ def main(argv=None):
                                             make_hier_train_step,
                                             make_train_step,
                                             needs_generator)
+    from m3asr_tpu_torch.train.parallel import Parallel
     from m3asr_tpu_torch.train.trainer import Trainer
 
     device = resolve_device(args.device)
@@ -198,6 +274,8 @@ def main(argv=None):
     # the hier recipe on a proto outside the MoE conformers is refused
     # here, before any init
     check_supported(model_cfg, tcfg, hier=hier)
+    if not args.smbr_cmd:
+        refuse_mesh(args, model_cfg, hier, tcfg.attn_impl)
     if bool(args.tr_domain_labels) != bool(args.tr_acc_labels):
         sys.exit("--tr_domain_labels and --tr_acc_labels go together "
                  "(the domain_acc recipe carries both streams)")
@@ -244,41 +322,64 @@ def main(argv=None):
                      "CTC-posterior based)")
         return smbr(args, raw, model_cfg, family, params, optimizer,
                     loader_conf, collate)
+    # the mesh (under torch.distributed.run), and this rank's blocks of
+    # the trees (every rank drew the same ones from the seed)
+    mesh = build_mesh(args, loader_conf.get("batch_size", 1))
+    par = None
+    if mesh is not None:
+        par = Parallel(mesh, params, tp=args.tp > 1, pp=args.pp > 1,
+                       zero1=args.zero1, fsdp=args.fsdp, bmuf=args.bmuf,
+                       pp_microbatches=args.pp_microbatches)
+    rank0 = mesh is None or mesh.rank == 0
     step = (make_hier_train_step(model_cfg, tcfg, optimizer,
-                                 with_domain_acc=domain_acc, device=device)
+                                 with_domain_acc=domain_acc, device=device,
+                                 mesh=par)
             if hier else make_train_step(model_cfg, tcfg, optimizer,
                                          with_domain_acc=domain_acc,
-                                         device=device))
+                                         device=device, mesh=par))
     bmuf_recipe = opt_state = None
     if args.bmuf:
-        # one device: dp = gcd(batch_size, devices) = 1, as the JAX CLI
-        # computes it there
+        # a replica per dp rank (one in one process: dp = gcd(batch_size,
+        # devices) = 1 there, as the JAX CLI computes it)
         bconf = dict(raw.get("bmuf_conf") or {})
         sync_period = args.sync_period or bconf.get("sync_period", 100)
+        if par is not None:
+            params = par.shard(params, par.param_specs)
         opt_state = BmufRecipe.stack(init_opt_state(optimizer, params), 1)
         params = BmufRecipe.stack(params, 1)
         bmuf_recipe = BmufRecipe(
             params, sync_period,
             block_momentum=bconf.get("block_momentum", 0.875),
-            block_lr=bconf.get("block_lr", 1.0))
+            block_lr=bconf.get("block_lr", 1.0), mesh=mesh)
+    elif par is not None:
+        params = par.shard_params(params)
+        opt_state = par.init_opt_state(optimizer, params)
 
     valid_step = None
     if cv_loader is not None:
         # validation never augments; the hier recipe scores the encoder's
-        # CTC (the cv arks carry CTC labels)
+        # CTC (the cv arks carry CTC labels); a sharded run's every rank
+        # scores the whole cv batch on its blocks
         vcfg = TrainConfig(**dict(tkw, spec_aug=False))
 
         def valid_step(p, feat, feat_len, targets, target_lens):
-            enc = p["encoder"] if hier else p
             batch = tuple(torch.as_tensor(a, device=device)
                           for a in (feat, feat_len, targets, target_lens))
-            with torch.no_grad():
+            with torch.no_grad(), sharded_forward(par):
+                if par is not None and par.fsdp:
+                    p = par.gather_unblocked(p)
+                enc = p["encoder"] if hier else p
                 return loss_fn(enc, model_cfg, vcfg, *batch)[0].item()
 
     os.makedirs(args.output_dir, exist_ok=True)
-    logger = set_logger("m3asr.train",
-                        log_file=args.log_file or
-                        os.path.join(args.output_dir, "train.log"))
+    if rank0:
+        logger = set_logger("m3asr.train",
+                            log_file=args.log_file or
+                            os.path.join(args.output_dir, "train.log"))
+    else:
+        logger = logging.getLogger(f"m3asr.train.rank{mesh.rank}")
+        logger.addHandler(logging.NullHandler())
+        logger.propagate = False
     batch_keys = ("data", "lens", "target", "target_lens")
     if hier:
         batch_keys += ("aed_target", "aed_target_lens")
@@ -295,15 +396,34 @@ def main(argv=None):
                       step_takes_rng=needs_generator(model_cfg, tcfg),
                       seed=args.seed,
                       scalar_dir=os.path.join(args.output_dir, "scalars"),
-                      logger=logger)
+                      logger=logger, parallel=par)
     if args.resume:
         trainer.load_checkpoint("last")
     trainer.run(valid_step)
     trainer.save_checkpoint("final")
     for w in trainer.writers:
         w.close()
-    print(f"training done: {args.output_dir}")
+    if rank0:
+        print(f"training done: {args.output_dir}")
     return trainer
+
+
+def sharded_forward(par):
+    """The context a sharded run's forward needs outside its step (its
+    validation): the mesh's collectives, FSDP's layer gathers, the GPipe
+    microbatch count. A plain context without a mesh."""
+    import contextlib
+
+    from m3asr_tpu_torch.parallel import fsdp
+    from m3asr_tpu_torch.parallel import mesh as pmesh
+    from m3asr_tpu_torch.parallel import pp as ppipe
+    stack = contextlib.ExitStack()
+    if par is not None:
+        stack.enter_context(pmesh.sharded(par.mesh))
+        stack.enter_context(ppipe.microbatches(par.pp_microbatches))
+        if par.fsdp:
+            stack.enter_context(fsdp.gathering(par.mesh, par.block_specs))
+    return stack
 
 
 def smbr(args, raw, model_cfg, family, params, optimizer, loader_conf,

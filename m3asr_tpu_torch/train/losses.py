@@ -14,6 +14,8 @@ for the infeasible ones, where PyTorch's loss is infinite.
 
 from __future__ import annotations
 
+import contextlib
+import threading
 from typing import Optional
 
 import torch
@@ -22,6 +24,46 @@ import torch.nn.functional as F
 from m3asr_tpu_torch.ops.masking import make_valid_mask
 
 LOG_EPSILON = -1e5        # optax.ctc_loss's log_epsilon
+
+# The data-parallel step's normalizers: while ``global_batch(mesh)`` is
+# active (in this thread), a rank holds its slice of the global batch,
+# every mean divides by the count of the whole batch (summed over
+# "dp"), and a loss that squares a mean returns its 1/dp share; the
+# shares of the ranks add up to the one-rank loss.
+_STATE = threading.local()
+
+
+@contextlib.contextmanager
+def global_batch(mesh):
+    """Normalize over the global batch of ``mesh``'s "dp" ranks (a mesh
+    with one dp rank, or None: the local batch, as without it)."""
+    prev = getattr(_STATE, "mesh", None)
+    _STATE.mesh = mesh if mesh is not None and \
+        mesh.shape["dp"] > 1 else None
+    try:
+        yield
+    finally:
+        _STATE.mesh = prev
+
+
+def global_count(n):
+    """``n`` (an int or a count tensor) summed over the dp ranks of the
+    active :func:`global_batch`, as float32; ``n`` itself without one."""
+    mesh = getattr(_STATE, "mesh", None)
+    if mesh is None:
+        return n
+    if not torch.is_tensor(n):
+        import torch.distributed as dist
+        n = torch.tensor(float(n), device="cuda" if dist.get_backend()
+                         == "nccl" else "cpu")
+    return mesh.all_reduce(n.to(torch.float32), "dp")
+
+
+def _mean(t: torch.Tensor) -> torch.Tensor:
+    """``t.mean()`` over the global batch."""
+    if getattr(_STATE, "mesh", None) is None:
+        return t.mean()
+    return t.sum() / global_count(t.numel()).to(t.device)
 
 
 def _ctc_optax(logp: torch.Tensor, logit_lens: torch.Tensor,
@@ -86,7 +128,7 @@ def ctc_loss(logits: torch.Tensor, logit_lens: torch.Tensor,
         per_seq = per_seq.index_put(
             (idx,), _ctc_optax(logp[idx], in_lens[idx], targets[idx],
                                tl[idx], blank_idx))
-    return per_seq.mean()
+    return _mean(per_seq)
 
 
 def label_smoothing_loss(logits: torch.Tensor, targets: torch.Tensor,
@@ -106,7 +148,7 @@ def label_smoothing_loss(logits: torch.Tensor, targets: torch.Tensor,
     kl = (true_dist * (torch.log(true_dist + 1e-38) - logp)).sum(-1)
     kl = torch.where(valid, kl, torch.zeros_like(kl))
     denom = valid.sum() if normalize_length else logits.shape[0]
-    return kl.sum() / denom
+    return kl.sum() / global_count(denom)
 
 
 def ce_loss(logits: torch.Tensor, targets: torch.Tensor, padding_idx: int,
@@ -124,7 +166,7 @@ def ce_loss(logits: torch.Tensor, targets: torch.Tensor, padding_idx: int,
     nll = -torch.gather(logp, 1, safe_tgt[:, None])[:, 0]
     zero = torch.zeros_like(nll)
     loss = torch.where(valid, nll, zero).sum()
-    frames = valid.sum()
+    frames = global_count(valid.sum())
     true_prob = torch.gather(prob, 1, safe_tgt[:, None])[:, 0]
     likely = torch.where(valid, true_prob, zero).sum()
     hit = (valid & (torch.argmax(prob, dim=-1) == tgt)).sum()
@@ -210,7 +252,7 @@ def router_l1_loss(router_probs: torch.Tensor,
         return ratio.mean()
     valid = make_valid_mask(lengths, p.shape[1])
     ratio = torch.where(valid, ratio, torch.zeros_like(ratio))
-    return ratio.sum() / valid.sum().clamp(min=1)
+    return ratio.sum() / global_count(valid.sum()).clamp(min=1)
 
 
 def router_importance_loss(router_probs: torch.Tensor,
@@ -221,5 +263,11 @@ def router_importance_loss(router_probs: torch.Tensor,
     if lengths is not None:
         p = p * make_valid_mask(lengths, p.shape[1])[..., None]
     importance = p.sum((0, 1))
+    mesh = getattr(_STATE, "mesh", None)
+    if mesh is not None:
+        # the global importance, and this rank's share of the loss
+        from m3asr_tpu_torch.parallel.collectives import all_sum
+        importance = all_sum(mesh, importance, "dp")
     mean = importance.mean()
-    return importance.var(unbiased=False) / (mean * mean + 1e-10)
+    loss = importance.var(unbiased=False) / (mean * mean + 1e-10)
+    return loss if mesh is None else loss / mesh.shape["dp"]

@@ -206,10 +206,15 @@ class Optimizer:
         return self.decay_mask is None or bool(self.decay_mask[k])
 
     def update(self, grads: Dict[str, torch.Tensor], state: Dict,
-               params: Dict[str, torch.Tensor]):
+               params: Dict[str, torch.Tensor],
+               norm: Optional[torch.Tensor] = None):
+        """(updates, new state); ``norm``: the clipping norm when the
+        gradient is not all in ``grads`` (a rank's blocks of a sharded
+        one), else the global norm of ``grads``."""
         g = dict(grads)
         if self.max_grad_norm and self.max_grad_norm > 0:
-            norm = global_norm(g.values())
+            if norm is None:
+                norm = global_norm(g.values())
             keep = norm < self.max_grad_norm
             g = {k: torch.where(keep, t, t / norm.to(t.dtype)
                                 * self.max_grad_norm) for k, t in g.items()}

@@ -42,6 +42,7 @@ from m3asr_tpu_torch.models import aed, conformer, dfsmn, moe_conformer
 from m3asr_tpu_torch.models import registry
 from m3asr_tpu_torch.ops import masking
 from m3asr_tpu_torch.ops.common import init_linear, linear
+from m3asr_tpu_torch.parallel import mesh as pmesh
 from m3asr_tpu_torch.train import losses
 from m3asr_tpu_torch.train.lr_scheduler import (Optimizer, build_optimizer,
                                                 global_norm)
@@ -265,7 +266,7 @@ def loss_fn(params, model_cfg: ModelConfig, tcfg: TrainConfig,
                 continue
             ce_sum, (_, _, hit), (frames, _, _) = losses.ce_loss(
                 logits.float(), tgt[:, None], -1, mean_in_frames=False)
-            ce = ce_sum / B
+            ce = ce_sum / losses.global_count(B)
             metrics[f"{tag}_loss"] = ce
             metrics[f"{tag}_hit"] = hit / frames.clamp(min=1)
             loss = loss + tcfg.ce_weight * ce
@@ -360,8 +361,9 @@ def hier_aed_loss_fn(params, model_cfg: ModelConfig,
             continue
         dp = params[name]
         dp = dp.get("left_decoder", dp)
-        dec_out = aed.forward(dp, model_cfg.decoder_conf, taps[tap], out_len,
-                              ys_in, ys_in_lens)
+        with pmesh.sharded(None):     # the decoders are replicated
+            dec_out = aed.forward(dp, model_cfg.decoder_conf, taps[tap],
+                                  out_len, ys_in, ys_in_lens)
         a_loss = losses.label_smoothing_loss(dec_out.float(), ys_out, -1,
                                              tcfg.lsm_weight)
         metrics[f"aed_loss_{i}"] = a_loss
@@ -390,7 +392,7 @@ def hier_aed_loss_fn(params, model_cfg: ModelConfig,
         logits = linear(head["out"], linear(head["embed"], pooled)).float()
         ce_sum, (_, _, hit), (frames, _, _) = losses.ce_loss(
             logits[:, None, :], tgt[:, None], -1, mean_in_frames=False)
-        ce = ce_sum / B
+        ce = ce_sum / losses.global_count(B)
         metrics[f"{tag}_loss"] = ce
         metrics[f"{tag}_hit"] = hit / frames.clamp(min=1)
         loss = loss + tcfg.ce_weight * ce
@@ -494,13 +496,11 @@ def hier_value_and_grad(params, model_cfg: ModelConfig,
     return _value_and_grad(lambda p: call(p, batch), params)
 
 
-def _step_runner(tcfg: TrainConfig, optimizer: Optimizer, device):
-    """run(params, opt_state, batch, value_and_grad_of_batch) -> (params,
-    opt_state, metrics) on ``device``: the batch (tensors, numpy arrays or
-    None) moved there, the update, and ``grad_norm`` (before clipping). A
-    float32 step on CUDA turns TF32 off for cuBLAS and cuDNN (process-wide
-    flags) when it is built, as the engine does, and again at each call;
-    bf16 compute leaves them as they are."""
+def step_checks(tcfg: TrainConfig, device):
+    """(device, check(params)): a float32 step on CUDA turns TF32 off for
+    cuBLAS and cuDNN (process-wide flags) when it is built, as the engine
+    does, and again at each check; bf16 compute leaves them as they are.
+    The check raises unless the parameters lie on the step's device."""
     dev = resolve_device(device)
     full_fp32 = dev.type == "cuda" and tcfg.compute_dtype == "float32"
 
@@ -512,13 +512,25 @@ def _step_runner(tcfg: TrainConfig, optimizer: Optimizer, device):
     if full_fp32:
         no_tf32()
 
-    def run(params, opt_state, batch, vg):
+    def check(params):
         if full_fp32:        # in case TF32 was turned on since
             no_tf32()
         if any(t.device.type != dev.type
                for t in flatten_tree(params).values()):
             raise ValueError(f"the step runs on {dev}: the parameters "
                              "must lie there")
+    return dev, check
+
+
+def _step_runner(tcfg: TrainConfig, optimizer: Optimizer, device):
+    """run(params, opt_state, batch, value_and_grad_of_batch) -> (params,
+    opt_state, metrics) on ``device``: the batch (tensors, numpy arrays or
+    None) moved there, the update, and ``grad_norm`` (before clipping)
+    (TF32 and the parameters' device: :func:`step_checks`)."""
+    dev, check = step_checks(tcfg, device)
+
+    def run(params, opt_state, batch, vg):
+        check(params)
         batch = tuple(None if a is None else torch.as_tensor(a, device=dev)
                       for a in batch)
         (_, metrics), grads = vg(params, batch)
@@ -532,9 +544,54 @@ def _step_runner(tcfg: TrainConfig, optimizer: Optimizer, device):
     return run
 
 
+def _sharded_runner(par, tcfg: TrainConfig, optimizer: Optimizer, device,
+                    loss):
+    """The run of :func:`_step_runner` over a ``train.parallel.Parallel``
+    layout: ``loss(tree, tcfg, batch, generator)`` on this rank's rows,
+    SpecAugment on each global microbatch before it is cut."""
+    from m3asr_tpu_torch.parallel import pp as ppipe
+    from m3asr_tpu_torch.train.parallel import make_sharded_step
+    local = dataclasses.replace(tcfg, spec_aug=False, accum_steps=1)
+
+    def call(tree, mb, generator):
+        with ppipe.microbatches(par.pp_microbatches):
+            return loss(tree, local, mb, generator)
+
+    return make_sharded_step(
+        par, tcfg, optimizer, device, call,
+        lambda f, fl, g: _apply_spec_aug(tcfg, g, f, fl))
+
+
+def _runner(tcfg: TrainConfig, optimizer: Optimizer, device, mesh, loss,
+            value_and_grad_of):
+    """run(params, opt_state, batch, generator) -> (params, opt_state,
+    metrics): the one-rank step's (``value_and_grad_of(params, batch,
+    generator)``) or, with ``mesh`` (a ``train.parallel.Parallel``), the
+    sharded step's of ``loss(tree, tcfg, batch, generator)``."""
+    if mesh is not None:
+        return _sharded_runner(mesh, tcfg, optimizer, device, loss)
+    run = _step_runner(tcfg, optimizer, device)
+    return lambda params, opt_state, batch, generator: run(
+        params, opt_state, batch,
+        lambda p, b: value_and_grad_of(p, b, generator))
+
+
+def _with_grads(step, run, n_batch: int):
+    """``step`` with ``step.value_and_grad(params, *batch,
+    generator=None)`` -> (metrics, this rank's blocks of the whole
+    gradient, its norm), the sharded step's before its update, and
+    ``step.apply(params, opt_state, metrics, grads, norm)`` -> the step's
+    (params, opt_state, metrics) from them."""
+    def value_and_grad(params, *batch, generator=None):
+        batch = tuple(batch) + (None,) * (n_batch - len(batch))
+        return run.value_and_grad(params, batch, generator)
+    step.value_and_grad, step.apply = value_and_grad, run.apply
+    return step
+
+
 def make_train_step(model_cfg: ModelConfig, tcfg: TrainConfig,
                     optimizer: Optimizer, with_domain_acc: bool = False,
-                    device=None):
+                    device=None, mesh=None):
     """step(params, opt_state, feat, feat_len, targets, target_lens,
     generator=None) -> (params, opt_state, metrics), metrics holding
     ``loss``, ``ctc_loss`` (``ce_loss``, ``likely``, ``acc`` in CE mode)
@@ -547,49 +604,56 @@ def make_train_step(model_cfg: ModelConfig, tcfg: TrainConfig,
     arrays) is moved there. The optimizer state comes from
     :func:`init_opt_state`. ``generator`` (a CPU ``torch.Generator``)
     draws the SpecAugment masks and the dynamic chunk sizes, when the
-    config asks for them."""
-    check_supported(model_cfg, tcfg)
-    run = _step_runner(tcfg, optimizer, device)
+    config asks for them.
 
-    def vg(generator):
-        return lambda p, b: value_and_grad(p, model_cfg, tcfg, *b[:4],
-                                           generator=generator,
-                                           domain_targets=b[4],
-                                           acc_targets=b[5])
+    ``mesh``: a ``train.parallel.Parallel`` layout over a rank mesh: the
+    parameters and the optimizer state are this rank's blocks, the batch
+    is the global batch (in BMUF mode this replica's slice), and the
+    step is the one-rank step's, sharded."""
+    check_supported(model_cfg, tcfg)
+    run = _runner(
+        tcfg, optimizer, device, mesh,
+        lambda p, t, b, g: loss_fn(p, model_cfg, t, *b[:4], generator=g,
+                                   domain_targets=b[4], acc_targets=b[5]),
+        lambda p, b, g: value_and_grad(p, model_cfg, tcfg, *b[:4],
+                                       generator=g, domain_targets=b[4],
+                                       acc_targets=b[5]))
 
     if with_domain_acc:
         def step(params, opt_state, feat, feat_len, targets, target_lens,
                  domain_targets, acc_targets, generator=None):
             return run(params, opt_state,
                        (feat, feat_len, targets, target_lens,
-                        domain_targets, acc_targets), vg(generator))
+                        domain_targets, acc_targets), generator)
     else:
         def step(params, opt_state, feat, feat_len, targets, target_lens,
                  generator=None):
             return run(params, opt_state,
                        (feat, feat_len, targets, target_lens, None, None),
-                       vg(generator))
-    return step
+                       generator)
+    return step if mesh is None else _with_grads(step, run, 6)
 
 
 def make_hier_train_step(model_cfg: ModelConfig, tcfg: HierTrainConfig,
                          optimizer: Optimizer, with_domain_acc: bool = False,
-                         device=None):
+                         device=None, mesh=None):
     """The deployed hier AED recipe's step: step(params, opt_state, feat,
     feat_len, targets, target_lens, aed_targets, aed_target_lens,
     generator=None), with ``with_domain_acc`` taking the per-utterance
     domain and accent ids after the AED labels (the Trainer's batch key
     order) and training the heads of :func:`init_domain_acc_heads` on the
     embed hidden. Device, batch and generator as :func:`make_train_step`.
-    ValueError for a proto outside the MoE conformers."""
+    ValueError for a proto outside the MoE conformers. ``mesh`` as
+    :func:`make_train_step`'s."""
     check_supported(model_cfg, tcfg, hier=True)
-    run = _step_runner(tcfg, optimizer, device)
-
-    def vg(generator):
-        return lambda p, b: hier_value_and_grad(p, model_cfg, tcfg, *b[:6],
-                                                generator=generator,
-                                                domain_targets=b[6],
-                                                acc_targets=b[7])
+    run = _runner(
+        tcfg, optimizer, device, mesh,
+        lambda p, t, b, g: hier_aed_loss_fn(
+            p, model_cfg, t, *b[:6], generator=g, domain_targets=b[6],
+            acc_targets=b[7]),
+        lambda p, b, g: hier_value_and_grad(
+            p, model_cfg, tcfg, *b[:6], generator=g, domain_targets=b[6],
+            acc_targets=b[7]))
 
     if with_domain_acc:
         def step(params, opt_state, feat, feat_len, targets, target_lens,
@@ -598,14 +662,14 @@ def make_hier_train_step(model_cfg: ModelConfig, tcfg: HierTrainConfig,
             return run(params, opt_state,
                        (feat, feat_len, targets, target_lens, aed_targets,
                         aed_target_lens, domain_targets, acc_targets),
-                       vg(generator))
+                       generator)
     else:
         def step(params, opt_state, feat, feat_len, targets, target_lens,
                  aed_targets, aed_target_lens, generator=None):
             return run(params, opt_state,
                        (feat, feat_len, targets, target_lens, aed_targets,
-                        aed_target_lens, None, None), vg(generator))
-    return step
+                        aed_target_lens, None, None), generator)
+    return step if mesh is None else _with_grads(step, run, 8)
 
 
 def needs_generator(model_cfg: ModelConfig, tcfg: TrainConfig) -> bool:

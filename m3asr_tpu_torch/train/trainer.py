@@ -124,7 +124,7 @@ class Trainer:
                  batch_keys: Tuple[str, ...] = ("data", "lens", "target",
                                                 "target_lens"),
                  ckpt_format: str = "pickle", bmuf=None,
-                 opt_state=None):
+                 opt_state=None, parallel=None):
         if ckpt_format != "pickle":
             raise ValueError(
                 f"ckpt_format {ckpt_format!r}: orbax is a JAX library's "
@@ -160,8 +160,13 @@ class Trainer:
         self.batch_keys = tuple(batch_keys)
         self.ckpt_format = ckpt_format
         self.bmuf = bmuf
+        # a sharded run (train.parallel.Parallel): the trees are this
+        # rank's blocks; checkpoints gather them (rank 0 writes) and a
+        # resume cuts them again
+        self.parallel = parallel
+        self.rank0 = parallel is None or parallel.mesh.rank == 0
         self.writers = []
-        if scalar_dir:
+        if scalar_dir and self.rank0:
             self.writers = [
                 ScalarWriter(os.path.join(scalar_dir, "scalars.jsonl")),
                 TensorBoardWriter(scalar_dir)]
@@ -173,6 +178,26 @@ class Trainer:
         return os.path.join(self.save_dir, f"checkpoint_{tag}.pkl")
 
     def _gather_state(self):
+        trees = {"params": self.params, "best_params": self.best_params,
+                 "opt_state": self.opt_state,
+                 "best_opt_state": self.best_opt_state}
+        bmuf = None if self.bmuf is None else self.bmuf.state_dict()
+        par = self.parallel
+        if par is not None:
+            # every rank takes part; a tree held twice is gathered once
+            memo = {}
+
+            def whole(name, tree):
+                if id(tree) not in memo:
+                    memo[id(tree)] = (par.gather_params(tree)
+                                      if "params" in name
+                                      else par.gather_opt_state(tree))
+                return memo[id(tree)]
+            trees = {k: whole(k, v) for k, v in trees.items()}
+            if bmuf is not None:
+                bmuf = dict(bmuf, **{k: par.gather(bmuf[k], par.param_specs)
+                                     for k in ("global_params",
+                                               "delta_prev")})
         state = {
             "epoch": self.epoch,
             "global_step": self.global_step,
@@ -180,13 +205,10 @@ class Trainer:
             "best_valid": self.best_valid,
             "early_stop": self.early_stop,
             "lr_scale": self.lr_scale,
-            "params": self.params,
-            "best_params": self.best_params,
-            "opt_state": self.opt_state,
-            "best_opt_state": self.best_opt_state,
+            **trees,
         }
-        if self.bmuf is not None:
-            state["bmuf"] = self.bmuf.state_dict()
+        if bmuf is not None:
+            state["bmuf"] = bmuf
         return state
 
     def _apply_state(self, state):
@@ -196,21 +218,45 @@ class Trainer:
         self.best_valid = float(state["best_valid"])
         self.early_stop = int(state["early_stop"])
         self.lr_scale = float(state.get("lr_scale", 1.0))
+        trees = {"params": state["params"],
+                 "best_params": state["best_params"],
+                 "opt_state": state["opt_state"],
+                 "best_opt_state": state.get("best_opt_state",
+                                             state["opt_state"])}
+        bmuf = state.get("bmuf")
+        par = self.parallel
+        if par is not None:
+            # this rank's blocks of the whole trees (one cut per array)
+            memo = {}
+
+            def cut(name, tree):
+                if id(tree) not in memo:
+                    memo[id(tree)] = (par.shard_params(tree)
+                                      if "params" in name
+                                      else par.shard_opt_state(tree))
+                return memo[id(tree)]
+            trees = {k: cut(k, v) for k, v in trees.items()}
+            if bmuf is not None:
+                bmuf = dict(bmuf, **{k: par.shard(bmuf[k], par.param_specs)
+                                     for k in ("global_params",
+                                               "delta_prev")})
         memo = {}
-        self.params = to_device_tree(state["params"], self.device, memo)
-        self.best_params = to_device_tree(state["best_params"], self.device,
-                                          memo)
-        self.opt_state = to_device_tree(state["opt_state"], self.device,
-                                        memo)
-        self.best_opt_state = to_device_tree(
-            state.get("best_opt_state", state["opt_state"]), self.device,
-            memo)
-        if self.bmuf is not None and state.get("bmuf") is not None:
-            self.bmuf.load_state_dict(state["bmuf"])
+        for k, v in trees.items():
+            setattr(self, k, to_device_tree(v, self.device, memo))
+        if self.bmuf is not None and bmuf is not None:
+            self.bmuf.load_state_dict(bmuf)
+            if self.bmuf.mesh is None:
+                # one process takes every replica the checkpoint holds
+                first = next(_tensors(self.params))
+                self.bmuf.dp = int(first.shape[0])
 
     def save_checkpoint(self, tag: str = "last"):
-        os.makedirs(self.save_dir, exist_ok=True)
+        """Write ``checkpoint_{tag}.pkl`` (collective in a sharded run:
+        every rank gathers, rank 0 writes)."""
         state = self._gather_state()
+        if not self.rank0:
+            return
+        os.makedirs(self.save_dir, exist_ok=True)
         path = self._ckpt_path(tag)
         # one host buffer for the save, pinned for a state on the card
         need = max(t.numel() * t.element_size() for t in _tensors(state))
@@ -272,14 +318,18 @@ class Trainer:
         gens = (replica_generators(self.seed, self.global_step, dp)
                 if self.step_takes_rng else None)
         outs = []
-        for r in range(dp):
+        for i, r in enumerate(self.bmuf.local_replicas()):
             n = vals[0].shape[0] // dp
             kw = {} if gens is None else {"generator": gens[r]}
             outs.append(self.train_step(
-                replica(self.params, r), replica(self.opt_state, r),
+                replica(self.params, i), replica(self.opt_state, i),
                 *(v[r * n:(r + 1) * n] for v in vals), **kw))
         metrics = {k: torch.stack([o[2][k] for o in outs])
                    for k in outs[0][2]}
+        if self.bmuf.mesh is not None:
+            # every rank logs (and checks) the replicas' mean
+            metrics = {k: self.bmuf.mean(v.float())[None]
+                       for k, v in metrics.items()}
         return (restack([o[0] for o in outs]),
                 restack([o[1] for o in outs]), metrics)
 

@@ -14,8 +14,8 @@ process through ``train.cli.main``) and package-level API on the CPU:
   for a DFSMN proto with its in-model heads, for ``--bmuf`` (the BMUF
   recipe's settings and the stacked trees) and for ``--smbr_cmd`` (what
   reaches ``run_smbr_training``);
-* each refused flag, naming its ROADMAP item, and the exits that mirror
-  the root ``train.py``'s;
+* the exits that mirror the root ``train.py``'s, the parallel flags'
+  among them;
 * the loader's training options the flagship YAML sets (collate_conf
   spec_aug, batch_size, drop_last, the AED / domain / accent label
   streams) against the JAX loader on the same ark;
@@ -303,18 +303,36 @@ def test_cli_builds_what_train_py_builds(work, tmp_path, monkeypatch, hier):
 
 
 @pytest.mark.parametrize("extra,item", [
-    (["--tp", "2"], "item 12b"), (["--sp", "2"], "item 12b"),
-    (["--pp", "2"], "item 12b"), (["--ep", "2"], "item 12b"),
-    (["--zero1"], "item 12b"), (["--fsdp"], "item 12b"),
+    (["--tp", "2"], "--tp with attn_impl=flash is unsupported"),
+    (["--sp", "2"], "torch.distributed.run --nproc-per-node 2"),
+    (["--pp", "2"], "--pp supports the non-hier recipes"),
+    (["--ep", "2"], "torch.distributed.run --nproc-per-node 2"),
+    (["--bmuf", "--tp", "2"], "--bmuf composes with dp/ep only"),
+    (["--bmuf", "--fsdp"], "pick one"),
     (["--bmuf", "--zero1"], "pick one"),
     (["--smbr_cmd", "tool {post}"], "drop --tr_aed_labels"),
+    (["--smbr_cmd", "tool {post}", "--ep", "2"], "--smbr_cmd trains in one"),
+    (["--smbr_cmd", "tool {post}", "--zero1"], "--smbr_cmd trains in one"),
+    (["--smbr_cmd", "tool {post}", "--bmuf"], "--smbr_cmd trains in one"),
+    (["--smbr_cmd", "tool {post}", "WORLD_SIZE=2"],
+     "--smbr_cmd trains in one"),
 ])
-def test_cli_refuses_unported_flags(work, tmp_path, extra, item):
-    """The parallel training flags are item 12b's (NotImplementedError);
-    --bmuf with --zero1 and --smbr_cmd with the hier recipe exit as the
-    root train.py exits, with its message."""
-    want = NotImplementedError if item == "item 12b" else SystemExit
-    with pytest.raises(want, match=item):
+def test_cli_refuses_unported_flags(work, tmp_path, monkeypatch, extra,
+                                    item):
+    """The training CLI ports every parallel flag (item 12b is done; item
+    12c, sharded export and serving loops, adds none here), so what it
+    refuses is what the root train.py refuses, in its words: tp with the
+    flash attention this YAML sets, pp with the hier recipe, BMUF with
+    tp/sp/pp or with --zero1/--fsdp, sMBR with the hier recipe; and a
+    mesh of more ranks than the world (one process here) exits naming
+    the launch command. sMBR with a parallel flag, or in a world of more
+    than one rank (``WORLD_SIZE=2`` in the env), exits: its loop runs in
+    one process and would run unsharded on every rank."""
+    env = [a for a in extra if a.startswith("WORLD_SIZE=")]
+    for a in env:
+        monkeypatch.setenv(*a.split("="))
+    extra = [a for a in extra if a not in env]
+    with pytest.raises(SystemExit, match=item.replace("-", r"\-")):
         cli.main(_argv(work, tmp_path / "exp", *extra))
 
 
