@@ -74,9 +74,11 @@ result line:
    routing at 511 and 1020 tokens K7 a8 must equal K5 a8 bit for bit
    (the same quant_rows, s8 tiles, exact s32 sums and epilogue).
 Depth: since phase 19 the flagship runs at 6 embed + 6 MoE blocks (its
-YAML's 18 cut; 9 in phase 18), the DFSMN nets at 3 x 5 cFSMN layers
-(the reference Net's 3 x 10) and the dense conformer at 9 blocks (18),
-for the script's 1200 s; widths, requests and checks are kept. Phase 17 keeps the DFSMN
+YAML's 18 cut; 9 in phase 18), and since phase 18's serving loops at 6
++ 4 where the port's build makes the engines from the YAML on weights of
+their own (phases 15 and 18); the DFSMN nets at 3 x 5 cFSMN layers (the reference Net's 3 x
+10) and the dense conformer at 6 blocks (18; 9 before the loops), for
+the script's 1200 s; widths, requests and checks are kept. Phase 17 keeps the DFSMN
 nets' and the dense conformer's own depths. Counts below that name 18
 MoE blocks (or 24 attention layers, 29 cFSMN MoE layers) scale with the
 depth; the phases derive them from the config.
@@ -305,7 +307,7 @@ depth; the phases derive them from the config.
 
 15. ExMarc, top-2 and exported programs (after phase 14): the ExMarc
    flagship (conformer_fmoeExMarc_localComm_catEmbed: the flagship YAML
-   with the ExMarc proto, 6 embed + 6 MoE blocks: the YAML's 18 cut for
+   with the ExMarc proto, 6 embed + 4 MoE blocks: the YAML's 18 cut for
    the script's time since phase 18; d=512, 32 experts of hidden 1024 at
    both FFN positions, V=5000) built by the port's build
    (seeded random weights, both positions' routers redrawn normal x 0.5)
@@ -401,7 +403,7 @@ depth; the phases derive them from the config.
 
 18. parallel: expert- and tensor-parallel serving on gloo ranks sharing
    the card. The flagship (d=512, 32 experts of hidden 1024, V=5000;
-   seeded random weights and routers) at 6 embed + 6 MoE blocks (its 18
+   seeded random weights and routers) at 6 embed + 4 MoE blocks (its 18
    cut for the script's time) is built by
    the port's build (``build_engine`` + ``Engine.save(shards=(ep,
    tp))``, what ``build --ep/--tp`` runs) as engine dirs: fp32 at ep=4,
@@ -417,10 +419,30 @@ depth; the phases derive them from the config.
    1e-3) free-running, bf16 / int8 / int4 within 0.05 of max|ref| with
    the routing pinned to rank 0's (its experts' stages on their plain
    versions); the bf16 flash ranks must launch K2 once per attention
-   layer a forward (6 + 6). A rank's non-zero exit or a world's timeout
-   fails the phase; the engine dirs are deleted as it goes. The times
-   are of gloo ranks on one card (all-reduces through host memory), not
-   an NCCL deployment's.
+   layer a forward (6 + 4). A rank's non-zero exit or a world's timeout
+   fails the phase; the engine dirs are deleted as it goes. Then, in the
+   4-rank world, the serving loops: each rank calls ``recognize.main``
+   (greedy, then beam 10) on an fp32 flash ep=4 dir of the fp32 mode's
+   weights (buckets 256, 1024, 2048 at batch 1 and 4) over phase 10's
+   utterances of 206, 1000, 1500, 2048 and 7000 frames (the last through
+   ``infer_long``), rank 0 leading and the others following; then the
+   server's runtime on the fp32 ep2 x tp2 dir (``serve._build_runtime``
+   on every rank, rank 0 behind a loopback listener, the others in
+   ``serve.follow_runtime``), two client threads at once each sending a
+   stream of 8 chunks (chunk 16, left 2; greedy) and two offline
+   requests (206-1500 frames: greedy, beam n-best, timestamps and
+   confidence, one past the largest bucket), then one more request
+   profiled on rank 0. Held: rank 0's transcripts equal, id for id, the
+   unsharded engine's recognizer on the same weights and settings; rank
+   0 led as many forwards as the bucket arithmetic gives, and every rank
+   launched K2 exactly (embed + MoE blocks) times each (counts set to 0
+   before each run); every follower ran rank 0's calls and returned on
+   STOP; every answer equals a one-process server's on the unsharded
+   dir; every rank's stream caches hold H/tp heads. Printed: the RTF on
+   ranks and in one process, offline latency, chunk round trips, the
+   all-reduces' and the control broadcasts' share of a request. The
+   times are of gloo ranks on one card (all-reduces through host
+   memory), not an NCCL deployment's.
 
 19. train_parallel: parallel training on phase 18's gloo ranks (its two
    worlds, after their serving cases; ``--only train_parallel`` starts
@@ -471,14 +493,19 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12            # H100 SXM device memory
 # Depth cuts for the script's 1200 s (since phase 18; widths kept): the
 # flagship's 18 MoE blocks (configs/3m_asr_18l32e.yaml) run as 6 (9
-# before phase 19 was added), the
-# DFSMN nets' 3 x 10 cFSMN layers as 3 x 5 and the dense conformer's 18
-# blocks as 9, except in phase 17: its flash-vs-xla gradient checks run
-# at the models' own depths (at 3 x 5 the DFSMN CE check read 1.851e-3
-# of a group's max|g|, past TRAIN_GRAD_TOL, where 3 x 10 reads 6.3e-4)
+# before phase 19 was added) and, where the port's build makes the
+# engines from the YAML on weights of their own (phases 15 and 18), as 4
+# since phase 18's serving loops; the DFSMN nets' 3 x 10 cFSMN layers as 3 x 5 and the
+# dense conformer's 18 blocks as 6 (9 before the loops), except in phase
+# 17: its flash-vs-xla gradient checks run at the models' own depths (at
+# 3 x 5 the DFSMN CE check read 1.851e-3 of a group's max|g|, past
+# TRAIN_GRAD_TOL, where 3 x 10 reads 6.3e-4). Phase 16's checks keep the
+# 6 of flagship_cfg: at 4 its check (ii) read 1.921e-2 of a decoder
+# group's max|g| on the H100, where 6 reads 9.3e-5
 FLAGSHIP_MOE_BLOCKS = 6
+BUILT_MOE_BLOCKS = 4
 DFSMN_EACH_BLOCK, DFSMN_NET_EACH = 5, 10
-DC_BLOCKS, DC_NET_BLOCKS = 9, 18
+DC_BLOCKS, DC_NET_BLOCKS = 6, 18
 PEAK_OPS_PER_S = {"float32": 67e12,  # fp32 outside the tensor cores
                   "bfloat16": 989e12, "int8": 1979e12}
 E, D, H, L = 32, 512, 1024, 18
@@ -5718,7 +5745,7 @@ TOPK_TOKENS = 1020                         # moe_ffn(top_k=2): 4 x 255
 def exmarc_engine(torch, work):
     """The ExMarc flagship through the port's build: the flagship YAML
     (configs/3m_asr_18l32e.yaml, d=512, 32 experts of hidden 1024,
-    V=5000; 6 embed + FLAGSHIP_MOE_BLOCKS MoE blocks) with the ExMarc
+    V=5000; 6 embed + BUILT_MOE_BLOCKS MoE blocks) with the ExMarc
     proto, seeded random
     weights (build's seed 0), then both positions' routers redrawn
     normal x 0.5 from a seeded generator so that routing spreads."""
@@ -5727,7 +5754,7 @@ def exmarc_engine(torch, work):
     with open(os.path.join(HERE, "configs", "3m_asr_18l32e.yaml")) as f:
         raw = yaml.safe_load(f)
     raw["nnet_proto"] = EXMARC
-    raw["model_conf"]["encoder_conf"]["num_blocks"] = FLAGSHIP_MOE_BLOCKS
+    raw["model_conf"]["encoder_conf"]["num_blocks"] = BUILT_MOE_BLOCKS
     path = os.path.join(work, "exmarc.yaml")
     with open(path, "w") as f:
         yaml.safe_dump(raw, f)
@@ -7332,25 +7359,11 @@ def par_rank(work):
             with prof:
                 eng.infer(feat, lens)
             wall = (time.perf_counter() - t1) * 1e3
-            # an all-reduce may leave nested or overlapping events (the
-            # calling thread's, gloo's): the union of their time ranges
-            ranges, names, ops = [], set(), 0
-            for e in (prof.events() if rank == 0 else ()):
-                if "all_reduce" in e.name or "allreduce" in e.name:
-                    ranges.append((e.time_range.start, e.time_range.end))
-                    names.add(e.name)
-                    ops += e.name == "c10d::allreduce_"   # one a call
-            merged = []
-            for a, b in sorted(ranges):
-                if merged and a <= merged[-1][1]:
-                    merged[-1][1] = max(merged[-1][1], b)
-                else:
-                    merged.append([a, b])
-            name = "+".join(sorted(names)) or "none"
-            cnt, us = ops or len(merged), sum(b - a for a, b in merged)
+            cnt, ar_ms, name = collective_union(prof) if rank == 0 \
+                else (0, 0.0, "none")
             r[key].update(lat=float(np.median(lat)), lat_min=min(lat),
                           lat_max=max(lat), prof_ms=wall,
-                          ar_name=name, ar_calls=cnt, ar_ms=us / 1e3)
+                          ar_name=name, ar_calls=cnt, ar_ms=ar_ms)
         r["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
         if rank == 0:
             np.savez(os.path.join(work, f"out_{case['label']}.npz"), **saved)
@@ -7359,6 +7372,10 @@ def par_rank(work):
         del eng
         torch.cuda.empty_cache()
         dist.barrier()
+    if n == 4 and os.path.exists(os.path.join(work, "loops.json")):
+        t0 = time.perf_counter()
+        res["loops"] = loop_rank(torch, work, rank)     # phase 18's loops
+        spans["loops_s"] = time.perf_counter() - t0
     if os.path.exists(os.path.join(work, f"train_cases_{n}.json")):
         res["train"] = tp_rank(torch, work, n, rank)     # phase 19
     spans["rank_s"] = time.perf_counter() - t_start
@@ -7406,7 +7423,7 @@ def par_engines(torch, work):
     from m3asr_tpu_torch import build
     with open(os.path.join(HERE, "configs", "3m_asr_18l32e.yaml")) as f:
         raw = yaml.safe_load(f)
-    raw["model_conf"]["encoder_conf"]["num_blocks"] = FLAGSHIP_MOE_BLOCKS
+    raw["model_conf"]["encoder_conf"]["num_blocks"] = BUILT_MOE_BLOCKS
     path = os.path.join(work, "flagship_cut.yaml")
     with open(path, "w") as f:
         yaml.safe_dump(raw, f)
@@ -7474,10 +7491,410 @@ def par_held(torch, label, mode, eng, saved, feats):
     return worst
 
 
+# the serving loops on ranks (phase 18, after its serving cases, in its
+# 4-rank world): recognize on an fp32 flash ep=4 dir and serve on the
+# fp32 ep2 x tp2 dir, every rank through the port's entry points, rank 0
+# leading, the others following
+LOOP_UTTS = (0, 3, 5, 6, 7)   # phase 10's 206, 1000, 1500, 2048, 7000 frames
+LOOP_BUCKETS = {"bucket_lengths": [256, 1024, 2048], "bucket_batches": [1, 4]}
+LOOP_MODES = (("greedy", ["-d", "greedy"]),
+              ("beam", ["-d", "beam", "-b", str(RECOGNIZE_BEAM)]))
+LOOP_OFFLINE = (206, 640, 1000, 1500)   # 1500: past the dir's 1024
+LOOP_CHUNKS = 8               # a stream's chunks (chunk 16, left 2)
+LOOP_SERVE = ["--stream_slots", "8", "--beam_size", "10"]
+
+
+def loop_dir(work, src, name, **settings):
+    """A dir of ``src``'s weights (params.npz and config.yaml linked),
+    its engine.json updated with ``settings``."""
+    d = os.path.join(work, name)
+    os.makedirs(d)
+    for f in ("params.npz", "config.yaml"):
+        os.link(os.path.join(src, f), os.path.join(d, f))
+    with open(os.path.join(src, "engine.json")) as f:
+        meta = json.load(f)
+    meta.update(settings)
+    with open(os.path.join(d, "engine.json"), "w") as f:
+        json.dump(meta, f)
+    return d
+
+
+def loop_requests():
+    """The server's conversations, seeded: four offline requests (greedy,
+    beam n-best, timestamps and confidence, one past the largest bucket)
+    and two greedy streams of LOOP_CHUNKS chunks, a chunk a piece (a beam
+    partial carries no score, so a near-tie between the ranks' and one
+    process's logits could not be told from a fault)."""
+    rng = np.random.default_rng(181)
+    offline = []
+    for i, T in enumerate(LOOP_OFFLINE):
+        r = {"id": f"r{i}", "feat": (rng.standard_normal((T, 40)) * 2 + 1)
+             .astype(np.float32).tolist()}
+        r.update(({}, {"decode": "beam", "beam_size": 10, "nbest": 3},
+                  {"timestamps": True, "confidence": True}, {})[i])
+        offline.append(r)
+    streams = []
+    cuts = [0] + [67 + 64 * k for k in range(LOOP_CHUNKS)]
+    for decode in ("greedy", "greedy"):
+        f = (rng.standard_normal((cuts[-1], 40)) * 2 + 1).astype(np.float32)
+        streams.append(
+            [{"stream": "start", "chunk_size": 16, "num_left_chunks": 2,
+              "decode": decode, "beam_size": 10, "timestamps": True}]
+            + [{"stream": "chunk", "feat": f[a:b].tolist()}
+               for a, b in zip(cuts[:-1], cuts[1:])]
+            + [{"stream": "end"}])
+    return offline, streams
+
+
+def loop_inputs(work, fp32_dir):
+    """The loops' dirs on the fp32 mode's weights: ``flash_ep4`` (the
+    recognizer's buckets, attn_impl flash, ep=4), its unsharded twin
+    ``flash_one``, and ``one``, the unsharded twin of the ep2 x tp2 dir;
+    phase 10's LOOP_UTTS as an ark; the server's conversations. Writes
+    ``loops.json`` and returns it."""
+    import yaml
+    from m3asr_tpu_torch.config import model_config_from_dict
+    from m3asr_tpu_torch.io.kaldi_io import ArkWriter
+    with open(os.path.join(fp32_dir, "config.yaml")) as f:
+        cfg = model_config_from_dict(yaml.safe_load(f))
+    rng = np.random.default_rng(21)            # phase 10's utterances
+    utts = [(f"utt{i}", rng.standard_normal((T, cfg.input_dim))
+             .astype(np.float32) * 2 + 1)
+            for i, T in enumerate(RECOGNIZE_FRAMES)]
+    ark = os.path.join(work, "loops.ark")
+    with ArkWriter(ark) as w:
+        for i in LOOP_UTTS:
+            w.write(*utts[i])
+    offline, streams = loop_requests()
+    out = {"ark": ark, "requests": os.path.join(work, "loops_requests.json"),
+           "flash_ep4": loop_dir(work, fp32_dir, "loops_flash_ep4",
+                                 attn_impl="flash", ep=4, tp=1,
+                                 **LOOP_BUCKETS),
+           "flash_one": loop_dir(work, fp32_dir, "loops_flash_one",
+                                 attn_impl="flash", ep=1, tp=1,
+                                 **LOOP_BUCKETS),
+           "ep2tp2": loop_dir(work, fp32_dir, "loops_ep2tp2", ep=2, tp=2),
+           "one": loop_dir(work, fp32_dir, "loops_one", ep=1, tp=1),
+           "lens": [int(utts[i][1].shape[0]) for i in LOOP_UTTS],
+           "k2_per_forward": cfg.encoder_conf.embed_conf.num_blocks
+           + cfg.encoder_conf.num_blocks}
+    with open(out["requests"], "w") as f:
+        json.dump({"offline": offline, "streams": streams}, f)
+    with open(os.path.join(work, "loops.json"), "w") as f:
+        json.dump(out, f)
+    return out
+
+
+def loop_forwards(lens, batch, buckets, f=4):
+    """The engine calls the recognizer makes on these utterances, from
+    the bucket arithmetic: one a batch within the largest bucket, one a
+    window of Engine.infer_long (default overlap) for a batch past it."""
+    W = max(buckets["bucket_lengths"])
+    O = max(f, (min(64 * f, W // 4) // f) * f)
+    n = 0
+    for s in range(0, len(lens), batch):
+        chunk = lens[s:s + batch]
+        if max(chunk) <= W:
+            n += 1
+            continue
+        for T in chunk:
+            n += 1 if T <= W else 1 + -(-(T - W) // (W - 2 * O))
+    return n
+
+
+def loop_client(port, convs, times):
+    """Each conversation in turn on a connection of its own: the answers,
+    and each answer's round trip (op, ms) appended to ``times``."""
+    import socket
+    out = []
+    for reqs in convs:
+        with socket.create_connection(("127.0.0.1", port)) as sock:
+            f = sock.makefile("rwb")
+            got = []
+            for r in reqs:
+                t0 = time.perf_counter()
+                f.write((json.dumps(r) + "\n").encode())
+                f.flush()
+                got.append(json.loads(f.readline()))
+                times.append((r.get("stream", "offline"),
+                              (time.perf_counter() - t0) * 1e3))
+            out.append(got)
+    return out
+
+
+def stream_cache_heads(runtime):
+    """{batcher key: (main K/V cache heads, embed K/V cache heads)}."""
+    return {str(k): (b._prog.inputs[3].shape[2], b._prog.inputs[6].shape[2])
+            for k, b in runtime["stream_batchers"].items()}
+
+
+def loop_rank(torch, work, rank):
+    """Phase 18's serving loops on this rank of the 4-rank world:
+    ``recognize.main`` greedy and beam on the flash ep=4 dir (K2 counted
+    from 0 around each run), then the server's runtime on the ep2 x tp2
+    dir (``serve._build_runtime``; rank 0 leads it behind a loopback
+    listener and two client threads, then profiles one more request; the
+    others run ``serve.follow_runtime``) until rank 0's STOP."""
+    import socketserver
+    import threading
+    from torch.profiler import ProfilerActivity, profile
+    from m3asr_tpu_torch import serve
+    from m3asr_tpu_torch.ops.flash_attention import flash_kernels
+    from m3asr_tpu_torch.parallel import follow
+    with open(os.path.join(work, "loops.json")) as f:
+        cfg = json.load(f)
+    res = {}
+    for mode, flags in LOOP_MODES:
+        argv = ["-p", cfg["flash_ep4"], "-i", cfg["ark"], "--feat_dim", "40",
+                "--batch_size", str(RECOGNIZE_BATCH)] + flags
+        reset_flash(flash_kernels)
+        hyps, got, eng, secs = run_recognize(torch, argv)
+        r = {"k2": flash_kernels.fwd_launches, "secs": secs}
+        if rank == 0:
+            r.update(hyps=hyps, rtf=got["rtf"], wall=got["wall_s"],
+                     split=got["split_s"],
+                     infer=eng._lead[0].calls["INFER"])
+        else:
+            r.update(counts=got)
+        res["recognize " + mode] = r
+        del eng
+    args = serve.parser().parse_args(["-p", cfg["ep2tp2"]] + LOOP_SERVE)
+    t0 = time.perf_counter()
+    world = follow.join_world()
+    state = serve._build_runtime(args, follower=rank > 0)
+    follow.check_world(world, state["engine"])
+    s = {"setup_s": time.perf_counter() - t0}
+    res["serve"] = s
+    if rank:
+        s["counts"] = serve.follow_runtime(world, state, args)
+        s["heads"] = stream_cache_heads(state)
+        return res
+    with open(cfg["requests"]) as f:
+        reqs = json.load(f)
+    off, streams = reqs["offline"], reqs["streams"]
+    plan = ([streams[0], [off[0]], [off[1]]],
+            [streams[1], [off[2]], [off[3]]])
+    leader = follow.Leader(world)
+    serve.lead_runtime(state, leader)
+    srv = socketserver.ThreadingTCPServer(
+        ("127.0.0.1", 0), serve.make_handler(state, 10))
+    srv.daemon_threads = True
+    threading.Thread(target=srv.serve_forever, daemon=True).start()
+    answers, times = [None, None], [[], []]
+
+    def run(j):
+        answers[j] = loop_client(srv.server_address[1], plan[j], times[j])
+    try:
+        t0 = time.perf_counter()
+        ths = [threading.Thread(target=run, args=(j,)) for j in (0, 1)]
+        for t in ths:
+            t.start()
+        for t in ths:
+            t.join()
+        s["clients_s"] = time.perf_counter() - t0
+        # the all-reduces' and the control broadcasts' share of one more
+        # request (host-side events: gloo runs both on the host)
+        feat = np.asarray(off[2]["feat"], np.float32)[None]
+        lens = np.array([feat.shape[1]], np.int32)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with profile(activities=[ProfilerActivity.CPU]) as prof:
+            state["engine"].infer(feat, lens)
+        s["prof_ms"] = (time.perf_counter() - t0) * 1e3
+        s["ar"] = collective_union(prof)
+        s["bc"] = collective_union(prof, ("broadcast",))
+        s["heads"] = stream_cache_heads(state)
+    except BaseException:
+        leader.stop(failed=True)
+        raise
+    finally:
+        srv.shutdown()
+        srv.server_close()
+    leader.stop()
+    s.update(answers=answers, times=times, calls=leader.calls,
+             ticks=[b.batch_sizes for b in state["stream_batchers"]
+                    .values()])
+    return res
+
+
+def same_answer(got, ref):
+    """Two server answers equal but for latency and float32 summation
+    order: the same fields and the same n-best hypotheses, scores within
+    1e-5 of the largest |score| (sums of hundreds of frames' log-probs,
+    the logits within 1e-6 of max|ref| of each other), in the order of
+    the reference's scores but for hypotheses tied within that. One
+    hypothesis may stand in for the reference's last only where both
+    tie with the last place."""
+    got, ref = dict(got), dict(ref)
+    for r in (got, ref):
+        r.pop("latency_ms", None)
+    gn, rn = got.pop("nbest", []), ref.pop("nbest", [])
+    if len(gn) != len(rn):
+        return False
+    if gn:
+        tol = 1e-5 * max(abs(n["score"]) for n in gn + rn)
+        gs = {tuple(n["hyp"]): n["score"] for n in gn}
+        rs = {tuple(n["hyp"]): n["score"] for n in rn}
+        only_g, only_r = set(gs) - set(rs), set(rs) - set(gs)
+        if only_g or only_r:
+            last = rn[-1]
+            if len(only_g) != 1 or only_r != {tuple(last["hyp"])}:
+                return False
+            h, = only_g
+            if abs(gs[h] - last["score"]) > tol:
+                return False
+            rs[h] = last["score"]
+        if any(abs(gs[h] - rs[h]) > tol for h in gs):
+            return False
+        order = [rs[tuple(n["hyp"])] for n in gn]
+        if any(a < b - tol for a, b in zip(order, order[1:])):
+            return False
+        if got["hyp"] != ref["hyp"] and got["hyp"] == gn[0]["hyp"] and \
+                ref["hyp"] == rn[0]["hyp"] and \
+                abs(gs[tuple(gn[0]["hyp"])] - rn[0]["score"]) <= tol:
+            got["hyp"] = ref["hyp"]
+    return got == ref
+
+
+def loop_report(torch, work, ranks, smi):
+    """Phase 18's serving loops held: rank 0's transcripts id for id to
+    the unsharded engine's recognizer (one process, the same weights and
+    settings); the forwards rank 0 led equal to the bucket arithmetic's,
+    and K2 exactly (embed + MoE blocks) a forward on every rank; every
+    follower's loop ended on STOP having run each of rank 0's calls; the
+    server's answers equal to a one-process server's on the unsharded
+    dir; the stream caches of every rank at H/tp heads. Returns the K2
+    launches (fp32) of every rank."""
+    import socketserver
+    import threading
+    import yaml
+    from m3asr_tpu_torch import serve
+    from m3asr_tpu_torch.config import model_config_from_dict
+    with open(os.path.join(work, "loops.json")) as f:
+        cfg = json.load(f)
+    per = cfg["k2_per_forward"]
+    want_fwd = loop_forwards(cfg["lens"], RECOGNIZE_BATCH, LOOP_BUCKETS)
+    k2 = 0
+    for mode, flags in LOOP_MODES:
+        key = "recognize " + mode
+        rs = [x["loops"][key] for x in ranks]
+        r0 = rs[0]
+        if r0["infer"] != want_fwd:
+            raise SystemExit(f"FAIL parallel loops {mode}: rank 0 led "
+                             f"{r0['infer']} forwards, want {want_fwd}")
+        if any(x["k2"] != per * want_fwd for x in rs):
+            raise SystemExit(f"FAIL parallel loops {mode}: K2 launches "
+                             f"{[x['k2'] for x in rs]}, want {per} x "
+                             f"{want_fwd} a rank")
+        if any(x["counts"]["INFER"] != want_fwd or x["counts"]["STOP"] != 1
+               for x in rs[1:]):
+            raise SystemExit(f"FAIL parallel loops {mode}: followers "
+                             f"{[x['counts'] for x in rs[1:]]}")
+        k2 += sum(x["k2"] for x in rs)
+        argv = ["-p", cfg["flash_one"], "-i", cfg["ark"], "--feat_dim", "40",
+                "--batch_size", str(RECOGNIZE_BATCH)] + flags
+        hyps, stats, eng, secs = run_recognize(torch, argv)
+        del eng
+        differ = sorted(k for k in hyps if hyps[k] != r0["hyps"].get(k))
+        if differ or len(hyps) != len(LOOP_UTTS):
+            raise SystemExit(f"FAIL parallel loops {mode}: rank 0's "
+                             f"transcripts differ from one process's at "
+                             f"{differ}")
+        log(f"parallel loops recognize {mode} (fp32 flash ep4, 4 gloo ranks "
+            f"sharing one card, frames {cfg['lens']}): rank 0's transcripts "
+            f"equal the unsharded engine's id for id "
+            f"({sum(map(len, hyps.values()))} tokens); RTF on ranks "
+            f"{r0['rtf']} (wall {r0['wall']} s after the load; split s "
+            f"{r0['split']}), one process {stats['rtf']} (wall "
+            f"{stats['wall_s']} s, CUDA graphs); {want_fwd} forwards led, "
+            f"K2 {per * want_fwd} launches a rank (held exactly), the "
+            f"followers stopped on STOP; with the loads {r0['secs']:.1f} s "
+            f"on ranks, {secs:.1f} s one process; {smi}")
+    s = [x["loops"]["serve"] for x in ranks]
+    s0 = s[0]
+    if any(a is None for a in s0["answers"]):
+        raise SystemExit("FAIL parallel loops serve: a client thread failed")
+    if any(x["counts"]["STOP"] != 1 or x["counts"]["INFER"]
+           != s0["calls"]["INFER"] or x["counts"]["STREAM_TICK"]
+           != s0["calls"]["STREAM_TICK"] for x in s[1:]):
+        raise SystemExit(f"FAIL parallel loops serve: followers "
+                         f"{[x['counts'] for x in s[1:]]}, rank 0 sent "
+                         f"{s0['calls']}")
+    with open(os.path.join(cfg["one"], "config.yaml")) as f:
+        heads = model_config_from_dict(yaml.safe_load(f)).encoder_conf
+    want_heads = (heads.attention_heads // 2, heads.embed_conf
+                  .attention_heads)
+    if any(tuple(h) != want_heads for x in s
+           for h in x["heads"].values()) or any(not x["heads"] for x in s):
+        raise SystemExit(f"FAIL parallel loops serve: stream cache heads "
+                         f"{[x['heads'] for x in s]}, want {want_heads}")
+    # the one-process server on the unsharded dir, one conversation at a
+    # time
+    with open(cfg["requests"]) as f:
+        reqs = json.load(f)
+    off, streams = reqs["offline"], reqs["streams"]
+    plan = ([streams[0], [off[0]], [off[1]]],
+            [streams[1], [off[2]], [off[3]]])
+    args = serve.parser().parse_args(["-p", cfg["one"]] + LOOP_SERVE)
+    state = serve._build_runtime(args)
+    srv = socketserver.ThreadingTCPServer(
+        ("127.0.0.1", 0), serve.make_handler(state, 10))
+    srv.daemon_threads = True
+    threading.Thread(target=srv.serve_forever, daemon=True).start()
+    one_times = [[], []]
+    try:
+        ref = [loop_client(srv.server_address[1], plan[j], one_times[j])
+               for j in (0, 1)]
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        state["batcher"].close()
+        for b in state["stream_batchers"].values():
+            b.close()
+        state = None
+        torch.cuda.empty_cache()
+    n = 0
+    for ga, ra in zip(s0["answers"], ref):
+        for gc, rc in zip(ga, ra):
+            for g, r in zip(gc, rc):
+                n += 1
+                if "error" in g or not same_answer(g, r):
+                    raise SystemExit(f"FAIL parallel loops serve: {g} "
+                                     f"against one process's {r}")
+
+    def lat(times, op):
+        v = [ms for t in times for o, ms in t if o == op]
+        return f"median {np.median(v):.3f} (min {min(v):.3f}, max " \
+               f"{max(v):.3f}, {len(v)})"
+    offline_ms = [conv[0]["latency_ms"] for thread in s0["answers"]
+                  for conv in thread[1:]]
+    ar_n, ar_ms, ar_name = s0["ar"]
+    bc_n, bc_ms, _ = s0["bc"]
+    log(f"parallel loops serve (fp32 ep2 tp2, 4 gloo ranks sharing one "
+        f"card; {LOOP_OFFLINE} offline frames and 2 streams of "
+        f"{LOOP_CHUNKS} chunks of 16 from two client threads at once): "
+        f"{n} answers equal the one-process server's on the unsharded dir; "
+        f"rank 0 sent {s0['calls']}, every follower ran them and stopped on "
+        f"STOP; stream cache heads {want_heads} (main, embed) on every rank; "
+        f"offline latency ms (server) {offline_ms}; stream chunk round trip "
+        f"ms on ranks {lat(s0['times'], 'chunk')}, one process "
+        f"{lat(one_times, 'chunk')}; offline round trip ms on ranks "
+        f"{lat(s0['times'], 'offline')}, one process "
+        f"{lat(one_times, 'offline')}; tick batch sizes {s0['ticks']}; one "
+        f"1x1000 request profiled on rank 0 {s0['prof_ms']:.3f} ms: "
+        f"all-reduce {ar_n} x {ar_name} {ar_ms:.3f} ms = "
+        f"{ar_ms / s0['prof_ms']:.3f}, control broadcasts {bc_n} "
+        f"{bc_ms:.3f} ms = {bc_ms / s0['prof_ms']:.3f}; setup "
+        f"{s0['setup_s']:.1f} s, clients {s0['clients_s']:.1f} s; {smi}")
+    return k2
+
+
 def phase_parallel(torch, state, smi, serve=True, train=True):
-    """Phase 18 (``serve``) and phase 19 (``train``, in the same worlds,
-    after the serving cases); returns the bf16 flash ranks' K2 launches
-    (all ranks) and phase 19's K2/K3 launches by (kernel, dtype)."""
+    """Phase 18 (``serve``: its serving cases, then the serving loops in
+    the 4-rank world) and phase 19 (``train``, in the same worlds, after
+    phase 18's); returns the bf16 flash ranks' K2 launches (all ranks)
+    and the fp32 K2 launches of the loops and phase 19's K2/K3 launches
+    by (kernel, dtype)."""
     import shutil as sh
     import tempfile
     t0 = time.perf_counter()
@@ -7485,6 +7902,9 @@ def phase_parallel(torch, state, smi, serve=True, train=True):
     try:
         engines, cases = par_engines(torch, work) if serve else \
             ({}, {2: [], 4: []})
+        if serve:
+            loop_inputs(work, next(c["dir"] for c in cases[4]
+                                   if c["mode"] == "fp32"))
         t_build = time.perf_counter() - t0
         feats = par_feats()
         if train:
@@ -7557,12 +7977,18 @@ def phase_parallel(torch, state, smi, serve=True, train=True):
                              f"x {x['ar_name']} {x['ar_ms']:.3f} ms = "
                              f"{x['ar_ms'] / x['prof_ms']:.3f} of a profiled "
                              f"{x['prof_ms']:.3f} ms")
-                line += (f"; {FLAGSHIP_MOE_BLOCKS} MoE blocks; peak per rank "
+                line += (f"; {BUILT_MOE_BLOCKS} MoE blocks; peak per rank "
                          + " / ".join(
                     f"{x['peak_gib']:.3f}" for x in rs) + " GiB")
                 if mode == "bf16 flash":
                     line += f"; K2 {rs[0]['k2']} launches a rank"
                 log(line + f"; {smi}")
+            if serve and n == 4:
+                sp = ranks[0]["spans"]
+                log(f"parallel loops: {sp['loops_s']:.1f} s of rank 0's "
+                    "life")
+                trained[("K2", "float32")] = loop_report(torch, work, ranks,
+                                                         smi)
             if train:
                 for kn, cnt in tp_report(torch, n, ranks, smi).items():
                     trained[kn] = trained.get(kn, 0) + cnt
@@ -7707,16 +8133,17 @@ def tp_digests(torch, mesh, tree, specs):
     return bad
 
 
-def allreduce_union(prof):
-    """(calls, ms, names) of the all-reduces in a CPU profile: the union
-    of their time ranges (nested and overlapping events, the calling
-    thread's and gloo's, merged)."""
+def collective_union(prof, keys=("all_reduce", "allreduce")):
+    """(calls, ms, names) of the collectives in a CPU profile whose event
+    names hold one of ``keys`` (default: the all-reduces): the union of
+    their time ranges (nested and overlapping events, the calling
+    thread's and gloo's, merged); a call is its ``c10d::`` event."""
     ranges, names, ops = [], set(), 0
     for e in prof.events():
-        if "all_reduce" in e.name or "allreduce" in e.name:
+        if any(k in e.name for k in keys):
             ranges.append((e.time_range.start, e.time_range.end))
             names.add(e.name)
-            ops += e.name == "c10d::allreduce_"
+            ops += e.name.startswith("c10d::")
     merged = []
     for a, b in sorted(ranges):
         if merged and a <= merged[-1][1]:
@@ -7865,7 +8292,7 @@ def tp_step_case(torch, case, cfg, params, batch, refs, rank):
             times.append(ms)
             syncs.append(sync)
         elif rank == 0:
-            calls, ar_ms, name = allreduce_union(prof)
+            calls, ar_ms, name = collective_union(prof)
             prof_row = {"ar_calls": calls, "ar_ms": ar_ms, "ar_name": name,
                         "prof_ms": ms, "sync": sync}
     # every rank holding a block of a leaf holds the same bits: right after

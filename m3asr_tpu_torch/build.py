@@ -45,11 +45,11 @@ fails the build.
 engine (the JAX ``build.py``'s engine.json): the whole tree, int4 w1
 repacked for tp (``w1_q4c``), ``ep``/``tp`` in engine.json. The build
 itself is one process and does not warm up (the buckets run on the
-ranks); serve the dir on N x M ranks (``infer``). The JAX engine's
-refusals hold: only the moe_conformer family shards, ``--fuse_qkv`` and
-``--dense_quant`` do not, and tp with ``--attn_impl flash`` serves xla.
-``--export`` of a sharded engine is not ported (ROADMAP Queue 1 item
-12c).
+ranks); serve the dir on N x M ranks (``infer``, ``recognize``,
+``serve``). The JAX engine's refusals hold: only the moe_conformer
+family shards, ``--fuse_qkv`` and ``--dense_quant`` do not, and tp with
+``--attn_impl flash`` serves xla. ``--export`` of a sharded engine is
+not ported (ROADMAP Queue 1 item 12c-ii, sharded export).
 """
 
 from __future__ import annotations
@@ -203,7 +203,7 @@ def main(argv=None):
     if args.export and args.ep * args.tp > 1:
         raise NotImplementedError(
             "--export of an ep/tp-sharded engine is not ported yet: ROADMAP "
-            "Queue 1 item 12c")
+            "Queue 1 item 12c-ii (sharded export)")
     engine, raw, decoders = build_engine(args)
     devices = None
     if args.export:

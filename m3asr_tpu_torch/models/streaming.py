@@ -26,6 +26,15 @@ Exact streaming needs a causally convolved, chunk-trained model
 (``causal=True`` and chunk masks): then a stream equals the offline
 forward with :func:`m3asr_tpu_torch.models.conformer.chunk_attention_mask`
 on every full chunk.
+
+Under an ep/tp mesh (``parallel/mesh.sharded``, a sharded engine's
+stream batcher) the chunk forward runs on the rank's shard with the
+offline block's layout and collectives: the attention holds the rank's
+H/tp heads (its K/V cache too, :func:`local_heads`) and sums its output
+projection over "tp", the macaron FFNs split as
+``models/layers.positionwise_ffn`` splits them, the MoE FFN reduces over
+("ep", "tp") (``ops/moe._dispatch``), and the hier embed sub-encoder
+runs replicated, outside the mesh. Without a mesh nothing changes.
 """
 
 from __future__ import annotations
@@ -39,10 +48,12 @@ import torch
 from m3asr_tpu_torch.config import EncoderConfig, MoEEncoderConfig
 from m3asr_tpu_torch.models import conformer
 from m3asr_tpu_torch.models.layers import positionwise_ffn
-from m3asr_tpu_torch.ops.common import layer_norm, linear, swish
+from m3asr_tpu_torch.ops.common import (layer_norm, linear,
+                                        row_parallel_linear, swish)
 from m3asr_tpu_torch.ops.conv import depthwise_conv1d, glu
 from m3asr_tpu_torch.ops.moe import moe_ffn
 from m3asr_tpu_torch.ops.subsampling import conv2d_subsampling4
+from m3asr_tpu_torch.parallel import mesh as pmesh
 
 _NEG_INF = -1e30
 
@@ -51,25 +62,36 @@ _NEG_INF = -1e30
 class StreamState:
     """One encoder's streaming caches (all fixed-shape)."""
     offset: torch.Tensor     # () or (B,) int32: output frames consumed
-    att_cache: torch.Tensor  # (L, B, H, cache_T, 2*dk)
+    att_cache: torch.Tensor  # (L, B, H, cache_T, 2*dk); H/tp heads under
+                             # a tp mesh
     cnn_cache: torch.Tensor  # (L, B, lorder, D)
 
     def tensors(self):
         return (self.offset, self.att_cache, self.cnn_cache)
 
 
+def local_heads(blocks) -> int:
+    """The attention heads a rank holds of a stacked block tree: its
+    ``pos_bias_u``'s head axis, as ``ops/attention.rel_mha`` reads it (all
+    H unsharded, H/tp under tp)."""
+    return int(blocks["self_attn"]["pos_bias_u"].shape[-2])
+
+
 def init_state(cfg: EncoderConfig, batch: int, cache_T: int,
                per_slot: bool = False, dtype: torch.dtype = torch.float32,
-               device=None) -> StreamState:
+               device=None, heads: Optional[int] = None) -> StreamState:
     """Zero caches. ``per_slot=True`` gives each batch row its own offset:
     the batched multi-stream mode, where every slot hosts an independent
-    stream of its own age (``runtime/streaming_batch.py``)."""
+    stream of its own age (``runtime/streaming_batch.py``). ``heads``:
+    the K/V cache's heads, the rank's (:func:`local_heads`) under tp;
+    default all of the config's."""
     dk = cfg.head_dim
     lorder = cfg.cnn_module_kernel - 1
+    heads = cfg.attention_heads if heads is None else int(heads)
     return StreamState(
         offset=torch.zeros((batch,) if per_slot else (), dtype=torch.int32,
                            device=device),
-        att_cache=torch.zeros((cfg.num_blocks, batch, cfg.attention_heads,
+        att_cache=torch.zeros((cfg.num_blocks, batch, heads,
                                cache_T, 2 * dk), dtype=dtype, device=device),
         cnn_cache=torch.zeros((cfg.num_blocks, batch, lorder,
                                cfg.attention_dim), dtype=dtype,
@@ -170,15 +192,15 @@ def _frontend_chunk(params, cfg: EncoderConfig, chunk_feat: torch.Tensor,
 
 
 def _stream_rel_mha(p, x: torch.Tensor, pos_emb: torch.Tensor,
-                    cache_kv: torch.Tensor, key_valid: torch.Tensor,
-                    num_heads: int):
+                    cache_kv: torch.Tensor, key_valid: torch.Tensor):
     """Rel-pos attention of the chunk's queries over [cache, chunk] keys.
     x: (B, C, D); cache_kv: (B, H, Tc, 2dk); pos_emb: (Tc+C, D), or
     (B, Tc+C, D) per slot; key_valid: (Tc+C,) or (B, Tc+C). Returns
-    (out, [k; v] of cache and chunk (B, H, Tc+C, 2dk))."""
-    B, C, D = x.shape
-    h = num_heads
-    dk = D // h
+    (out, [k; v] of cache and chunk (B, H, Tc+C, 2dk)). H is the heads
+    the weights hold (pos_bias_u's): under tp the rank's, whose output
+    projection is summed over "tp"."""
+    B, C = x.shape[:2]
+    h, dk = p["pos_bias_u"].shape
 
     def heads(name):
         return linear(p[name], x).reshape(B, C, h, dk)
@@ -206,7 +228,8 @@ def _stream_rel_mha(p, x: torch.Tensor, pos_emb: torch.Tensor,
     scores = scores.masked_fill(~kv, _NEG_INF)
     attn = torch.softmax(scores, dim=-1).to(x.dtype)
     ctx = torch.matmul(attn.to(full_v.dtype), full_v).to(x.dtype)
-    out = linear(p["linear_out"], ctx.transpose(1, 2).reshape(B, C, D))
+    out = row_parallel_linear(p["linear_out"],
+                              ctx.transpose(1, 2).reshape(B, C, h * dk))
     return out, new_cache
 
 
@@ -236,7 +259,7 @@ def _stream_block(bp, x, pos_emb, att_cache, cnn_cache, key_valid,
             bp["feed_forward_macaron"], layer_norm(bp["norm_ff_macaron"], x))
     h, new_att = _stream_rel_mha(bp["self_attn"],
                                  layer_norm(bp["norm_mha"], x), pos_emb,
-                                 att_cache, key_valid, cfg.attention_heads)
+                                 att_cache, key_valid)
     x = x + h
     if cfg.use_cnn_module:
         h, new_cnn = _stream_conv(
@@ -297,13 +320,14 @@ def forward_chunk_moe(params, cfg: MoEEncoderConfig,
     check_stream_supported(cfg)
     e_cfg = cfg.embed_conf
     e_cache_T = embed_state.att_cache.shape[3]
-    ex, e_pos, e_valid, C = _frontend_chunk(params["embed"], e_cfg,
-                                            chunk_feat, embed_state,
-                                            e_cache_T)
-    ex, e_att, e_cnn = _run_stream_blocks(params["embed"]["blocks"], e_cfg,
-                                          ex, e_pos, e_valid, embed_state,
-                                          e_cache_T)
-    embed = layer_norm(params["embed"]["after_norm"], ex)
+    with pmesh.sharded(None):    # the embed sub-encoder is replicated
+        ex, e_pos, e_valid, C = _frontend_chunk(params["embed"], e_cfg,
+                                                chunk_feat, embed_state,
+                                                e_cache_T)
+        ex, e_att, e_cnn = _run_stream_blocks(
+            params["embed"]["blocks"], e_cfg, ex, e_pos, e_valid,
+            embed_state, e_cache_T)
+        embed = layer_norm(params["embed"]["after_norm"], ex)
     new_embed = StreamState(embed_state.offset + C, e_att, e_cnn)
 
     cache_T = state.att_cache.shape[3]

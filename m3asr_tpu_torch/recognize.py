@@ -25,6 +25,21 @@ copies to the device counted apart) and the attention decode's steps.
 
 Runs on the card unless ``--device cpu``; ``main(argv)`` runs in process
 and returns the stats.
+
+An ep/tp-sharded engine dir (``build --ep/--tp``) runs on ep*tp ranks:
+
+    python -m torch.distributed.run --nproc-per-node N \
+        -m m3asr_tpu_torch.recognize -p engine_dir -i feats.ark ...
+
+Every rank parses the same arguments, loads its shard and applies the
+same engine settings (the taps or the hidden for ``-d rescore`` /
+``attention``); rank 0 then reads the data, sends each engine call
+through a ``parallel/follow.Leader`` to the other ranks' follower loops,
+runs the host searches and the AED decoders (loaded on rank 0 only) and
+writes the transcripts and stats, and sends STOP at the end (with
+``failed`` after an error, on which the followers exit non-zero too).
+``main`` returns the stats on rank 0 and the follower's op counts on the
+other ranks.
 """
 
 from __future__ import annotations
@@ -293,10 +308,13 @@ def _decode(args, engine, decoders, hier, res, context, lm, split, stats):
 
 def main(argv=None):
     args = parse_args(argv)
+    import os
     from m3asr_tpu_torch import checkpoint as ckpt
-    from m3asr_tpu_torch.io.loader import DataLoader
-    from m3asr_tpu_torch.runtime.engine import Engine, refuse_sharded_dir
-    from m3asr_tpu_torch.utils.text import cer
+    from m3asr_tpu_torch.parallel import follow
+    from m3asr_tpu_torch.runtime.engine import Engine
+
+    world = follow.join_world()
+    lead = world is None or world.rank == 0
 
     context = None
     if args.context_file:
@@ -306,7 +324,8 @@ def main(argv=None):
         with open(args.context_file) as fh:
             phrases = [[int(t) for t in line.split()]
                        for line in fh if line.strip()]
-        context = ContextTrie(phrases, bonus=args.context_bonus)
+        context = ContextTrie(phrases, bonus=args.context_bonus) \
+            if lead else None
     lm = None
     id2sym = None
     if args.units or args.lm:
@@ -317,27 +336,51 @@ def main(argv=None):
         if args.lm:
             if args.decode not in ("beam", "rescore"):
                 sys.exit("--lm shallow fusion needs -d beam/rescore")
-            lm = NgramLM(args.lm, symtab)
+            lm = NgramLM(args.lm, symtab) if lead else None
 
-    refuse_sharded_dir(args.plan_name, "recognize")
     engine = Engine.load(args.plan_name, device=args.device)
+    follow.check_world(world, engine)
     decoders = None
     hier = False
     if args.decode in ("rescore", "attention"):
-        import os
-        if not os.path.exists(os.path.join(args.plan_name,
-                                           ckpt.DECODERS_FILE)):
+        path = os.path.join(args.plan_name, ckpt.DECODERS_FILE)
+        if not os.path.exists(path):
             sys.exit(f"{args.decode} decoding needs decoders.npz in the "
                      "engine dir (build from an AED checkpoint)")
-        decoders = ckpt.load_decoders(args.plan_name, engine.device)
+        if lead:
+            decoders = ckpt.load_decoders(args.plan_name, engine.device)
+            names = set(decoders)
+        else:                      # the followers read the names alone
+            with np.load(path) as z:
+                names = {k.split("/")[0] for k in z.files}
         hier = (args.decode == "rescore" and args.hier_rescore
-                and any(k in decoders for k in ("decoder_1", "decoder_2")))
+                and any(k in names for k in ("decoder_1", "decoder_2")))
         # before the first bucket program is built: the programs read
-        # these settings when they are made
+        # these settings when they are made (on every rank: the
+        # followers' programs must have rank 0's outputs)
         if hier:
             engine.cfg.return_taps = True
         else:
             engine.cfg.return_hidden = True
+    if not lead:
+        return follow.follow(world, engine)
+    if world is None:
+        return _recognize(args, engine, decoders, hier, context, lm, id2sym)
+    leader = follow.Leader(world)
+    engine.lead(leader)
+    try:
+        out = _recognize(args, engine, decoders, hier, context, lm, id2sym)
+    except BaseException:
+        leader.stop(failed=True)
+        raise
+    leader.stop()
+    return out
+
+
+def _recognize(args, engine, decoders, hier, context, lm, id2sym):
+    """The recognition loop (rank 0's on ranks): returns the stats."""
+    from m3asr_tpu_torch.io.loader import DataLoader
+    from m3asr_tpu_torch.utils.text import cer
     loader = DataLoader(
         args.input_rspec, args.label_rspec,
         loader_conf={"feat_dim": args.feat_dim,

@@ -70,11 +70,16 @@ with the same request; the forward all-reduces where GSPMD would and
 every rank returns the same output. The expert stage is the JAX mesh
 policy's (``dense``, ``quant``, ``quant_a8``) and the buckets run eager
 (gloo's collectives cannot be captured). ``save`` gathers the whole tree
-(every rank calls it; rank 0 writes); ``load`` shards again.
+(every rank calls it; rank 0 writes); ``load`` shards again. A serving
+loop (recognize, serve) runs on rank 0 only: :meth:`Engine.lead` sends
+each of rank 0's ``infer`` calls through a ``parallel/follow.Leader``,
+which broadcasts the request to the other ranks' follower loops and runs
+the forward under its lock.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import logging
@@ -376,20 +381,6 @@ def serving_mesh(ep: int, tp: int) -> pmesh.Mesh:
     return pmesh.make_mesh(dp=1, ep=ep, tp=tp)
 
 
-def refuse_sharded_dir(engine_dir: str, what: str) -> None:
-    """Raise NotImplementedError if ``engine_dir`` holds an ep/tp-sharded
-    engine: ``what`` (a loop serving requests) would need every rank to
-    run it on rank 0's inputs."""
-    with open(os.path.join(engine_dir, "engine.json")) as f:
-        meta = json.load(f)
-    ep, tp = int(meta.get("ep", 1)), int(meta.get("tp", 1))
-    if ep * tp > 1:
-        raise NotImplementedError(
-            f"{what} on an ep={ep} x tp={tp} engine dir is not ported yet: "
-            "the ranks other than 0 need a loop fed by a broadcast from rank "
-            "0 (ROADMAP Queue 1 item 12c); infer runs it on ranks")
-
-
 def _quantize_expert_nodes(node, bits: int):
     """Every dict holding float ``w1``, ``w2`` and ``router`` (a MoE
     layer's experts: the conformer's stacked ``feed_forward``, each
@@ -472,7 +463,7 @@ class Engine:
             check_moe_stage(self.moe_impl_for(1, 1))
         # ep/tp: every rank builds the whole tree on the host, then keeps
         # its shard (mesh / _specs; a world of ep*tp ranks is required)
-        self.mesh = self._specs = None
+        self.mesh = self._specs = self._lead = None
         if self.cfg.ep * self.cfg.tp > 1:
             self.cfg = sharded_config(self.cfg, self.family.name)
             self.mesh = serving_mesh(self.cfg.ep, self.cfg.tp)
@@ -673,7 +664,7 @@ class Engine:
             raise NotImplementedError(
                 "exporting an ep/tp-sharded engine's buckets (collectives in "
                 "a torch.export program) is not ported yet: ROADMAP Queue 1 "
-                "item 12c")
+                "item 12c-ii (sharded export)")
         impl = self.moe_impl_for(batch, length) if self.is_moe else None
         if impl in HOST_SYNC_STAGES:
             raise ValueError(
@@ -773,6 +764,26 @@ class Engine:
     # ------------------------------------------------------------------
     # inference
     # ------------------------------------------------------------------
+    def lead(self, leader) -> None:
+        """Rank 0 of a sharded engine running a serving loop: every later
+        :meth:`infer` (``infer_long``'s windows and ``warmup``'s call
+        included) first broadcasts its request through ``leader`` (a
+        ``parallel/follow.Leader``) to the followers, which run the same
+        call, and holds the leader's lock through the forward. The
+        leader's current generation is kept: after its ``reload`` this
+        engine's calls raise. ``None`` detaches."""
+        if leader is not None and self.mesh is None:
+            raise ValueError("only a sharded (ep/tp) engine leads followers")
+        self._lead = None if leader is None else (leader, leader.generation)
+
+    def _leading(self, feat: np.ndarray, feat_len: np.ndarray, mode: str):
+        """The leader's INFER call of this request, or a null context."""
+        if self._lead is None:
+            return contextlib.nullcontext()
+        leader, generation = self._lead
+        return leader.infer(feat, feat_len, DECODE_OUTPUTS.index(mode),
+                            generation)
+
     def infer(self, feat: np.ndarray, feat_len: np.ndarray, out_mode=None):
         """feat: (B, T, input_dim); feat_len: (B,) or (1, B). Pads to the
         bucket, runs its program, trims to the valid region. Returns
@@ -786,15 +797,27 @@ class Engine:
         the host, and only the valid [:B, :max(out_len)] region of each
         output comes back, in its own dtype (bf16 widened to float32 on
         the host, which is exact)."""
-        feat = np.asarray(feat)
-        feat_len = np.asarray(feat_len).reshape(-1).astype(np.int32)
+        feat = np.ascontiguousarray(feat, np.float32)
+        feat_len = np.ascontiguousarray(np.asarray(feat_len).reshape(-1),
+                                        np.int32)
+        # a request is checked whole before it runs: on ranks a call that
+        # fails after the leader's broadcast stops every rank
+        D = self.model_cfg.input_dim
+        if feat.ndim != 3 or feat.shape[2] != D:
+            raise ValueError(f"feat must be (B, T, {D}), got {feat.shape}")
         B, T = feat.shape[:2]
+        if feat_len.shape != (B,) or (B and not (
+                1 <= feat_len.min() and feat_len.max() <= T)):
+            raise ValueError(f"feat_len must hold {B} lengths in [1, {T}], "
+                             f"got {feat_len.tolist()}")
         bb, bt = self.buckets.pick(B, T)
         mode = out_mode or self.cfg.decode_output
+        if mode not in DECODE_OUTPUTS:
+            raise ValueError(f"unknown decode_output {mode!r}")
         sub = SUBSAMPLED_LENGTH[self.model_cfg.encoder_conf.input_layer]
         out_len = np.asarray(sub(feat_len), np.int32)
         max_out = int(out_len.max()) if B else 0
-        with self._lock:
+        with self._lock, self._leading(feat, feat_len, mode):
             prog = self.get_fn(bb, bt, out_mode)
             with DEVICE_LOCK.shared(), torch.inference_mode():
                 self._stage_in(prog, feat, feat_len)

@@ -27,10 +27,23 @@ on the same stream, outside the graph; a reset asked for during a tick
 is applied after it (the JAX deferral). The program's allocation and
 capture hold ``DEVICE_LOCK`` exclusively, every other device section
 holds it shared.
+
+On a sharded engine (``mesh``: the engine's ep/tp mesh) the chunk
+program runs eager (gloo's collectives cannot be captured) on the rank's
+shard, its K/V caches at the rank's heads, and the tick thread enters
+the mesh itself (the mesh is thread-local). On rank 0 a batcher that
+:meth:`~_BatcherCore.lead` s a ``parallel/follow.Leader`` broadcasts
+each tick's windows and mask (STREAM_TICK) and each slot reset
+(STREAM_RESET) and runs them under the leader's lock, which every device
+section of the batcher takes first. The other ranks keep a mirror
+(``follower=True``): no thread, no slot bookkeeping; their follower loop
+applies rank 0's ticks and resets to its state (:meth:`mirror_tick`,
+:meth:`mirror_reset`).
 """
 
 from __future__ import annotations
 
+import contextlib
 import threading
 import time
 from typing import Dict, List, Optional
@@ -43,6 +56,7 @@ from m3asr_tpu_torch.runtime.graphs import (DEVICE_LOCK, GraphProgram,
                                             HostStaging, copy_to_host)
 from m3asr_tpu_torch.models import dfsmn_streaming, streaming
 from m3asr_tpu_torch.models.dfsmn import check_moe_stage
+from m3asr_tpu_torch.parallel import mesh as pmesh
 from m3asr_tpu_torch.runtime.streaming_session import (
     DfsmnMoeStreamingSession, DfsmnStreamingSession, StreamingSession,
     chunk_step_fn, dfsmn_state, dfsmn_step_fn, full_float32,
@@ -65,11 +79,17 @@ class _PendingChunk:
 
 class _BatcherCore:
     """Slot management and the pending-chunk dispatch loop. Subclasses
-    provide :meth:`_tick` (run one batched step on the windows and mask,
-    return the outputs as numpy arrays) and :meth:`_reset_slots`."""
+    provide :meth:`_run_tick` (run one batched step on the windows and
+    mask, return the outputs as numpy arrays) and :meth:`_zero_slots`;
+    :meth:`_tick` and :meth:`_reset_slots` run them, through the leader
+    when the batcher leads. The subclass sets ``mesh`` (the forward's
+    ep/tp mesh, which the tick thread enters, or None); ``start=False``
+    (a follower's mirror) starts no thread."""
+
+    mesh = None
 
     def __init__(self, slots: int, window_ms: float, window_frames: int,
-                 input_dim: int):
+                 input_dim: int, start: bool = True):
         self.slots = slots
         self._window_s = window_ms / 1e3
         # push-side validation: all windows of a batcher share one (W, D);
@@ -87,16 +107,65 @@ class _BatcherCore:
         # with its stale caches
         self._in_flight = False
         self._deferred_resets: set = set()
-        self._thread = threading.Thread(target=self._loop, daemon=True,
-                                        name="m3asr-streambatcher")
-        self._thread.start()
+        self._leader = self._generation = self.key = None
+        self._thread = None
+        if start:
+            self._thread = threading.Thread(target=self._loop, daemon=True,
+                                            name="m3asr-streambatcher")
+            self._thread.start()
 
     # -- provided by the subclass ----------------------------------------
-    def _tick(self, windows: np.ndarray, mask: np.ndarray):
+    def _run_tick(self, windows: np.ndarray, mask: np.ndarray):
         raise NotImplementedError
 
-    def _reset_slots(self, slots) -> None:
+    def _zero_slots(self, slots) -> None:
         raise NotImplementedError
+
+    # -- the leader (rank 0 of a sharded engine) ---------------------------
+    def lead(self, leader, key) -> None:
+        """Send this batcher's ticks and resets through ``leader`` (a
+        ``parallel/follow.Leader``) to the followers' mirrors of ``key``
+        (chunk, left), under the leader's current generation."""
+        self._leader, self._generation, self.key = \
+            leader, leader.generation, tuple(key)
+
+    def _lead_lock(self):
+        """The leader's lock (taken before DEVICE_LOCK and the slot
+        lock), or a null context."""
+        return (contextlib.nullcontext() if self._leader is None
+                else self._leader.lock)
+
+    def _call(self, op: int, fields, payloads):
+        return self._leader.call(op, tuple(self.key) + tuple(fields),
+                                 payloads, self._generation)
+
+    def _tick(self, windows: np.ndarray, mask: np.ndarray):
+        if self._leader is None:
+            return self._run_tick(windows, mask)
+        from m3asr_tpu_torch.parallel import follow
+        with self._call(follow.STREAM_TICK, windows.shape, (
+                torch.from_numpy(np.ascontiguousarray(windows, np.float32)),
+                torch.from_numpy(mask.astype(np.uint8)))):
+            return self._run_tick(windows, mask)
+
+    def _reset_slots(self, slots) -> None:
+        slots = list(slots)
+        if self._leader is None:
+            return self._zero_slots(slots)
+        from m3asr_tpu_torch.parallel import follow
+        with self._call(follow.STREAM_RESET, (len(slots),),
+                        (torch.tensor(slots, dtype=torch.int64),)):
+            self._zero_slots(slots)
+
+    # -- a follower's mirror -----------------------------------------------
+    def mirror_tick(self, windows: np.ndarray, mask: np.ndarray):
+        """Rank 0's tick on this rank's shard (the follower loop)."""
+        with pmesh.sharded(self.mesh):
+            return self._run_tick(windows, mask)
+
+    def mirror_reset(self, slots) -> None:
+        """Rank 0's slot reset on this rank's state."""
+        self._zero_slots(slots)
 
     # -- slot management ---------------------------------------------------
     def open_slot(self) -> int:
@@ -112,7 +181,7 @@ class _BatcherCore:
             self._deferred_resets.add(slot)
             if self._in_flight:
                 return
-        with DEVICE_LOCK.shared(), self._cv:
+        with self._lead_lock(), DEVICE_LOCK.shared(), self._cv:
             self._apply_deferred_resets_locked()
 
     def _apply_deferred_resets_locked(self) -> None:
@@ -150,7 +219,8 @@ class _BatcherCore:
         with self._cv:
             self._running = False
             self._cv.notify_all()
-        self._thread.join()
+        if self._thread is not None:
+            self._thread.join()
         for lst in self._pending.values():
             for item in lst:
                 item.error = RuntimeError("StreamBatcher closed")
@@ -173,6 +243,10 @@ class _BatcherCore:
         return batch
 
     def _loop(self):
+        with pmesh.sharded(self.mesh):
+            self._serve_loop()
+
+    def _serve_loop(self):
         while True:
             with self._cv:
                 while self._running and not self._pending:
@@ -200,7 +274,7 @@ class _BatcherCore:
             for slot, item in batch.items():
                 windows[slot] = item.window[0]
                 mask[slot] = True
-            with DEVICE_LOCK.shared():
+            with self._lead_lock(), DEVICE_LOCK.shared():
                 with self._cv:
                     self._apply_deferred_resets_locked()
                     self._in_flight = True
@@ -219,10 +293,16 @@ class _BatcherCore:
             for item in batch.values():
                 item.error = e
         finally:
-            # a failed step must not wedge
-            with DEVICE_LOCK.shared(), self._cv:
-                self._in_flight = False
-                self._apply_deferred_resets_locked()
+            # a failed step must not wedge: every waiter wakes, whatever
+            # the deferred resets do. On ranks they can raise (a stale
+            # runtime, a broken leader); they then stay pending and raise
+            # again, to that tick's waiters, before the next tick runs
+            try:
+                with self._lead_lock(), DEVICE_LOCK.shared(), self._cv:
+                    self._in_flight = False
+                    self._apply_deferred_resets_locked()
+            except Exception:           # noqa: BLE001 (raised again)
+                pass
             for item in batch.values():
                 item.event.set()
 
@@ -243,7 +323,7 @@ class _GraphBatcher(_BatcherCore):
         """The captured CUDA graph, or None (eager)."""
         return self._prog.graph
 
-    def _tick(self, windows: np.ndarray, mask: np.ndarray):
+    def _run_tick(self, windows: np.ndarray, mask: np.ndarray):
         prog = self._prog
         with torch.inference_mode():
             hw, hm = self._staging.views("in", [
@@ -266,7 +346,8 @@ class _GraphBatcher(_BatcherCore):
         mask = torch.zeros((self.slots,), dtype=torch.bool,
                            device=self.device)
         pool = (torch.cuda.graph_pool_handle()
-                if use_graph(self.device, self.cuda_graphs, moe, moe_impl)
+                if self.mesh is None and use_graph(
+                    self.device, self.cuda_graphs, moe, moe_impl)
                 else None)
         self._prog = GraphProgram(fn, (windows, mask) + state, pool)
 
@@ -278,13 +359,18 @@ class StreamBatcher(_GraphBatcher):
     state too. ``params`` live on the device the batcher runs on, in its
     activation dtype; ``input_dim`` is the feature width. The chunk
     program is built here (on ``cuda``: captured). ``pool_bytes`` is what
-    its graph reserved."""
+    its graph reserved.
+
+    ``mesh``: a sharded engine's ep/tp mesh, ``params`` then the rank's
+    shard: the program runs eager under it. ``follower=True``: a
+    follower rank's mirror (no thread; see the module's docstring)."""
 
     def __init__(self, params, cfg: EncoderConfig, *, input_dim: int,
                  chunk_size: int = 16, num_left_chunks: int = 2,
                  slots: int = 8, moe: bool = False, moe_impl: str = "dense",
                  window_ms: float = 2.0, topk: int = 0,
-                 cuda_graphs: bool = True):
+                 cuda_graphs: bool = True, mesh=None,
+                 follower: bool = False):
         if moe and not isinstance(cfg, MoEEncoderConfig):
             raise TypeError("moe=True needs a MoEEncoderConfig")
         streaming.check_stream_supported(cfg)
@@ -297,20 +383,22 @@ class StreamBatcher(_GraphBatcher):
         self.moe_impl = moe_impl
         self.topk = topk
         self.cuda_graphs = cuda_graphs
+        self.mesh = mesh
         self._cache_T = chunk_size * num_left_chunks
         self.device, self.dtype = params_device_dtype(params)
         full_float32(self.device, self.dtype)
         self._staging = HostStaging(pin=self.device.type == "cuda")
         with DEVICE_LOCK.exclusive(), torch.inference_mode():
             state = state_tensors(cfg, moe, slots, self._cache_T, True,
-                                  self.dtype, self.device)
+                                  self.dtype, self.device, params)
             self._build(chunk_step_fn(params, cfg, moe, moe_impl, topk,
                                       masked=True),
                         (slots, 4 * chunk_size + 3, input_dim), state, moe,
                         moe_impl)
-        super().__init__(slots, window_ms, 4 * chunk_size + 3, input_dim)
+        super().__init__(slots, window_ms, 4 * chunk_size + 3, input_dim,
+                         start=not follower)
 
-    def _reset_slots(self, slots) -> None:
+    def _zero_slots(self, slots) -> None:
         with torch.inference_mode():
             for t in self._prog.inputs[2:]:
                 # offsets (slots,), caches (L, slots, ...)
@@ -357,7 +445,7 @@ class DfsmnStreamBatcher(_GraphBatcher):
                         dfsmn_streaming.state_tensors(state), moe, moe_impl)
         super().__init__(slots, window_ms, chunk_size, input_dim)
 
-    def _reset_slots(self, slots) -> None:
+    def _zero_slots(self, slots) -> None:
         with torch.inference_mode():
             # every state tensor has the slots first: offsets, in_buf, the
             # embed sub-stream's state, the ring, the caches
@@ -393,6 +481,12 @@ class BatchedStreamingSession(StreamingSession):
                 self.slot = self.batcher.open_slot()
             except SlotsFull:
                 b = self.batcher
+                if b.mesh is not None:
+                    # a single stream's program would run collectives the
+                    # followers do not mirror
+                    raise SlotsFull(f"all {b.slots} stream slots in use; a "
+                                    "sharded engine's streams run on the "
+                                    "batcher's slots only") from None
                 self._fallback = StreamingSession(
                     b.params, b.cfg, chunk_size=b.chunk,
                     num_left_chunks=b.left, moe=b.moe, moe_impl=b.moe_impl,

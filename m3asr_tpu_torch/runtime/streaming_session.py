@@ -104,9 +104,15 @@ def chunk_step_fn(params, cfg, moe: bool, moe_impl: str, topk: int,
 
 
 def state_tensors(cfg, moe: bool, batch: int, cache_T: int, per_slot: bool,
-                  dtype, device):
-    """Zero state tensors of the chunk program, in its input order."""
-    st = streaming.init_state(cfg, batch, cache_T, per_slot, dtype, device)
+                  dtype, device, params=None):
+    """Zero state tensors of the chunk program, in its input order. With
+    ``params`` the main blocks' K/V caches hold the heads those weights
+    hold (``streaming.local_heads``: H/tp on a tp rank); the hier embed
+    sub-encoder's, replicated, all of its own."""
+    heads = None if params is None else streaming.local_heads(
+        params["blocks"])
+    st = streaming.init_state(cfg, batch, cache_T, per_slot, dtype, device,
+                              heads)
     tensors = st.tensors()
     if moe:
         tensors += streaming.init_state(cfg.embed_conf, batch, cache_T,

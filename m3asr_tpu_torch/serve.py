@@ -47,6 +47,22 @@ advance_sparse, exact for beam_size <= K). --stream_topk 0 gives dense
 logits chunks. SIGHUP rebuilds the runtime from the engine dir and swaps
 it in; SIGTERM/SIGINT stop accepting and drain in-flight requests for up
 to --drain_secs.
+
+An ep/tp-sharded engine dir (``build --ep/--tp``) serves on ep*tp ranks:
+
+    python -m torch.distributed.run --nproc-per-node N \
+        -m m3asr_tpu_torch.serve -p engine_dir --port 8000
+
+Every rank runs the setup (the engine's shard, the warm-up, the default
+stream batcher with ``--warmup``); rank 0 then listens, and each of its
+engine calls, stream batcher openings, ticks and slot resets goes
+through a ``parallel/follow.Leader`` to the other ranks, which follow it
+on their shards until rank 0 sends STOP after the drain (they ignore
+SIGHUP, SIGTERM and SIGINT). SIGHUP on rank 0 sends RELOAD: every rank
+re-reads the dir, and requests still on the old runtime then fail
+instead of running on weights the followers dropped. A sharded server's
+streams run on the batcher's slots only (no unbatched overflow stream).
+A failed call stops the server: no rank carries on alone.
 """
 
 import argparse
@@ -213,6 +229,12 @@ def make_handler(state, default_beam, lm=None, default_lm_weight=0.5):
                 key = (int(req.get("chunk_size", DEFAULT_STREAM_KEY[0])),
                        int(req.get("num_left_chunks",
                                    DEFAULT_STREAM_KEY[1])))
+                if key[0] < 1 or key[1] < 0:
+                    # refused before any batcher is built (on ranks a
+                    # build that fails after STREAM_OPEN stops the world)
+                    return {"error": "chunk_size must be >= 1 and "
+                                     "num_left_chunks >= 0, got "
+                                     f"{key[0]} and {key[1]}"}
                 self._stream_key = key
                 # sessions must release into the pool they came from
                 # (a hot reload may swap state["stream_pool"] mid-stream)
@@ -529,8 +551,12 @@ def _stream_moe_impl(engine, slots: int) -> str:
     sizes it. Float engines run K1 (``runs_f``), int4/w4a8 K6
     (``quant4_pallas`` / ``quant4_a8``) and int8/w8a8 the plain
     ``quant`` / ``quant_a8`` stage up to 128 tokens, their run-length
-    kernels beyond; never a stage of ``HOST_SYNC_STAGES``."""
+    kernels beyond; never a stage of ``HOST_SYNC_STAGES``. A sharded
+    engine's streams run its mesh policy (``Engine.moe_impl_for``: a
+    stage of ``ops/moe.MESH_STAGES``)."""
     from m3asr_tpu_torch.runtime.engine import moe_auto_impl
+    if engine.mesh is not None:
+        return engine.moe_impl_for(max(1, slots), 16)
     return moe_auto_impl(16 * max(1, slots), "auto", engine.quant_bits,
                          engine.cfg.act_quant)
 
@@ -551,12 +577,18 @@ def stream_params(engine):
     return params
 
 
-def _build_runtime(args, engine=None):
+def _build_runtime(args, engine=None, follower: bool = False):
     """Engine, micro-batcher and stream session pool, bundled so that
     SIGHUP can rebuild the whole runtime from the (possibly updated)
     engine dir and swap it in without dropping the listener. An
     ``engine`` given here is served instead of loading ``args.plan_name``
     (an in-process server).
+
+    Every rank of a sharded server builds it (the same args, at the same
+    point). ``follower=True`` (ranks > 0) makes no micro-batcher and
+    builds the stream batchers as mirrors; rank 0's runtime leads once
+    :func:`lead_runtime` attached the leader. ``runtime["open_batcher"]``
+    is the (chunk, left) -> batcher factory.
 
     Streams, by family: the hier MoE and dense conformers share a
     ``StreamBatcher`` per (chunk, left), the DFSMN families a
@@ -568,14 +600,14 @@ def _build_runtime(args, engine=None):
     from m3asr_tpu_torch.models import streaming
     from m3asr_tpu_torch.models.registry import dfsmn_stream_config
     from m3asr_tpu_torch.runtime.batching import MicroBatcher
-    from m3asr_tpu_torch.runtime.engine import Engine, refuse_sharded_dir
+    from m3asr_tpu_torch.parallel import follow
+    from m3asr_tpu_torch.runtime.engine import Engine
     from m3asr_tpu_torch.runtime.graphs import DEVICE_LOCK
     from m3asr_tpu_torch.runtime.streaming_batch import (
         BatchedDfsmnStreamingSession, BatchedStreamingSession,
         DfsmnStreamBatcher, StreamBatcher)
 
     if engine is None:
-        refuse_sharded_dir(args.plan_name, "serve")
         # its uploads must not meet another thread's capture (SIGHUP)
         with DEVICE_LOCK.shared():
             engine = Engine.load(args.plan_name, device=args.device)
@@ -585,13 +617,13 @@ def _build_runtime(args, engine=None):
         engine.warmup(execute=True)
     # never collect more requests than the largest batch bucket runs
     max_batch = min(args.max_batch, max(engine.buckets.batches))
-    batcher = MicroBatcher(engine.infer, window_ms=args.batch_window_ms,
-                           max_batch=max_batch,
-                           beam_output=engine.cfg.decode_output == "beam")
+    batcher = None if follower else MicroBatcher(
+        engine.infer, window_ms=args.batch_window_ms, max_batch=max_batch,
+        beam_output=engine.cfg.decode_output == "beam")
     family = engine.family.name
     dfsmn = family.startswith("dfsmn")
     runtime = {"engine": engine, "batcher": batcher, "stream_pool": None,
-               "stream_batchers": {}}
+               "stream_batchers": {}, "open_batcher": None, "leader": None}
     try:
         if dfsmn:
             enc_cfg = dfsmn_stream_config(engine.model_cfg)
@@ -611,20 +643,31 @@ def _build_runtime(args, engine=None):
                   topk=args.stream_topk,
                   input_dim=engine.model_cfg.input_dim)
 
+    def make(chunk, left):
+        if dfsmn:
+            return DfsmnStreamBatcher(
+                params, enc_cfg, chunk_size=chunk,
+                moe=family == "dfsmn_moe", moe_impl=moe_impl, **common)
+
+        def build():
+            return StreamBatcher(
+                params, enc_cfg, chunk_size=chunk, num_left_chunks=left,
+                moe=engine.is_moe, moe_impl=moe_impl, mesh=engine.mesh,
+                follower=follower, **common)
+        if runtime["leader"] is None:
+            return build()
+        leader, generation = runtime["leader"]
+        with leader.call(follow.STREAM_OPEN, (chunk, left),
+                         generation=generation):
+            b = build()
+        b.lead(leader, (chunk, left))
+        return b
+
     def batcher_for(chunk, left):
         key = chunk if dfsmn else (chunk, left)
         with batchers_lock:
             if key not in batchers:
-                if dfsmn:
-                    batchers[key] = DfsmnStreamBatcher(
-                        params, enc_cfg, chunk_size=chunk,
-                        moe=family == "dfsmn_moe", moe_impl=moe_impl,
-                        **common)
-                else:
-                    batchers[key] = StreamBatcher(
-                        params, enc_cfg, chunk_size=chunk,
-                        num_left_chunks=left, moe=engine.is_moe,
-                        moe_impl=moe_impl, **common)
+                batchers[key] = make(chunk, left)
             return batchers[key]
 
     if args.warmup:
@@ -638,7 +681,48 @@ def _build_runtime(args, engine=None):
                 else BatchedStreamingSession(b))
 
     runtime["stream_pool"] = SessionPool(factory)
+    runtime["open_batcher"] = batcher_for
     return runtime
+
+
+def lead_runtime(runtime, leader) -> None:
+    """Rank 0 of a sharded server: the runtime's engine calls, its stream
+    batchers' ticks and resets, and the batchers it opens from now on go
+    through ``leader`` (``parallel/follow.Leader``)."""
+    runtime["engine"].lead(leader)
+    runtime["leader"] = (leader, leader.generation)
+    for key, b in list(runtime["stream_batchers"].items()):
+        b.lead(leader, key)
+
+
+def reload_runtime(state, args, leader=None) -> None:
+    """Rebuild the runtime from the engine dir and swap it into
+    ``state`` (SIGHUP). With a leader every rank rebuilds at once
+    (RELOAD): rank 0 under the leader's lock, so that no call runs
+    between, and the runtime it replaces is refused from then on."""
+    if leader is None:
+        state.update(_build_runtime(args))
+        return
+    with leader.reload():
+        new = _build_runtime(args)
+        lead_runtime(new, leader)
+    state.update(new)
+
+
+def follow_runtime(world, runtime, args):
+    """A follower rank's serving loop (``parallel/follow.follow``) on
+    ``runtime`` (built with ``follower=True``); RELOAD rebuilds it and
+    swaps it into ``runtime``. Returns the count of each op followed, at
+    rank 0's STOP."""
+    from m3asr_tpu_torch.parallel import follow
+
+    def reload():
+        runtime.update(_build_runtime(args, follower=True))
+        return (runtime["engine"], runtime["stream_batchers"],
+                runtime["open_batcher"])
+    return follow.follow(world, runtime["engine"],
+                         runtime["stream_batchers"], runtime["open_batcher"],
+                         reload)
 
 
 def load_lm(args):
@@ -654,8 +738,39 @@ def load_lm(args):
 
 def main(args):
     import signal
+    from m3asr_tpu_torch.parallel import follow
 
-    state = _build_runtime(args)
+    world = follow.join_world()
+    follower = world is not None and world.rank > 0
+    state = _build_runtime(args, follower=follower)
+    follow.check_world(world, state["engine"])
+    if follower:
+        # rank 0 drains, then sends STOP: the followers outlive the drain
+        for sig in (signal.SIGHUP, signal.SIGTERM, signal.SIGINT):
+            signal.signal(sig, signal.SIG_IGN)
+        follow_runtime(world, state, args)
+        return
+    leader = None
+    if world is not None:
+        leader = follow.Leader(world)
+        lead_runtime(state, leader)
+    try:
+        _listen(args, state, leader)
+    except BaseException:
+        if leader is not None:
+            leader.stop(failed=True)
+        raise
+    if leader is not None:
+        leader.stop()
+        if leader.broken is not None:
+            raise RuntimeError("a call on the ranks failed; the server "
+                               "stopped") from leader.broken
+
+
+def _listen(args, state, leader):
+    """Rank 0's listener (a single process's) until SIGTERM/SIGINT and
+    the drain, or a failed call on the ranks."""
+    import signal
     lm = load_lm(args)
 
     class Server(socketserver.ThreadingTCPServer):
@@ -671,6 +786,9 @@ def main(args):
             # requests finish (the drain below)
             threading.Thread(target=srv.shutdown, daemon=True).start()
 
+        if leader is not None:
+            leader.on_broken = lambda e: _stop(None, None)
+
         # SIGHUP rebuilds the runtime from the engine dir in a background
         # thread, then swaps it in; in-flight requests and open streams
         # finish on the old objects
@@ -682,9 +800,11 @@ def main(args):
                     print("reload already in progress", flush=True)
                     return
                 try:
-                    state.update(_build_runtime(args))
+                    reload_runtime(state, args, leader)
                     print("engine reloaded", flush=True)
                 except Exception as e:  # noqa: BLE001 (keep serving)
+                    # on ranks a failed reload broke the leader, which
+                    # stops the server
                     print(f"engine reload FAILED (still serving the old "
                           f"weights): {e}", flush=True)
                 finally:

@@ -332,7 +332,7 @@ def test_sharded_engine_without_a_group_raises():
     (["--ep", "2", "--fuse_qkv"], "fuse_qkv with ep/tp-sharded serving"),
     (["--tp", "2", "--int8", "--dense_quant"],
      "dense_quant with ep/tp-sharded serving"),
-    (["--ep", "2", "--export"], "item 12c"),
+    (["--ep", "2", "--export"], r"item 12c-ii \(sharded export\)"),
 ])
 def test_build_refuses_as_jax(tmp_path, flags, match):
     with open(tmp_path / "cfg.yaml", "w") as f:
@@ -341,18 +341,6 @@ def test_build_refuses_as_jax(tmp_path, flags, match):
         t_build.main(["-c", str(tmp_path / "cfg.yaml"), "-o",
                       str(tmp_path / "e"), "--device", "cpu", "--buckets",
                       "1x48"] + flags)
-
-
-@pytest.mark.parametrize("cli", ["recognize", "serve"])
-def test_serving_loops_refuse_sharded_dirs(tmp_path, cli):
-    """recognize and serve on an ep/tp engine dir name item 12c (a loop on
-    every rank fed by rank 0 is not ported)."""
-    from m3asr_tpu_torch.runtime.engine import refuse_sharded_dir
-    with open(tmp_path / "engine.json", "w") as f:
-        json.dump({"ep": 2, "tp": 1}, f)
-    with pytest.raises(NotImplementedError, match=f"{cli} on an ep=2 x tp=1"
-                       ".*item 12c"):
-        refuse_sharded_dir(str(tmp_path), cli)
 
 
 def test_sharded_engine_refuses_other_families(tmp_path):
