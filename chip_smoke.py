@@ -442,7 +442,20 @@ depth; the phases derive them from the config.
    ranks and in one process, offline latency, chunk round trips, the
    all-reduces' and the control broadcasts' share of a request. The
    times are of gloo ranks on one card (all-reduces through host
-   memory), not an NCCL deployment's.
+   memory), not an NCCL deployment's. Before the loops, sharded export:
+   while the 2-rank world runs, this process builds two fp32 dirs at the
+   flagship's widths cut to 1 + 1 blocks (bucket 1x256) as ``build
+   --export`` does, ``--ep 4`` with flash and ``--ep 2 --tp 2``, every
+   rank's program traced here; in the 4-rank world each rank loads its
+   program and the dir's twin without ``exported/`` and answers 1x206
+   through both. Held: the loaded program ran (``loaded_buckets``) and
+   answered bit for bit as the twin on every rank, every rank the same;
+   rank 0 against the unsharded engine (fp32 allclose); K2 exactly (1 +
+   1) launches a forward from the ep=4 programs; one greedy
+   ``recognize.main`` on the ep=4 programs through the loops, id for id
+   as one process on the unsharded dir. Printed: export seconds a
+   program, load-and-first-call seconds a rank (loaded and traced), the
+   eager request's ms (loaded and traced).
 
 19. train_parallel: parallel training on phase 18's gloo ranks (its two
    worlds, after their serving cases; ``--only train_parallel`` starts
@@ -471,7 +484,12 @@ depth; the phases derive them from the config.
 
 ``python3 chip_smoke.py --only NAME [NAME ...]`` runs the build and the
 phases named in ``ALONE`` alone, for work on one of them; it prints no
-result line and exits 1.
+result line and exits 1. Two of them are not in the default run:
+``hier_witness`` (phase 16's check (ii) at 6 + 4 blocks against the same
+gradients in float64 on the plain path: the split in float64, each
+float32 run and each microbatch alone against float64) and
+``dfsmn_witness`` (phase 17's DFSMN-MoE CE check at 3 x 5 layers: fp32
+flash and fp32 xla against float64 xla).
 
 The line before the last is one JSON object describing each kernel
 (route, source, launches on the main path, error, times, bound); the
@@ -499,9 +517,11 @@ HBM_BYTES_PER_S = 3.35e12            # H100 SXM device memory
 # dense conformer's 18 blocks as 6 (9 before the loops), except in phase
 # 17: its flash-vs-xla gradient checks run at the models' own depths (at
 # 3 x 5 the DFSMN CE check read 1.851e-3 of a group's max|g|, past
-# TRAIN_GRAD_TOL, where 3 x 10 reads 6.3e-4). Phase 16's checks keep the
-# 6 of flagship_cfg: at 4 its check (ii) read 1.921e-2 of a decoder
-# group's max|g| on the H100, where 6 reads 9.3e-5
+# TRAIN_GRAD_TOL, where 3 x 10 reads 6.3e-4: the flash formulation's
+# float32 rounding, dfsmn_witness). Phase 16's checks keep the 6 of
+# flagship_cfg: at 4 its check (ii) reads 1.921e-2 of a decoder group's
+# max|g| on the H100, where 6 reads 9.3e-5 (float32 rounding of a cuDNN
+# convolution at batch 2; the split is exact in float64, hier_witness)
 FLAGSHIP_MOE_BLOCKS = 6
 BUILT_MOE_BLOCKS = 4
 DFSMN_EACH_BLOCK, DFSMN_NET_EACH = 5, 10
@@ -1205,24 +1225,24 @@ def phase_kernel_flash(torch):
     return worst
 
 
-def flagship_cfg():
+def flagship_cfg(moe_blocks=FLAGSHIP_MOE_BLOCKS):
     from m3asr_tpu_torch.config import (EncoderConfig, ModelConfig,
                                         MoEConfig, MoEEncoderConfig)
     cfg = ModelConfig(input_dim=40, output_dim=5000)
     cfg.encoder_conf = MoEEncoderConfig(
-        attention_dim=512, attention_heads=8, num_blocks=FLAGSHIP_MOE_BLOCKS,
+        attention_dim=512, attention_heads=8, num_blocks=moe_blocks,
         embed_conf=EncoderConfig(attention_dim=512, attention_heads=4,
                                  linear_units=1024, num_blocks=6),
         moe_conf=MoEConfig(num_experts=32, hidden_units=1024))
     return cfg
 
 
-def flagship_params(torch):
+def flagship_params(torch, moe_blocks=FLAGSHIP_MOE_BLOCKS):
     """The flagship's config and its random parameters from a seeded
     generator on the card (routers normal x 0.5, so that routing spreads
     over the experts)."""
     from m3asr_tpu_torch.models import moe_conformer
-    cfg = flagship_cfg()
+    cfg = flagship_cfg(moe_blocks)
     gen = torch.Generator(device="cuda").manual_seed(0)
     params = moe_conformer.init(cfg.encoder_conf, cfg.input_dim,
                                 cfg.output_dim, gen, device="cuda")
@@ -4660,11 +4680,15 @@ def dfsmn_serve(torch, label, eng, reqs, kname, n_moe, n_attn, smi,
         log(times_line(f"{what} {label}", B, T, "graph", r, smi))
         if (B, T) == DFSMN_REQUESTS[-1] or (what != "dfsmn" and i == 1):
             dev, top, k1, k2 = dfsmn_profile(torch, eng, feat, lens)
-            log(f"{what} {label} {B}x{T} device time {dev:.3f} ms under "
-                f"torch.profiler: K1 {k1:.3f} ms ({k1 / dev:.3f}), K2 "
-                f"{k2:.3f} ms ({k2 / dev:.3f}); top kernels: " + "; ".join(
-                    f"{short_name(n)} {ms:.3f} ms" for n, ms in top)
-                + f"; {smi}")
+            if dev <= 0:     # the profiler can lose a round's device events
+                log(f"{what} {label} {B}x{T} device time not measured: "
+                    f"torch.profiler recorded no device event; {smi}")
+            else:
+                log(f"{what} {label} {B}x{T} device time {dev:.3f} ms under "
+                    f"torch.profiler: K1 {k1:.3f} ms ({k1 / dev:.3f}), K2 "
+                    f"{k2:.3f} ms ({k2 / dev:.3f}); top kernels: "
+                    + "; ".join(f"{short_name(n)} {ms:.3f} ms"
+                                for n, ms in top) + f"; {smi}")
         outs.append((out_e, out_len))
         recs.append(rec.calls)
     return total, outs, recs
@@ -6499,6 +6523,234 @@ def phase_train_cli(torch, state, smi):
 
 
 # ---------------------------------------------------------------------------
+# the float64 gradient witnesses (--only hier_witness dfsmn_witness; not
+# in the default run): a check of two float32 gradients against the
+# same gradient computed in float64 on the plain path, with the same
+# expert choices, tells a fault (the float64 runs differ too) from
+# float32 rounding (they agree, and the float32 runs lie from them)
+# ---------------------------------------------------------------------------
+
+WITNESS_MOE_BLOCKS = 4        # phase 16 at 6 + 4, where check (ii) failed
+WITNESS_SPLIT_TOL = 1e-9      # float64 accum_steps=2 vs 1, of max|g|
+WITNESS_GROUP = "decoder_1/decoders/feed_forward"   # (ii)'s worst at 6 + 4
+
+
+def f64_tree(torch, tree):
+    """``tree`` with every float leaf in float64 (dicts, lists)."""
+    if isinstance(tree, dict):
+        return {k: f64_tree(torch, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [f64_tree(torch, v) for v in tree]
+    return tree.double() if torch.is_tensor(tree) and \
+        tree.is_floating_point() else tree
+
+
+def group_max(g, group):
+    """max|g| per parameter group."""
+    out = {}
+    for k, v in g.items():
+        out[group(k)] = max(out.get(group(k), 0.0), v.abs().max().item())
+    return out
+
+
+def witness_line(phase, label, rels, watch=None, top=4):
+    """One comparison's ``top`` largest groups (and ``watch``'s) as a log
+    line; returns the largest distance."""
+    order = sorted(rels, key=rels.get, reverse=True)
+    extra = f"; {watch} {rels[watch]:.3e}" if watch in rels else ""
+    log(f"{phase} {label}: largest max|diff|/max|g| of a group "
+        + ", ".join(f"{rels[k]:.3e} ({k})" for k in order[:top]) + extra)
+    return rels[order[0]]
+
+
+def hier_witness(torch, state, smi):
+    """Phase 16's check (ii) at 6 + WITNESS_MOE_BLOCKS blocks against a
+    float64 witness: the hier recipe on hier_tree / hier_batch (xla
+    attention, the dense expert stage), the routing of a float32 flash
+    run replayed everywhere (split by rows for two microbatches, as (ii)
+    does). Logs, per group (hier_group): float64 accum_steps=2 against
+    float64 accum_steps=1 (the split in near-exact arithmetic), each
+    float32 run against float64, and (ii) itself; fails if the float64
+    split differs by more than WITNESS_SPLIT_TOL of a group's max|g|."""
+    from m3asr_tpu_torch.ops import moe as moe_mod
+    from m3asr_tpu_torch.train import step as ts
+    t0 = time.perf_counter()
+    cfg, params = flagship_params(torch, WITNESS_MOE_BLOCKS)
+    tree = hier_tree(torch, cfg, params)
+    batch = hier_batch(torch, cfg)
+    del params
+
+    def hvg(tree, feat, accum, attn_impl="xla", replay=None,
+            rows=slice(None)):
+        b = [t[rows] for t in batch]
+        with GateRecorder(moe_mod, replay=replay) as rec:
+            (loss, _), g = ts.hier_value_and_grad(
+                tree, cfg, ts.HierTrainConfig(attn_impl=attn_impl,
+                                              accum_steps=accum),
+                feat, *b[1:6], domain_targets=b[6], acc_targets=b[7])
+        torch.cuda.synchronize()
+        return loss.item(), g, rec.calls
+
+    _, g, calls = hvg(tree, batch[0], 1, "flash")
+    del g
+    half = batch[0].shape[0] // 2
+    mb = [c[:half] for c in calls] + [c[half:] for c in calls]
+    l32_1, g32_1, _ = hvg(tree, batch[0], 1, replay=calls)
+    l32_2, g32_2, _ = hvg(tree, batch[0], 2, replay=mb)
+    torch.cuda.empty_cache()
+    tree32, tree64 = tree, f64_tree(torch, tree)
+    del tree
+    torch.cuda.reset_peak_memory_stats()
+    l64_1, g64_1, _ = hvg(tree64, batch[0].double(), 1, replay=calls)
+    l64_2, g64_2, _ = hvg(tree64, batch[0].double(), 2, replay=mb)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    dtypes = {str(v.dtype) for g in (g64_1, g64_2) for v in g.values()}
+    phase = "hier_witness"
+    log(f"{phase}: 6 + {WITNESS_MOE_BLOCKS} blocks, hier recipe on 4 x "
+        f"1000 frames, xla, routing of a float32 flash run pinned; losses "
+        f"float64 accum 1 {l64_1:.12f}, accum 2 {l64_2:.12f}; float32 "
+        f"accum 1 {l32_1:.7f}, accum 2 {l32_2:.7f}; float64 gradients "
+        f"{sorted(dtypes)}; peak {peak:.3f} GiB in float64; {smi}")
+    split = witness_line(phase, "float64 accum 2 vs float64 accum 1",
+                         group_rel(g64_2, g64_1, hier_group), WITNESS_GROUP)
+    r1 = witness_line(phase, "float32 accum 1 vs float64 accum 1",
+                      group_rel(g32_1, g64_1, hier_group), WITNESS_GROUP)
+    r2 = witness_line(phase, "float32 accum 2 vs float64 accum 1",
+                      group_rel(g32_2, g64_1, hier_group), WITNESS_GROUP)
+    ii = witness_line(phase, "check (ii): float32 accum 2 vs float32 "
+                      "accum 1", group_rel(g32_2, g32_1, hier_group),
+                      WITNESS_GROUP)
+    # each microbatch alone (B=2, its rows of the routing): float32
+    # against float64, and the group's size in each
+    per_mb = []
+    for i in (0, 1):
+        rows = slice(i * half, (i + 1) * half)
+        sub = [c[rows] for c in calls]
+        _, a32, _ = hvg(tree32, batch[0][rows], 1, replay=sub,
+                        rows=rows)
+        _, a64, _ = hvg(tree64, batch[0][rows].double(), 1, replay=sub,
+                        rows=rows)
+        rel = group_rel(a32, a64, hier_group)
+        per_mb.append((rel.get(WITNESS_GROUP), group_max(
+            a64, hier_group).get(WITNESS_GROUP)))
+        witness_line(phase, f"microbatch {i} alone (B={half}): float32 vs "
+                     "float64", rel, WITNESS_GROUP)
+        del a32, a64
+    log(f"{phase}: {WITNESS_GROUP} in each microbatch alone: float32 "
+        "from float64, max|g| in float64: " + "; ".join(
+            f"{r:.3e}, {m:.6e}" for r, m in per_mb))
+    # microbatch 1's rows twice (a batch of 4, its gradient the same in
+    # exact arithmetic), and microbatch 1 alone with cuDNN off: the shape's
+    # kernels against the data
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    convs = {}
+    for label, rows in (("B=4", [half, half + 1, half, half + 1]),
+                        ("B=2", slice(half, 2 * half))):
+        sub = [c[rows] for c in calls]
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            _, a32, _ = hvg(tree32, batch[0][rows], 1, replay=sub,
+                            rows=rows)
+        # the float32 step's device kernels (cuBLAS's and cuDNN's
+        # choices by shape)
+        convs[label] = sorted({e.name for e in prof.events()
+                               if e.device_type == DeviceType.CUDA})
+        if label == "B=4":
+            _, a64, _ = hvg(tree64, batch[0][rows].double(), 1, replay=sub,
+                            rows=rows)
+            twice = group_rel(a32, a64, hier_group).get(WITNESS_GROUP)
+            del a64
+        del a32
+    only2 = sorted(set(convs["B=2"]) - set(convs["B=4"]))
+    log(f"{phase}: the float32 step's kernels at B=2 and not at B=4 "
+        f"({len(only2)}): {[k[:100] for k in only2[:20]]}; at both "
+        f"{len(set(convs['B=2']) & set(convs['B=4']))}")
+    rows = slice(half, 2 * half)
+    sub = [c[rows] for c in calls]
+    torch.backends.cudnn.enabled = False
+    try:
+        _, a32, _ = hvg(tree32, batch[0][rows], 1, replay=sub, rows=rows)
+        _, a64, _ = hvg(tree64, batch[0][rows].double(), 1, replay=sub,
+                        rows=rows)
+    finally:
+        torch.backends.cudnn.enabled = True
+    no_cudnn = group_rel(a32, a64, hier_group).get(WITNESS_GROUP)
+    del a32, a64
+    log(f"{phase}: {WITNESS_GROUP}, float32 from float64: microbatch 1's "
+        f"rows twice (B=4) {twice:.3e}; microbatch 1 alone with cuDNN off "
+        f"{no_cudnn:.3e}")
+    mags = group_max(g64_1, hier_group)
+    top = max(mags, key=mags.get)
+    log(f"{phase}: max|g| in float64 of {WITNESS_GROUP} "
+        f"{mags.get(WITNESS_GROUP, 0.0):.6e}, of the largest group ({top}) "
+        f"{mags[top]:.6e}; took {time.perf_counter() - t0:.1f} s")
+    verdict = ("a fault of the split" if split > WITNESS_SPLIT_TOL else
+               "float32 rounding: the float64 split is exact")
+    log(f"{phase}: float64 split {split:.3e} against {WITNESS_SPLIT_TOL}; "
+        f"float32 runs {r1:.3e} / {r2:.3e} from float64, (ii) {ii:.3e}: "
+        f"{verdict}")
+    if split > WITNESS_SPLIT_TOL or dtypes != {"torch.float64"}:
+        raise SystemExit(f"FAIL {phase}: {verdict}")
+    del g32_1, g32_2, g64_1, g64_2, tree32, tree64
+    torch.cuda.empty_cache()
+
+
+def dfsmn_witness(torch, state, smi):
+    """Phase 17's DFSMN-MoE CE check at 3 x DFSMN_EACH_BLOCK cFSMN layers
+    against a float64 witness: the CE step on the alignment batch of
+    dfsmn_train_checks, fp32 flash (its routing pinned everywhere), fp32
+    xla and float64 xla; logs each float32 path's distance from float64
+    per group (dfsmn_group) beside the check's own flash-vs-xla reading."""
+    from m3asr_tpu_torch.config import model_config_from_dict
+    from m3asr_tpu_torch.models.registry import get_family
+    from m3asr_tpu_torch.ops import moe as moe_mod
+    from m3asr_tpu_torch.train import step as ts
+    t0 = time.perf_counter()
+    cfg = model_config_from_dict(dfsmn_raw(each=DFSMN_EACH_BLOCK))
+    params = get_family(DFSMN_MOE).init(
+        cfg, torch.Generator(device="cuda").manual_seed(17))
+    batch = train_batch(torch, cfg)
+    rng = np.random.default_rng(17)
+    align = torch.from_numpy(rng.integers(
+        0, cfg.output_dim, (len(TRAIN_LENS), max(TRAIN_LENS)))
+        .astype(np.int32)).cuda()
+
+    def vg(params, feat, attn_impl, replay=None):
+        with GateRecorder(moe_mod, replay=replay) as rec:
+            (loss, _), g = ts.value_and_grad(
+                params, cfg, ts.TrainConfig(attn_impl=attn_impl,
+                                            loss_type="ce"),
+                feat, batch[1], align, batch[1])
+        torch.cuda.synchronize()
+        return loss.item(), g, rec.calls
+
+    lf, g_f, calls = vg(params, batch[0], "flash")
+    lx, g_x, _ = vg(params, batch[0], "xla", calls)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    l64, g64, _ = vg(f64_tree(torch, params), batch[0].double(), "xla",
+                     calls)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    phase = "dfsmn_witness"
+    log(f"{phase}: {DFSMN_MOE} at 3 x {DFSMN_EACH_BLOCK} cFSMN layers, CE "
+        f"on 4 x 1000 frames, routing of the fp32 flash run pinned; losses "
+        f"fp32 flash {lf:.7f}, fp32 xla {lx:.7f}, float64 xla "
+        f"{l64:.12f}; peak {peak:.3f} GiB in float64; {smi}")
+    check = group_rel(g_f, g_x, dfsmn_group)
+    watch = max(check, key=check.get)
+    witness_line(phase, "phase 17's check: fp32 flash vs fp32 xla", check)
+    rf = witness_line(phase, "fp32 flash vs float64 xla",
+                      group_rel(g_f, g64, dfsmn_group), watch)
+    rx = witness_line(phase, "fp32 xla vs float64 xla",
+                      group_rel(g_x, g64, dfsmn_group), watch)
+    log(f"{phase}: the larger distance from float64 is "
+        f"{'flash' if rf > rx else 'xla'}'s ({max(rf, rx):.3e} against "
+        f"{min(rf, rx):.3e}); took {time.perf_counter() - t0:.1f} s")
+    del g_f, g_x, g64, params
+    torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
 # 17. DFSMN and dense conformer training: K3 at (64, 64), the steps, the
 #     CLI with BMUF and sMBR
 # ---------------------------------------------------------------------------
@@ -7372,6 +7624,10 @@ def par_rank(work):
         del eng
         torch.cuda.empty_cache()
         dist.barrier()
+    if n == 4 and os.path.exists(os.path.join(work, "export.wait")):
+        t0 = time.perf_counter()
+        res["export"] = export_rank(torch, work, rank)  # phase 18's export
+        spans["export_s"] = time.perf_counter() - t0
     if n == 4 and os.path.exists(os.path.join(work, "loops.json")):
         t0 = time.perf_counter()
         res["loops"] = loop_rank(torch, work, rank)     # phase 18's loops
@@ -7489,6 +7745,239 @@ def par_held(torch, label, mode, eng, saved, feats):
                 raise SystemExit(f"FAIL parallel {label} {key} row {b}: "
                                  f"{rel:.3e} of max|ref|")
     return worst
+
+
+# phase 18's sharded export (in its 4-rank world, after its serving
+# cases): fp32 dirs of the flagship's widths cut to EXPORT_DEPTH, one
+# bucket, each written as ``build --export --ep --tp`` writes it (every
+# rank's program traced in this process); label -> (build flags, ep, tp)
+PAR_EXPORTS = (("export fp32 flash ep4", ["--attn_impl", "flash"], 4, 1),
+               ("export fp32 ep2 tp2", [], 2, 2))
+PAR_EXPORT_BUCKET = "1x256"          # PAR_REQUESTS[0]'s bucket
+
+
+def export_dirs(torch, work):
+    """PAR_EXPORTS' dirs through the port's build (``build_engine``, the
+    routers redrawn as par_engines does, then ``save`` with every rank's
+    program for cuda, each save_program timed), each dir's twin without
+    exported/, an unsharded dir of the flash case's weights and buckets
+    (the one-process recognizer's), and a one-utterance ark. Writes
+    ``export.json``; returns ({label: the unsharded engine}, {label:
+    seconds of each program's export and save})."""
+    import shutil as sh
+    import yaml
+    from m3asr_tpu_torch import build
+    from m3asr_tpu_torch.io.kaldi_io import ArkWriter
+    from m3asr_tpu_torch.runtime.engine import Engine
+    with open(os.path.join(HERE, "configs", "3m_asr_18l32e.yaml")) as f:
+        raw = yaml.safe_load(f)
+    enc = raw["model_conf"]["encoder_conf"]
+    enc["embed_conf"]["num_blocks"], enc["num_blocks"] = EXPORT_DEPTH
+    path = os.path.join(work, "flagship_export.yaml")
+    with open(path, "w") as f:
+        yaml.safe_dump(raw, f)
+    engines, took, cases = {}, {}, []
+    orig = Engine.save_program
+
+    def timed(self, *a, **kw):
+        t0 = time.perf_counter()
+        out = orig(self, *a, **kw)
+        took[label].append(time.perf_counter() - t0)
+        return out
+    for label, flags, ep, tp in PAR_EXPORTS:
+        d = os.path.join(work, label.replace(" ", "_"))
+        args = build.parse_args(
+            ["-c", path, "-o", d, "--device", "cuda", "--buckets",
+             PAR_EXPORT_BUCKET, "--moe_impl", "dense", "--export", "--ep",
+             str(ep), "--tp", str(tp)] + flags)
+        eng, raw_cut, _ = build.build_engine(args)
+        eng.cuda_graphs = False
+        gen = torch.Generator(device="cuda").manual_seed(18)
+        k = eng.params["blocks"]["feed_forward"]["router"]["kernel"]
+        k.copy_(torch.randn(k.shape, generator=gen, device="cuda") * 0.5)
+        took[label] = []
+        Engine.save_program = timed
+        try:
+            eng.save(d, raw_yaml=raw_cut, export_devices=("cuda",),
+                     shards=(ep, tp))
+        finally:
+            Engine.save_program = orig
+        sh.copytree(d, d + "_plain", ignore=sh.ignore_patterns("exported"))
+        engines[label] = eng
+        cases.append({"label": label, "dir": d, "ep": ep, "tp": tp,
+                      "flash": "flash" in flags})
+    flash = next(c for c in cases if c["flash"])
+    one = os.path.join(work, "export_one")
+    engines[flash["label"]].save(one, raw_yaml=raw)
+    feat, lens = par_feats()[PAR_REQUESTS[0]]
+    ark = os.path.join(work, "export.ark")
+    with ArkWriter(ark) as w:
+        w.write("utt0", feat[0, :lens[0]])
+    spec = {"cases": cases, "ark": ark, "one": one,
+            "k2_per_forward": sum(EXPORT_DEPTH)}
+    with open(os.path.join(work, "export.tmp"), "w") as f:
+        json.dump(spec, f)
+    os.replace(os.path.join(work, "export.tmp"),
+               os.path.join(work, "export.json"))
+    return engines, took
+
+
+def start_export(work, torch):
+    """export_dirs in a thread of its own, beside the 2-rank world (the
+    parent only waits on a world meanwhile): ``export.wait`` marks the
+    4-rank world's ranks to wait for ``export.json`` (``export_failed``
+    if the thread raised). Returns (the thread, its result dict)."""
+    import threading
+    open(os.path.join(work, "export.wait"), "w").close()
+    out = {}
+
+    def run():
+        t0 = time.perf_counter()
+        try:
+            out["result"] = export_dirs(torch, work)
+        except BaseException as e:
+            out["error"] = e
+            open(os.path.join(work, "export_failed"), "w").close()
+        out["s"] = time.perf_counter() - t0
+    th = threading.Thread(target=run, daemon=True)
+    th.start()
+    return th, out
+
+
+def export_rank(torch, work, rank):
+    """Phase 18's exported dirs on this rank: each case's dir loaded (this
+    rank's program) and its twin without exported/, PAR_REQUESTS[0]
+    through both (bit-equal, K2 counted around the loaded program's
+    call), load-and-first-call seconds of each, then PAR_RUNS timed
+    requests each; then ``recognize.main`` greedy on the flash dir
+    through the leader and follower loops. Rank 0 saves its answers and
+    routing (``out_{label}.npz``)."""
+    import hashlib
+    from m3asr_tpu_torch.ops import moe as moe_mod
+    from m3asr_tpu_torch.ops.flash_attention import flash_kernels
+    from m3asr_tpu_torch.runtime.engine import Engine
+    t0 = time.perf_counter()
+    while not os.path.exists(os.path.join(work, "export.json")):
+        if os.path.exists(os.path.join(work, "export_failed")) or \
+                time.perf_counter() - t0 > PAR_WORLD_S:
+            raise SystemExit("FAIL parallel export: the dirs were not built")
+        time.sleep(0.5)
+    res = {"waited_s": time.perf_counter() - t0}
+    with open(os.path.join(work, "export.json")) as f:
+        spec = json.load(f)
+    key = "{}x{}".format(*PAR_REQUESTS[0])
+    feat, lens = par_feats()[PAR_REQUESTS[0]]
+    for case in spec["cases"]:
+        r, outs, engs = {}, {}, {}
+        for which, d in (("loaded", case["dir"]),
+                         ("traced", case["dir"] + "_plain")):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            engs[which] = Engine.load(d, device="cuda")
+            r[f"load_s_{which}"] = time.perf_counter() - t0
+            reset_flash(flash_kernels)
+            with GateRecorder(moe_mod) as rec:
+                outs[which] = engs[which].infer(feat, lens)[0]
+            torch.cuda.synchronize()
+            r[f"first_s_{which}"] = time.perf_counter() - t0
+            r[f"k2_{which}"] = flash_kernels.fwd_launches
+            if rank == 0 and which == "loaded":
+                np.savez(os.path.join(work, f"out_{case['label']}.npz"),
+                         **{f"{key}_out": outs[which]}, **{
+                             f"{key}_gate{i}": g.cpu().numpy()
+                             for i, g in enumerate(rec.calls)})
+        for which, eng in engs.items():
+            lat = []
+            for _ in range(PAR_RUNS):
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                eng.infer(feat, lens)
+                lat.append((time.perf_counter() - t1) * 1e3)
+            r[f"ms_{which}"] = float(np.median(lat))
+        r["loaded"] = sorted(map(list, engs["loaded"].loaded_buckets))
+        r["traced_loaded"] = sorted(engs["traced"].loaded_buckets)
+        r["equal"] = bool(np.array_equal(outs["loaded"], outs["traced"]))
+        r["sha"] = hashlib.sha256(outs["loaded"].tobytes()).hexdigest()
+        res[case["label"]] = r
+        del engs
+        torch.cuda.empty_cache()
+    flash = next(c for c in spec["cases"] if c["flash"])
+    reset_flash(flash_kernels)
+    hyps, got, eng, secs = run_recognize(torch, [
+        "-p", flash["dir"], "-i", spec["ark"], "--feat_dim", "40",
+        "--batch_size", "1", "-d", "greedy"])
+    res["recognize"] = {"k2": flash_kernels.fwd_launches, "secs": secs,
+                        "loaded": sorted(map(list, eng.loaded_buckets)),
+                        "hyps": hyps, "counts": None if rank == 0 else got}
+    return res
+
+
+def export_report(torch, work, ranks, engines, took, smi):
+    """Phase 18's sharded export held: on every rank the loaded program
+    ran the bucket and answered bit for bit as its twin without
+    exported/, every rank the same bits; K2 exactly EXPORT_DEPTH's layers
+    a forward from the ep=4 flash programs on every rank (none from the
+    xla ones); rank 0 against the unsharded engine (par_held's fp32
+    rule); the recognizer on ranks (programs loaded on every rank, K2
+    counted) id for id as one process on the unsharded dir. Returns the
+    K2 launches of every rank (fp32)."""
+    with open(os.path.join(work, "export.json")) as f:
+        spec = json.load(f)
+    per = spec["k2_per_forward"]
+    bucket = [list(map(int, PAR_EXPORT_BUCKET.split("x")))]
+    feats = {PAR_REQUESTS[0]: par_feats()[PAR_REQUESTS[0]]}
+    k2 = 0
+    for case in spec["cases"]:
+        label = case["label"]
+        rs = [x["export"][label] for x in ranks]
+        want = per if case["flash"] else 0
+        bad = [i for i, x in enumerate(rs) if x["loaded"] != bucket
+               or x["traced_loaded"] or not x["equal"]
+               or x["sha"] != rs[0]["sha"] or x["k2_loaded"] != want
+               or x["k2_traced"] != want]
+        if bad:
+            raise SystemExit(f"FAIL parallel {label}: ranks {bad}: "
+                             f"{[rs[i] for i in bad]}; K2 want {want}")
+        k2 += sum(x["k2_loaded"] for x in rs)
+        with np.load(os.path.join(work, f"out_{label}.npz")) as z:
+            saved = dict(z)
+        worst = par_held(torch, label, "fp32", engines[label], saved, feats)
+        per_prog = took[label]
+        log(f"parallel {label} (1 embed + 1 MoE block at the flagship's "
+            f"widths, {len(ranks)} gloo ranks sharing one card): every "
+            f"rank ran its loaded program of {PAR_EXPORT_BUCKET} and "
+            f"answered bit for bit as the dir without exported/ (ranks "
+            f"bit-identical); rank 0 against the unsharded engine "
+            f"{worst:.3e} of max|ref|; K2 {rs[0]['k2_loaded']} launches a "
+            f"rank from the loaded program (held exactly, {want} a "
+            f"forward); export and save s a program "
+            f"{[round(v, 2) for v in per_prog]} (build's save, one "
+            f"process); load and first call s a rank, loaded program "
+            f"{[round(x['first_s_loaded'], 2) for x in rs]} (engine load "
+            f"{[round(x['load_s_loaded'], 2) for x in rs]}), traced "
+            f"{[round(x['first_s_traced'], 2) for x in rs]}; eager ms a "
+            f"{PAR_REQUESTS[0][0]}x{PAR_REQUESTS[0][1]} request (rank 0, "
+            f"median of {PAR_RUNS}) loaded {rs[0]['ms_loaded']:.3f}, traced "
+            f"{rs[0]['ms_traced']:.3f}; {smi}")
+    rs = [x["export"]["recognize"] for x in ranks]
+    hyps, _, eng, secs = run_recognize(torch, [
+        "-p", spec["one"], "-i", spec["ark"], "--feat_dim", "40",
+        "--batch_size", "1", "-d", "greedy"])
+    del eng
+    if any(x["loaded"] != bucket or x["k2"] != per for x in rs) or \
+            hyps != rs[0]["hyps"] or not hyps or any(
+                x["counts"]["INFER"] != 1 or x["counts"]["STOP"] != 1
+                for x in rs[1:]):
+        raise SystemExit(f"FAIL parallel export recognize: ranks {rs}, "
+                         f"one process {hyps}")
+    k2 += sum(x["k2"] for x in rs)
+    log(f"parallel export recognize (greedy, the ep=4 flash dir's "
+        f"programs on 4 ranks through the leader and follower loops): "
+        f"rank 0's transcript equals one process's on the unsharded dir "
+        f"({sum(map(len, hyps.values()))} tokens); programs loaded on "
+        f"every rank, K2 {per} a rank (held exactly); {rs[0]['secs']:.1f} "
+        f"s on ranks with the load, {secs:.1f} s one process; {smi}")
+    return k2
 
 
 # the serving loops on ranks (phase 18, after its serving cases, in its
@@ -7902,15 +8391,17 @@ def phase_parallel(torch, state, smi, serve=True, train=True):
     try:
         engines, cases = par_engines(torch, work) if serve else \
             ({}, {2: [], 4: []})
+        exporter = None
         if serve:
             loop_inputs(work, next(c["dir"] for c in cases[4]
                                    if c["mode"] == "fp32"))
+            exporter = start_export(work, torch)
         t_build = time.perf_counter() - t0
         feats = par_feats()
         if train:
             state.setdefault("max_err_flash_sp", tp_flash_sp(torch, smi))
         world_s = {}
-        for n in (4, 2):
+        for n in (2, 4):      # the exported dirs build beside the 2 ranks
             with open(os.path.join(work, f"cases_{n}.json"), "w") as f:
                 json.dump(cases[n], f)
             if train:
@@ -7920,6 +8411,16 @@ def phase_parallel(torch, state, smi, serve=True, train=True):
             world_s[n] = par_world(n, work)
             for c in cases[n]:               # its dirs are read
                 sh.rmtree(c["dir"], ignore_errors=True)
+        exported, took = {}, {}
+        if exporter is not None:
+            exporter[0].join()
+            got = exporter[1]
+            if "error" in got:
+                raise got["error"]
+            exported, took = got["result"]
+            log(f"parallel export: {len(PAR_EXPORTS)} dirs built with every "
+                f"rank's program in {got['s']:.1f} s, beside the 2-rank "
+                "world")
         k2, trained = 0, {}
         for n in (4, 2):
             ranks = []
@@ -7985,16 +8486,17 @@ def phase_parallel(torch, state, smi, serve=True, train=True):
                 log(line + f"; {smi}")
             if serve and n == 4:
                 sp = ranks[0]["spans"]
-                log(f"parallel loops: {sp['loops_s']:.1f} s of rank 0's "
-                    "life")
-                trained[("K2", "float32")] = loop_report(torch, work, ranks,
-                                                         smi)
+                log(f"parallel export: {sp['export_s']:.1f} s of rank 0's "
+                    f"life (waited {ranks[0]['export']['waited_s']:.1f} s "
+                    f"for the dirs); loops: {sp['loops_s']:.1f} s")
+                trained[("K2", "float32")] = export_report(
+                    torch, work, ranks, exported, took, smi) + loop_report(
+                        torch, work, ranks, smi)
             if train:
                 for kn, cnt in tp_report(torch, n, ranks, smi).items():
                     trained[kn] = trained.get(kn, 0) + cnt
-        for eng in engines.values():
-            del eng
         engines.clear()
+        exported.clear()
         torch.cuda.empty_cache()
         log(f"parallel: build and dirs {t_build:.1f} s, worlds "
             + ", ".join(f"{n} ranks {s:.1f} s" for n, s in world_s.items())
@@ -8602,6 +9104,8 @@ ALONE = {
         torch, state, smi, train=False),
     "train_parallel": lambda torch, state, smi: phase_parallel(
         torch, state, smi, serve=False),
+    "hier_witness": hier_witness,
+    "dfsmn_witness": dfsmn_witness,
 }
 
 

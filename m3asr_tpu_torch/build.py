@@ -6,7 +6,7 @@
         [--attn_impl xla|flash] [--buckets 1x256,4x1024] [--strict]
         [--decode_output logits|log_softmax|argmax|topk|beam]
         [--decode_topk K] [--skip-warmup] [--device cuda|cpu]
-        [--export [--export_platforms cuda,cpu]]
+        [--ep N] [--tp M] [--export [--export_platforms cuda,cpu]]
 
 Reads a reference YAML config (a hier MoE conformer, dense conformer or
 DFSMN proto) and PyTorch checkpoint, converts the weights with the
@@ -48,8 +48,16 @@ itself is one process and does not warm up (the buckets run on the
 ranks); serve the dir on N x M ranks (``infer``, ``recognize``,
 ``serve``). The JAX engine's refusals hold: only the moe_conformer
 family shards, ``--fuse_qkv`` and ``--dense_quant`` do not, and tp with
-``--attn_impl flash`` serves xla. ``--export`` of a sharded engine is
-not ported (ROADMAP Queue 1 item 12c-ii, sharded export).
+``--attn_impl flash`` serves xla. With ``--export`` the build writes
+every rank's program of each bucket,
+``exported/{B}x{T}.{device}.r{rank}of{ep}x{tp}.pt2``: one process
+traces them in turn, each from that rank's shard of the tree (the rank's
+experts and its share of the biases are fixed in its program; the
+all-reduces are ``m3asr::mesh_all_reduce`` operators, which run nothing
+while tracing). Each rank of ``infer`` / ``recognize`` / ``serve`` on
+the dir loads its own programs (``Engine.load``); a program recorded for
+another rank or mesh shape is not run (a warning, and the bucket is
+traced from the model code).
 """
 
 from __future__ import annotations
@@ -200,10 +208,6 @@ def build_engine(args):
 def main(argv=None):
     from m3asr_tpu_torch import checkpoint as ckpt
     args = parse_args(argv)
-    if args.export and args.ep * args.tp > 1:
-        raise NotImplementedError(
-            "--export of an ep/tp-sharded engine is not ported yet: ROADMAP "
-            "Queue 1 item 12c-ii (sharded export)")
     engine, raw, decoders = build_engine(args)
     devices = None
     if args.export:

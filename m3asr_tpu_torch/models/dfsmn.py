@@ -35,8 +35,9 @@ import torch
 import torch.nn.functional as F
 
 from m3asr_tpu_torch.ops import moe as moe_ops
-from m3asr_tpu_torch.ops.common import (init_layer_norm, init_linear,
-                                        layer_norm, linear, scale_shift)
+from m3asr_tpu_torch.ops.common import (at_least_f32, init_layer_norm,
+                                        init_linear, layer_norm, linear,
+                                        scale_shift)
 from m3asr_tpu_torch.ops.masking import make_valid_mask
 from m3asr_tpu_torch.ops.positional import MAX_LEN, sinusoid_table
 
@@ -177,7 +178,8 @@ def attn_mem_layer(p, x: torch.Tensor, lengths: Optional[torch.Tensor],
     if memory_num > 0:
         km = p["key_memory"].to(x.dtype)                        # (H, M, dk)
         keys = torch.cat([k, km[None].expand(B, -1, -1, -1)], dim=2)
-    scores = torch.matmul(q.float(), keys.float().transpose(-1, -2))
+    scores = torch.matmul(at_least_f32(q),
+                          at_least_f32(keys).transpose(-1, -2))
     scores.mul_(dk ** -0.5)                                 # (B,H,T,T+M)
     if attn_mask is not None:
         full = attn_mask.to(torch.bool)

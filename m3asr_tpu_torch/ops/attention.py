@@ -17,7 +17,8 @@ from typing import Optional
 
 import torch
 
-from m3asr_tpu_torch.ops.common import init_linear, linear, row_parallel_linear
+from m3asr_tpu_torch.ops.common import (at_least_f32, init_linear, linear,
+                                        row_parallel_linear)
 from m3asr_tpu_torch.ops.masking import make_valid_mask
 from m3asr_tpu_torch.parallel import mesh as pmesh
 
@@ -33,7 +34,7 @@ def masked_softmax(scores: torch.Tensor, lengths: Optional[torch.Tensor],
     attend-mask broadcastable to scores. With a mask, rows that attend
     to nothing are zeroed (a -1e30 fill alone would give a uniform row).
     """
-    s = scores.float() * scale
+    s = at_least_f32(scores) * scale
     valid = None
     if lengths is not None:
         valid = make_valid_mask(lengths, scores.shape[-1])[:, None, None, :]
@@ -77,7 +78,7 @@ def project_kv(p, key: torch.Tensor, value: torch.Tensor,
 
 def _attend_heads(p, q, k, v, lengths, mask):
     B, _, T, d_k = q.shape
-    scores = torch.matmul(q.float(), k.float().transpose(-1, -2))
+    scores = torch.matmul(at_least_f32(q), at_least_f32(k).transpose(-1, -2))
     attn = masked_softmax(scores, lengths, float(d_k) ** -0.5, mask)
     ctx = torch.matmul(attn.to(v.dtype), v)                  # (B,H,T1,Dk)
     return row_parallel_linear(p["linear_out"],
@@ -154,10 +155,13 @@ def rel_mha(p, x: torch.Tensor, pos_emb: torch.Tensor,
     if "linear_qkv" in p:
         q2 = torch.cat([q + u, q + w], dim=-1)               # (B,H,T,2Dk)
         kp = torch.cat([k, pp[None].expand_as(k)], dim=-1)
-        scores = torch.matmul(q2.float(), kp.float().transpose(-1, -2))
+        scores = torch.matmul(at_least_f32(q2),
+                              at_least_f32(kp).transpose(-1, -2))
     else:
-        ac = torch.matmul((q + u).float(), k.float().transpose(-1, -2))
-        bd = torch.matmul((q + w).float(), pp.float().transpose(-1, -2))
+        ac = torch.matmul(at_least_f32(q + u),
+                          at_least_f32(k).transpose(-1, -2))
+        bd = torch.matmul(at_least_f32(q + w),
+                          at_least_f32(pp).transpose(-1, -2))
         scores = ac + bd
     attn = masked_softmax(scores, lengths, float(d_k) ** -0.5, mask)
     ctx = torch.matmul(attn.to(v.dtype), v)                  # (B,H,T,Dk)

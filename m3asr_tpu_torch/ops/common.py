@@ -16,6 +16,14 @@ from m3asr_tpu_torch.parallel import mesh as pmesh
 LN_EPS = 1e-12
 
 
+def at_least_f32(t: torch.Tensor) -> torch.Tensor:
+    """``t.float()`` that keeps float64: the casts that widen bf16 for
+    float32 statistics, scores and losses leave a float64 tensor as it
+    is, so a float64 run stays float64 throughout (the gradient witness
+    of ``chip_smoke.py --only hier_witness``)."""
+    return t if t.dtype == torch.float64 else t.float()
+
+
 def linear(p, x: torch.Tensor) -> torch.Tensor:
     """``y = x @ kernel + bias`` in x's dtype; kernel stored (in, out).
 
@@ -48,11 +56,11 @@ def row_parallel_linear(p, x: torch.Tensor) -> torch.Tensor:
 
 def layer_norm(p, x: torch.Tensor, eps: float = LN_EPS) -> torch.Tensor:
     """LayerNorm over the last dim, statistics in float32."""
-    xf = x.float()
+    xf = at_least_f32(x)
     mean = xf.mean(dim=-1, keepdim=True)
     var = (xf - mean).square().mean(dim=-1, keepdim=True)
     y = (xf - mean) * torch.rsqrt(var + eps)
-    y = y * p["scale"].float() + p["bias"].float()
+    y = y * at_least_f32(p["scale"]) + at_least_f32(p["bias"])
     return y.to(x.dtype)
 
 
@@ -149,11 +157,11 @@ def group_norm(p, x: torch.Tensor, num_groups: int,
     if C % num_groups:
         raise ValueError(f"{C} channels do not split into {num_groups} "
                          "groups")
-    xg = x.float().reshape(*lead, num_groups, C // num_groups)
+    xg = at_least_f32(x).reshape(*lead, num_groups, C // num_groups)
     mean = xg.mean(dim=-1, keepdim=True)
     var = (xg - mean).square().mean(dim=-1, keepdim=True)
     y = ((xg - mean) * torch.rsqrt(var + eps)).reshape(*lead, C)
-    y = y * p["scale"].float() + p["bias"].float()
+    y = y * at_least_f32(p["scale"]) + at_least_f32(p["bias"])
     return y.to(x.dtype)
 
 
@@ -168,7 +176,7 @@ def mask_batch_norm(p, x: torch.Tensor, valid_mask: torch.Tensor,
     variance, and updates the running stats as ``old * momentum + batch
     * (1 - momentum)``; eval mode normalizes with the running stats and
     returns them as they are."""
-    xf = x.float()
+    xf = at_least_f32(x)
     m = valid_mask.float()[:, None]
     if train:
         n = m.sum().clamp(min=1.0)
@@ -178,11 +186,11 @@ def mask_batch_norm(p, x: torch.Tensor, valid_mask: torch.Tensor,
         new_mean = p["running_mean"] * momentum + mean[0] * (1 - momentum)
         new_var = p["running_var"] * momentum + var[0] * (1 - momentum)
     else:
-        mean = p["running_mean"][None].float()
-        var = p["running_var"][None].float()
+        mean = at_least_f32(p["running_mean"][None])
+        var = at_least_f32(p["running_var"][None])
         new_mean, new_var = p["running_mean"], p["running_var"]
     y = (xf - mean) / torch.sqrt(var + eps)
-    y = y * p["scale"].float() + p["bias"].float()
+    y = y * at_least_f32(p["scale"]) + at_least_f32(p["bias"])
     return y.to(x.dtype), {"running_mean": new_mean, "running_var": new_var}
 
 
@@ -198,12 +206,12 @@ def varlen_instance_norm_2d(p, x: torch.Tensor, lengths: torch.Tensor,
              < lengths.reshape(-1, 1)).float()
     m = valid[:, None, :, None]
     num_bins = (lengths.float() * F).reshape(B, 1, 1, 1)
-    xm = x.float() * m
+    xm = at_least_f32(x) * m
     mean = xm.sum(dim=(1, 2), keepdim=True) / num_bins
     var = ((xm - mean).square() * m).sum(dim=(1, 2), keepdim=True) \
         / num_bins
     y = (xm - mean) / torch.sqrt(var + eps)
     if affine:
-        y = y * p["scale"].float().reshape(1, -1, 1, 1) \
-            + p["bias"].float().reshape(1, -1, 1, 1)
+        y = y * at_least_f32(p["scale"]).reshape(1, -1, 1, 1) \
+            + at_least_f32(p["bias"]).reshape(1, -1, 1, 1)
     return y.to(x.dtype)

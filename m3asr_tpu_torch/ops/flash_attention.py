@@ -42,7 +42,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from m3asr_tpu_torch.ops.common import linear
+from m3asr_tpu_torch.ops.common import at_least_f32, linear
 from m3asr_tpu_torch.ops.library import kernel_op
 
 _NEG_INF = -1e30
@@ -122,7 +122,8 @@ def _attend(B: int, T: int, S: int, lengths, window: Window, mem_cols: int,
 def _scores(q2, k2, lengths, scale, window, mem_cols):
     B, _, T, _ = q2.shape
     S = k2.shape[2]
-    s = torch.matmul(q2.float(), k2.float().transpose(-1, -2)) * scale
+    s = torch.matmul(at_least_f32(q2),
+                     at_least_f32(k2).transpose(-1, -2)) * scale
     ok = _attend(B, T, S, lengths, window, mem_cols, q2.device)
     return s if ok is None else s.masked_fill(~ok, _NEG_INF)
 
@@ -136,7 +137,7 @@ def flash_attention_reference(q2, k2, v, lengths, scale: float,
     m = s.amax(dim=-1, keepdim=True)
     p = torch.exp(s - m)
     l = p.sum(dim=-1, keepdim=True)
-    out = torch.matmul(p.to(v.dtype).float(), v.float()) / l
+    out = torch.matmul(at_least_f32(p.to(v.dtype)), at_least_f32(v)) / l
     return out.to(v.dtype), m + torch.log(l)
 
 
@@ -146,11 +147,11 @@ def flash_attention_bwd_reference(q2, k2, v, g, lse, delta, lengths,
     """Plain version of K3: (dq2, dk2, dv) in the inputs' dtypes, from the
     saved lse and delta (B,H,T,1), in float32 throughout."""
     p = torch.exp(_scores(q2, k2, lengths, scale, window, mem_cols) - lse)
-    gf = g.float()
-    dp = torch.matmul(gf, v.float().transpose(-1, -2))
+    gf = at_least_f32(g)
+    dp = torch.matmul(gf, at_least_f32(v).transpose(-1, -2))
     ds = p * (dp - delta) * scale
-    dq2 = torch.matmul(ds, k2.float())
-    dk2 = torch.matmul(ds.transpose(-1, -2), q2.float())
+    dq2 = torch.matmul(ds, at_least_f32(k2))
+    dk2 = torch.matmul(ds.transpose(-1, -2), at_least_f32(q2))
     dv = torch.matmul(p.transpose(-1, -2), gf)
     return dq2.to(q2.dtype), dk2.to(k2.dtype), dv.to(v.dtype)
 
@@ -348,7 +349,7 @@ def flash_attention_bwd(q2, k2, v, out, lse, g, lengths, scale: float,
     """Backward of :func:`flash_attention_bhtd` from its saved ``out`` and
     ``lse``: (dq2, dk2, dv) in the inputs' dtypes. K3 on CUDA, its plain
     version on the CPU."""
-    delta = (g.float() * out.float()).sum(dim=-1, keepdim=True)
+    delta = (at_least_f32(g) * at_least_f32(out)).sum(dim=-1, keepdim=True)
     if q2.device.type == "cpu":
         return flash_attention_bwd_reference(q2, k2, v, g, lse, delta,
                                              lengths, scale, window,

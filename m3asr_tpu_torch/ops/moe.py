@@ -35,7 +35,8 @@ from typing import List, Optional, Tuple
 
 import torch
 
-from m3asr_tpu_torch.ops.common import activation_fn, activation_name, swish
+from m3asr_tpu_torch.ops.common import (activation_fn, activation_name,
+                                        at_least_f32, swish)
 from m3asr_tpu_torch.ops.masking import make_valid_mask
 from m3asr_tpu_torch.ops import quant
 from m3asr_tpu_torch.ops.moe_q4 import q4_kernel, q4_tiled_kernel
@@ -58,9 +59,9 @@ def _router_logits(p, router_inputs: torch.Tensor) -> torch.Tensor:
     """float32 router logits; the kernel is cast to the input dtype
     first, as the JAX package casts it."""
     kern = p["kernel"].to(router_inputs.dtype)
-    logits = torch.matmul(router_inputs.float(), kern.float())
+    logits = torch.matmul(at_least_f32(router_inputs), at_least_f32(kern))
     if p.get("bias") is not None:
-        logits = logits + p["bias"].float()
+        logits = logits + at_least_f32(p["bias"])
     return logits
 
 
@@ -122,7 +123,7 @@ def noisy_topk_gate(p, x: torch.Tensor, top_k: int,
         if noise is None:
             noise = torch.randn(clean.shape, generator=generator,
                                 device=clean.device)
-        logits = clean + noise.float() * std
+        logits = clean + at_least_f32(noise) * std
     vals, idx = _topk(logits, top_k)
     gate = torch.softmax(vals, dim=-1).to(x.dtype)
     gate, idx = _mask_topk(gate, idx, lengths)
@@ -131,7 +132,7 @@ def noisy_topk_gate(p, x: torch.Tensor, top_k: int,
     if lengths is not None:
         valid = make_valid_mask(lengths, x.shape[1])
         onehot = onehot * valid[..., None, None]
-    importance = (onehot * gate.float()[..., None]).sum(dim=(0, 1, 2))
+    importance = (onehot * at_least_f32(gate)[..., None]).sum(dim=(0, 1, 2))
     cv2 = importance.var(unbiased=False) / (importance.mean() ** 2 + 1e-10)
     return gate, idx, cv2
 
@@ -165,9 +166,9 @@ def moe_experts_dense(p, x: torch.Tensor, gate_idx: torch.Tensor,
     cdt = x.dtype
 
     def f32(t):
-        return t.to(cdt).float()
+        return at_least_f32(t.to(cdt))
 
-    h = torch.einsum("btd,edh->beth", x.float(), f32(p["w1"]))
+    h = torch.einsum("btd,edh->beth", at_least_f32(x), f32(p["w1"]))
     if p.get("b1") is not None:
         h = h + f32(p["b1"])[None, :, None, :]
     h = activation_fn(activation)(h)
@@ -402,7 +403,7 @@ def _dispatch_on_mesh(mesh, p, x: torch.Tensor, gate_idx: torch.Tensor,
     y = _stage(p, x, idx, impl, **act)
     if keep is not None:
         y = torch.where(keep[..., None], y, torch.zeros_like(y))
-    return mesh.all_reduce(y, ("ep", "tp"))
+    return pmesh.reduce(y, ("ep", "tp"))
 
 
 def _dispatch_train(mesh, p, x: torch.Tensor, gate_idx: torch.Tensor,

@@ -21,7 +21,9 @@ JAX package's rules.
 (thread-local). The helpers :func:`psum` and :func:`pmax` all-reduce
 over the named axes of that mesh and are the identity without one, or
 over an axis of size 1. Modules whose weights stay replicated run
-inside ``sharded(None)``.
+inside ``sharded(None)``. Outside autograd both reduce through the
+operator ``m3asr::mesh_all_reduce``, which ``torch.export`` records in a
+sharded engine's per-rank programs.
 """
 
 from __future__ import annotations
@@ -482,6 +484,39 @@ def axis_size(axes) -> int:
     return 1 if mesh is None else mesh.axis_size(axes)
 
 
+def _all_reduce_impl(t: torch.Tensor, axes: str, op: str) -> torch.Tensor:
+    mesh = active_mesh()
+    if mesh is None:
+        raise RuntimeError("m3asr::mesh_all_reduce outside parallel.mesh."
+                           "sharded(mesh): no mesh to reduce over")
+    out = mesh.all_reduce(t, tuple(axes.split(",")), op)
+    return out.clone() if out is t else out
+
+
+# The forward's all-reduce as an operator that returns a new tensor, so
+# that torch.export traces it into a bucket's program (Engine.export_bucket
+# on a sharded engine) and the loaded program calls it again. When it
+# runs it reduces over the mesh active in its thread (sharded(mesh));
+# ``axes`` is a comma list of axis names, ``op`` "sum" or "max".
+# Registered when this module is imported, so before any program that
+# holds it is loaded (runtime/engine.py imports this module).
+mesh_all_reduce = torch.library.custom_op(
+    "m3asr::mesh_all_reduce", _all_reduce_impl, mutates_args=(),
+    device_types=("cpu", "cuda"),
+    schema="(Tensor t, str axes, str op) -> Tensor")
+mesh_all_reduce.register_fake(lambda t, axes, op: torch.empty_like(t))
+
+
+def reduce(t: torch.Tensor, axes, op: str = "sum") -> torch.Tensor:
+    """``t`` reduced over the active mesh's ``axes`` through
+    :data:`mesh_all_reduce` (``Mesh.all_reduce``'s float32 sum or
+    max); ``t`` itself over axes of one rank."""
+    mesh = active_mesh()
+    if mesh is not None and mesh.axis_size(axes) == 1:
+        return t
+    return mesh_all_reduce(t, ",".join(_axes(axes)), op)
+
+
 def psum(t: torch.Tensor, axes: Sequence[str]) -> torch.Tensor:
     """``t`` summed over the active mesh's ``axes`` (identity without).
     Under autograd the cotangent passes through unchanged
@@ -493,7 +528,7 @@ def psum(t: torch.Tensor, axes: Sequence[str]) -> torch.Tensor:
     if torch.is_grad_enabled() and t.requires_grad:
         from m3asr_tpu_torch.parallel.collectives import reduce_from
         return reduce_from(mesh, t, axes)
-    return mesh.all_reduce(t, axes)
+    return reduce(t, axes)
 
 
 def into(t: torch.Tensor, axes: Sequence[str]) -> torch.Tensor:
@@ -501,7 +536,8 @@ def into(t: torch.Tensor, axes: Sequence[str]) -> torch.Tensor:
     unchanged, and under autograd its cotangent is summed over them
     (``collectives.copy_to``); the identity without a mesh."""
     mesh = active_mesh()
-    if mesh is None or mesh.axis_size(axes) == 1:
+    if mesh is None or mesh.axis_size(axes) == 1 or not (
+            torch.is_grad_enabled() and t.requires_grad):
         return t
     from m3asr_tpu_torch.parallel.collectives import copy_to
     return copy_to(mesh, t, axes)
@@ -510,5 +546,4 @@ def into(t: torch.Tensor, axes: Sequence[str]) -> torch.Tensor:
 def pmax(t: torch.Tensor, axes: Sequence[str]) -> torch.Tensor:
     """``t``'s maximum over the active mesh's ``axes`` (identity
     without)."""
-    mesh = active_mesh()
-    return t if mesh is None else mesh.all_reduce(t, axes, op="max")
+    return t if active_mesh() is None else reduce(t, axes, op="max")

@@ -70,9 +70,13 @@ with the same request; the forward all-reduces where GSPMD would and
 every rank returns the same output. The expert stage is the JAX mesh
 policy's (``dense``, ``quant``, ``quant_a8``) and the buckets run eager
 (gloo's collectives cannot be captured). ``save`` gathers the whole tree
-(every rank calls it; rank 0 writes); ``load`` shards again. A serving
-loop (recognize, serve) runs on rank 0 only: :meth:`Engine.lead` sends
-each of rank 0's ``infer`` calls through a ``parallel/follow.Leader``,
+(every rank calls it; rank 0 writes); ``load`` shards again. Exported
+programs are per rank (the forward fixes the rank's expert offset and
+bias share while it is traced, and holds its all-reduces as
+``m3asr::mesh_all_reduce``): ``{B}x{T}.{device}.r{rank}of{ep}x{tp}.pt2``,
+each recording its rank and mesh shape, run under the engine's mesh. A
+serving loop (recognize, serve) runs on rank 0 only: :meth:`Engine.lead`
+sends each of rank 0's ``infer`` calls through a ``parallel/follow.Leader``,
 which broadcasts the request to the other ranks' follower loops and runs
 the forward under its lock.
 """
@@ -111,6 +115,9 @@ from m3asr_tpu_torch.runtime.graphs import (  # noqa: F401 (re-exported)
     DEVICE_LOCK, GRAPH_WARMUP_RUNS, GraphProgram, HostStaging, copy_to_host)
 
 log = logging.getLogger("m3asr_tpu_torch")
+# the name, inside each exported program file, of the JSON that records
+# the rank and ep x tp shape it was built for (Engine.layout)
+LAYOUT_FILE = "m3asr_layout.json"
 
 # engine dtype -> activation (and dense weight) dtype
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
@@ -363,12 +370,17 @@ def repack_for_tp(tree, tp: int):
     return tree
 
 
-def serving_mesh(ep: int, tp: int) -> pmesh.Mesh:
+def serving_mesh(ep: int, tp: int,
+                 layout_rank: Optional[int] = None) -> pmesh.Mesh:
     """The (dp=1, ep, tp) mesh of a sharded engine over the default
     process group, which must hold exactly ep*tp ranks (the JAX engine
-    takes the first ep*tp devices)."""
+    takes the first ep*tp devices). With ``layout_rank``: that rank's
+    place in the layout, with no process group (no collective runs)."""
     import torch.distributed as dist
     n = ep * tp
+    if layout_rank is not None:
+        return pmesh.make_mesh(dp=1, ep=ep, tp=tp, world_size=n,
+                               rank=layout_rank)
     if not dist.is_initialized():
         raise RuntimeError(
             f"ep={ep} x tp={tp} serving runs one rank per shard: launch "
@@ -416,12 +428,19 @@ class Engine:
     one call at a time uses its staging buffers, static inputs and graph
     pool. A bucket's static inputs and capture also hold
     :data:`~m3asr_tpu_torch.runtime.graphs.DEVICE_LOCK` exclusively, and
-    the device section of ``infer`` holds it shared."""
+    the device section of ``infer`` holds it shared.
+
+    ``layout_rank`` (with ep*tp > 1) builds that rank's engine of the ep
+    x tp layout without a ``torch.distributed`` world: its shard of the
+    tree, for :meth:`export_bucket` (``save(shards=...)`` exports every
+    rank's programs from one process). Its forward's collectives
+    raise."""
 
     def __init__(self, model_cfg: ModelConfig, params,
                  engine_cfg: Optional[EngineConfig] = None,
                  prior: Optional[np.ndarray] = None, device=None,
-                 cuda_graphs: bool = True):
+                 cuda_graphs: bool = True,
+                 layout_rank: Optional[int] = None):
         self._programs = {}
         self._graph_pool = None
         self._exported_dir = None     # an engine dir's exported/ programs
@@ -466,7 +485,7 @@ class Engine:
         self.mesh = self._specs = self._lead = None
         if self.cfg.ep * self.cfg.tp > 1:
             self.cfg = sharded_config(self.cfg, self.family.name)
-            self.mesh = serving_mesh(self.cfg.ep, self.cfg.tp)
+            self.mesh = serving_mesh(self.cfg.ep, self.cfg.tp, layout_rank)
         home = torch.device("cpu") if self.mesh is not None else self.device
         self.params = to_torch(params, home, self.dtype)
         # the JAX engine's order: cast, quantize the experts, fuse q/k/v,
@@ -650,21 +669,37 @@ class Engine:
     # artifacts. One torch.export program per (bucket, device) of the
     # model forward, the parameter tree a runtime input (the program
     # holds no weights); the prior and the output mode run on top of it.
+    # A sharded engine's program is its rank's: the forward reads the
+    # rank's coordinates while it is traced (its experts, its share of
+    # the biases) and holds the all-reduces as m3asr::mesh_all_reduce.
     # ------------------------------------------------------------------
+    def layout(self) -> Dict[str, int]:
+        """The rank and the ep x tp shape the programs are built for (rank
+        0 of 1 x 1 unsharded); recorded in each program file."""
+        if self.mesh is None:
+            return {"rank": 0, "ep": 1, "tp": 1}
+        return {"rank": self.mesh.rank, "ep": self.cfg.ep, "tp": self.cfg.tp}
+
+    def program_file(self, batch: int, length: int, device) -> str:
+        """The bucket's program file name for ``device``:
+        ``{B}x{T}.{device}.pt2``, on ranks
+        ``{B}x{T}.{device}.r{rank}of{ep}x{tp}.pt2``."""
+        name = f"{batch}x{length}.{torch.device(device).type}"
+        if self.mesh is not None:
+            lay = self.layout()
+            name += f".r{lay['rank']}of{lay['ep']}x{lay['tp']}"
+        return name + ".pt2"
+
     def export_bucket(self, batch: int, length: int, device=None):
         """The bucket's model forward as a ``torch.export`` program for
         ``device`` (default: the engine's), traced on fake tensors of the
-        parameter tree's shapes (nothing is computed or copied). The
-        kernels appear in it as their ``m3asr::`` operators. A bucket
-        whose expert stage reads the host (``HOST_SYNC_STAGES``) cannot
-        be exported and raises ValueError."""
+        parameter tree's shapes (nothing is computed or copied, and no
+        collective runs). The kernels appear in it as their ``m3asr::``
+        operators. A bucket whose expert stage reads the host
+        (``HOST_SYNC_STAGES``) cannot be exported and raises
+        ValueError."""
         from torch._subclasses.fake_tensor import FakeTensorMode
         from torch.utils import _pytree
-        if self.mesh is not None:
-            raise NotImplementedError(
-                "exporting an ep/tp-sharded engine's buckets (collectives in "
-                "a torch.export program) is not ported yet: ROADMAP Queue 1 "
-                "item 12c-ii (sharded export)")
         impl = self.moe_impl_for(batch, length) if self.is_moe else None
         if impl in HOST_SYNC_STAGES:
             raise ValueError(
@@ -693,43 +728,70 @@ class Engine:
         ep._example_inputs = None      # fake tensors: nothing to keep
         return ep
 
+    def save_program(self, batch: int, length: int, device,
+                     exp_dir: str) -> str:
+        """Export the bucket for ``device`` into ``exp_dir`` under
+        :meth:`program_file`, with :meth:`layout` recorded in the file.
+        Returns the path."""
+        path = os.path.join(exp_dir, self.program_file(batch, length, device))
+        torch.export.save(self.export_bucket(batch, length, device), path,
+                          extra_files={LAYOUT_FILE: json.dumps(self.layout())})
+        return path
+
     def _exported_fn(self, batch: int, length: int):
-        """The bucket's loaded program (:meth:`_model_fn`'s signature) if
-        the engine dir holds one for this device, else None (the bucket
-        is traced as the model code says). A program that cannot be read,
-        or that was built for another device or another parameter tree,
-        logs a warning and is not used. :attr:`loaded_buckets` records
-        the buckets that run a loaded program."""
+        """The bucket's loaded program (:meth:`_model_fn`'s signature,
+        run under this engine's mesh) if the engine dir holds one for this
+        device and rank, else None (the bucket is traced as the model code
+        says). A program that cannot be read, or that was built for
+        another device, rank, mesh shape or parameter tree, logs a warning
+        and is not used. :attr:`loaded_buckets` records the buckets that
+        run a loaded program."""
         d = self._exported_dir
-        if not d or self.mesh is not None or \
-                self.moe_impl_for(batch, length) in HOST_SYNC_STAGES:
+        if not d or self.moe_impl_for(batch, length) in HOST_SYNC_STAGES:
             return None
         if (batch, length) in self._loaded:
             return self._loaded[(batch, length)]
-        path = os.path.join(d, f"{batch}x{length}.{self.device.type}.pt2")
+        path = os.path.join(d, self.program_file(batch, length, self.device))
         try:
             if not os.path.exists(path):
                 others = sorted(f for f in os.listdir(d)
                                 if f.startswith(f"{batch}x{length}."))
                 if not others:
                     return None
-                raise ValueError(f"built for another device: {others}")
-            ep = torch.export.load(path)
-            self._check_program(ep, batch, length)
+                raise ValueError(f"built for another device or layout: "
+                                 f"{others}")
+            extra = {LAYOUT_FILE: ""}
+            ep = torch.export.load(path, extra_files=extra)
+            self._check_program(ep, batch, length, extra[LAYOUT_FILE])
             module = ep.module()
         except Exception as e:       # unreadable, another device or tree
             log.warning("exported bucket %s unusable (%s); retracing",
                         path, e)
             self._loaded[(batch, length)] = None
             return None
-        self._loaded[(batch, length)] = module
-        self.loaded_buckets.add((batch, length))
-        return module
+        mesh = self.mesh
 
-    def _check_program(self, ep, batch: int, length: int) -> None:
-        """Raise ValueError unless ``ep`` takes this engine's parameter
-        tree and the bucket's inputs, on this device."""
+        def program(params, feat, feat_len):
+            with pmesh.sharded(mesh):     # its collectives' mesh
+                return module(params, feat, feat_len)
+        self._loaded[(batch, length)] = program
+        self.loaded_buckets.add((batch, length))
+        return program
+
+    def _check_program(self, ep, batch: int, length: int,
+                       layout: str = "") -> None:
+        """Raise ValueError unless ``ep`` was built for this engine's rank
+        and mesh shape (``layout``: the JSON recorded in the file; none
+        means rank 0 of 1 x 1), takes this engine's parameter tree and the
+        bucket's inputs, on this device, and returns the outputs this
+        engine's settings ask for."""
         from torch.utils import _pytree
+        got = json.loads(layout) if layout else {"rank": 0, "ep": 1, "tp": 1}
+        if got != self.layout():
+            raise ValueError(f"built for rank {got.get('rank')} of ep "
+                             f"{got.get('ep')} x tp {got.get('tp')}, not "
+                             f"rank {self.layout()['rank']} of ep "
+                             f"{self.cfg.ep} x tp {self.cfg.tp}")
         feat = torch.empty((batch, length, self.model_cfg.input_dim),
                            dtype=self.dtype, device="meta")
         lens = torch.empty((batch,), dtype=torch.int32, device="meta")
@@ -737,6 +799,13 @@ class Engine:
         if spec != ep.call_spec.in_spec:
             raise ValueError("its inputs are not this engine's parameter "
                              "tree and bucket")
+        # logits, out_len, then the taps or the hidden (_model_fn)
+        n_out = 2 + (3 if self.cfg.return_taps else
+                     1 if self.cfg.return_hidden else 0)
+        if ep.call_spec.out_spec.num_leaves != n_out:
+            raise ValueError(f"it returns {ep.call_spec.out_spec.num_leaves}"
+                             f" outputs, not the {n_out} of this engine's "
+                             "return_taps / return_hidden")
         vals = [n.meta.get("val") for n in ep.graph.nodes
                 if n.op == "placeholder"][-len(leaves):]
         for v, t in zip(vals, leaves):
@@ -943,30 +1012,37 @@ class Engine:
 
         A sharded engine writes the whole tree, as the JAX engine does:
         every rank calls ``save`` (the shards are gathered), rank 0
-        writes. ``shards=(ep, tp)`` writes this single-device engine as
-        the dir of an ep x tp engine (``build --ep/--tp``): the sharded
-        settings in engine.json, int4 w1 repacked for tp."""
+        writes; with ``export_devices`` each rank writes its own programs,
+        ``exported/{B}x{T}.{device}.r{rank}of{ep}x{tp}.pt2``.
+        ``shards=(ep, tp)`` writes this single-device engine as the dir of
+        an ep x tp engine (``build --ep/--tp``): the sharded settings in
+        engine.json, int4 w1 repacked for tp, and with ``export_devices``
+        every rank's programs, each traced here from that rank's shard
+        (``layout_rank``; no collective runs)."""
         import yaml
         cfg, params = self.cfg, self.params
+        exporters = [self]
         if self.mesh is not None:
             params = pmesh.gather_tree(params, self._specs, self.mesh)
-            if self.mesh.rank != 0:
-                return
         elif shards is not None and shards[0] * shards[1] > 1:
             cfg = sharded_config(dataclasses.replace(
                 cfg, ep=shards[0], tp=shards[1]), self.family.name)
             cfg.validate()
             if cfg.tp > 1:
                 params = repack_for_tp(params, cfg.tp)
+            exporters = (Engine(self.model_cfg, params, cfg, device="cpu",
+                                layout_rank=r)
+                         for r in range(cfg.ep * cfg.tp))
         os.makedirs(engine_dir, exist_ok=True)
         if export_devices:
             exp_dir = os.path.join(engine_dir, "exported")
             os.makedirs(exp_dir, exist_ok=True)
-            for dev in export_devices:
-                for b, t in self.buckets.all_buckets():
-                    torch.export.save(
-                        self.export_bucket(b, t, dev),
-                        os.path.join(exp_dir, f"{b}x{t}.{dev}.pt2"))
+            for eng in exporters:
+                for dev in export_devices:
+                    for b, t in eng.buckets.all_buckets():
+                        eng.save_program(b, t, dev, exp_dir)
+        if self.mesh is not None and self.mesh.rank != 0:
+            return
         np.savez(os.path.join(engine_dir, "params.npz"), **_flatten(params))
         meta = dataclasses.asdict(cfg)
         meta["nnet_proto"] = self.model_cfg.nnet_proto

@@ -21,6 +21,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from m3asr_tpu_torch.ops.common import at_least_f32
 from m3asr_tpu_torch.ops.masking import make_valid_mask
 
 LOG_EPSILON = -1e5        # optax.ctc_loss's log_epsilon
@@ -110,7 +111,7 @@ def ctc_loss(logits: torch.Tensor, logit_lens: torch.Tensor,
     padded with any id past each length."""
     B, T, V = logits.shape
     U = targets.shape[1]
-    logp = torch.log_softmax(logits.float(), dim=-1)
+    logp = torch.log_softmax(at_least_f32(logits), dim=-1)
     in_lens = logit_lens.long().clamp(0, T)
     tl = target_lens.long()
     valid = torch.arange(U, device=targets.device)[None, :] < tl[:, None]
@@ -138,12 +139,12 @@ def label_smoothing_loss(logits: torch.Tensor, targets: torch.Tensor,
     padding_idx`` are left out; the sum is divided by the batch (default)
     or by the number of valid tokens."""
     V = logits.shape[-1]
-    logp = torch.log_softmax(logits.float(), dim=-1)
+    logp = torch.log_softmax(at_least_f32(logits), dim=-1)
     confidence = 1.0 - smoothing
     low = smoothing / (V - 1)
     valid = targets != padding_idx
     tgt = torch.where(valid, targets, torch.zeros_like(targets)).long()
-    onehot = F.one_hot(tgt, V).float()
+    onehot = F.one_hot(tgt, V).to(logp.dtype)
     true_dist = low * (1.0 - onehot) + confidence * onehot
     kl = (true_dist * (torch.log(true_dist + 1e-38) - logp)).sum(-1)
     kl = torch.where(valid, kl, torch.zeros_like(kl))
@@ -157,7 +158,7 @@ def ce_loss(logits: torch.Tensor, targets: torch.Tensor, padding_idx: int,
     targets (B, T) with ``padding_idx`` at ignored frames. Returns (loss,
     (loss_sum, likely, hit), (frames, frames, frames))."""
     V = logits.shape[-1]
-    flat = logits.reshape(-1, V).float()
+    flat = at_least_f32(logits.reshape(-1, V))
     tgt = targets.reshape(-1).long()
     valid = tgt != padding_idx
     safe_tgt = torch.where(valid, tgt, torch.zeros_like(tgt))
@@ -216,7 +217,7 @@ def gshard_balance_loss(router_probs: torch.Tensor, expert_mask: torch.Tensor,
                         num_experts: int) -> torch.Tensor:
     """GShard load-balance loss: mean(f_e * p_e) * E^2, f_e the dispatch
     fraction and p_e the mean router probability. Inputs (..., E)."""
-    probs = router_probs.reshape(-1, router_probs.shape[-1]).float()
+    probs = at_least_f32(router_probs.reshape(-1, router_probs.shape[-1]))
     mask = expert_mask.reshape(-1, expert_mask.shape[-1]).float()
     return (mask.mean(0) * probs.mean(0)).mean() * num_experts * num_experts
 
@@ -224,8 +225,8 @@ def gshard_balance_loss(router_probs: torch.Tensor, expert_mask: torch.Tensor,
 def expert_importance_loss(router_probs: torch.Tensor,
                            num_experts: int) -> torch.Tensor:
     """E * sum(mean_gate^2)."""
-    mean_gate = router_probs.reshape(-1, router_probs.shape[-1]).float() \
-        .mean(0)
+    mean_gate = at_least_f32(
+        router_probs.reshape(-1, router_probs.shape[-1])).mean(0)
     return (mean_gate * mean_gate).sum() * num_experts
 
 
@@ -246,7 +247,7 @@ def router_l1_loss(router_probs: torch.Tensor,
                    lengths: Optional[torch.Tensor]) -> torch.Tensor:
     """Sparse L1: the mean over valid tokens of each router row's L1 norm
     over its L2 norm. router_probs (B, T, E)."""
-    p = router_probs.float()
+    p = at_least_f32(router_probs)
     ratio = p.abs().sum(-1) / torch.sqrt(p.square().sum(-1) + 1e-12)
     if lengths is None:
         return ratio.mean()
@@ -259,7 +260,7 @@ def router_importance_loss(router_probs: torch.Tensor,
                            lengths: Optional[torch.Tensor]) -> torch.Tensor:
     """CV^2 of the per-expert importance (the summed router mass over the
     valid tokens). router_probs (B, T, E)."""
-    p = router_probs.float()
+    p = at_least_f32(router_probs)
     if lengths is not None:
         p = p * make_valid_mask(lengths, p.shape[1])[..., None]
     importance = p.sum((0, 1))

@@ -41,7 +41,7 @@ from m3asr_tpu_torch.device import resolve_device
 from m3asr_tpu_torch.models import aed, conformer, dfsmn, moe_conformer
 from m3asr_tpu_torch.models import registry
 from m3asr_tpu_torch.ops import masking
-from m3asr_tpu_torch.ops.common import init_linear, linear
+from m3asr_tpu_torch.ops.common import at_least_f32, init_linear, linear
 from m3asr_tpu_torch.parallel import mesh as pmesh
 from m3asr_tpu_torch.train import losses
 from m3asr_tpu_torch.train.lr_scheduler import (Optimizer, build_optimizer,
@@ -239,7 +239,7 @@ def loss_fn(params, model_cfg: ModelConfig, tcfg: TrainConfig,
                        or acc_targets is not None))
     out, out_len, embed_out, pools = _forward(
         params, model_cfg, tcfg, feat, feat_len, generator, domain_acc)
-    out = out.float()
+    out = at_least_f32(out)
     metrics = {}
     if tcfg.loss_type == "ce":
         tgt = _ce_targets(targets, target_lens, out.shape[1],
@@ -254,7 +254,7 @@ def loss_fn(params, model_cfg: ModelConfig, tcfg: TrainConfig,
                                                  target_lens, tcfg.blank_idx)
         metrics["ctc_loss"] = loss
     if embed_out is not None and tcfg.embed_ctc_weight > 0:
-        e_loss = losses.ctc_loss(embed_out.float(), out_len, targets,
+        e_loss = losses.ctc_loss(at_least_f32(embed_out), out_len, targets,
                                  target_lens, tcfg.blank_idx)
         metrics["embed_ctc_loss"] = e_loss
         loss = loss + tcfg.embed_ctc_weight * e_loss
@@ -265,7 +265,8 @@ def loss_fn(params, model_cfg: ModelConfig, tcfg: TrainConfig,
             if tgt is None:
                 continue
             ce_sum, (_, _, hit), (frames, _, _) = losses.ce_loss(
-                logits.float(), tgt[:, None], -1, mean_in_frames=False)
+                at_least_f32(logits), tgt[:, None], -1,
+                mean_in_frames=False)
             ce = ce_sum / losses.global_count(B)
             metrics[f"{tag}_loss"] = ce
             metrics[f"{tag}_hit"] = hit / frames.clamp(min=1)
@@ -346,7 +347,7 @@ def hier_aed_loss_fn(params, model_cfg: ModelConfig,
     taps = {"h6": h6, "h12": h12, "h_final": h_final}
     embed_hidden = res[7] if with_heads else None
     metrics = {}
-    ctc = losses.ctc_loss(out.float(), out_len, targets, target_lens,
+    ctc = losses.ctc_loss(at_least_f32(out), out_len, targets, target_lens,
                           tcfg.blank_idx)
     metrics["ctc_loss"] = ctc
     loss = tcfg.ctc_weight * ctc
@@ -364,7 +365,7 @@ def hier_aed_loss_fn(params, model_cfg: ModelConfig,
         with pmesh.sharded(None):     # the decoders are replicated
             dec_out = aed.forward(dp, model_cfg.decoder_conf, taps[tap],
                                   out_len, ys_in, ys_in_lens)
-        a_loss = losses.label_smoothing_loss(dec_out.float(), ys_out, -1,
+        a_loss = losses.label_smoothing_loss(at_least_f32(dec_out), ys_out, -1,
                                              tcfg.lsm_weight)
         metrics[f"aed_loss_{i}"] = a_loss
         aed_total = aed_total + (a_loss if i == 0
@@ -373,7 +374,7 @@ def hier_aed_loss_fn(params, model_cfg: ModelConfig,
     loss = loss * tcfg.loss_scale
 
     if tcfg.embed_ctc_weight > 0:
-        e_loss = losses.ctc_loss(embed_out.float(), out_len, targets,
+        e_loss = losses.ctc_loss(at_least_f32(embed_out), out_len, targets,
                                  target_lens, tcfg.blank_idx)
         metrics["embed_ctc_loss"] = e_loss
         loss = loss + tcfg.embed_ctc_weight * e_loss
@@ -389,7 +390,8 @@ def hier_aed_loss_fn(params, model_cfg: ModelConfig,
                  < out_len[:, None]).to(embed_hidden.dtype)
         pooled = ((embed_hidden * valid[:, :, None]).sum(1)
                   / valid.sum(1).clamp(min=1.0)[:, None])
-        logits = linear(head["out"], linear(head["embed"], pooled)).float()
+        logits = at_least_f32(linear(head["out"],
+                                     linear(head["embed"], pooled)))
         ce_sum, (_, _, hit), (frames, _, _) = losses.ce_loss(
             logits[:, None, :], tgt[:, None], -1, mean_in_frames=False)
         ce = ce_sum / losses.global_count(B)
@@ -398,7 +400,7 @@ def hier_aed_loss_fn(params, model_cfg: ModelConfig,
         loss = loss + tcfg.ce_weight * ce
 
     if tcfg.router_l1_weight > 0 or tcfg.router_importance_weight > 0:
-        ps = router_ps.float()                    # (L, B, T', E)
+        ps = at_least_f32(router_ps)              # (L, B, T', E)
         l1 = torch.stack([losses.router_l1_loss(p, out_len)
                           for p in ps]).mean()
         imp = torch.stack([losses.router_importance_loss(p, out_len)

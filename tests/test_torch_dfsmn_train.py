@@ -277,3 +277,47 @@ def test_hier_recipe_refuses_other_protos():
         with pytest.raises(ValueError, match=proto):
             t_step.make_hier_train_step(cfg, t_step.HierTrainConfig(), None,
                                         device="cpu")
+
+
+def _f64(tree):
+    if isinstance(tree, dict):
+        return {k: _f64(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_f64(v) for v in tree]
+    return tree.double() if torch.is_tensor(tree) and \
+        tree.is_floating_point() else tree
+
+
+@pytest.mark.parametrize("loss_type", ["ctc", "ce"])
+def test_dfsmn_flash_path_is_exact_in_float64(loss_type):
+    """The DFSMN-MoE step's flash path (K2's and K3's plain versions) and
+    its xla path, both in float64 throughout, routing pinned to the xla
+    run's: every leaf within 1e-9 of its max|g|, plus 1e-12 of the
+    largest (a leaf whose gradient is zero in exact arithmetic holds only
+    rounding noise). In exact arithmetic the flash formulation (P
+    recomputed from the LSE, delta from the output) gives the xla path's
+    gradient, so their float32 distance (phase 17's CE check) is
+    rounding; the kernels equal these plain versions in float32."""
+    from test_torch_hier_train import PinnedGates
+    proto = "dfsmn_san_fmoe_localComm_catEmbed"
+    params = _f64(params_from_jax(train_tree(proto)))
+    batch = [torch.from_numpy(a) for a in train_batch(proto, loss_type)]
+    batch[0] = batch[0].double()
+    kw = dict(embed_ctc_weight=0.3 if loss_type == "ctc" else 0.0,
+              loss_type=loss_type)
+    cfg = t_config(train_yaml(proto))
+    grads, calls = {}, None
+    for attn_impl in ("xla", "flash"):
+        with PinnedGates(calls) as rec:
+            _, grads[attn_impl] = t_step.value_and_grad(
+                params, cfg, t_step.TrainConfig(attn_impl=attn_impl, **kw),
+                *batch)
+        calls = rec.calls
+    got, ref = grads["flash"], grads["xla"]
+    assert sorted(got) == sorted(ref)
+    assert all(v.dtype == torch.float64 for v in got.values())
+    top = max(v.abs().max().item() for v in ref.values())
+    for k in ref:
+        err = (got[k] - ref[k]).abs().max().item()
+        assert err <= 1e-9 * ref[k].abs().max().item() + 1e-12 * top, \
+            (k, err)

@@ -14,6 +14,18 @@ rank's output must equal rank 0's bit for bit. Tolerances (as
 tests/test_engine_ep.py): fp32 allclose(rtol 1e-5, atol 1e-3) on the
 valid region; bf16 and the quantized modes max|diff| within 0.05 of
 max|ref|.
+
+Sharded export: while the worlds start, one process
+(``torch_dist_worker.py --build``) runs ``build --export`` with ``--ep 2
+--attn_impl flash``, ``--tp 2``, ``--tp 2 --int4`` and ``--ep 2 --tp 2``
+(every rank's program, traced in that process) and makes a dir whose
+programs are another rank's and another mesh shape's. Each rank then
+loads the dir (its own program) and its eager twin (the same dir
+without ``exported/``): the two answer bit for bit, every rank runs its
+loaded program, a program built for another rank or mesh shape is
+refused with a warning, and rank 0 is held to the JAX engine's exported
+sharded dir (saved and loaded on the 8 virtual CPU devices) by the same
+tolerances.
 """
 
 import json
@@ -38,7 +50,7 @@ from m3asr_tpu.runtime.engine import EngineConfig as JEngineConfig
 from m3asr_tpu_torch import build as t_build
 from m3asr_tpu_torch.checkpoint import flatten_tree
 from m3asr_tpu_torch.config import model_config_from_dict as t_config
-from m3asr_tpu_torch.runtime.engine import Engine, EngineConfig
+from m3asr_tpu_torch.runtime.engine import LAYOUT_FILE, Engine, EngineConfig
 
 from test_op_parity import allclose
 
@@ -90,6 +102,22 @@ def case(name, settings, model="hier", kind="infer"):
             "settings": settings}
 
 
+def exported(name, settings):
+    return dict(case(name, settings, kind="exported"), dir=name)
+
+
+# the port's build --export (one process) of each exported case's dir
+EXPORT_FLAGS = {"x_ep2flash": ["--ep", "2", "--attn_impl", "flash"],
+                "x_tp2": ["--tp", "2"],
+                "x_tp2_int4": ["--tp", "2", "--int4"],
+                "x_ep2tp2": ["--ep", "2", "--tp", "2"]}
+# x_tp2 with rank 0's program replaced by rank 1's and rank 1's by the
+# ep2 x tp2 dir's rank 1
+WRONG = {"name": "x_wrong", "from": "x_tp2", "files": {
+    "2x48.cpu.r0of1x2.pt2": "x_tp2/exported/2x48.cpu.r1of1x2.pt2",
+    "2x48.cpu.r1of1x2.pt2": "x_ep2tp2/exported/2x48.cpu.r1of2x2.pt2"}}
+
+
 # world size -> the cases its ranks run
 CASES = {
     2: [case("ep2", {"ep": 2}),
@@ -101,7 +129,11 @@ CASES = {
         {"name": "ffn_ragged", "kind": "ffn", "impl": "ragged"},
         {"name": "ffn_tiled", "kind": "ffn", "impl": "tiled"},
         {"name": "cli_ep2", "kind": "cli", "engine": "built_ep2",
-         "ref": "ref1.npy"}],
+         "ref": "ref1.npy"},
+        exported("x_ep2flash", {"ep": 2, "attn_impl": "flash"}),
+        exported("x_tp2", {"tp": 2}),
+        exported("x_tp2_int4", {"tp": 2, "dtype": "int4"}),
+        exported("x_wrong", {"tp": 2})],
     4: [case("ep4", {"ep": 4}),
         case("ep4_bf16", {"ep": 4, "dtype": "bfloat16"}),
         case("ep4_flash", {"ep": 4, "attn_impl": "flash"}),
@@ -115,12 +147,14 @@ CASES = {
                              "act_quant": True}),
         case("ep2tp2_exmarc", {"ep": 2, "tp": 2}, "exmarc"),
         case("ep2tp2_int4_roundtrip", {"ep": 2, "tp": 2, "dtype": "int4"},
-             kind="roundtrip")],
+             kind="roundtrip"),
+        exported("x_ep2tp2", {"ep": 2, "tp": 2})],
 }
 ENGINE_CASES = [c for n in CASES for c in CASES[n]
                 if c["kind"] in ("infer", "roundtrip")]
 ALL_CASES = [c for n in CASES for c in CASES[n]]
 ROUNDTRIPS = [c for c in ENGINE_CASES if c["kind"] == "roundtrip"]
+EXPORTED = [c for c in ALL_CASES if c["kind"] == "exported"]
 
 
 def _inputs(rng):
@@ -172,8 +206,17 @@ def worlds(tmp_path_factory):
     ref1, _ = Engine.load(os.path.join(work, "built"), device="cpu").infer(
         feat[:1, :33], np.array([33]))
     np.save(os.path.join(work, "ref1.npy"), ref1)
-
-    procs = []
+    # build --export of the exported cases' dirs, while the worlds run
+    with open(os.path.join(work, "builds.json"), "w") as f:
+        json.dump({"args": args[:4] + ["--buckets", "2x48", "--device",
+                                       "cpu", "--export"],
+                   "builds": [{"name": n, "flags": fl}
+                              for n, fl in EXPORT_FLAGS.items()],
+                   "mixes": [WRONG]}, f)
+    procs = [(0, "build", subprocess.Popen(
+        [sys.executable, WORKER, "--build", work],
+        env=dict(os.environ, OMP_NUM_THREADS="1"), stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True))]
     for n, cases in CASES.items():
         with open(os.path.join(work, f"cases_{n}.json"), "w") as f:
             json.dump(cases, f)
@@ -196,6 +239,16 @@ def worlds(tmp_path_factory):
             cfg, params = models[c["model"]]
             refs[c["name"]] = JEngine(cfg, params, JEngineConfig(
                 **c["settings"], **jcfg)).infer(feat, lens)
+        for c in EXPORTED:            # JAX's exported sharded round trip
+            if c["name"] in EXPORT_FLAGS:
+                cfg, params = models["hier"]
+                d = os.path.join(work, "jax_" + c["name"])
+                JEngine(cfg, params, JEngineConfig(**c["settings"], **jcfg)
+                        ).save(d, raw_yaml=hier_raw(),
+                               export_platforms=("cpu",))
+                eng = JEngine.load(d)
+                assert eng._exported_fn(2, 48) is not None
+                refs[c["name"]] = eng.infer(feat, lens)
         x = {k: ffn[k] for k in ("x", "embed", "lengths")}
         refs["ffn"] = np.asarray(j_moe.moe_ffn(
             {**{k: ffn[k] for k in ("w1", "b1", "w2", "b2")},
@@ -212,6 +265,7 @@ def worlds(tmp_path_factory):
                 logs[(n, r)] = (p.communicate()[0], "timeout")
     for (n, r), (log, rc) in logs.items():
         assert rc == 0, f"world {n} rank {r}: {rc}\n{log[-3000:]}"
+    refs["work"] = work
     outs = {n: [dict(np.load(os.path.join(work, f"out_{n}_{r}.npz")))
                 for r in range(n)] for n in CASES}
     metas = {n: [json.load(open(os.path.join(work, f"meta_{n}_{r}.json")))
@@ -332,7 +386,6 @@ def test_sharded_engine_without_a_group_raises():
     (["--ep", "2", "--fuse_qkv"], "fuse_qkv with ep/tp-sharded serving"),
     (["--tp", "2", "--int8", "--dense_quant"],
      "dense_quant with ep/tp-sharded serving"),
-    (["--ep", "2", "--export"], r"item 12c-ii \(sharded export\)"),
 ])
 def test_build_refuses_as_jax(tmp_path, flags, match):
     with open(tmp_path / "cfg.yaml", "w") as f:
@@ -341,6 +394,73 @@ def test_build_refuses_as_jax(tmp_path, flags, match):
         t_build.main(["-c", str(tmp_path / "cfg.yaml"), "-o",
                       str(tmp_path / "e"), "--device", "cpu", "--buckets",
                       "1x48"] + flags)
+
+
+def test_build_exports_every_ranks_program(worlds):
+    """build --export with --ep/--tp (once refused) writes one program a
+    rank and bucket, each recording the rank and mesh shape it was
+    traced for; the programs hold the all-reduces as operators."""
+    work = worlds[2]["work"]
+    for name, flags in EXPORT_FLAGS.items():
+        ep = int(flags[flags.index("--ep") + 1]) if "--ep" in flags else 1
+        tp = int(flags[flags.index("--tp") + 1]) if "--tp" in flags else 1
+        files = sorted(os.listdir(os.path.join(work, name, "exported")))
+        assert files == [f"2x48.cpu.r{r}of{ep}x{tp}.pt2"
+                         for r in range(ep * tp)], name
+        for r, fname in enumerate(files):
+            extra = {LAYOUT_FILE: ""}
+            prog = torch.export.load(os.path.join(
+                work, name, "exported", fname), extra_files=extra)
+            assert json.loads(extra[LAYOUT_FILE]) == {"rank": r, "ep": ep,
+                                                      "tp": tp}
+            assert any("mesh_all_reduce" in str(n.target)
+                       for n in prog.graph.nodes)
+
+
+@pytest.mark.parametrize("c", [c for c in EXPORTED
+                               if c["name"] in EXPORT_FLAGS],
+                         ids=lambda c: c["name"])
+def test_exported_sharded_dir_runs_its_programs(worlds, c):
+    """Every rank runs its own loaded program of the bucket
+    (loaded_buckets) and answers bit for bit as the same dir without
+    exported/ (the programs traced from the model code)."""
+    outs, metas, _ = worlds
+    n = _world(c["name"])
+    for r in range(n):
+        assert metas[n][r][c["name"]]["loaded"] == [[2, 48]], r
+        np.testing.assert_array_equal(outs[n][r][c["name"]],
+                                      outs[n][r][c["name"] + "__eager"])
+
+
+@pytest.mark.parametrize("c", [c for c in EXPORTED
+                               if c["name"] in EXPORT_FLAGS],
+                         ids=lambda c: c["name"])
+def test_exported_sharded_dir_matches_jax(worlds, c):
+    """Rank 0's answer from its loaded program against the JAX engine's
+    exported sharded dir (saved with its shardings, loaded on the
+    virtual devices)."""
+    outs, _, refs = worlds
+    ref, ref_len = refs[c["name"]][:2]
+    got = outs[_world(c["name"])][0][c["name"]]
+    assert got.shape == np.asarray(ref).shape
+    _held(got, np.asarray(ref), ref_len, c["settings"])
+
+
+def test_program_of_another_rank_or_mesh_retraces(worlds):
+    """A tp2 dir whose rank-0 program is rank 1's and whose rank-1 program
+    is the ep2 x tp2 dir's rank 1 (each under this rank's file name):
+    each rank warns naming the layout the program was built for, runs
+    none of them, and answers as the eager twin."""
+    outs, metas, _ = worlds
+    want = {0: "built for rank 1 of ep 1 x tp 2, not rank 0",
+            1: "built for rank 1 of ep 2 x tp 2, not rank 1"}
+    for r, text in want.items():
+        meta = metas[2][r]["x_wrong"]
+        assert meta["loaded"] == []
+        assert any(text in w and "retracing" in w
+                   for w in meta["warnings"]), meta["warnings"]
+        np.testing.assert_array_equal(outs[2][r]["x_wrong"],
+                                      outs[2][r]["x_wrong__eager"])
 
 
 def test_sharded_engine_refuses_other_families(tmp_path):

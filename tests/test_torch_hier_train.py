@@ -206,3 +206,83 @@ def test_domain_acc_heads_init_has_the_jax_tree():
                                        24, 6, 8)
     assert {k: tuple(v.shape) for k, v in flatten_tree(got).items()} == \
         {k: np.shape(v) for k, v in flatten_tree(ref).items()}
+
+
+class PinnedGates:
+    """Records the top-1 expert of every token at every MoE block, or
+    sends each block's tokens to a recorded run's experts (``replay``):
+    the full batch's routing, split into the microbatches' rows."""
+
+    def __init__(self, replay=None):
+        self.replay, self.calls = replay, []
+
+    def __enter__(self):
+        from m3asr_tpu_torch.ops import moe
+        self.moe, self.inner = moe, moe.softmax_top1_gate
+
+        def gate(p, router_inputs, lengths):
+            value, idx = self.inner(p, router_inputs, lengths)
+            if self.replay is not None:
+                idx = self.replay[len(self.calls)]
+            self.calls.append(idx)
+            return value, idx
+        moe.softmax_top1_gate = gate
+        return self
+
+    def __exit__(self, *exc):
+        self.moe.softmax_top1_gate = self.inner
+
+
+def _f64_grads(accum, replay=None, **kw):
+    """The port's float64 hier gradients (heads on) and its routing."""
+    tree, _, cfg = hier_trees(heads=True)
+    params = jax.tree.map(lambda a: torch.tensor(
+        a, dtype=torch.float64 if a.dtype == np.float32 else None), tree)
+    batch = [torch.from_numpy(a) for a in hier_batch(heads=True)]
+    batch[0] = batch[0].double()
+    tcfg = t_step.HierTrainConfig(accum_steps=accum, **kw)
+    with PinnedGates(replay) as rec:
+        _, g = t_step.hier_value_and_grad(
+            params, cfg, tcfg, *batch[:6], domain_targets=batch[6],
+            acc_targets=batch[7])
+    return g, rec.calls
+
+
+def _split(calls, n=2):
+    """A full batch's routing as the microbatches' (each block's rows)."""
+    rows = calls[0].shape[0] // n
+    return [c[i * rows:(i + 1) * rows] for i in range(n) for c in calls]
+
+
+@pytest.mark.parametrize("router_aux", [False, True])
+def test_hier_split_is_exact_in_float64(router_aux):
+    """The hier recipe with the heads, in float64 throughout (the loss
+    heads' casts keep float64), on the small model's 3 MoE blocks: fewer
+    than the taps' 6, so h6 = h12 = the last block's output (the clamped
+    case). Routing pinned to the full batch's. Without the router aux
+    terms every loss is a batch mean, and accum_steps=2 equals
+    accum_steps=1 per leaf within 1e-9 of the leaf's max|g|. With them
+    (L1 at 0.01, importance at 0.02), each microbatch normalizes its aux
+    terms over its own tokens, as the JAX scan does: the accum_steps=2
+    gradient equals accum_steps=1's of the batch-mean terms plus
+    accum_steps=2's of the aux terms alone, within the same bound. A
+    leaf whose gradient is zero in exact arithmetic (the k biases: the
+    softmax ignores a shift) holds only rounding noise, so every bound
+    also allows 1e-12 of the largest gradient."""
+    aux = dict(router_l1_weight=0.01, router_importance_weight=0.02)
+    g1, calls = _f64_grads(1, ce_weight=0.5)
+    mb = _split(calls)
+    if not router_aux:
+        got, ref = _f64_grads(2, mb, ce_weight=0.5)[0], g1
+    else:
+        got = _f64_grads(2, mb, ce_weight=0.5, **aux)[0]
+        only = _f64_grads(2, mb, ce_weight=0.0, loss_scale=0.0,
+                          embed_ctc_weight=0.0, **aux)[0]
+        ref = {k: g1[k] + only[k] for k in g1}
+    assert sorted(got) == sorted(ref)
+    assert all(v.dtype == torch.float64 for v in got.values())
+    top = max(v.abs().max().item() for v in ref.values())
+    for k in ref:
+        err = (got[k] - ref[k]).abs().max().item()
+        assert err <= 1e-9 * ref[k].abs().max().item() + 1e-12 * top, \
+            (k, err)

@@ -15,7 +15,11 @@ on the flash dir (greedy and hier rescore, the refusals of a world that
 does not fit the dir, then a rank-0 error that must end every rank).
 While they run, the JAX package's root ``recognize.py``, ``Engine`` and
 server run the same on the sharded dirs over the virtual CPU devices,
-and the port's recognizer on the unsharded dir in this process.
+and the port's recognizer on the unsharded dir in this process; and one
+process (``torch_dist_worker.py --build``) builds an exported ep2 x tp2
+dir (``build --export``, bucket 2x64: every rank's program) and its
+twin without ``exported/``, on which the 4 ranks then recognize (greedy)
+and serve the offline requests.
 
 Held: transcripts and stats equal, line for line; the server's answers
 equal but for latency, n-best scores within 1e-4 (as
@@ -55,6 +59,8 @@ from test_torch_serve import client, same
 
 WORKER = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                       "torch_serve_worker.py")
+BUILD_WORKER = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                            "torch_dist_worker.py")
 JOIN_S = 240              # a world's whole run
 FAIL_S = 30               # a rank-0 error to the last rank's exit
 V, C = 9, 4               # vocabulary; stream chunk (output frames)
@@ -174,6 +180,16 @@ def cases(work):
                {"kind": "serve", "name": "serve",
                 "argv": ["-p", str(work / "ep2tp2")] + SERVE_ARGV,
                 "requests": str(work / "requests.json")}]
+    # the exported ep2 x tp2 dir and its eager twin (built beside the
+    # world: each case waits for it)
+    for d in ("x_ep2tp2", "x_ep2tp2_plain"):
+        out[4] += [{"kind": "recognize", "name": d + "_greedy",
+                    "wait": str(work / "exports_done"),
+                    "argv": recognize_argv(work, d, "feats.ark",
+                                           ["-d", "greedy"])},
+                   {"kind": "serve", "name": d + "_serve", "brief": True,
+                    "argv": ["-p", str(work / d)] + SERVE_ARGV,
+                    "requests": str(work / "requests.json")}]
     out[2] += [{"kind": "refused", "name": "refused",
                 "unsharded": recognize_argv(work, "unsharded", "feats.ark",
                                             ["-d", "greedy"]),
@@ -255,11 +271,28 @@ def jax_server_answers(work):
         state["batcher"].close()
 
 
+def start_export_build(work):
+    """``build --export --ep 2 --tp 2`` of the exported dir, in a process
+    of its own; its output and returncode."""
+    with open(work / "builds.json", "w") as f:
+        json.dump({"args": ["-c", str(work / "cfg.yaml"), "-m",
+                            str(work / "ckpt.pt"), "--buckets", "2x64",
+                            "--device", "cpu", "--export"],
+                   "builds": [{"name": "x_ep2tp2",
+                               "flags": ["--ep", "2", "--tp", "2"]}],
+                   "mixes": []}, f)
+    return subprocess.Popen(
+        [sys.executable, BUILD_WORKER, "--build", str(work)],
+        env=dict(os.environ, OMP_NUM_THREADS="1"), stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True)
+
+
 @pytest.fixture(scope="module")
 def worlds(tmp_path_factory):
     work = tmp_path_factory.mktemp("serve_ranks")
     write_inputs(work)
     build_dirs(work)
+    build_proc = start_export_build(work)
     threads, logs = start_worlds(work)
     try:          # the references run while the ranks do
         refs = {"jax": {}, "port": {}}
@@ -274,8 +307,14 @@ def worlds(tmp_path_factory):
     finally:
         for t in threads:
             t.join()
+        try:
+            logs["build"] = (build_proc.communicate(timeout=JOIN_S)[0],
+                             build_proc.returncode)
+        except subprocess.TimeoutExpired:
+            build_proc.kill()
+            logs["build"] = build_proc.communicate()[0], "timeout"
     ranks = {}
-    for n, r in logs:
+    for n, r in [k for k in logs if k != "build"]:
         path = work / f"rank_{n}_{r}.json"
         ranks[(n, r)] = json.loads(path.read_text()) if path.exists() \
             else {}
@@ -430,3 +469,27 @@ def test_rank0_error_ends_every_rank(worlds):
         assert end - t0 < FAIL_S, (r, end - t0)
     assert "standalone attention decode" in logs[(2, 0)][0]
     assert "rank 0 stopped the world after an error" in logs[(2, 1)][0]
+
+
+def test_exported_sharded_dir_on_ranks_answers_as_unexported(worlds):
+    """build --export --ep 2 --tp 2 (one process), then recognize and
+    serve on 4 ranks through the leader and follower loops: every rank
+    runs its loaded program of the bucket (none on the twin without
+    exported/), and rank 0's transcripts, stats and server answers equal
+    the twin's."""
+    _, _, ranks, logs = worlds
+    assert logs["build"][1] == 0, logs["build"][0][-3000:]
+    for kind in ("greedy", "serve"):
+        for r in range(4):
+            assert ranks[(4, r)][f"x_ep2tp2_{kind}"]["loaded"] == [[2, 64]]
+            assert ranks[(4, r)][f"x_ep2tp2_plain_{kind}"]["loaded"] == []
+    got, ref = ranks[(4, 0)]["x_ep2tp2_greedy"], \
+        ranks[(4, 0)]["x_ep2tp2_plain_greedy"]
+    assert (got["lines"], got["stats"]) == (ref["lines"], ref["stats"])
+    assert len(got["lines"]) == 3
+    got, ref = ranks[(4, 0)]["x_ep2tp2_serve"]["alone"], \
+        ranks[(4, 0)]["x_ep2tp2_plain_serve"]["alone"]
+    assert len(got) == len(ref) == 4
+    for g, r in zip(got, ref):
+        assert "error" not in g[0], g
+        same(g[0], r[0])

@@ -11,6 +11,15 @@ cases, ``ffn.npz``. Each rank writes ``out_{world}_{rank}.npz`` (every
 case's outputs) and ``meta_{world}_{rank}.json`` (settings the engines
 settled on, the warnings they logged, what the infer CLI printed).
 Imports only torch and the port; one CPU thread a rank.
+
+    python tests/torch_dist_worker.py --build WORK_DIR
+
+(no world) runs the port's ``build`` for each entry of
+``builds.json``'s ``builds`` (a dir name and its flags; with
+``--export`` every rank's programs), copies each dir without
+``exported/`` to ``{name}_plain``, makes each dir of ``mixes`` (a built
+dir whose programs are replaced by other files), then writes
+``exports_done``: the ``exported`` cases wait for it.
 """
 
 import contextlib
@@ -18,7 +27,9 @@ import io
 import json
 import logging
 import os
+import shutil
 import sys
+import time
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))))
@@ -29,7 +40,7 @@ import yaml  # noqa: E402
 
 torch.set_num_threads(1)
 
-from m3asr_tpu_torch import infer  # noqa: E402
+from m3asr_tpu_torch import build, infer  # noqa: E402
 from m3asr_tpu_torch.checkpoint import (params_from_jax,  # noqa: E402
                                         unflatten_tree)
 from m3asr_tpu_torch.config import model_config_from_dict  # noqa: E402
@@ -40,6 +51,7 @@ from m3asr_tpu_torch.runtime.engine import Engine, EngineConfig  # noqa: E402
 
 BUCKET = dict(bucket_lengths=(48,), bucket_batches=(2,))
 TIMEOUT_S = 120.0        # rendezvous and every collective
+BUILD_S = 240.0          # the exported dirs' build, from the world's start
 
 
 class Warnings(logging.Handler):
@@ -77,6 +89,20 @@ def run_case(work, case, feat, lens, out, meta):
                                       impl=case["impl"])
             out[name] = ffn(local, a["x"], a["embed"], a["lengths"]).numpy()
             return
+        if kind == "exported":
+            # the dir's own programs on this rank, and its eager twin
+            t0 = time.time()
+            while not os.path.exists(os.path.join(work, "exports_done")):
+                if time.time() - t0 > BUILD_S:
+                    raise TimeoutError("the exported dirs were not built")
+                time.sleep(0.2)
+            d = os.path.join(work, case["dir"])
+            eng = Engine.load(d, device="cpu")
+            out[name] = eng.infer(feat, lens)[0]
+            out[name + "__eager"] = Engine.load(
+                d + "_plain", device="cpu").infer(feat, lens)[0]
+            meta[name] = {"loaded": sorted(eng.loaded_buckets)}
+            return
         if kind == "cli":
             buf = io.StringIO()
             with contextlib.redirect_stdout(buf):
@@ -109,7 +135,30 @@ def run_case(work, case, feat, lens, out, meta):
         meta.setdefault(name, {})["warnings"] = warned.messages
 
 
+def build_dirs(work):
+    with open(os.path.join(work, "builds.json")) as f:
+        spec = json.load(f)
+    for b in spec["builds"]:
+        d = os.path.join(work, b["name"])
+        with contextlib.redirect_stdout(io.StringIO()):
+            build.main(spec["args"] + ["-o", d] + b["flags"])
+        shutil.copytree(d, d + "_plain",
+                        ignore=shutil.ignore_patterns("exported"))
+    for m in spec["mixes"]:
+        d = os.path.join(work, m["name"])
+        shutil.copytree(os.path.join(work, m["from"]), d)
+        shutil.copytree(os.path.join(work, m["from"] + "_plain"),
+                        d + "_plain")
+        for target, src in m["files"].items():
+            shutil.copyfile(os.path.join(work, src),
+                            os.path.join(d, "exported", target))
+    with open(os.path.join(work, "exports_done"), "w") as f:
+        f.write("ok")
+
+
 def main():
+    if sys.argv[1] == "--build":
+        return build_dirs(sys.argv[2])
     work = sys.argv[1]
     if not distributed.initialize(timeout_s=TIMEOUT_S):
         raise SystemExit("no torch.distributed env")

@@ -27,6 +27,12 @@ rank in order through the port's own entry points:
   ``Engine.load`` of the dir ``wrong_size``; each must raise on every
   rank (the messages are kept).
 
+A ``recognize`` or ``serve`` case with ``wait`` first waits for that
+file (an exported dir built beside the world); ``serve`` with ``brief``
+sends only the offline requests, one at a time. Every ``recognize`` and
+``serve`` case records the buckets that ran a loaded program
+(``loaded``) on every rank.
+
 Each rank rewrites ``rank_{world}_{rank}.json`` after every case.
 Imports only torch and the port; one CPU thread a rank.
 """
@@ -55,6 +61,7 @@ from m3asr_tpu_torch.parallel import distributed, follow  # noqa: E402
 from m3asr_tpu_torch.runtime.engine import Engine  # noqa: E402
 
 TIMEOUT_S = 60.0         # rendezvous and every collective of the forward
+WAIT_S = 240.0           # a case's wait for its dir
 
 
 def client(port, reqs):
@@ -94,7 +101,17 @@ def cache_shapes(runtime):
             for k, b in runtime["stream_batchers"].items()}
 
 
+def wait_for(case):
+    t0 = time.time()
+    while case.get("wait") and not os.path.exists(case["wait"]):
+        if time.time() - t0 > WAIT_S:
+            raise TimeoutError(f"{case['wait']} did not appear")
+        time.sleep(0.2)
+
+
 def recognize_case(work, case, n, rank, res):
+    wait_for(case)
+    loads = len(LOADED)
     if case.get("fail") and rank == 0:
         with open(os.path.join(work, f"fail_t0_{n}"), "w") as f:
             f.write(repr(time.time()))
@@ -107,6 +124,8 @@ def recognize_case(work, case, n, rank, res):
             "stats": {k: got.get(k) for k in ("utts", "frames", "cer")}}
     else:
         res[case["name"]] = {"counts": got, "stdout": out.getvalue()}
+    res[case["name"]]["loaded"] = sorted(
+        b for e in LOADED[loads:] for b in e.loaded_buckets)
 
 
 def infer_long_case(work, case, n, rank, res):
@@ -144,6 +163,7 @@ def bad_requests(reqs):
 
 
 def serve_case(work, case, n, rank, res):
+    wait_for(case)
     args = t_serve.parser().parse_args(case["argv"] + ["--device", "cpu"])
     world = follow.join_world()
     state = t_serve._build_runtime(args, follower=rank > 0)
@@ -151,10 +171,13 @@ def serve_case(work, case, n, rank, res):
     if rank:
         counts = t_serve.follow_runtime(world, state, args)
         res[case["name"]] = {"counts": counts,
-                             "caches": cache_shapes(state)}
+                             "caches": cache_shapes(state),
+                             "loaded": sorted(state["engine"].loaded_buckets)}
         return
     with open(case["requests"]) as f:
         reqs = json.load(f)
+    if case.get("brief"):
+        return brief_serve(state, reqs, res, case["name"], world)
     convs = [[r] for r in reqs["offline"]] + reqs["streams"]
     leader = follow.Leader(world)
     t_serve.lead_runtime(state, leader)
@@ -184,6 +207,28 @@ def serve_case(work, case, n, rank, res):
                          "calls": leader.calls}
 
 
+def brief_serve(state, reqs, res, name, world):
+    """Rank 0 of a ``brief`` serve case: the offline requests, one at a
+    time."""
+    leader = follow.Leader(world)
+    t_serve.lead_runtime(state, leader)
+    srv = socketserver.ThreadingTCPServer(
+        ("127.0.0.1", 0), t_serve.make_handler(state, 4))
+    srv.daemon_threads = True
+    threading.Thread(target=srv.serve_forever, daemon=True).start()
+    try:
+        alone = [client(srv.server_address[1], [r]) for r in reqs["offline"]]
+    except BaseException:
+        leader.stop(failed=True)
+        raise
+    finally:
+        srv.shutdown()
+        srv.server_close()
+    leader.stop()
+    res[name] = {"alone": alone, "calls": leader.calls,
+                 "loaded": sorted(state["engine"].loaded_buckets)}
+
+
 def refused_case(work, case, n, rank, res):
     """What a world that does not fit the dir raises on this rank."""
     msgs = {}
@@ -201,6 +246,17 @@ def refused_case(work, case, n, rank, res):
 
 CASES = {"recognize": recognize_case, "infer_long": infer_long_case,
          "serve": serve_case, "refused": refused_case}
+LOADED = []              # every engine Engine.load made on this rank
+_load = Engine.load.__func__
+
+
+def _recorded_load(cls, *a, **kw):
+    eng = _load(cls, *a, **kw)
+    LOADED.append(eng)
+    return eng
+
+
+Engine.load = classmethod(_recorded_load)
 
 
 def main():
