@@ -21,6 +21,8 @@ import subprocess
 import time
 from typing import Optional
 
+from m3asr_tpu_torch.runtime import trace
+
 _PKG = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
@@ -86,8 +88,9 @@ class KernelLibrary:
                 self.command = [find_nvcc(), *NVCC_FLAGS, "-o", tmp,
                                 os.path.join(CSRC, self.source)]
                 t0 = time.perf_counter()
-                r = subprocess.run(self.command, capture_output=True,
-                                   text=True)
+                with trace.span("kernels.build", source=self.source):
+                    r = subprocess.run(self.command, capture_output=True,
+                                       text=True)
                 self.build_seconds = time.perf_counter() - t0
                 self.log = r.stdout + r.stderr
                 if r.returncode != 0:

@@ -30,7 +30,9 @@ product and bias add in x's dtype.
 
 from __future__ import annotations
 
+import contextlib
 import math
+import threading
 from typing import List, Optional, Tuple
 
 import torch
@@ -53,6 +55,26 @@ from m3asr_tpu_torch.parallel import mesh as pmesh
 # export them.
 HOST_SYNC_STAGES = frozenset({"ragged", "ragged_padded", "capacity",
                               "quant_capacity"})
+# The run-length kernel stages (K1, K4/K5 and their a8 twins): they
+# report the routing they ran (collect_routing)
+RUNS_STAGES = {"runs_f": False, "quant_runs": False, "quant4_runs": False,
+               "quant_a8_runs": True, "quant4_a8_runs": True}
+
+_ROUTING = threading.local()
+
+
+@contextlib.contextmanager
+def collect_routing():
+    """Inside it, each run-length expert call of this thread appends its
+    tokens per expert, (E,) int32 on the call's device, to the list it
+    yields, in call order. Padded positions are routed to expert 0 (the
+    gate's mask), so they count there. Other stages append nothing."""
+    prev = getattr(_ROUTING, "calls", None)
+    _ROUTING.calls = calls = []
+    try:
+        yield calls
+    finally:
+        _ROUTING.calls = prev
 
 
 def _router_logits(p, router_inputs: torch.Tensor) -> torch.Tensor:
@@ -498,10 +520,13 @@ def _stage(p, x: torch.Tensor, gate_idx: torch.Tensor, impl: str,
     if impl in ("quant4_tiled", "quant4_a8_tiled"):
         return q4_tiled_kernel(p, x, gate_idx,
                                act_quant=impl == "quant4_a8_tiled", **act)
-    if impl in ("runs_f", "quant_runs", "quant4_runs"):
-        return runs_for(p)(p, x, gate_idx, **act)
-    if impl in ("quant_a8_runs", "quant4_a8_runs"):
-        return runs_for(p)(p, x, gate_idx, act_quant=True, **act)
+    if impl in RUNS_STAGES:
+        y, counts = runs_for(p).routed(p, x, gate_idx,
+                                       act_quant=RUNS_STAGES[impl], **act)
+        calls = getattr(_ROUTING, "calls", None)
+        if calls is not None:
+            calls.append(counts)
+        return y
     raise ValueError(f"unknown moe impl: {impl}")
 
 

@@ -20,7 +20,9 @@ fmts ``"f"``, ``"q8"`` and ``"q4"``. Three parts:
   the custom operator ``m3asr::moe_runs_f`` (K1) or ``m3asr::moe_runs_q``
   (K4/K5, with the a8 row quantization) (``ops/library.py``): on a CUDA
   tensor that launches the kernel (or raises); on a CPU tensor it takes
-  the plain version. ``launches`` counts calls that launched it.
+  the plain version. Each operator returns the output and the layout's
+  tokens per expert (``RunsLayout.counts``). ``launches`` counts calls
+  that launched it.
 
 GEMM1's activation is SiLU (``activation="swish"``, the conformer
 experts) or ReLU (``"relu"``, the DFSMN experts), with an optional clamp
@@ -254,6 +256,14 @@ def moe_experts_runs_reference(p, x: torch.Tensor, gate_idx: torch.Tensor,
     the experts that have tokens (:func:`expert_ffn_reference`); the
     output is rounded to the compute dtype as the kernel's is. x: (B, T,
     d); gate_idx: (B, T). Returns (B, T, d) in x's dtype."""
+    return _runs_reference(p, x, gate_idx, layer, act_quant, tile,
+                           activation, upper_bound)[0]
+
+
+def _runs_reference(p, x, gate_idx, layer=None, act_quant=False, tile=TILE,
+                    activation="swish", upper_bound=None):
+    """:func:`moe_experts_runs_reference`'s output and the layout's
+    tokens per expert (E,) int32: the operators' CPU implementation."""
     out_dtype = x.dtype
     x, w1, w2, layer, E, fmt = _prepare(p, x, layer)
     if act_quant and fmt == "f":
@@ -275,7 +285,7 @@ def moe_experts_runs_reference(p, x: torch.Tensor, gate_idx: torch.Tensor,
             None if s2 is None else s2[e], None if b2 is None else b2[e],
             fmt, act_quant, upper_bound, activation)
         y_pad[r0:r1] = y.to(x_pad.dtype)
-    return _unpad(y_pad, lay).reshape(B, T, d).to(out_dtype)
+    return _unpad(y_pad, lay).reshape(B, T, d).to(out_dtype), lay.counts
 
 
 def check_quant_args(p, x, w1, w2, E: int, fmt: str, col_block: int,
@@ -348,7 +358,12 @@ class RunsKernel:
 
     ``launches`` grows by one per call that launched the kernel (two
     CUDA launches, GEMM1+bias+activation then GEMM2+bias; four with
-    ``act_quant``, which quantizes x and the hidden first)."""
+    ``act_quant``, which quantizes x and the hidden first).
+
+    :meth:`routed` also returns the layout's tokens per expert, (E,)
+    int32 on x's device: the routing this call ran, which the layout
+    materialises anyway (K1 reads it), so returning it costs no device
+    work."""
 
     _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -362,6 +377,14 @@ class RunsKernel:
                  upper_bound: Optional[float] = None) -> torch.Tensor:
         """The operator of ``p``'s weight format: the kernel on a CUDA
         tensor, the plain version on a CPU tensor."""
+        return self.routed(p, x, gate_idx, layer, act_quant, activation,
+                           upper_bound)[0]
+
+    def routed(self, p, x: torch.Tensor, gate_idx: torch.Tensor,
+               layer: Optional[int] = None, act_quant: bool = False,
+               activation="swish", upper_bound: Optional[float] = None):
+        """:meth:`__call__`'s output and the tokens per expert (E,)
+        int32 of the call's layout."""
         fmt = weight_format(p)
         if act_quant and fmt == "f":
             raise ValueError("act_quant needs int8/int4 expert weights")
@@ -464,7 +487,7 @@ class RunsKernel:
             raise RuntimeError(f"moe_runs ({fmt}) launch failed: CUDA "
                                f"error {err}")
         self.launches += 1
-        return _unpad(y_pad, lay).reshape(B, T, d).to(out_dtype)
+        return _unpad(y_pad, lay).reshape(B, T, d).to(out_dtype), lay.counts
 
     @staticmethod
     def _check_float(p, x, w1, E, col_block) -> int:
@@ -513,33 +536,43 @@ def _same_as_x(x: torch.Tensor, *_args) -> torch.Tensor:
     return x.new_empty(x.shape)
 
 
+def _same_as_x_counted(x: torch.Tensor, g, w1, *_args):
+    """The runs operators' fake implementation: the output is x's shape
+    and dtype, the counts (E,) int32 (w1 is (E, ...) or stacked (L, E,
+    ...))."""
+    E = w1.shape[1] if w1.dim() == 4 else w1.shape[0]
+    return x.new_empty(x.shape), x.new_empty((E,), dtype=torch.int32)
+
+
 _ACT_ARGS = "str activation, float? upper_bound"
+# the output and the layout's tokens per expert (E,) int32
+_RETURNS = "-> (Tensor, Tensor)"
 
 moe_runs_f = kernel_op(
     "moe_runs_f",
     "(Tensor x, Tensor gate_idx, Tensor w1, Tensor? b1, Tensor w2, "
-    f"Tensor? b2, int? layer, {_ACT_ARGS}) -> Tensor",
-    lambda x, g, w1, b1, w2, b2, layer, act, ub: moe_experts_runs_reference(
+    f"Tensor? b2, int? layer, {_ACT_ARGS}) {_RETURNS}",
+    lambda x, g, w1, b1, w2, b2, layer, act, ub: _runs_reference(
         _expert_tree("f", w1, None, b1, w2, None, b2), x, g, layer,
         activation=act, upper_bound=ub),
     lambda x, g, w1, b1, w2, b2, layer, act, ub: runs_kernel._launch(
         _expert_tree("f", w1, None, b1, w2, None, b2), x, g, layer, False,
         act, ub),
-    _same_as_x)
+    _same_as_x_counted)
 
 moe_runs_q = kernel_op(
     "moe_runs_q",
     "(Tensor x, Tensor gate_idx, Tensor w1, Tensor s1, Tensor? b1, "
     "Tensor w2, Tensor s2, Tensor? b2, str fmt, int? layer, bool act_quant, "
-    f"{_ACT_ARGS}) -> Tensor",
+    f"{_ACT_ARGS}) {_RETURNS}",
     lambda x, g, w1, s1, b1, w2, s2, b2, fmt, layer, a8, act, ub:
-        moe_experts_runs_reference(
+        _runs_reference(
             _expert_tree(fmt, w1, s1, b1, w2, s2, b2), x, g, layer, a8,
             activation=act, upper_bound=ub),
     lambda x, g, w1, s1, b1, w2, s2, b2, fmt, layer, a8, act, ub:
         _BY_FMT[fmt]._launch(_expert_tree(fmt, w1, s1, b1, w2, s2, b2), x,
                              g, layer, a8, act, ub),
-    _same_as_x)
+    _same_as_x_counted)
 
 
 def runs_for(p) -> RunsKernel:

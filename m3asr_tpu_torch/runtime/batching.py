@@ -11,6 +11,10 @@ Thread model: callers (the server's handler threads) block in
 ``window_ms`` (or as soon as ``max_batch`` requests wait) and calls the
 engine. The engine is re-entrant (its own lock), so handler threads may
 call it directly at the same time (``infer_long``).
+
+While the tracer is on (``runtime/trace.py``), each request's wait from
+enqueue to dispatch is a ``batcher.wait`` span, and the ``engine.infer``
+span of the dispatch lists the ids of the waits it served (``waits``).
 """
 
 from __future__ import annotations
@@ -21,13 +25,16 @@ from typing import Callable, List, Optional, Tuple
 
 import numpy as np
 
+from m3asr_tpu_torch.runtime import trace
+
 
 class _Pending:
-    __slots__ = ("feat", "length", "event", "result", "error")
+    __slots__ = ("feat", "length", "event", "result", "error", "queued")
 
     def __init__(self, feat: np.ndarray, length: int):
         self.feat = feat          # (T, D)
         self.length = length
+        self.queued = time.time_ns()
         self.event = threading.Event()
         self.result: Optional[Tuple[np.ndarray, int]] = None
         self.error: Optional[BaseException] = None
@@ -125,7 +132,14 @@ class MicroBatcher:
             for i, it in enumerate(batch):
                 feats[i, :it.feat.shape[0]] = it.feat
                 lens[i] = it.length
+            now = time.time_ns()
+            waits = [trace.record("batcher.wait", it.queued, now)
+                     for it in batch]
             res = self._infer(feats, lens)
+            call = trace.last_root() if waits[0] else None
+            if call is not None and call.name == "engine.infer" and \
+                    call.start >= now:
+                call.meta["waits"] = waits
             out, out_lens, extras = res[0], res[1], res[2:]
             self._batch_sizes.append(len(batch))
             if len(self._batch_sizes) > 1000:   # bounded history

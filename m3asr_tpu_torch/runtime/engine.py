@@ -104,13 +104,14 @@ from m3asr_tpu_torch.device import resolve_device
 from m3asr_tpu_torch.models.dfsmn import check_moe_stage
 from m3asr_tpu_torch.models.registry import get_family
 from m3asr_tpu_torch.ops.attention import fuse_qkv_params
-from m3asr_tpu_torch.ops.moe import HOST_SYNC_STAGES
+from m3asr_tpu_torch.ops.moe import HOST_SYNC_STAGES, collect_routing
 from m3asr_tpu_torch.ops.masking import SUBSAMPLED_LENGTH
 from m3asr_tpu_torch.ops.quant import (pack_int4, quantize_dense_params,
                                        quantize_moe_params, repack_int4_tp)
 from m3asr_tpu_torch.parallel import mesh as pmesh
 from m3asr_tpu_torch.runtime.buckets import (BucketSpec, DEFAULT_BATCHES,
                                              DEFAULT_LENGTHS)
+from m3asr_tpu_torch.runtime import trace
 from m3asr_tpu_torch.runtime.graphs import (  # noqa: F401 (re-exported)
     DEVICE_LOCK, GRAPH_WARMUP_RUNS, GraphProgram, HostStaging, copy_to_host)
 
@@ -328,12 +329,32 @@ class BucketProgram(GraphProgram):
     """One (batch, length, out_mode) bucket's forward as a
     :class:`GraphProgram` of the static inputs ``feat`` (the engine
     dtype) and ``feat_len`` (int32) on the engine's device; :meth:`run`
-    returns the output tuple."""
+    returns the output tuple, :meth:`run_routed` that and the routing
+    (:meth:`Engine._forward_fn`)."""
 
     def __init__(self, fn, feat: torch.Tensor, feat_len: torch.Tensor,
                  graph_pool=None):
         self.feat, self.feat_len = feat, feat_len
         super().__init__(fn, (feat, feat_len), graph_pool)
+
+    def run(self):
+        return self.run_routed()[0]
+
+    def run_routed(self):
+        """(the output tuple, each run-length expert call's tokens per
+        expert, (E,) int32 on the device)."""
+        return super().run()
+
+
+def valid_routing(counts, valid: int) -> np.ndarray:
+    """The valid tokens per expert of each expert call, (calls, E)
+    int32, from the calls' tokens per expert over the whole bucket
+    (``counts``, (calls, E)): the padded positions, each call's total
+    less ``valid``, are routed to expert 0 (the gate's mask), so they
+    come off its count."""
+    hist = np.array(counts, np.int32)
+    hist[:, 0] -= hist.sum(axis=1, dtype=np.int32) - valid
+    return hist
 
 
 def sharded_config(cfg: EngineConfig, family_name: str) -> EngineConfig:
@@ -590,7 +611,13 @@ class Engine:
         ``return_hidden``. Every mode but ``logits`` runs in float32
         after log_softmax. ``out_mode`` overrides cfg.decode_output.
         ``model``: the model forward (:meth:`_model_fn`'s signature; a
-        loaded program's), under the prior and the output mode."""
+        loaded program's), under the prior and the output mode.
+
+        The forward returns that tuple and the routing of its run-length
+        expert calls (``ops/moe.collect_routing``: each call's tokens per
+        expert, in call order), which a graph keeps as static outputs:
+        no device work. Other stages, and loaded programs, report
+        none."""
         mode = out_mode or self.cfg.decode_output
         if mode not in DECODE_OUTPUTS:
             raise ValueError(f"unknown decode_output {mode!r}")
@@ -600,7 +627,7 @@ class Engine:
         model = model or self._model_fn(batch, length)
         params, prior = self.params, self.neg_log_prior
 
-        def forward(feat, feat_len):
+        def outputs(feat, feat_len):
             res = model(params, feat, feat_len)
             out, out_len, extra = res[0], res[1], tuple(res[2:])
             if prior is not None:
@@ -620,6 +647,11 @@ class Engine:
                 ids, hyp_lens, scores = ctc_beam_search_device(lp, out_len, k)
                 head = (ids, out_len, hyp_lens, scores)
             return head + extra
+
+        def forward(feat, feat_len):
+            with collect_routing() as routes:
+                outs = outputs(feat, feat_len)
+            return outs, tuple(routes)
 
         return forward
 
@@ -865,12 +897,42 @@ class Engine:
         static input; out_len comes from the subsampling arithmetic on
         the host, and only the valid [:B, :max(out_len)] region of each
         output comes back, in its own dtype (bf16 widened to float32 on
-        the host, which is exact)."""
+        the host, which is exact).
+
+        Traced (``runtime/trace.py``) as ``engine.infer``, with the
+        children ``engine.prepare`` (the checks, the bucket, the locks,
+        ``get_fn``), ``engine.stage``, ``engine.replay``, ``engine.sync``
+        and ``engine.copy_out``; while the tracer is on, the call's
+        routing comes back with the outputs (:meth:`_copy_back`)."""
+        with trace.span("engine.infer") as call, \
+                contextlib.ExitStack() as held:
+            with trace.span("engine.prepare"):
+                feat, feat_len, bb, bt, mode, out_len = self._request(
+                    feat, feat_len, out_mode)
+                B = feat.shape[0]
+                if call is not None:
+                    call.meta.update(bucket=[bb, bt], B=B,
+                                     lens=feat_len.tolist())
+                held.enter_context(self._lock)
+                held.enter_context(self._leading(feat, feat_len, mode))
+                prog = self.get_fn(bb, bt, out_mode)
+            max_out = int(out_len.max()) if B else 0
+            with DEVICE_LOCK.shared(), torch.inference_mode():
+                self._stage_in(prog, feat, feat_len)
+                with trace.span("engine.replay"):
+                    outs, routes = prog.run_routed()
+                got = self._copy_back(outs, mode, B, max_out, routes,
+                                      int(np.maximum(out_len, 0).sum()))
+        return (got[0], out_len) + tuple(got[1:])
+
+    def _request(self, feat, feat_len, out_mode):
+        """The request checked whole, before it runs (on ranks a call
+        that fails after the leader's broadcast stops every rank):
+        (feat float32 (B, T, D), feat_len int32 (B,), the bucket's batch
+        and length, the output mode, out_len int32 (B,))."""
         feat = np.ascontiguousarray(feat, np.float32)
         feat_len = np.ascontiguousarray(np.asarray(feat_len).reshape(-1),
                                         np.int32)
-        # a request is checked whole before it runs: on ranks a call that
-        # fails after the leader's broadcast stops every rank
         D = self.model_cfg.input_dim
         if feat.ndim != 3 or feat.shape[2] != D:
             raise ValueError(f"feat must be (B, T, {D}), got {feat.shape}")
@@ -884,38 +946,43 @@ class Engine:
         if mode not in DECODE_OUTPUTS:
             raise ValueError(f"unknown decode_output {mode!r}")
         sub = SUBSAMPLED_LENGTH[self.model_cfg.encoder_conf.input_layer]
-        out_len = np.asarray(sub(feat_len), np.int32)
-        max_out = int(out_len.max()) if B else 0
-        with self._lock, self._leading(feat, feat_len, mode):
-            prog = self.get_fn(bb, bt, out_mode)
-            with DEVICE_LOCK.shared(), torch.inference_mode():
-                self._stage_in(prog, feat, feat_len)
-                got = self._copy_back(prog.run(), mode, B, max_out)
-        return (got[0], out_len) + tuple(got[1:])
+        return (feat, feat_len, bb, bt, mode,
+                np.asarray(sub(feat_len), np.int32))
 
     def _stage_in(self, prog: BucketProgram, feat: np.ndarray,
                   feat_len: np.ndarray) -> None:
         """Pad the request into the host buffer and copy it (on ``cuda``
-        asynchronously, from pinned memory) into the static inputs."""
-        B, T = feat.shape[:2]
-        hf, hl = self._staging.views("in", [
-            (tuple(prog.feat.shape), torch.float32),
-            (tuple(prog.feat_len.shape), torch.int32)])
-        hfn, hln = hf.numpy(), hl.numpy()
-        hfn[:B, :T] = feat
-        hfn[:B, T:] = 0
-        hfn[B:] = 0
-        hln[:] = 0
-        hln[:B] = feat_len
-        prog.feat.copy_(hf, non_blocking=True)
-        prog.feat_len.copy_(hl, non_blocking=True)
+        asynchronously, from pinned memory) into the static inputs: the
+        span ``engine.stage``."""
+        with trace.span("engine.stage"):
+            B, T = feat.shape[:2]
+            hf, hl = self._staging.views("in", [
+                (tuple(prog.feat.shape), torch.float32),
+                (tuple(prog.feat_len.shape), torch.int32)])
+            hfn, hln = hf.numpy(), hl.numpy()
+            hfn[:B, :T] = feat
+            hfn[:B, T:] = 0
+            hfn[B:] = 0
+            hln[:] = 0
+            hln[:B] = feat_len
+            prog.feat.copy_(hf, non_blocking=True)
+            prog.feat_len.copy_(hl, non_blocking=True)
 
-    def _copy_back(self, outs, mode: str, B: int, max_out: int):
+    def _copy_back(self, outs, mode: str, B: int, max_out: int,
+                   routes=(), valid: int = 0):
         """Every output but out_len, cut to its valid region ([:B] and
         max_out frames on its time axis) and copied in its own dtype
         into the host buffer. Returns them as numpy arrays of their own,
         in order: bf16 widened to float32 on the host (exact), the rest
-        copied out of the reused buffer."""
+        copied out of the reused buffer; the wait for the device is the
+        span ``engine.sync``, what follows it ``engine.copy_out``.
+
+        While the tracer is on, the program's ``routes`` (each expert
+        call's tokens per expert) come back in the same synchronisation,
+        stacked into one copy, and
+        :func:`valid_routing` of them, with ``valid`` the call's valid
+        tokens, goes into the call's ``engine.infer`` meta as
+        ``routing`` and into the tracer's routing counters."""
         srcs = []
         for i, t in enumerate(outs):
             if i == 1:                          # out_len: from the host
@@ -927,7 +994,16 @@ class Engine:
             else:
                 t = t[:B, :max_out]
             srcs.append(t)
-        return copy_to_host(self._staging, "out", srcs, self.device)
+        routed = bool(routes) and trace.on()
+        if routed:
+            srcs.append(torch.stack(routes))    # one copy for them all
+        got = copy_to_host(self._staging, "out", srcs, self.device,
+                           ("engine.sync", "engine.copy_out"))
+        if routed:
+            hist = valid_routing(got.pop(), valid)
+            trace.annotate("engine.infer", routing=hist)
+            trace.add_routing(hist)
+        return got
 
     def infer_long(self, feat: np.ndarray, feat_len: Optional[int] = None,
                    overlap: Optional[int] = None):

@@ -29,6 +29,8 @@ import threading
 import numpy as np
 import torch
 
+from m3asr_tpu_torch.runtime import trace
+
 
 class DeviceLock:
     """A re-entrant reader-writer lock: :meth:`shared` sections run side
@@ -146,7 +148,9 @@ class GraphProgram:
     what the capture added to the caching allocator's reserved memory,
     the graph's pool as this capture left it (0 without a graph); the
     memory the warm-ups left (their cached blocks, the libraries'
-    workspaces for the side stream) is outside it."""
+    workspaces for the side stream) is outside it. The warm-ups and the
+    capture are the span ``engine.capture``, each capture one count of
+    ``engine.captures`` (``runtime/trace.py``)."""
 
     def __init__(self, fn, inputs, graph_pool=None):
         self.fn, self.inputs = fn, tuple(inputs)
@@ -154,7 +158,8 @@ class GraphProgram:
         self.pool_bytes = 0
         if graph_pool is not None:
             dev = self.inputs[0].device
-            with DEVICE_LOCK.exclusive():
+            trace.count("engine.captures")
+            with trace.span("engine.capture"), DEVICE_LOCK.exclusive():
                 side = torch.cuda.Stream(dev)
                 side.wait_stream(torch.cuda.current_stream(dev))
                 with torch.cuda.stream(side):
@@ -179,15 +184,21 @@ class GraphProgram:
         return self.outputs
 
 
-def copy_to_host(staging: HostStaging, name: str, tensors, device):
+def copy_to_host(staging: HostStaging, name: str, tensors, device,
+                 spans=None):
     """Copy device tensors, each in its own dtype, into staging buffer
     ``name`` (asynchronously on ``cuda``, then one synchronisation) and
     return them as numpy arrays of their own: bf16 widened to float32 on
-    the host (exact), the rest copied out of the reused buffer."""
+    the host (exact), the rest copied out of the reused buffer.
+    ``spans``: the names of the trace spans around the synchronisation
+    and around the copy out, or None."""
     hosts = staging.views(name, [(tuple(t.shape), t.dtype) for t in tensors])
     for h, t in zip(hosts, tensors):
         h.copy_(t, non_blocking=True)
-    if device.type == "cuda":
-        torch.cuda.current_stream(device).synchronize()
-    return [(h.float() if h.dtype == torch.bfloat16 else h.clone()).numpy()
-            for h in hosts]
+    sync, out = spans or (None, None)
+    with trace.span(sync) if sync else trace.NULL:
+        if device.type == "cuda":
+            torch.cuda.current_stream(device).synchronize()
+    with trace.span(out) if out else trace.NULL:
+        return [(h.float() if h.dtype == torch.bfloat16 else h.clone())
+                .numpy() for h in hosts]

@@ -39,6 +39,9 @@ section of the batcher takes first. The other ranks keep a mirror
 (``follower=True``): no thread, no slot bookkeeping; their follower loop
 applies rank 0's ticks and resets to its state (:meth:`mirror_tick`,
 :meth:`mirror_reset`).
+
+While the tracer is on (``runtime/trace.py``), each dispatched tick is a
+``stream.tick`` span (meta ``streams``: the streams it served).
 """
 
 from __future__ import annotations
@@ -57,6 +60,7 @@ from m3asr_tpu_torch.runtime.graphs import (DEVICE_LOCK, GraphProgram,
 from m3asr_tpu_torch.models import dfsmn_streaming, streaming
 from m3asr_tpu_torch.models.dfsmn import check_moe_stage
 from m3asr_tpu_torch.parallel import mesh as pmesh
+from m3asr_tpu_torch.runtime import trace
 from m3asr_tpu_torch.runtime.streaming_session import (
     DfsmnMoeStreamingSession, DfsmnStreamingSession, StreamingSession,
     chunk_step_fn, dfsmn_state, dfsmn_step_fn, full_float32,
@@ -267,6 +271,10 @@ class _BatcherCore:
                 self._dispatch(batch)
 
     def _dispatch(self, batch: Dict[int, _PendingChunk]):
+        with trace.span("stream.tick", streams=len(batch)):
+            self._dispatch_tick(batch)
+
+    def _dispatch_tick(self, batch: Dict[int, _PendingChunk]):
         try:
             W, D = next(iter(batch.values())).window.shape[1:]
             windows = np.zeros((self.slots, W, D), np.float32)

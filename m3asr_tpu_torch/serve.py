@@ -22,6 +22,23 @@ Protocol (one JSON object per line):
              "latency_ms": x, "times": [frames...],   # if requested
              "nbest": [{"hyp": [...], "score": s}, ...]}  # if requested
   {"stats": true} -> dispatch history, stream slots, latency percentiles
+      {"request_batch_sizes": [...last 50 dispatches...], "served": N,
+       "uptime_s": s, "latency_ms": {"p50", "p95", "p99"},
+       "stream_batchers": {"(chunk, left)": {"slots", "slots_free",
+                           "tick_batch_sizes", "graph_pool_bytes"}}}
+      With the tracer on (--trace; runtime/trace.py) also
+       "spans": {name: {"count", "total_ms", "self_ms_p50",
+                        "self_ms_p95"}} over the spans in the tracer's
+         buffer (self time: the duration less its child spans'):
+         engine.infer and its children engine.prepare, engine.stage,
+         engine.replay, engine.sync, engine.copy_out; batcher.wait (a
+         request from enqueue to dispatch); stream.tick; engine.capture;
+         kernels.build;
+       "routing": [[tokens per expert] per MoE expert call of a forward]
+         since the tracer turned on (run-length expert stages only);
+       "counters": {"engine.captures": n}, the CUDA graphs captured
+         since the tracer turned on (a bucket captured again in live
+         traffic shows as a rise).
 
 Streaming (one stream per connection; chunk-incremental greedy CTC
 partials, or a prefix beam with hotwords and the server's LM; sessions
@@ -334,6 +351,11 @@ def make_handler(state, default_beam, lm=None, default_lm_weight=0.5):
                             "latency_ms": {"p50": pct(0.50),
                                            "p95": pct(0.95),
                                            "p99": pct(0.99)}}
+                    from m3asr_tpu_torch.runtime import trace
+                    if trace.on():
+                        resp["spans"] = trace.span_stats(trace.records())
+                        resp["routing"] = trace.routing()
+                        resp["counters"] = trace.counters()
                     if stream_pool is not None:
                         resp["stream_batchers"] = {
                             str(key): {
@@ -740,6 +762,9 @@ def main(args):
     import signal
     from m3asr_tpu_torch.parallel import follow
 
+    from m3asr_tpu_torch.runtime import trace
+    if args.trace:
+        trace.enable(True)
     world = follow.join_world()
     follower = world is not None and world.rank > 0
     state = _build_runtime(args, follower=follower)
@@ -868,6 +893,9 @@ def parser():
     p.add_argument("--lm_weight", type=float, default=0.5)
     p.add_argument("--units", required=False,
                    help="symbol table mapping ARPA words to unit ids")
+    p.add_argument("--trace", action="store_true",
+                   help="turn the tracer on (runtime/trace.py): the stats "
+                        "request then reports spans and routing")
     p.add_argument("--drain_secs", type=float, default=10.0,
                    help="max seconds to let in-flight requests (and "
                         "requests arriving within a 1 s quiet window on "

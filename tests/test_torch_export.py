@@ -139,7 +139,7 @@ def test_opcheck(i):
         ref = moe_runs.moe_experts_runs_reference(
             {"w1": args[2], "b1": args[3], "w2": args[4], "b2": args[5]},
             args[0], args[1])
-        assert torch.equal(out, ref)
+        assert torch.equal(out[0], ref)
     if name.endswith("row_tiles"):
         assert out.shape == (front_ints(args[0].numel(), E),)
     if name == "flash_fwd":

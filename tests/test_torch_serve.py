@@ -199,6 +199,46 @@ def test_streams_match_jax_and_direct_decoding(servers):
     assert sum(sb["tick_batch_sizes"]) > 0
 
 
+@pytest.mark.parametrize("on", [False, True], ids=["tracer_off",
+                                                   "tracer_on"])
+def test_stats_report_spans_and_routing_while_tracing(servers, on):
+    """With the tracer on (``--trace``), the stats request adds each span's
+    count, total and self-time percentiles, the routing and the counters
+    counted since it turned on; with it off, none of them."""
+    from m3asr_tpu_torch.runtime import trace
+    port_srv = servers[0]
+    trace.reset()
+    trace.enable(on)
+    try:
+        got = client(port_srv, [{"id": "t", "feat": feat(8, 50).tolist()}])
+        assert "error" not in got[0], got[0]
+        client(port_srv, stream_reqs(feat(9, 77), "greedy"))
+        # the CPU captures no CUDA graph: one count stands in for one
+        trace.count("engine.captures")
+        stats = client(port_srv, [{"stats": True}])[0]
+    finally:
+        trace.enable(False)
+        trace.reset()
+    assert stats["served"] >= 1
+    if not on:
+        assert not {"spans", "routing", "counters"} & set(stats)
+        return
+    assert stats["counters"] == {"engine.captures": 1}
+    spans = stats["spans"]
+    assert {"engine.infer", "engine.prepare", "engine.stage",
+            "engine.replay", "engine.sync", "engine.copy_out",
+            "batcher.wait", "stream.tick"} <= set(spans)
+    assert spans["engine.infer"]["count"] == spans["batcher.wait"]["count"] \
+        == 1
+    for v in spans.values():
+        assert v["total_ms"] >= v["self_ms_p95"] >= v["self_ms_p50"] >= 0
+    assert spans["engine.infer"]["total_ms"] >= \
+        spans["engine.replay"]["total_ms"]
+    # one request of 50 frames: 11 valid tokens in each expert call
+    assert stats["routing"] and all(sum(row) == ((50 - 1) // 2 - 1) // 2
+                                    for row in stats["routing"])
+
+
 def test_stream_errors(servers):
     port_srv = servers[0]
     got = client(port_srv, [{"stream": "chunk", "feat": [[0.0] * 20]},
